@@ -7,18 +7,26 @@ sinks, tied embeddings, and f32 logits.  Parameters are stored in f32
 and cast to the compute ``dtype`` at use, as flax does; the serving
 engine casts them once up front.
 
-Decoding keeps a :class:`DecodeCache` (one K/V buffer per layer, one
-cursor per batch row) and updates it IN PLACE: the JAX package returns
-a new cache per call, the port writes rows where they live.  Every
-batch row has its own cursor, so one code path serves ``generate``
-(all rows at the same depth), batch-1 prefill and the engine's
-all-slot decode step (every slot at its own depth):
+Decoding keeps a cache and updates it IN PLACE: the JAX package returns
+a new cache per call, the port writes rows where they live.  Two
+layouts share one code path:
+
+* :class:`DecodeCache` — one K/V buffer per layer with one row span
+  per batch row (``generate``, the dense serving engine);
+* :class:`PagedCache` — a shared pool of fixed-size K/V blocks per
+  layer and one int32 page table per batch row, kept as device data
+  (the paged serving engine).
+
+Every batch row has its own cursor, so one code path serves
+``generate`` (all rows at the same depth), batch-1 prefill and the
+engine's all-slot decode step (every slot at its own depth):
 
 * a single-token step (``t == 1``) writes its K/V first and then
-  attends through :func:`..ops.flash_decode.flash_decode` (the Hopper
-  kernel on the GPU, its plain version on the CPU): for a windowed ring
-  the key the write evicts is a full ring behind the cursor, out of
-  band by construction;
+  attends through the decode kernel
+  (:func:`..ops.flash_decode.flash_decode`, or ``flash_decode_paged``
+  walking the page table; the Hopper kernel on the GPU, its plain
+  version on the CPU): for a windowed ring the key the write evicts is
+  a full ring behind the cursor, out of band by construction;
 * a multi-token prefill (``t > 1``) attends with
   :func:`..ops.attention.dot_product_attention`: the plain cache writes
   and then attends the masked cache, the windowed ring attends
@@ -26,7 +34,11 @@ all-slot decode step (every slot at its own depth):
   queries still see the band keys its newest tokens overwrite.
 
 A write whose position falls past the cache end (a parked slot's cursor
-drifting on) is dropped, never wrapped or indexed out of range.
+drifting on) is dropped, never wrapped or indexed out of range.  In the
+paged layout a dropped write (past the row span, on an unbound page, or
+from a row whose ``slot_live`` gate is shut) lands in one scratch block
+at the end of each pool that no page table names, so no step needs a
+host sync to drop it and no dropped row can collide with a live one.
 """
 
 from __future__ import annotations
@@ -41,7 +53,7 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import dot_product_attention
-from ..ops.flash_decode import flash_decode
+from ..ops.flash_decode import flash_decode, flash_decode_paged
 
 __all__ = [
     "KV_QUANTS",
@@ -49,6 +61,7 @@ __all__ = [
     "CausalSelfAttention",
     "DecodeCache",
     "DecoderBlock",
+    "PagedCache",
     "TransformerLM",
     "dequantize_kv",
     "generate",
@@ -56,6 +69,7 @@ __all__ = [
     "lm_small",
     "lm_tiny",
     "make_decode_cache",
+    "make_paged_cache",
     "quantize_kv",
     "rope",
 ]
@@ -184,6 +198,50 @@ class DecodeCache:
         return out
 
 
+@dataclass
+class PagedCache:
+    """Paged KV cache for the serving engine, updated in place.
+
+    ``k``/``v``: per layer [kv_blocks + 1, bs, Hkv, D] pools in the model
+    dtype, int8 or fp8; ``k_scale``/``v_scale``: per layer
+    [kv_blocks + 1, bs, Hkv] f32 (quantised only).  Block ``kv_blocks``
+    is scratch: dropped writes land there and no page table names it.
+    ``page_table``: [B, P] int32 block ids, ONE table for every layer
+    (block ids are layer-agnostic; -1 = unbound: reads masked, writes
+    dropped), updated by whole-row copies and never reallocated.
+    ``index``: [B] int32 cursors; ``slot_live``: [B] int32 write gate (0
+    = parked or mid-prefill: the all-slot decode step drifts every
+    row's cursor, and a mid-prefill row's drift writes would otherwise
+    land through its bound pages); ``slot_pos``: [B, P*bs] int32 global
+    position held by each logical ring row (-1 = unwritten), None for a
+    plain cache.
+    """
+
+    k: List[torch.Tensor]
+    v: List[torch.Tensor]
+    k_scale: Optional[List[torch.Tensor]]
+    v_scale: Optional[List[torch.Tensor]]
+    index: torch.Tensor
+    page_table: torch.Tensor
+    slot_live: torch.Tensor
+    slot_pos: Optional[torch.Tensor]
+    block_size: int
+    kv_quant: str = "none"
+
+    @property
+    def kv_blocks(self) -> int:
+        """Blocks a page table may name (the scratch block excluded)."""
+        return self.k[0].shape[0] - 1
+
+    def buffers(self):
+        """Every K/V and scale pool without its scratch block (what
+        ``kv_cache_bytes`` counts)."""
+        out = list(self.k) + list(self.v)
+        if self.k_scale is not None:
+            out += list(self.k_scale) + list(self.v_scale)
+        return [t[:-1] for t in out]
+
+
 class _Step:
     """Per-forward decode bookkeeping, computed once for all layers:
     positions, write targets and (for prefill) the attention mask."""
@@ -253,6 +311,104 @@ class _Step:
         """Record the written ring slots' global positions."""
         self.put(cache.slot_pos, self.wpos.to(torch.int32))
 
+    def view(self, buf: torch.Tensor) -> torch.Tensor:
+        """The cache rows as prefill attends them: [B, R, ...]."""
+        return buf
+
+
+class _PagedStep:
+    """:class:`_Step` for a :class:`PagedCache`: every write goes through
+    the page table to ``(block, offset)``, a dropped one to the scratch
+    block; prefill attends the gathered view of each row's pages."""
+
+    def __init__(self, cache: PagedCache, t: int, window, sinks,
+                 valid_len):
+        idx = cache.index.to(torch.int64)  # [B]
+        pt = cache.page_table.to(torch.int64)  # [B, P]
+        b, pages = pt.shape
+        bs = cache.block_size
+        r_pad = pages * bs
+        dev = idx.device
+        self.t, self.bs, self.r_pad = t, bs, r_pad
+        self.idx32 = cache.index
+        self.pt = cache.page_table
+        self.rows = torch.arange(b, device=dev)
+        self.wpos = idx[:, None] + torch.arange(t, device=dev)[None, :]
+        live = cache.slot_live[:, None] > 0  # [B, 1] write gate
+        if window is None:
+            # logical row == global position
+            keep = (self.wpos < r_pad) & live
+            lrow = self.wpos
+            page = torch.clamp(self.wpos // bs, max=pages - 1)
+        else:
+            # the logical ring spans ALL paged rows (r_pad - sinks);
+            # rounding up to whole blocks only retains more, and
+            # retained out-of-band keys are masked anyway
+            ring = max(r_pad - sinks, 1)
+            veff = min(int(valid_len), t)
+            limit = idx[:, None] + veff  # one past the last REAL position
+            keep = (self.wpos > limit - 1 - ring) & (self.wpos < limit)
+            if sinks:
+                keep |= (self.wpos < sinks) & (self.wpos < limit)
+                lrow = torch.where(self.wpos < sinks, self.wpos,
+                                   sinks + (self.wpos - sinks) % ring)
+            else:
+                lrow = self.wpos % ring
+            keep &= live  # mid-prefill / parked rows never write
+            page = lrow // bs
+        phys = torch.gather(pt, 1, page)
+        phys = torch.where(keep & (phys >= 0), phys,
+                           torch.full_like(phys, cache.kv_blocks))
+        self.phys, self.off = phys.reshape(-1), (lrow % bs).reshape(-1)
+        self.lrow, self.keep = lrow, keep
+        self.allow = None
+        if t > 1:
+            qg = self.wpos[:, :, None]  # [B, T, 1]
+            if window is None:
+                keys = torch.arange(r_pad, device=dev)[None, None, :]
+                self.allow = keys <= qg  # [B, T, r_pad]
+            else:
+                # read [gathered pages ∥ this chunk] before the write
+                sp = torch.cat([cache.slot_pos.to(torch.int64), self.wpos],
+                               dim=1)[:, None, :]
+                allow = (sp >= 0) & (sp <= qg)
+                band = sp > qg - window
+                if sinks:
+                    band |= sp < sinks
+                self.allow = allow & band  # [B, T, r_pad + T]
+
+    def put(self, pool: torch.Tensor, val: torch.Tensor) -> None:
+        """Write this call's rows of ``val`` [B, T, ...] into ``pool``
+        [NB + 1, bs, ...]; dropped rows go to the scratch block.  Live
+        rows never collide: shared prefix blocks are never written, and
+        a row's kept positions map to distinct (block, offset) pairs."""
+        if pool.dtype == torch.float8_e4m3fn:
+            pool, val = pool.view(torch.uint8), val.view(torch.uint8)
+        pool[self.phys, self.off] = val.reshape(-1, *val.shape[2:])
+
+    def put_positions(self, cache: PagedCache) -> None:
+        """Record the kept ring rows' global positions in ``slot_pos``."""
+        sp = cache.slot_pos
+        wpos = self.wpos.to(torch.int32)
+        if self.t == 1:
+            # one position per row: a blend-write needs no host sync
+            cur = sp[self.rows, self.lrow[:, 0]]
+            sp[self.rows, self.lrow[:, 0]] = torch.where(
+                self.keep[:, 0], wpos[:, 0], cur)
+        else:
+            rows = self.rows[:, None].expand_as(self.keep)
+            sp[rows[self.keep], self.lrow[self.keep]] = wpos[self.keep]
+
+    def view(self, pool: torch.Tensor) -> torch.Tensor:
+        """Each row's pages gathered into [B, r_pad, ...] (an unbound
+        page reads block 0; its rows are masked)."""
+        blk = torch.clamp(self.pt.to(torch.int64), min=0)
+        if pool.dtype == torch.float8_e4m3fn:
+            g = pool.view(torch.uint8)[blk].view(pool.dtype)
+        else:
+            g = pool[blk]
+        return g.reshape(blk.shape[0], self.r_pad, *pool.shape[2:])
+
 
 class CausalSelfAttention(nn.Module):
     """QKV projection + RoPE + causal core + output projection.
@@ -320,8 +476,7 @@ class CausalSelfAttention(nn.Module):
             out = self._decode(q, k, v, dtype, cache, layer, step)
         return _linear(self.out, out.reshape(b, t, -1), dtype)
 
-    def _decode(self, q, k, v, dtype, cache: DecodeCache, layer: int,
-                st: _Step):
+    def _decode(self, q, k, v, dtype, cache, layer: int, st):
         if self.use_rope:
             q, k = rope(q, st.wpos), rope(k, st.wpos)
         quant = cache.kv_quant != "none"
@@ -341,26 +496,32 @@ class CausalSelfAttention(nn.Module):
                 st.put(ks, k_sc)
                 st.put(vs, v_sc)
 
+        def rows(buf, scale):
+            """The cache as prefill attends it, dequantised."""
+            if quant:
+                return dequantize_kv(st.view(buf), st.view(scale), dtype)
+            return st.view(buf)
+
         if st.t == 1:
             # write-then-attend through the decode kernel (slot_pos was
             # updated for this step before the first layer)
             write()
-            return flash_decode(
-                q.contiguous(), ck, cv, st.idx32, slot_pos=cache.slot_pos,
-                window=self.window, sinks=self.sinks, k_scale=ks, v_scale=vs)
+            kw = dict(slot_pos=cache.slot_pos, window=self.window,
+                      sinks=self.sinks, k_scale=ks, v_scale=vs)
+            if isinstance(cache, PagedCache):
+                return flash_decode_paged(q.contiguous(), ck, cv,
+                                          cache.page_table, st.idx32, **kw)
+            return flash_decode(q.contiguous(), ck, cv, st.idx32, **kw)
         if self.window is None:
             write()
-            attn_k = dequantize_kv(ck, ks, dtype) if quant else ck
-            attn_v = dequantize_kv(cv, vs, dtype) if quant else cv
+            attn_k, attn_v = rows(ck, ks), rows(cv, vs)
         else:
             # read [old ring ∥ this chunk] BEFORE the rolling write;
             # quantised chunks attend their STORED (dequantised) values
             k_at = dequantize_kv(k_store, k_sc, dtype) if quant else k
             v_at = dequantize_kv(v_store, v_sc, dtype) if quant else v
-            ring_k = dequantize_kv(ck, ks, dtype) if quant else ck
-            ring_v = dequantize_kv(cv, vs, dtype) if quant else cv
-            attn_k = torch.cat([ring_k, k_at], dim=1)
-            attn_v = torch.cat([ring_v, v_at], dim=1)
+            attn_k = torch.cat([rows(ck, ks), k_at], dim=1)
+            attn_v = torch.cat([rows(cv, vs), v_at], dim=1)
             write()
         return dot_product_attention(q, attn_k, attn_v,
                                      mask=st.allow[:, None])
@@ -463,11 +624,11 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.weight.device
 
-    def forward(self, tokens: torch.Tensor,
-                cache: Optional[DecodeCache] = None, *,
+    def forward(self, tokens: torch.Tensor, cache=None, *,
                 valid_len: int = VALID_UNGATED) -> torch.Tensor:
         """Full causal forward (``cache=None``), or one decode call that
-        advances every row of ``cache`` by ``T`` positions.
+        advances every row of ``cache`` (a :class:`DecodeCache` or a
+        :class:`PagedCache`) by ``T`` positions.
         ``valid_len`` is the number of REAL positions in this call (a
         padded prefill's pads never write into a windowed ring)."""
         dt = self.dtype
@@ -476,7 +637,8 @@ class TransformerLM(nn.Module):
         x = F.embedding(tokens, self.embed.weight.to(dt))
         step = None
         if cache is not None:
-            step = _Step(cache, t, self.window, self.sinks, valid_len)
+            kind = _PagedStep if isinstance(cache, PagedCache) else _Step
+            step = kind(cache, t, self.window, self.sinks, valid_len)
             if t == 1 and cache.slot_pos is not None:
                 step.put_positions(cache)  # write-then-attend
         if self.pos_embedding is not None:
@@ -528,6 +690,46 @@ def make_decode_cache(model: TransformerLM, batch: int, total_len: int,
         slot_pos=(None if model.window is None else
                   torch.full((batch, rows), -1, dtype=torch.int32, device=dev)),
         kv_quant=kv_quant)
+
+
+def make_paged_cache(model: TransformerLM, batch: int, total_len: int,
+                     block_size: int, kv_blocks: int,
+                     kv_quant: str = "none") -> PagedCache:
+    """A fresh paged cache on the model's device: ``kv_blocks`` zero
+    blocks of ``block_size`` rows per layer (plus the scratch block),
+    every page unbound (-1), cursors and write gates at 0, and
+    ``slot_pos = -1`` for a windowed ring.  Each row spans
+    ``ceil(rows / block_size)`` pages, where ``rows`` is ``total_len``
+    or, for a windowed ring, ``min(window + sinks, total_len)``."""
+    if block_size < 1 or kv_blocks < 1:
+        raise ValueError(f"need block_size >= 1 and kv_blocks >= 1, got "
+                         f"{block_size} and {kv_blocks}")
+    store = _kv_store_dtype(kv_quant) or model.dtype
+    rows = (total_len if model.window is None
+            else min(model.window + model.sinks, total_len))
+    pages = -(-rows // block_size)
+    hkv = model.num_kv_heads or model.num_heads
+    hd = model.dim // model.num_heads
+    dev = model.device
+
+    def pools(shape, dtype):
+        return [torch.zeros((kv_blocks + 1, block_size) + shape, dtype=dtype,
+                            device=dev) for _ in range(model.depth)]
+
+    quant = kv_quant != "none"
+    return PagedCache(
+        k=pools((hkv, hd), store),
+        v=pools((hkv, hd), store),
+        k_scale=pools((hkv,), torch.float32) if quant else None,
+        v_scale=pools((hkv,), torch.float32) if quant else None,
+        index=torch.zeros(batch, dtype=torch.int32, device=dev),
+        page_table=torch.full((batch, pages), -1, dtype=torch.int32,
+                              device=dev),
+        slot_live=torch.zeros(batch, dtype=torch.int32, device=dev),
+        slot_pos=(None if model.window is None else
+                  torch.full((batch, pages * block_size), -1,
+                             dtype=torch.int32, device=dev)),
+        block_size=block_size, kv_quant=kv_quant)
 
 
 def _sample(logits, temperature, k_eff, top_p, rng):

@@ -1,21 +1,22 @@
-"""Flash decode: one query row per slot against a dense slot KV cache.
+"""Flash decode: one query row per slot against the KV cache.
 
-Port of ``fluxdistributed_tpu/ops/pallas_decode.py:flash_decode`` (the
-dense form of the Pallas ``_decode_kernel``).  Two versions of one
-function:
+Port of ``fluxdistributed_tpu/ops/pallas_decode.py:flash_decode`` and
+``flash_decode_paged`` (the dense and paged forms of the Pallas
+``_decode_kernel``).  Each is two versions of one function:
 
 * on a CUDA tensor, the hand-written Hopper kernel
   ``csrc/flash_decode.cu`` (built by :mod:`._build`, bound with
   ``ctypes``); it launches or raises, never falls back;
-* on a CPU tensor, :func:`flash_decode_reference`, the plain PyTorch
-  version: the JAX package's ``_xla_block_walk`` schedule (f32 online
-  softmax over ``block_k``-row blocks, dead blocks skipped).
+* on a CPU tensor, the plain PyTorch version
+  (:func:`flash_decode_reference`, :func:`flash_decode_paged_reference`):
+  the JAX package's ``_xla_block_walk`` schedule (f32 online softmax
+  over row blocks, dead blocks skipped).
 
-Both keep the probabilities in f32 through P·V, as the XLA walk does.
+All keep the probabilities in f32 through P·V, as the XLA walk does.
 (The Pallas body instead rounds p to v's dtype, so on a bf16 cache the
 two JAX impls differ by bf16 rounding of p; the port follows the XLA
-walk on both devices.)  ``flash_decode.launches`` counts kernel
-launches.
+walk on both devices.)  ``flash_decode.launches`` and
+``flash_decode_paged.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ import torch
 
 from .attention import NEG_INF, online_softmax_update
 
-__all__ = ["flash_decode", "flash_decode_reference"]
+__all__ = ["flash_decode", "flash_decode_paged",
+           "flash_decode_paged_reference", "flash_decode_reference"]
 
 # dtype codes shared with csrc/flash_decode.cu
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,23 +52,28 @@ def _validate(window, sinks, slot_pos, k_scale, v_scale):
         raise ValueError("quantized decode needs BOTH k_scale and v_scale")
 
 
-def _check_shapes(q, k, v, idx, slot_pos, k_scale):
+def _check_q(q, hkv, idx):
+    """q is [B, 1, H, D] with H a multiple of ``hkv``; idx is [B]."""
     if q.ndim != 4 or q.shape[1] != 1:
         raise ValueError(
             f"flash decode takes one query row per slot: q must be "
             f"[B, 1, H, D], got {tuple(q.shape)}")
-    b, _, h, d = q.shape
-    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(
-            f"k/v must both be [B, R, Hkv, D] = [{b}, R, Hkv, {d}], got "
-            f"{tuple(k.shape)} and {tuple(v.shape)}")
-    hkv = k.shape[2]
+    b, _, h, _ = q.shape
     if h % hkv:
         raise ValueError(
             f"num query heads ({h}) must be a multiple of num KV heads "
             f"({hkv}) for grouped-query attention")
     if idx.shape != (b,):
         raise ValueError(f"idx must be [B] = [{b}], got {tuple(idx.shape)}")
+
+
+def _check_shapes(q, k, v, idx, slot_pos, k_scale):
+    b, d = q.shape[0], q.shape[-1]
+    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(
+            f"k/v must both be [B, R, Hkv, D] = [{b}, R, Hkv, {d}], got "
+            f"{tuple(k.shape)} and {tuple(v.shape)}")
+    _check_q(q, k.shape[2], idx)
     if slot_pos is not None and slot_pos.shape != k.shape[:2]:
         raise ValueError(f"slot_pos must be [B, R] = {tuple(k.shape[:2])}, "
                          f"got {tuple(slot_pos.shape)}")
@@ -75,43 +82,50 @@ def _check_shapes(q, k, v, idx, slot_pos, k_scale):
                          f"{tuple(k.shape[:3])}, got {tuple(k_scale.shape)}")
 
 
+def _check_paged_shapes(q, k_pool, v_pool, page_table, idx, slot_pos,
+                        k_scale):
+    b, d = q.shape[0], q.shape[-1]
+    if (k_pool.ndim != 4 or k_pool.shape != v_pool.shape
+            or k_pool.shape[3] != d):
+        raise ValueError(
+            f"k_pool/v_pool must both be [NB, bs, Hkv, D] with D = {d}, got "
+            f"{tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
+    _check_q(q, k_pool.shape[2], idx)
+    if (page_table.ndim != 2 or page_table.shape[0] != b
+            or page_table.dtype != torch.int32):
+        raise ValueError(f"page_table must be [B, P] = [{b}, P] int32, got "
+                         f"{tuple(page_table.shape)} {page_table.dtype}")
+    rows = page_table.shape[1] * k_pool.shape[1]
+    if slot_pos is not None and slot_pos.shape != (b, rows):
+        raise ValueError(f"slot_pos must be [B, P*bs] = [{b}, {rows}], got "
+                         f"{tuple(slot_pos.shape)}")
+    if k_scale is not None and k_scale.shape != k_pool.shape[:3]:
+        raise ValueError(f"k_scale/v_scale must be [NB, bs, Hkv] = "
+                         f"{tuple(k_pool.shape[:3])}, got "
+                         f"{tuple(k_scale.shape)}")
+
+
 def _dequant(x, scale):
     x = x.float()
     return x if scale is None else x * scale.float()[..., None]
 
 
-def flash_decode_reference(q, k, v, idx, *, slot_pos=None, window=None,
-                           sinks=0, k_scale=None, v_scale=None,
-                           block_k: int = 128):
-    """The plain PyTorch version: ``_xla_block_walk`` with the dense
-    cursor or windowed-ring mask.  Same contract as :func:`flash_decode`."""
+def _block_walk(q, hkv, nblocks, get_mask, get_block):
+    """The JAX package's ``_xla_block_walk``: f32 online softmax over row
+    blocks.  ``get_mask(j)`` [B, rows] says which rows of block ``j``
+    each slot attends; a block no slot attends is skipped before
+    ``get_block(j)`` (its K/V, [B, rows, Hkv, D] f32) is touched."""
     b, _, h, d = q.shape
-    hkv = k.shape[2]
     g = h // hkv
-    r = k.shape[1]
-    block_k = min(block_k, r)
     q4 = q[:, 0].reshape(b, hkv, g, d).float() * (1.0 / math.sqrt(d))
-    idx = idx.to(torch.int64)
     acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=q.device)
     m = torch.full((b, hkv, g), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, hkv, g), dtype=torch.float32, device=q.device)
-    for j0 in range(0, r, block_k):
-        j1 = min(j0 + block_k, r)
-        if window is None:
-            pos = torch.arange(j0, j1, device=q.device)
-            allow = pos[None, :] <= idx[:, None]
-        else:
-            sp = slot_pos[:, j0:j1].to(torch.int64)
-            qg = idx[:, None]
-            allow = (sp >= 0) & (sp <= qg)
-            band = sp > qg - window
-            if sinks:
-                band = band | (sp < sinks)
-            allow = allow & band
+    for j in range(nblocks):
+        allow = get_mask(j)
         if not bool(allow.any()):
             continue  # dead block: no K/V touched
-        kb = _dequant(k[:, j0:j1], None if k_scale is None else k_scale[:, j0:j1])
-        vb = _dequant(v[:, j0:j1], None if v_scale is None else v_scale[:, j0:j1])
+        kb, vb = get_block(j)
         s = torch.einsum("bhgd,bkhd->bhgk", q4, kb)
         p, corr, m, l = online_softmax_update(s, m, l,
                                               mask=allow[:, None, None, :])
@@ -120,32 +134,115 @@ def flash_decode_reference(q, k, v, idx, *, slot_pos=None, window=None,
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def _ring_mask(sp, idx, window, sinks):
+    """Ring rows attendable from cursor ``idx``: written, causal, in band
+    or a sink.  ``sp`` [B, rows] global positions (-1 = unwritten)."""
+    sp, qg = sp.to(torch.int64), idx[:, None]
+    band = sp > qg - window
+    if sinks:
+        band = band | (sp < sinks)
+    return (sp >= 0) & (sp <= qg) & band
+
+
+def flash_decode_reference(q, k, v, idx, *, slot_pos=None, window=None,
+                           sinks=0, k_scale=None, v_scale=None,
+                           block_k: int = 128):
+    """The plain PyTorch version: ``_xla_block_walk`` with the dense
+    cursor or windowed-ring mask.  Same contract as :func:`flash_decode`."""
+    r = k.shape[1]
+    block_k = min(block_k, r)
+    idx = idx.to(torch.int64)
+
+    def get_mask(j):
+        j0, j1 = j * block_k, min((j + 1) * block_k, r)
+        if window is None:
+            pos = torch.arange(j0, j1, device=q.device)
+            return pos[None, :] <= idx[:, None]
+        return _ring_mask(slot_pos[:, j0:j1], idx, window, sinks)
+
+    def get_block(j):
+        rows = slice(j * block_k, min((j + 1) * block_k, r))
+        return (_dequant(k[:, rows], None if k_scale is None else k_scale[:, rows]),
+                _dequant(v[:, rows], None if v_scale is None else v_scale[:, rows]))
+
+    return _block_walk(q, k.shape[2], -(-r // block_k), get_mask, get_block)
+
+
+def _take(pool, blk):
+    """``pool[blk]``; fp8 moves its bytes (not every indexing op is
+    defined for it)."""
+    if pool.dtype == torch.float8_e4m3fn:
+        return pool.view(torch.uint8)[blk].view(pool.dtype)
+    return pool[blk]
+
+
+def flash_decode_paged_reference(q, k_pool, v_pool, page_table, idx, *,
+                                 slot_pos=None, window=None, sinks=0,
+                                 k_scale=None, v_scale=None):
+    """The plain PyTorch version of :func:`flash_decode_paged`: the
+    ``_xla_block_walk`` over the page table, one page per block.  Rows on
+    an unbound page (-1) are masked and never gathered."""
+    b = q.shape[0]
+    bs, hkv, d = k_pool.shape[1:]
+    pt = page_table.to(torch.int64)
+    idx = idx.to(torch.int64)
+
+    def get_mask(j):
+        if window is None:
+            pos = torch.arange(j * bs, (j + 1) * bs, device=q.device)
+            allow = pos[None, :] <= idx[:, None]
+        else:
+            allow = _ring_mask(slot_pos[:, j * bs:(j + 1) * bs], idx, window,
+                               sinks)
+        return allow & (pt[:, j] >= 0)[:, None]
+
+    def get_block(j):
+        rows = torch.nonzero(pt[:, j] >= 0).flatten()
+        blk = pt[rows, j]
+        kb = torch.zeros((b, bs, hkv, d), dtype=torch.float32, device=q.device)
+        vb = torch.zeros_like(kb)
+        kb[rows] = _dequant(_take(k_pool, blk),
+                            None if k_scale is None else k_scale[blk])
+        vb[rows] = _dequant(_take(v_pool, blk),
+                            None if v_scale is None else v_scale[blk])
+        return kb, vb
+
+    return _block_walk(q, hkv, pt.shape[1], get_mask, get_block)
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-_fn = None
+_lib = None
 
 
 def _kernel():
-    global _fn
-    if _fn is None:
+    """The loaded kernel library, its two entry points typed."""
+    global _lib
+    if _lib is None:
         from . import _build
 
         lib = _build.load("flash_decode")
-        fn = lib.flash_decode_launch
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        lib.flash_decode_launch.argtypes = (
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_decode_paged_launch.argtypes = (
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_decode_launch.restype = ctypes.c_int
+        lib.flash_decode_paged_launch.restype = ctypes.c_int
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.flash_decode_error_string)
-    return _fn
+        _lib = lib
+    return _lib
 
 
-def _launch(q, k, v, idx, slot_pos, window, sinks, k_scale, v_scale):
-    b, _, h, d = q.shape
-    r, hkv = k.shape[1], k.shape[2]
+def _check_kernel_inputs(q, k, v, idx, slot_pos, k_scale, v_scale,
+                         extra=()):
+    """What the kernel takes: dtypes, head dim, device, contiguity and
+    alignment.  Raises before anything is built or launched."""
+    d = q.shape[-1]
     if q.dtype not in _Q_CODES:
         raise TypeError(f"flash_decode kernel takes q in float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -168,8 +265,7 @@ def _launch(q, k, v, idx, slot_pos, window, sinks, k_scale, v_scale):
         raise TypeError(f"slot_pos must be int32, got {slot_pos.dtype}")
     if quant and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32):
         raise TypeError("k_scale/v_scale must be float32")
-    tensors = [q, k, v, idx, slot_pos, k_scale, v_scale]
-    for t in tensors:
+    for t in (q, k, v, idx, slot_pos, k_scale, v_scale, *extra):
         if t is None:
             continue
         if t.device != q.device:
@@ -178,19 +274,53 @@ def _launch(q, k, v, idx, slot_pos, window, sinks, k_scale, v_scale):
             raise ValueError("flash_decode kernel needs contiguous inputs")
         if t.data_ptr() % 16:
             raise ValueError("flash_decode kernel needs 16-byte aligned inputs")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        msg = _kernel().flash_decode_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} "
+                           f"(cudaError {err})")
+
+
+def _launch(q, k, v, idx, slot_pos, window, sinks, k_scale, v_scale):
+    _check_kernel_inputs(q, k, v, idx, slot_pos, k_scale, v_scale)
+    b, _, h, d = q.shape
+    r, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    fn, errstr = _kernel()
+    lib = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = fn(_Q_CODES[q.dtype], _KV_CODES[k.dtype], int(window is not None),
-                 _ptr(q), _ptr(k), _ptr(v), _ptr(idx), _ptr(slot_pos),
-                 _ptr(k_scale), _ptr(v_scale), _ptr(out), b, r, h, hkv, d,
-                 int(window or 0), int(sinks), 1.0 / math.sqrt(d),
-                 ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"flash_decode kernel launch failed: "
-                           f"{errstr(err).decode()} (cudaError {err})")
+        err = lib.flash_decode_launch(
+            _Q_CODES[q.dtype], _KV_CODES[k.dtype], int(window is not None),
+            _ptr(q), _ptr(k), _ptr(v), _ptr(idx), _ptr(slot_pos),
+            _ptr(k_scale), _ptr(v_scale), _ptr(out), b, r, h, hkv, d,
+            int(window or 0), int(sinks), 1.0 / math.sqrt(d),
+            ctypes.c_void_p(stream))
+    _raise_on(err, "flash_decode")
     flash_decode.launches += 1
+    return out
+
+
+def _launch_paged(q, k_pool, v_pool, page_table, idx, slot_pos, window,
+                  sinks, k_scale, v_scale):
+    _check_kernel_inputs(q, k_pool, v_pool, idx, slot_pos, k_scale, v_scale,
+                         extra=(page_table,))
+    b, _, h, d = q.shape
+    nb, bs, hkv = k_pool.shape[:3]
+    pages = page_table.shape[1]
+    out = torch.empty_like(q)
+    lib = _kernel()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.flash_decode_paged_launch(
+            _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype], int(window is not None),
+            _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(page_table), _ptr(idx),
+            _ptr(slot_pos), _ptr(k_scale), _ptr(v_scale), _ptr(out),
+            b, pages, bs, nb, h, hkv, d, int(window or 0), int(sinks),
+            1.0 / math.sqrt(d), ctypes.c_void_p(stream))
+    _raise_on(err, "flash_decode_paged")
+    flash_decode_paged.launches += 1
     return out
 
 
@@ -238,3 +368,48 @@ def flash_decode(
 #: kernel launches since the last reset (plain int; the CPU path and the
 #: plain version never count)
 flash_decode.launches = 0
+
+
+def flash_decode_paged(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    idx: torch.Tensor,
+    *,
+    slot_pos: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+    sinks: int = 0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Flash decode over the paged block pool.
+
+    ``q`` [B, 1, H, D]; ``k_pool``/``v_pool`` [NB, bs, Hkv, D] (the
+    shared per-layer pools AFTER this step's write); ``page_table``
+    [B, P] int32 (logical row ``r`` of slot ``b`` lives at block
+    ``page_table[b, r // bs]``, offset ``r % bs``; -1 = unbound: masked,
+    never read); ``idx`` [B] int32 cursors.  Windowed rings pass
+    ``slot_pos`` [B, P*bs] (+ ``window``/``sinks``); quantized pools
+    pass ``k_scale``/``v_scale`` [NB, bs, Hkv] f32.  → [B, 1, H, D] in
+    q's dtype; slots with nothing attendable return exactly 0.
+
+    On a CUDA tensor this launches the Hopper kernel; on a CPU tensor it
+    runs :func:`flash_decode_paged_reference`.
+    """
+    _validate(window, sinks, slot_pos, k_scale, v_scale)
+    _check_paged_shapes(q, k_pool, v_pool, page_table, idx, slot_pos, k_scale)
+    if q.device.type == "cuda":
+        return _launch_paged(q, k_pool, v_pool, page_table, idx, slot_pos,
+                             window, sinks, k_scale, v_scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_decode_paged runs on cuda or cpu, got "
+                         f"{q.device}")
+    return flash_decode_paged_reference(
+        q, k_pool, v_pool, page_table, idx, slot_pos=slot_pos, window=window,
+        sinks=sinks, k_scale=k_scale, v_scale=v_scale)
+
+
+#: kernel launches since the last reset (plain int; the CPU path and the
+#: plain version never count)
+flash_decode_paged.launches = 0

@@ -5,9 +5,12 @@ streaming), ``GET /healthz`` and ``GET /metrics``.
     curl -d '{"prompt_tokens": [1, 2, 3], "max_tokens": 64}' \\
         localhost:8000/v1/generate
 
+    # paged KV cache with the prefix cache (on the CPU: add --device cpu)
+    python -m fluxdistributed_tpu_torch.serve --paged --prefix-cache
+
 Weights are random, made from ``--seed``.  Runs on the GPU unless
-``--device cpu`` is given.  The flags are the dense-layout subset of the
-JAX package's ``bin/serve.py --lm``.
+``--device cpu`` is given.  The flags are the JAX package's
+``bin/serve.py --lm`` flags for the dense and paged layouts.
 """
 
 from __future__ import annotations
@@ -32,9 +35,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-queue", type=int, default=64,
                    help="admission queue bound; beyond it /v1/generate "
                         "returns 429")
+    p.add_argument("--paged", action="store_true",
+                   help="paged KV cache layout: a shared pool of fixed-"
+                        "size blocks with per-slot page tables instead "
+                        "of worst-case rows per slot; freed blocks "
+                        "return to the pool on EOS")
+    p.add_argument("--kv-block-size", type=int, default=16,
+                   help="rows per KV block (--paged)")
+    p.add_argument("--kv-blocks", type=int, default=None,
+                   help="blocks per layer in the pool (--paged); default "
+                        "sizes for full capacity — set it SMALLER to "
+                        "make memory scale with live tokens and let "
+                        "admission backpressure cover the tail")
     p.add_argument("--prefill-chunk", type=int, default=None,
-                   help="prompt positions per prefill chunk (chunks "
-                        "interleave with decode ticks)")
+                   help="prompt positions per prefill chunk; chunks "
+                        "interleave with decode ticks (--paged defaults "
+                        "to 128; also valid on the dense layout)")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="hash + refcount completed prompt blocks so "
+                        "shared system prompts prefill once (needs "
+                        "--paged, plain attention)")
     p.add_argument("--kv-dtype", default=None, choices=["int8", "fp8"],
                    help="quantise KV-cache storage (per-row scales)")
     p.add_argument("--kv-heads", type=int, default=None,
@@ -75,7 +95,11 @@ def build_server(args):
         seed=args.seed)
     engine = LMEngine(model, max_slots=args.max_slots, max_len=args.max_len,
                       buckets=buckets, prefill_chunk=args.prefill_chunk,
-                      kv_dtype=args.kv_dtype)
+                      kv_dtype=args.kv_dtype,
+                      layout="paged" if args.paged else "dense",
+                      kv_block_size=args.kv_block_size,
+                      kv_blocks=args.kv_blocks,
+                      prefix_cache=args.prefix_cache)
     scheduler = Scheduler(engine, max_queue=args.max_queue)
     return LMServer(scheduler, args.vocab), scheduler
 
