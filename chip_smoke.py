@@ -31,13 +31,32 @@ Phases, each of which raises on failure (exit code != 0, no result):
 7. parity: f32 lm_small greedy tokens from the card's engine, dense (B4)
    and paged with a prefix hit (B5), equal the port's ``generate`` on the
    CPU (plain version);
-8. a ``{"kernels": [...]}`` line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+8. attention kernel: the training kernels B1 (forward), B2 (dQ) and B3
+   (dK/dV) against their plain versions at lm_small training shapes
+   (B=8, T=1024, 12 heads, head dim 64, bf16, causal) and in six more
+   variants (f32, GQA, window + sinks, non-causal, ragged T, Tq < Tk
+   with an LSE cotangent), each with its time, the plain version's, the
+   library yardstick (``scaled_dot_product_attention`` forward for B1,
+   its backward for B2 + B3) and the card's bound;
+9. train: ``python -m fluxdistributed_tpu_torch.train --model lm_small
+   --dataset synthetic-text --vocab 256 --seqlen 1024 --batch-size 8
+   --attn flash --opt adam --lr 3e-4 --cycles 40`` in-process: the loss
+   falls, and B1, B2 and B3 each launch depth x steps times (B4, B5
+   never);
+10. train step: lm_small at vocab 32000 (B=8, T=1024, adam, bf16) with
+    the flash kernels and with dense attention: step ms, tokens/s and
+    MFU (the 6N rule), then a profile of one flash step;
+11. train parity: two f32 lm_small steps (flash) on the card and on the
+    CPU (plain versions) from the same weights and batches: losses and
+    global grad norms agree;
+12. a ``{"kernels": [...]}`` line, then the result line
+    ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -61,6 +80,17 @@ KERNEL_REPLACES = "fluxdistributed_tpu/ops/pallas_decode.py:168"
 # the pallas_call sites of the dense and paged forms of that body
 DENSE_VIA = "fluxdistributed_tpu/ops/pallas_decode.py:350"
 PAGED_VIA = "fluxdistributed_tpu/ops/pallas_decode.py:483"
+# the training kernels: (wrapper, Pallas body, pallas_call site)
+ATTN_SOURCE = "fluxdistributed_tpu_torch/ops/csrc/flash_attention.cu"
+_PA = "fluxdistributed_tpu/ops/pallas_attention.py"
+ATTN_KERNELS = (("flash_attention_fwd", f"{_PA}:125", f"{_PA}:390"),
+                ("flash_attention_dq", f"{_PA}:232", f"{_PA}:477"),
+                ("flash_attention_dkv", f"{_PA}:275", f"{_PA}:488"))
+T_TRAIN = 1024  # lm_small training: B=8 sequences of 1024 tokens
+TRAIN_ARGV = ["--model", "lm_small", "--dataset", "synthetic-text",
+              "--vocab", "256", "--seqlen", str(T_TRAIN), "--batch-size", "8",
+              "--attn", "flash", "--opt", "adam", "--lr", "3e-4",
+              "--cycles", "40", "--eval-every", "0"]
 
 
 def emit(obj) -> None:
@@ -650,6 +680,343 @@ def parity_phase(torch):
               "prefix_cache_hits": hits})
 
 
+def attn_wrappers():
+    """The wrappers of B1, B2 and B3 (each counts its launches)."""
+    from fluxdistributed_tpu_torch.ops.flash_attention import (
+        flash_attention_dkv, flash_attention_dq, flash_attention_fwd)
+
+    return flash_attention_fwd, flash_attention_dq, flash_attention_dkv
+
+
+def attn_counts():
+    return [w.launches for w in attn_wrappers()]
+
+
+def reset_all_counts():
+    from fluxdistributed_tpu_torch.ops.flash_decode import (
+        flash_decode, flash_decode_paged)
+
+    for w in (*attn_wrappers(), flash_decode, flash_decode_paged):
+        w.launches = 0
+
+
+def live_pairs(torch, tq, tk, causal, window, sinks):
+    """Attended (query, key) pairs of one head: the mask B1-B3 apply."""
+    qp = torch.arange(tq)[:, None] + (tk - tq)
+    kp = torch.arange(tk)[None, :]
+    allow = torch.ones(tq, tk, dtype=torch.bool)
+    if causal:
+        allow = kp <= qp
+        if window is not None:
+            allow &= (kp >= qp - (window - 1)) | (kp < sinks)
+    return allow
+
+
+def sdpa_train(torch, q, k, v, do, allow, causal_square):
+    """The library yardstick in [B, H, T, D]: one
+    ``scaled_dot_product_attention`` forward, and its backward alone
+    (autograd.grad with the graph kept)."""
+    import torch.nn.functional as F
+
+    rep = q.shape[2] // k.shape[2]
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k.repeat_interleave(rep, 2),
+                            v.repeat_interleave(rep, 2)))
+    doh = do.transpose(1, 2).contiguous()
+    kw = ({"is_causal": True} if causal_square
+          else {"attn_mask": allow.to(q.device)} if not bool(allow.all())
+          else {})
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qh, kh, vh, **kw)
+
+    out = F.scaled_dot_product_attention(qh, kh, vh, **kw)
+
+    def bwd():
+        return torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
+
+    return fwd, bwd
+
+
+def attention_kernel_phase(torch, bw, peaks, flush):
+    """B1, B2 and B3 against their plain versions at lm_small training
+    shapes and six more variants; returns the main row of each kernel."""
+    import importlib
+
+    # the module (the ops package exports a function of the same name)
+    fa = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_attention")
+
+    dev = torch.device("cuda")
+    variants = {  # name: (Tq, Tk, Hkv, dtype, causal, window, sinks, g_lse)
+        "main": (T_TRAIN, T_TRAIN, H, "bf16", True, None, 0, False),
+        "f32": (T_TRAIN, T_TRAIN, H, "f32", True, None, 0, False),
+        "gqa": (T_TRAIN, T_TRAIN, 4, "bf16", True, None, 0, False),
+        "window": (T_TRAIN, T_TRAIN, H, "bf16", True, 256, 4, False),
+        "noncausal": (T_TRAIN, T_TRAIN, H, "bf16", False, None, 0, False),
+        "ragged": (1000, 1000, H, "bf16", True, None, 0, False),
+        "lse": (384, T_TRAIN, H, "bf16", True, None, 0, True),
+    }
+    g = torch.Generator().manual_seed(6)
+    main = None
+    for name, (tq, tk, hkv, bits, causal, window, sinks,
+               with_lse) in variants.items():
+        dt = torch.float32 if bits == "f32" else torch.bfloat16
+        q, do = (torch.randn(B, tq, H, D, generator=g).to(dt).to(dev)
+                 for _ in range(2))
+        k, v = (torch.randn(B, tk, hkv, D, generator=g).to(dt).to(dev)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window, sinks=sinks)
+        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+        delta = (do.float() * ref_out.float()).sum(-1).permute(0, 2, 1)
+        if with_lse:  # the LSE cotangent folds into delta
+            delta = delta - torch.randn(B, H, tq, generator=g).to(dev)
+        delta = delta.contiguous()
+        bargs = (q, k, v, do, ref_lse, delta)
+        dq = fa.flash_attention_dq(*bargs, **kw)
+        dk, dv = fa.flash_attention_dkv(*bargs, **kw)
+        rdq = fa.flash_attention_dq_reference(*bargs, **kw)
+        rdk, rdv = fa.flash_attention_dkv_reference(*bargs, **kw)
+        torch.cuda.synchronize()
+        allow = live_pairs(torch, tq, tk, causal, window, sinks)
+        live_rows = ref_lse > -1e29
+        pairs = int(allow.sum()) * B * H
+        es = q.element_size()
+        row_io = B * H * tq * 4  # one f32 [B, H, Tq] row-stat array
+        qo_bytes, kv_bytes = B * tq * H * D * es, B * tk * hkv * D * es
+        work = {  # kernel: (flops, bytes) of the least work
+            "fwd": (4 * pairs * D, 2 * qo_bytes + 2 * kv_bytes + row_io),
+            "dq": (6 * pairs * D, 3 * qo_bytes + 2 * kv_bytes + 2 * row_io),
+            "dkv": (8 * pairs * D, 2 * qo_bytes + 4 * kv_bytes + 2 * row_io),
+        }
+        grads_ok = 1e-4 if bits == "f32" else 5e-2  # x max |reference|
+        errs = {
+            "o": (out.float() - ref_out.float()).abs().max().item(),
+            "lse": (lse - ref_lse)[live_rows].abs().max().item(),
+            "dq": (dq.float() - rdq.float()).abs().max().item(),
+            "dk": (dk.float() - rdk.float()).abs().max().item(),
+            "dv": (dv.float() - rdv.float()).abs().max().item(),
+        }
+        tols = {"o": 1e-5 if bits == "f32" else 2e-2, "lse": 1e-4,
+                "dq": grads_ok * rdq.float().abs().max().item(),
+                "dk": grads_ok * rdk.float().abs().max().item(),
+                "dv": grads_ok * rdv.float().abs().max().item()}
+        finite = all(bool(torch.isfinite(x.float()).all())
+                     for x in (out, dq, dk, dv))
+        same_dead = bool(((lse > -1e29) == live_rows).all())
+        lib_fwd = lib_bwd = None
+        if not with_lse:  # SDPA gives no LSE output to take a cotangent
+            fwd, bwd = sdpa_train(torch, q, k, v, do, allow,
+                                  causal and window is None and tq == tk)
+            lib_fwd = time_ms(torch, fwd, flush)
+            lib_bwd = time_ms(torch, bwd, flush)
+        rows = {}
+        calls = {
+            "fwd": (lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                    lambda: fa.flash_attention_fwd_reference(q, k, v, **kw)),
+            "dq": (lambda: fa.flash_attention_dq(*bargs, **kw),
+                   lambda: fa.flash_attention_dq_reference(*bargs, **kw)),
+            "dkv": (lambda: fa.flash_attention_dkv(*bargs, **kw),
+                    lambda: fa.flash_attention_dkv_reference(*bargs, **kw)),
+        }
+        for kname, (kern, plain) in calls.items():
+            flops, nbytes = work[kname]
+            t_ops = flops / peaks[bits] * 1e3
+            t_bytes = nbytes / bw * 1e3
+            rows[kname] = {
+                "ms": time_ms(torch, kern, flush),
+                "plain_ms": time_ms(torch, plain, flush, iters=3),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": lib_fwd if kname == "fwd" else lib_bwd,
+                "flops": flops, "bytes": nbytes}
+        max_err = {"fwd": errs["o"], "dq": errs["dq"],
+                   "dkv": max(errs["dk"], errs["dv"])}
+        for kname in rows:
+            rows[kname]["max_abs_err"] = max_err[kname]
+        row = {"phase": "attention_kernel", "variant": name,
+               "shape": [B, tq, tk, H, hkv, D], "dtype": bits,
+               "causal": causal, "window": window, "sinks": sinks,
+               "lse_cotangent": with_lse, "live_pairs_per_head":
+               int(allow.sum()), "errors": errs, "tolerances": tols,
+               "finite": finite, "library": "scaled_dot_product_attention "
+               "forward (B1) / backward (B2 + B3)" if lib_fwd else None,
+               "kernels": rows}
+        emit(row)
+        bad = [k for k in errs if not errs[k] <= tols[k]]
+        if bad or not finite or not same_dead:
+            raise RuntimeError(f"attention_kernel {name}: {bad} out of "
+                               f"tolerance, finite={finite}, dead rows "
+                               f"agree={same_dead}")
+        if name == "main":
+            main = rows
+    return main
+
+
+def train_phase(torch):
+    """The CLI's training run, in-process; returns its B1-B3 launches."""
+    from fluxdistributed_tpu_torch.ops.flash_decode import (
+        flash_decode, flash_decode_paged)
+    from fluxdistributed_tpu_torch.train.__main__ import run
+
+    reset_all_counts()  # count this phase's main path only
+    t0 = time.perf_counter()
+    task = run(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = attn_counts()
+    decode = (flash_decode.launches, flash_decode_paged.launches)
+    losses = task.losses
+    depth, steps = task.model.depth, task.state.step
+    first, last = sum(losses[:3]) / 3, sum(losses[-5:]) / 5
+    emit({"phase": "train", "argv": TRAIN_ARGV, "steps": steps,
+          "wall_s": wall, "losses": losses, "loss_first3_mean": first,
+          "loss_last5_mean": last, "attn_launches": launches,
+          "decode_launches": list(decode)})
+    if len(losses) != 40 or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"train: {len(losses)} losses, not all finite")
+    if not last <= first - 1.0:
+        raise RuntimeError(f"train: loss fell from {first:.3f} to "
+                           f"{last:.3f}, less than 1 nat")
+    if launches != [depth * steps] * 3 or decode != (0, 0):
+        raise RuntimeError(f"train: attention launches {launches} (want "
+                           f"{depth} x {steps} each), decode {decode}")
+    return launches
+
+
+def train_step_phase(torch, peaks):
+    """lm_small (vocab 32000, B=8, T=1024, adam, bf16) train steps timed
+    with CUDA events, with the flash kernels and with dense attention;
+    then a profile of one flash step."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import lm_loss_fn, lm_small
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.parallel import TrainState, make_train_step
+
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 32000, (B, T_TRAIN)).astype(np.int32)).cuda()
+    batch = {"tokens": toks}
+    for attn in ("flash", "dense"):
+        model = lm_small(vocab=32000, attn_fn=attention_core(attn), seed=0)
+        nparams = sum(p.numel() for p in model.parameters())
+        opt = optim.adam(1e-3)
+        state = TrainState.create(dict(model.named_parameters()), opt)
+        step = make_train_step(lm_loss_fn(model), opt)
+        for _ in range(3):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = attn_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(11)]
+        ev[0].record()
+        for i in range(10):
+            state, m = step(state, batch)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(10)]
+        launched = [a - b for a, b in zip(attn_counts(), before)]
+        step_ms = sum(ms) / len(ms)
+        tok_s = B * T_TRAIN / (step_ms / 1e3)
+        row = {"phase": "train_step", "attn": attn, "model": "lm_small",
+               "vocab": 32000, "batch": B, "seqlen": T_TRAIN,
+               "dtype": "bfloat16", "opt": "adam", "params": nparams,
+               "step_ms": step_ms, "step_ms_each": ms, "tokens_per_s": tok_s,
+               "mfu": 6 * nparams * tok_s / peaks["bf16"],
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "attn_launches": launched, "loss": m["loss"].item()}
+        emit(row)
+        want = [model.depth * 10] * 3 if attn == "flash" else [0, 0, 0]
+        if launched != want or not math.isfinite(row["loss"]):
+            raise RuntimeError(f"train_step {attn}: attention launches "
+                               f"{launched} (want {want}), loss "
+                               f"{row['loss']}")
+        if attn == "flash":
+            profile_train_step(torch, step, state, batch)
+        del model, state, step, m
+        torch.cuda.empty_cache()
+
+
+def profile_train_step(torch, step, state, batch, steps=3):
+    """Where a flash train step's time goes: host wall per step (no
+    profiler), device busy time per step under the profiler, and the
+    largest device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    dev, count = {}, 0
+    for row in prof.key_averages():
+        if row.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(row, "self_device_time_total",
+                         getattr(row, "self_cuda_time_total", 0.0))
+            dev[row.key] = dev.get(row.key, 0.0) + us
+            count += row.count
+    busy_ms = sum(dev.values()) / steps / 1e3
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    emit({"phase": "train_profile", "what": "lm_small flash train step "
+          "(bf16, B=8, T=1024, vocab 32000, adam)", "steps": steps,
+          "wall_ms_per_step": wall_ms,
+          "device_busy_ms_per_step": busy_ms if dev else None,
+          "device_idle_share": 1 - busy_ms / wall_ms if dev else None,
+          "device_kernels_per_step": count / steps if dev else None,
+          "top_device_ms_per_step": [[k[:70], v / steps / 1e3]
+                                     for k, v in top]})
+
+
+def train_parity_phase(torch):
+    """Two f32 lm_small flash train steps on the card (B1-B3) and on the
+    CPU (their plain versions), from the same weights and batches."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import lm_loss_fn, lm_small
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.parallel import TrainState, make_train_step
+
+    rng = np.random.default_rng(4)
+    batches = [rng.integers(0, 32000, (2, 128)).astype(np.int32)
+               for _ in range(2)]
+    result = {}
+    for where in ("cuda", "cpu"):
+        model = lm_small(vocab=32000, dtype=torch.float32, seed=2,
+                         attn_fn=attention_core("flash"), device=where)
+        opt = optim.adam(3e-4)
+        state = TrainState.create(dict(model.named_parameters()), opt)
+        step = make_train_step(lm_loss_fn(model), opt, guard=True)
+        before = attn_counts()
+        rows = []
+        for b in batches:
+            state, m = step(state, {"tokens": torch.from_numpy(b).to(where)})
+            rows.append(m["guard"].tolist())  # [loss, global grad norm]
+        used = [a - b for a, b in zip(attn_counts(), before)]
+        want = [model.depth * 2] * 3 if where == "cuda" else [0, 0, 0]
+        if used != want:
+            raise RuntimeError(f"train_parity {where}: attention launches "
+                               f"{used}, want {want}")
+        result[where] = rows
+        del model, state
+    rel = [[abs(g - c) / abs(c) for g, c in zip(gr, cr)]
+           for gr, cr in zip(result["cuda"], result["cpu"])]
+    emit({"phase": "train_parity", "model": "lm_small", "dtype": "float32",
+          "batch": 2, "seqlen": 128, "steps": 2, "opt": "adam",
+          "card_loss_gnorm": result["cuda"], "cpu_loss_gnorm": result["cpu"],
+          "rel_diff": rel, "tol": [1e-4, 1e-3]})
+    if any(r[0] > 1e-4 or r[1] > 1e-3 for r in rel):
+        raise RuntimeError(f"train_parity: card vs CPU differ: {rel}")
+
+
 def main() -> int:
     import torch
 
@@ -691,22 +1058,31 @@ def main() -> int:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     dense_row = kernel_phase(torch, bw, peaks, flush)
     paged_row = paged_kernel_phase(torch, bw, peaks, flush)
+    attn_rows = attention_kernel_phase(torch, bw, peaks, flush)
     del flush
     dense_launches = serve_phase(torch)
     paged_launches = paged_serve_phase(torch)
     parity_phase(torch)
+    attn_launches = train_phase(torch)
+    train_step_phase(torch, peaks)
+    train_parity_phase(torch)
 
-    def kernel_entry(name, via, launches, row):
-        return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                "replaces": KERNEL_REPLACES, "via": via, "launches": launches,
+    def kernel_entry(name, source, replaces, via, launches, row):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "via": via, "launches": launches,
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
     emit({"kernels": [
-        kernel_entry("flash_decode", DENSE_VIA, dense_launches, dense_row),
-        kernel_entry("flash_decode_paged", PAGED_VIA, paged_launches,
-                     paged_row)]})
+        kernel_entry("flash_decode", KERNEL_SOURCE, KERNEL_REPLACES,
+                     DENSE_VIA, dense_launches, dense_row),
+        kernel_entry("flash_decode_paged", KERNEL_SOURCE, KERNEL_REPLACES,
+                     PAGED_VIA, paged_launches, paged_row),
+        *(kernel_entry(name, ATTN_SOURCE, replaces, via, n, row)
+          for (name, replaces, via), n, row in zip(
+              ATTN_KERNELS, attn_launches,
+              (attn_rows["fwd"], attn_rows["dq"], attn_rows["dkv"])))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -2,11 +2,14 @@
 
 The JAX package stays the reference; this package re-implements its
 slices in PyTorch, with every TPU (Pallas) kernel on a ported path
-replaced by a kernel written by hand for ``sm_90a``.  The first slice is
-LM serving over the dense slot KV cache: the model and its decode cache
-(:mod:`.models.transformer_lm`), the flash-decode kernel
-(:mod:`.ops.flash_decode`), and the engine, scheduler and HTTP server
-(:mod:`.serve`).
+replaced by a kernel written by hand for ``sm_90a``.  Ported so far:
+LM serving over the dense slot KV cache and the paged block pool (the
+model and its decode caches, :mod:`.models.transformer_lm`; the
+flash-decode kernels, :mod:`.ops.flash_decode`; the engine, scheduler
+and HTTP server, :mod:`.serve`), and LM training on one GPU (the
+flash-attention kernels, :mod:`.ops.flash_attention`; :mod:`.optim`,
+:mod:`.data`, :mod:`.parallel` and :mod:`.train`, with the CLI
+``python -m fluxdistributed_tpu_torch.train``).
 
 The port imports ``torch`` and never ``jax``, ``flax`` or the JAX
 package.  Entry points run on ``cuda`` unless the caller passes

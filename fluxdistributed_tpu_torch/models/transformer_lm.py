@@ -17,6 +17,14 @@ layouts share one code path:
   layer and one int32 page table per batch row, kept as device data
   (the paged serving engine).
 
+The full-sequence forward (``cache=None``) is the training path: its
+attention core is pluggable (``attn_fn``, e.g. ``ops.attention_core
+("flash")``, the hand-written training kernels), ``dropout`` applies at
+the JAX model's sites when ``train=True``, drawing each mask from a
+generator seeded by (step seed, layer, site), and ``remat`` recomputes
+each block in the backward (``torch.utils.checkpoint``).
+:func:`next_token_loss` and :func:`lm_loss_fn` give the training loss.
+
 Every batch row has its own cursor, so one code path serves
 ``generate`` (all rows at the same depth), batch-1 prefill and the
 engine's all-slot decode step (every slot at its own depth):
@@ -45,11 +53,13 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional
+from functools import partial
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import dot_product_attention
@@ -65,11 +75,13 @@ __all__ = [
     "TransformerLM",
     "dequantize_kv",
     "generate",
+    "lm_loss_fn",
     "lm_medium",
     "lm_small",
     "lm_tiny",
     "make_decode_cache",
     "make_paged_cache",
+    "next_token_loss",
     "quantize_kv",
     "rope",
 ]
@@ -137,6 +149,37 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
     """Invert :func:`quantize_kv` into the model's compute dtype."""
     return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+def _mix_seed(*parts: int) -> int:
+    """One 63-bit generator seed from integer parts (splitmix64 steps)."""
+    h = 0x9E3779B97F4A7C15
+    for part in parts:
+        h = (h ^ (int(part) & 0xFFFFFFFFFFFFFFFF)) * 0xBF58476D1CE4E5B9
+        h &= 0xFFFFFFFFFFFFFFFF
+        h ^= h >> 31
+    return h & 0x7FFFFFFFFFFFFFFF
+
+
+def _dropout(x: torch.Tensor, rate: float, seed: Optional[int], layer: int,
+             site: int) -> torch.Tensor:
+    """flax ``Dropout``: keep with probability ``1 - rate`` and scale the
+    kept values by ``1 / (1 - rate)``.  The mask comes from a fresh
+    generator seeded by (``seed``, layer, site), so a recompute under
+    ``torch.utils.checkpoint`` (which restores the global RNG, not an
+    explicit generator) draws the same mask."""
+    if not rate:
+        return x
+    if seed is None:
+        raise ValueError("dropout > 0 in training needs a dropout seed (the "
+                         "rng of lm_loss_fn / make_train_step)")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(_mix_seed(seed, layer, site))
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
 
 
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
@@ -413,7 +456,9 @@ class _PagedStep:
 class CausalSelfAttention(nn.Module):
     """QKV projection + RoPE + causal core + output projection.
 
-    Weights mirror the flax module: ``qkv`` (features ordered
+    The full-sequence core is ``attn_fn(q, k, v)`` when given (it owns
+    its windowing, as ``ops.attention_core(..., window=...)`` builds
+    it), else the windowed dense core.  Weights mirror the flax module: ``qkv`` (features ordered
     [3, H, Dh]) or, under GQA, ``q`` ([H, Dh]) and ``kv`` ([2, Hkv,
     Dh]); ``out`` ([H·Dh] → dim).  All projections carry biases, as
     flax's ``DenseGeneral`` does.
@@ -422,7 +467,7 @@ class CausalSelfAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, *,
                  num_kv_heads: Optional[int] = None,
                  window: Optional[int] = None, sinks: int = 0,
-                 use_rope: bool = True):
+                 use_rope: bool = True, attn_fn: Optional[Callable] = None):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"embed dim ({dim}) must divide num_heads "
@@ -443,6 +488,7 @@ class CausalSelfAttention(nn.Module):
         self.num_heads, self.num_kv_heads = num_heads, hkv
         self.head_dim = dim // num_heads
         self.window, self.sinks, self.use_rope = window, sinks, use_rope
+        self.attn_fn = attn_fn
         hd = self.head_dim
         if hkv != num_heads:
             self.q = nn.Linear(dim, num_heads * hd)
@@ -470,8 +516,10 @@ class CausalSelfAttention(nn.Module):
             if self.use_rope:
                 pos = torch.arange(t, device=x.device)
                 q, k = rope(q, pos), rope(k, pos)
-            out = dot_product_attention(q, k, v, causal=True,
-                                        window=self.window, sinks=self.sinks)
+            attn = (self.attn_fn if self.attn_fn is not None else
+                    partial(dot_product_attention, causal=True,
+                            window=self.window, sinks=self.sinks))
+            out = attn(q, k, v)  # [B, T, H, Dh]
         else:
             out = self._decode(q, k, v, dtype, cache, layer, step)
         return _linear(self.out, out.reshape(b, t, -1), dtype)
@@ -530,19 +578,22 @@ class CausalSelfAttention(nn.Module):
 class DecoderBlock(nn.Module):
     """Pre-norm block: ``x + attn(norm(x))`` then ``x + mlp(norm(x))``.
     The MLP is GELU (tanh approximation, ``fc1``/``fc2`` with biases) or
-    SwiGLU (biasless ``gate``/``up``/``down``)."""
+    SwiGLU (biasless ``gate``/``up``/``down``).  In training, dropout
+    applies to the attention output, the MLP's hidden activation and the
+    MLP output (the JAX block's sites)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_dim: int, *,
                  num_kv_heads=None, window=None, sinks=0, use_rope=True,
-                 norm="layernorm", norm_eps=1e-6, mlp="gelu"):
+                 norm="layernorm", norm_eps=1e-6, mlp="gelu", dropout=0.0,
+                 attn_fn=None):
         super().__init__()
         if mlp not in ("gelu", "swiglu"):
             raise ValueError(f"unknown mlp {mlp!r} (gelu|swiglu)")
-        self.mlp = mlp
+        self.mlp, self.dropout = mlp, dropout
         self.ln1 = _Norm(dim, norm, norm_eps)
         self.attn = CausalSelfAttention(
             dim, num_heads, num_kv_heads=num_kv_heads, window=window,
-            sinks=sinks, use_rope=use_rope)
+            sinks=sinks, use_rope=use_rope, attn_fn=attn_fn)
         self.ln2 = _Norm(dim, norm, norm_eps)
         if mlp == "swiglu":
             self.gate = nn.Linear(dim, mlp_dim, bias=False)
@@ -552,16 +603,21 @@ class DecoderBlock(nn.Module):
             self.fc1 = nn.Linear(dim, mlp_dim)
             self.fc2 = nn.Linear(mlp_dim, dim)
 
-    def forward(self, x, dtype, cache=None, layer=0, step=None):
-        x = x + self.attn(self.ln1(x, dtype), dtype, cache, layer, step)
+    def forward(self, x, dtype, cache=None, layer=0, step=None, train=False,
+                dropout_seed=None):
+        rate = self.dropout if train else 0.0
+        y = self.attn(self.ln1(x, dtype), dtype, cache, layer, step)
+        x = x + _dropout(y, rate, dropout_seed, layer, 0)
         y = self.ln2(x, dtype)
         if self.mlp == "swiglu":
             y = F.silu(_linear(self.gate, y, dtype)) * _linear(self.up, y, dtype)
-            y = _linear(self.down, y, dtype)
+            y = _linear(self.down, _dropout(y, rate, dropout_seed, layer, 1),
+                        dtype)
         else:
             y = F.gelu(_linear(self.fc1, y, dtype), approximate="tanh")
-            y = _linear(self.fc2, y, dtype)
-        return x + y
+            y = _linear(self.fc2, _dropout(y, rate, dropout_seed, layer, 1),
+                        dtype)
+        return x + _dropout(y, rate, dropout_seed, layer, 2)
 
 
 class TransformerLM(nn.Module):
@@ -572,7 +628,9 @@ class TransformerLM(nn.Module):
     initialised from ``seed`` on the CPU (so every device gets the same
     numbers) and moved to ``device`` (default ``cuda``; see
     :func:`..device.resolve_device`).  ``use_rope=False`` needs
-    ``max_len``, the learned positional table's length.
+    ``max_len``, the learned positional table's length.  ``attn_fn``,
+    ``dropout`` and ``remat`` shape the full-sequence (training)
+    forward only; the decode paths ignore them.
     """
 
     def __init__(self, vocab: int, depth: int = 4, dim: int = 256,
@@ -583,25 +641,31 @@ class TransformerLM(nn.Module):
                  window: Optional[int] = None, sinks: int = 0,
                  norm: str = "layernorm", norm_eps: float = 1e-6,
                  mlp: str = "gelu", max_len: Optional[int] = None,
-                 device: DeviceLike = None, seed: int = 0):
+                 attn_fn: Optional[Callable] = None, dropout: float = 0.0,
+                 remat: bool = False, device: DeviceLike = None,
+                 seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         if not use_rope and max_len is None:
             raise ValueError("use_rope=False needs max_len (the learned "
                              "positional table's length)")
+        if not 0.0 <= dropout <= 1.0:
+            raise ValueError(f"dropout must be in [0, 1], got {dropout}")
         self.vocab, self.depth, self.dim = vocab, depth, dim
         self.num_heads, self.mlp_dim = num_heads, mlp_dim
         self.num_kv_heads = num_kv_heads
         self.window, self.sinks = window, sinks
         self.use_rope, self.tie_embeddings = use_rope, tie_embeddings
         self.max_len, self.dtype = max_len, dtype
+        self.attn_fn, self.dropout, self.remat = attn_fn, dropout, remat
         self.embed = nn.Embedding(vocab, dim)
         self.pos_embedding = (None if use_rope else
                               nn.Parameter(torch.zeros(max_len, dim)))
         self.blocks = nn.ModuleList(
             DecoderBlock(dim, num_heads, mlp_dim, num_kv_heads=num_kv_heads,
                          window=window, sinks=sinks, use_rope=use_rope,
-                         norm=norm, norm_eps=norm_eps, mlp=mlp)
+                         norm=norm, norm_eps=norm_eps, mlp=mlp,
+                         dropout=dropout, attn_fn=attn_fn)
             for _ in range(depth))
         self.final_ln = _Norm(dim, norm, norm_eps)
         self.head = None if tie_embeddings else nn.Linear(dim, vocab)
@@ -625,12 +689,16 @@ class TransformerLM(nn.Module):
         return self.embed.weight.device
 
     def forward(self, tokens: torch.Tensor, cache=None, *,
-                valid_len: int = VALID_UNGATED) -> torch.Tensor:
+                valid_len: int = VALID_UNGATED, train: bool = False,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
         """Full causal forward (``cache=None``), or one decode call that
         advances every row of ``cache`` (a :class:`DecodeCache` or a
         :class:`PagedCache`) by ``T`` positions.
         ``valid_len`` is the number of REAL positions in this call (a
-        padded prefill's pads never write into a windowed ring)."""
+        padded prefill's pads never write into a windowed ring).
+        ``train=True`` turns dropout on (it needs ``dropout_seed``, this
+        step's seed); with ``remat`` each block of a full forward that
+        records gradients is recomputed in the backward."""
         dt = self.dtype
         tokens = tokens.to(self.device)
         b, t = tokens.shape
@@ -649,8 +717,15 @@ class TransformerLM(nn.Module):
                 # output is discarded)
                 pos = torch.clamp(step.wpos, max=self.pos_embedding.shape[0] - 1)
                 x = x + self.pos_embedding[pos].to(dt)
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x = blk(x, dt, cache, i, step)
+            if remat:
+                # the dropout masks are drawn from generators seeded
+                # inside the block, so the recompute draws the same ones
+                x = checkpoint(blk, x, dt, None, i, None, train,
+                               dropout_seed, use_reentrant=False)
+            else:
+                x = blk(x, dt, cache, i, step, train, dropout_seed)
         if cache is not None:
             if t > 1 and cache.slot_pos is not None:
                 step.put_positions(cache)
@@ -661,6 +736,43 @@ class TransformerLM(nn.Module):
         else:
             logits = _linear(self.head, x, dt)
         return logits.float()
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy.  ``logits`` [B, T, V] (position t
+    predicts token t+1), ``tokens`` [B, T] int; ``mask`` optional [B, T]
+    (True = count this *target* position).  f32 log-softmax whatever the
+    compute dtype."""
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = tokens[:, 1:].long().to(logp.device)
+    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]  # [B, T-1]
+    if mask is not None:
+        m = mask[:, 1:].to(device=nll.device, dtype=nll.dtype)
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1)
+    return nll.mean()
+
+
+def lm_loss_fn(model: TransformerLM) -> Callable:
+    """The LM in the framework loss signature ``fn(params, model_state,
+    batch, train, rng=None) -> (loss, (model_state, logits))``.
+
+    ``params`` maps the model's parameter names to tensors (the model is
+    applied with them through ``torch.func.functional_call``, as flax
+    applies a param tree); ``rng`` is an integer dropout seed.  The
+    batch is ``{"tokens": [B, T]}`` with optional ``{"mask": [B, T]}``.
+    (The JAX version's MoE auxiliary loss is not ported.)"""
+    from torch.func import functional_call
+
+    def fn(params, model_state, batch, train: bool, rng=None):
+        tokens = batch["tokens"]
+        logits = functional_call(
+            model, params, (tokens,),
+            {"train": train, "dropout_seed": rng if train else None})
+        loss = next_token_loss(logits, tokens, batch.get("mask"))
+        return loss, (model_state, logits)
+
+    return fn
 
 
 def make_decode_cache(model: TransformerLM, batch: int, total_len: int,

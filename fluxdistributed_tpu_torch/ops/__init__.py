@@ -1,10 +1,28 @@
-"""Attention ops and the hand-written decode kernel (dense and paged)."""
+"""Attention ops and the hand-written kernels: flash decode (dense and
+paged) for serving, flash attention (forward and backward) for
+training."""
 
-from .attention import NEG_INF, dot_product_attention, online_softmax_update
+from .attention import (NEG_INF, AttnCarry, attention_core,
+                        attn_block_update, attn_finalize, attn_init,
+                        blockwise_attention, dot_product_attention,
+                        online_softmax_update)
+from .flash_attention import (flash_attention, flash_attention_dkv,
+                              flash_attention_dkv_reference,
+                              flash_attention_dq,
+                              flash_attention_dq_reference,
+                              flash_attention_fwd,
+                              flash_attention_fwd_reference,
+                              flash_attention_lse)
 from .flash_decode import (flash_decode, flash_decode_paged,
                            flash_decode_paged_reference,
                            flash_decode_reference)
 
-__all__ = ["NEG_INF", "dot_product_attention", "flash_decode",
-           "flash_decode_paged", "flash_decode_paged_reference",
-           "flash_decode_reference", "online_softmax_update"]
+__all__ = ["NEG_INF", "AttnCarry", "attention_core", "attn_block_update",
+           "attn_finalize", "attn_init", "blockwise_attention",
+           "dot_product_attention", "flash_attention", "flash_attention_dkv",
+           "flash_attention_dkv_reference", "flash_attention_dq",
+           "flash_attention_dq_reference", "flash_attention_fwd",
+           "flash_attention_fwd_reference", "flash_attention_lse",
+           "flash_decode", "flash_decode_paged",
+           "flash_decode_paged_reference", "flash_decode_reference",
+           "online_softmax_update"]

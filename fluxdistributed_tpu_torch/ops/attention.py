@@ -1,19 +1,33 @@
-"""Attention primitives: the semantic oracle and the prefill core.
+"""Attention primitives: the semantic oracle, the blockwise walk and the
+``--attn`` core names.
 
 Port of ``fluxdistributed_tpu/ops/attention.py``.  Every function takes
 ``q, k, v`` shaped ``[batch, seq, heads, head_dim]`` (the JAX layout)
 and accumulates softmax statistics in float32 whatever the input dtype.
-``dot_product_attention`` is written in plain torch ops, like the JAX
-XLA version: it serves prefill, where the whole prompt attends at once.
+``dot_product_attention`` and ``blockwise_attention`` are written in
+plain torch ops, like the JAX XLA versions; :func:`attention_core`
+resolves ``dense|blockwise|flash`` to a causal core, where ``flash`` is
+the hand-written training kernel pair (:mod:`.flash_attention`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from functools import partial
+from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["NEG_INF", "dot_product_attention", "online_softmax_update"]
+__all__ = [
+    "NEG_INF",
+    "AttnCarry",
+    "attention_core",
+    "attn_block_update",
+    "attn_finalize",
+    "attn_init",
+    "blockwise_attention",
+    "dot_product_attention",
+    "online_softmax_update",
+]
 
 NEG_INF = -1e30
 
@@ -110,3 +124,132 @@ def online_softmax_update(s, m_prev, l_prev, mask=None):
                                              device=p.device))
     l_new = l_prev * corr + p.sum(dim=-1)
     return p, corr, m_new, l_new
+
+
+class AttnCarry(NamedTuple):
+    """Online-softmax accumulator state for the blockwise walk.
+
+    ``o`` [B, Tq, H, D] f32: un-normalised output accumulator; ``m``
+    [B, H, Tq] f32: running row max of the scores; ``l`` [B, H, Tq] f32:
+    running sum of exp(scores - m).
+    """
+
+    o: torch.Tensor
+    m: torch.Tensor
+    l: torch.Tensor
+
+
+def attn_init(q: torch.Tensor) -> AttnCarry:
+    b, tq, h, d = q.shape
+    return AttnCarry(
+        o=torch.zeros((b, tq, h, d), dtype=torch.float32, device=q.device),
+        m=torch.full((b, h, tq), NEG_INF, dtype=torch.float32,
+                     device=q.device),
+        l=torch.zeros((b, h, tq), dtype=torch.float32, device=q.device))
+
+
+def attn_block_update(carry: AttnCarry, q_scaled: torch.Tensor,
+                      k_blk: torch.Tensor, v_blk: torch.Tensor, *,
+                      mask: Optional[torch.Tensor] = None) -> AttnCarry:
+    """Fold one KV block into the accumulator.  ``q_scaled`` is already
+    divided by sqrt(head_dim); ``mask`` [Tq, Tk_blk] boolean, True =
+    attend.  P·V runs in f32 (p is not rounded), as the JAX walk does."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q_scaled.float(), k_blk.float())
+    p, corr, m_new, l_new = online_softmax_update(
+        s, carry.m, carry.l, mask=None if mask is None else mask[None, None])
+    pv = torch.einsum("bhqk,bkhd->bqhd", p, v_blk.float())
+    o_new = carry.o * corr.permute(0, 2, 1)[..., None] + pv
+    return AttnCarry(o=o_new, m=m_new, l=l_new)
+
+
+def attn_finalize(carry: AttnCarry, dtype: torch.dtype) -> torch.Tensor:
+    """Normalise the accumulator into the output (rows with nothing
+    attendable give 0, not NaN)."""
+    l = torch.clamp(carry.l, min=1e-30)
+    return (carry.o / l.permute(0, 2, 1)[..., None]).to(dtype)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, block_size: int = 512, causal: bool = False,
+                        window: Optional[int] = None,
+                        sinks: int = 0) -> torch.Tensor:
+    """Flash-style attention as a loop over KV blocks: never holds the
+    [Tq, Tk] scores of the whole sequence, with
+    ``dot_product_attention``'s numerics.  Grouped-query KV is
+    broadcast to the query head count; a ragged last block is padded
+    and masked.  ``window`` (causal only) masks keys older than each
+    query's ``window`` newest, plus the first ``sinks``; every block is
+    still visited.  Differentiable through autograd of the loop."""
+    if window is not None and not causal:
+        raise ValueError("window requires causal=True")
+    if sinks and window is None:
+        raise ValueError("sinks only make sense with a window")
+    k, v = _expand_kv(q, k, v)
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    block_size = min(block_size, tk)
+    pad = -tk % block_size  # pad (masked) rather than fall back to one block
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    q_scaled = q / torch.sqrt(torch.tensor(d, dtype=torch.float32)).to(q.dtype)
+    q_pos = torch.arange(tq, device=q.device) + (tk - tq)
+    carry = attn_init(q)
+    for j in range(0, tk + pad, block_size):
+        k_pos = j + torch.arange(block_size, device=q.device)
+        mask = (k_pos[None, :] < tk).expand(tq, block_size)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+            if window is not None:
+                in_band = k_pos[None, :] >= q_pos[:, None] - (window - 1)
+                if sinks:
+                    in_band = in_band | (k_pos[None, :] < sinks)
+                mask = mask & in_band
+        elif not pad:
+            mask = None
+        carry = attn_block_update(carry, q_scaled, k[:, j:j + block_size],
+                                  v[:, j:j + block_size], mask=mask)
+    return attn_finalize(carry, q.dtype)
+
+
+def attention_core(kind: str, block: int = 128, window: Optional[int] = None,
+                   sinks: int = 0):
+    """Resolve an ``--attn`` core name to a causal ``attn_fn(q, k, v)``.
+
+    ``"dense"`` → None without a window (the model's built-in core),
+    else a windowed dense core; ``"blockwise"`` → the KV-block walk;
+    ``"flash"`` → the fused training kernels (:func:`.flash_attention
+    .flash_attention`), which refuse single-query decode-shaped input:
+    that is the decode kernels' work.
+    """
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if sinks and window is None:
+        raise ValueError("sinks only make sense with a window")
+    if kind == "dense":
+        if window is None:
+            return None
+        return partial(dot_product_attention, causal=True, window=window,
+                       sinks=sinks)
+    if block <= 0:
+        raise ValueError(f"attention block size must be > 0, got {block}")
+    if kind == "blockwise":
+        return partial(blockwise_attention, block_size=block, causal=True,
+                       window=window, sinks=sinks)
+    if kind == "flash":
+        from .flash_attention import flash_attention
+
+        def _flash(q, k, v):
+            # the training kernel amortises its tiles over many query
+            # rows; a single-query call would run it at its worst shape
+            if q.shape[1] == 1 and k.shape[1] > 1:
+                raise ValueError(
+                    "attention_core(kind='flash') is the training/prefill "
+                    "kernel; single-query decode-shaped inputs (Tq=1 vs a "
+                    f"Tk={k.shape[1]} cache) belong to the flash-decode "
+                    "kernels (ops.flash_decode.flash_decode[_paged])")
+            return flash_attention(q, k, v, True, block, block, window,
+                                   sinks)
+
+        return _flash
+    raise ValueError(f"unknown attention core {kind!r}")

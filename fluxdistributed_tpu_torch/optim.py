@@ -1,0 +1,243 @@
+"""Functional optimizers: the JAX package's ``optim.py`` on tensors.
+
+Port of ``fluxdistributed_tpu/optim.py``.  The contract is the same pure
+one (the reference's Optimisers.jl shape)::
+
+    opt = momentum(0.01, 0.9)
+    state = opt.init(params)
+    params, state = opt.apply(params, grads, state, step)
+
+with ``params`` and ``grads`` dicts of tensors keyed by parameter name
+(a ``None`` gradient marks a frozen parameter: it and its state pass
+through untouched).  ``apply`` returns NEW tensors and never writes into
+the ones it was given, so a step that fails half way (a device OOM)
+leaves the caller's state whole.  These are plain functions with the
+JAX op order, not ``torch.optim``: Flux ``Momentum`` is ``v = ρv + ηg;
+x -= v``, where ``torch.optim.SGD`` is ``v = ρv + g; x -= ηv``, and the
+two drift apart as soon as the learning rate changes.  Scalars (the
+bias corrections, the schedules) are computed in float32, as jnp does.
+
+Rules: ``descent``, ``momentum``, ``nesterov``, ``adam``, ``adamw``; the
+``clip_by_global_norm`` wrapper; the schedules ``constant``,
+``step_decay``, ``cosine_decay``, ``warmup_cosine`` (callables
+``step -> lr``, usable anywhere ``lr`` is).  ``lars`` and ``with_ema``
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Union
+
+import torch
+
+Params = Dict[str, Optional[torch.Tensor]]
+Schedule = Callable[[Any], Any]
+LR = Union[float, Schedule]
+
+__all__ = [
+    "Optimizer",
+    "adam",
+    "adamw",
+    "clip_by_global_norm",
+    "constant",
+    "cosine_decay",
+    "descent",
+    "global_norm",
+    "momentum",
+    "nesterov",
+    "step_decay",
+    "warmup_cosine",
+]
+
+
+def _lr_at(lr: LR, step):
+    return lr(step) if callable(lr) else lr
+
+
+def _f32(x) -> torch.Tensor:
+    """A 0-d float32 CPU tensor (jnp's f32 scalar arithmetic)."""
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def _zeros_like(params: Params):
+    return {k: None if p is None else torch.zeros_like(p)
+            for k, p in params.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """A pure optimizer: ``init(params) -> state``;
+    ``apply(params, grads, state, step) -> (params, state)``."""
+
+    init: Callable[[Params], Any]
+    update: Callable[[Params, Params, Any, Any], tuple]
+    name: str = "optimizer"
+
+    def apply(self, params: Params, grads: Params, state, step=0):
+        return self.update(params, grads, state, step)
+
+    # the reference's call syntax: ``m, st = opt(m, grads, st)``
+    def __call__(self, params: Params, grads: Params, state, step=0):
+        return self.update(params, grads, state, step)
+
+
+def descent(lr: LR = 0.1) -> Optimizer:
+    """Plain gradient descent: ``x -= η g``."""
+
+    def init(params):
+        return {k: None for k in params}
+
+    def update(params, grads, state, step):
+        eta = _lr_at(lr, step)
+        new = {k: p if grads.get(k) is None else p - eta * grads[k]
+               for k, p in params.items()}
+        return new, state
+
+    return Optimizer(init, update, "descent")
+
+
+def momentum(lr: LR = 0.01, rho: float = 0.9) -> Optimizer:
+    """Flux ``Momentum(η, ρ)``: ``v = ρ v + η g; x -= v``."""
+
+    def update(params, grads, state, step):
+        eta = _lr_at(lr, step)
+        new_p, new_v = {}, {}
+        for k, p in params.items():
+            g, v = grads.get(k), state[k]
+            if g is None:
+                new_p[k], new_v[k] = p, v
+                continue
+            v = rho * v + eta * g
+            new_p[k], new_v[k] = p - v, v
+        return new_p, new_v
+
+    return Optimizer(_zeros_like, update, "momentum")
+
+
+def nesterov(lr: LR = 0.01, rho: float = 0.9) -> Optimizer:
+    """Flux ``Nesterov(η, ρ)`` lookahead momentum."""
+
+    def update(params, grads, state, step):
+        eta = _lr_at(lr, step)
+        new_p, new_v = {}, {}
+        for k, p in params.items():
+            g, v = grads.get(k), state[k]
+            if g is None:
+                new_p[k], new_v[k] = p, v
+                continue
+            v2 = rho * v - eta * g
+            d = rho * rho * v - (1 + rho) * eta * g
+            new_p[k], new_v[k] = p + d, v2
+        return new_p, new_v
+
+    return Optimizer(_zeros_like, update, "nesterov")
+
+
+def adam(lr: LR = 1e-3, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> Optimizer:
+    """Bias-corrected Adam (the reference's ``ADAM()``)."""
+
+    def init(params):
+        return {k: None if p is None else (torch.zeros_like(p),
+                                           torch.zeros_like(p))
+                for k, p in params.items()}
+
+    def update(params, grads, state, step):
+        eta = _lr_at(lr, step)
+        t = _f32(step) + 1.0
+        c1 = 1.0 - torch.pow(_f32(b1), t)
+        c2 = 1.0 - torch.pow(_f32(b2), t)
+        new_p, new_s = {}, {}
+        for k, p in params.items():
+            g = grads.get(k)
+            if g is None:
+                new_p[k], new_s[k] = p, state[k]
+                continue
+            m, v = state[k]
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * (g * g)
+            mhat = m / c1
+            vhat = v / c2
+            new_p[k] = p - eta * mhat / (torch.sqrt(vhat) + eps)
+            new_s[k] = (m, v)
+        return new_p, new_s
+
+    return Optimizer(init, update, "adam")
+
+
+def adamw(lr: LR = 1e-3, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 1e-2) -> Optimizer:
+    """Adam with decoupled weight decay."""
+    base = adam(lr, b1, b2, eps)
+
+    def update(params, grads, state, step):
+        eta = _lr_at(lr, step)
+        new_p, new_s = base.update(params, grads, state, step)
+        out = {k: np_ if grads.get(k) is None
+               else np_ - eta * weight_decay * params[k]
+               for k, np_ in new_p.items()}
+        return out, new_s
+
+    return Optimizer(base.init, update, "adamw")
+
+
+def global_norm(grads: Params) -> torch.Tensor:
+    """L2 norm over every non-``None`` gradient (f32 accumulation)."""
+    leaves = [g for g in grads.values() if g is not None]
+    if not leaves:
+        return torch.zeros(())
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+
+
+def clip_by_global_norm(optimizer: Optimizer, max_norm: float) -> Optimizer:
+    """Rescale gradients whose global norm exceeds ``max_norm`` to exactly
+    ``max_norm`` before the wrapped rule runs; smaller ones pass
+    through.  ``None`` (frozen) gradients are kept."""
+
+    def update(params, grads, state, step):
+        norm = global_norm(grads)
+        scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+        clipped = {k: None if g is None else (g * scale).to(g.dtype)
+                   for k, g in grads.items()}
+        return optimizer.update(params, clipped, state, step)
+
+    return Optimizer(optimizer.init, update,
+                     f"clip{max_norm}({optimizer.name})")
+
+
+def constant(lr: float) -> Schedule:
+    return lambda step: lr
+
+
+def step_decay(lr0: float, factor: float = 0.2, every: int = 10) -> Schedule:
+    """Multiply the LR by ``factor`` every ``every`` steps
+    (``step_decay(lr, 0.2, 10)`` is the reference's LR/5 every 10)."""
+
+    def sched(step):
+        k = torch.floor(_f32(step) / every)
+        return lr0 * torch.pow(_f32(factor), k)
+
+    return sched
+
+
+def cosine_decay(lr0: float, total_steps: int,
+                 final_fraction: float = 0.0) -> Schedule:
+    def sched(step):
+        t = torch.clamp(_f32(step) / max(total_steps, 1), 0.0, 1.0)
+        cos = 0.5 * (1.0 + torch.cos(math.pi * t))
+        return lr0 * (final_fraction + (1.0 - final_fraction) * cos)
+
+    return sched
+
+
+def warmup_cosine(lr0: float, warmup_steps: int, total_steps: int) -> Schedule:
+    cos = cosine_decay(lr0, max(total_steps - warmup_steps, 1))
+
+    def sched(step):
+        s = _f32(step)
+        warm = lr0 * s / max(warmup_steps, 1)
+        return torch.where(s < warmup_steps, warm, cos(s - warmup_steps))
+
+    return sched

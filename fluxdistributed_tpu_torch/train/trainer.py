@@ -1,0 +1,298 @@
+"""Training orchestration on one device: ``prepare_training`` + ``train``.
+
+Port of the core of ``fluxdistributed_tpu/train/trainer.py`` for
+``spmd="jit"``/``"dp"`` on one GPU (or the CPU, when asked):
+
+* ``prepare_training`` takes the model's parameters as the initial
+  :class:`..parallel.TrainState`, builds the train and eval steps and
+  the prefetching loader;
+* ``train`` is the loop: the print cadence logs steps/s and tokens/s,
+  the eval cadence logs the eval loss of the current batch, and a
+  device OOM skips the batch and counts it in ``num_missed`` (the
+  step's update is pure, so the pre-step state carries on);
+* ``evaluate`` aggregates the loss over a dataset.
+
+Phase times, step counts and OOM skips land in the process registry
+(:mod:`..obs.metrics`) under the JAX trainer's ``fdtpu_train_*`` names.
+Top-k metrics, val slices, checkpoints, the anomaly guard, preemption,
+profiling and the other parallel modes come with later slices.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import inspect
+import time
+from typing import Any, Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from ..data.loader import PrefetchLoader, batch_to_dict
+from ..device import DeviceLike, resolve_device
+from ..obs import get_registry
+from ..optim import Optimizer
+from ..parallel.dp import TrainState, make_eval_step, make_train_step
+from .logging import ConsoleLogger, Logger
+
+__all__ = ["TrainTask", "evaluate", "prepare_training", "train"]
+
+
+@dataclasses.dataclass
+class TrainTask:
+    """Everything ``train`` needs: the state, the compiled-step
+    counterparts, the loader, and the run's bookkeeping."""
+
+    state: TrainState
+    step_fn: Callable
+    eval_fn: Callable
+    loader: Iterable
+    optimizer: Optimizer
+    model: Any
+    device: torch.device
+    num_missed: int = 0
+    # loader items skipped by OOM fault tolerance, in order
+    skipped_items: list = dataclasses.field(default_factory=list)
+    # the loss of every step that ran, in order (floats)
+    losses: list = dataclasses.field(default_factory=list)
+
+
+def _to_device(batch: dict, device: torch.device) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def prepare_training(
+    model,
+    dataset,
+    optimizer: Optimizer,
+    *,
+    loss_fn: Callable,
+    batch_size: int = 32,
+    epochs: int = 1,
+    cycles: Optional[int] = None,
+    buffersize: int = 5,
+    seed: int = 0,
+    spmd: str = "jit",
+    device: DeviceLike = None,
+) -> TrainTask:
+    """The train state from the model's current parameters, the train
+    and eval steps, and the prefetching loader.
+
+    ``loss_fn`` has the framework signature (e.g.
+    ``models.lm_loss_fn(model)``).  ``spmd`` takes the one-device modes
+    ``"jit"`` and ``"dp"`` (an alias); the other modes raise.  ``seed``
+    roots the loader's batches and the dropout seeds.  The model must
+    already live on ``device`` (default ``cuda``).  The JAX version's
+    other options (meshes, donation, the device loop, top-k metrics,
+    val slices, AOT, the guard) are not accepted.
+    """
+    if spmd == "dp":
+        spmd = "jit"
+    if spmd != "jit":
+        raise ValueError(
+            f"spmd={spmd!r} is not ported: this slice trains on one device "
+            "(spmd='jit' or 'dp'); the other modes come with the multi-GPU "
+            "slices (ROADMAP)")
+    dev = resolve_device(device)
+    params = dict(model.named_parameters())
+    off = [n for n, p in params.items() if p.device.type != dev.type or (
+        dev.index is not None and p.device.index != dev.index)]
+    if off:
+        raise ValueError(f"the model's parameters {off[:3]} are not on "
+                         f"{dev}; build the model with device={str(dev)!r}")
+    return TrainTask(
+        state=TrainState.create(params, optimizer),
+        step_fn=make_train_step(loss_fn, optimizer, seed=seed),
+        eval_fn=make_eval_step(loss_fn),
+        loader=PrefetchLoader(dataset, batch_size, cycles=cycles,
+                              epochs=epochs, buffersize=buffersize, seed=seed,
+                              device=dev),
+        optimizer=optimizer, model=model, device=dev)
+
+
+def _is_oom(err: Exception) -> bool:
+    return (isinstance(err, torch.cuda.OutOfMemoryError)
+            or "out of memory" in str(err).lower())
+
+
+def _eval_and_log(task: TrainTask, batch, name: str, step: int,
+                  logger: Logger) -> dict:
+    loss, _ = task.eval_fn(task.state, batch)
+    metrics = {f"{name}_loss": float(loss)}
+    logger.log(metrics, step)
+    return metrics
+
+
+def evaluate(task: TrainTask, dataset, *, batch_size: int = 256,
+             max_batches: Optional[int] = None, seed: int = 0) -> dict:
+    """Sample-weighted mean loss over a dataset with the eval step.
+
+    A dataset with a length whose ``batch`` takes ``indices`` is covered
+    exactly once, in sequential index blocks plus one smaller remainder
+    batch (``"exact": True``).  Otherwise batches are sampled and
+    ``max_batches`` is required (``"exact": False``).  Returns
+    ``{"loss", "samples", "exact"}``.
+    """
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+    capable = (hasattr(dataset, "__len__")
+               and "indices" in inspect.signature(dataset.batch).parameters)
+    full_batches = rem_size = 0
+    if capable:
+        if len(dataset) == 0:
+            raise ValueError("dataset is empty")
+        batch_size = min(batch_size, len(dataset))
+        full_batches = len(dataset) // batch_size
+        rem_size = len(dataset) - full_batches * batch_size
+    if max_batches is None:
+        if not hasattr(dataset, "__len__"):
+            raise ValueError(
+                f"{type(dataset).__name__} has no __len__; pass max_batches")
+        max_batches = (full_batches if capable
+                       else max(1, len(dataset) // batch_size))
+    if capable:
+        max_batches = min(max_batches, full_batches)
+        if max_batches < full_batches:
+            rem_size = 0  # caller truncated: no remainder pass
+    exact = capable and max_batches == full_batches
+    rng = np.random.default_rng(seed)
+    total, n = 0.0, 0
+
+    def accumulate(draw, bs):
+        nonlocal total, n
+        batch = _to_device(
+            batch_to_dict(draw, getattr(dataset, "nclasses", None)),
+            task.device)
+        loss, _ = task.eval_fn(task.state, batch)
+        total += float(loss) * bs
+        n += bs
+
+    for i in range(max_batches):
+        if exact:
+            idx = np.arange(i * batch_size, (i + 1) * batch_size)
+            accumulate(dataset.batch(rng, batch_size, indices=idx), batch_size)
+        else:
+            accumulate(dataset.batch(rng, batch_size), batch_size)
+    if exact and rem_size:
+        start = max_batches * batch_size
+        idx = np.arange(start, start + rem_size)
+        accumulate(dataset.batch(rng, rem_size, indices=idx), rem_size)
+    return {"loss": total / max(n, 1), "samples": n, "exact": exact}
+
+
+class _PhaseClock:
+    """``with phases("dispatch"):`` observes the block's wall seconds
+    into ``fdtpu_train_phase_seconds{phase=...}`` (data_wait / dispatch
+    / eval)."""
+
+    def __init__(self, registry):
+        self.hist = registry.histogram(
+            "fdtpu_train_phase_seconds",
+            "wall seconds per train-step phase (data_wait/dispatch/eval)",
+            labelnames=("phase",))
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            # observed on the exception path too: an OOM-heavy run must
+            # not show artificially fast dispatch percentiles
+            self.hist.labels(phase=name).observe(time.perf_counter() - t0)
+
+
+def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
+          logger: Optional[Logger] = None):
+    """The training loop.
+
+    Every ``print_every`` items it logs steps/s and tokens/s (images/s
+    for image batches) over the interval; every ``eval_every`` items the
+    eval loss of the current batch and the step's own loss.  Host-clock rates: the loop runs ahead of the device by
+    the launch queue, so interval averages hold.  A device OOM skips the
+    batch (``task.num_missed``, ``task.skipped_items``).  Each step's
+    loss lands in ``task.losses`` (read back once, at the end).  The
+    trained parameters are copied into ``task.model`` in place.
+
+    Returns ``(host_params, model_state, task)``: CPU copies of the
+    final parameters.
+    """
+    logger = logger or ConsoleLogger()
+    reg = get_registry()
+    phases = _PhaseClock(reg)
+    steps_total = reg.counter(
+        "fdtpu_train_steps_total", "optimizer steps completed")
+    step_hist = reg.histogram(
+        "fdtpu_train_step_seconds", "wall seconds per loader item")
+    step_gauge = reg.gauge(
+        "fdtpu_train_step", "optimizer steps completed this train() call")
+    oom_total = reg.counter(
+        "fdtpu_train_oom_skipped_total",
+        "batches skipped by OOM fault tolerance")
+    t_start = time.perf_counter()
+    it = iter(task.loader)
+    _end = object()
+    j = int(getattr(task.loader, "start", 0))
+    t_mark, j_mark = t_start, j
+    done_steps = 0
+    losses = []  # device scalars, read back once at the end
+    try:
+        while True:
+            t_item = time.perf_counter()
+            with phases("data_wait"):
+                batch = next(it, _end)
+            if batch is _end:
+                break
+            if print_every and j % print_every == 0:
+                now = time.perf_counter()
+                if j > j_mark:
+                    dsteps, dt = j - j_mark, max(now - t_mark, 1e-9)
+                    lead = next(iter(batch.values()))
+                    rate = {"steps_per_sec": round(dsteps / dt, 3)}
+                    if "tokens" in batch:
+                        rate["tokens_per_sec"] = round(
+                            dsteps * lead.numel() / dt, 1)
+                    else:
+                        rate["images_per_sec"] = round(
+                            dsteps * lead.shape[0] / dt, 1)
+                    logger.log(rate, j)
+                    t_mark, j_mark = now, j
+                logger.info(f"cycle {j} (t={now - t_start:.1f}s)")
+            skipped = False
+            try:
+                with phases("dispatch"):
+                    task.state, metrics = task.step_fn(task.state, batch)
+            except Exception as e:  # OOM-skip fault tolerance
+                if not _is_oom(e):
+                    raise
+                task.num_missed += 1
+                task.skipped_items.append(j)
+                oom_total.inc()
+                logger.log({"oom_skipped_item": j}, j)
+                logger.info(f"cycle {j}: device OOM — skipping batch "
+                            f"({task.num_missed} missed)")
+                skipped = True
+            if not skipped:
+                losses.append(metrics["loss"])
+                if eval_every and j % eval_every == 0:
+                    with phases("eval"):
+                        _eval_and_log(task, batch, "train", j, logger)
+                        logger.log(
+                            {"train_step_loss": float(metrics["loss"])}, j)
+                steps_total.inc()
+                done_steps += 1
+                step_gauge.set(done_steps)
+                step_hist.observe(time.perf_counter() - t_item)
+            j += 1
+    finally:
+        if losses:
+            task.losses.extend(torch.stack(losses).float().cpu().tolist())
+    if task.num_missed:
+        logger.info(f"missed {task.num_missed} batches due to OOM")
+    with torch.no_grad():
+        for name, p in task.model.named_parameters():
+            p.copy_(task.state.params[name])
+    host = {k: v.detach().cpu() for k, v in task.state.params.items()}
+    return host, task.state.model_state, task

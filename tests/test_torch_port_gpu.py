@@ -1,13 +1,19 @@
-"""The flash-decode kernels (dense and paged) on the card against their
-plain versions, and the engine (dense and paged) on the card against
-the CPU.  Needs a CUDA GPU (and ``nvcc`` to build the kernel); marked
-``gpu`` and skipped elsewhere.  Run on the card with
+"""The hand-written kernels on the card against their plain versions:
+flash decode (dense and paged, with the serving engine on the card
+against the CPU) and flash attention for training (B1 forward, B2/B3
+backward, with a train step on the card against the CPU).  Needs a CUDA
+GPU (and ``nvcc`` to build the kernels); marked ``gpu`` and skipped
+elsewhere.  Run on the card with
 ``python -m pytest --noconftest tests/test_torch_port_gpu.py -q``.
 
-Tolerances: atol 2e-5 for f32 output (same f32 math, summation order
-differs); atol 2e-2 for bf16 output (one bf16 ulp at |out| < 4 plus the
-f32 differences before the final rounding).
+Tolerances: atol 2e-5 for f32 decode output (same f32 math, summation
+order differs); atol 2e-2 for bf16 output (one bf16 ulp at |out| < 4 plus
+the f32 differences before the final rounding).  Flash attention: f32 O
+and LSE 1e-5 abs, f32 gradients 1e-4 x the largest reference entry;
+bf16 O 2e-2 abs, bf16 gradients 5e-2 x the largest reference entry.
 """
+
+import importlib
 
 import pytest
 import torch
@@ -179,3 +185,116 @@ def test_paged_engine_on_card_matches_cpu_generate(cuda, config):
         assert eng.pool_stats()["prefix_cache_hits"] == 2
     for r, p in zip(reqs, prompts):
         assert r.tokens == generate(cpu, [p], len(p) + 12, **gkw)[0].tolist()
+
+
+fa = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_attention")
+
+# name: (B, Tq, Tk, H, Hkv, D, dtype, causal, window, sinks)
+ATTN_VARIANTS = {
+    "f32": (2, 96, 96, 4, 4, 64, torch.float32, True, None, 0),
+    "bf16": (2, 96, 96, 4, 4, 64, torch.bfloat16, True, None, 0),
+    "gqa_d32": (2, 80, 80, 4, 2, 32, torch.float32, True, None, 0),
+    "window_sinks_d128": (1, 130, 130, 2, 1, 128, torch.float32, True, 5, 2),
+    "noncausal_ragged": (2, 100, 70, 2, 2, 128, torch.bfloat16, False, None,
+                         0),
+    "tq_lt_tk": (2, 24, 96, 4, 4, 64, torch.float32, True, None, 0),
+    "fully_masked_rows": (2, 8, 4, 2, 2, 32, torch.float32, True, None, 0),
+    "main_bf16": (8, 1024, 1024, 12, 12, 64, torch.bfloat16, True, None, 0),
+}
+
+
+@pytest.mark.parametrize("variant", list(ATTN_VARIANTS))
+def test_flash_attention_kernels_match_plain_versions(cuda, variant):
+    b, tq, tk, h, hkv, d, dt, causal, window, sinks = ATTN_VARIANTS[variant]
+    g = torch.Generator().manual_seed(0)
+    q, do = (torch.randn(b, tq, h, d, generator=g).to(dt).to(cuda)
+             for _ in range(2))
+    k, v = (torch.randn(b, tk, hkv, d, generator=g).to(dt).to(cuda)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, sinks=sinks)
+    before = [w.launches for w in (fa.flash_attention_fwd,
+                                   fa.flash_attention_dq,
+                                   fa.flash_attention_dkv)]
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (do.float() * ref_out.float()).sum(-1).permute(0, 2, 1)
+    delta = (delta - torch.randn(delta.shape, generator=g).to(cuda)
+             ).contiguous()  # an LSE cotangent folded in
+    args = (q, k, v, do, ref_lse, delta)
+    dq = fa.flash_attention_dq(*args, **kw)
+    dk, dv = fa.flash_attention_dkv(*args, **kw)
+    refs = (fa.flash_attention_dq_reference(*args, **kw),
+            *fa.flash_attention_dkv_reference(*args, **kw))
+    torch.cuda.synchronize()
+    assert [w.launches for w in (fa.flash_attention_fwd,
+                                 fa.flash_attention_dq,
+                                 fa.flash_attention_dkv)] == [
+        n + 1 for n in before]
+    f32 = dt == torch.float32
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               atol=1e-5 if f32 else 2e-2, rtol=0)
+    live = ref_lse > -1e29
+    assert torch.equal(lse > -1e29, live)
+    torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-5, rtol=0)
+    for got, ref in zip((dq, dk, dv), refs):
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= (1e-4 if f32 else 5e-2) * ref.float().abs().max().item()
+
+
+def test_flash_attention_on_cuda_never_reaches_the_plain_path(cuda,
+                                                               monkeypatch):
+    """A CUDA call launches the kernels (each count + 1) and never runs a
+    plain version."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+
+    for name in ("flash_attention_fwd_reference",
+                 "flash_attention_dq_reference",
+                 "flash_attention_dkv_reference"):
+        monkeypatch.setattr(fa, name, boom)
+    before = [w.launches for w in (fa.flash_attention_fwd,
+                                   fa.flash_attention_dq,
+                                   fa.flash_attention_dkv)]
+    q, k, v = (torch.randn(1, 64, 2, 64, device=cuda, requires_grad=True)
+               for _ in range(3))
+    fa.flash_attention(q, k, v, True).sum().backward()
+    torch.cuda.synchronize()
+    assert [w.launches for w in (fa.flash_attention_fwd,
+                                 fa.flash_attention_dq,
+                                 fa.flash_attention_dkv)] == [
+        n + 1 for n in before]
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(*(torch.zeros(1, 8, 2, 48, device=cuda)
+                                 for _ in range(3)))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_fwd(*(torch.zeros(1, 8, 2, 64, device=cuda,
+                                             dtype=torch.float16)
+                                 for _ in range(3)))
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One f32 lm_tiny train step with the flash core: the card (B1-B3)
+    against the CPU (their plain versions), same weights and batch."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import lm_loss_fn
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.parallel import TrainState, make_train_step
+
+    toks = np.random.default_rng(0).integers(0, 64, (4, 96)).astype(np.int32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = lm_tiny(vocab=64, depth=2, dtype=torch.float32, seed=1,
+                        attn_fn=attention_core("flash", 32), device=dev)
+        opt = optim.momentum(0.05)
+        state = TrainState.create(dict(model.named_parameters()), opt)
+        state, m = make_train_step(lm_loss_fn(model), opt, guard=True)(
+            state, {"tokens": torch.from_numpy(toks).to(dev)})
+        out[dev.type] = (m["guard"].cpu(), {k: p.cpu() for k, p in
+                                            state.params.items()})
+    (gc, pc), (gg, pg) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(gg, gc, rtol=1e-5, atol=0)
+    for name in pc:
+        torch.testing.assert_close(pg[name], pc[name], atol=1e-5, rtol=0)

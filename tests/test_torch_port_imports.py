@@ -35,6 +35,8 @@ def _imports(path: Path):
 def test_port_has_modules_to_scan():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "fluxdistributed_tpu_torch/ops/flash_decode.py" in names
+    assert "fluxdistributed_tpu_torch/ops/flash_attention.py" in names
+    assert "fluxdistributed_tpu_torch/train/trainer.py" in names
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").is_file()
 
 
