@@ -33,11 +33,13 @@ Phases, each of which raises on failure (exit code != 0, no result):
    CPU (plain version);
 8. attention kernel: the training kernels B1 (forward), B2 (dQ) and B3
    (dK/dV) against their plain versions at lm_small training shapes
-   (B=8, T=1024, 12 heads, head dim 64, bf16, causal) and in six more
-   variants (f32, GQA, window + sinks, non-causal, ragged T, Tq < Tk
-   with an LSE cotangent), each with its time, the plain version's, the
-   library yardstick (``scaled_dot_product_attention`` forward for B1,
-   its backward for B2 + B3) and the card's bound;
+   (B=8, T=1024, 12 heads, head dim 64, bf16, causal) and in eight more
+   variants (f32; GQA and window + sinks, each in bf16 and f32;
+   non-causal, ragged T, Tq < Tk with an LSE cotangent), gradients held
+   element by element (and shown to catch a dropped last tile), each
+   with its time, the plain version's, the library yardstick
+   (``scaled_dot_product_attention`` forward for B1, its backward for
+   B2 + B3) and the card's bound;
 9. train: ``python -m fluxdistributed_tpu_torch.train --model lm_small
    --dataset synthetic-text --vocab 256 --seqlen 1024 --batch-size 8
    --attn flash --opt adam --lr 3e-4 --cycles 40`` in-process: the loss
@@ -739,9 +741,53 @@ def sdpa_train(torch, q, k, v, do, allow, causal_square):
     return fwd, bwd
 
 
+# B2/B3 against their plain versions, element by element:
+# |err| <= atol + rtol * |ref|.  The kernels round p and ds where the
+# plain versions do, so in bf16 they differ only where f32 sums in
+# another order flip the output's last rounding: rtol is two bf16 ulps
+# and atol a floor for entries near 0.  f32: 1e-4 abs.  A limit scaled
+# by the largest entry would let the small gradients of late causal
+# positions go unchecked.
+GRAD_TOL = {"f32": (1e-4, 0.0), "bf16": (1e-5, 1.6e-2)}
+
+
+def grad_check(torch, got, ref, bits):
+    """How far ``got`` is from ``ref`` in units of the element-wise
+    limit (``excess`` <= 1 passes), and what atol it needed."""
+    atol, rtol = GRAD_TOL[bits]
+    err, r = (got.float() - ref.float()).abs(), ref.float().abs()
+    return {"excess": (err / (atol + rtol * r)).max().item(),
+            "needed_atol": (err - rtol * r).clamp(min=0).max().item(),
+            "ref_rms": r.square().mean().sqrt().item(),
+            "ref_max": r.max().item()}
+
+
+def dropped_tile_check(torch, fa, bargs, kw, rdq, rdk, rdv, bits):
+    """The element-wise check against a B2 that skips its last K tile and
+    a B3 that skips its last Q tile (causal, Tq = Tk, no window): both
+    faults are built from the plain versions and each must exceed the
+    limit.  Returns each fault's ``excess`` (> 1 means caught) and its
+    largest change over the largest reference entry (``vs_max``)."""
+    q, k, v, do, lse, delta = bargs
+    n, tk = 64, k.shape[1]  # the kernels' tile rows
+    tail = (q[:, -n:], k, v, do[:, -n:], lse[..., -n:].contiguous(),
+            delta[..., -n:].contiguous())
+    # the last n queries see every key before the last tile: unmasked
+    head = (tail[0], k[:, :tk - n], v[:, :tk - n], *tail[3:])
+    fdq = rdq.float().clone()
+    fdq[:, -n:] = fa.flash_attention_dq_reference(*head, causal=False).float()
+    cdk, cdv = fa.flash_attention_dkv_reference(*tail, **kw)
+    faults = {"dq": (fdq, rdq), "dk": (rdk.float() - cdk.float(), rdk),
+              "dv": (rdv.float() - cdv.float(), rdv)}
+    return {g: {"excess": grad_check(torch, f, r, bits)["excess"],
+                "vs_max": ((f - r.float()).abs().max()
+                           / r.float().abs().max()).item()}
+            for g, (f, r) in faults.items()}
+
+
 def attention_kernel_phase(torch, bw, peaks, flush):
     """B1, B2 and B3 against their plain versions at lm_small training
-    shapes and six more variants; returns the main row of each kernel."""
+    shapes and eight more variants; returns the main row of each kernel."""
     import importlib
 
     # the module (the ops package exports a function of the same name)
@@ -752,7 +798,9 @@ def attention_kernel_phase(torch, bw, peaks, flush):
         "main": (T_TRAIN, T_TRAIN, H, "bf16", True, None, 0, False),
         "f32": (T_TRAIN, T_TRAIN, H, "f32", True, None, 0, False),
         "gqa": (T_TRAIN, T_TRAIN, 4, "bf16", True, None, 0, False),
+        "gqa_f32": (T_TRAIN, T_TRAIN, 4, "f32", True, None, 0, False),
         "window": (T_TRAIN, T_TRAIN, H, "bf16", True, 256, 4, False),
+        "window_f32": (T_TRAIN, T_TRAIN, H, "f32", True, 256, 4, False),
         "noncausal": (T_TRAIN, T_TRAIN, H, "bf16", False, None, 0, False),
         "ragged": (1000, 1000, H, "bf16", True, None, 0, False),
         "lse": (384, T_TRAIN, H, "bf16", True, None, 0, True),
@@ -790,18 +838,21 @@ def attention_kernel_phase(torch, bw, peaks, flush):
             "dq": (6 * pairs * D, 3 * qo_bytes + 2 * kv_bytes + 2 * row_io),
             "dkv": (8 * pairs * D, 2 * qo_bytes + 4 * kv_bytes + 2 * row_io),
         }
-        grads_ok = 1e-4 if bits == "f32" else 5e-2  # x max |reference|
         errs = {
             "o": (out.float() - ref_out.float()).abs().max().item(),
             "lse": (lse - ref_lse)[live_rows].abs().max().item(),
-            "dq": (dq.float() - rdq.float()).abs().max().item(),
-            "dk": (dk.float() - rdk.float()).abs().max().item(),
-            "dv": (dv.float() - rdv.float()).abs().max().item(),
         }
-        tols = {"o": 1e-5 if bits == "f32" else 2e-2, "lse": 1e-4,
-                "dq": grads_ok * rdq.float().abs().max().item(),
-                "dk": grads_ok * rdk.float().abs().max().item(),
-                "dv": grads_ok * rdv.float().abs().max().item()}
+        tols = {"o": 1e-5 if bits == "f32" else 2e-2, "lse": 1e-4}
+        grads = {"dq": (dq, rdq), "dk": (dk, rdk), "dv": (dv, rdv)}
+        for gname, (got, ref) in grads.items():
+            errs[gname] = (got.float() - ref.float()).abs().max().item()
+            tols[gname] = GRAD_TOL[bits]
+        grad_stats = {gname: grad_check(torch, got, ref, bits)
+                      for gname, (got, ref) in grads.items()}
+        tiled = causal and tq == tk and window is None
+        if tiled:  # the check must see a dropped last tile
+            grad_stats["dropped_last_tile"] = dropped_tile_check(
+                torch, fa, bargs, kw, rdq, rdk, rdv, bits)
         finite = all(bool(torch.isfinite(x.float()).all())
                      for x in (out, dq, dk, dv))
         same_dead = bool(((lse > -1e29) == live_rows).all())
@@ -840,11 +891,16 @@ def attention_kernel_phase(torch, bw, peaks, flush):
                "causal": causal, "window": window, "sinks": sinks,
                "lse_cotangent": with_lse, "live_pairs_per_head":
                int(allow.sum()), "errors": errs, "tolerances": tols,
-               "finite": finite, "library": "scaled_dot_product_attention "
+               "grad_check": grad_stats, "finite": finite, "library": "scaled_dot_product_attention "
                "forward (B1) / backward (B2 + B3)" if lib_fwd else None,
                "kernels": rows}
         emit(row)
-        bad = [k for k in errs if not errs[k] <= tols[k]]
+        bad = [k for k in ("o", "lse") if not errs[k] <= tols[k]]
+        bad += [k for k in grads if not grad_stats[k]["excess"] <= 1.0]
+        if tiled:
+            bad += [f"dropped {k} passed" for k, r in
+                    grad_stats["dropped_last_tile"].items()
+                    if not r["excess"] > 1.0]
         if bad or not finite or not same_dead:
             raise RuntimeError(f"attention_kernel {name}: {bad} out of "
                                f"tolerance, finite={finite}, dead rows "

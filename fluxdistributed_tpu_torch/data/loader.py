@@ -57,8 +57,7 @@ class PrefetchLoader:
     :func:`batch_to_dict`).  ``cycles`` batches are produced; ``None``
     derives ``len(dataset) * epochs // batch_size``.  ``buffersize`` is
     the prefetch depth, ``num_threads`` the workers, ``start`` the first
-    item (a resume cursor), and ``retries`` the retries of a failed
-    host-side assembly.  ``device`` defaults to ``cuda`` (see
+    item (a resume cursor).  ``device`` defaults to ``cuda`` (see
     :func:`..device.resolve_device`).
     """
 
@@ -72,7 +71,6 @@ class PrefetchLoader:
         seed: int = 0,
         num_threads: int = 2,
         start: int = 0,
-        retries: int = 2,
         device: DeviceLike = None,
     ):
         from ..obs import get_registry
@@ -87,7 +85,6 @@ class PrefetchLoader:
         self.seed = seed
         self.num_threads = max(1, num_threads)
         self.start = start
-        self.retries = max(0, retries)
         self.device = resolve_device(device)
         reg = get_registry()
         self._m_depth = reg.gauge(
@@ -114,19 +111,11 @@ class PrefetchLoader:
         self.cycles = cycles
 
     def _assemble(self, i: int):
-        """Host-side assembly of item ``i``, retried on failure.  Batch
-        content is a pure function of (seed, process 0, index), so a
-        retry is bit-identical, whichever worker assembles it."""
-        for attempt in range(self.retries + 1):
-            try:
-                rng = np.random.default_rng((self.seed, 0, i))
-                return batch_to_dict(self.dataset.batch(rng, self.batch_size),
-                                     getattr(self.dataset, "nclasses", None))
-            except Exception:  # noqa: BLE001 — re-raised after the last try
-                if attempt == self.retries:
-                    raise
-                time.sleep(0.05 * (attempt + 1))
-        raise AssertionError("unreachable")
+        """Host-side assembly of item ``i``: a pure function of (seed,
+        process 0, index), whichever worker assembles it."""
+        rng = np.random.default_rng((self.seed, 0, i))
+        return batch_to_dict(self.dataset.batch(rng, self.batch_size),
+                             getattr(self.dataset, "nclasses", None))
 
     def _put(self, host: dict) -> dict:
         """Host arrays → device tensors: pinned staging and an

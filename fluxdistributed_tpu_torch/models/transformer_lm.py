@@ -62,7 +62,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
-from ..ops.attention import dot_product_attention
+from ..ops.attention import dot_product_attention, validate_window
 from ..ops.flash_decode import flash_decode, flash_decode_paged
 
 __all__ = [
@@ -472,15 +472,7 @@ class CausalSelfAttention(nn.Module):
         if dim % num_heads:
             raise ValueError(f"embed dim ({dim}) must divide num_heads "
                              f"({num_heads})")
-        if sinks < 0:
-            raise ValueError(f"sinks must be >= 0, got {sinks}")
-        if sinks and window is None:
-            raise ValueError(
-                f"sinks={sinks} requires a sliding window: attention sinks "
-                "pin the first keys OUTSIDE the window. Pass window=<int> "
-                "or sinks=0.")
-        if window is not None and window < 1:
-            raise ValueError(f"window must be >= 1, got {window}")
+        validate_window(True, window, sinks)
         hkv = num_kv_heads or num_heads
         if num_heads % hkv:
             raise ValueError(f"num_heads ({num_heads}) must be a multiple "

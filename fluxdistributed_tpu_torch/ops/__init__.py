@@ -5,7 +5,7 @@ training."""
 from .attention import (NEG_INF, AttnCarry, attention_core,
                         attn_block_update, attn_finalize, attn_init,
                         blockwise_attention, dot_product_attention,
-                        online_softmax_update)
+                        online_softmax_update, validate_window)
 from .flash_attention import (flash_attention, flash_attention_dkv,
                               flash_attention_dkv_reference,
                               flash_attention_dq,
@@ -25,4 +25,4 @@ __all__ = ["NEG_INF", "AttnCarry", "attention_core", "attn_block_update",
            "flash_attention_fwd_reference", "flash_attention_lse",
            "flash_decode", "flash_decode_paged",
            "flash_decode_paged_reference", "flash_decode_reference",
-           "online_softmax_update"]
+           "online_softmax_update", "validate_window"]

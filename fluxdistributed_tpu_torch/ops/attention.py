@@ -27,9 +27,28 @@ __all__ = [
     "blockwise_attention",
     "dot_product_attention",
     "online_softmax_update",
+    "validate_window",
 ]
 
 NEG_INF = -1e30
+
+
+def validate_window(causal: bool, window: Optional[int], sinks: int) -> None:
+    """The sliding-window rules every attention core and kernel shares:
+    a window needs causal masking and at least one key; sinks are >= 0
+    and need a window."""
+    if window is not None and not causal:
+        raise ValueError("window requires causal=True (sliding-window "
+                         "attention is a causal-LM construct)")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if sinks:
+        if sinks < 0:
+            raise ValueError(f"sinks must be >= 0, got {sinks}")
+        if window is None:
+            raise ValueError("sinks only make sense with a window "
+                             "(unwindowed causal attention already "
+                             "attends every past position)")
 
 
 def _expand_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -65,10 +84,7 @@ def dot_product_attention(
     before P·V (as the JAX version does); output in q's dtype.  Rows
     with nothing attendable return exactly 0.
     """
-    if window is not None and not causal:
-        raise ValueError("window requires causal=True")
-    if sinks and window is None:
-        raise ValueError("sinks only make sense with a window")
+    validate_window(causal, window, sinks)
     k, v = _expand_kv(q, k, v)
     # scale in q's dtype, then contract in f32 (preferred_element_type)
     qs = q / torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32)).to(q.dtype)
@@ -180,10 +196,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and masked.  ``window`` (causal only) masks keys older than each
     query's ``window`` newest, plus the first ``sinks``; every block is
     still visited.  Differentiable through autograd of the loop."""
-    if window is not None and not causal:
-        raise ValueError("window requires causal=True")
-    if sinks and window is None:
-        raise ValueError("sinks only make sense with a window")
+    validate_window(causal, window, sinks)
     k, v = _expand_kv(q, k, v)
     b, tq, h, d = q.shape
     tk = k.shape[1]
@@ -222,10 +235,7 @@ def attention_core(kind: str, block: int = 128, window: Optional[int] = None,
     .flash_attention`), which refuse single-query decode-shaped input:
     that is the decode kernels' work.
     """
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
-    if sinks and window is None:
-        raise ValueError("sinks only make sense with a window")
+    validate_window(True, window, sinks)
     if kind == "dense":
         if window is None:
             return None

@@ -38,7 +38,8 @@ from typing import Optional
 
 import torch
 
-from .attention import NEG_INF, online_softmax_update
+from .attention import (NEG_INF, online_softmax_update,
+                        validate_window)
 
 __all__ = [
     "flash_attention",
@@ -55,21 +56,6 @@ __all__ = [
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD, _DQ, _DKV = 0, 1, 2
 _HEAD_DIMS = (32, 64, 128)
-
-
-def _validate_window(causal, window, sinks):
-    if window is not None and not causal:
-        raise ValueError("window requires causal=True (sliding-window "
-                         "attention is a causal-LM construct)")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
-    if sinks:
-        if sinks < 0:
-            raise ValueError(f"sinks must be >= 0, got {sinks}")
-        if window is None:
-            raise ValueError("sinks only make sense with a window "
-                             "(unwindowed causal attention already "
-                             "attends every past position)")
 
 
 def _gqa_dims(q, k, v):
@@ -355,7 +341,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, block_q=128, block_k=128,
                         window=None, sinks=0):
     """B1: ``(out [B, Tq, H, D], lse [B, H, Tq] f32)``.  The kernel on a
     CUDA tensor, :func:`flash_attention_fwd_reference` on a CPU one."""
-    _validate_window(causal, window, sinks)
+    validate_window(causal, window, sinks)
     _gqa_dims(q, k, v)
     if not _dispatch(q, "flash_attention_fwd"):
         return flash_attention_fwd_reference(
@@ -376,7 +362,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal=False, block_q=128,
                        block_k=128, window=None, sinks=0):
     """B2: dQ [B, Tq, H, D] from the saved LSE and ``delta`` [B, H, Tq]
     f32.  The kernel on a CUDA tensor, the plain version on a CPU one."""
-    _validate_window(causal, window, sinks)
+    validate_window(causal, window, sinks)
     _gqa_dims(q, k, v)
     if not _dispatch(q, "flash_attention_dq"):
         return flash_attention_dq_reference(
@@ -396,7 +382,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal=False,
                         block_q=128, block_k=128, window=None, sinks=0):
     """B3: ``(dk, dv)`` [B, Tk, Hkv, D].  The kernel on a CUDA tensor,
     the plain version on a CPU one."""
-    _validate_window(causal, window, sinks)
+    validate_window(causal, window, sinks)
     _gqa_dims(q, k, v)
     if not _dispatch(q, "flash_attention_dkv"):
         return flash_attention_dkv_reference(
@@ -484,7 +470,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gradients.  The Hopper kernels on CUDA tensors, their plain versions
     on CPU tensors.
     """
-    _validate_window(causal, window, sinks)
+    validate_window(causal, window, sinks)
     cfg = dict(causal=causal, block_q=block_q, block_k=block_k,
                window=window, sinks=sinks)
     return _FlashAttention.apply(q, k, v, cfg)
@@ -498,7 +484,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``lse = log sum_k exp(q . k^T / sqrt(D))``.  Both outputs are
     differentiable; the LSE cotangent folds into the same backward
     kernels.  Rows with nothing attendable have ``lse ~ -1e30``."""
-    _validate_window(causal, window, 0)
+    validate_window(causal, window, 0)
     cfg = dict(causal=causal, block_q=block_q, block_k=block_k,
                window=window, sinks=0)
     return _FlashAttentionLse.apply(q, k, v, cfg)

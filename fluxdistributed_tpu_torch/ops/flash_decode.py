@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from .attention import NEG_INF, online_softmax_update
+from .attention import NEG_INF, online_softmax_update, validate_window
 
 __all__ = ["flash_decode", "flash_decode_paged",
            "flash_decode_paged_reference", "flash_decode_reference"]
@@ -44,10 +44,7 @@ def _validate(window, sinks, slot_pos, k_scale, v_scale):
         raise ValueError(
             "windowed decode needs BOTH window= and slot_pos= (the ring's "
             "position side buffer); plain decode needs neither")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
-    if sinks and window is None:
-        raise ValueError("sinks only make sense with a window")
+    validate_window(True, window, sinks)
     if (k_scale is None) != (v_scale is None):
         raise ValueError("quantized decode needs BOTH k_scale and v_scale")
 

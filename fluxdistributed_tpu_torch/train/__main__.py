@@ -89,7 +89,7 @@ def build_model(args, device, **kwargs):
 def _model_kwargs(args) -> dict:
     """The attention core and architecture flags, validated as the
     driver validates them."""
-    from ..ops import attention_core
+    from ..ops import attention_core, validate_window
 
     kw = {}
     if args.attn_block is not None and args.attn == "dense":
@@ -97,18 +97,16 @@ def _model_kwargs(args) -> dict:
                          "blockwise|flash")
     if args.attn_block is not None and args.attn_block <= 0:
         raise SystemExit(f"--attn-block must be > 0, got {args.attn_block}")
+    try:
+        validate_window(True, args.window, args.sinks)
+    except ValueError as e:
+        raise SystemExit(f"--window/--sinks: {e}")
     if args.window is not None:
-        if args.window < 1:
-            raise SystemExit(f"--window must be >= 1, got {args.window}")
         # the model field windows the dense core AND the decode path; a
         # non-dense attn_fn gets its own window below
         kw["window"] = args.window
         if args.sinks:
-            if args.sinks < 0:
-                raise SystemExit(f"--sinks must be >= 0, got {args.sinks}")
             kw["sinks"] = args.sinks
-    if args.sinks and args.window is None:
-        raise SystemExit("--sinks requires --window")
     if args.attn != "dense":
         kw["attn_fn"] = attention_core(
             args.attn, args.attn_block if args.attn_block else 128,

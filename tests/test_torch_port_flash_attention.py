@@ -242,6 +242,30 @@ def test_attention_core_names_and_decode_refusal():
             jnp.zeros((1, 9, 2, 16)))
 
 
+@pytest.mark.parametrize("window,sinks,match", [
+    (0, 0, "window must be >= 1"), (4, -1, "sinks must be >= 0"),
+    (None, 2, "sinks only make sense with a window")])
+def test_every_core_shares_the_window_rules(window, sinks, match):
+    """One validator (``ops.attention.validate_window``) holds the window
+    and sinks rules for the dense and blockwise cores, the core names,
+    the flash kernels and the model's attention."""
+    from fluxdistributed_tpu_torch.models import lm_tiny
+
+    q = torch.zeros(1, 8, 2, 16)
+    calls = [
+        lambda: dot_product_attention(q, q, q, causal=True, window=window,
+                                      sinks=sinks),
+        lambda: blockwise_attention(q, q, q, block_size=4, causal=True,
+                                    window=window, sinks=sinks),
+        lambda: attention_core("flash", 16, window=window, sinks=sinks),
+        lambda: flash_attention(q, q, q, True, 16, 16, window, sinks),
+        lambda: lm_tiny(vocab=32, device="cpu", window=window, sinks=sinks),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match=match):
+            call()
+
+
 @pytest.mark.parametrize("window,sinks", [(None, 0), (6, 2)])
 def test_blockwise_matches_jax(window, sinks):
     q, k, v, _ = _inputs(2, 40, 40, 4, 2, 16, seed=9)
