@@ -51,7 +51,25 @@ Phases, each of which raises on failure (exit code != 0, no result):
 11. train parity: two f32 lm_small steps (flash) on the card and on the
     CPU (plain versions) from the same weights and batches: losses and
     global grad norms agree;
-12. a ``{"kernels": [...]}`` line, then the result line
+12. fused-adam kernel: the fused Adam update (B6) against its plain
+    version at lm_small's packed size (109,632,512 f32 elements) at steps
+    0 and 7 with a schedule's learning rate: bit for bit, fresh outputs,
+    a ragged length refused; its time, the plain version's, the bound
+    (7 f32 streams over the HBM rate) and ``torch._fused_adam_`` on the
+    same buffers as the library yardstick;
+13. ZeRO-1 fused train: on a one-rank NCCL group, lm_small (flash,
+    synthetic-text vocab 256, B=8, T=1024, adam 3e-4) trained 40 steps
+    through ``make_train_step_zero1_fused``: the loss falls, B6 launches
+    once per step and B1-B3 depth x steps times; then at vocab 32000
+    (bf16, random tokens) the fused ZeRO-1 step, the composable ZeRO-1
+    step and the one-device step timed (step ms, tokens/s, MFU, peak
+    memory), and a profile of the fused step;
+14. ZeRO-1 CLI: ``python -m fluxdistributed_tpu_torch.train ... --zero1``
+    in-process, 20 cycles: the loss falls;
+15. ZeRO-1 parity: two f32 lm_small steps, fused ZeRO-1 on the card
+    against the one-device adam step on the card and the fused step on
+    the CPU (plain versions), from the same weights and batches;
+16. a ``{"kernels": [...]}`` line, then the result line
     ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -93,6 +111,14 @@ TRAIN_ARGV = ["--model", "lm_small", "--dataset", "synthetic-text",
               "--vocab", "256", "--seqlen", str(T_TRAIN), "--batch-size", "8",
               "--attn", "flash", "--opt", "adam", "--lr", "3e-4",
               "--cycles", "40", "--eval-every", "0"]
+ZERO1_ARGV = [*TRAIN_ARGV[:-4], "--cycles", "20", "--eval-every", "0",
+              "--zero1"]
+# the fused Adam kernel (B6): lm_small's packed ZeRO-1 buffer at one rank
+# (109,632,000 parameters at vocab 32000, padded to a multiple of 1024)
+ADAM_SOURCE = "fluxdistributed_tpu_torch/ops/csrc/fused_adam.cu"
+ADAM_REPLACES = "fluxdistributed_tpu/parallel/zero1_fused.py:127"
+ADAM_VIA = "fluxdistributed_tpu/parallel/zero1_fused.py:170"
+N_PACKED = 109_632_512
 
 
 def emit(obj) -> None:
@@ -697,8 +723,9 @@ def attn_counts():
 def reset_all_counts():
     from fluxdistributed_tpu_torch.ops.flash_decode import (
         flash_decode, flash_decode_paged)
+    from fluxdistributed_tpu_torch.ops.fused_adam import fused_adam
 
-    for w in (*attn_wrappers(), flash_decode, flash_decode_paged):
+    for w in (*attn_wrappers(), flash_decode, flash_decode_paged, fused_adam):
         w.launches = 0
 
 
@@ -1073,6 +1100,365 @@ def train_parity_phase(torch):
         raise RuntimeError(f"train_parity: card vs CPU differ: {rel}")
 
 
+def no_overlap(outs, ins) -> bool:
+    """True when no output's bytes overlap any input's."""
+    def span(t):
+        lo = t.data_ptr()
+        return lo, lo + t.numel() * t.element_size()
+
+    return all(span(o)[1] <= span(i)[0] or span(i)[1] <= span(o)[0]
+               for o in outs for i in ins)
+
+
+def fused_adam_phase(torch, bw, flush):
+    """B6 against its plain version at lm_small's packed size, steps 0
+    and 7, with a cosine schedule's learning rate; returns the step-7
+    row."""
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.ops.fused_adam import (fused_adam,
+                                                          fused_adam_plain)
+    from fluxdistributed_tpu_torch.parallel.zero1_fused import (
+        _step_scalars, fused_adam_update)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    p, grad, m, v = (torch.randn(N_PACKED, generator=g, device=dev)
+                     for _ in range(4))
+    grad.mul_(0.1)
+    m.mul_(0.01)
+    v.abs_().mul_(0.01)
+    lr = optim.cosine_decay(3e-4, 40)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    nbytes = 7 * 4 * N_PACKED  # p, g, m, v read; p', m', v' written
+    row = None
+    for step in (0, 7):
+        sc = _step_scalars(step, lr, b1, b2).to(dev)
+        out = fused_adam_update(p, grad, m, v, step, lr=lr)
+        ref = fused_adam_plain(p, grad, m, v, sc, b1, b2, eps)
+        torch.cuda.synchronize()
+        err = max((a - r).abs().max().item() for a, r in zip(out, ref))
+        equal = all(torch.equal(a, r) for a, r in zip(out, ref))
+        fresh = no_overlap(out, (p, grad, m, v, sc))
+        # the library yardstick: torch's fused Adam on copies (in place;
+        # it divides sqrt(v) by sqrt(c2) and adds eps after, so its
+        # numbers differ and are recorded, not held)
+        lib = [t.clone() for t in (p, grad, m, v)]
+        t_step = [torch.tensor([float(step + 1)], device=dev)]
+        eta = float(sc[0])
+
+        def library():
+            torch._fused_adam_([lib[0]], [lib[1]], [lib[2]], [lib[3]], [],
+                               t_step, lr=eta, beta1=b1, beta2=b2,
+                               weight_decay=0.0, eps=eps, amsgrad=False,
+                               maximize=False)
+
+        library()
+        torch.cuda.synchronize()
+        lib_err = (lib[0] - out[0]).abs().max().item()
+        del out, ref
+        row = {"phase": "fused_adam_kernel", "n": N_PACKED, "step": step,
+               "lr": eta, "max_abs_err": err, "bitwise_equal": equal,
+               "outputs_fresh": fresh, "tol": 0.0,
+               "ms": time_ms(torch, lambda: fused_adam(
+                   p, grad, m, v, sc, b1=b1, b2=b2, eps=eps), flush),
+               "plain_ms": time_ms(torch, lambda: fused_adam_plain(
+                   p, grad, m, v, sc, b1, b2, eps), flush, iters=10),
+               "library_ms": time_ms(torch, library, flush),
+               "library": "torch._fused_adam_",
+               "library_max_abs_err_p": lib_err,
+               "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes",
+               "bytes": nbytes}
+        del lib
+        emit(row)
+        if not (equal and err == 0.0 and fresh):
+            raise RuntimeError(f"fused_adam step {step}: bitwise {equal}, "
+                               f"max |err| {err}, outputs fresh {fresh}")
+    try:
+        fused_adam_update(p[:1000], grad[:1000], m[:1000], v[:1000], 0)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("fused_adam_update took a ragged length")
+    del p, grad, m, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def zero1_train_phase(torch, peaks):
+    """On a one-rank NCCL group: lm_small trained 40 steps through the
+    fused ZeRO-1 step, then the three steps timed at vocab 32000 and a
+    profile of the fused one.  Returns B6's launches in the 40 steps."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.data import (PrefetchLoader,
+                                                SyntheticTextDataset)
+    from fluxdistributed_tpu_torch.mesh import (init_distributed,
+                                                shutdown_distributed)
+    from fluxdistributed_tpu_torch.models import lm_loss_fn, lm_small
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.ops.fused_adam import fused_adam
+    from fluxdistributed_tpu_torch.parallel import (
+        TrainState, make_train_step, make_train_step_zero1,
+        make_train_step_zero1_fused, packed_size, zero1_fused_state,
+        zero1_state)
+
+    mesh = init_distributed("cuda")
+    try:
+        if (torch.distributed.get_backend(), mesh.size) != ("nccl", 1):
+            raise RuntimeError(f"zero1: expected one NCCL rank, got "
+                               f"{torch.distributed.get_backend()} x "
+                               f"{mesh.size}")
+        steps = 40
+        model = lm_small(vocab=256, attn_fn=attention_core("flash"), seed=0)
+        loader = PrefetchLoader(
+            SyntheticTextDataset(vocab=256, seqlen=T_TRAIN), B, cycles=steps,
+            mesh=mesh)
+        state = zero1_fused_state(dict(model.named_parameters()), mesh)
+        step = make_train_step_zero1_fused(lm_loss_fn(model), mesh, lr=3e-4)
+        reset_all_counts()  # count this run's main path only
+        t0 = time.perf_counter()
+        losses = []
+        for batch in loader:
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        losses = torch.stack(losses).float().cpu().tolist()
+        wall = time.perf_counter() - t0
+        launches, attn = fused_adam.launches, attn_counts()
+        first, last = sum(losses[:3]) / 3, sum(losses[-5:]) / 5
+        emit({"phase": "zero1_train", "model": "lm_small", "vocab": 256,
+              "batch": B, "seqlen": T_TRAIN, "opt": "adam", "lr": 3e-4,
+              "ranks": mesh.size, "backend": "nccl", "steps": steps,
+              "wall_s": wall, "losses": losses, "loss_first3_mean": first,
+              "loss_last5_mean": last, "fused_adam_launches": launches,
+              "attn_launches": attn,
+              "opt_state_elems": [state.opt_state["m"].numel(),
+                                  state.opt_state["v"].numel()]})
+        if not all(math.isfinite(x) for x in losses) or not last < 1.5:
+            raise RuntimeError(f"zero1_train: loss {first:.3f} -> {last:.3f} "
+                               "(want below 1.5)")
+        if launches != steps or attn != [model.depth * steps] * 3:
+            raise RuntimeError(f"zero1_train: B6 {launches} launches for "
+                               f"{steps} steps, B1-B3 {attn}")
+        del model, state, step, loader
+        torch.cuda.empty_cache()
+
+        model = lm_small(vocab=32000, attn_fn=attention_core("flash"), seed=0)
+        params = dict(model.named_parameters())
+        nparams = sum(p.numel() for p in params.values())
+        if packed_size(params, 1) != N_PACKED:
+            raise RuntimeError(f"lm_small packs to {packed_size(params, 1)}, "
+                               f"not {N_PACKED}")
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, 32000, (B, T_TRAIN)).astype(np.int32)).cuda()
+        batch = {"tokens": toks}
+        loss_fn, opt = lm_loss_fn(model), optim.adam(3e-4)
+        makers = {
+            "zero1_fused": lambda: (
+                zero1_fused_state(params, mesh),
+                make_train_step_zero1_fused(loss_fn, mesh, lr=3e-4)),
+            "zero1": lambda: (zero1_state(params, opt, mesh),
+                              make_train_step_zero1(loss_fn, opt, mesh)),
+            "one_device": lambda: (
+                TrainState.create({k: p.detach().clone()
+                                   for k, p in params.items()}, opt),
+                make_train_step(loss_fn, opt)),
+        }
+        for mode, make in makers.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, step = make()
+            for _ in range(3):
+                state, m = step(state, batch)
+            torch.cuda.synchronize()
+            before = fused_adam.launches
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(11)]
+            ev[0].record()
+            for i in range(10):
+                state, m = step(state, batch)
+                ev[i + 1].record()
+            torch.cuda.synchronize()
+            ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(10)]
+            step_ms = sum(ms) / len(ms)
+            tok_s = B * T_TRAIN / (step_ms / 1e3)
+            row = {"phase": "zero1_step", "mode": mode, "model": "lm_small",
+                   "vocab": 32000, "batch": B, "seqlen": T_TRAIN,
+                   "dtype": "bfloat16", "opt": "adam", "ranks": mesh.size,
+                   "params": nparams, "step_ms": step_ms, "step_ms_each": ms,
+                   "tokens_per_s": tok_s,
+                   "mfu": 6 * nparams * tok_s / peaks["bf16"],
+                   "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                   "fused_adam_launches": fused_adam.launches - before,
+                   "loss": m["loss"].item()}
+            emit(row)
+            want = 10 if mode == "zero1_fused" else 0
+            if row["fused_adam_launches"] != want or not math.isfinite(
+                    row["loss"]):
+                raise RuntimeError(f"zero1_step {mode}: {row}")
+            if mode == "zero1_fused":
+                profile_zero1_step(torch, state, step, batch)
+            del state, step, m
+            torch.cuda.empty_cache()
+        del model, params
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutdown_distributed()
+
+
+def profile_zero1_step(torch, state, step, batch, steps=3):
+    """Where a fused ZeRO-1 step's time goes: wall per step, device busy
+    per step, B6's device time and the NCCL collectives' entries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    dev = {}
+    for r in prof.key_averages():
+        if r.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(r, "self_device_time_total",
+                         getattr(r, "self_cuda_time_total", 0.0))
+            dev[r.key] = dev.get(r.key, 0.0) + us
+    busy_ms = sum(dev.values()) / steps / 1e3
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    b6 = sum(us for k, us in dev.items() if "fused_adam" in k)
+    nccl = {k[:70]: us / steps / 1e3 for k, us in dev.items()
+            if "nccl" in k.lower()}
+    emit({"phase": "zero1_profile", "what": "lm_small fused ZeRO-1 step "
+          "(bf16, B=8, T=1024, vocab 32000, one NCCL rank)", "steps": steps,
+          "wall_ms_per_step": wall_ms,
+          "device_busy_ms_per_step": busy_ms if dev else None,
+          "device_idle_share": 1 - busy_ms / wall_ms if dev else None,
+          "fused_adam_device_ms_per_step": b6 / steps / 1e3 if dev else None,
+          "nccl_device_ms_per_step": nccl,
+          "top_device_ms_per_step": [[k[:70], v / steps / 1e3]
+                                     for k, v in top]})
+
+
+def zero1_cli_phase(torch):
+    """``python -m fluxdistributed_tpu_torch.train ... --zero1``
+    in-process (composable ZeRO-1 on a one-rank NCCL group)."""
+    from fluxdistributed_tpu_torch.ops.fused_adam import fused_adam
+    from fluxdistributed_tpu_torch.train.__main__ import run
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    task = run(ZERO1_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses, steps = task.losses, task.state.step
+    first, last = sum(losses[:3]) / 3, sum(losses[-5:]) / 5
+    attn = attn_counts()
+    emit({"phase": "zero1_cli", "argv": ZERO1_ARGV, "steps": steps,
+          "ranks": task.mesh.size, "wall_s": wall, "losses": losses,
+          "loss_first3_mean": first, "loss_last5_mean": last,
+          "attn_launches": attn, "fused_adam_launches": fused_adam.launches,
+          "group_ended": not torch.distributed.is_initialized()})
+    if len(losses) != 20 or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"zero1_cli: {len(losses)} losses, not all finite")
+    if not last <= first - 1.0 or torch.distributed.is_initialized():
+        raise RuntimeError(f"zero1_cli: loss {first:.3f} -> {last:.3f}, "
+                           "group ended "
+                           f"{not torch.distributed.is_initialized()}")
+    if attn != [task.model.depth * steps] * 3:
+        raise RuntimeError(f"zero1_cli: attention launches {attn}")
+
+
+# ZeRO-1 parity: the card's fused step against the card's one-device adam
+# step and the CPU's fused step.  Losses 1e-5 relative.  Params: Adam's
+# update lr * mhat / (sqrt(vhat) + eps) is about lr * sign(g) for a
+# gradient well above eps, so an entry whose gradient is near 0 and
+# differs in sign between two runs (the card sums in another order than
+# the CPU, and sums the embedding gradient with atomics) moves by up to
+# ~2 lr per step apart.  Params are held to 2 lr x steps absolute, and at
+# most 1e-3 of the entries may differ by more than 1e-6.
+PARITY_LR = 3e-4
+
+
+def zero1_parity_phase(torch):
+    """Two f32 lm_small steps from the same weights and batches: the
+    fused ZeRO-1 step on a one-rank NCCL group (B1-B3, B6) against the
+    card's one-device adam step and the fused step on the CPU."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.mesh import (init_distributed,
+                                                shutdown_distributed)
+    from fluxdistributed_tpu_torch.models import lm_loss_fn, lm_small
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.ops.fused_adam import fused_adam
+    from fluxdistributed_tpu_torch.parallel import (
+        TrainState, make_train_step, make_train_step_zero1_fused,
+        zero1_fused_state)
+
+    rng = np.random.default_rng(4)
+    batches = [rng.integers(0, 32000, (2, 128)).astype(np.int32)
+               for _ in range(2)]
+
+    def run(where, fused):
+        model = lm_small(vocab=32000, dtype=torch.float32, seed=2,
+                         attn_fn=attention_core("flash"), device=where)
+        loss_fn = lm_loss_fn(model)
+        mesh = init_distributed(where) if fused else None
+        try:
+            if fused:
+                state = zero1_fused_state(dict(model.named_parameters()), mesh)
+                step = make_train_step_zero1_fused(loss_fn, mesh,
+                                                   lr=PARITY_LR)
+            else:
+                opt = optim.adam(PARITY_LR)
+                state = TrainState.create(dict(model.named_parameters()), opt)
+                step = make_train_step(loss_fn, opt)
+            before = fused_adam.launches
+            losses = []
+            for b in batches:
+                state, m = step(state,
+                                {"tokens": torch.from_numpy(b).to(where)})
+                losses.append(m["loss"].item())
+            used = fused_adam.launches - before
+            return losses, {k: p.cpu() for k, p in state.params.items()}, used
+        finally:
+            if fused:
+                shutdown_distributed()
+
+    card = run("cuda", True)
+    refs = {"card_one_device": run("cuda", False),
+            "cpu_fused": run("cpu", True)}
+    row = {"phase": "zero1_parity", "model": "lm_small", "dtype": "float32",
+           "batch": 2, "seqlen": 128, "steps": 2, "lr": PARITY_LR,
+           "card_fused_losses": card[0], "fused_adam_launches": card[2],
+           "tol": {"loss_rel": 1e-5,
+                   "param_abs": 2 * PARITY_LR * len(batches),
+                   "share_past_1e-6": 1e-3}}
+    bad = []
+    for name, (losses, params, used) in refs.items():
+        rel = [abs(a - b) / abs(b) for a, b in zip(card[0], losses)]
+        diff = [(card[1][k] - p).abs() for k, p in params.items()]
+        worst = max(d.max().item() for d in diff)
+        over = sum(int((d > 1e-6).sum()) for d in diff)
+        total = sum(d.numel() for d in diff)
+        row[name] = {"losses": losses, "loss_rel_diff": rel,
+                     "param_max_abs_diff": worst,
+                     "params_past_1e-6": over, "params": total,
+                     "fused_adam_launches": used}
+        if (max(rel) > 1e-5 or worst > 2 * PARITY_LR * len(batches)
+                or over > 1e-3 * total):
+            bad.append(name)
+    emit(row)
+    if bad or card[2] != 2 or refs["cpu_fused"][2] != 0:
+        raise RuntimeError(f"zero1_parity: {bad} out of tolerance, B6 "
+                           f"launches card {card[2]}")
+
+
 def main() -> int:
     import torch
 
@@ -1122,6 +1508,12 @@ def main() -> int:
     attn_launches = train_phase(torch)
     train_step_phase(torch, peaks)
     train_parity_phase(torch)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    adam_row = fused_adam_phase(torch, bw, flush)
+    del flush
+    adam_launches = zero1_train_phase(torch, peaks)
+    zero1_cli_phase(torch)
+    zero1_parity_phase(torch)
 
     def kernel_entry(name, source, replaces, via, launches, row):
         return {"name": name, "route": "cuda", "source": source,
@@ -1138,7 +1530,9 @@ def main() -> int:
         *(kernel_entry(name, ATTN_SOURCE, replaces, via, n, row)
           for (name, replaces, via), n, row in zip(
               ATTN_KERNELS, attn_launches,
-              (attn_rows["fwd"], attn_rows["dq"], attn_rows["dkv"])))]})
+              (attn_rows["fwd"], attn_rows["dq"], attn_rows["dkv"]))),
+        kernel_entry("fused_adam", ADAM_SOURCE, ADAM_REPLACES, ADAM_VIA,
+                     adam_launches, adam_row)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

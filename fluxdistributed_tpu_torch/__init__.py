@@ -6,10 +6,13 @@ replaced by a kernel written by hand for ``sm_90a``.  Ported so far:
 LM serving over the dense slot KV cache and the paged block pool (the
 model and its decode caches, :mod:`.models.transformer_lm`; the
 flash-decode kernels, :mod:`.ops.flash_decode`; the engine, scheduler
-and HTTP server, :mod:`.serve`), and LM training on one GPU (the
+and HTTP server, :mod:`.serve`), LM training on one GPU (the
 flash-attention kernels, :mod:`.ops.flash_attention`; :mod:`.optim`,
 :mod:`.data`, :mod:`.parallel` and :mod:`.train`, with the CLI
-``python -m fluxdistributed_tpu_torch.train``).
+``python -m fluxdistributed_tpu_torch.train``), and data-parallel and
+ZeRO-1 training across process ranks (:mod:`.mesh`, :mod:`.sharding`,
+:mod:`.parallel.zero1`, :mod:`.parallel.zero1_fused` and the fused Adam
+kernel, :mod:`.ops.fused_adam`).
 
 The port imports ``torch`` and never ``jax``, ``flax`` or the JAX
 package.  Entry points run on ``cuda`` unless the caller passes

@@ -1,15 +1,18 @@
-"""Prefetching one-device data loader.
+"""Prefetching data loader, for one device or one rank of a mesh.
 
-Port of ``fluxdistributed_tpu/data/loader.py`` for one device: worker
-threads assemble host batches ahead of the training loop and copy them
-to the device, so the host-to-device transfer overlaps compute.  On a
-GPU each batch is staged in pinned host memory and copied with
-``non_blocking=True`` (a copy from pageable memory would synchronise the
-stream).  Batch ``i`` is drawn from ``np.random.default_rng((seed, 0,
-i))``, exactly as the JAX loader draws it on process 0, so both packages
-see the same tokens for the same seed, and a run that starts at item
-``start`` sees the same batches from there on.  Queue depth and timings
-land in the process registry under the JAX names (``fdtpu_data_*``).
+Port of ``fluxdistributed_tpu/data/loader.py``: worker threads assemble
+host batches ahead of the training loop and copy them to the device,
+so the host-to-device transfer overlaps compute.  On a GPU each batch
+is staged in pinned host memory and copied with ``non_blocking=True`` (a
+copy from pageable memory would synchronise the stream).  Batch ``i`` is
+drawn from ``np.random.default_rng((seed, 0, i))``, exactly as the JAX
+loader draws it on process 0, so both packages see the same tokens for
+the same seed, and a run that starts at item ``start`` sees the same
+batches from there on.  With a mesh every rank draws that same global
+batch and keeps its own rows (:func:`..sharding.shard_batch`): what one
+JAX process feeding an N-device mesh does, so N ranks see the JAX
+N-device step's data.  Queue depth and timings land in the process
+registry under the JAX names (``fdtpu_data_*``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..mesh import Mesh
 
 __all__ = ["PrefetchLoader", "batch_to_dict"]
 
@@ -57,8 +61,10 @@ class PrefetchLoader:
     :func:`batch_to_dict`).  ``cycles`` batches are produced; ``None``
     derives ``len(dataset) * epochs // batch_size``.  ``buffersize`` is
     the prefetch depth, ``num_threads`` the workers, ``start`` the first
-    item (a resume cursor).  ``device`` defaults to ``cuda`` (see
-    :func:`..device.resolve_device`).
+    item (a resume cursor).  ``batch_size`` is the global batch; with a
+    ``mesh`` each rank yields its ``batch_size / N`` rows of it, on the
+    mesh's device.  ``device`` defaults to the mesh's, else ``cuda``
+    (see :func:`..device.resolve_device`).
     """
 
     def __init__(
@@ -72,6 +78,7 @@ class PrefetchLoader:
         num_threads: int = 2,
         start: int = 0,
         device: DeviceLike = None,
+        mesh: Optional[Mesh] = None,
     ):
         from ..obs import get_registry
 
@@ -84,8 +91,13 @@ class PrefetchLoader:
         self.buffersize = max(1, buffersize)
         self.seed = seed
         self.num_threads = max(1, num_threads)
+        if mesh is not None and batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} does not split over "
+                             f"{mesh.size} ranks")
         self.start = start
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            mesh.device if device is None and mesh is not None else device)
         reg = get_registry()
         self._m_depth = reg.gauge(
             "fdtpu_data_prefetch_depth",
@@ -112,10 +124,16 @@ class PrefetchLoader:
 
     def _assemble(self, i: int):
         """Host-side assembly of item ``i``: a pure function of (seed,
-        process 0, index), whichever worker assembles it."""
+        process 0, index), whichever worker assembles it; with a mesh,
+        this rank's rows of it."""
         rng = np.random.default_rng((self.seed, 0, i))
-        return batch_to_dict(self.dataset.batch(rng, self.batch_size),
-                             getattr(self.dataset, "nclasses", None))
+        out = batch_to_dict(self.dataset.batch(rng, self.batch_size),
+                            getattr(self.dataset, "nclasses", None))
+        if self.mesh is not None:
+            from ..sharding import shard_batch
+
+            out = shard_batch(out, self.mesh)
+        return out
 
     def _put(self, host: dict) -> dict:
         """Host arrays → device tensors: pinned staging and an

@@ -1,6 +1,6 @@
 """Attention ops and the hand-written kernels: flash decode (dense and
 paged) for serving, flash attention (forward and backward) for
-training."""
+training, and the fused Adam update for ZeRO-1."""
 
 from .attention import (NEG_INF, AttnCarry, attention_core,
                         attn_block_update, attn_finalize, attn_init,
@@ -16,6 +16,7 @@ from .flash_attention import (flash_attention, flash_attention_dkv,
 from .flash_decode import (flash_decode, flash_decode_paged,
                            flash_decode_paged_reference,
                            flash_decode_reference)
+from .fused_adam import fused_adam, fused_adam_plain
 
 __all__ = ["NEG_INF", "AttnCarry", "attention_core", "attn_block_update",
            "attn_finalize", "attn_init", "blockwise_attention",
@@ -25,4 +26,5 @@ __all__ = ["NEG_INF", "AttnCarry", "attention_core", "attn_block_update",
            "flash_attention_fwd_reference", "flash_attention_lse",
            "flash_decode", "flash_decode_paged",
            "flash_decode_paged_reference", "flash_decode_reference",
+           "fused_adam", "fused_adam_plain",
            "online_softmax_update", "validate_window"]

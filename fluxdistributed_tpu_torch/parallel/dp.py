@@ -1,9 +1,18 @@
-"""The training step on one device.
+"""The data-parallel training step, on one device or across ranks.
 
 Port of ``fluxdistributed_tpu/parallel/dp.py`` (``TrainState``,
-``make_train_step``, ``make_eval_step``, ``guard_sentinel``) for one
-device; the mesh, shardings and collectives come with the multi-GPU
-slice.  A loss function has the JAX signature::
+``make_train_step``, ``make_train_step_shardmap``, ``make_eval_step``,
+``guard_sentinel``).  Without a mesh the step runs on one device.  With
+a :class:`..mesh.Mesh` of N ranks every rank holds a replica of the
+state and its own rows of the batch (:func:`..sharding.shard_batch`):
+it computes the gradient of its rows' mean loss, sums the gradients
+over the ranks with an all-reduce and divides by N, and applies the
+same update, so the replicas stay equal.  That is the schedule of the
+JAX ``make_train_step_shardmap`` (dp.py:376-384); its GSPMD
+``make_train_step`` differentiates the global mean instead, which is
+the same update up to the order of the sums.  The loss and the mutable
+model state are averaged over the ranks the same way.  A loss function
+has the JAX signature::
 
     loss_fn(params, model_state, batch, train, rng=None)
         -> (loss, (new_model_state, aux))
@@ -21,14 +30,16 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from ..mesh import Mesh
 from ..optim import Optimizer
+from . import collectives
 
-__all__ = ["TrainState", "guard_sentinel", "make_eval_step",
-           "make_train_step"]
+__all__ = ["TrainState", "guard_sentinel", "local_grads", "make_eval_step",
+           "make_train_step", "make_train_step_shardmap"]
 
 
 @dataclasses.dataclass
@@ -60,11 +71,16 @@ def _accepts_rng(loss_fn: Callable) -> bool:
         q.kind is inspect.Parameter.VAR_KEYWORD for q in sig.parameters.values())
 
 
-def _step_seed(seed: int, step: int) -> int:
+def _step_seed(seed: int, step: int, rank: Optional[int] = None) -> int:
     """The per-step dropout seed, rooted at the user seed (the JAX
     ``fold_in(PRNGKey(seed), step)``): two seeds draw different masks,
-    the same seed reproduces a run."""
-    return ((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
+    the same seed reproduces a run.  A rank of a mesh folds in its index
+    (the JAX ``fold_in(..., axis_index)``), so the ranks' rows draw
+    independent masks; ``rank=None`` is the one-device seed."""
+    s = ((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
+    if rank is None:
+        return s
+    return ((s * 0x100000001B3) ^ (int(rank) + 1)) & 0x7FFFFFFFFFFFFFFF
 
 
 def guard_sentinel(loss: torch.Tensor, grads: Dict[str, torch.Tensor]):
@@ -80,21 +96,7 @@ def guard_sentinel(loss: torch.Tensor, grads: Dict[str, torch.Tensor]):
     return torch.stack([loss.float() + 0.0 * gnorm, gnorm])
 
 
-def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
-                    accum_steps: int = 1, seed: int = 0,
-                    steps_per_call: int = 1, guard: bool = False):
-    """``step_fn(state, batch) -> (state, metrics)``.
-
-    ``accum_steps > 1`` splits the batch's leading dim into that many
-    microbatches, run one after the other (activations of one live at a
-    time), and averages their gradients and losses: the same update as
-    one full batch for a mean loss.  ``seed`` roots the per-step dropout
-    seed (microbatch ``i`` of step ``s`` draws ``s * accum_steps + i``,
-    as the JAX step does).  ``guard=True`` adds ``metrics["guard"]``
-    (:func:`guard_sentinel`).  ``steps_per_call > 1`` (the JAX device
-    loop, a dispatch trick whose counterpart here is a CUDA graph) is
-    not ported yet.
-    """
+def _check_step_options(accum_steps: int, steps_per_call: int) -> None:
     if steps_per_call != 1:
         if steps_per_call < 1:
             raise ValueError(
@@ -105,42 +107,89 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
             "for a later slice (ROADMAP)")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+
+
+def local_grads(loss_fn: Callable, *, accum_steps: int = 1, seed: int = 0,
+                mesh: Optional[Mesh] = None) -> Callable:
+    """``fn(params, model_state, batch, step) -> (loss, model_state,
+    grads)``: the loss and the gradients of this rank's rows, before any
+    exchange between ranks (``grads`` maps every param name to a tensor,
+    or ``None`` for a param the loss does not use).
+
+    ``accum_steps > 1`` splits the rows into that many microbatches run
+    one after the other and averages their gradients and losses.  The
+    dropout seed of microbatch ``i`` of step ``s`` is ``s * accum_steps
+    + i`` rooted at ``seed``, with this rank folded in when there is a
+    mesh.  The steps of :mod:`.dp`, :mod:`.zero1` and :mod:`.zero1_fused`
+    all start here."""
     with_rng = _accepts_rng(loss_fn)
+    rank = None if mesh is None else mesh.rank
 
     def grad_of(params, mstate, batch, step_idx):
         leaves = {k: p.detach().requires_grad_(True)
                   for k, p in params.items()}
-        kw = {"rng": _step_seed(seed, step_idx)} if with_rng else {}
+        kw = {"rng": _step_seed(seed, step_idx, rank)} if with_rng else {}
         loss, (mstate, _) = loss_fn(leaves, mstate, batch, True, **kw)
         names = list(leaves)
         grads = torch.autograd.grad(loss, [leaves[n] for n in names],
                                     allow_unused=True)
         return loss.detach(), mstate, dict(zip(names, grads))
 
-    def step(state: TrainState, batch):
+    def fn(params, mstate, batch, step):
         if accum_steps == 1:
-            loss, mstate, grads = grad_of(state.params, state.model_state,
-                                          batch, state.step)
-        else:
-            n = next(iter(batch.values())).shape[0]
-            if n % accum_steps:
-                raise ValueError(f"batch of {n} does not split into "
-                                 f"accum_steps={accum_steps} microbatches")
-            micro = {k: v.reshape(accum_steps, n // accum_steps, *v.shape[1:])
-                     for k, v in batch.items()}
-            mstate, gsum, lsum = state.model_state, None, 0.0
-            for i in range(accum_steps):
-                mb = {k: v[i] for k, v in micro.items()}
-                l, mstate, g = grad_of(state.params, mstate, mb,
-                                       state.step * accum_steps + i)
-                lsum = lsum + l
-                # an unused param has a None gradient in every microbatch
-                gsum = g if gsum is None else {
-                    k: None if a is None else a + g[k] for k, a in gsum.items()}
-            grads = {k: None if g is None else g / accum_steps
-                     for k, g in gsum.items()}
-            loss = lsum / accum_steps
+            return grad_of(params, mstate, batch, step)
+        n = next(iter(batch.values())).shape[0]
+        if n % accum_steps:
+            raise ValueError(f"batch of {n} does not split into "
+                             f"accum_steps={accum_steps} microbatches")
+        micro = {k: v.reshape(accum_steps, n // accum_steps, *v.shape[1:])
+                 for k, v in batch.items()}
+        gsum, lsum = None, 0.0
+        for i in range(accum_steps):
+            mb = {k: v[i] for k, v in micro.items()}
+            l, mstate, g = grad_of(params, mstate, mb, step * accum_steps + i)
+            lsum = lsum + l
+            # an unused param has a None gradient in every microbatch
+            gsum = g if gsum is None else {
+                k: None if a is None else a + g[k] for k, a in gsum.items()}
+        grads = {k: None if g is None else g / accum_steps
+                 for k, g in gsum.items()}
+        return lsum / accum_steps, mstate, grads
+
+    return fn
+
+
+def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
+                    mesh: Optional[Mesh] = None, accum_steps: int = 1,
+                    seed: int = 0, steps_per_call: int = 1,
+                    guard: bool = False):
+    """``step_fn(state, batch) -> (state, metrics)``.
+
+    ``mesh=None`` runs on one device.  With a mesh, ``batch`` holds this
+    rank's rows and ``state`` this rank's replica: the gradients are
+    summed over the ranks with an all-reduce and divided by their
+    number, and ``metrics["loss"]`` is the mean over the ranks.
+    ``accum_steps > 1`` splits the rows into that many microbatches, run
+    one after the other (activations of one live at a time), and
+    averages their gradients and losses: the same update as one full
+    batch for a mean loss.  ``seed`` roots the per-step dropout seed
+    (see :func:`local_grads`).  ``guard=True`` adds
+    ``metrics["guard"]`` (:func:`guard_sentinel`, of the summed
+    gradients).  ``steps_per_call > 1`` (the JAX device loop, a dispatch
+    trick whose counterpart here is a CUDA graph) is not ported yet.
+    """
+    _check_step_options(accum_steps, steps_per_call)
+    grads_of = local_grads(loss_fn, accum_steps=accum_steps, seed=seed,
+                           mesh=mesh)
+
+    def step(state: TrainState, batch):
+        loss, mstate, grads = grads_of(state.params, state.model_state,
+                                       batch, state.step)
         with torch.no_grad():
+            if mesh is not None:
+                grads = collectives.pmean(grads, mesh)
+                loss = collectives.pmean(loss, mesh)
+                mstate = collectives.pmean(mstate, mesh)
             new_params, new_opt = optimizer.apply(
                 state.params, grads, state.opt_state, state.step)
             metrics = {"loss": loss}
@@ -152,14 +201,26 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
     return step
 
 
-def make_eval_step(loss_fn: Callable):
+def make_train_step_shardmap(loss_fn: Callable, optimizer: Optimizer,
+                             mesh: Mesh, *, seed: int = 0):
+    """The explicit per-rank DP step under its JAX name: each rank's
+    gradients, one all-reduce per gradient, the mean, the same update
+    everywhere.  In eager PyTorch this is :func:`make_train_step` with a
+    mesh; like the JAX shard_map step it takes no ``accum_steps``."""
+    return make_train_step(loss_fn, optimizer, mesh=mesh, seed=seed)
+
+
+def make_eval_step(loss_fn: Callable, mesh: Optional[Mesh] = None):
     """``eval_fn(state, batch) -> (loss, metrics)`` under ``no_grad``:
     the JAX eval step with ``topk=()`` (the top-k image metrics come with
-    the vision slice), so ``metrics`` is empty."""
+    the vision slice), so ``metrics`` is empty.  With a mesh, ``batch``
+    holds this rank's rows and the loss is the mean over the ranks."""
 
     @torch.no_grad()
     def step(state: TrainState, batch):
         loss, _ = loss_fn(state.params, state.model_state, batch, False)
+        if mesh is not None:
+            loss = collectives.pmean(loss, mesh)
         return loss, {}
 
     return step

@@ -2,7 +2,7 @@
 ``python -m fluxdistributed_tpu_torch.train``.
 
 The LM subset of the JAX package's ``bin/driver.py``, with its flag
-names and defaults, for one device::
+names and defaults::
 
     python -m fluxdistributed_tpu_torch.train --model lm_small \\
         --dataset synthetic-text --vocab 256 --seqlen 1024 --batch-size 8 \\
@@ -10,14 +10,23 @@ names and defaults, for one device::
 
 runs on the GPU, through the hand-written flash-attention kernels with
 ``--attn flash``.  ``--device cpu`` runs the same path on the CPU with
-the kernels' plain versions.  The driver's image models and datasets,
-its other ``--spmd`` modes, checkpoints, the guard, fault plans and AOT
-belong to later slices and are not accepted.
+the kernels' plain versions.  ``--zero1`` shards the optimizer state and
+update over the ranks (ZeRO-1), ``--spmd shard_map`` names the explicit
+per-rank step; both run on a process group, which is one rank unless
+the command runs under ``torchrun``::
+
+    torchrun --nproc-per-node 4 -m fluxdistributed_tpu_torch.train ...
+
+(one rank per GPU; ``--batch-size`` is the global batch).  The JAX
+CLI's image models and datasets, its other ``--spmd`` modes,
+checkpoints, the guard, fault plans and AOT belong to later slices and
+are not accepted.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 __all__ = ["build_model", "build_parser", "main", "run"]
@@ -72,6 +81,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--norm", default="layernorm",
                    choices=["layernorm", "rmsnorm"])
     p.add_argument("--mlp", default="gelu", choices=["gelu", "swiglu"])
+    p.add_argument("--spmd", default="jit",
+                   choices=["jit", "dp", "shard_map"],
+                   help="data-parallel mode: jit/dp (one device, or DP "
+                        "across torchrun ranks) or shard_map (the explicit "
+                        "per-rank step); the JAX CLI's other modes are not "
+                        "ported")
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1 weight-update sharding for the DP paths "
+                        "(--spmd jit/dp/shard_map): reduce-scatter grads, "
+                        "shard the optimizer state and update 1/N over the "
+                        "ranks, all-gather updated params — DP-identical "
+                        "numerics, ~N x lower optimizer memory")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu (the kernels' plain "
                         "versions)")
@@ -126,14 +147,8 @@ def run(argv=None):
     loss).  ``main`` is this plus an exit code."""
     args = build_parser().parse_args(argv)
 
-    import torch
-
-    from .. import optim
     from ..data import ByteTextDataset, SyntheticTextDataset
     from ..device import resolve_device
-    from ..models import lm_loss_fn
-    from .logging import ConsoleLogger
-    from .trainer import prepare_training, train
 
     device = resolve_device(args.device)
     if args.dataset == "synthetic-text":
@@ -151,6 +166,34 @@ def run(argv=None):
         raise SystemExit("--cycles is required for unbounded token streams "
                          "(synthetic-text has no epoch length; text: "
                          "datasets derive cycles from --epochs)")
+    # a process group for ZeRO-1, the shard_map step, or torchrun's ranks;
+    # one this call forms, it also ends
+    mesh, formed = None, False
+    if args.zero1 or args.spmd == "shard_map" or "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+
+        from ..mesh import init_distributed
+
+        formed = not dist.is_initialized()
+        mesh = init_distributed(device)
+        device = mesh.device
+    try:
+        return _train(args, dataset, device, mesh)
+    finally:
+        if formed:
+            from ..mesh import shutdown_distributed
+
+            shutdown_distributed()
+
+
+def _train(args, dataset, device, mesh):
+    import torch
+
+    from .. import optim
+    from ..models import lm_loss_fn
+    from .logging import ConsoleLogger, NullLogger
+    from .trainer import prepare_training, train
+
     try:
         model = build_model(args, device, **_model_kwargs(args))
     except ValueError as e:  # e.g. --kv-heads not dividing num_heads
@@ -160,19 +203,30 @@ def run(argv=None):
     if args.total_steps:
         lr = optim.warmup_cosine(args.lr, args.warmup_steps, args.total_steps)
     opt = getattr(optim, args.opt)(lr)
-    task = prepare_training(
-        model, dataset, opt, loss_fn=lm_loss_fn(model),
-        batch_size=args.batch_size, epochs=args.epochs, cycles=args.cycles,
-        device=device)
+    try:
+        task = prepare_training(
+            model, dataset, opt, loss_fn=lm_loss_fn(model),
+            batch_size=args.batch_size, epochs=args.epochs,
+            cycles=args.cycles, spmd=args.spmd, zero1=args.zero1, mesh=mesh,
+            device=device)
+    except ValueError as e:  # e.g. a batch that does not split over ranks
+        raise SystemExit(f"--spmd {args.spmd}: {e}")
+    lead = mesh is None or mesh.rank == 0
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"device: {device} ({name}), model {args.model} "
-          f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, "
-          f"{str(model.dtype).split('.')[-1]}), attn {args.attn}", flush=True)
+    ranks = "" if mesh is None else (
+        f", {mesh.size} rank(s) ({torch.distributed.get_backend()})"
+        f"{', zero1' if args.zero1 else ''}")
+    if lead:
+        print(f"device: {device} ({name}){ranks}, model {args.model} "
+              f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+              f"params, {str(model.dtype).split('.')[-1]}), attn {args.attn}",
+              flush=True)
     train(task, print_every=args.print_every, eval_every=args.eval_every,
-          logger=ConsoleLogger())
-    print(f"done: {task.state.step} steps, {task.num_missed} missed",
-          flush=True)
+          logger=ConsoleLogger() if lead else NullLogger())
+    if lead:
+        print(f"done: {task.state.step} steps, {task.num_missed} missed",
+              flush=True)
     return task
 
 

@@ -1,10 +1,13 @@
-"""Training orchestration on one device: ``prepare_training`` + ``train``.
+"""Training orchestration: ``prepare_training`` + ``train``.
 
-Port of the core of ``fluxdistributed_tpu/train/trainer.py`` for
-``spmd="jit"``/``"dp"`` on one GPU (or the CPU, when asked):
+Port of the core of ``fluxdistributed_tpu/train/trainer.py`` for the
+data-parallel modes ``spmd="jit"`` (alias ``"dp"``) and ``"shard_map"``,
+with or without ZeRO-1, on one GPU, on the ranks of a process group
+(:mod:`..mesh`), or on the CPU when asked:
 
 * ``prepare_training`` takes the model's parameters as the initial
-  :class:`..parallel.TrainState`, builds the train and eval steps and
+  :class:`..parallel.TrainState` (copied from rank 0 to every rank when
+  there is a mesh), builds the train and eval steps the mode picks and
   the prefetching loader;
 * ``train`` is the loop: the print cadence logs steps/s and tokens/s,
   the eval cadence logs the eval loss of the current batch, and a
@@ -15,7 +18,10 @@ Port of the core of ``fluxdistributed_tpu/train/trainer.py`` for
 Phase times, step counts and OOM skips land in the process registry
 (:mod:`..obs.metrics`) under the JAX trainer's ``fdtpu_train_*`` names.
 Top-k metrics, val slices, checkpoints, the anomaly guard, preemption,
-profiling and the other parallel modes come with later slices.
+profiling and the other parallel modes come with later slices.  A
+device OOM on one rank of a mesh, and not on the others, leaves the
+others waiting in the step's next collective, as in the JAX package on
+several hosts.
 """
 
 from __future__ import annotations
@@ -31,9 +37,11 @@ import torch
 
 from ..data.loader import PrefetchLoader, batch_to_dict
 from ..device import DeviceLike, resolve_device
+from ..mesh import Mesh
 from ..obs import get_registry
 from ..optim import Optimizer
-from ..parallel.dp import TrainState, make_eval_step, make_train_step
+from ..parallel.dp import (TrainState, make_eval_step, make_train_step,
+                           make_train_step_shardmap)
 from .logging import ConsoleLogger, Logger
 
 __all__ = ["TrainTask", "evaluate", "prepare_training", "train"]
@@ -51,6 +59,8 @@ class TrainTask:
     optimizer: Optimizer
     model: Any
     device: torch.device
+    # the ranks the step spans (None: one device, no process group)
+    mesh: Optional[Mesh] = None
     num_missed: int = 0
     # loader items skipped by OOM fault tolerance, in order
     skipped_items: list = dataclasses.field(default_factory=list)
@@ -61,6 +71,11 @@ class TrainTask:
 def _to_device(batch: dict, device: torch.device) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def _same_device(p: torch.device, dev: torch.device) -> bool:
+    """``cuda:0`` is on ``cuda``; an index counts only when given."""
+    return p.type == dev.type and (dev.index is None or p.index == dev.index)
 
 
 def prepare_training(
@@ -75,41 +90,88 @@ def prepare_training(
     buffersize: int = 5,
     seed: int = 0,
     spmd: str = "jit",
+    zero1: bool = False,
+    accum_steps: int = 1,
+    mesh: Optional[Mesh] = None,
     device: DeviceLike = None,
 ) -> TrainTask:
     """The train state from the model's current parameters, the train
     and eval steps, and the prefetching loader.
 
     ``loss_fn`` has the framework signature (e.g.
-    ``models.lm_loss_fn(model)``).  ``spmd`` takes the one-device modes
-    ``"jit"`` and ``"dp"`` (an alias); the other modes raise.  ``seed``
-    roots the loader's batches and the dropout seeds.  The model must
-    already live on ``device`` (default ``cuda``).  The JAX version's
-    other options (meshes, donation, the device loop, top-k metrics,
-    val slices, AOT, the guard) are not accepted.
+    ``models.lm_loss_fn(model)``).  ``spmd`` takes the data-parallel
+    modes ``"jit"`` (alias ``"dp"``) and ``"shard_map"``; the other
+    modes raise.  ``zero1=True`` shards the optimizer state and update
+    over the ranks (:mod:`..parallel.zero1`); it applies to those modes
+    only, and ``"shard_map"`` takes no ``accum_steps``, as in the JAX
+    trainer.
+
+    ``mesh`` is the process group the step spans (:mod:`..mesh`);
+    ``batch_size`` is the global batch, of which each rank trains its
+    rows.  Without a mesh, ``"jit"`` trains on one device, while
+    ``zero1`` and ``"shard_map"`` take :func:`..mesh.data_mesh` of
+    ``device`` (forming a one-rank group when there is none; the caller
+    ends it with :func:`..mesh.shutdown_distributed`).  ``seed`` roots
+    the loader's batches and the dropout seeds.  The model must already
+    live on the step's device (default ``cuda``).  The JAX version's
+    other options (donation, the device loop, top-k metrics, val
+    slices, AOT, the guard) are not accepted.
     """
     if spmd == "dp":
         spmd = "jit"
-    if spmd != "jit":
+    if zero1 and spmd not in ("jit", "shard_map"):
         raise ValueError(
-            f"spmd={spmd!r} is not ported: this slice trains on one device "
-            "(spmd='jit' or 'dp'); the other modes come with the multi-GPU "
-            "slices (ROADMAP)")
-    dev = resolve_device(device)
+            "zero1=True applies to the DP paths only (spmd='jit'/'dp'/"
+            f"'shard_map'); got spmd={spmd!r} — fsdp already shards the "
+            "optimizer state (ZeRO-3 subsumes ZeRO-1)")
+    if spmd not in ("jit", "shard_map"):
+        raise ValueError(
+            f"spmd={spmd!r} is not ported: the port trains data-parallel "
+            "(spmd='jit', 'dp' or 'shard_map', with or without zero1); the "
+            "other modes come with later slices (ROADMAP)")
+    if spmd == "shard_map" and accum_steps != 1:
+        raise ValueError("accum_steps > 1 requires spmd='jit'")
+    if mesh is None and (zero1 or spmd == "shard_map"):
+        from ..mesh import data_mesh
+
+        mesh = data_mesh(device=device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     params = dict(model.named_parameters())
-    off = [n for n, p in params.items() if p.device.type != dev.type or (
-        dev.index is not None and p.device.index != dev.index)]
+    off = [n for n, p in params.items() if not _same_device(p.device, dev)]
     if off:
         raise ValueError(f"the model's parameters {off[:3]} are not on "
                          f"{dev}; build the model with device={str(dev)!r}")
+    if mesh is None:
+        state = TrainState.create(params, optimizer)
+        step_fn = make_train_step(loss_fn, optimizer,
+                                  accum_steps=accum_steps, seed=seed)
+    elif zero1:
+        from ..parallel import zero1 as zero1_lib
+
+        state = zero1_lib.zero1_state(params, optimizer, mesh)
+        if spmd == "shard_map":
+            step_fn = zero1_lib.make_train_step_zero1_shardmap(
+                loss_fn, optimizer, mesh, seed=seed)
+        else:
+            step_fn = zero1_lib.make_train_step_zero1(
+                loss_fn, optimizer, mesh, accum_steps=accum_steps, seed=seed)
+    else:
+        from ..sharding import replicate
+
+        state = TrainState.create(replicate(
+            {k: p.detach() for k, p in params.items()}, mesh), optimizer)
+        if spmd == "shard_map":
+            step_fn = make_train_step_shardmap(loss_fn, optimizer, mesh,
+                                               seed=seed)
+        else:
+            step_fn = make_train_step(loss_fn, optimizer, mesh=mesh,
+                                      accum_steps=accum_steps, seed=seed)
     return TrainTask(
-        state=TrainState.create(params, optimizer),
-        step_fn=make_train_step(loss_fn, optimizer, seed=seed),
-        eval_fn=make_eval_step(loss_fn),
+        state=state, step_fn=step_fn, eval_fn=make_eval_step(loss_fn, mesh),
         loader=PrefetchLoader(dataset, batch_size, cycles=cycles,
                               epochs=epochs, buffersize=buffersize, seed=seed,
-                              device=dev),
-        optimizer=optimizer, model=model, device=dev)
+                              device=dev, mesh=mesh),
+        optimizer=optimizer, model=model, device=dev, mesh=mesh)
 
 
 def _is_oom(err: Exception) -> bool:

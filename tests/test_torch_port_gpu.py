@@ -1,7 +1,9 @@
 """The hand-written kernels on the card against their plain versions:
 flash decode (dense and paged, with the serving engine on the card
-against the CPU) and flash attention for training (B1 forward, B2/B3
-backward, with a train step on the card against the CPU).  Needs a CUDA
+against the CPU), flash attention for training (B1 forward, B2/B3
+backward, with a train step on the card against the CPU), and the fused
+Adam update (B6, with a fused ZeRO-1 step on a one-rank NCCL group
+against the CPU).  Needs a CUDA
 GPU (and ``nvcc`` to build the kernels); marked ``gpu`` and skipped
 elsewhere.  Run on the card with
 ``python -m pytest --noconftest tests/test_torch_port_gpu.py -q``.
@@ -11,6 +13,11 @@ order differs); atol 2e-2 for bf16 output (one bf16 ulp at |out| < 4 plus
 the f32 differences before the final rounding).  Flash attention: f32 O
 and LSE 1e-5 abs, f32 gradients 1e-4 x the largest reference entry;
 bf16 O 2e-2 abs, bf16 gradients 5e-2 x the largest reference entry.
+Fused Adam: bitwise (each op rounded as the plain version's op).  The
+fused ZeRO-1 step on the card against the CPU: loss 1e-5 relative;
+params lr / 10 absolute, because the card sums gradients in another
+order and Adam's first update lr * g / (|g| + eps) moves a gradient near
+0 by up to lr * |dg| / eps for a gradient difference dg.
 """
 
 import importlib
@@ -304,3 +311,87 @@ def test_train_step_on_card_matches_cpu(cuda):
     torch.testing.assert_close(gg, gc, rtol=1e-5, atol=0)
     for name in pc:
         torch.testing.assert_close(pg[name], pc[name], atol=1e-5, rtol=0)
+
+
+def _adam_buffers(n, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    p, grad, m = (torch.randn(n, generator=g) for _ in range(3))
+    v = torch.randn(n, generator=g).abs() * 1e-2
+    return [t.to(dev) for t in (p, grad * 0.1, m * 1e-2, v)]
+
+
+@pytest.mark.parametrize("n", [1024, 3 * 1024 * 1024 + 4096])
+@pytest.mark.parametrize("step", [0, 7])
+def test_fused_adam_kernel_bitwise_and_fresh(cuda, n, step):
+    """B6 equals its plain version bit for bit; its outputs are new
+    buffers and its inputs are left as they were."""
+    from fluxdistributed_tpu_torch.ops import fused_adam, fused_adam_plain
+    from fluxdistributed_tpu_torch.parallel import fused_adam_update
+    from fluxdistributed_tpu_torch.parallel.zero1_fused import _step_scalars
+
+    bufs = _adam_buffers(n, cuda, seed=step)
+    keep = [t.clone() for t in bufs]
+    before = fused_adam.launches
+    out = fused_adam_update(*bufs, step, lr=3e-4)
+    sc = _step_scalars(step, 3e-4, 0.9, 0.999).to(cuda)
+    ref = fused_adam_plain(*bufs, sc, 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    assert fused_adam.launches == before + 1
+    for got, want in zip(out, ref):
+        assert torch.equal(got, want)
+    ptrs = {t.data_ptr() for t in bufs}
+    assert all(t.data_ptr() not in ptrs for t in out)
+    assert all(torch.equal(a, b) for a, b in zip(bufs, keep))
+
+
+def test_fused_adam_kernel_refuses_ragged_and_misaligned(cuda):
+    from fluxdistributed_tpu_torch.ops import fused_adam
+    from fluxdistributed_tpu_torch.parallel import fused_adam_update
+
+    x = torch.zeros(1000, device=cuda)
+    with pytest.raises(ValueError, match="pack_tree"):
+        fused_adam_update(x, x, x, x, 0)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        y = torch.zeros(1002, device=cuda)
+        fused_adam(y, y, y, y, torch.zeros(3, device=cuda))
+    buf = torch.zeros(2048 + 1, device=cuda)
+    off = buf[1:1025]  # 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_adam(off, off, off, off, torch.zeros(3, device=cuda))
+
+
+def test_zero1_fused_step_on_one_nccl_rank_matches_cpu(cuda):
+    """One fused ZeRO-1 step of f32 lm_tiny on a one-rank NCCL group
+    (B1-B3 and B6 on the card) against the same step on a one-rank gloo
+    group on the CPU (plain versions)."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch.mesh import (init_distributed,
+                                                shutdown_distributed)
+    from fluxdistributed_tpu_torch.models import lm_loss_fn
+    from fluxdistributed_tpu_torch.ops import attention_core, fused_adam
+    from fluxdistributed_tpu_torch.parallel import (
+        make_train_step_zero1_fused, zero1_fused_state)
+
+    toks = np.random.default_rng(0).integers(0, 64, (4, 96)).astype(np.int32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        mesh = init_distributed(dev.type)
+        try:
+            model = lm_tiny(vocab=64, depth=2, dtype=torch.float32, seed=1,
+                            attn_fn=attention_core("flash", 32), device=dev)
+            state = zero1_fused_state(dict(model.named_parameters()), mesh)
+            before = fused_adam.launches
+            state, m = make_train_step_zero1_fused(
+                lm_loss_fn(model), mesh, lr=1e-3)(
+                    state, {"tokens": torch.from_numpy(toks).to(dev)})
+            launched = fused_adam.launches - before
+            out[dev.type] = (m["loss"].item(), {
+                k: p.cpu() for k, p in state.params.items()}, launched)
+        finally:
+            shutdown_distributed()
+    (lc, pc, nc), (lg, pg, ng) = out["cpu"], out["cuda"]
+    assert (ng, nc) == (1, 0)
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for name in pc:
+        torch.testing.assert_close(pg[name], pc[name], atol=1e-3 / 10, rtol=0)
