@@ -33,13 +33,16 @@ Phases, each of which raises on failure (exit code != 0, no result):
    CPU (plain version);
 8. attention kernel: the training kernels B1 (forward), B2 (dQ) and B3
    (dK/dV) against their plain versions at lm_small training shapes
-   (B=8, T=1024, 12 heads, head dim 64, bf16, causal) and in eight more
+   (B=8, T=1024, 12 heads, head dim 64, bf16, causal) and in nine more
    variants (f32; GQA and window + sinks, each in bf16 and f32;
-   non-causal, ragged T, Tq < Tk with an LSE cotangent), gradients held
-   element by element (and shown to catch a dropped last tile), each
-   with its time, the plain version's, the library yardstick
-   (``scaled_dot_product_attention`` forward for B1, its backward for
-   B2 + B3) and the card's bound;
+   non-causal, ragged T, Tq < Tk with an LSE cotangent; 6 heads of 128
+   in bf16), gradients held element by element (and shown to catch a
+   dropped last tile at the kernels' ``TILE_Q`` x ``TILE_K``), each with
+   its design (bf16 B1/B3 on the tensor cores, the rest SIMT f32), its
+   time (mean, median and spread), the plain version's, the library
+   yardstick (``scaled_dot_product_attention`` forward for B1, its
+   backward for B2 + B3: each fused backend pinned in turn, the fastest
+   named) and the card's bound;
 9. train: ``python -m fluxdistributed_tpu_torch.train --model lm_small
    --dataset synthetic-text --vocab 256 --seqlen 1024 --batch-size 8
    --attn flash --opt adam --lr 3e-4 --cycles 40`` in-process: the loss
@@ -132,9 +135,10 @@ def card_rates(name: str):
     raise RuntimeError(f"no memory rate known for {name!r}; add it to _CARDS")
 
 
-def time_ms(torch, fn, flush, iters=30):
-    """Mean device ms of ``fn`` with a cold L2: a 256 MB memset runs
-    before each timed call, as the other layers' caches would."""
+def time_stats(torch, fn, flush, iters=30):
+    """Device ms of ``fn`` with a cold L2 (a 256 MB memset runs before
+    each timed call, as the other layers' caches would): the mean, the
+    median and the spread (min, max) over ``iters`` calls."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -146,7 +150,14 @@ def time_ms(torch, fn, flush, iters=30):
         fn()
         e.record()
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in ev) / iters
+    ms = [s.elapsed_time(e) for s, e in ev]
+    return {"mean": sum(ms) / iters, "median": statistics.median(ms),
+            "min": min(ms), "max": max(ms)}
+
+
+def time_ms(torch, fn, flush, iters=30):
+    """Mean device ms of ``fn`` with a cold L2 (:func:`time_stats`)."""
+    return time_stats(torch, fn, flush, iters)["mean"]
 
 
 def ring_state(torch, cursors, rows, sinks):
@@ -741,11 +752,19 @@ def live_pairs(torch, tq, tk, causal, window, sinks):
     return allow
 
 
+# SDPA's fused backends; MATH (unfused) only where none of them takes the
+# inputs
+SDPA_BACKENDS = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION")
+
+
 def sdpa_train(torch, q, k, v, do, allow, causal_square):
-    """The library yardstick in [B, H, T, D]: one
-    ``scaled_dot_product_attention`` forward, and its backward alone
-    (autograd.grad with the graph kept)."""
+    """The library yardstick in [B, H, T, D]: for each SDPA backend that
+    takes the inputs, pinned with ``sdpa_kernel``, one
+    ``scaled_dot_product_attention`` forward and its backward alone
+    (autograd.grad with the graph kept).  Returns ``{backend name: (fwd,
+    bwd)}``."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     rep = q.shape[2] // k.shape[2]
     qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_()
@@ -756,16 +775,33 @@ def sdpa_train(torch, q, k, v, do, allow, causal_square):
           else {"attn_mask": allow.to(q.device)} if not bool(allow.all())
           else {})
 
-    def fwd():
-        with torch.no_grad():
-            return F.scaled_dot_product_attention(qh, kh, vh, **kw)
+    def pinned(backend):
+        with sdpa_kernel([backend]):
+            out = F.scaled_dot_product_attention(qh, kh, vh, **kw)
+            torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
 
-    out = F.scaled_dot_product_attention(qh, kh, vh, **kw)
+        def fwd():
+            with torch.no_grad(), sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(qh, kh, vh, **kw)
 
-    def bwd():
-        return torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
+        def bwd():  # the forward's graph node fixes the backward kernel
+            return torch.autograd.grad(out, (qh, kh, vh), doh,
+                                       retain_graph=True)
 
-    return fwd, bwd
+        return fwd, bwd
+
+    calls = {}
+    for name in (*SDPA_BACKENDS, "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None or (name == "MATH" and calls):
+            continue
+        try:
+            calls[name] = pinned(backend)
+        except RuntimeError:  # this backend does not take these inputs
+            continue
+    if not calls:
+        raise RuntimeError("no SDPA backend takes the attention inputs")
+    return calls
 
 
 # B2/B3 against their plain versions, element by element:
@@ -791,18 +827,20 @@ def grad_check(torch, got, ref, bits):
 
 def dropped_tile_check(torch, fa, bargs, kw, rdq, rdk, rdv, bits):
     """The element-wise check against a B2 that skips its last K tile and
-    a B3 that skips its last Q tile (causal, Tq = Tk, no window): both
-    faults are built from the plain versions and each must exceed the
-    limit.  Returns each fault's ``excess`` (> 1 means caught) and its
-    largest change over the largest reference entry (``vs_max``)."""
+    a B3 that skips its last Q tile (causal, Tq = Tk, no window), at the
+    kernels' tiles (``TILE_Q`` x ``TILE_K``): both faults are built from
+    the plain versions and each must exceed the limit.  Returns each
+    fault's ``excess`` (> 1 means caught) and its largest change over the
+    largest reference entry (``vs_max``)."""
     q, k, v, do, lse, delta = bargs
-    n, tk = 64, k.shape[1]  # the kernels' tile rows
-    tail = (q[:, -n:], k, v, do[:, -n:], lse[..., -n:].contiguous(),
-            delta[..., -n:].contiguous())
-    # the last n queries see every key before the last tile: unmasked
-    head = (tail[0], k[:, :tk - n], v[:, :tk - n], *tail[3:])
+    nq, nk, tk = fa.TILE_Q, fa.TILE_K, k.shape[1]
+    tail = (q[:, -nq:], k, v, do[:, -nq:], lse[..., -nq:].contiguous(),
+            delta[..., -nq:].contiguous())
+    # the last query tile sees every key before the last key tile
+    # (nq <= nk): unmasked
+    head = (tail[0], k[:, :tk - nk], v[:, :tk - nk], *tail[3:])
     fdq = rdq.float().clone()
-    fdq[:, -n:] = fa.flash_attention_dq_reference(*head, causal=False).float()
+    fdq[:, -nq:] = fa.flash_attention_dq_reference(*head, causal=False).float()
     cdk, cdv = fa.flash_attention_dkv_reference(*tail, **kw)
     faults = {"dq": (fdq, rdq), "dk": (rdk.float() - cdk.float(), rdk),
               "dv": (rdv.float() - cdv.float(), rdv)}
@@ -821,32 +859,36 @@ def attention_kernel_phase(torch, bw, peaks, flush):
     fa = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_attention")
 
     dev = torch.device("cuda")
-    variants = {  # name: (Tq, Tk, Hkv, dtype, causal, window, sinks, g_lse)
-        "main": (T_TRAIN, T_TRAIN, H, "bf16", True, None, 0, False),
-        "f32": (T_TRAIN, T_TRAIN, H, "f32", True, None, 0, False),
-        "gqa": (T_TRAIN, T_TRAIN, 4, "bf16", True, None, 0, False),
-        "gqa_f32": (T_TRAIN, T_TRAIN, 4, "f32", True, None, 0, False),
-        "window": (T_TRAIN, T_TRAIN, H, "bf16", True, 256, 4, False),
-        "window_f32": (T_TRAIN, T_TRAIN, H, "f32", True, 256, 4, False),
-        "noncausal": (T_TRAIN, T_TRAIN, H, "bf16", False, None, 0, False),
-        "ragged": (1000, 1000, H, "bf16", True, None, 0, False),
-        "lse": (384, T_TRAIN, H, "bf16", True, None, 0, True),
+    variants = {  # name: (Tq, Tk, H, Hkv, D, dtype, causal, window, sinks,
+                  #        g_lse)
+        "main": (T_TRAIN, T_TRAIN, H, H, D, "bf16", True, None, 0, False),
+        "f32": (T_TRAIN, T_TRAIN, H, H, D, "f32", True, None, 0, False),
+        "gqa": (T_TRAIN, T_TRAIN, H, 4, D, "bf16", True, None, 0, False),
+        "gqa_f32": (T_TRAIN, T_TRAIN, H, 4, D, "f32", True, None, 0, False),
+        "window": (T_TRAIN, T_TRAIN, H, H, D, "bf16", True, 256, 4, False),
+        "window_f32": (T_TRAIN, T_TRAIN, H, H, D, "f32", True, 256, 4, False),
+        "noncausal": (T_TRAIN, T_TRAIN, H, H, D, "bf16", False, None, 0,
+                      False),
+        "ragged": (1000, 1000, H, H, D, "bf16", True, None, 0, False),
+        "lse": (384, T_TRAIN, H, H, D, "bf16", True, None, 0, True),
+        # lm_small's width in 6 heads of 128
+        "d128": (T_TRAIN, T_TRAIN, 6, 6, 128, "bf16", True, None, 0, False),
     }
     g = torch.Generator().manual_seed(6)
     main = None
-    for name, (tq, tk, hkv, bits, causal, window, sinks,
+    for name, (tq, tk, h, hkv, d, bits, causal, window, sinks,
                with_lse) in variants.items():
         dt = torch.float32 if bits == "f32" else torch.bfloat16
-        q, do = (torch.randn(B, tq, H, D, generator=g).to(dt).to(dev)
+        q, do = (torch.randn(B, tq, h, d, generator=g).to(dt).to(dev)
                  for _ in range(2))
-        k, v = (torch.randn(B, tk, hkv, D, generator=g).to(dt).to(dev)
+        k, v = (torch.randn(B, tk, hkv, d, generator=g).to(dt).to(dev)
                 for _ in range(2))
         kw = dict(causal=causal, window=window, sinks=sinks)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
         delta = (do.float() * ref_out.float()).sum(-1).permute(0, 2, 1)
         if with_lse:  # the LSE cotangent folds into delta
-            delta = delta - torch.randn(B, H, tq, generator=g).to(dev)
+            delta = delta - torch.randn(B, h, tq, generator=g).to(dev)
         delta = delta.contiguous()
         bargs = (q, k, v, do, ref_lse, delta)
         dq = fa.flash_attention_dq(*bargs, **kw)
@@ -856,14 +898,14 @@ def attention_kernel_phase(torch, bw, peaks, flush):
         torch.cuda.synchronize()
         allow = live_pairs(torch, tq, tk, causal, window, sinks)
         live_rows = ref_lse > -1e29
-        pairs = int(allow.sum()) * B * H
+        pairs = int(allow.sum()) * B * h
         es = q.element_size()
-        row_io = B * H * tq * 4  # one f32 [B, H, Tq] row-stat array
-        qo_bytes, kv_bytes = B * tq * H * D * es, B * tk * hkv * D * es
+        row_io = B * h * tq * 4  # one f32 [B, H, Tq] row-stat array
+        qo_bytes, kv_bytes = B * tq * h * d * es, B * tk * hkv * d * es
         work = {  # kernel: (flops, bytes) of the least work
-            "fwd": (4 * pairs * D, 2 * qo_bytes + 2 * kv_bytes + row_io),
-            "dq": (6 * pairs * D, 3 * qo_bytes + 2 * kv_bytes + 2 * row_io),
-            "dkv": (8 * pairs * D, 2 * qo_bytes + 4 * kv_bytes + 2 * row_io),
+            "fwd": (4 * pairs * d, 2 * qo_bytes + 2 * kv_bytes + row_io),
+            "dq": (6 * pairs * d, 3 * qo_bytes + 2 * kv_bytes + 2 * row_io),
+            "dkv": (8 * pairs * d, 2 * qo_bytes + 4 * kv_bytes + 2 * row_io),
         }
         errs = {
             "o": (out.float() - ref_out.float()).abs().max().item(),
@@ -884,11 +926,18 @@ def attention_kernel_phase(torch, bw, peaks, flush):
                      for x in (out, dq, dk, dv))
         same_dead = bool(((lse > -1e29) == live_rows).all())
         lib_fwd = lib_bwd = None
+        sdpa_ms = {}
         if not with_lse:  # SDPA gives no LSE output to take a cotangent
-            fwd, bwd = sdpa_train(torch, q, k, v, do, allow,
-                                  causal and window is None and tq == tk)
-            lib_fwd = time_ms(torch, fwd, flush)
-            lib_bwd = time_ms(torch, bwd, flush)
+            for backend, (fwd, bwd) in sdpa_train(
+                    torch, q, k, v, do, allow,
+                    causal and window is None and tq == tk).items():
+                sdpa_ms[backend] = {"fwd": time_stats(torch, fwd, flush),
+                                    "bwd": time_stats(torch, bwd, flush)}
+            # the yardstick is the fastest backend, named in the row
+            lib_fwd = min(sdpa_ms.items(), key=lambda kv: kv[1]["fwd"]["mean"])
+            lib_bwd = min(sdpa_ms.items(), key=lambda kv: kv[1]["bwd"]["mean"])
+            lib_fwd, lib_bwd = ((lib_fwd[0], lib_fwd[1]["fwd"]),
+                                (lib_bwd[0], lib_bwd[1]["bwd"]))
         rows = {}
         calls = {
             "fwd": (lambda: fa.flash_attention_fwd(q, k, v, **kw),
@@ -902,24 +951,37 @@ def attention_kernel_phase(torch, bw, peaks, flush):
             flops, nbytes = work[kname]
             t_ops = flops / peaks[bits] * 1e3
             t_bytes = nbytes / bw * 1e3
+            kt = time_stats(torch, kern, flush)
+            lib = (lib_fwd if kname == "fwd" else lib_bwd) or (None, None)
+            lib = lib[1]
             rows[kname] = {
-                "ms": time_ms(torch, kern, flush),
+                "design": ("tensor cores, mma.sync"
+                           if bits == "bf16" and kname != "dq"
+                           else "SIMT f32"),
+                "ms": kt["mean"], "ms_median": kt["median"],
+                "ms_spread": [kt["min"], kt["max"]],
                 "plain_ms": time_ms(torch, plain, flush, iters=3),
                 "bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": lib_fwd if kname == "fwd" else lib_bwd,
+                "library_ms": lib and lib["mean"],
+                "library_ms_median": lib and lib["median"],
+                "library_ms_spread": lib and [lib["min"], lib["max"]],
                 "flops": flops, "bytes": nbytes}
         max_err = {"fwd": errs["o"], "dq": errs["dq"],
                    "dkv": max(errs["dk"], errs["dv"])}
         for kname in rows:
             rows[kname]["max_abs_err"] = max_err[kname]
         row = {"phase": "attention_kernel", "variant": name,
-               "shape": [B, tq, tk, H, hkv, D], "dtype": bits,
+               "shape": [B, tq, tk, h, hkv, d], "dtype": bits,
                "causal": causal, "window": window, "sinks": sinks,
                "lse_cotangent": with_lse, "live_pairs_per_head":
                int(allow.sum()), "errors": errs, "tolerances": tols,
-               "grad_check": grad_stats, "finite": finite, "library": "scaled_dot_product_attention "
-               "forward (B1) / backward (B2 + B3)" if lib_fwd else None,
+               "grad_check": grad_stats, "finite": finite,
+               "library": f"scaled_dot_product_attention forward "
+               f"({lib_fwd[0]}, B1) / backward ({lib_bwd[0]}, B2 + B3)"
+               if sdpa_ms else None,
+               "sdpa_ms": {b: {k: t["mean"] for k, t in ts.items()}
+                           for b, ts in sdpa_ms.items()},
                "kernels": rows}
         emit(row)
         bad = [k for k in ("o", "lse") if not errs[k] <= tols[k]]
@@ -1494,7 +1556,8 @@ def main() -> int:
           "sources": sorted(logs)})
     for src, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("Compiling entry" in line or "registers" in line
+                    or "spill" in line):
                 print(f"  {src}: {line.strip()}", flush=True)
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -1516,11 +1579,15 @@ def main() -> int:
     zero1_parity_phase(torch)
 
     def kernel_entry(name, source, replaces, via, launches, row):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "via": via, "launches": launches,
-                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "via": via, "launches": launches,
+                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"],
+                 "library_ms": row["library_ms"]}
+        if "design" in row:
+            entry["design"] = row["design"]
+        return entry
 
     emit({"kernels": [
         kernel_entry("flash_decode", KERNEL_SOURCE, KERNEL_REPLACES,

@@ -18,8 +18,11 @@ same blocks in Python, vectorised over batch and heads, with the Pallas
 bodies' math and rounding points: scores in f32 times ``scale``, p
 rounded to v's dtype before P·V, ds to k's dtype before ds·K, p to dO's
 and ds to q's dtype before the dK/dV products.  The kernels choose their
-own 64-row tiles; ``block_q``/``block_k`` set the plain versions'
-blocks, so the two differ only by summation order.
+own tiles (:data:`TILE_Q` query rows by :data:`TILE_K` key rows);
+``block_q``/``block_k`` set the plain versions' blocks, so the two differ
+only by summation order.  In bf16, B1 and B3 run on the tensor cores and
+B3 rounds p and ds exactly as the plain version does; f32 and B2 run
+SIMT FMAs (``csrc/flash_attention.cu`` says why).
 
 :func:`flash_attention` and :func:`flash_attention_lse` are
 ``torch.autograd.Function`` s over these three (the JAX ``custom_vjp``
@@ -42,6 +45,8 @@ from .attention import (NEG_INF, online_softmax_update,
                         validate_window)
 
 __all__ = [
+    "TILE_K",
+    "TILE_Q",
     "flash_attention",
     "flash_attention_dkv",
     "flash_attention_dkv_reference",
@@ -56,6 +61,9 @@ __all__ = [
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD, _DQ, _DKV = 0, 1, 2
 _HEAD_DIMS = (32, 64, 128)
+#: the kernels' tiles: query rows and key rows (``kTile`` in the source);
+#: a tile outside the causal / window band is skipped whole
+TILE_Q = TILE_K = 64
 
 
 def _gqa_dims(q, k, v):

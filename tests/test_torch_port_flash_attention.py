@@ -162,6 +162,37 @@ def test_flash_lse_with_lse_cotangent_matches_jax():
                                    rtol=0)
 
 
+# name: (Tq, Tk, causal, window, sinks)
+TILE_CASES = {
+    "causal": (256, 256, True, None, 0),
+    "noncausal": (200, 130, False, None, 0),
+    "window_sinks": (512, 512, True, 100, 4),
+    "window_no_sinks": (384, 384, True, 64, 0),
+    "tq_lt_tk": (96, 320, True, None, 0),
+    "tq_gt_tk": (300, 40, True, None, 0),
+    "ragged": (200, 200, True, None, 0),
+    "ragged_window_sinks": (150, 230, True, 70, 3),
+}
+
+
+@pytest.mark.parametrize("name", list(TILE_CASES))
+def test_block_relevant_at_kernel_tiles_is_exact(name):
+    """At the kernels' tiles (``TILE_Q`` x ``TILE_K``), the dead-tile test
+    is true exactly for the tiles whose band mask holds a live pair: a
+    skipped tile drops nothing, and a tile the kernel walks has work."""
+    tq, tk, causal, window, sinks = TILE_CASES[name]
+    tile_q, tile_k = fa_mod.TILE_Q, fa_mod.TILE_K
+    offset = tk - tq
+    for qs in range(0, tq, tile_q):
+        for ks in range(0, tk, tile_k):
+            live = fa_mod._band_mask(qs, min(qs + tile_q, tq), ks,
+                                     min(ks + tile_k, tk), tk, causal,
+                                     offset, window, sinks, "cpu").any()
+            assert fa_mod._block_relevant(qs, ks, tile_q, tile_k, causal,
+                                          offset, window, sinks) == bool(live), (
+                qs, ks)
+
+
 def test_plain_versions_match_dense_oracle():
     """Block walk == one dense softmax, fwd and bwd (window + GQA)."""
     q, k, v, g = _inputs(2, 40, 40, 4, 2, 16, seed=8)
