@@ -7,16 +7,19 @@ Needs one CUDA GPU (Hopper, for the ``sm_90a`` kernels) and ``nvcc``.
 Phases, each of which raises on failure (exit code != 0, no result):
 
 1. the card: ``nvidia-smi`` name and power limit, and PyTorch's name;
-2. build: every kernel source of the package, compiled by ``nvcc``;
+2. build: every kernel source of the package, compiled by ``nvcc``, and
+   a ``ptxas`` line with the registers and spills of bf16 B2 (the
+   tensor-core dQ kernel) at head dims 32, 64 and 128;
 3. kernel: the dense flash-decode kernel (B4) against its plain PyTorch
    version at lm_small decode shapes (8 slots, 1024 rows, 12 heads, head
    dim 64), with its time, the plain version's, a library yardstick
    (``scaled_dot_product_attention`` over the dequantised cache) and the
    card's bound (live K/V bytes over the HBM rate), per variant;
-4. paged kernel: the paged flash-decode kernel (B5) the same way, over a
-   512-block pool of 16-row blocks walked through a scattered page table
-   with an unbound page inside one live range, and against B4 on the
-   same logical rows laid out densely;
+4. paged kernel: the paged flash-decode kernel (B5, split-KV over whole
+   pages, with its split and CTA counts) the same way, over a 512-block
+   pool of 16-row blocks walked through a scattered page table with an
+   unbound page inside one live range, and against B4 on the same
+   logical rows laid out densely;
 5. serve: random-init lm_small (bf16, vocab 32000) behind the port's
    HTTP server, 8 concurrent ``/v1/generate`` requests (prompts of
    64–768 tokens, 64 new tokens, greedy), with B4's launch count checked
@@ -38,7 +41,7 @@ Phases, each of which raises on failure (exit code != 0, no result):
    non-causal, ragged T, Tq < Tk with an LSE cotangent; 6 heads of 128
    in bf16), gradients held element by element (and shown to catch a
    dropped last tile at the kernels' ``TILE_Q`` x ``TILE_K``), each with
-   its design (bf16 B1/B3 on the tensor cores, the rest SIMT f32), its
+   its design (bf16 B1-B3 on the tensor cores, f32 SIMT), its
    time (mean, median and spread), the plain version's, the library
    yardstick (``scaled_dot_product_attention`` forward for B1, its
    backward for B2 + B3: each fused backend pinned in turn, the fastest
@@ -54,25 +57,32 @@ Phases, each of which raises on failure (exit code != 0, no result):
 11. train parity: two f32 lm_small steps (flash) on the card and on the
     CPU (plain versions) from the same weights and batches: losses and
     global grad norms agree;
-12. fused-adam kernel: the fused Adam update (B6) against its plain
+12. rounding audit: bf16 B2 and B3 in their audit instantiations, which
+    sum every live pair again in the plain order, at the main attention
+    shape over 8 seeds and on the q/k/v/dO of every layer of one lm_small
+    train step (vocab 32000, B=8, T=1024): pairs flagged, flagged pairs
+    whose bf16 rounding the re-sum changed, and unflagged pairs whose
+    rounding differs (the flag's misses), printed as a measurement, with
+    B2's and B3's times on the first and last layers' inputs;
+13. fused-adam kernel: the fused Adam update (B6) against its plain
     version at lm_small's packed size (109,632,512 f32 elements) at steps
     0 and 7 with a schedule's learning rate: bit for bit, fresh outputs,
     a ragged length refused; its time, the plain version's, the bound
     (7 f32 streams over the HBM rate) and ``torch._fused_adam_`` on the
     same buffers as the library yardstick;
-13. ZeRO-1 fused train: on a one-rank NCCL group, lm_small (flash,
+14. ZeRO-1 fused train: on a one-rank NCCL group, lm_small (flash,
     synthetic-text vocab 256, B=8, T=1024, adam 3e-4) trained 40 steps
     through ``make_train_step_zero1_fused``: the loss falls, B6 launches
     once per step and B1-B3 depth x steps times; then at vocab 32000
     (bf16, random tokens) the fused ZeRO-1 step, the composable ZeRO-1
     step and the one-device step timed (step ms, tokens/s, MFU, peak
     memory), and a profile of the fused step;
-14. ZeRO-1 CLI: ``python -m fluxdistributed_tpu_torch.train ... --zero1``
+15. ZeRO-1 CLI: ``python -m fluxdistributed_tpu_torch.train ... --zero1``
     in-process, 20 cycles: the loss falls;
-15. ZeRO-1 parity: two f32 lm_small steps, fused ZeRO-1 on the card
+16. ZeRO-1 parity: two f32 lm_small steps, fused ZeRO-1 on the card
     against the one-device adam step on the card and the fused step on
     the CPU (plain versions), from the same weights and batches;
-16. a ``{"kernels": [...]}`` line, then the result line
+17. a ``{"kernels": [...]}`` line, then the result line
     ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -126,6 +136,28 @@ N_PACKED = 109_632_512
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_summary(log: str, fragment: str) -> dict:
+    """``{kernel: {"registers", "spill_stores", "spill_loads"}}`` from an
+    ``nvcc -Xptxas -v`` log, for the entries whose mangled name holds
+    ``fragment`` (``Li64ELb0E``: template arguments 64, false)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = line.split("'")[1] if "'" in line else ""
+            name = m if fragment in m else None
+            if name:
+                out[name] = {}
+        elif name and "spill stores" in line:
+            w = [t.rstrip(",") for t in line.split()]
+            out[name]["spill_stores"] = int(w[w.index("stores") - 3])
+            out[name]["spill_loads"] = int(w[w.index("loads") - 3])
+        elif name and "Used" in line and "registers" in line:
+            w = [t.rstrip(",") for t in line.split()]
+            out[name]["registers"] = int(w[w.index("registers") - 1])
+            name = None
+    return out
 
 
 def card_rates(name: str):
@@ -299,9 +331,11 @@ def paged_kernel_phase(torch, bw, peaks, flush):
     laid out densely); returns the bf16 (main-path) row."""
     from fluxdistributed_tpu_torch.models.transformer_lm import quantize_kv
     from fluxdistributed_tpu_torch.ops.flash_decode import (
-        flash_decode, flash_decode_paged, flash_decode_paged_reference)
+        flash_decode, flash_decode_paged, flash_decode_paged_reference,
+        paged_splits, split_pages)
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     # the dense kernel phase's cursors (the same seed, the same draw)
     cursors = torch.randint(64, 833, (B,), dtype=torch.int32,
                             generator=torch.Generator().manual_seed(0))
@@ -385,9 +419,14 @@ def paged_kernel_phase(torch, bw, peaks, flush):
             dense = flash_decode(q, take(k), take(v), idx, **dkw)
             keep = torch.arange(B, device=dev) != hole
             vs_dense = (dense.float() - out.float())[keep].abs().max().item()
+        runs, per = split_pages(pages, paged_splits(B, hkv, pages, sms))
         rows[variant] = {
             "phase": "paged_kernel", "variant": variant,
             "shape": [B, pages, BS, NB, H, hkv, D],
+            "design": f"split-KV, {runs} splits of {per} pages, then a "
+                      "combine kernel",
+            "splits": runs, "pages_per_split": per, "ctas": B * hkv * runs,
+            "sms": sms,
             "q_dtype": str(dt).split(".")[-1],
             "kv_dtype": str(k.dtype).split(".")[-1], **m,
             "vs_dense_max_abs_err": vs_dense,
@@ -955,8 +994,7 @@ def attention_kernel_phase(torch, bw, peaks, flush):
             lib = (lib_fwd if kname == "fwd" else lib_bwd) or (None, None)
             lib = lib[1]
             rows[kname] = {
-                "design": ("tensor cores, mma.sync"
-                           if bits == "bf16" and kname != "dq"
+                "design": ("tensor cores, mma.sync" if bits == "bf16"
                            else "SIMT f32"),
                 "ms": kt["mean"], "ms_median": kt["median"],
                 "ms_spread": [kt["min"], kt["max"]],
@@ -1160,6 +1198,103 @@ def train_parity_phase(torch):
           "rel_diff": rel, "tol": [1e-4, 1e-3]})
     if any(r[0] > 1e-4 or r[1] > 1e-3 for r in rel):
         raise RuntimeError(f"train_parity: card vs CPU differ: {rel}")
+
+
+AUDIT_SEEDS = 8
+
+
+def rounding_audit_phase(torch, flush):
+    """bf16 B2 and B3 in their audit instantiations: at the main
+    attention shape over ``AUDIT_SEEDS`` seeds, and on the inputs of
+    every layer's attention backward in one lm_small train step (vocab
+    32000, B=8, T=1024, adam, random tokens), with B2's and B3's times
+    on the first and last layers' inputs.  Reported, not held: the
+    card-only tests hold a fixed seed to 0 misses."""
+    import importlib
+
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import lm_loss_fn, lm_small
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.parallel import TrainState, make_train_step
+
+    fa = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_attention")
+    keys = fa.AUDIT_COUNTS
+
+    def total(runs):
+        return {k: {c: sum(r[k][c] for r in runs) for c in keys}
+                for k in ("dq", "dkv")}
+
+    t0 = time.perf_counter()
+    seeds = []
+    for seed in range(AUDIT_SEEDS):
+        g = torch.Generator().manual_seed(100 + seed)
+        q, do = (torch.randn(B, T_TRAIN, H, D, generator=g).bfloat16().cuda()
+                 for _ in range(2))
+        k, v = (torch.randn(B, T_TRAIN, H, D, generator=g).bfloat16().cuda()
+                for _ in range(2))
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)
+        seeds.append(fa.rounding_audit(q, k, v, do, lse, delta.contiguous(),
+                                       causal=True))
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t0
+
+    # one train step whose attention backward is audited layer by layer
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 32000, (B, T_TRAIN)).astype(np.int32)).cuda()
+    model = lm_small(vocab=32000, attn_fn=attention_core("flash"), seed=0)
+    opt = optim.adam(1e-3)
+    state = TrainState.create(dict(model.named_parameters()), opt)
+    step = make_train_step(lm_loss_fn(model), opt)
+    for _ in range(2):  # the audited step is the third, as in training
+        state, _ = step(state, {"tokens": toks})
+    layers, captured, backward = [], [], fa._backward
+
+    def audited(q, k, v, o, lse, g, g_lse, cfg):
+        # the same delta as the backward's (the LM takes no LSE cotangent)
+        delta = (g.float() * o.float()).sum(-1).permute(0, 2, 1)
+        args = (q, k, v, g, lse, delta.contiguous())
+        kw = {n: cfg[n] for n in ("causal", "window", "sinks")}
+        layers.append(fa.rounding_audit(*args, **kw))
+        captured.append((args, kw))
+        return backward(q, k, v, o, lse, g, g_lse, cfg)
+
+    fa._backward = audited
+    try:
+        state, _ = step(state, {"tokens": toks})
+    finally:
+        fa._backward = backward
+    torch.cuda.synchronize()
+    # autograd runs the layers' backwards last layer first
+    times = {}
+    for name, (args, kw) in (("last_layer", captured[0]),
+                             ("first_layer", captured[-1])):
+        times[name] = {
+            "dq": time_stats(torch, lambda: fa.flash_attention_dq(*args, **kw),
+                             flush),
+            "dkv": time_stats(torch,
+                              lambda: fa.flash_attention_dkv(*args, **kw),
+                              flush)}
+    del model, state, step, captured
+    torch.cuda.empty_cache()
+    if len(layers) != 12:
+        raise RuntimeError(f"rounding_audit: {len(layers)} layers audited")
+    row = {"phase": "rounding_audit", "counts": list(keys),
+           "main_shape": {"shape": [B, T_TRAIN, H, D], "dtype": "bf16",
+                          "causal": True, "seeds": AUDIT_SEEDS,
+                          "total": total(seeds), "per_seed": seeds,
+                          "seconds": seed_s},
+           "train_step": {"model": "lm_small", "vocab": 32000, "batch": B,
+                          "seqlen": T_TRAIN, "step": 3, "layers": len(layers),
+                          "total": total(layers), "per_layer": layers,
+                          "kernel_ms": times}}
+    for where in ("main_shape", "train_step"):
+        for kname, c in row[where]["total"].items():
+            c["flag_rate"] = c["flagged"] / max(c["live_pairs"], 1)
+    emit(row)
+    return row
 
 
 def no_overlap(outs, ins) -> bool:
@@ -1554,11 +1689,22 @@ def main() -> int:
     logs = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": sorted(logs)})
+    for src, log in logs.items():  # a library built earlier: its saved log
+        saved = _build.library_path(src).with_suffix(".log")
+        if not log and saved.exists():
+            logs[src] = saved.read_text()
     for src, log in logs.items():
         for line in log.splitlines():
             if ("Compiling entry" in line or "registers" in line
                     or "spill" in line):
                 print(f"  {src}: {line.strip()}", flush=True)
+
+    dq_tc = ptxas_summary(logs.get("flash_attention", ""), "flash_bwd_dq_tc")
+    emit({"phase": "ptxas", "kernel": "flash_bwd_dq_tc_kernel<D, audit>",
+          "by_dim": {f"D={d}{' audit' if a else ''}": r
+                     for name, r in dq_tc.items()
+                     for d in (32, 64, 128) for a in (0, 1)
+                     if f"ILi{d}ELb{a}E" in name}})
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     dense_row = kernel_phase(torch, bw, peaks, flush)
@@ -1572,6 +1718,7 @@ def main() -> int:
     train_step_phase(torch, peaks)
     train_parity_phase(torch)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    rounding_audit_phase(torch, flush)
     adam_row = fused_adam_phase(torch, bw, flush)
     del flush
     adam_launches = zero1_train_phase(torch, peaks)

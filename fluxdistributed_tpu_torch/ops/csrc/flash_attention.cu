@@ -7,7 +7,7 @@
 //   B1 _flash_kernel     (pl.pallas_call in _flash_fwd_impl)
 //        bf16: flash_fwd_tc_kernel        f32: flash_fwd_kernel
 //   B2 _flash_dq_kernel  (first pl.pallas_call in _flash_bwd_impl)
-//        bf16 and f32: flash_bwd_dq_kernel
+//        bf16: flash_bwd_dq_tc_kernel     f32: flash_bwd_dq_kernel
 //   B3 _flash_dkv_kernel (second pl.pallas_call in _flash_bwd_impl)
 //        bf16: flash_bwd_dkv_tc_kernel    f32: flash_bwd_dkv_kernel
 //
@@ -24,8 +24,9 @@
 //       LSE ~ -1e30.
 //   B2: per query row, p = exp(s - LSE) zeroed at masked keys (a select, not
 //       NEG_INF before the exp: with LSE ~ -1e30 the exp overflows),
-//       ds = p * (dO . V^T - delta), dQ = scale * (ds in k's dtype) . K.
-//       p and ds take the plain version's roundings (p_of, ds_of).
+//       ds = p * (dO . V^T - delta), dQ = scale * (ds in k's dtype) . K,
+//       scaled once at the end.  p and ds take the plain version's
+//       roundings (p_of, ds_of); p stays f32 inside ds.
 //   B3: per key row, summed over every query head of its KV group and every
 //       query tile in the Pallas order t = member * nq + qi: dV = (p in
 //       dO's dtype)^T . dO, dK = scale * (ds in q's dtype)^T . Q, scaled
@@ -64,6 +65,14 @@
 //       max and sum by quad shuffles), then acc += P.V.  The grid is
 //       (B*H, query tiles), walked last tile first, so the heaviest causal
 //       tiles start first.
+//   B2: a (b, h, query tile) per CTA, walked last tile first as B1; each
+//       warp's 16 rows of Q and dO stay in registers as A fragments (D <=
+//       64; at D = 128 they are re-read from shared memory, and the keys
+//       of a tile taken 32 at a time); K/V tiles of 64 keys stream through
+//       the ring; S = Q.K^T and dP = dO.V^T stay in registers, dS becomes
+//       a bf16 A fragment in place, and dQ += dS.K reads K through
+//       ldmatrix.trans.  dQ accumulates in registers and is written once.
+//       ds rounds to bf16 exactly as the plain version's (see "B2 bf16").
 //   B3: a (b, KV head, key tile) per CTA; each warp's 16 key rows of K and
 //       V stay in registers (D <= 64; at D = 128 they are re-read from
 //       shared memory, and the 64 queries of a tile are taken in two
@@ -82,8 +91,7 @@
 // cores, 256 threads on a 16 x 16 grid over a 64 x 64 score tile, tiles
 // staged in shared memory as f32 (rows padded to D + 1).  The f32 path
 // holds the card to the CPU and to the JAX reference in full f32, and the
-// tensor cores' only f32 input type, TF32, keeps 10 mantissa bits.  B2
-// (dQ) is still SIMT in both dtypes.
+// tensor cores' only f32 input type, TF32, keeps 10 mantissa bits.
 //
 // Common to all: a loop inside the CTA takes the place of the TPU's
 // sequential grid axis (nothing carries between CTAs here).  The GQA map
@@ -122,21 +130,6 @@ typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-// x rounded to T and widened back (the Pallas .astype before a product)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
 // One 16-byte load of a row segment, widened to f32.
 template <typename T>
@@ -179,6 +172,7 @@ struct Params {
   const float* delta;  // [B, H, Tq]
   int B, Tq, Tk, H, Hkv, causal, window, sinks;  // window <= 0: none
   float scale;
+  unsigned long long* audit;  // the bf16 B2/B3 rounding audit's counts, or null
 };
 
 // The attend mask (_band_mask) and the live-tile test (_block_relevant).
@@ -422,7 +416,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   }
 }
 
-// ----------------------------------------------------- B2, f32 and bf16
+// ---------------------------------------------------------------- B2 f32
 
 template <int D>
 __host__ __device__ constexpr size_t dq_smem_floats() {
@@ -430,7 +424,7 @@ __host__ __device__ constexpr size_t dq_smem_floats() {
   return 4 * kTile * (D + 1) + kTile * kSLD + 2 * kTile;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   constexpr int LD = D + 1;
   constexpr int NJ = D / 16;
@@ -454,8 +448,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   const Mask mk = make_mask(p);
 
   const int nq = min(kTile, p.Tq - q0);
-  load_rows<T, D>(Qs, LD, p.q, b, h, q0, nq);
-  load_rows<T, D>(Gs, LD, p.dout, b, h, q0, nq);
+  load_rows<float, D>(Qs, LD, p.q, b, h, q0, nq);
+  load_rows<float, D>(Gs, LD, p.dout, b, h, q0, nq);
   if (tid < kTile) {
     const bool ok = tid < nq;
     const long long row = static_cast<long long>(bh) * p.Tq + q0 + tid;
@@ -474,8 +468,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
     if (!mk.tile_live(q0, k0)) continue;
     __syncthreads();
     const int kv = min(kTile, p.Tk - k0);
-    load_rows<T, D>(Ks, LD, p.k, b, hk, k0, kv);
-    load_rows<T, D>(Vs, LD, p.v, b, hk, k0, kv);
+    load_rows<float, D>(Ks, LD, p.k, b, hk, k0, kv);
+    load_rows<float, D>(Vs, LD, p.v, b, hk, k0, kv);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -490,7 +484,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
         float ds = 0.f;
         if (mk.allowed(q0 + r, k0 + c))
           ds = ds_of(p_of(s[i][j], p.scale, LSEs[r]), dp[i][j], DELs[r]);
-        DSs[r * kSLD + c] = round_to<T>(ds);
+        DSs[r * kSLD + c] = ds;
       }
     }
     __syncthreads();
@@ -510,15 +504,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
     }
   }
 
-  T* qb = static_cast<T*>(p.dq.p) + static_cast<long long>(b) * p.dq.sb +
-          static_cast<long long>(h) * p.dq.sh;
+  float* qb = static_cast<float*>(p.dq.p) + static_cast<long long>(b) * p.dq.sb +
+              static_cast<long long>(h) * p.dq.sh;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     if (r >= nq) continue;
-    T* row = qb + static_cast<long long>(q0 + r) * p.dq.st;
+    float* row = qb + static_cast<long long>(q0 + r) * p.dq.st;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) row[tx + 16 * j] = from_f32<T>(p.scale * acc[i][j]);
+    for (int j = 0; j < NJ; ++j) row[tx + 16 * j] = p.scale * acc[i][j];
   }
 }
 
@@ -962,12 +956,20 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_tc_kernel(Params p) {
 // which sum in another order than the plain version's f32 FMAs (first
 // feature to last), so a p or ds next to a bf16 rounding midpoint can
 // round to the other neighbour: one bf16 ulp of a large p moves a dV entry
-// by ~2^-9 |dO|, far more than its own last bit.  Those few pairs (~1 %)
-// are held back from the tensor-core products, summed again in the plain
-// version's order and added on their own, so that the kernel rounds p and
-// ds exactly as the plain version does.  (The plain
+// by ~2^-9 |dO|, far more than its own last bit.  Those pairs are
+// summed again in the plain version's order before their products, so
+// that the kernel rounds p and ds as the plain version does.  (The plain
 // version's sums on the card are cuBLAS f32 products, whose order the
 // plain f32 FMA chain reproduces, as the SIMT kernels' agreement shows.)
+//
+// The flag's slack (DotSlack) is ~7 standard deviations of a random-walk
+// model of two summation orders, not their worst-case gap, so exactness
+// is measured, not proven.  The audit instantiations (kAudit) sum every
+// live pair in the plain order and count the flag's misses: on an H100,
+// over 8 random seeds at the training shape (0.4-0.5 % of pairs flagged)
+// and over every layer of an lm_small train step (3.5-3.6 % flagged,
+// 6.4 % in the last layer), no unflagged pair rounded otherwise in B2 or
+// B3 (PERF.md).
 
 // How far two f32 sums of a D-term dot product a . b taken in different
 // orders can lie apart, with margin: partial sums of magnitude up to |x| +
@@ -1020,10 +1022,11 @@ struct RowStats {
 template <bool kFull, int D, int J>
 __device__ __forceinline__ unsigned p_ds_tile(float (&s)[J][4], float (&dp)[J][4],
                                               const RowStats& st, const Mask& mk, int q,
-                                              int k, float scale) {
+                                              int k, float scale, unsigned& live) {
   // scale = 1 / sqrt(D): the norms' product over sqrt(D)
   const float c_s = DotSlack<D>::kSlope * scale;
   unsigned redo = 0u;
+  live = kFull ? (J == 8 ? ~0u : (1u << (4 * J)) - 1u) : 0u;
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const float2 l2 = *reinterpret_cast<const float2*>(st.lse + 8 * j);
@@ -1049,6 +1052,7 @@ __device__ __forceinline__ unsigned p_ds_tile(float (&s)[J][4], float (&dp)[J][4
         pv = ok ? pv : 0.f;
         ds = ok ? ds : 0.f;
         again = again && ok;
+        live |= ok ? 1u << (4 * j + e) : 0u;
       }
       s[j][e] = pv;
       dp[j][e] = ds;
@@ -1080,6 +1084,38 @@ __device__ __forceinline__ void plain_dots(const bf16* q, const bf16* k, const b
   }
 }
 
+// The rounding audit (kAudit instantiations, reached only when Params.audit
+// is set): every live pair is summed again in the plain order, and four
+// counts are kept: pairs flagged, flagged pairs whose bf16 rounding the
+// re-sum changed, unflagged pairs whose bf16 rounding differs from the
+// plain order's (the flag's misses), and live pairs.
+enum AuditCount { kFlagged = 0, kFlaggedChanged = 1, kUnflaggedDiffer = 2, kLive = 3 };
+
+struct Audit {
+  unsigned long long n[4] = {0, 0, 0, 0};
+
+  // one re-summed pair: was it flagged, and does the tensor cores' bf16
+  // rounding differ from the plain order's?
+  __device__ __forceinline__ void add(bool flagged, bool differs) {
+    n[kFlagged] += flagged;
+    n[kFlaggedChanged] += flagged && differs;
+    n[kUnflaggedDiffer] += !flagged && differs;
+    n[kLive] += 1;
+  }
+
+  __device__ __forceinline__ void flush(unsigned long long* out) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (n[i]) atomicAdd(out + i, n[i]);
+  }
+};
+
+// do a and b round to different bf16 values?
+__device__ __forceinline__ bool bf16_differs(float a, float b) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(a, b);
+  return __bfloat16_as_ushort(r.x) != __bfloat16_as_ushort(r.y);
+}
+
 template <int D>
 __host__ __device__ constexpr size_t dkv_tc_smem_bytes() {
   // K, V, then Q and dO in two stages (bf16); the LSE, delta and Q and dO
@@ -1087,7 +1123,7 @@ __host__ __device__ constexpr size_t dkv_tc_smem_bytes() {
   return 6 * kTile * tc_ld<D>() * sizeof(bf16) + 10 * kTile * sizeof(float);
 }
 
-template <int D>
+template <int D, bool kAudit>
 __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(Params p) {
   constexpr int LD = tc_ld<D>();
   constexpr int KD = D / 16;
@@ -1179,6 +1215,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(Params p) 
   for (int n = 0; n < ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  Audit audit;
 
   for (int stage = 0; t < nt; stage ^= 1) {
     const int tn = next_live(t + 1);
@@ -1246,11 +1283,14 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(Params p) 
                         {Kn[m0 + fr], Kn[m0 + fr + 8]},
                         {Vn[m0 + fr], Vn[m0 + fr + 8]}};
       const int qrow = q0 + qb + fc, krow = k0 + m0 + fr;
-      unsigned redo = full ? p_ds_tile<true, D>(s, dp, rs, mk, qrow, krow, p.scale)
-                           : p_ds_tile<false, D>(s, dp, rs, mk, qrow, krow, p.scale);
-      // ... and those pairs are summed again in the plain version's order,
-      // one per lane per round, so that the lanes' FMA chains run side by
-      // side
+      unsigned live;
+      const unsigned flag =
+          full ? p_ds_tile<true, D>(s, dp, rs, mk, qrow, krow, p.scale, live)
+               : p_ds_tile<false, D>(s, dp, rs, mk, qrow, krow, p.scale, live);
+      // ... and those pairs (in the audit, every live pair) are summed
+      // again in the plain version's order, one per lane per round, so
+      // that the lanes' FMA chains run side by side
+      unsigned redo = kAudit ? live : flag;
       while (__any_sync(0xffffffffu, redo != 0u)) {
         if (redo != 0u) {
           const int i = __ffs(redo) - 1;
@@ -1266,6 +1306,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(Params p) 
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               if (i == 4 * j + e) {
+                if constexpr (kAudit)
+                  audit.add((flag >> i) & 1u,
+                            bf16_differs(s[j][e], pv) || bf16_differs(dp[j][e], ds));
                 s[j][e] = pv;
                 dp[j][e] = ds;
               }
@@ -1315,6 +1358,282 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(Params p) 
           __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
     }
   }
+  if constexpr (kAudit) audit.flush(p.audit);
+}
+
+// ---------------------------------------------------------------- B2 bf16
+//
+// B2 rounds only ds to bf16, before dQ += dS.K (p stays f32 inside ds), so
+// only ds needs the ambiguity flag.  The roles are B3's transposed: a
+// thread's two query rows are fixed for the whole CTA (their LSE, delta
+// and Q and dO row norms are taken once), and the K and V row norms are
+// per key tile.
+
+// dS of a warp's 16 queries x 8J keys in place of dP (dp), from S (s):
+// p = exp(scale s - LSE[q]) and ds = p (dp - delta[q]), zeroed by a select
+// where masked (kFull: the tiles are fully live, no mask).  lse, del, qn
+// and gn belong to this thread's rows fr and fr + 8; kn and vn point at
+// the K and V row norms of its first key column.  q and k are the
+// positions of its first query row and key column.  Returns the bits
+// 4 j + e of the pairs whose ds the plain version's sums might round to
+// the other bf16 neighbour, and sets live to the bits of the live pairs.
+template <bool kFull, int D, int J>
+__device__ __forceinline__ unsigned ds_tile(const float (&s)[J][4], float (&dp)[J][4],
+                                            const float (&lse)[2], const float (&del)[2],
+                                            const float (&qn)[2], const float (&gn)[2],
+                                            const float* kn, const float* vn, const Mask& mk,
+                                            int q, int k, float scale, unsigned& live) {
+  const float c_s = DotSlack<D>::kSlope * scale;
+  unsigned redo = 0u;
+  live = kFull ? (J == 8 ? ~0u : (1u << (4 * J)) - 1u) : 0u;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const float2 k2 = *reinterpret_cast<const float2*>(kn + 8 * j);
+    const float2 v2 = *reinterpret_cast<const float2*>(vn + 8 * j);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const float t = __fsub_rn(__fmul_rn(scale, s[j][e]), lse[r]);
+      const float pv = expf(t);
+      float ds = ds_of(pv, dp[j][e], del[r]);
+      const float s_slack = fmaf(DotSlack<D>::kSlope, fabsf(s[j][e]),
+                                 c_s * qn[r] * (e & 1 ? k2.y : k2.x));
+      const float rel = fmaf(scale, s_slack, 0x1p-23f * fabsf(t));
+      const float dp_slack = fmaf(DotSlack<D>::kSlope, fabsf(dp[j][e]),
+                                  c_s * gn[r] * (e & 1 ? v2.y : v2.x));
+      bool again = bf16_rounding_ambiguous(ds, fmaf(fabsf(ds), rel, pv * dp_slack));
+      if (!kFull) {
+        const bool ok = mk.allowed(q + 8 * r, k + 8 * j + (e & 1));
+        ds = ok ? ds : 0.f;
+        again = again && ok;
+        live |= ok ? 1u << (4 * j + e) : 0u;
+      }
+      dp[j][e] = ds;
+      redo |= again ? 1u << (4 * j + e) : 0u;
+    }
+  }
+  return redo;
+}
+
+template <int D>
+__host__ __device__ constexpr size_t dq_tc_smem_bytes() {
+  // Q and dO, then K and V in two stages (bf16); the K and V row norms in
+  // two stages, and the Q and dO row norms (f32)
+  return 6 * kTile * tc_ld<D>() * sizeof(bf16) + 6 * kTile * sizeof(float);
+}
+
+template <int D, bool kAudit>
+__global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(Params p) {
+  constexpr int LD = tc_ld<D>();
+  constexpr int KD = D / 16;
+  constexpr int ND = D / 8;
+  // D <= 64: each warp keeps its Q and dO rows as A fragments in
+  // registers and takes a key tile's 64 columns at once.  D = 128: the dQ
+  // accumulators alone take 64 registers, so Q and dO are re-read from
+  // shared memory and the keys taken 32 at a time.
+  constexpr bool kKeepQ = D <= 64;
+  constexpr int KN = D <= 64 ? 64 : 32;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);  // [64][LD]
+  bf16* Gs = Qs + kTile * LD;                   // dO [64][LD]
+  bf16* Ks = Gs + kTile * LD;                   // [2][64][LD]
+  bf16* Vs = Ks + 2 * kTile * LD;               // [2][64][LD]
+  float* Kn = reinterpret_cast<float*>(Vs + 2 * kTile * LD);  // [2][64] K row norms
+  float* Vn = Kn + 2 * kTile;                                  // [2][64] V row norms
+  float* Qn = Vn + 2 * kTile;                                  // [64] Q row norms
+  float* Gn = Qn + kTile;                                      // [64] dO row norms
+
+  const int lane = threadIdx.x & 31;
+  const int m0 = (threadIdx.x >> 5) * 16;  // this warp's query rows
+  const int fr = lane >> 2, fc = 2 * (lane & 3);
+  const LdsmLane<LD> ln(lane);
+  const uint32_t qs_a = smem_addr(Qs) + ln.a + at<LD>(m0, 0);
+  const uint32_t gs_a = smem_addr(Gs) + ln.a + at<LD>(m0, 0);
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const Mask mk = make_mask(p);
+  const int nq = min(kTile, p.Tq - q0);
+  const int nk = (p.Tk + kTile - 1) / kTile;
+  auto next_live = [&](int kt) {
+    while (kt < nk && !mk.tile_live(q0, kt * kTile)) ++kt;
+    return kt;
+  };
+  auto load_kv = [&](int kt, int stage) {
+    const int k0 = kt * kTile, n = min(kTile, p.Tk - k0);
+    load_tile_async<D>(Ks + stage * kTile * LD, p.k, b, hk, k0, n);
+    load_tile_async<D>(Vs + stage * kTile * LD, p.v, b, hk, k0, n);
+  };
+
+  load_tile_async<D>(Qs, p.q, b, h, q0, nq);
+  load_tile_async<D>(Gs, p.dout, b, h, q0, nq);
+  cp_async_commit();
+  int kt = next_live(0);
+  if (kt < nk) load_kv(kt, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and dO have landed
+  __syncthreads();
+  {
+    const int r = threadIdx.x & (kTile - 1);
+    if (threadIdx.x < kTile)
+      Qn[r] = row_norm<D>(Qs + r * LD);
+    else
+      Gn[r] = row_norm<D>(Gs + r * LD);
+  }
+  // rows m0 + fr (index 0) and m0 + fr + 8 (index 1): LSE and delta (rows
+  // past Tq take 1e30 and 0)
+  float lse[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + fr + 8 * r;
+    const long long i = static_cast<long long>(bh) * p.Tq + q0 + row;
+    lse[r] = row < nq ? p.lse[i] : kLsePad;
+    del[r] = row < nq ? p.delta[i] : 0.f;
+  }
+  uint32_t qa[kKeepQ ? KD : 1][4], ga[kKeepQ ? KD : 1][4];
+  if constexpr (kKeepQ) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      ldsm_x4(qa[kk], qs_a + at<LD>(0, 16 * kk));
+      ldsm_x4(ga[kk], gs_a + at<LD>(0, 16 * kk));
+    }
+  }
+  __syncthreads();  // the Q and dO norms are visible
+  const float qn[2] = {Qn[m0 + fr], Qn[m0 + fr + 8]};
+  const float gn[2] = {Gn[m0 + fr], Gn[m0 + fr + 8]};
+
+  // dQ of rows m0 + fr and m0 + fr + 8, features 8n + fc (+1)
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  Audit audit;
+
+  for (int stage = 0; kt < nk; stage ^= 1) {
+    const int kn = next_live(kt + 1);
+    if (kn < nk) load_kv(kn, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage has landed
+    __syncthreads();
+    const bf16* Kst = Ks + stage * kTile * LD;
+    const bf16* Vst = Vs + stage * kTile * LD;
+    {  // the row norms of this stage's K and V, for the slack
+      const int r = threadIdx.x & (kTile - 1);
+      if (threadIdx.x < kTile)
+        Kn[stage * kTile + r] = row_norm<D>(Kst + r * LD);
+      else
+        Vn[stage * kTile + r] = row_norm<D>(Vst + r * LD);
+    }
+    __syncthreads();
+    const uint32_t kst = smem_addr(Kst), vst = smem_addr(Vst);
+    const int k0 = kt * kTile;
+    const bool full = mk.tile_full(q0, k0);
+
+#pragma unroll
+    for (int kb = 0; kb < kTile; kb += KN) {
+      // S = Q . K^T and dP = dO . V^T: 16 queries x KN keys, n-tile j
+      // holds keys kb + 8j .. kb + 8j + 7
+      float s[KN / 8][4], dp[KN / 8][4];
+#pragma unroll
+      for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t a_q[4], a_g[4];
+        if constexpr (kKeepQ) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            a_q[i] = qa[kk][i];
+            a_g[i] = ga[kk][i];
+          }
+        } else {
+          ldsm_x4(a_q, qs_a + at<LD>(0, 16 * kk));
+          ldsm_x4(a_g, gs_a + at<LD>(0, 16 * kk));
+        }
+#pragma unroll
+        for (int j = 0; j < KN / 16; ++j) {
+          uint32_t kf[4], vf[4];
+          ldsm_x4(kf, kst + ln.bn + at<LD>(kb + 16 * j, 16 * kk));
+          ldsm_x4(vf, vst + ln.bn + at<LD>(kb + 16 * j, 16 * kk));
+          mma_bf16(s[2 * j], a_q, kf[0], kf[1]);
+          mma_bf16(s[2 * j + 1], a_q, kf[2], kf[3]);
+          mma_bf16(dp[2 * j], a_g, vf[0], vf[1]);
+          mma_bf16(dp[2 * j + 1], a_g, vf[2], vf[3]);
+        }
+      }
+
+      // dS in place of dP; where the tensor cores' sums might round ds to
+      // another bf16 neighbour than the plain version's sums would, bit
+      // 4 j + e of flag is set ...
+      const float* knp = Kn + stage * kTile + kb + fc;
+      const float* vnp = Vn + stage * kTile + kb + fc;
+      const int qrow = q0 + m0 + fr, kcol = k0 + kb + fc;
+      unsigned live;
+      const unsigned flag =
+          full ? ds_tile<true, D>(s, dp, lse, del, qn, gn, knp, vnp, mk, qrow, kcol, p.scale, live)
+               : ds_tile<false, D>(s, dp, lse, del, qn, gn, knp, vnp, mk, qrow, kcol, p.scale,
+                                   live);
+      // ... and those pairs (in the audit, every live pair) are summed
+      // again in the plain version's order, one per lane per round
+      unsigned redo = kAudit ? live : flag;
+      while (__any_sync(0xffffffffu, redo != 0u)) {
+        if (redo != 0u) {
+          const int i = __ffs(redo) - 1;
+          redo &= redo - 1u;
+          const int r = (i >> 1) & 1;
+          const int qr = m0 + fr + 8 * r;
+          const int kc = kb + 8 * (i >> 2) + fc + (i & 1);
+          float ss, dd;
+          plain_dots<D>(Qs + qr * LD, Kst + kc * LD, Gs + qr * LD, Vst + kc * LD, ss, dd);
+          const float ds = ds_of(p_of(ss, p.scale, lse[r]), dd, del[r]);
+#pragma unroll
+          for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (i == 4 * j + e) {
+                if constexpr (kAudit) audit.add((flag >> i) & 1u, bf16_differs(dp[j][e], ds));
+                dp[j][e] = ds;
+              }
+        }
+      }
+
+      // dQ += dS . K (ds in k's dtype), contracted over the keys through
+      // ldmatrix.trans
+#pragma unroll
+      for (int c = 0; c < KN / 16; ++c) {
+        uint32_t da[4];
+        c_to_a(da, dp[2 * c], dp[2 * c + 1]);
+#pragma unroll
+        for (int j = 0; j < D / 16; ++j) {
+          uint32_t kf[4];
+          ldsm_x4_t(kf, kst + ln.bk + at<LD>(kb + 16 * c, 16 * j));
+          mma_bf16(dq[2 * j], da, kf[0], kf[1]);
+          mma_bf16(dq[2 * j + 1], da, kf[2], kf[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+    kt = kn;
+  }
+  cp_async_wait<0>();
+
+  bf16* qb = static_cast<bf16*>(p.dq.p) + static_cast<long long>(b) * p.dq.sb +
+             static_cast<long long>(h) * p.dq.sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + fr + 8 * r;
+    if (row >= nq) continue;
+    bf16* qrow = qb + static_cast<long long>(q0 + row) * p.dq.st;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)  // dQ is scaled once, here
+      *reinterpret_cast<__nv_bfloat162*>(qrow + 8 * n + fc) =
+          __floats2bfloat162_rn(p.scale * dq[n][2 * r], p.scale * dq[n][2 * r + 1]);
+  }
+  if constexpr (kAudit) audit.flush(p.audit);
 }
 
 // ---------------------------------------------------------------- launch
@@ -1331,32 +1650,40 @@ cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// B2 is SIMT in both dtypes; B1 and B3 take the tensor cores in bf16 and
-// SIMT FMAs in f32.
+// B1-B3 take the tensor cores in bf16 and SIMT FMAs in f32.  The bf16
+// backward kernels run their audit instantiation when p.audit is set.
 template <typename T, int D>
 cudaError_t run(int which, const Params& p, cudaStream_t stream) {
   const unsigned nq = (p.Tq + kTile - 1) / kTile;
   const unsigned nk = (p.Tk + kTile - 1) / kTile;
   const unsigned bh = p.B * p.H, bhk = p.B * p.Hkv;
-  if (which == kDq)
-    return launch_kernel(flash_bwd_dq_kernel<T, D>, dim3(nq, bh), kThreads,
-                         dq_smem_floats<D>() * sizeof(float), stream, p);
   if constexpr (std::is_same<T, float>::value) {
+    if (p.audit != nullptr) return cudaErrorInvalidValue;
     if (which == kFwd)
       return launch_kernel(flash_fwd_kernel<D>, dim3(nq, bh), kThreads,
                            fwd_smem_floats<D>() * sizeof(float), stream, p);
+    if (which == kDq)
+      return launch_kernel(flash_bwd_dq_kernel<D>, dim3(nq, bh), kThreads,
+                           dq_smem_floats<D>() * sizeof(float), stream, p);
     if (which == kDkv)
       return launch_kernel(flash_bwd_dkv_kernel<D>, dim3(nk, bhk), kThreads,
                            dkv_smem_floats<D>() * sizeof(float), stream, p);
   } else {
     // the tile index is the grid's y axis here
     if (nq > 65535 || nk > 65535) return cudaErrorInvalidValue;
+    const bool audit = p.audit != nullptr;
     if (which == kFwd)
-      return launch_kernel(flash_fwd_tc_kernel<D>, dim3(bh, nq), kTcThreads,
-                           fwd_tc_smem_bytes<D>(), stream, p);
+      return audit ? cudaErrorInvalidValue
+                   : launch_kernel(flash_fwd_tc_kernel<D>, dim3(bh, nq), kTcThreads,
+                                   fwd_tc_smem_bytes<D>(), stream, p);
+    if (which == kDq)
+      return launch_kernel(audit ? flash_bwd_dq_tc_kernel<D, true>
+                                 : flash_bwd_dq_tc_kernel<D, false>,
+                           dim3(bh, nq), kTcThreads, dq_tc_smem_bytes<D>(), stream, p);
     if (which == kDkv)
-      return launch_kernel(flash_bwd_dkv_tc_kernel<D>, dim3(bhk, nk), kTcThreads,
-                           dkv_tc_smem_bytes<D>(), stream, p);
+      return launch_kernel(audit ? flash_bwd_dkv_tc_kernel<D, true>
+                                 : flash_bwd_dkv_tc_kernel<D, false>,
+                           dim3(bhk, nk), kTcThreads, dkv_tc_smem_bytes<D>(), stream, p);
   }
   return cudaErrorInvalidValue;
 }
@@ -1383,12 +1710,16 @@ View view(const void* ptr, const long long* strides, int i) {
 // does not use may be null.  ``strides`` is a host array of 24 element
 // strides, (batch, seq, head) for q, k, v, o, dout, dq, dk, dv in that
 // order (the feature dim is contiguous).  lse and delta are contiguous
-// [B, H, Tq] f32.  window <= 0 means no window.  Returns a cudaError_t.
+// [B, H, Tq] f32.  window <= 0 means no window.  ``audit`` is null on
+// the training path; for the bf16 B2 or B3 it may point at four zeroed
+// u64 counts (AuditCount), and the kernel then runs its rounding audit.
+// Returns a cudaError_t.
 extern "C" int flash_attention_launch(
     int which, int dtype, int D, const void* q, const void* k, const void* v,
     void* o, const void* dout, void* dq, void* dk, void* dv, void* lse,
     const void* delta, const long long* strides, int B, int Tq, int Tk, int H,
-    int Hkv, int causal, int window, int sinks, float scale, void* stream) {
+    int Hkv, int causal, int window, int sinks, float scale, void* audit,
+    void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || Hkv < 1 || H % Hkv != 0) return cudaErrorInvalidValue;
   if (static_cast<long long>(B) * H > 65535) return cudaErrorInvalidValue;
   if (q == nullptr || k == nullptr || v == nullptr || lse == nullptr) return cudaErrorInvalidValue;
@@ -1410,6 +1741,7 @@ extern "C" int flash_attention_launch(
   p.B = B; p.Tq = Tq; p.Tk = Tk; p.H = H; p.Hkv = Hkv;
   p.causal = causal; p.window = window; p.sinks = sinks;
   p.scale = scale;
+  p.audit = static_cast<unsigned long long*>(audit);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return dispatch_dim<float>(which, D, p, st);
   if (dtype == kBF16) return dispatch_dim<bf16>(which, D, p, st);

@@ -19,35 +19,34 @@
 // acc / max(l, 1e-30), so a slot with nothing attendable gets exactly 0.
 // The output is written in q's dtype.
 //
-// Paged form (flash_decode_paged_kernel).  K/V live in a shared pool
-// [NB, bs, Hkv, D] (the scales in [NB, bs, Hkv]); logical row r of slot b
-// lives at block page_table[b, r / bs], offset r % bs.  A row on an
-// unbound page (-1, or an id outside the pool) is masked and never read.
-// The CTA reads its page ids itself (the TPU's scalar prefetch has no
-// counterpart here) while it builds each tile's row mask, and keeps each
-// row's physical row index in shared memory for the loads.  Any block
-// size bs >= 1 works: addressing is per row.  The dense form keeps a
-// kernel of its own: one template for both changed the dense code's
-// register allocation and slowed it by ~30 % in the decode step.
+// Paged form (flash_decode_paged_kernel, then flash_decode_combine_kernel).
+// K/V live in a shared pool [NB, bs, Hkv, D] (the scales in [NB, bs,
+// Hkv]); logical row r of slot b lives at block page_table[b, r / bs],
+// offset r % bs.  A row on an unbound page (-1, or an id outside the
+// pool) is masked and never read.  Any block size bs >= 1 works.
 //
 // Bound.  Decode is memory-bound: each step reads the live K/V rows (and
 // their scales) once and does 4 * rows * H * D flops on them, far below
 // the card's ~295 flops/byte balance point.  The least time is the live
 // K/V bytes over the HBM rate.
 //
-// Design.  One CTA per (slot, KV head): a loop inside the CTA walks the
-// row tiles, taking the place of the TPU's sequential KV grid axis
-// (nothing carries between CTAs on Hopper).  The plain cache walks only
-// up to the cursor's tile; a tile with no allowed row (past the cursor,
-// out of band, unwritten, or on unbound pages) is skipped before any of
-// its K/V bytes are read, and inside a live tile the paged walk loads
-// only allowed rows, so cost follows the live tokens.  K/V rows load 16
-// bytes per thread along D, dequantise to f32 in shared memory, and scores,
+// Dense design (flash_decode_kernel).  One CTA per (slot, KV head): a
+// loop inside the CTA walks the row tiles, taking the place of the TPU's
+// sequential KV grid axis.  It walks only up to the cursor's tile; a tile
+// with no allowed row (past the cursor, out of band, unwritten) is skipped
+// before any of its K/V bytes are read.  K/V rows load 16 bytes per
+// thread along D and dequantise to f32 in shared memory; scores,
 // probabilities and the accumulator stay in f32.  At lm_small with 8
 // slots that is B * Hkv = 96 CTAs, less than one wave on 132 SMs, with no
-// overlap of loads and math inside a CTA.  Split-KV, cp.async/TMA
-// pipelining, page-granular tiles and tensor-core scores are left for a
-// later change.
+// overlap of loads and math.  The paged form below is split-KV; the dense
+// one keeps its own kernel, because one template for both changed the
+// dense code's register allocation and slowed it by ~30 % in the decode
+// step.
+//
+// Paged design: split-KV over whole pages, described above the paged
+// kernel.  At lm_small with 8 slots and 64 pages a slot, 6 splits of 11
+// pages give 576 CTAs, more than four waves on 132 SMs, and each CTA's
+// loads of its next tile overlap the math on this one.
 //
 // The launchers run on the caller's stream, allocate nothing, and
 // return cudaGetLastError() (0 on success).
@@ -146,15 +145,15 @@ __host__ __device__ inline int tile_rows(int d) {
   return d <= 64 ? 64 : (d <= 128 ? 32 : 16);
 }
 
-__host__ inline size_t smem_bytes(int g, int d, bool paged) {
+__host__ inline size_t smem_bytes(int g, int d) {
   const int t = tile_rows(d);
   const size_t floats = static_cast<size_t>(t) * (d + 1)  // K tile (padded)
                         + static_cast<size_t>(t) * d      // V tile
                         + 2 * static_cast<size_t>(g) * d  // q, acc
                         + static_cast<size_t>(g) * t      // scores / p
                         + 3 * static_cast<size_t>(g);     // m, l, corr
-  // per tile row: allowed flag (and, paged, the physical row index)
-  return floats * sizeof(float) + (paged ? 2 : 1) * static_cast<size_t>(t) * sizeof(int);
+  // per tile row: allowed flag
+  return floats * sizeof(float) + static_cast<size_t>(t) * sizeof(int);
 }
 
 template <typename TQ, typename TKV, bool kWindowed, bool kQuant>
@@ -311,176 +310,378 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(
   }
 }
 
-// The paged form: the same computation, each row addressed through the
-// page table.  A kernel of its own, so that the dense kernel's code stays
-// as it was.
+// ------------------------------------------------------- the paged form
+//
+// Split-KV over whole pages.  The grid is (B * Hkv, splits): CTA (bhk, s)
+// takes the contiguous run of pages [s * pps, (s + 1) * pps) of its slot
+// (pps pages a split, chosen on the host from the page count and the SM
+// count, never from the cursors) and writes the f32 partial (m, l,
+// acc[G, D]) of its rows to a workspace; flash_decode_combine_kernel then
+// merges each (slot, KV head)'s partials in split order, so the result is
+// deterministic.  The CTA reads each of its page ids once, into shared
+// memory, and walks its rows in tiles of tile_rows(D) rows that may span
+// pages.  A tile whose rows are all dead (past the cursor, out of band,
+// unwritten, or on unbound pages) is skipped before any of its K/V bytes
+// are read; inside a live tile, only live rows are copied and the rest
+// are zero-filled.  K/V rows move global -> shared by 16-byte cp.async
+// copies in their stored dtype into a two-stage ring, so the next tile's
+// loads overlap this tile's math, and are widened (and, int8/fp8, scaled)
+// in registers.  Each warp owns a quarter of a tile's rows and keeps its
+// own online softmax state, so a tile needs no block-wide reduction; the
+// CTA merges its four warps' states at the end.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 8 and 2 stored K/V values from shared memory, widened to f32
+template <typename T>
+struct Widen;
+
+template <>
+struct Widen<float> {
+  __device__ static void load8(const unsigned char* p, float* out) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 16);
+    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+  }
+  __device__ static float2 load2(const unsigned char* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+};
+
+template <>
+struct Widen<__nv_bfloat16> {
+  __device__ static void load8(const unsigned char* p, float* out) {
+    Vec16<__nv_bfloat16>::load(reinterpret_cast<const __nv_bfloat16*>(p), out);
+  }
+  __device__ static float2 load2(const unsigned char* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+};
+
+template <>
+struct Widen<int8_t> {
+  __device__ static void load8(const unsigned char* p, float* out) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
+  }
+  __device__ static float2 load2(const unsigned char* p) {
+    const char2 c = *reinterpret_cast<const char2*>(p);
+    return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
+  }
+};
+
+template <>
+struct Widen<__nv_fp8_e4m3> {
+  __device__ static void load8(const unsigned char* p, float* out) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __nv_fp8_e4m3* c = reinterpret_cast<const __nv_fp8_e4m3*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
+  }
+  __device__ static float2 load2(const unsigned char* p) {
+    const __nv_fp8_e4m3* c = reinterpret_cast<const __nv_fp8_e4m3*>(p);
+    return make_float2(static_cast<float>(c[0]), static_cast<float>(c[1]));
+  }
+};
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxPairs = 4;  // feature pairs a lane owns in P.V: D <= 256
+
+// padded bytes of a K/V row in shared memory: 16 bytes of padding put the
+// rows that a quarter-warp's 16-byte loads read in distinct banks
+__host__ __device__ inline int paged_ld(int d, int esize) { return d * esize + 16; }
+
+__host__ inline size_t paged_smem_bytes(int g, int d, int esize, int pps) {
+  const size_t t = tile_rows(d);
+  return 4 * t * paged_ld(d, esize)                       // K and V, two stages
+         + (static_cast<size_t>(g) * d                    // q
+            + static_cast<size_t>(kWarps) * g * d         // each warp's acc
+            + 2 * static_cast<size_t>(kWarps) * g         // each warp's m, l
+            + 4 * t) * sizeof(float)                      // K/V scales, two stages
+         + (4 * t + static_cast<size_t>(pps)) * sizeof(int);  // row flags and
+                                                              // pool rows; page ids
+}
+
 template <typename TQ, typename TKV, bool kWindowed, bool kQuant>
 __global__ void __launch_bounds__(kThreads) flash_decode_paged_kernel(
-    const TQ* __restrict__ q,            // [B, H, D]
-    const TKV* __restrict__ k,           // [NB, bs, Hkv, D]
-    const TKV* __restrict__ v,           // [NB, bs, Hkv, D]
+    const TQ* __restrict__ q,                // [B, H, D]
+    const TKV* __restrict__ k,               // [NB, bs, Hkv, D]
+    const TKV* __restrict__ v,               // [NB, bs, Hkv, D]
     const int32_t* __restrict__ page_table,  // [B, P]
-    const int32_t* __restrict__ idx,     // [B]
-    const int32_t* __restrict__ slot_pos,  // [B, R = P * bs] (windowed only)
-    const float* __restrict__ k_scale,   // [NB, bs, Hkv] (quantised only)
-    const float* __restrict__ v_scale,   // [NB, bs, Hkv] (quantised only)
-    TQ* __restrict__ out,                // [B, H, D]
-    int R, int P, int bs, int NB, int H, int Hkv, int D, int window,
-    int sinks, float scale) {
-  extern __shared__ float smem[];
+    const int32_t* __restrict__ idx,         // [B]
+    const int32_t* __restrict__ slot_pos,    // [B, P * bs] (windowed only)
+    const float* __restrict__ k_scale,       // [NB, bs, Hkv] (quantised only)
+    const float* __restrict__ v_scale,       // [NB, bs, Hkv] (quantised only)
+    float* __restrict__ part,                // [B * Hkv, splits, G, D + 2]
+    int P, int bs, int NB, int H, int Hkv, int D, int window, int sinks,
+    float scale, int pps) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  constexpr int kEs = sizeof(TKV);
   const int G = H / Hkv;
-  const int tile = tile_rows(D);
-  const int ks_stride = D + 1;  // pad: lanes on consecutive rows hit distinct banks
-  float* Ks = smem;
-  float* Vs = Ks + tile * ks_stride;
-  float* Qs = Vs + tile * D;
-  float* Acc = Qs + G * D;
-  float* S = Acc + G * D;
-  float* M = S + G * tile;
-  float* L = M + G;
-  float* Corr = L + G;
-  int* allow = reinterpret_cast<int*>(Corr + G);
-  int* prow = allow + tile;  // each tile row's physical pool row
+  const int T = tile_rows(D);     // rows a tile
+  const int RW = T / kWarps;      // rows a warp
+  const int TPR = 32 / RW;        // lanes a row in the scores
+  const int LDB = paged_ld(D, kEs);
+  unsigned char* Kr = dsmem;              // [2][T][LDB]
+  unsigned char* Vr = Kr + 2 * T * LDB;   // [2][T][LDB]
+  float* Qs = reinterpret_cast<float*>(Vr + 2 * T * LDB);  // [G][D], scaled
+  float* Acc = Qs + G * D;                // [kWarps][G][D]
+  float* Mw = Acc + kWarps * G * D;       // [kWarps][G]
+  float* Lw = Mw + kWarps * G;            // [kWarps][G]
+  float* Ksc = Lw + kWarps * G;           // [2][T]
+  float* Vsc = Ksc + 2 * T;               // [2][T]
+  int* allow = reinterpret_cast<int*>(Vsc + 2 * T);  // [2][T]
+  int* prow = allow + 2 * T;              // [2][T] each row's pool row
+  int* pid = prow + 2 * T;                // [pps] the split's page ids
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int b = blockIdx.x / Hkv;
-  const int hk = blockIdx.x % Hkv;
+  const int bhk = blockIdx.x;
+  const int b = bhk / Hkv;
+  const int hk = bhk - b * Hkv;
+  const int split = blockIdx.y;
   const int cursor = idx[b];
-  const size_t row_stride = static_cast<size_t>(Hkv) * D;
-  const TKV* kb = k + static_cast<size_t>(hk) * D;
-  const TKV* vb = v + static_cast<size_t>(hk) * D;
+  const int p0 = split * pps;
+  int p1 = min(P, p0 + pps);
+  // the plain cache walks only up to the cursor's page
+  if (!kWindowed) p1 = min(p1, cursor < 0 ? p0 : cursor / bs + 1);
+  const int np = max(p1 - p0, 0);
   const size_t qo = (static_cast<size_t>(b) * H + static_cast<size_t>(hk) * G) * D;
 
-  for (int i = tid; i < G * D; i += kThreads) {
-    Qs[i] = to_f32(q[qo + i]) * scale;
-    Acc[i] = 0.f;
+  for (int i = tid; i < np; i += kThreads) pid[i] = page_table[static_cast<size_t>(b) * P + p0 + i];
+  for (int i = tid; i < G * D; i += kThreads) Qs[i] = to_f32(q[qo + i]) * scale;
+  for (int i = tid; i < kWarps * G * D; i += kThreads) Acc[i] = 0.f;
+  for (int i = tid; i < kWarps * G; i += kThreads) {
+    Mw[i] = kNegInf;
+    Lw[i] = 0.f;
   }
-  for (int g = tid; g < G; g += kThreads) {
-    M[g] = kNegInf;
-    L[g] = 0.f;
-  }
-
-  // the plain cache walks only up to the cursor's tile
-  const int rows = kWindowed ? R : min(max(cursor + 1, 0), R);
-  const int ntiles = (rows + tile - 1) / tile;
-  constexpr int kVec = Vec16<TKV>::N;
-  const int vec_per_row = D / kVec;
   __syncthreads();
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int r0 = t * tile;
-    const int nrows = min(tile, R - r0);
+  const int nrows = np * bs;  // the split's rows, from logical row p0 * bs
+  const int ntiles = (nrows + T - 1) / T;
+  const int chunks = D * kEs / 16;  // 16-byte copies a row
+  const size_t row_bytes = static_cast<size_t>(D) * kEs;
+  // Row flags and pool rows of tile t into stage st; does any row live?
+  auto build = [&](int t, int st) {
     int any = 0;
-    for (int r = tid; r < tile; r += kThreads) {
-      int ok = 0;
-      if (r < nrows) {
-        const int row = r0 + r;
-        // the page-table walk: this row's block, read by the CTA itself
-        const int blk = page_table[static_cast<size_t>(b) * P + row / bs];
+    for (int r = tid; r < T; r += kThreads) {
+      const int lr = t * T + r;
+      int ok = 0, pr = 0;
+      if (lr < nrows) {
+        const int blk = pid[lr / bs];
         ok = blk >= 0 && blk < NB;
-        prow[r] = blk * bs + row % bs;
+        pr = blk * bs + lr % bs;
+        const int row = p0 * bs + lr;  // logical row
         if (kWindowed) {
-          const int p = slot_pos[static_cast<size_t>(b) * R + row];
-          ok = ok && p >= 0 && p <= cursor && (p > cursor - window || p < sinks);
+          const int sp = slot_pos[static_cast<size_t>(b) * P * bs + row];
+          ok = ok && sp >= 0 && sp <= cursor && (sp > cursor - window || sp < sinks);
         } else {
           ok = ok && row <= cursor;
         }
       }
-      allow[r] = ok;
+      allow[st * T + r] = ok;
+      prow[st * T + r] = pr;
       any |= ok;
     }
-    // dead tile (past the cursor / out of band / unwritten / unbound
-    // pages): no K/V bytes read
-    if (!__syncthreads_or(any)) continue;
+    return any;
+  };
+  // The live rows of a stage's tile, global -> shared; dead rows are
+  // zero-filled and never read.
+  auto fetch = [&](int st) {
+    for (int i = tid; i < T * chunks; i += kThreads) {
+      const int r = i / chunks;
+      const int c = (i - r * chunks) * 16;
+      const int ok = allow[st * T + r];
+      const size_t off = (static_cast<size_t>(prow[st * T + r]) * Hkv + hk) * row_bytes + c;
+      const unsigned char* kg = reinterpret_cast<const unsigned char*>(k);
+      const unsigned char* vg = reinterpret_cast<const unsigned char*>(v);
+      cp_async16(Kr + (st * T + r) * LDB + c, ok ? kg + off : kg, ok ? 16 : 0);
+      cp_async16(Vr + (st * T + r) * LDB + c, ok ? vg + off : vg, ok ? 16 : 0);
+    }
+    if (kQuant) {
+      for (int r = tid; r < T; r += kThreads) {
+        if (allow[st * T + r]) {
+          const size_t so = static_cast<size_t>(prow[st * T + r]) * Hkv + hk;
+          cp_async4(Ksc + st * T + r, k_scale + so);
+          cp_async4(Vsc + st * T + r, v_scale + so);
+        } else {
+          Ksc[st * T + r] = 0.f;
+          Vsc[st * T + r] = 0.f;
+        }
+      }
+    }
+  };
 
-    for (int i = tid; i < nrows * vec_per_row; i += kThreads) {
-      const int r = i / vec_per_row;
-      const int c = (i - r * vec_per_row) * kVec;
-      float kf[kVec], vf[kVec];
-      float ks = 1.f, vs = 1.f;
-      if (!allow[r]) {
-        // a masked row may sit on an unbound page: never read it; zeros
-        // keep P.V clear of stale shared memory
+  int t = 0;
+  while (t < ntiles && !__syncthreads_or(build(t, 0))) ++t;
+  if (t < ntiles) fetch(0);
+  cp_async_commit();
+
+  const int rl = lane / TPR;      // this lane's row in its warp's rows
+  const int part_id = lane - rl * TPR;
+  for (int st = 0; t < ntiles; st ^= 1) {
+    int tn = t + 1;
+    while (tn < ntiles && !__syncthreads_or(build(tn, st ^ 1))) ++tn;
+    if (tn < ntiles) fetch(st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage has landed
+    __syncthreads();
+
+    const int r = warp * RW + rl;  // this lane's tile row
+    const int ok = allow[st * T + r];
+    const unsigned char* krow = Kr + (st * T + r) * LDB;
+    const float ks = kQuant ? Ksc[st * T + r] : 1.f;
+    const float vs = kQuant ? Vsc[st * T + r] : 1.f;
+    for (int g = 0; g < G; ++g) {
+      // the score of this lane's row: TPR lanes take 8-feature chunks in turn
+      float dot = 0.f;
+      for (int c = part_id; c < D / 8; c += TPR) {
+        float kf[8];
+        Widen<TKV>::load8(krow + c * 8 * kEs, kf);
+        const float* qg = Qs + g * D + c * 8;
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) kf[j] = vf[j] = 0.f;
-      } else {
-        const size_t row = static_cast<size_t>(prow[r]);
-        const size_t off = row * row_stride + c;
-        Vec16<TKV>::load(kb + off, kf);
-        Vec16<TKV>::load(vb + off, vf);
-        if (kQuant) {
-          const size_t so = row * Hkv + hk;
-          ks = k_scale[so];
-          vs = v_scale[so];
+        for (int i = 0; i < 8; ++i) dot = fmaf(qg[i], kf[i], dot);
+      }
+      for (int o = 1; o < TPR; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      const float s = kQuant ? dot * ks : dot;
+
+      // this warp's online softmax update over its RW rows
+      float* mg = Mw + warp * G + g;
+      float* lg = Lw + warp * G + g;
+      const float m_old = *mg;
+      const float m_new = fmaxf(m_old, warp_max(ok ? s : kNegInf));
+      // masked rows are zeroed by the select: while nothing is allowed,
+      // m_new is still kNegInf and exp(s - m_new) would be 1
+      const float p = ok ? expf(s - m_new) : 0.f;
+      const float sum = warp_sum(part_id == 0 ? p : 0.f);
+      const float corr = expf(m_old - m_new);
+      __syncwarp();
+      if (lane == 0) {
+        *lg = *lg * corr + sum;
+        *mg = m_new;
+      }
+      const float pv = kQuant ? p * vs : p;
+
+      // acc = acc * corr + P . V; this lane owns features 2 lane + 64 c (+1)
+      float* ag = Acc + (warp * G + g) * D;
+      float a[kMaxPairs][2];
+#pragma unroll
+      for (int c = 0; c < kMaxPairs; ++c) {
+        const int d = 2 * lane + 64 * c;
+        if (d < D) {
+          a[c][0] = ag[d] * corr;
+          a[c][1] = ag[d + 1] * corr;
+        }
+      }
+      for (int j = 0; j < RW; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, pv, j * TPR);
+        const unsigned char* vrow = Vr + (st * T + warp * RW + j) * LDB;
+#pragma unroll
+        for (int c = 0; c < kMaxPairs; ++c) {
+          const int d = 2 * lane + 64 * c;
+          if (d < D) {
+            const float2 vv = Widen<TKV>::load2(vrow + d * kEs);
+            a[c][0] = fmaf(pj, vv.x, a[c][0]);
+            a[c][1] = fmaf(pj, vv.y, a[c][1]);
+          }
         }
       }
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        Ks[r * ks_stride + c + j] = kf[j] * ks;
-        Vs[r * D + c + j] = vf[j] * vs;
+      for (int c = 0; c < kMaxPairs; ++c) {
+        const int d = 2 * lane + 64 * c;
+        if (d < D) {
+          ag[d] = a[c][0];
+          ag[d + 1] = a[c][1];
+        }
       }
+      __syncwarp();
     }
-    __syncthreads();
-
-    // scores: one (query head, row) pair per thread
-    for (int i = tid; i < G * tile; i += kThreads) {
-      const int g = i / tile;
-      const int r = i - g * tile;
-      float s = kNegInf;
-      if (allow[r]) {
-        const float* kr = Ks + r * ks_stride;
-        const float* qr = Qs + g * D;
-        float acc = 0.f;
-        for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-        s = acc;
-      }
-      S[g * tile + r] = s;
-    }
-    __syncthreads();
-
-    // online softmax update: one warp per query head
-    for (int g = warp; g < G; g += kThreads / 32) {
-      float* sg = S + g * tile;
-      float mx = kNegInf;
-      for (int r = lane; r < tile; r += 32) mx = fmaxf(mx, sg[r]);
-      mx = warp_max(mx);
-      const float m_old = M[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int r = lane; r < tile; r += 32) {
-        // masked rows are zeroed explicitly: while nothing is allowed,
-        // m_new is still kNegInf and exp(s - m_new) would be 1
-        const float p = allow[r] ? expf(sg[r] - m_new) : 0.f;
-        sg[r] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        Corr[g] = corr;
-        L[g] = L[g] * corr + sum;
-        M[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P . V, one (query head, feature) pair per thread
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int g = i / D;
-      const int d = i - g * D;
-      const float* pg = S + g * tile;
-      float a = Acc[i] * Corr[g];
-      for (int r = 0; r < nrows; ++r) a = fmaf(pg[r], Vs[r * D + d], a);
-      Acc[i] = a;
-    }
-    __syncthreads();
+    __syncthreads();  // every warp is done with this stage
+    t = tn;
   }
+  cp_async_wait<0>();
+  __syncthreads();
 
+  // the CTA's partial: its four warps' states merged in warp order
+  float* pb = part + (static_cast<size_t>(bhk) * gridDim.y + split) * G * (D + 2);
   for (int i = tid; i < G * D; i += kThreads) {
-    const float l = fmaxf(L[i / D], 1e-30f);
-    out[qo + i] = from_f32<TQ>(Acc[i] / l);
+    const int g = i / D;
+    const int d = i - g * D;
+    float m = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, Mw[w * G + g]);
+    float acc = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = expf(Mw[w * G + g] - m);
+      acc = fmaf(Acc[(w * G + g) * D + d], c, acc);
+      l = fmaf(Lw[w * G + g], c, l);
+    }
+    float* pg = pb + g * (D + 2);
+    pg[2 + d] = acc;
+    if (d == 0) {
+      pg[0] = m;
+      pg[1] = l;
+    }
+  }
+}
+
+// The merge of each (slot, KV head)'s split partials, in split order:
+// M = max m_s, w_s = exp(m_s - M), l = sum l_s w_s, acc = sum acc_s w_s,
+// out = acc / max(l, 1e-30).  Each op is rounded once, as the plain
+// split-and-merge version (ops/flash_decode.py) computes it.  A slot with
+// nothing attendable has every m_s = kNegInf, l = 0 and gets exactly 0.
+template <typename TQ>
+__global__ void __launch_bounds__(kThreads) flash_decode_combine_kernel(
+    const float* __restrict__ part, TQ* __restrict__ out, int S, int H, int Hkv, int D) {
+  const int G = H / Hkv;
+  const int bhk = blockIdx.x;
+  const int b = bhk / Hkv;
+  const int hk = bhk - b * Hkv;
+  const size_t stride = static_cast<size_t>(G) * (D + 2);  // one split's partial
+  const float* base = part + static_cast<size_t>(bhk) * S * stride;
+  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+    const int g = i / D;
+    const int d = i - g * D;
+    float m = kNegInf;
+    for (int s = 0; s < S; ++s) m = fmaxf(m, base[s * stride + g * (D + 2)]);
+    float l = 0.f, acc = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float* ps = base + s * stride + g * (D + 2);
+      const float w = expf(__fsub_rn(ps[0], m));
+      l = __fadd_rn(l, __fmul_rn(ps[1], w));
+      acc = __fadd_rn(acc, __fmul_rn(ps[2 + d], w));
+    }
+    out[(static_cast<size_t>(b) * H + static_cast<size_t>(hk) * G + g) * D + d] =
+        from_f32<TQ>(__fdiv_rn(acc, fmaxf(l, 1e-30f)));
   }
 }
 
@@ -495,35 +696,42 @@ struct Args {
   const float* k_scale;
   const float* v_scale;
   void* out;
+  float* part;  // paged: the split partials' workspace
   int B, R, P, bs, NB, H, Hkv, D, window, sinks;
   float scale;
+  int splits, pps;  // paged: splits and pages a split
   cudaStream_t stream;
 };
 
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <typename TQ, typename TKV, bool kWindowed, bool kQuant, bool kPaged>
 cudaError_t launch(const Args& a) {
-  const size_t smem = smem_bytes(a.H / a.Hkv, a.D, kPaged);
-  const dim3 grid(a.B * a.Hkv);
   if constexpr (kPaged) {
+    const size_t smem = paged_smem_bytes(a.H / a.Hkv, a.D, sizeof(TKV), a.pps);
     auto kernel = flash_decode_paged_kernel<TQ, TKV, kWindowed, kQuant>;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (e != cudaSuccess) return e;
-    }
-    kernel<<<grid, kThreads, smem, a.stream>>>(
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(a.B * a.Hkv, a.splits), kThreads, smem, a.stream>>>(
         static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
         static_cast<const TKV*>(a.v), a.page_table, a.idx, a.slot_pos,
-        a.k_scale, a.v_scale, static_cast<TQ*>(a.out), a.R, a.P, a.bs, a.NB,
-        a.H, a.Hkv, a.D, a.window, a.sinks, a.scale);
+        a.k_scale, a.v_scale, a.part, a.P, a.bs, a.NB, a.H, a.Hkv, a.D,
+        a.window, a.sinks, a.scale, a.pps);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    flash_decode_combine_kernel<TQ><<<a.B * a.Hkv, kThreads, 0, a.stream>>>(
+        a.part, static_cast<TQ*>(a.out), a.splits, a.H, a.Hkv, a.D);
   } else {
+    const size_t smem = smem_bytes(a.H / a.Hkv, a.D);
     auto kernel = flash_decode_kernel<TQ, TKV, kWindowed, kQuant>;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (e != cudaSuccess) return e;
-    }
-    kernel<<<grid, kThreads, smem, a.stream>>>(
+    const cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<a.B * a.Hkv, kThreads, smem, a.stream>>>(
         static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
         static_cast<const TKV*>(a.v), a.idx, a.slot_pos, a.k_scale,
         a.v_scale, static_cast<TQ*>(a.out), a.R, a.H, a.Hkv, a.D, a.window,
@@ -551,7 +759,11 @@ cudaError_t dispatch(int q_dtype, int kv_dtype, int windowed, int paged,
   const int quant = kv_dtype == kI8 || kv_dtype == kFP8;
   if (quant && (a.k_scale == nullptr || a.v_scale == nullptr)) return cudaErrorInvalidValue;
   if (windowed && a.slot_pos == nullptr) return cudaErrorInvalidValue;
-  if (paged && (a.page_table == nullptr || a.bs < 1 || a.NB < 1)) return cudaErrorInvalidValue;
+  if (paged && (a.page_table == nullptr || a.part == nullptr || a.bs < 1 || a.NB < 1 ||
+                a.splits < 1 || a.splits > 65535 || a.pps < 1 ||
+                static_cast<long long>(a.splits) * a.pps < a.P ||
+                static_cast<long long>(a.splits - 1) * a.pps >= a.P))
+    return cudaErrorInvalidValue;
   if (q_dtype == kF32) {
     switch (kv_dtype) {
       case kF32: return dispatch_mode<float, float, false>(windowed, paged, a);
@@ -587,25 +799,30 @@ extern "C" int flash_decode_launch(
   const Args a{q, k, v, nullptr, static_cast<const int32_t*>(idx),
                static_cast<const int32_t*>(slot_pos),
                static_cast<const float*>(k_scale),
-               static_cast<const float*>(v_scale), out, B, R, 0, 0, 0, H, Hkv,
-               D, window, sinks, scale, static_cast<cudaStream_t>(stream)};
+               static_cast<const float*>(v_scale), out, nullptr, B, R, 0, 0, 0,
+               H, Hkv, D, window, sinks, scale, 0, 0,
+               static_cast<cudaStream_t>(stream)};
   return dispatch(q_dtype, kv_dtype, windowed, 0, a);
 }
 
 // Paged block pool: k/v [NB, bs, Hkv, D], scales [NB, bs, Hkv], page
-// table [B, P], slot_pos [B, P * bs].
+// table [B, P], slot_pos [B, P * bs].  ``splits`` runs of ``pps`` pages
+// each (the last may be shorter, none empty); ``workspace`` holds
+// B * Hkv * splits * (H / Hkv) * (D + 2) f32 on the stream.  Two launches:
+// the split kernel, then the combine.
 extern "C" int flash_decode_paged_launch(
     int q_dtype, int kv_dtype, int windowed, const void* q, const void* k_pool,
     const void* v_pool, const void* page_table, const void* idx,
     const void* slot_pos, const void* k_scale, const void* v_scale, void* out,
     int B, int P, int bs, int NB, int H, int Hkv, int D, int window, int sinks,
-    float scale, void* stream) {
+    float scale, int splits, int pps, void* workspace, void* stream) {
   const Args a{q, k_pool, v_pool, static_cast<const int32_t*>(page_table),
                static_cast<const int32_t*>(idx),
                static_cast<const int32_t*>(slot_pos),
                static_cast<const float*>(k_scale),
-               static_cast<const float*>(v_scale), out, B, P * bs, P, bs, NB, H,
-               Hkv, D, window, sinks, scale, static_cast<cudaStream_t>(stream)};
+               static_cast<const float*>(v_scale), out,
+               static_cast<float*>(workspace), B, P * bs, P, bs, NB, H, Hkv, D,
+               window, sinks, scale, splits, pps, static_cast<cudaStream_t>(stream)};
   return dispatch(q_dtype, kv_dtype, windowed, 1, a);
 }
 

@@ -20,9 +20,12 @@ rounded to v's dtype before P·V, ds to k's dtype before ds·K, p to dO's
 and ds to q's dtype before the dK/dV products.  The kernels choose their
 own tiles (:data:`TILE_Q` query rows by :data:`TILE_K` key rows);
 ``block_q``/``block_k`` set the plain versions' blocks, so the two differ
-only by summation order.  In bf16, B1 and B3 run on the tensor cores and
-B3 rounds p and ds exactly as the plain version does; f32 and B2 run
-SIMT FMAs (``csrc/flash_attention.cu`` says why).
+only by summation order.  In bf16 the three kernels run on the tensor
+cores, and B2 and B3 round ds (and B3 p) to bf16 as the plain version
+does: pairs whose rounding the tensor cores' sums could decide otherwise
+are flagged and summed again in the plain order.  f32 runs SIMT FMAs
+(``csrc/flash_attention.cu`` says why).  :func:`rounding_audit` counts,
+on the card, how often that flag fires and whether it missed a pair.
 
 :func:`flash_attention` and :func:`flash_attention_lse` are
 ``torch.autograd.Function`` s over these three (the JAX ``custom_vjp``
@@ -55,6 +58,7 @@ __all__ = [
     "flash_attention_fwd",
     "flash_attention_fwd_reference",
     "flash_attention_lse",
+    "rounding_audit",
 ]
 
 # dtype codes and kernel ids shared with csrc/flash_attention.cu
@@ -270,7 +274,7 @@ def _kernel():
         lib.flash_attention_launch.argtypes = (
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
             + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 8
-            + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -309,9 +313,11 @@ def _check_kernel_inputs(*xs):
 
 
 def _launch(which, q, k, v, *, o=None, do=None, dq=None, dk=None, dv=None,
-            lse, delta=None, causal, window, sinks):
+            lse, delta=None, causal, window, sinks, audit=None):
     """One kernel launch on the current stream; raises on a refused
-    launch.  Every tensor is already on the device and kernel-readable."""
+    launch.  Every tensor is already on the device and kernel-readable.
+    ``audit`` (four zeroed int64 counts) runs the bf16 B2/B3 kernel's
+    rounding audit instead of the training kernel."""
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     views = (q, k, v, o, do, dq, dk, dv)
@@ -328,7 +334,7 @@ def _launch(which, q, k, v, *, o=None, do=None, dq=None, dk=None, dv=None,
             which, _DTYPES[q.dtype], d, ptr(q), ptr(k), ptr(v), ptr(o),
             ptr(do), ptr(dq), ptr(dk), ptr(dv), ptr(lse), ptr(delta), strides,
             b, tq, tk, h, hkv, int(causal), int(window or 0), int(sinks),
-            1.0 / math.sqrt(d), ctypes.c_void_p(stream))
+            1.0 / math.sqrt(d), ptr(audit), ctypes.c_void_p(stream))
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         name = ("flash_attention_fwd", "flash_attention_dq",
@@ -405,6 +411,41 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal=False,
             sinks=sinks)
     flash_attention_dkv.launches += 1
     return dk, dv
+
+
+#: what :func:`rounding_audit` counts, in the kernels' order (AuditCount)
+AUDIT_COUNTS = ("flagged", "flagged_changed", "unflagged_differ", "live_pairs")
+
+
+def rounding_audit(q, k, v, do, lse, delta, *, causal=False, window=None,
+                   sinks=0):
+    """The bf16 B2 and B3 kernels' rounding audit on the card: each runs
+    its audit instantiation, which sums every live pair again in the
+    plain version's order.  Returns ``{"dq": counts, "dkv": counts}``,
+    each a dict over :data:`AUDIT_COUNTS`: pairs flagged for re-summing,
+    flagged pairs whose bf16 rounding of ds (and, in B3, of p) the
+    re-sum changed, unflagged pairs whose rounding differs from the plain
+    order's (the flag's misses), and live pairs.  The launches are not
+    counted: this is a measurement, not the training path."""
+    validate_window(causal, window, sinks)
+    _gqa_dims(q, k, v)
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError("rounding_audit runs the bf16 kernels on a CUDA "
+                         f"device, got {q.dtype} on {q.device}")
+    _check_kernel_inputs(q, k, v, do)
+    q, k, v, do = (_kernel_view(x) for x in (q, k, v, do))
+    lse, delta = lse.contiguous(), delta.contiguous()
+    cfg = dict(causal=causal, window=window, sinks=sinks)
+    out = {}
+    for name, which, outs in (
+            ("dq", _DQ, dict(dq=torch.empty_like(q))),
+            ("dkv", _DKV, dict(dk=torch.empty_like(k), dv=torch.empty_like(v)))):
+        counts = torch.zeros(len(AUDIT_COUNTS), dtype=torch.int64,
+                             device=q.device)
+        _launch(which, q, k, v, do=do, lse=lse, delta=delta, audit=counts,
+                **outs, **cfg)
+        out[name] = dict(zip(AUDIT_COUNTS, counts.tolist()))
+    return out
 
 
 #: kernel launches since the last reset (plain ints; the CPU path and the

@@ -12,6 +12,12 @@ Port of ``fluxdistributed_tpu/ops/pallas_decode.py:flash_decode`` and
   the JAX package's ``_xla_block_walk`` schedule (f32 online softmax
   over row blocks, dead blocks skipped).
 
+The paged kernel is split-KV: each slot's pages are cut into
+:func:`paged_splits` contiguous runs, each run's partial softmax state
+is computed on its own, and the partials are merged in run order.
+:func:`flash_decode_paged_split` is the plain version of that schedule
+(the tests hold it to the oracle, :func:`flash_decode_paged_reference`).
+
 All keep the probabilities in f32 through P·V, as the XLA walk does.
 (The Pallas body instead rounds p to v's dtype, so on a bf16 cache the
 two JAX impls differ by bf16 rounding of p; the port follows the XLA
@@ -30,7 +36,8 @@ import torch
 from .attention import NEG_INF, online_softmax_update, validate_window
 
 __all__ = ["flash_decode", "flash_decode_paged",
-           "flash_decode_paged_reference", "flash_decode_reference"]
+           "flash_decode_paged_reference", "flash_decode_paged_split",
+           "flash_decode_reference", "paged_splits", "split_pages"]
 
 # dtype codes shared with csrc/flash_decode.cu
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -107,18 +114,20 @@ def _dequant(x, scale):
     return x if scale is None else x * scale.float()[..., None]
 
 
-def _block_walk(q, hkv, nblocks, get_mask, get_block):
-    """The JAX package's ``_xla_block_walk``: f32 online softmax over row
-    blocks.  ``get_mask(j)`` [B, rows] says which rows of block ``j``
-    each slot attends; a block no slot attends is skipped before
-    ``get_block(j)`` (its K/V, [B, rows, Hkv, D] f32) is touched."""
+def _walk_state(q, hkv, blocks, get_mask, get_block):
+    """The loop of the JAX package's ``_xla_block_walk``: f32 online
+    softmax over the row blocks ``blocks``.  ``get_mask(j)`` [B, rows]
+    says which rows of block ``j`` each slot attends; a block no slot
+    attends is skipped before ``get_block(j)`` (its K/V, [B, rows, Hkv,
+    D] f32) is touched.  Returns the state ``(m, l, acc)``, each
+    [B, Hkv, G(, D)] f32."""
     b, _, h, d = q.shape
     g = h // hkv
     q4 = q[:, 0].reshape(b, hkv, g, d).float() * (1.0 / math.sqrt(d))
     acc = torch.zeros((b, hkv, g, d), dtype=torch.float32, device=q.device)
     m = torch.full((b, hkv, g), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, hkv, g), dtype=torch.float32, device=q.device)
-    for j in range(nblocks):
+    for j in blocks:
         allow = get_mask(j)
         if not bool(allow.any()):
             continue  # dead block: no K/V touched
@@ -127,8 +136,20 @@ def _block_walk(q, hkv, nblocks, get_mask, get_block):
         p, corr, m, l = online_softmax_update(s, m, l,
                                               mask=allow[:, None, None, :])
         acc = acc * corr[..., None] + torch.einsum("bhgk,bkhd->bhgd", p, vb)
+    return m, l, acc
+
+
+def _finish(q, acc, l):
+    b, _, h, d = q.shape
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _block_walk(q, hkv, nblocks, get_mask, get_block):
+    """The JAX package's ``_xla_block_walk`` over blocks ``0 ..
+    nblocks - 1`` (:func:`_walk_state`), normalised."""
+    _, l, acc = _walk_state(q, hkv, range(nblocks), get_mask, get_block)
+    return _finish(q, acc, l)
 
 
 def _ring_mask(sp, idx, window, sinks):
@@ -179,6 +200,16 @@ def flash_decode_paged_reference(q, k_pool, v_pool, page_table, idx, *,
     """The plain PyTorch version of :func:`flash_decode_paged`: the
     ``_xla_block_walk`` over the page table, one page per block.  Rows on
     an unbound page (-1) are masked and never gathered."""
+    hkv = k_pool.shape[2]
+    get_mask, get_block = _page_walkers(q, k_pool, v_pool, page_table, idx,
+                                        slot_pos, window, sinks, k_scale,
+                                        v_scale)
+    return _block_walk(q, hkv, page_table.shape[1], get_mask, get_block)
+
+
+def _page_walkers(q, k_pool, v_pool, page_table, idx, slot_pos, window,
+                  sinks, k_scale, v_scale):
+    """``(get_mask, get_block)`` of the paged walk, one page per block."""
     b = q.shape[0]
     bs, hkv, d = k_pool.shape[1:]
     pt = page_table.to(torch.int64)
@@ -204,7 +235,69 @@ def flash_decode_paged_reference(q, k_pool, v_pool, page_table, idx, *,
                             None if v_scale is None else v_scale[blk])
         return kb, vb
 
-    return _block_walk(q, hkv, pt.shape[1], get_mask, get_block)
+    return get_mask, get_block
+
+
+#: CTAs per SM that the paged kernel's split count aims at
+_CTAS_PER_SM = 4
+
+
+def paged_splits(batch: int, hkv: int, pages: int, sms: int) -> int:
+    """The paged kernel's split count: enough runs of whole pages that
+    ``batch * hkv * splits`` CTAs give each of ``sms`` SMs about four
+    (at least two waves), but no more runs than pages.  Depends on the
+    page count and the card, never on the cursors, because the grid is
+    fixed on the host."""
+    want = -(-_CTAS_PER_SM * sms // max(batch * hkv, 1))
+    return max(1, min(pages, want))
+
+
+def split_pages(pages: int, splits: int):
+    """``(runs, pages_per_run)``: ``pages`` cut into runs of
+    ``ceil(pages / splits)`` whole pages, the last possibly shorter and
+    none empty (so ``runs <= splits``)."""
+    if splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    per = -(-pages // min(splits, pages))
+    return -(-pages // per), per
+
+
+def _merge_splits(parts):
+    """Merge the split partials ``[(m, l, acc), ...]`` in split order, as
+    the paged kernel's combine does: ``M = max m_s``, ``w_s = exp(m_s -
+    M)``, ``l = sum l_s w_s``, ``acc = sum acc_s w_s``; returns ``(l,
+    acc)``.  A slot with nothing attendable keeps ``l = 0``, ``acc =
+    0``."""
+    big_m = parts[0][0]
+    for m, _, _ in parts[1:]:
+        big_m = torch.maximum(big_m, m)
+    l = torch.zeros_like(big_m)
+    acc = torch.zeros_like(parts[0][2])
+    for m, ls, a in parts:
+        w = torch.exp(m - big_m)
+        l = l + ls * w
+        acc = acc + a * w[..., None]
+    return l, acc
+
+
+def flash_decode_paged_split(q, k_pool, v_pool, page_table, idx, *, splits,
+                             slot_pos=None, window=None, sinks=0,
+                             k_scale=None, v_scale=None):
+    """The plain version of the paged kernel's split-KV schedule: the
+    page table cut into runs of whole pages (:func:`split_pages`), the
+    ``_xla_block_walk`` state of each run taken on its own, and the
+    partials merged in run order, as the kernel's combine merges them.
+    Same contract as :func:`flash_decode_paged`."""
+    pages = page_table.shape[1]
+    _, per = split_pages(pages, splits)
+    get_mask, get_block = _page_walkers(q, k_pool, v_pool, page_table, idx,
+                                        slot_pos, window, sinks, k_scale,
+                                        v_scale)
+    parts = [_walk_state(q, k_pool.shape[2], range(p0, min(p0 + per, pages)),
+                         get_mask, get_block)
+             for p0 in range(0, pages, per)]
+    l, acc = _merge_splits(parts)
+    return _finish(q, acc, l)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -226,7 +319,8 @@ def _kernel():
             + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_decode_paged_launch.argtypes = (
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-            + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+               ctypes.c_void_p])
         lib.flash_decode_launch.restype = ctypes.c_int
         lib.flash_decode_paged_launch.restype = ctypes.c_int
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
@@ -300,13 +394,23 @@ def _launch(q, k, v, idx, slot_pos, window, sinks, k_scale, v_scale):
 
 
 def _launch_paged(q, k_pool, v_pool, page_table, idx, slot_pos, window,
-                  sinks, k_scale, v_scale):
+                  sinks, k_scale, v_scale, splits=None):
+    """The paged kernel on ``splits`` runs of pages (default: from the
+    card's SM count; the card-only tests force other counts)."""
     _check_kernel_inputs(q, k_pool, v_pool, idx, slot_pos, k_scale, v_scale,
                          extra=(page_table,))
     b, _, h, d = q.shape
     nb, bs, hkv = k_pool.shape[:3]
     pages = page_table.shape[1]
+    if splits is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = paged_splits(b, hkv, pages, sms)
+    runs, per = split_pages(pages, splits)
     out = torch.empty_like(q)
+    # the split partials (m, l, acc[D]) of every (slot, query head), from
+    # the caching allocator on the current stream
+    work = torch.empty(b * h * runs * (d + 2), dtype=torch.float32,
+                       device=q.device)
     lib = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -315,9 +419,10 @@ def _launch_paged(q, k_pool, v_pool, page_table, idx, slot_pos, window,
             _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(page_table), _ptr(idx),
             _ptr(slot_pos), _ptr(k_scale), _ptr(v_scale), _ptr(out),
             b, pages, bs, nb, h, hkv, d, int(window or 0), int(sinks),
-            1.0 / math.sqrt(d), ctypes.c_void_p(stream))
+            1.0 / math.sqrt(d), runs, per, _ptr(work),
+            ctypes.c_void_p(stream))
     _raise_on(err, "flash_decode_paged")
-    flash_decode_paged.launches += 1
+    flash_decode_paged.launches += 1  # one call, two CUDA launches
     return out
 
 
@@ -391,8 +496,9 @@ def flash_decode_paged(
     pass ``k_scale``/``v_scale`` [NB, bs, Hkv] f32.  → [B, 1, H, D] in
     q's dtype; slots with nothing attendable return exactly 0.
 
-    On a CUDA tensor this launches the Hopper kernel; on a CPU tensor it
-    runs :func:`flash_decode_paged_reference`.
+    On a CUDA tensor this launches the Hopper kernel, split-KV over runs
+    of whole pages (:func:`paged_splits` of the card's SM count); on a
+    CPU tensor it runs :func:`flash_decode_paged_reference`.
     """
     _validate(window, sinks, slot_pos, k_scale, v_scale)
     _check_paged_shapes(q, k_pool, v_pool, page_table, idx, slot_pos, k_scale)

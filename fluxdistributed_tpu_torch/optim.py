@@ -44,6 +44,7 @@ __all__ = [
     "constant",
     "cosine_decay",
     "descent",
+    "div_const",
     "global_norm",
     "momentum",
     "nesterov",
@@ -59,6 +60,24 @@ def _lr_at(lr: LR, step):
 def _f32(x) -> torch.Tensor:
     """A 0-d float32 CPU tensor (jnp's f32 scalar arithmetic)."""
     return torch.as_tensor(x, dtype=torch.float32)
+
+
+def div_const(x, n):
+    """``x / n`` for a constant ``n`` as the reference computes it: XLA
+    turns a division by a compile-time constant into a product with its
+    f32 reciprocal, which rounds differently from a true division in
+    about a third of the entries (where ``n`` is not a power of two).
+    A division by a traced value stays a true division; the port divides
+    by a tensor on the operand's device there (see :func:`adam`)."""
+    return x * _f32(1.0 / n).item()
+
+
+def _on(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device``; to a card through pinned memory, without a
+    sync (a pageable host-to-device copy synchronises the stream)."""
+    if device.type == "cuda":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
 
 
 def _zeros_like(params: Params):
@@ -147,14 +166,21 @@ def adam(lr: LR = 1e-3, b1: float = 0.9, b2: float = 0.999,
     def update(params, grads, state, step):
         eta = _lr_at(lr, step)
         t = _f32(step) + 1.0
-        c1 = 1.0 - torch.pow(_f32(b1), t)
-        c2 = 1.0 - torch.pow(_f32(b2), t)
+        # the reference divides by traced bias corrections, a true
+        # division; on CUDA a CPU-scalar divisor would be multiplied by
+        # its reciprocal, so they move to the parameters' device
+        c = torch.stack([1.0 - torch.pow(_f32(b1), t),
+                         1.0 - torch.pow(_f32(b2), t)])
+        on_dev = {}
         new_p, new_s = {}, {}
         for k, p in params.items():
             g = grads.get(k)
             if g is None:
                 new_p[k], new_s[k] = p, state[k]
                 continue
+            if p.device not in on_dev:
+                on_dev[p.device] = _on(c, p.device)
+            c1, c2 = on_dev[p.device]
             m, v = state[k]
             m = b1 * m + (1 - b1) * g
             v = b2 * v + (1 - b2) * (g * g)
@@ -216,7 +242,7 @@ def step_decay(lr0: float, factor: float = 0.2, every: int = 10) -> Schedule:
     (``step_decay(lr, 0.2, 10)`` is the reference's LR/5 every 10)."""
 
     def sched(step):
-        k = torch.floor(_f32(step) / every)
+        k = torch.floor(div_const(_f32(step), every))
         return lr0 * torch.pow(_f32(factor), k)
 
     return sched
@@ -225,7 +251,7 @@ def step_decay(lr0: float, factor: float = 0.2, every: int = 10) -> Schedule:
 def cosine_decay(lr0: float, total_steps: int,
                  final_fraction: float = 0.0) -> Schedule:
     def sched(step):
-        t = torch.clamp(_f32(step) / max(total_steps, 1), 0.0, 1.0)
+        t = torch.clamp(div_const(_f32(step), max(total_steps, 1)), 0.0, 1.0)
         cos = 0.5 * (1.0 + torch.cos(math.pi * t))
         return lr0 * (final_fraction + (1.0 - final_fraction) * cos)
 
@@ -237,7 +263,7 @@ def warmup_cosine(lr0: float, warmup_steps: int, total_steps: int) -> Schedule:
 
     def sched(step):
         s = _f32(step)
-        warm = lr0 * s / max(warmup_steps, 1)
+        warm = div_const(lr0 * s, max(warmup_steps, 1))
         return torch.where(s < warmup_steps, warm, cos(s - warmup_steps))
 
     return sched

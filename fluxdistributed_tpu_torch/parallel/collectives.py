@@ -21,6 +21,7 @@ import torch
 import torch.distributed as dist
 
 from ..mesh import Mesh
+from ..optim import div_const
 
 __all__ = ["all_gather", "pmean", "psum", "reduce_scatter", "tree_map"]
 
@@ -57,8 +58,9 @@ def psum(tree: Any, mesh: Mesh) -> Any:
 
 def pmean(tree: Any, mesh: Mesh) -> Any:
     """Element-wise mean over the ranks: the sum divided by their
-    number, as the JAX ``pmean`` divides by the axis size."""
-    return tree_map(lambda x: x / mesh.size, psum(tree, mesh))
+    number, as the JAX ``pmean`` divides by the axis size (a constant
+    there, so a product with its f32 reciprocal: :func:`..optim.div_const`)."""
+    return tree_map(lambda x: div_const(x, mesh.size), psum(tree, mesh))
 
 
 def reduce_scatter(tree: Any, mesh: Mesh) -> Any:

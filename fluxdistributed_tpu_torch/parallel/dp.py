@@ -35,7 +35,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..mesh import Mesh
-from ..optim import Optimizer
+from ..optim import Optimizer, div_const
 from . import collectives
 
 __all__ = ["TrainState", "guard_sentinel", "local_grads", "make_eval_step",
@@ -152,9 +152,10 @@ def local_grads(loss_fn: Callable, *, accum_steps: int = 1, seed: int = 0,
             # an unused param has a None gradient in every microbatch
             gsum = g if gsum is None else {
                 k: None if a is None else a + g[k] for k, a in gsum.items()}
-        grads = {k: None if g is None else g / accum_steps
+        # the reference divides by the constant accum_steps
+        grads = {k: None if g is None else div_const(g, accum_steps)
                  for k, g in gsum.items()}
-        return lsum / accum_steps, mstate, grads
+        return div_const(lsum, accum_steps), mstate, grads
 
     return fn
 

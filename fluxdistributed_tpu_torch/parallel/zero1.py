@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..mesh import Mesh
-from ..optim import Optimizer
+from ..optim import Optimizer, div_const
 from . import collectives, dp
 
 __all__ = [
@@ -102,7 +102,8 @@ def zero1_optimizer(inner: Optimizer, mesh: Mesh) -> Optimizer:
 
     def update(params, grads, state, step):
         flat_g = collectives.reduce_scatter(_flatten_tree(grads, n), mesh)
-        flat_g = {k: None if g is None else g / n for k, g in flat_g.items()}
+        flat_g = {k: None if g is None else div_const(g, n)
+                  for k, g in flat_g.items()}
         flat_p = _local_chunk(_flatten_tree(params, n), mesh)
         new_flat_p, new_state = inner.update(flat_p, flat_g, state, step)
         gathered = collectives.all_gather(new_flat_p, mesh)

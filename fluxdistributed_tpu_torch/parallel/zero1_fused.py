@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from ..mesh import Mesh
 from ..ops.fused_adam import fused_adam
-from ..optim import _f32, _lr_at
+from ..optim import _f32, _lr_at, _on, div_const
 from . import collectives, dp
 
 __all__ = [
@@ -128,10 +128,7 @@ def fused_adam_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
             f"fused_adam_update needs whole [{_SUBLANES}, {_LANES}] tiles: "
             f"length {p.shape[0]} is not a multiple of {_TILE} "
             "(pack with pack_tree)")
-    scalars = _step_scalars(step, lr, b1, b2)
-    if p.device.type == "cuda":
-        # a pageable host->device copy would synchronise the stream
-        scalars = scalars.pin_memory().to(p.device, non_blocking=True)
+    scalars = _on(_step_scalars(step, lr, b1, b2), p.device)
     return fused_adam(p.float(), g.float(), m.float(), v.float(), scalars,
                       b1=b1, b2=b2, eps=eps)
 
@@ -180,7 +177,7 @@ def make_train_step_zero1_fused(loss_fn: Callable, mesh: Mesh, *, lr=1e-3,
                      and p is not None else grads[k]
                      for k, p in state.params.items()}
             flat_g = collectives.reduce_scatter(pack_tree(grads, n), mesh)
-            flat_g = flat_g / n
+            flat_g = div_const(flat_g, n)
             chunk = flat_g.shape[0]
             flat_p = pack_tree(state.params, n)[
                 mesh.rank * chunk:(mesh.rank + 1) * chunk]

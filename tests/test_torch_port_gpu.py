@@ -13,9 +13,15 @@ order differs); atol 2e-2 for bf16 output (one bf16 ulp at |out| < 4 plus
 the f32 differences before the final rounding).  Flash attention: O 1e-5
 abs in f32 and 2e-2 abs in bf16, LSE 1e-5 abs; gradients element by
 element, within 1e-4 abs in f32 and within 1e-5 + 1.6e-2 x |ref| (two
-bf16 ulps of each entry) in bf16.  bf16 B1 and B3 run on the tensor cores,
-whose f32 sums differ from the plain versions' in order only; B3 rounds p
-and ds to bf16 exactly as the plain version does.
+bf16 ulps of each entry) in bf16.  bf16 B1-B3 run on the tensor cores,
+whose f32 sums differ from the plain versions' in order only; B2 rounds
+ds, and B3 p and ds, to bf16 exactly as the plain version does, and the
+rounding audit (every live pair summed again in the plain order) must
+find no pair that the flag let through rounding otherwise.  The paged
+kernel is split-KV; at 1, 2, 3 and 7 splits it holds the same limits
+against the plain version and against the plain split-and-merge
+version.  ``optim.adam`` on the card equals ``fused_adam``'s plain
+version bit for bit.
 Fused Adam: bitwise (each op rounded as the plain version's op).  The
 fused ZeRO-1 step on the card against the CPU: loss 1e-5 relative;
 params lr / 10 absolute, because the card sums gradients in another
@@ -32,7 +38,7 @@ from fluxdistributed_tpu_torch.models import lm_tiny
 from fluxdistributed_tpu_torch.models.transformer_lm import quantize_kv
 from fluxdistributed_tpu_torch.ops.flash_decode import (
     flash_decode, flash_decode_paged, flash_decode_paged_reference,
-    flash_decode_reference)
+    flash_decode_paged_split, flash_decode_reference)
 from fluxdistributed_tpu_torch.serve import LMEngine, Request, Scheduler
 
 pytestmark = pytest.mark.gpu
@@ -125,44 +131,15 @@ def test_engine_on_card_matches_cpu_generate(cuda, config):
 def test_paged_kernel_matches_plain_version(cuda, variant):
     """Pages scattered over the pool by a seeded permutation, -1 past each
     cursor and one -1 page inside a live range, block size 16 (and 4 for
-    the ring)."""
-    g = torch.Generator().manual_seed(1)
-    b, h, hkv, d, bs, nb, pages = 4, 8, 8, 64, 16, 128, 12
-    if variant == "gqa":
-        hkv = 2
-    dt = torch.float32 if variant == "f32" else torch.bfloat16
-    idx = torch.tensor([0, 63, 64, 191], dtype=torch.int32)
-    kw = {}
-    if variant == "ring":
-        window, sinks, bs, pages = 100, 4, 4, 26  # r_pad 104, ring 100
-        idx = torch.tensor([0, 50, 103, 777], dtype=torch.int32)
-        kw = dict(slot_pos=_ring(b, pages * bs, sinks, idx.tolist()),
-                  window=window, sinks=sinks)
-    q = torch.randn(b, 1, h, d, generator=g).to(dt)
-    k = torch.randn(nb, bs, hkv, d, generator=g)
-    v = torch.randn(nb, bs, hkv, d, generator=g)
-    pt = torch.randperm(nb, generator=g)[:b * pages].view(b, pages)
-    pt = pt.to(torch.int32).clone()
-    for bb in range(b):
-        if variant == "ring":
-            used = (kw["slot_pos"][bb] >= 0).view(pages, bs).any(1)
-        else:
-            used = torch.arange(pages) * bs <= idx[bb]
-        pt[bb, ~used] = -1
-    pt[3, 1] = -1  # an unbound page inside a live range
-    if variant in ("int8", "fp8"):
-        k, kw["k_scale"] = quantize_kv(k, variant)
-        v, kw["v_scale"] = quantize_kv(v, variant)
-    else:
-        k, v = k.to(dt), v.to(dt)
-    ref = flash_decode_paged_reference(q, k, v, pt, idx, **kw)
+    the ring); the kernel's own split count."""
+    args, kw = _paged_case(variant)
+    ref = flash_decode_paged_reference(*args, **kw)
     dev = {n: x.to(cuda) if torch.is_tensor(x) else x for n, x in kw.items()}
     before = flash_decode_paged.launches
-    out = flash_decode_paged(q.to(cuda), k.to(cuda), v.to(cuda), pt.to(cuda),
-                             idx.to(cuda), **dev)
+    out = flash_decode_paged(*(x.to(cuda) for x in args), **dev)
     torch.cuda.synchronize()
     assert flash_decode_paged.launches == before + 1
-    atol = 2e-5 if dt == torch.float32 else 2e-2
+    atol = 2e-5 if variant == "f32" else 2e-2
     torch.testing.assert_close(out.cpu().float(), ref.float(), atol=atol,
                                rtol=0)
 
@@ -413,3 +390,173 @@ def test_zero1_fused_step_on_one_nccl_rank_matches_cpu(cuda):
     assert abs(lg - lc) <= 1e-5 * abs(lc)
     for name in pc:
         torch.testing.assert_close(pg[name], pc[name], atol=1e-3 / 10, rtol=0)
+
+
+def test_adam_on_card_equals_fused_adam_plain_bitwise(cuda):
+    """``optim.adam`` on the card divides by its bias corrections as
+    tensors on the parameter's device, as the reference divides by
+    traced values: its update equals ``fused_adam``'s plain version bit
+    for bit (a CPU scalar divisor would be multiplied by its reciprocal
+    on CUDA instead)."""
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.ops import fused_adam_plain
+    from fluxdistributed_tpu_torch.parallel.zero1_fused import _step_scalars
+
+    p, g, m, v = _adam_buffers(1 << 20, cuda, seed=3)
+    opt = optim.adam(3e-4)
+    for step in (0, 7):
+        new_p, new_s = opt.update({"w": p}, {"w": g}, {"w": (m, v)}, step)
+        sc = _step_scalars(step, 3e-4, 0.9, 0.999).to(cuda)
+        ref = fused_adam_plain(p, g, m, v, sc, 0.9, 0.999, 1e-8)
+        torch.cuda.synchronize()
+        for got, want in zip((new_p["w"], *new_s["w"]), ref):
+            assert torch.equal(got, want)
+
+
+# B2 on the tensor cores (bf16): name -> (B, Tq, Tk, H, Hkv, D, window,
+# sinks, with an LSE cotangent), causal
+B2_CASES = {
+    "main": (8, 1024, 1024, 12, 12, 64, None, 0, False),
+    "gqa": (8, 1024, 1024, 12, 4, 64, None, 0, False),
+    "window_sinks": (8, 1024, 1024, 12, 12, 64, 256, 4, False),
+    "ragged_t1000": (8, 1000, 1000, 12, 12, 64, None, 0, False),
+    "lse_cotangent": (8, 384, 1024, 12, 12, 64, None, 0, True),
+    "d32": (8, 1024, 1024, 24, 24, 32, None, 0, False),
+    "d128": (8, 1024, 1024, 6, 6, 128, None, 0, False),
+}
+
+
+def _b2_inputs(cuda, case, seed=0):
+    b, tq, tk, h, hkv, d, window, sinks, with_lse = B2_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(b, tq, h, d, generator=g).bfloat16().to(cuda)
+             for _ in range(2))
+    k, v = (torch.randn(b, tk, hkv, d, generator=g).bfloat16().to(cuda)
+            for _ in range(2))
+    kw = dict(causal=True, window=window, sinks=sinks)
+    out, lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)
+    if with_lse:
+        delta = delta - torch.randn(delta.shape, generator=g).to(cuda)
+    return (q, k, v, do, lse, delta.contiguous()), kw
+
+
+@pytest.mark.parametrize("case", list(B2_CASES))
+def test_b2_tensor_cores_match_plain_version(cuda, case):
+    """bf16 dQ (tensor cores) against its plain version, element by
+    element within 1e-5 + 1.6e-2 x |ref| (two bf16 ulps of each entry)."""
+    args, kw = _b2_inputs(cuda, case)
+    before = fa.flash_attention_dq.launches
+    dq = fa.flash_attention_dq(*args, **kw)
+    ref = fa.flash_attention_dq_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_dq.launches == before + 1
+    assert torch.isfinite(dq.float()).all()
+    torch.testing.assert_close(dq.float(), ref.float(), atol=1e-5, rtol=1.6e-2)
+
+
+@pytest.mark.parametrize("case", ["main", "window_sinks", "d128"])
+def test_rounding_audit_finds_no_unflagged_mismatch(cuda, case):
+    """The audit instantiations of bf16 B2 and B3 sum every live pair in
+    the plain order: no pair that the flag let through rounds ds (or, in
+    B3, p) to another bf16 value; the audit does not count as a
+    launch."""
+    args, kw = _b2_inputs(cuda, case, seed=1)
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    counts = fa.rounding_audit(*args, **kw)
+    assert (fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == before
+    b, tq, tk, h, hkv = B2_CASES[case][:5]
+    for name, c in counts.items():
+        assert c["unflagged_differ"] == 0, (name, c)
+        assert 0 < c["flagged"] < c["live_pairs"], (name, c)
+        assert c["flagged_changed"] <= c["flagged"]
+    assert counts["dq"]["live_pairs"] == counts["dkv"]["live_pairs"]
+
+
+def _paged_case(variant, pages=12, seed=1):
+    """The paged kernel's inputs: pages scattered over the pool by a
+    seeded permutation, -1 past each cursor and one -1 page inside a live
+    range, block size 16 (and 4 for the ring)."""
+    g = torch.Generator().manual_seed(seed)
+    b, h, hkv, d, bs, nb = 4, 8, 8, 64, 16, 128
+    if variant == "gqa":
+        hkv = 2
+    dt = torch.float32 if variant == "f32" else torch.bfloat16
+    idx = torch.tensor([0, 63, 64, 191], dtype=torch.int32)
+    kw = {}
+    if variant == "ring":
+        window, sinks, bs, pages = 100, 4, 4, 26  # r_pad 104, ring 100
+        idx = torch.tensor([0, 50, 103, 777], dtype=torch.int32)
+        kw = dict(slot_pos=_ring(b, pages * bs, sinks, idx.tolist()),
+                  window=window, sinks=sinks)
+    q = torch.randn(b, 1, h, d, generator=g).to(dt)
+    k = torch.randn(nb, bs, hkv, d, generator=g)
+    v = torch.randn(nb, bs, hkv, d, generator=g)
+    pt = torch.randperm(nb, generator=g)[:b * pages].view(b, pages)
+    pt = pt.to(torch.int32).clone()
+    for bb in range(b):
+        if variant == "ring":
+            used = (kw["slot_pos"][bb] >= 0).view(pages, bs).any(1)
+        else:
+            used = torch.arange(pages) * bs <= idx[bb]
+        pt[bb, ~used] = -1
+    pt[3, 1] = -1  # an unbound page inside a live range
+    if variant in ("int8", "fp8"):
+        k, kw["k_scale"] = quantize_kv(k, variant)
+        v, kw["v_scale"] = quantize_kv(v, variant)
+    else:
+        k, v = k.to(dt), v.to(dt)
+    return (q, k, v, pt, idx), kw
+
+
+def _paged_kernel(cuda, q, k, v, pt, idx, *, splits, slot_pos=None,
+                  window=None, sinks=0, k_scale=None, v_scale=None):
+    """The paged kernel on the card at a forced split count."""
+    fd = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_decode")
+    dev = [None if x is None else x.to(cuda)
+           for x in (q, k, v, pt, idx, slot_pos, k_scale, v_scale)]
+    return fd._launch_paged(*dev[:5], dev[5], window, sinks, *dev[6:],
+                            splits=splits)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("variant", ["f32", "bf16", "gqa", "ring", "int8",
+                                     "fp8"])
+def test_paged_kernel_split_counts(cuda, variant, splits):
+    """The split-KV paged kernel at 1, 2, 3 and 7 asked splits against
+    the plain version, and against the plain split-and-merge version on
+    the CPU at the same count.  At 7 (6 runs of 2 of the 12 pages; the
+    ring's 26 pages in 7 runs of 4) a run boundary falls right after
+    slot 3's unbound page 1."""
+    args, kw = _paged_case(variant)
+    ref = flash_decode_paged_reference(*args, **kw)
+    split_ref = flash_decode_paged_split(*args, splits=splits, **kw)
+    before = flash_decode_paged.launches
+    out = _paged_kernel(cuda, *args, splits=splits, **kw)
+    torch.cuda.synchronize()
+    assert flash_decode_paged.launches == before + 1
+    atol = 2e-5 if variant == "f32" else 2e-2
+    torch.testing.assert_close(out.cpu().float(), ref.float(), atol=atol,
+                               rtol=0)
+    torch.testing.assert_close(out.cpu().float(), split_ref.float(),
+                               atol=atol, rtol=0)
+
+
+def test_paged_kernel_split_boundaries(cuda):
+    """Split-boundary cases: a cursor in the first page (every run but the
+    first dead), a run that starts on an unbound page, and a slot with no
+    bound page at all (exactly 0)."""
+    args, kw = _paged_case("bf16", pages=8)
+    q, k, v, pt, idx = args
+    idx = torch.tensor([5, 63, 64, 127], dtype=torch.int32)
+    pt = pt.clone()
+    pt[1, 2] = -1  # runs of 2 pages: run 1 starts on an unbound page
+    pt[2, :] = -1  # nothing bound: exactly 0
+    for splits in (2, 4, 8):
+        ref = flash_decode_paged_reference(q, k, v, pt, idx)
+        out = _paged_kernel(cuda, q, k, v, pt, idx, splits=splits)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.cpu().float(), ref.float(), atol=2e-2,
+                                   rtol=0)
+        assert torch.equal(out[2].cpu(), torch.zeros_like(out[2].cpu()))

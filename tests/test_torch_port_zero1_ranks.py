@@ -132,3 +132,43 @@ def collectives_check(mesh) -> dict:
         "input_unchanged": bool(torch.equal(
             x, torch.arange(4 * n, dtype=torch.float32) + 100 * r)),
     }
+
+
+def linear_loss(params, model_state, batch, train):
+    """``sum(w * rows' sum of x) + sum(y)``: its gradient is the sum of
+    the rows of x and its value (at w = 0) the sum of y, both exact for
+    the division tests' dyadic inputs, so that a step's only rounding is
+    its division by the number of ranks (or microbatches)."""
+    loss = (params["w"] * batch["x"].sum(0)).sum() + batch["y"].sum()
+    return loss, (model_state, None)
+
+
+def division_steps(mesh, w: np.ndarray, x: np.ndarray, y: np.ndarray,
+                   lr: float) -> dict:
+    """One step of :func:`linear_loss` from ``w`` on the global rows
+    ``x``, ``y`` through the N-rank DP step and composable ZeRO-1
+    (descent at ``lr``), and fused ZeRO-1 (adam at ``lr``): losses,
+    params, and the fused step's optimizer chunks of this rank."""
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.parallel import (
+        TrainState, make_train_step, make_train_step_zero1,
+        make_train_step_zero1_fused, zero1_fused_state, zero1_state)
+    from fluxdistributed_tpu_torch.sharding import replicate, shard_batch
+
+    params = {"w": torch.from_numpy(w)}
+    batch = shard_batch({"x": torch.from_numpy(x), "y": torch.from_numpy(y)},
+                        mesh)
+    opt = optim.descent(lr)
+    out = {}
+    st = TrainState.create(replicate(params, mesh), opt)
+    st, m = make_train_step(linear_loss, opt, mesh=mesh)(st, batch)
+    out["dp"] = (m["loss"].item(), _np(st.params))
+    st = zero1_state(params, opt, mesh)
+    st, m = make_train_step_zero1(linear_loss, opt, mesh)(st, batch)
+    out["zero1"] = (m["loss"].item(), _np(st.params))
+    st = zero1_fused_state(params, mesh)
+    st, m = make_train_step_zero1_fused(linear_loss, mesh, lr=lr)(st, batch)
+    out["fused"] = (m["loss"].item(), _np(st.params))
+    out["fused_mv"] = (st.opt_state["m"].numpy().copy(),
+                       st.opt_state["v"].numpy().copy())
+    return out
