@@ -8,13 +8,19 @@ Phases, each of which raises on failure (exit code != 0, no result):
 
 1. the card: ``nvidia-smi`` name and power limit, and PyTorch's name;
 2. build: every kernel source of the package, compiled by ``nvcc``, and
-   a ``ptxas`` line with the registers and spills of bf16 B2 (the
-   tensor-core dQ kernel) at head dims 32, 64 and 128;
-3. kernel: the dense flash-decode kernel (B4) against its plain PyTorch
-   version at lm_small decode shapes (8 slots, 1024 rows, 12 heads, head
-   dim 64), with its time, the plain version's, a library yardstick
-   (``scaled_dot_product_attention`` over the dequantised cache) and the
-   card's bound (live K/V bytes over the HBM rate), per variant;
+   ``ptxas`` lines with the registers and spills of bf16 B2 (the
+   tensor-core dQ kernel) at head dims 32, 64 and 128 and of every
+   instantiation of B4's split kernel;
+3. kernel: the dense flash-decode kernel (B4, split-KV over runs of
+   whole tiles cut from each slot's cursor, then a combine kernel, with
+   its split and CTA counts) against its plain PyTorch version at
+   lm_small decode shapes (8 slots, 1024 rows, 12 heads, head dim 64,
+   cursors 64-832), with its time (mean, median and spread), the plain
+   version's, a library yardstick (``scaled_dot_product_attention``
+   over the dequantised cache, mean, median and spread) and the card's
+   bound (live K/V bytes over the HBM rate), per variant; then the bf16
+   main shape at forced split counts 1, 2, 3 and 7 against the plain
+   split-and-merge version and the plain version;
 4. paged kernel: the paged flash-decode kernel (B5, split-KV over whole
    pages, with its split and CTA counts) the same way, over a 512-block
    pool of 16-row blocks walked through a scattered page table with an
@@ -23,7 +29,8 @@ Phases, each of which raises on failure (exit code != 0, no result):
 5. serve: random-init lm_small (bf16, vocab 32000) behind the port's
    HTTP server, 8 concurrent ``/v1/generate`` requests (prompts of
    64–768 tokens, 64 new tokens, greedy), with B4's launch count checked
-   against depth × decode steps; then a profile of the decode step;
+   against depth × decode steps; then a profile of the decode step
+   (device time by kernel, B4's split and combine kernels named);
 6. paged serve: the same model behind ``python -m
    fluxdistributed_tpu_torch.serve --paged --prefix-cache``'s stack: one
    warm request with a 256-token system prompt, then 8 concurrent
@@ -160,6 +167,16 @@ def ptxas_summary(log: str, fragment: str) -> dict:
     return out
 
 
+def demangle(name: str) -> str:
+    """``name`` demangled by ``c++filt`` where the toolkit's host has it,
+    else as it is."""
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return name
+    return subprocess.run([tool, name], capture_output=True, text=True,
+                          timeout=30).stdout.strip() or name
+
+
 def card_rates(name: str):
     for frag, bw, f32, bf16, i8 in _CARDS:
         if frag in name:
@@ -167,10 +184,18 @@ def card_rates(name: str):
     raise RuntimeError(f"no memory rate known for {name!r}; add it to _CARDS")
 
 
+#: device cycles (~0.1 ms) the card sleeps between the flush and a timed
+#: call, so the host's enqueue of the call is over before the start event
+HOLD_CYCLES = 200_000
+
+
 def time_stats(torch, fn, flush, iters=30):
     """Device ms of ``fn`` with a cold L2 (a 256 MB memset runs before
     each timed call, as the other layers' caches would): the mean, the
-    median and the spread (min, max) over ``iters`` calls."""
+    median and the spread (min, max) over ``iters`` calls.  A device
+    sleep after the memset keeps the card busy while the host enqueues
+    ``fn`` (tens of us through a Python wrapper), so host time is not
+    read as kernel time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -178,6 +203,7 @@ def time_stats(torch, fn, flush, iters=30):
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     for s, e in ev:
         flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         s.record()
         fn()
         e.record()
@@ -219,11 +245,11 @@ def sdpa(q, kd, vd, allow):
 
 def measure(torch, flush, bw, peaks, *, kernel, plain, library, allow,
             row_bytes, other_bytes, bits, tol, plain_iters):
-    """``kernel()`` against ``plain()``: max error, the kernel's, the plain
-    version's and the library call's times (cold L2), and the bound —
-    the live K/V rows (and scales) read once plus ``other_bytes``, over
-    the HBM rate, or 4 * H * D operations per live row over the peak,
-    whichever is larger."""
+    """``kernel()`` against ``plain()``: max error, the kernel's and the
+    library call's times (mean, median, spread) and the plain version's
+    (mean), all with a cold L2, and the bound — the live K/V rows (and
+    scales) read once plus ``other_bytes``, over the HBM rate, or 4 * H *
+    D operations per live row over the peak, whichever is larger."""
     out = kernel()
     torch.cuda.synchronize()
     ref = plain()
@@ -234,15 +260,19 @@ def measure(torch, flush, bw, peaks, *, kernel, plain, library, allow,
     nbytes = live * row_bytes + other_bytes
     ops = 4 * live * H * D
     t_bytes, t_ops = nbytes / bw * 1e3, ops / peaks[bits] * 1e3
+    kt = time_stats(torch, kernel, flush)
+    lt = time_stats(torch, library, flush)
     return out, {
         "live_rows": live,
         "max_abs_err": (out.float() - ref.float()).abs().max().item(),
         "tol": tol,
         "library_max_abs_err":
             (library().float() - ref.float()).abs().max().item(),
-        "ms": time_ms(torch, kernel, flush),
+        "ms": kt["mean"], "ms_median": kt["median"],
+        "ms_spread": [kt["min"], kt["max"]],
         "plain_ms": time_ms(torch, plain, flush, iters=plain_iters),
-        "library_ms": time_ms(torch, library, flush),
+        "library_ms": lt["mean"], "library_ms_median": lt["median"],
+        "library_ms_spread": [lt["min"], lt["max"]],
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "ops": ops,
@@ -263,13 +293,20 @@ def kernel_row_bytes(hkv, kv, quant):
 
 
 def kernel_phase(torch, bw, peaks, flush):
-    """Every variant of the decode kernel against its plain version;
-    returns the bf16 dense (main-path) row."""
+    """Every variant of the decode kernel against its plain version, then
+    the main shape at forced split counts; returns the bf16 dense
+    (main-path) row."""
+    import importlib
+
     from fluxdistributed_tpu_torch.models.transformer_lm import quantize_kv
     from fluxdistributed_tpu_torch.ops.flash_decode import (
-        flash_decode, flash_decode_reference)
+        decode_splits, flash_decode, flash_decode_reference,
+        flash_decode_split)
 
+    # the module (the ops package exports a function of the same name)
+    fd = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_decode")
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator().manual_seed(0)
     cursors = torch.randint(64, 833, (B,), generator=g, dtype=torch.int32)
     rows = {}
@@ -316,12 +353,36 @@ def kernel_phase(torch, bw, peaks, flush):
                          + (4 * B * r if variant == "window" else 0)),
             bits=bits, tol=1e-4 if dt == torch.float32 else 2e-2,
             plain_iters=10)
+        splits = decode_splits(B, hkv, r, sms, D)
         rows[variant] = {
             "phase": "kernel", "variant": variant,
             "shape": [B, r, H, hkv, D], "q_dtype": str(dt).split(".")[-1],
-            "kv_dtype": str(k.dtype).split(".")[-1], **m}
+            "kv_dtype": str(k.dtype).split(".")[-1],
+            "design": f"split-KV, {splits} splits of each slot's live "
+                      "tiles (cut from its cursor on the device), then a "
+                      "combine kernel",
+            "splits": splits, "ctas": B * hkv * splits, "sms": sms, **m}
         emit(rows[variant])
         check(rows[variant])
+        if variant == "bf16":
+            main_args = (q, k, v, idx)
+    # the main shape at forced split counts: the kernel against the plain
+    # split-and-merge version at the same count and the plain version
+    ref = flash_decode_reference(*main_args)
+    forced = {}
+    for n in (1, 2, 3, 7):
+        out = fd._launch(*main_args, None, None, 0, None, None, splits=n)
+        split_ref = flash_decode_split(*main_args, splits=n)
+        torch.cuda.synchronize()
+        forced[n] = {
+            "vs_plain_split": (out.float() - split_ref.float()).abs().max().item(),
+            "vs_plain": (out.float() - ref.float()).abs().max().item()}
+    emit({"phase": "kernel_splits", "variant": "bf16",
+          "shape": [B, R, H, H, D], "tol": 2e-2, "splits": forced})
+    bad = [n for n, e in forced.items() if not max(e.values()) <= 2e-2]
+    if bad:
+        raise RuntimeError(f"kernel_splits: split counts {bad} out of "
+                           f"tolerance: {forced}")
     return rows["bf16"]
 
 
@@ -699,7 +760,10 @@ def profile_decode(torch, engine, prompts, steps=10):
               r.count for r in prof.key_averages()
               if r.device_type == torch.autograd.DeviceType.CUDA) / steps,
           "top_device_ms_per_step": [[k[:60], v / steps / 1e3]
-                                     for k, v in top]})
+                                     for k, v in top],
+          "decode_kernels_ms_per_step": {
+              k[:80]: v / steps / 1e3 for k, v in dev.items()
+              if "flash_decode" in k}})
     for s in range(len(prompts)):
         engine.reset_slot(s)
 
@@ -1705,6 +1769,12 @@ def main() -> int:
                      for name, r in dq_tc.items()
                      for d in (32, 64, 128) for a in (0, 1)
                      if f"ILi{d}ELb{a}E" in name}})
+    split = ptxas_summary(logs.get("flash_decode", ""),
+                          "flash_decode_split_kernel")
+    emit({"phase": "ptxas",
+          "kernel": "flash_decode_split_kernel<TQ, TKV, windowed, quant> "
+                    "(any D)",
+          "instantiations": {demangle(n): r for n, r in split.items()}})
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     dense_row = kernel_phase(torch, bw, peaks, flush)

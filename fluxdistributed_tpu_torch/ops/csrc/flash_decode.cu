@@ -30,26 +30,22 @@
 // the card's ~295 flops/byte balance point.  The least time is the live
 // K/V bytes over the HBM rate.
 //
-// Dense design (flash_decode_kernel).  One CTA per (slot, KV head): a
-// loop inside the CTA walks the row tiles, taking the place of the TPU's
-// sequential KV grid axis.  It walks only up to the cursor's tile; a tile
-// with no allowed row (past the cursor, out of band, unwritten) is skipped
-// before any of its K/V bytes are read.  K/V rows load 16 bytes per
-// thread along D and dequantise to f32 in shared memory; scores,
-// probabilities and the accumulator stay in f32.  At lm_small with 8
-// slots that is B * Hkv = 96 CTAs, less than one wave on 132 SMs, with no
-// overlap of loads and math.  The paged form below is split-KV; the dense
-// one keeps its own kernel, because one template for both changed the
-// dense code's register allocation and slowed it by ~30 % in the decode
-// step.
-//
-// Paged design: split-KV over whole pages, described above the paged
-// kernel.  At lm_small with 8 slots and 64 pages a slot, 6 splits of 11
-// pages give 576 CTAs, more than four waves on 132 SMs, and each CTA's
-// loads of its next tile overlap the math on this one.
+// Both forms are split-KV: a grid of (B * Hkv, S) CTAs, each taking one
+// run of a (slot, KV head)'s rows and writing its f32 partial softmax
+// state to a workspace, then flash_decode_combine_kernel merging the S
+// partials in split order.  One CTA per (slot, KV head) was B * Hkv = 96
+// CTAs at lm_small with 8 slots, less than one wave on 132 SMs; S is
+// chosen on the host from the row (or page) count and the SM count so
+// that about four CTAs run on each SM.  The dense form runs
+// flash_decode_split_kernel, the paged form flash_decode_paged_kernel:
+// one template for both changed the dense code's register allocation and
+// slowed it by ~30 % in the decode step, so they share only the helpers
+// and the combine.  Each CTA moves its K/V rows global -> shared by
+// cp.async in their stored dtype through a two-stage ring, so the next
+// tile's loads overlap this tile's math.
 //
 // The launchers run on the caller's stream, allocate nothing, and
-// return cudaGetLastError() (0 on success).
+// return a cudaError_t (0 on success).
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -59,6 +55,8 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxPairs = 4;  // feature pairs a lane owns in P.V: D <= 256
 constexpr float kNegInf = -1e30f;
 
 // dtype codes shared with ops/flash_decode.py
@@ -78,56 +76,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even
 }
 
-// One 16-byte load of a K/V row segment, widened to f32.
-template <typename T>
-struct Vec16;
-
-template <>
-struct Vec16<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-};
-
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
-template <>
-struct Vec16<int8_t> {
-  static constexpr int N = 16;
-  __device__ static void load(const int8_t* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(c[i]);
-  }
-};
-
-template <>
-struct Vec16<__nv_fp8_e4m3> {
-  static constexpr int N = 16;
-  __device__ static void load(const __nv_fp8_e4m3* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_fp8_e4m3* c = reinterpret_cast<const __nv_fp8_e4m3*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(c[i]);
-  }
-};
-
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -140,195 +88,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Rows per tile: a tile of K in f32 is about 16 KB whatever D is.
+// Rows per tile (ops/flash_decode.py:decode_tile_rows): a tile of K in
+// f32 is about 16 KB whatever D is.
 __host__ __device__ inline int tile_rows(int d) {
   return d <= 64 ? 64 : (d <= 128 ? 32 : 16);
 }
 
-__host__ inline size_t smem_bytes(int g, int d) {
-  const int t = tile_rows(d);
-  const size_t floats = static_cast<size_t>(t) * (d + 1)  // K tile (padded)
-                        + static_cast<size_t>(t) * d      // V tile
-                        + 2 * static_cast<size_t>(g) * d  // q, acc
-                        + static_cast<size_t>(g) * t      // scores / p
-                        + 3 * static_cast<size_t>(g);     // m, l, corr
-  // per tile row: allowed flag
-  return floats * sizeof(float) + static_cast<size_t>(t) * sizeof(int);
-}
-
-template <typename TQ, typename TKV, bool kWindowed, bool kQuant>
-__global__ void __launch_bounds__(kThreads) flash_decode_kernel(
-    const TQ* __restrict__ q,            // [B, H, D]
-    const TKV* __restrict__ k,           // [B, R, Hkv, D]
-    const TKV* __restrict__ v,           // [B, R, Hkv, D]
-    const int32_t* __restrict__ idx,     // [B]
-    const int32_t* __restrict__ slot_pos,  // [B, R] (windowed only)
-    const float* __restrict__ k_scale,   // [B, R, Hkv] (quantised only)
-    const float* __restrict__ v_scale,   // [B, R, Hkv] (quantised only)
-    TQ* __restrict__ out,                // [B, H, D]
-    int R, int H, int Hkv, int D, int window, int sinks, float scale) {
-  extern __shared__ float smem[];
-  const int G = H / Hkv;
-  const int tile = tile_rows(D);
-  const int ks_stride = D + 1;  // pad: lanes on consecutive rows hit distinct banks
-  float* Ks = smem;
-  float* Vs = Ks + tile * ks_stride;
-  float* Qs = Vs + tile * D;
-  float* Acc = Qs + G * D;
-  float* S = Acc + G * D;
-  float* M = S + G * tile;
-  float* L = M + G;
-  float* Corr = L + G;
-  int* allow = reinterpret_cast<int*>(Corr + G);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int b = blockIdx.x / Hkv;
-  const int hk = blockIdx.x % Hkv;
-  const int cursor = idx[b];
-  const size_t row_stride = static_cast<size_t>(Hkv) * D;
-  const TKV* kb = k + static_cast<size_t>(b) * R * row_stride + static_cast<size_t>(hk) * D;
-  const TKV* vb = v + static_cast<size_t>(b) * R * row_stride + static_cast<size_t>(hk) * D;
-  const size_t qo = (static_cast<size_t>(b) * H + static_cast<size_t>(hk) * G) * D;
-
-  for (int i = tid; i < G * D; i += kThreads) {
-    Qs[i] = to_f32(q[qo + i]) * scale;
-    Acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    M[g] = kNegInf;
-    L[g] = 0.f;
-  }
-
-  // the plain cache walks only up to the cursor's tile
-  const int rows = kWindowed ? R : min(max(cursor + 1, 0), R);
-  const int ntiles = (rows + tile - 1) / tile;
-  constexpr int kVec = Vec16<TKV>::N;
-  const int vec_per_row = D / kVec;
-  __syncthreads();
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int r0 = t * tile;
-    const int nrows = min(tile, R - r0);
-    int any = 0;
-    for (int r = tid; r < tile; r += kThreads) {
-      int ok = 0;
-      if (r < nrows) {
-        const int row = r0 + r;
-        if (kWindowed) {
-          const int p = slot_pos[static_cast<size_t>(b) * R + row];
-          ok = p >= 0 && p <= cursor && (p > cursor - window || p < sinks);
-        } else {
-          ok = row <= cursor;
-        }
-      }
-      allow[r] = ok;
-      any |= ok;
-    }
-    // dead tile (out of band / unwritten ring slots): no K/V bytes read
-    if (!__syncthreads_or(any)) continue;
-
-    for (int i = tid; i < nrows * vec_per_row; i += kThreads) {
-      const int r = i / vec_per_row;
-      const int c = (i - r * vec_per_row) * kVec;
-      const size_t off = static_cast<size_t>(r0 + r) * row_stride + c;
-      float kf[kVec], vf[kVec];
-      Vec16<TKV>::load(kb + off, kf);
-      Vec16<TKV>::load(vb + off, vf);
-      float ks = 1.f, vs = 1.f;
-      if (kQuant) {
-        const size_t so = (static_cast<size_t>(b) * R + r0 + r) * Hkv + hk;
-        ks = k_scale[so];
-        vs = v_scale[so];
-      }
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        Ks[r * ks_stride + c + j] = kf[j] * ks;
-        Vs[r * D + c + j] = vf[j] * vs;
-      }
-    }
-    __syncthreads();
-
-    // scores: one (query head, row) pair per thread
-    for (int i = tid; i < G * tile; i += kThreads) {
-      const int g = i / tile;
-      const int r = i - g * tile;
-      float s = kNegInf;
-      if (allow[r]) {
-        const float* kr = Ks + r * ks_stride;
-        const float* qr = Qs + g * D;
-        float acc = 0.f;
-        for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-        s = acc;
-      }
-      S[g * tile + r] = s;
-    }
-    __syncthreads();
-
-    // online softmax update: one warp per query head
-    for (int g = warp; g < G; g += kThreads / 32) {
-      float* sg = S + g * tile;
-      float mx = kNegInf;
-      for (int r = lane; r < tile; r += 32) mx = fmaxf(mx, sg[r]);
-      mx = warp_max(mx);
-      const float m_old = M[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int r = lane; r < tile; r += 32) {
-        // masked rows are zeroed explicitly: while nothing is allowed,
-        // m_new is still kNegInf and exp(s - m_new) would be 1
-        const float p = allow[r] ? expf(sg[r] - m_new) : 0.f;
-        sg[r] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        Corr[g] = corr;
-        L[g] = L[g] * corr + sum;
-        M[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P . V, one (query head, feature) pair per thread
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int g = i / D;
-      const int d = i - g * D;
-      const float* pg = S + g * tile;
-      float a = Acc[i] * Corr[g];
-      for (int r = 0; r < nrows; ++r) a = fmaf(pg[r], Vs[r * D + d], a);
-      Acc[i] = a;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < G * D; i += kThreads) {
-    const float l = fmaxf(L[i / D], 1e-30f);
-    out[qo + i] = from_f32<TQ>(Acc[i] / l);
-  }
-}
-
-// ------------------------------------------------------- the paged form
-//
-// Split-KV over whole pages.  The grid is (B * Hkv, splits): CTA (bhk, s)
-// takes the contiguous run of pages [s * pps, (s + 1) * pps) of its slot
-// (pps pages a split, chosen on the host from the page count and the SM
-// count, never from the cursors) and writes the f32 partial (m, l,
-// acc[G, D]) of its rows to a workspace; flash_decode_combine_kernel then
-// merges each (slot, KV head)'s partials in split order, so the result is
-// deterministic.  The CTA reads each of its page ids once, into shared
-// memory, and walks its rows in tiles of tile_rows(D) rows that may span
-// pages.  A tile whose rows are all dead (past the cursor, out of band,
-// unwritten, or on unbound pages) is skipped before any of its K/V bytes
-// are read; inside a live tile, only live rows are copied and the rest
-// are zero-filled.  K/V rows move global -> shared by 16-byte cp.async
-// copies in their stored dtype into a two-stage ring, so the next tile's
-// loads overlap this tile's math, and are widened (and, int8/fp8, scaled)
-// in registers.  Each warp owns a quarter of a tile's rows and keeps its
-// own online softmax state, so a tile needs no block-wide reduction; the
-// CTA merges its four warps' states at the end.
+// padded bytes of a K/V row in shared memory: 16 bytes of padding put the
+// rows that a quarter-warp's 16-byte loads read in distinct banks
+__host__ __device__ inline int kv_ld(int d, int esize) { return d * esize + 16; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -376,7 +144,14 @@ struct Widen<float> {
 template <>
 struct Widen<__nv_bfloat16> {
   __device__ static void load8(const unsigned char* p, float* out) {
-    Vec16<__nv_bfloat16>::load(reinterpret_cast<const __nv_bfloat16*>(p), out);
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
   }
   __device__ static float2 load2(const unsigned char* p) {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
@@ -411,16 +186,284 @@ struct Widen<__nv_fp8_e4m3> {
   }
 };
 
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPairs = 4;  // feature pairs a lane owns in P.V: D <= 256
+// ------------------------------------------------------- the dense form
+//
+// Split-KV over runs of whole tiles of T = tile_rows(D) rows.  The grid
+// is (B * Hkv, S), S chosen on the host from R and the SM count, never
+// from the cursors, so the grid is fixed on the host.  The cursor, read
+// on the device, sets the runs: a plain cache cuts slot b's live rows
+// [0, min(idx[b] + 1, R)) into nt_b = ceil(rows / T) tiles, and CTA
+// (bhk, s) takes tiles [s * L_b, min((s + 1) * L_b, nt_b)) with
+// L_b = ceil(nt_b / S), so every slot's live rows spread over its S CTAs
+// whatever its cursor.  A CTA whose run is empty writes m = -inf, l = 0
+// and stops.  A windowed ring keeps all R rows (ring slots do not follow
+// the cursor), so its runs are cut from R alone, and a tile with no
+// allowed row (out of band, unwritten) is skipped before any of its K/V
+// bytes are read.  A (slot, head)'s rows lie Hkv * D values apart; they
+// move global -> shared by 16-byte cp.async copies in their stored dtype
+// into a two-stage ring (int8/fp8 scales by 4-byte copies), rows past
+// the cursor are zero-filled and never read, and values are widened (and
+// scaled) in registers.  Each warp owns a quarter of a tile's rows and
+// keeps its own online softmax state, so a tile costs two barriers; the
+// CTA merges its four warps' states in warp order into its partial.
 
-// padded bytes of a K/V row in shared memory: 16 bytes of padding put the
-// rows that a quarter-warp's 16-byte loads read in distinct banks
-__host__ __device__ inline int paged_ld(int d, int esize) { return d * esize + 16; }
+__host__ inline size_t split_smem_bytes(int g, int d, int esize) {
+  const size_t t = tile_rows(d);
+  return 4 * t * kv_ld(d, esize)                          // K and V, two stages
+         + (static_cast<size_t>(g) * d                    // q
+            + static_cast<size_t>(kWarps) * g * d         // each warp's acc
+            + 2 * static_cast<size_t>(kWarps) * g         // each warp's m, l
+            + 4 * t) * sizeof(float)                      // K/V scales, two stages
+         + 2 * t * sizeof(int);                           // ring row flags, two stages
+}
+
+template <typename TQ, typename TKV, bool kWindowed, bool kQuant>
+__global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(
+    const TQ* __restrict__ q,              // [B, H, D]
+    const TKV* __restrict__ k,             // [B, R, Hkv, D]
+    const TKV* __restrict__ v,             // [B, R, Hkv, D]
+    const int32_t* __restrict__ idx,       // [B]
+    const int32_t* __restrict__ slot_pos,  // [B, R] (windowed only)
+    const float* __restrict__ k_scale,     // [B, R, Hkv] (quantised only)
+    const float* __restrict__ v_scale,     // [B, R, Hkv] (quantised only)
+    float* __restrict__ part,              // [B * Hkv, S, G, D + 2]
+    int R, int H, int Hkv, int D, int window, int sinks, float scale) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  constexpr int kEs = sizeof(TKV);
+  const int G = H / Hkv;
+  const int T = tile_rows(D);     // rows a tile
+  const int RW = T / kWarps;      // rows a warp
+  const int TPR = 32 / RW;        // lanes a row in the scores
+  const int LDB = kv_ld(D, kEs);
+  unsigned char* Kr = dsmem;              // [2][T][LDB]
+  unsigned char* Vr = Kr + 2 * T * LDB;   // [2][T][LDB]
+  float* Qs = reinterpret_cast<float*>(Vr + 2 * T * LDB);  // [G][D], scaled
+  float* Acc = Qs + G * D;                // [kWarps][G][D]
+  float* Mw = Acc + kWarps * G * D;       // [kWarps][G]
+  float* Lw = Mw + kWarps * G;            // [kWarps][G]
+  float* Ksc = Lw + kWarps * G;           // [2][T]
+  float* Vsc = Ksc + 2 * T;               // [2][T]
+  int* allow = reinterpret_cast<int*>(Vsc + 2 * T);  // [2][T] (ring only)
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int bhk = blockIdx.x;
+  const int b = bhk / Hkv;
+  const int hk = bhk - b * Hkv;
+  const int split = blockIdx.y;
+  const int S = gridDim.y;
+  const int cursor = idx[b];
+  // this CTA's run of tiles, [t0, t1)
+  const int rows = kWindowed ? R : min(max(cursor + 1, 0), R);
+  const int nt = (rows + T - 1) / T;
+  const int per = (nt + S - 1) / S;
+  const int t0 = min(split * per, nt);
+  const int t1 = min(t0 + per, nt);
+  float* pb = part + (static_cast<size_t>(bhk) * S + split) * G * (D + 2);
+  if (t0 == t1) {  // an empty run: m = -inf, l = 0, acc = 0
+    for (int i = tid; i < G * (D + 2); i += kThreads) pb[i] = i % (D + 2) == 0 ? kNegInf : 0.f;
+    return;
+  }
+
+  const size_t rstride = static_cast<size_t>(Hkv) * D * kEs;  // bytes a cache row
+  const size_t head0 = (static_cast<size_t>(b) * R * Hkv + hk) * D * kEs;
+  const unsigned char* kg = reinterpret_cast<const unsigned char*>(k) + head0;
+  const unsigned char* vg = reinterpret_cast<const unsigned char*>(v) + head0;
+  const int chunks = D * kEs / 16;  // 16-byte copies a row
+  // Ring only: the row flags of tile t into stage st; does any row live?
+  auto build = [&](int t, int st) {
+    int any = 0;
+    for (int r = tid; r < T; r += kThreads) {
+      const int row = t * T + r;
+      int ok = 0;
+      if (row < R) {
+        const int sp = slot_pos[static_cast<size_t>(b) * R + row];
+        ok = sp >= 0 && sp <= cursor && (sp > cursor - window || sp < sinks);
+      }
+      allow[st * T + r] = ok;
+      any |= ok;
+    }
+    return any;
+  };
+  // Is row r of tile t (in stage st) attended?
+  auto live = [&](int t, int st, int r) -> int {
+    if (kWindowed) return allow[st * T + r];
+    return t * T + r < rows;
+  };
+  // The live rows of tile t, global -> stage st; dead rows are
+  // zero-filled and never read.
+  auto fetch = [&](int t, int st) {
+    for (int i = tid; i < T * chunks; i += kThreads) {
+      const int r = i / chunks;
+      const int c = (i - r * chunks) * 16;
+      const int ok = live(t, st, r);
+      const size_t off = static_cast<size_t>(t * T + r) * rstride + c;
+      cp_async16(Kr + (st * T + r) * LDB + c, ok ? kg + off : kg, ok ? 16 : 0);
+      cp_async16(Vr + (st * T + r) * LDB + c, ok ? vg + off : vg, ok ? 16 : 0);
+    }
+    if (kQuant) {
+      for (int r = tid; r < T; r += kThreads) {
+        if (live(t, st, r)) {
+          const size_t so = (static_cast<size_t>(b) * R + t * T + r) * Hkv + hk;
+          cp_async4(Ksc + st * T + r, k_scale + so);
+          cp_async4(Vsc + st * T + r, v_scale + so);
+        } else {
+          Ksc[st * T + r] = 0.f;
+          Vsc[st * T + r] = 0.f;
+        }
+      }
+    }
+  };
+
+  int t = t0;
+  if (kWindowed) {
+    while (t < t1 && !__syncthreads_or(build(t, 0))) ++t;
+  }
+  if (t < t1) fetch(t, 0);
+  cp_async_commit();
+  // q and the warps' states while the first tile is in flight
+  const size_t qo = (static_cast<size_t>(b) * H + static_cast<size_t>(hk) * G) * D;
+  for (int i = tid; i < G * D; i += kThreads) Qs[i] = to_f32(q[qo + i]) * scale;
+  for (int i = tid; i < kWarps * G * D; i += kThreads) Acc[i] = 0.f;
+  for (int i = tid; i < kWarps * G; i += kThreads) {
+    Mw[i] = kNegInf;
+    Lw[i] = 0.f;
+  }
+
+  const int rl = lane / TPR;      // this lane's row in its warp's rows
+  const int part_id = lane - rl * TPR;
+  const int r = warp * RW + rl;   // this lane's tile row
+  for (int st = 0; t < t1; st ^= 1) {
+    int tn = t + 1;
+    if (kWindowed) {
+      while (tn < t1 && !__syncthreads_or(build(tn, st ^ 1))) ++tn;
+    }
+    if (tn < t1) fetch(tn, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage has landed
+    __syncthreads();
+
+    const int ok = live(t, st, r);
+    const unsigned char* krow = Kr + (st * T + r) * LDB;
+    const float ks = kQuant ? Ksc[st * T + r] : 1.f;
+    const float vs = kQuant ? Vsc[st * T + r] : 1.f;
+    for (int g = 0; g < G; ++g) {
+      // the score of this lane's row: TPR lanes take 8-feature chunks in turn
+      float dot = 0.f;
+      for (int c = part_id; c < D / 8; c += TPR) {
+        float kf[8];
+        Widen<TKV>::load8(krow + c * 8 * kEs, kf);
+        const float* qg = Qs + g * D + c * 8;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dot = fmaf(qg[i], kf[i], dot);
+      }
+      for (int o = 1; o < TPR; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      const float s = kQuant ? dot * ks : dot;
+
+      // this warp's online softmax update over its RW rows
+      float* mg = Mw + warp * G + g;
+      float* lg = Lw + warp * G + g;
+      const float m_old = *mg;
+      const float m_new = fmaxf(m_old, warp_max(ok ? s : kNegInf));
+      // masked rows are zeroed by the select: while nothing is allowed,
+      // m_new is still kNegInf and exp(s - m_new) would be 1
+      const float p = ok ? expf(s - m_new) : 0.f;
+      const float sum = warp_sum(part_id == 0 ? p : 0.f);
+      const float corr = expf(m_old - m_new);
+      __syncwarp();
+      if (lane == 0) {
+        *lg = *lg * corr + sum;
+        *mg = m_new;
+      }
+      const float pv = kQuant ? p * vs : p;
+
+      // acc = acc * corr + P . V; this lane owns features 2 lane + 64 c (+1)
+      float* ag = Acc + (warp * G + g) * D;
+      float a[kMaxPairs][2];
+#pragma unroll
+      for (int c = 0; c < kMaxPairs; ++c) {
+        const int d = 2 * lane + 64 * c;
+        if (d < D) {
+          a[c][0] = ag[d] * corr;
+          a[c][1] = ag[d + 1] * corr;
+        }
+      }
+      for (int j = 0; j < RW; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, pv, j * TPR);
+        const unsigned char* vrow = Vr + (st * T + warp * RW + j) * LDB;
+#pragma unroll
+        for (int c = 0; c < kMaxPairs; ++c) {
+          const int d = 2 * lane + 64 * c;
+          if (d < D) {
+            const float2 vv = Widen<TKV>::load2(vrow + d * kEs);
+            a[c][0] = fmaf(pj, vv.x, a[c][0]);
+            a[c][1] = fmaf(pj, vv.y, a[c][1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kMaxPairs; ++c) {
+        const int d = 2 * lane + 64 * c;
+        if (d < D) {
+          ag[d] = a[c][0];
+          ag[d + 1] = a[c][1];
+        }
+      }
+      __syncwarp();
+    }
+    __syncthreads();  // every warp is done with this stage
+    t = tn;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the CTA's partial: its four warps' states merged in warp order
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D;
+    const int d = i - g * D;
+    float m = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, Mw[w * G + g]);
+    float acc = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = expf(Mw[w * G + g] - m);
+      acc = fmaf(Acc[(w * G + g) * D + d], c, acc);
+      l = fmaf(Lw[w * G + g], c, l);
+    }
+    float* pg = pb + g * (D + 2);
+    pg[2 + d] = acc;
+    if (d == 0) {
+      pg[0] = m;
+      pg[1] = l;
+    }
+  }
+}
+
+// ------------------------------------------------------- the paged form
+//
+// Split-KV over whole pages.  The grid is (B * Hkv, splits): CTA (bhk, s)
+// takes the contiguous run of pages [s * pps, (s + 1) * pps) of its slot
+// (pps pages a split, chosen on the host from the page count and the SM
+// count, never from the cursors) and writes the f32 partial (m, l,
+// acc[G, D]) of its rows to a workspace; flash_decode_combine_kernel then
+// merges each (slot, KV head)'s partials in split order, so the result is
+// deterministic.  The CTA reads each of its page ids once, into shared
+// memory, and walks its rows in tiles of tile_rows(D) rows that may span
+// pages.  A tile whose rows are all dead (past the cursor, out of band,
+// unwritten, or on unbound pages) is skipped before any of its K/V bytes
+// are read; inside a live tile, only live rows are copied and the rest
+// are zero-filled.  K/V rows move global -> shared by 16-byte cp.async
+// copies in their stored dtype into a two-stage ring, so the next tile's
+// loads overlap this tile's math, and are widened (and, int8/fp8, scaled)
+// in registers.  Each warp owns a quarter of a tile's rows and keeps its
+// own online softmax state, so a tile needs no block-wide reduction; the
+// CTA merges its four warps' states at the end.
 
 __host__ inline size_t paged_smem_bytes(int g, int d, int esize, int pps) {
   const size_t t = tile_rows(d);
-  return 4 * t * paged_ld(d, esize)                       // K and V, two stages
+  return 4 * t * kv_ld(d, esize)                          // K and V, two stages
          + (static_cast<size_t>(g) * d                    // q
             + static_cast<size_t>(kWarps) * g * d         // each warp's acc
             + 2 * static_cast<size_t>(kWarps) * g         // each warp's m, l
@@ -448,7 +491,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_paged_kernel(
   const int T = tile_rows(D);     // rows a tile
   const int RW = T / kWarps;      // rows a warp
   const int TPR = 32 / RW;        // lanes a row in the scores
-  const int LDB = paged_ld(D, kEs);
+  const int LDB = kv_ld(D, kEs);
   unsigned char* Kr = dsmem;              // [2][T][LDB]
   unsigned char* Vr = Kr + 2 * T * LDB;   // [2][T][LDB]
   float* Qs = reinterpret_cast<float*>(Vr + 2 * T * LDB);  // [G][D], scaled
@@ -662,6 +705,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_paged_kernel(
 template <typename TQ>
 __global__ void __launch_bounds__(kThreads) flash_decode_combine_kernel(
     const float* __restrict__ part, TQ* __restrict__ out, int S, int H, int Hkv, int D) {
+  // launched as a programmatic dependent of the split kernel: wait until
+  // it has completed and its partials are visible (a no-op otherwise)
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int G = H / Hkv;
   const int bhk = blockIdx.x;
   const int b = bhk / Hkv;
@@ -696,47 +742,65 @@ struct Args {
   const float* k_scale;
   const float* v_scale;
   void* out;
-  float* part;  // paged: the split partials' workspace
+  float* part;  // the split partials' workspace
   int B, R, P, bs, NB, H, Hkv, D, window, sinks;
   float scale;
-  int splits, pps;  // paged: splits and pages a split
+  int splits, pps;  // splits; paged: pages a split
   cudaStream_t stream;
 };
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) cudaGetLastError();  // reported here, not by the next launch
+  return e;
 }
 
 template <typename TQ, typename TKV, bool kWindowed, bool kQuant, bool kPaged>
 cudaError_t launch(const Args& a) {
+  const dim3 grid(a.B * a.Hkv, a.splits);
+  cudaError_t e;
   if constexpr (kPaged) {
     const size_t smem = paged_smem_bytes(a.H / a.Hkv, a.D, sizeof(TKV), a.pps);
     auto kernel = flash_decode_paged_kernel<TQ, TKV, kWindowed, kQuant>;
-    cudaError_t e = allow_smem(kernel, smem);
+    e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
-    kernel<<<dim3(a.B * a.Hkv, a.splits), kThreads, smem, a.stream>>>(
+    kernel<<<grid, kThreads, smem, a.stream>>>(
         static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
         static_cast<const TKV*>(a.v), a.page_table, a.idx, a.slot_pos,
         a.k_scale, a.v_scale, a.part, a.P, a.bs, a.NB, a.H, a.Hkv, a.D,
         a.window, a.sinks, a.scale, a.pps);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    flash_decode_combine_kernel<TQ><<<a.B * a.Hkv, kThreads, 0, a.stream>>>(
-        a.part, static_cast<TQ*>(a.out), a.splits, a.H, a.Hkv, a.D);
   } else {
-    const size_t smem = smem_bytes(a.H / a.Hkv, a.D);
-    auto kernel = flash_decode_kernel<TQ, TKV, kWindowed, kQuant>;
-    const cudaError_t e = allow_smem(kernel, smem);
+    const size_t smem = split_smem_bytes(a.H / a.Hkv, a.D, sizeof(TKV));
+    auto kernel = flash_decode_split_kernel<TQ, TKV, kWindowed, kQuant>;
+    e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
-    kernel<<<a.B * a.Hkv, kThreads, smem, a.stream>>>(
+    kernel<<<grid, kThreads, smem, a.stream>>>(
         static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
         static_cast<const TKV*>(a.v), a.idx, a.slot_pos, a.k_scale,
-        a.v_scale, static_cast<TQ*>(a.out), a.R, a.H, a.Hkv, a.D, a.window,
-        a.sinks, a.scale);
+        a.v_scale, a.part, a.R, a.H, a.Hkv, a.D, a.window, a.sinks, a.scale);
   }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  // The combine is a programmatic dependent launch: the card may start
+  // it while the split kernel's last CTAs run, and its griddepcontrol.wait
+  // holds it until the split kernel has finished and its partials are
+  // visible (~1.8 us a call at lm_small's decode shape).
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.B * a.Hkv);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = a.stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, flash_decode_combine_kernel<TQ>,
+                         static_cast<const float*>(a.part), static_cast<TQ*>(a.out),
+                         a.splits, a.H, a.Hkv, a.D);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -759,8 +823,8 @@ cudaError_t dispatch(int q_dtype, int kv_dtype, int windowed, int paged,
   const int quant = kv_dtype == kI8 || kv_dtype == kFP8;
   if (quant && (a.k_scale == nullptr || a.v_scale == nullptr)) return cudaErrorInvalidValue;
   if (windowed && a.slot_pos == nullptr) return cudaErrorInvalidValue;
-  if (paged && (a.page_table == nullptr || a.part == nullptr || a.bs < 1 || a.NB < 1 ||
-                a.splits < 1 || a.splits > 65535 || a.pps < 1 ||
+  if (a.part == nullptr || a.splits < 1 || a.splits > 65535) return cudaErrorInvalidValue;
+  if (paged && (a.page_table == nullptr || a.bs < 1 || a.NB < 1 || a.pps < 1 ||
                 static_cast<long long>(a.splits) * a.pps < a.P ||
                 static_cast<long long>(a.splits - 1) * a.pps >= a.P))
     return cudaErrorInvalidValue;
@@ -787,29 +851,30 @@ cudaError_t dispatch(int q_dtype, int kv_dtype, int windowed, int paged,
 
 // C entry points, bound with ctypes by ops/flash_decode.py.  Every
 // pointer is a device pointer (slot_pos, k_scale and v_scale may be
-// null when unused); stream is a cudaStream_t.  Each returns a
-// cudaError_t.
+// null when unused); stream is a cudaStream_t.  Each makes two launches,
+// the split kernel and then the combine, and returns a cudaError_t.
+// ``workspace`` holds B * H * splits * (D + 2) f32 on the stream.
 
-// Dense slot cache: k/v [B, R, Hkv, D], scales [B, R, Hkv].
+// Dense slot cache: k/v [B, R, Hkv, D], scales [B, R, Hkv]; ``splits``
+// runs of tiles, cut from each slot's cursor on the device.
 extern "C" int flash_decode_launch(
     int q_dtype, int kv_dtype, int windowed, const void* q, const void* k,
     const void* v, const void* idx, const void* slot_pos, const void* k_scale,
     const void* v_scale, void* out, int B, int R, int H, int Hkv, int D,
-    int window, int sinks, float scale, void* stream) {
+    int window, int sinks, float scale, int splits, void* workspace,
+    void* stream) {
   const Args a{q, k, v, nullptr, static_cast<const int32_t*>(idx),
                static_cast<const int32_t*>(slot_pos),
                static_cast<const float*>(k_scale),
-               static_cast<const float*>(v_scale), out, nullptr, B, R, 0, 0, 0,
-               H, Hkv, D, window, sinks, scale, 0, 0,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<const float*>(v_scale), out,
+               static_cast<float*>(workspace), B, R, 0, 0, 0, H, Hkv, D,
+               window, sinks, scale, splits, 0, static_cast<cudaStream_t>(stream)};
   return dispatch(q_dtype, kv_dtype, windowed, 0, a);
 }
 
 // Paged block pool: k/v [NB, bs, Hkv, D], scales [NB, bs, Hkv], page
 // table [B, P], slot_pos [B, P * bs].  ``splits`` runs of ``pps`` pages
-// each (the last may be shorter, none empty); ``workspace`` holds
-// B * Hkv * splits * (H / Hkv) * (D + 2) f32 on the stream.  Two launches:
-// the split kernel, then the combine.
+// each (the last may be shorter, none empty).
 extern "C" int flash_decode_paged_launch(
     int q_dtype, int kv_dtype, int windowed, const void* q, const void* k_pool,
     const void* v_pool, const void* page_table, const void* idx,

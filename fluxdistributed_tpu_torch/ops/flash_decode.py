@@ -12,11 +12,16 @@ Port of ``fluxdistributed_tpu/ops/pallas_decode.py:flash_decode`` and
   the JAX package's ``_xla_block_walk`` schedule (f32 online softmax
   over row blocks, dead blocks skipped).
 
-The paged kernel is split-KV: each slot's pages are cut into
-:func:`paged_splits` contiguous runs, each run's partial softmax state
-is computed on its own, and the partials are merged in run order.
-:func:`flash_decode_paged_split` is the plain version of that schedule
-(the tests hold it to the oracle, :func:`flash_decode_paged_reference`).
+Both kernels are split-KV: each slot's rows are cut into contiguous
+runs, each run's partial softmax state is computed on its own, and the
+partials are merged in run order.  The dense kernel cuts each slot's
+live rows (up to its cursor, read on the device) into
+:func:`decode_splits` runs of whole tiles of :func:`decode_tile_rows`
+rows; the paged kernel cuts the page table into :func:`paged_splits`
+runs of whole pages.  :func:`flash_decode_split` and
+:func:`flash_decode_paged_split` are the plain versions of those
+schedules (the tests hold them to the oracles,
+:func:`flash_decode_reference` and :func:`flash_decode_paged_reference`).
 
 All keep the probabilities in f32 through P·V, as the XLA walk does.
 (The Pallas body instead rounds p to v's dtype, so on a bf16 cache the
@@ -35,9 +40,11 @@ import torch
 
 from .attention import NEG_INF, online_softmax_update, validate_window
 
-__all__ = ["flash_decode", "flash_decode_paged",
-           "flash_decode_paged_reference", "flash_decode_paged_split",
-           "flash_decode_reference", "paged_splits", "split_pages"]
+__all__ = ["decode_splits", "decode_tile_rows", "flash_decode",
+           "flash_decode_paged", "flash_decode_paged_reference",
+           "flash_decode_paged_split", "flash_decode_reference",
+           "flash_decode_split", "paged_splits", "split_pages",
+           "split_tiles"]
 
 # dtype codes shared with csrc/flash_decode.cu
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -162,13 +169,11 @@ def _ring_mask(sp, idx, window, sinks):
     return (sp >= 0) & (sp <= qg) & band
 
 
-def flash_decode_reference(q, k, v, idx, *, slot_pos=None, window=None,
-                           sinks=0, k_scale=None, v_scale=None,
-                           block_k: int = 128):
-    """The plain PyTorch version: ``_xla_block_walk`` with the dense
-    cursor or windowed-ring mask.  Same contract as :func:`flash_decode`."""
+def _dense_walkers(q, k, v, idx, slot_pos, window, sinks, k_scale, v_scale,
+                   block_k):
+    """``(get_mask, get_block)`` of the dense walk, ``block_k`` rows a
+    block (the last may be shorter)."""
     r = k.shape[1]
-    block_k = min(block_k, r)
     idx = idx.to(torch.int64)
 
     def get_mask(j):
@@ -183,6 +188,18 @@ def flash_decode_reference(q, k, v, idx, *, slot_pos=None, window=None,
         return (_dequant(k[:, rows], None if k_scale is None else k_scale[:, rows]),
                 _dequant(v[:, rows], None if v_scale is None else v_scale[:, rows]))
 
+    return get_mask, get_block
+
+
+def flash_decode_reference(q, k, v, idx, *, slot_pos=None, window=None,
+                           sinks=0, k_scale=None, v_scale=None,
+                           block_k: int = 128):
+    """The plain PyTorch version: ``_xla_block_walk`` with the dense
+    cursor or windowed-ring mask.  Same contract as :func:`flash_decode`."""
+    r = k.shape[1]
+    block_k = min(block_k, r)
+    get_mask, get_block = _dense_walkers(q, k, v, idx, slot_pos, window,
+                                         sinks, k_scale, v_scale, block_k)
     return _block_walk(q, k.shape[2], -(-r // block_k), get_mask, get_block)
 
 
@@ -238,8 +255,39 @@ def _page_walkers(q, k_pool, v_pool, page_table, idx, slot_pos, window,
     return get_mask, get_block
 
 
-#: CTAs per SM that the paged kernel's split count aims at
+#: CTAs per SM that the kernels' split counts aim at
 _CTAS_PER_SM = 4
+
+
+def decode_tile_rows(d: int) -> int:
+    """Rows a tile of the dense kernel (``csrc/flash_decode.cu:
+    tile_rows``): a tile of K in f32 is about 16 KB whatever the head dim
+    ``d`` is."""
+    return 64 if d <= 64 else (32 if d <= 128 else 16)
+
+
+def decode_splits(batch: int, hkv: int, rows: int, sms: int,
+                  head_dim: int) -> int:
+    """The dense kernel's split count: enough runs that ``batch * hkv *
+    splits`` CTAs give each of ``sms`` SMs about four, but no more runs
+    than the ``rows`` of the cache hold tiles of
+    ``decode_tile_rows(head_dim)`` rows.  Depends on the cache and the
+    card, never on the cursors, so the grid is fixed on the host."""
+    want = -(-_CTAS_PER_SM * sms // max(batch * hkv, 1))
+    tiles = -(-rows // decode_tile_rows(head_dim))
+    return max(1, min(tiles, want))
+
+
+def split_tiles(tiles: int, splits: int):
+    """The dense kernel's runs of one slot: its ``tiles`` live tiles cut
+    into ``splits`` runs of ``ceil(tiles / splits)`` whole tiles,
+    ``[(t0, t1), ...]`` in split order; the last runs may be short or
+    empty (``t0 == t1``)."""
+    if splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    per = -(-tiles // splits)
+    return [(min(s * per, tiles), min((s + 1) * per, tiles))
+            for s in range(splits)]
 
 
 def paged_splits(batch: int, hkv: int, pages: int, sms: int) -> int:
@@ -280,6 +328,35 @@ def _merge_splits(parts):
     return l, acc
 
 
+def flash_decode_split(q, k, v, idx, *, splits, slot_pos=None, window=None,
+                       sinks=0, k_scale=None, v_scale=None):
+    """The plain version of the dense kernel's split-KV schedule: each
+    slot's live rows (up to its cursor; all R rows of a windowed ring)
+    in tiles of :func:`decode_tile_rows` rows, cut into ``splits`` runs
+    of whole tiles (:func:`split_tiles`), the ``_xla_block_walk`` state
+    of each run taken on its own, and the runs merged in split order, as
+    the kernel's combine merges them.  Same contract as
+    :func:`flash_decode`."""
+    r, hkv, d = k.shape[1:]
+    tile = decode_tile_rows(d)
+    outs = []
+    for b in range(q.shape[0]):
+        one = slice(b, b + 1)
+
+        def mine(x):
+            return None if x is None else x[one]
+
+        get_mask, get_block = _dense_walkers(
+            q[one], k[one], v[one], idx[one], mine(slot_pos), window, sinks,
+            mine(k_scale), mine(v_scale), tile)
+        rows = r if window is not None else min(max(int(idx[b]) + 1, 0), r)
+        parts = [_walk_state(q[one], hkv, range(t0, t1), get_mask, get_block)
+                 for t0, t1 in split_tiles(-(-rows // tile), splits)]
+        l, acc = _merge_splits(parts)
+        outs.append(_finish(q[one], acc, l))
+    return torch.cat(outs)
+
+
 def flash_decode_paged_split(q, k_pool, v_pool, page_table, idx, *, splits,
                              slot_pos=None, window=None, sinks=0,
                              k_scale=None, v_scale=None):
@@ -316,7 +393,8 @@ def _kernel():
         lib = _build.load("flash_decode")
         lib.flash_decode_launch.argtypes = (
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+               ctypes.c_void_p])
         lib.flash_decode_paged_launch.argtypes = (
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -374,11 +452,41 @@ def _raise_on(err: int, what: str) -> None:
                            f"(cudaError {err})")
 
 
-def _launch(q, k, v, idx, slot_pos, window, sinks, k_scale, v_scale):
+_SMS = {}
+
+
+def _sm_count(device) -> int:
+    """The SM count of ``device``, asked of the CUDA runtime once: the
+    decode step calls the wrappers once a layer, and host time sets its
+    pace."""
+    i = device.index if device.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+def _workspace(q, splits):
+    """The split partials (m, l, acc[D]) of every (slot, query head),
+    from the caching allocator on the current stream."""
+    b, _, h, d = q.shape
+    return torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                       device=q.device)
+
+
+def _launch(q, k, v, idx, slot_pos, window, sinks, k_scale, v_scale,
+            splits=None):
+    """The dense kernel on ``splits`` runs of tiles a slot (default:
+    :func:`decode_splits` of the card's SM count; the card-only tests
+    force other counts)."""
     _check_kernel_inputs(q, k, v, idx, slot_pos, k_scale, v_scale)
     b, _, h, d = q.shape
     r, hkv = k.shape[1], k.shape[2]
+    if splits is None:
+        splits = decode_splits(b, hkv, r, _sm_count(q.device), d)
+    elif splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
     out = torch.empty_like(q)
+    work = _workspace(q, splits)
     lib = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -386,10 +494,10 @@ def _launch(q, k, v, idx, slot_pos, window, sinks, k_scale, v_scale):
             _Q_CODES[q.dtype], _KV_CODES[k.dtype], int(window is not None),
             _ptr(q), _ptr(k), _ptr(v), _ptr(idx), _ptr(slot_pos),
             _ptr(k_scale), _ptr(v_scale), _ptr(out), b, r, h, hkv, d,
-            int(window or 0), int(sinks), 1.0 / math.sqrt(d),
-            ctypes.c_void_p(stream))
+            int(window or 0), int(sinks), 1.0 / math.sqrt(d), splits,
+            _ptr(work), ctypes.c_void_p(stream))
     _raise_on(err, "flash_decode")
-    flash_decode.launches += 1
+    flash_decode.launches += 1  # one call, two CUDA launches
     return out
 
 
@@ -403,14 +511,10 @@ def _launch_paged(q, k_pool, v_pool, page_table, idx, slot_pos, window,
     nb, bs, hkv = k_pool.shape[:3]
     pages = page_table.shape[1]
     if splits is None:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        splits = paged_splits(b, hkv, pages, sms)
+        splits = paged_splits(b, hkv, pages, _sm_count(q.device))
     runs, per = split_pages(pages, splits)
     out = torch.empty_like(q)
-    # the split partials (m, l, acc[D]) of every (slot, query head), from
-    # the caching allocator on the current stream
-    work = torch.empty(b * h * runs * (d + 2), dtype=torch.float32,
-                       device=q.device)
+    work = _workspace(q, runs)
     lib = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -450,9 +554,11 @@ def flash_decode(
     ``k_scale``/``v_scale`` [B, R, Hkv] f32.  → [B, 1, H, D] in q's
     dtype; slots with nothing attendable return exactly 0.
 
-    On a CUDA tensor this launches the Hopper kernel (its tile size is
-    its own; ``block_k`` sets the plain version's block rows); on a CPU
-    tensor it runs :func:`flash_decode_reference`.
+    On a CUDA tensor this launches the Hopper kernel, split-KV over runs
+    of whole tiles (:func:`decode_splits` of the card's SM count; its
+    tile size is its own, :func:`decode_tile_rows`, and ``block_k`` sets
+    the plain version's block rows); on a CPU tensor it runs
+    :func:`flash_decode_reference`.
     """
     _validate(window, sinks, slot_pos, k_scale, v_scale)
     _check_shapes(q, k, v, idx, slot_pos, k_scale)

@@ -18,9 +18,9 @@ whose f32 sums differ from the plain versions' in order only; B2 rounds
 ds, and B3 p and ds, to bf16 exactly as the plain version does, and the
 rounding audit (every live pair summed again in the plain order) must
 find no pair that the flag let through rounding otherwise.  The paged
-kernel is split-KV; at 1, 2, 3 and 7 splits it holds the same limits
-against the plain version and against the plain split-and-merge
-version.  ``optim.adam`` on the card equals ``fused_adam``'s plain
+and dense kernels are split-KV; at 1, 2, 3 and 7 splits each holds the
+same limits against its plain version and against its plain
+split-and-merge version.  ``optim.adam`` on the card equals ``fused_adam``'s plain
 version bit for bit.
 Fused Adam: bitwise (each op rounded as the plain version's op).  The
 fused ZeRO-1 step on the card against the CPU: loss 1e-5 relative;
@@ -38,7 +38,7 @@ from fluxdistributed_tpu_torch.models import lm_tiny
 from fluxdistributed_tpu_torch.models.transformer_lm import quantize_kv
 from fluxdistributed_tpu_torch.ops.flash_decode import (
     flash_decode, flash_decode_paged, flash_decode_paged_reference,
-    flash_decode_paged_split, flash_decode_reference)
+    flash_decode_paged_split, flash_decode_reference, flash_decode_split)
 from fluxdistributed_tpu_torch.serve import LMEngine, Request, Scheduler
 
 pytestmark = pytest.mark.gpu
@@ -63,9 +63,10 @@ def _ring(b, rows, sinks, cursors):
     return sp
 
 
-@pytest.mark.parametrize("variant", ["f32", "bf16", "gqa", "ring", "int8",
-                                     "fp8"])
-def test_kernel_matches_plain_version(cuda, variant):
+def _dense_case(variant):
+    """The dense kernel's inputs on the CPU: 300 rows (4 tiles of 64 and
+    44 rows) with cursors at the first row, on and past a tile boundary
+    and at the last row; a 104-row ring for "ring"."""
     g = torch.Generator().manual_seed(0)
     b, h, hkv, d, r = 4, 8, 8, 64, 300
     if variant == "gqa":
@@ -87,15 +88,103 @@ def test_kernel_matches_plain_version(cuda, variant):
         v, kw["v_scale"] = quantize_kv(v, variant)
     else:
         k, v = k.to(dt), v.to(dt)
+    return (q, k, v, idx), kw
+
+
+def _on(cuda, kw):
+    return {n: x.to(cuda) if torch.is_tensor(x) else x for n, x in kw.items()}
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16", "gqa", "ring", "int8",
+                                     "fp8"])
+def test_kernel_matches_plain_version(cuda, variant):
+    (q, k, v, idx), kw = _dense_case(variant)
     ref = flash_decode_reference(q, k, v, idx, **kw)
-    dev = {n: x.to(cuda) if torch.is_tensor(x) else x for n, x in kw.items()}
     before = flash_decode.launches
-    out = flash_decode(q.to(cuda), k.to(cuda), v.to(cuda), idx.to(cuda), **dev)
+    out = flash_decode(q.to(cuda), k.to(cuda), v.to(cuda), idx.to(cuda),
+                       **_on(cuda, kw))
     torch.cuda.synchronize()
     assert flash_decode.launches == before + 1
-    atol = 2e-5 if dt == torch.float32 else 2e-2
+    atol = 2e-5 if q.dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.cpu().float(), ref.float(), atol=atol,
                                rtol=0)
+
+
+def _dense_kernel(cuda, q, k, v, idx, *, splits, slot_pos=None, window=None,
+                  sinks=0, k_scale=None, v_scale=None):
+    """The dense kernel on the card at a forced split count."""
+    fd = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_decode")
+    dev = [None if x is None else x.to(cuda)
+           for x in (q, k, v, idx, slot_pos, k_scale, v_scale)]
+    return fd._launch(*dev[:5], window, sinks, *dev[5:], splits=splits)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("variant", ["f32", "bf16", "gqa", "ring", "int8",
+                                     "fp8"])
+def test_kernel_split_counts(cuda, variant, splits):
+    """The split-KV dense kernel at 1, 2, 3 and 7 forced splits against
+    the plain version and against the plain split-and-merge version on
+    the CPU at the same count.  At 7 the last slot's 5 live tiles take 5
+    runs of one and leave 2 empty, the second slot's 1 tile leaves 6."""
+    args, kw = _dense_case(variant)
+    ref = flash_decode_reference(*args, **kw)
+    split_ref = flash_decode_split(*args, splits=splits, **kw)
+    before = flash_decode.launches
+    out = _dense_kernel(cuda, *args, splits=splits, **kw)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    atol = 2e-5 if variant == "f32" else 2e-2
+    torch.testing.assert_close(out.cpu().float(), ref.float(), atol=atol,
+                               rtol=0)
+    torch.testing.assert_close(out.cpu().float(), split_ref.float(),
+                               atol=atol, rtol=0)
+
+
+def test_kernel_dead_slot_is_zero(cuda):
+    """A plain cursor of -1 and an unwritten ring slot attend nothing:
+    exactly 0 at every split count."""
+    (q, k, v, idx), kw = _dense_case("bf16")
+    idx = torch.tensor([-1, 63, 64, 299], dtype=torch.int32)
+    (rq, rk, rv, ridx), rkw = _dense_case("ring")
+    rkw["slot_pos"][2] = -1
+    for splits in (1, 2, 3, 7):
+        out = _dense_kernel(cuda, q, k, v, idx, splits=splits)
+        ring = _dense_kernel(cuda, rq, rk, rv, ridx, splits=splits, **rkw)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0].cpu(), torch.zeros_like(out[0].cpu()))
+        assert torch.equal(ring[2].cpu(), torch.zeros_like(ring[2].cpu()))
+
+
+def test_kernel_counts_one_launch_per_call(cuda):
+    """One call is two CUDA launches (split, then combine) and counts
+    one."""
+    (q, k, v, idx), _ = _dense_case("bf16")
+    q, k, v, idx = (x.to(cuda) for x in (q, k, v, idx))
+    before = flash_decode.launches
+    for _ in range(3):
+        flash_decode(q, k, v, idx)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 3
+
+
+def test_kernel_error_raises_and_does_not_fall_back(cuda):
+    """A launch the card refuses (64 query heads on one KV head at head
+    dim 256 in f32 need ~390 KB of shared memory, above the 227 KB a
+    block may have) raises the CUDA error; nothing falls back to a plain
+    version, and nothing is counted."""
+    q = torch.randn(1, 1, 64, 256, device=cuda)
+    k = torch.randn(1, 16, 1, 256, device=cuda)
+    idx = torch.tensor([15], dtype=torch.int32, device=cuda)
+    before = flash_decode.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        flash_decode(q, k, k, idx)
+    assert flash_decode.launches == before
+    # the error was reported by the call that made it, not the next one
+    (q, k, v, idx), _ = _dense_case("f32")
+    out = flash_decode(q.to(cuda), k.to(cuda), v.to(cuda), idx.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("config", ["plain", "window_gqa_int8", "fp8",
