@@ -89,7 +89,27 @@ Phases, each of which raises on failure (exit code != 0, no result):
 16. ZeRO-1 parity: two f32 lm_small steps, fused ZeRO-1 on the card
     against the one-device adam step on the card and the fused step on
     the CPU (plain versions), from the same weights and batches;
-17. a ``{"kernels": [...]}`` line, then the result line
+17. vision parity: full-width f32 resnet50 (10 classes, 64², batch 8,
+    TF32 off) on the card and on the CPU from the same seed and
+    batches: 3 momentum steps (losses within 1e-4 relative, params and
+    running stats within 1e-3 relative and 1e-5 of each leaf's scale)
+    and the eval step's top-1/top-5 (equal);
+18. vision train step: resnet50 at 224², 1000 classes, bf16 compute and
+    f32 params, batch 256, momentum 0.01, a bf16 batch made on the card,
+    on one device and through a one-rank NCCL group (synchronised
+    BatchNorm live): step ms over 10 steps, images/s, MFU from the
+    model's own multiply-add count (3 x the forward, over the card's
+    bf16 dense peak), peak allocated bytes, and a profile (device busy
+    and idle share, kernels a step, the largest device ops, BatchNorm's
+    kernel share);
+19. vision CLI: ``python -m fluxdistributed_tpu_torch.train --model
+    resnet50 --dataset synthetic --image-size 224 --num-classes 10
+    --batch-size 256 --opt momentum --lr 0.01 --cycles 30 --eval-every
+    10`` in-process: the mean of the last 5 losses is below the first;
+    the eval top-1/top-5 on two fresh batches and the loader's and the
+    loop's phase sums (``fdtpu_data_*``, ``fdtpu_train_phase_seconds``);
+    B1-B6 launch no time in phases 17-19;
+20. a ``{"kernels": [...]}`` line, then the result line
     ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -135,6 +155,12 @@ ZERO1_ARGV = [*TRAIN_ARGV[:-4], "--cycles", "20", "--eval-every", "0",
               "--zero1"]
 # the fused Adam kernel (B6): lm_small's packed ZeRO-1 buffer at one rank
 # (109,632,000 parameters at vocab 32000, padded to a multiple of 1024)
+# the image path: the reference's ResNet-50 at its per-chip batch of 256
+VISION_B, VISION_SIZE = 256, 224
+VISION_ARGV = ["--model", "resnet50", "--dataset", "synthetic",
+               "--image-size", str(VISION_SIZE), "--num-classes", "10",
+               "--batch-size", str(VISION_B), "--opt", "momentum",
+               "--lr", "0.01", "--cycles", "30", "--eval-every", "10"]
 ADAM_SOURCE = "fluxdistributed_tpu_torch/ops/csrc/fused_adam.cu"
 ADAM_REPLACES = "fluxdistributed_tpu/parallel/zero1_fused.py:127"
 ADAM_VIA = "fluxdistributed_tpu/parallel/zero1_fused.py:170"
@@ -834,12 +860,21 @@ def attn_counts():
     return [w.launches for w in attn_wrappers()]
 
 
-def reset_all_counts():
+def all_wrappers():
+    """The wrappers of B1-B6, in the order of the ``kernels`` line."""
     from fluxdistributed_tpu_torch.ops.flash_decode import (
         flash_decode, flash_decode_paged)
     from fluxdistributed_tpu_torch.ops.fused_adam import fused_adam
 
-    for w in (*attn_wrappers(), flash_decode, flash_decode_paged, fused_adam):
+    return (flash_decode, flash_decode_paged, *attn_wrappers(), fused_adam)
+
+
+def all_counts():
+    return [w.launches for w in all_wrappers()]
+
+
+def reset_all_counts():
+    for w in all_wrappers():
         w.launches = 0
 
 
@@ -1720,6 +1755,236 @@ def zero1_parity_phase(torch):
                            f"launches card {card[2]}")
 
 
+def image_batch(torch, n, size, classes, dtype, device, seed):
+    """A random NHWC image batch and one-hot labels, made on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, size, size, 3, device=device, generator=g).to(dtype)
+    y = torch.randint(0, classes, (n,), device=device, generator=g)
+    return {"image": x,
+            "label": torch.nn.functional.one_hot(y, classes).float()}
+
+
+def vision_parity_phase(torch):
+    """Full-width f32 resnet50 (10 classes, 64², batch 8; TF32 off) on
+    the card and on the CPU from the same seed and batches: 3 momentum
+    steps, then the eval step's top-1/top-5 on a fresh batch."""
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import resnet50
+    from fluxdistributed_tpu_torch.ops.losses import logitcrossentropy
+    from fluxdistributed_tpu_torch.parallel import (
+        TrainState, make_eval_step, make_train_step, module_loss_fn)
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("vision_parity: TF32 must be off")
+    reset_all_counts()
+    batches = [image_batch(torch, 8, 64, 10, torch.float32, "cpu", s)
+               for s in range(4)]
+    out = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        model = resnet50(num_classes=10, dtype=torch.float32, device=where,
+                         seed=3)
+        opt = optim.momentum(0.01, 0.9)
+        loss_fn = module_loss_fn(model, logitcrossentropy)
+        state = TrainState.create(
+            dict(model.named_parameters()), opt,
+            model_state={k: b.clone() for k, b in model.named_buffers()})
+        step = make_train_step(loss_fn, opt)
+        losses = []
+        for b in batches[:3]:
+            state, m = step(state, {k: v.to(where) for k, v in b.items()})
+            losses.append(m["loss"].item())
+        _, acc = make_eval_step(loss_fn, topk=(1, 5))(
+            state, {k: v.to(where) for k, v in batches[3].items()})
+        out[where] = (losses, {k: v.cpu() for k, v in
+                               {**state.params, **state.model_state}.items()},
+                      {k: v.item() for k, v in acc.items()},
+                      time.perf_counter() - t0)
+        del model, state, step
+    (gl, gs, ga, gt), (cl, cs, ca, ct) = out["cuda"], out["cpu"]
+    loss_rel = [abs(g - c) / abs(c) for g, c in zip(gl, cl)]
+    # element-wise rtol 1e-3, atol 1e-5 of each leaf's scale
+    worst, worst_leaf = 0.0, None
+    for k, c in cs.items():
+        tol = 1e-3 * c.abs() + 1e-5 * max(1.0, c.abs().max().item())
+        r = ((gs[k] - c).abs() / tol).max().item()
+        if r > worst:
+            worst, worst_leaf = r, k
+    counts = all_counts()
+    emit({"phase": "vision_parity", "model": "resnet50", "dtype": "float32",
+          "tf32": False, "classes": 10, "image": 64, "batch": 8, "steps": 3,
+          "opt": "momentum 0.01", "card_losses": gl, "cpu_losses": cl,
+          "loss_rel_diff": loss_rel, "worst_leaf_err_over_tol": worst,
+          "worst_leaf": worst_leaf, "card_eval": ga, "cpu_eval": ca,
+          "card_s": gt, "cpu_s": ct, "b1_b6_launches": counts})
+    if max(loss_rel) > 1e-4 or worst > 1.0 or ga != ca:
+        raise RuntimeError(f"vision_parity: losses {loss_rel}, worst leaf "
+                           f"{worst_leaf} at {worst:.3g} x tol, eval card "
+                           f"{ga} cpu {ca}")
+    if counts != [0] * 6:
+        raise RuntimeError(f"vision_parity: B1-B6 launched {counts}")
+
+
+def is_bn_kernel(name: str) -> bool:
+    """A BatchNorm kernel: PyTorch's native ``batch_norm_*`` kernels and
+    cuDNN's ``bn_*`` ones."""
+    low = name.lower()
+    return "batch_norm" in low or low.startswith("bn_") or "_bn_" in low
+
+
+def profile_vision_step(torch, step, state, batch, steps=3):
+    """Where a ResNet-50 step's time goes: host wall per step, device busy
+    and idle share under the profiler, kernels a step, the largest device
+    ops, and BatchNorm's device time by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    dev, count = {}, 0
+    for row in prof.key_averages():
+        if row.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(row, "self_device_time_total",
+                         getattr(row, "self_cuda_time_total", 0.0))
+            dev[row.key] = dev.get(row.key, 0.0) + us
+            count += row.count
+    if not dev:
+        return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": None,
+                "device_idle_share": None}
+    busy_ms = sum(dev.values()) / steps / 1e3
+    bn_ms = sum(us for k, us in dev.items() if is_bn_kernel(k)) / steps / 1e3
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:12]
+    return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "device_kernels_per_step": count / steps,
+            "bn_kernel_ms_per_step": bn_ms, "bn_kernel_share": bn_ms / busy_ms,
+            "top_device_ms_per_step": [[k[:80], v / steps / 1e3]
+                                       for k, v in top]}
+
+
+def vision_train_step_phase(torch, peaks, card):
+    """The ResNet-50 train step (224², 1000 classes, bf16 compute and f32
+    params, batch 256, momentum 0.01, a bf16 batch on the card), on one
+    device and through a one-rank NCCL group whose synchronised
+    BatchNorm path is live: step ms over 10 steps, images/s, MFU from
+    the model's own multiply-add count, peak bytes, and a profile."""
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.mesh import (init_distributed,
+                                                shutdown_distributed)
+    from fluxdistributed_tpu_torch.models import resnet50
+    from fluxdistributed_tpu_torch.ops.losses import logitcrossentropy
+    from fluxdistributed_tpu_torch.parallel import (
+        TrainState, make_train_step, module_loss_fn)
+
+    reset_all_counts()
+    batch = image_batch(torch, VISION_B, VISION_SIZE, 1000, torch.bfloat16,
+                        "cuda", 0)
+    model = resnet50(num_classes=1000, seed=0)
+    macs = model.forward_macs(VISION_SIZE)
+    # training ~ 3 x the forward (the backward computes the input's and
+    # the weights' gradients), 2 FLOPs a multiply-add
+    flops_per_image = 3 * 2 * macs
+    nparams = sum(p.numel() for p in model.parameters())
+    for path in ("one_device", "nccl_rank"):
+        mesh = init_distributed("cuda") if path == "nccl_rank" else None
+        try:
+            opt = optim.momentum(0.01, 0.9)
+            state = TrainState.create(
+                dict(model.named_parameters()), opt,
+                model_state={k: b.clone() for k, b in model.named_buffers()})
+            step = make_train_step(
+                module_loss_fn(model, logitcrossentropy, mesh), opt,
+                mesh=mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                state, m = step(state, batch)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(11)]
+            ev[0].record()
+            for i in range(10):
+                state, m = step(state, batch)
+                ev[i + 1].record()
+            torch.cuda.synchronize()
+            ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(10)]
+            step_ms = sum(ms) / len(ms)
+            img_s = VISION_B / (step_ms / 1e3)
+            row = {"phase": "vision_train_step", "path": path,
+                   "card": card, "model": "resnet50", "image": VISION_SIZE,
+                   "classes": 1000, "batch": VISION_B, "dtype": "bfloat16",
+                   "params_dtype": "float32", "opt": "momentum 0.01",
+                   "params": nparams, "forward_macs_per_image": macs,
+                   "train_flops_per_image": flops_per_image,
+                   "warm3_s": warm_s, "step_ms": step_ms,
+                   "step_ms_each": ms, "images_per_s": img_s,
+                   "mfu": flops_per_image * img_s / peaks["bf16"],
+                   "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                   "loss": m["loss"].item()}
+            row.update(profile_vision_step(torch, step, state, batch))
+            emit(row)
+            if not math.isfinite(row["loss"]):
+                raise RuntimeError(f"vision_train_step {path}: loss "
+                                   f"{row['loss']}")
+            del state, step, m
+            torch.cuda.empty_cache()
+        finally:
+            if mesh is not None:
+                shutdown_distributed()
+    counts = all_counts()
+    if counts != [0] * 6:
+        raise RuntimeError(f"vision_train_step: B1-B6 launched {counts}")
+
+
+def vision_cli_phase(torch):
+    """``python -m fluxdistributed_tpu_torch.train --model resnet50
+    --dataset synthetic ...`` in-process: the loss falls; the eval
+    top-1/top-5 and the loader's waits are printed."""
+    from fluxdistributed_tpu_torch.obs import get_registry
+    from fluxdistributed_tpu_torch.train import evaluate
+    from fluxdistributed_tpu_torch.train.__main__ import run
+
+    def loader_series():
+        return {k: v for k, v in get_registry().snapshot().items()
+                if k.startswith(("fdtpu_data_", "fdtpu_train_phase"))}
+
+    reset_all_counts()
+    before = loader_series()
+    t0 = time.perf_counter()
+    task = run(VISION_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # this run's share of the process registry's sums and counts
+    data = {k: v - before.get(k, 0.0) for k, v in loader_series().items()
+            if k.endswith(("_sum", "_count", "_total"))}
+    losses = task.losses
+    ev = evaluate(task, task.loader.dataset, batch_size=VISION_B,
+                  max_batches=2, topk=(1, 5))
+    counts = all_counts()
+    first, last5 = losses[0], sum(losses[-5:]) / 5
+    emit({"phase": "vision_cli", "argv": VISION_ARGV, "steps": len(losses),
+          "wall_s": wall, "losses": losses, "loss_first": first,
+          "loss_last5_mean": last5, "eval": ev, "b1_b6_launches": counts,
+          "loader_and_phases": data})
+    if len(losses) != 30 or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"vision_cli: {len(losses)} losses, not all "
+                           "finite")
+    if not last5 < first:
+        raise RuntimeError(f"vision_cli: loss {first:.3f} -> mean of the "
+                           f"last 5 {last5:.3f}")
+    if counts != [0] * 6:
+        raise RuntimeError(f"vision_cli: B1-B6 launched {counts}")
+
+
 def main() -> int:
     import torch
 
@@ -1794,6 +2059,9 @@ def main() -> int:
     adam_launches = zero1_train_phase(torch, peaks)
     zero1_cli_phase(torch)
     zero1_parity_phase(torch)
+    vision_parity_phase(torch)
+    vision_train_step_phase(torch, peaks, card.splitlines()[0])
+    vision_cli_phase(torch)
 
     def kernel_entry(name, source, replaces, via, launches, row):
         entry = {"name": name, "route": "cuda", "source": source,

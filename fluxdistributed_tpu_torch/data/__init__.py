@@ -1,8 +1,10 @@
-"""The LM data path: token datasets and the prefetching loader."""
+"""The data path: image and token datasets and the prefetching loader."""
 
-from .loader import PrefetchLoader, batch_to_dict
-from .synthetic import SyntheticTextDataset
+from .cifar import CIFAR10Dataset
+from .loader import PrefetchLoader, apply_transform, batch_to_dict
+from .synthetic import SyntheticDataset, SyntheticTextDataset
 from .text import ByteTextDataset
 
-__all__ = ["ByteTextDataset", "PrefetchLoader", "SyntheticTextDataset",
+__all__ = ["ByteTextDataset", "CIFAR10Dataset", "PrefetchLoader",
+           "SyntheticDataset", "SyntheticTextDataset", "apply_transform",
            "batch_to_dict"]

@@ -20,7 +20,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -28,7 +28,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..mesh import Mesh
 
-__all__ = ["PrefetchLoader", "batch_to_dict"]
+__all__ = ["PrefetchLoader", "apply_transform", "batch_to_dict"]
 
 
 def _onehot(labels: np.ndarray, nclasses: int) -> np.ndarray:
@@ -53,6 +53,17 @@ def batch_to_dict(out, nclasses=None, one_hot: bool = True) -> dict:
     return {"tokens": np.asarray(out)}
 
 
+def apply_transform(transform, out):
+    """A host-side batch hook on a ``dataset.batch()`` return: a tuple
+    draw unpacks into ``transform(images, labels)``, any other passes as
+    one argument; ``None`` leaves the draw as it is.  The loader, the
+    val slice and ``evaluate`` all go through here, so training and eval
+    see one layout."""
+    if transform is None:
+        return out
+    return transform(*out) if isinstance(out, tuple) else transform(out)
+
+
 class PrefetchLoader:
     """Iterate device batches (dicts of tensors) with background
     prefetch.
@@ -61,7 +72,8 @@ class PrefetchLoader:
     :func:`batch_to_dict`).  ``cycles`` batches are produced; ``None``
     derives ``len(dataset) * epochs // batch_size``.  ``buffersize`` is
     the prefetch depth, ``num_threads`` the workers, ``start`` the first
-    item (a resume cursor).  ``batch_size`` is the global batch; with a
+    item (a resume cursor), ``transform`` a host-side hook on each draw
+    (:func:`apply_transform`).  ``batch_size`` is the global batch; with a
     ``mesh`` each rank yields its ``batch_size / N`` rows of it, on the
     mesh's device.  ``device`` defaults to the mesh's, else ``cuda``
     (see :func:`..device.resolve_device`).
@@ -79,6 +91,7 @@ class PrefetchLoader:
         start: int = 0,
         device: DeviceLike = None,
         mesh: Optional[Mesh] = None,
+        transform: Optional[Callable] = None,
     ):
         from ..obs import get_registry
 
@@ -96,6 +109,7 @@ class PrefetchLoader:
                              f"{mesh.size} ranks")
         self.start = start
         self.mesh = mesh
+        self.transform = transform
         self.device = resolve_device(
             mesh.device if device is None and mesh is not None else device)
         reg = get_registry()
@@ -127,8 +141,10 @@ class PrefetchLoader:
         process 0, index), whichever worker assembles it; with a mesh,
         this rank's rows of it."""
         rng = np.random.default_rng((self.seed, 0, i))
-        out = batch_to_dict(self.dataset.batch(rng, self.batch_size),
-                            getattr(self.dataset, "nclasses", None))
+        out = batch_to_dict(
+            apply_transform(self.transform,
+                            self.dataset.batch(rng, self.batch_size)),
+            getattr(self.dataset, "nclasses", None))
         if self.mesh is not None:
             from ..sharding import shard_batch
 

@@ -1,15 +1,54 @@
-"""Synthetic token sequences for LM training, smoke runs and benchmarks.
+"""Synthetic image batches and token sequences for training, smoke
+runs and benchmarks.
 
-A copy of ``fluxdistributed_tpu/data/synthetic.py:SyntheticTextDataset``
-(numpy only): the same seed and the same ``rng`` give the same tokens as
-the JAX package's.
+A copy of ``fluxdistributed_tpu/data/synthetic.py`` (numpy only): the
+same seed and the same ``rng`` give the same images, labels and tokens
+as the JAX package's.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["SyntheticTextDataset"]
+__all__ = ["SyntheticDataset", "SyntheticTextDataset"]
+
+
+class SyntheticDataset:
+    """Deterministic, learnable fake image classification data: each
+    class has its own template image (drawn from ``seed``), and a sample
+    is its class's template plus Gaussian ``noise``, so a model that
+    learns the templates drives the loss down.
+
+    ``nsamples`` labels are drawn once (the sample table);
+    ``batch(rng, n, indices=None) -> (images [n, H, W, C] f32, labels [n]
+    int32)`` samples the table with replacement, or takes ``indices``.
+    Each batch draws ``n * H * W * C`` normals on the host.
+    """
+
+    def __init__(self, nsamples: int = 1024, nclasses: int = 10,
+                 shape: tuple = (32, 32, 3), seed: int = 0,
+                 noise: float = 0.3):
+        self.nsamples = nsamples
+        self.nclasses = nclasses
+        self.shape = shape
+        self.noise = noise
+        root = np.random.default_rng(seed)
+        self.templates = root.normal(0.0, 1.0, size=(nclasses, *shape)).astype(
+            np.float32)
+        self.labels_table = root.integers(0, nclasses, size=nsamples).astype(
+            np.int32)
+
+    def __len__(self) -> int:
+        return self.nsamples
+
+    def batch(self, rng: np.random.Generator, n: int, indices=None):
+        if indices is None:
+            indices = rng.integers(0, self.nsamples, size=n)
+        labels = self.labels_table[np.asarray(indices)]
+        imgs = self.templates[labels] + rng.normal(
+            0.0, self.noise, size=(len(labels), *self.shape)).astype(
+                np.float32)
+        return imgs.astype(np.float32), labels
 
 
 class SyntheticTextDataset:

@@ -1,4 +1,5 @@
-"""Carry weights from the JAX package's flax ``TransformerLM`` across.
+"""Carry weights from the JAX package's flax models across: the
+``TransformerLM``, the ResNets and the small image models.
 
 ``load_flax_params(model, params)`` takes the flax param tree as nested
 dicts of numpy arrays (``jax.tree.map(np.asarray, params)``; nothing of
@@ -18,6 +19,21 @@ place.  The mapping, flax → port:
 A flax kernel [in..., out...] becomes a torch ``Linear`` weight
 [out, in] after flattening.  Every port parameter must be filled and
 every flax leaf used; anything else raises.
+
+``load_flax_resnet(model, params, batch_stats)`` fills a port ResNet
+(and its BatchNorm running stats) from a flax ResNet's ``params`` and
+``batch_stats`` trees; ``load_flax_simple`` a ``SimpleCNN`` or ``MLP``.
+A flax conv kernel ``[kh, kw, in, out]`` becomes ``[out, in, kh, kw]``,
+a dense kernel ``[in, out]`` becomes ``[out, in]``, a BatchNorm's
+``scale``/``bias``/``mean``/``var`` become ``weight``/``bias``/
+``running_mean``/``running_var``, and the flax scopes take
+torchvision's names: ``stem_conv``/``stem_bn`` → ``conv1``/``bn1``,
+``BottleneckBlock_k`` (or ``BasicBlock_k``, numbered over all stages)
+→ ``layer{i}.{j}``, its ``Conv_i``/``BatchNorm_i`` → ``conv{i+1}``/
+``bn{i+1}``, ``downsample_conv``/``downsample_bn`` →
+``downsample.0``/``downsample.1``, ``Dense_0`` → ``fc``.  (The JAX
+package's ``import_torch_resnet`` is the inverse; this is the port's own
+copy of the naming.)
 """
 
 from __future__ import annotations
@@ -29,7 +45,8 @@ import torch
 
 from .transformer_lm import TransformerLM
 
-__all__ = ["load_flax_params", "flax_to_state_dict"]
+__all__ = ["flax_to_state_dict", "load_flax_params", "load_flax_resnet",
+           "load_flax_simple"]
 
 
 def _dense(kernel, in_dims: int):
@@ -91,11 +108,10 @@ def flax_to_state_dict(params: dict) -> Dict[str, np.ndarray]:
 
 
 @torch.no_grad()
-def load_flax_params(model: TransformerLM, params: dict) -> TransformerLM:
-    """Fill ``model`` with the flax ``params`` tree (numpy leaves).
-    Shapes must match exactly; returns ``model``."""
-    sd = flax_to_state_dict(params)
-    own = dict(model.named_parameters())
+def _fill(model: torch.nn.Module, sd: Dict[str, np.ndarray]):
+    """Copy ``sd`` into ``model``'s parameters and buffers, which it must
+    name exactly, shape for shape; returns ``model``."""
+    own = {**dict(model.named_parameters()), **dict(model.named_buffers())}
     missing = sorted(set(own) - set(sd))
     extra = sorted(set(sd) - set(own))
     if missing or extra:
@@ -108,3 +124,74 @@ def load_flax_params(model: TransformerLM, params: dict) -> TransformerLM:
                              f"port shape {tuple(p.shape)}")
         p.copy_(torch.tensor(np.asarray(arr, np.float32)))
     return model
+
+
+def load_flax_params(model: TransformerLM, params: dict) -> TransformerLM:
+    """Fill ``model`` with the flax ``params`` tree (numpy leaves).
+    Shapes must match exactly; returns ``model``."""
+    return _fill(model, flax_to_state_dict(params))
+
+
+def _conv(kernel) -> np.ndarray:
+    return np.asarray(kernel).transpose(3, 2, 0, 1)  # HWIO -> OIHW
+
+
+def _bn(out: dict, prefix: str, p: dict, stats: dict) -> None:
+    out[prefix + ".weight"] = np.asarray(p["scale"])
+    out[prefix + ".bias"] = np.asarray(p["bias"])
+    out[prefix + ".running_mean"] = np.asarray(stats["mean"])
+    out[prefix + ".running_var"] = np.asarray(stats["var"])
+
+
+def load_flax_resnet(model, params: dict, batch_stats: dict):
+    """Fill a port :class:`.resnet.ResNet` from a flax ResNet's ``params``
+    and ``batch_stats`` (numpy leaves; ``batch_stats`` is the
+    collection itself, ``variables["batch_stats"]``).  Returns
+    ``model``."""
+    sd: Dict[str, np.ndarray] = {}
+    sd["conv1.weight"] = _conv(params["stem_conv"]["kernel"])
+    _bn(sd, "bn1", params["stem_bn"], batch_stats["stem_bn"])
+    name = model.block.__name__
+    k = 0
+    for i, n in enumerate(model.stage_sizes):
+        for j in range(n):
+            scope, pre = f"{name}_{k}", f"layer{i + 1}.{j}"
+            bp, bs = params[scope], batch_stats[scope]
+            for child, p in bp.items():
+                if child.startswith("Conv_"):
+                    idx = int(child[len("Conv_"):]) + 1
+                    sd[f"{pre}.conv{idx}.weight"] = _conv(p["kernel"])
+                elif child.startswith("BatchNorm_"):
+                    idx = int(child[len("BatchNorm_"):]) + 1
+                    _bn(sd, f"{pre}.bn{idx}", p, bs[child])
+                elif child == "downsample_conv":
+                    sd[f"{pre}.downsample.0.weight"] = _conv(p["kernel"])
+                elif child == "downsample_bn":
+                    _bn(sd, f"{pre}.downsample.1", p, bs[child])
+                else:
+                    raise KeyError(f"unknown flax param {scope}/{child}")
+            k += 1
+    extra = set(params) - {"stem_conv", "stem_bn", "Dense_0"} - {
+        f"{name}_{i}" for i in range(k)}
+    if extra:
+        raise KeyError(f"unknown flax params {sorted(extra)}")
+    _linear(sd, "fc", params["Dense_0"])
+    return _fill(model, sd)
+
+
+def load_flax_simple(model, params: dict):
+    """Fill a port ``SimpleCNN`` (flax ``Conv_0``, ``Conv_1``,
+    ``Dense_0`` → ``conv1``, ``conv2``, ``fc``) or ``MLP`` (``Dense_i``
+    → ``layers.i``) from its flax ``params``.  Returns ``model``."""
+    sd: Dict[str, np.ndarray] = {}
+    is_cnn = "Conv_0" in params
+    for name, p in params.items():
+        idx = int(name.rsplit("_", 1)[1])
+        if name.startswith("Conv_"):
+            sd[f"conv{idx + 1}.weight"] = _conv(p["kernel"])
+            sd[f"conv{idx + 1}.bias"] = np.asarray(p["bias"])
+        elif name.startswith("Dense_"):
+            _linear(sd, "fc" if is_cnn else f"layers.{idx}", p)
+        else:
+            raise KeyError(f"unknown flax param {name}")
+    return _fill(model, sd)

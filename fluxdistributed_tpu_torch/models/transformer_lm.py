@@ -59,11 +59,11 @@ from typing import Callable, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import dot_product_attention, validate_window
 from ..ops.flash_decode import flash_decode, flash_decode_paged
+from .common import maybe_remat
 
 __all__ = [
     "KV_QUANTS",
@@ -709,15 +709,12 @@ class TransformerLM(nn.Module):
                 # output is discarded)
                 pos = torch.clamp(step.wpos, max=self.pos_embedding.shape[0] - 1)
                 x = x + self.pos_embedding[pos].to(dt)
+        # the dropout masks are drawn from generators seeded inside the
+        # block, so a recompute draws the same ones
         remat = self.remat and cache is None and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            if remat:
-                # the dropout masks are drawn from generators seeded
-                # inside the block, so the recompute draws the same ones
-                x = checkpoint(blk, x, dt, None, i, None, train,
-                               dropout_seed, use_reentrant=False)
-            else:
-                x = blk(x, dt, cache, i, step, train, dropout_seed)
+            x = maybe_remat(blk, remat)(x, dt, cache, i, step, train,
+                                        dropout_seed)
         if cache is not None:
             if t > 1 and cache.slot_pos is not None:
                 step.put_positions(cache)

@@ -20,8 +20,9 @@ bias corrections, the schedules) are computed in float32, as jnp does.
 Rules: ``descent``, ``momentum``, ``nesterov``, ``adam``, ``adamw``; the
 ``clip_by_global_norm`` wrapper; the schedules ``constant``,
 ``step_decay``, ``cosine_decay``, ``warmup_cosine`` (callables
-``step -> lr``, usable anywhere ``lr`` is).  ``lars`` and ``with_ema``
-are not ported yet.
+``step -> lr``, usable anywhere ``lr`` is); ``lars`` (layer-wise
+trust ratios for large batches); ``with_ema`` (a shadow average of the
+params in the optimizer state, read with ``ema_params``).
 """
 
 from __future__ import annotations
@@ -45,11 +46,14 @@ __all__ = [
     "cosine_decay",
     "descent",
     "div_const",
+    "ema_params",
     "global_norm",
+    "lars",
     "momentum",
     "nesterov",
     "step_decay",
     "warmup_cosine",
+    "with_ema",
 ]
 
 
@@ -207,6 +211,78 @@ def adamw(lr: LR = 1e-3, b1: float = 0.9, b2: float = 0.999,
         return out, new_s
 
     return Optimizer(base.init, update, "adamw")
+
+
+def lars(lr: LR = 1.0, momentum_coef: float = 0.9, weight_decay: float = 0.0,
+         trust_coefficient: float = 1e-3, eps: float = 1e-9) -> Optimizer:
+    """LARS: momentum whose step for each leaf is scaled by the trust
+    ratio ``trust_coefficient * |p| / (|g| + eps)`` (1 where either norm
+    is 0), with ``g`` the gradient plus ``weight_decay * p``:
+    ``v = ρ v + η trust g; x -= v``."""
+
+    def update(params, grads, state, step):
+        eta = _lr_at(lr, step)
+        new_p, new_v = {}, {}
+        for k, p in params.items():
+            g, v = grads.get(k), state[k]
+            if g is None:
+                new_p[k], new_v[k] = p, v
+                continue
+            g = g + weight_decay * p
+            p_norm = torch.linalg.vector_norm(p)
+            g_norm = torch.linalg.vector_norm(g)
+            # the norms stay on the device: no host sync per leaf
+            trust = torch.where((p_norm > 0) & (g_norm > 0),
+                                trust_coefficient * p_norm / (g_norm + eps),
+                                torch.ones_like(p_norm))
+            v = momentum_coef * v + eta * trust * g
+            new_p[k], new_v[k] = p - v, v
+        return new_p, new_v
+
+    return Optimizer(_zeros_like, update, "lars")
+
+
+def with_ema(optimizer: Optimizer, decay: float = 0.9999) -> Optimizer:
+    """``optimizer`` plus an exponential moving average of the params,
+    kept in the optimizer state: each param's slot is ``{"inner": <the
+    wrapped rule's slot>, "ema": <shadow>}``.  The decay is
+    warmup-corrected, ``min(decay, (1 + t) / (10 + t))`` at step ``t``,
+    so early steps do not average against the random init.  The shadow
+    starts as a copy of the params and keeps their dtype; read it with
+    :func:`ema_params`."""
+
+    def init(params):
+        inner = optimizer.init(params)
+        return {k: None if p is None else {"inner": inner[k],
+                                           "ema": p.detach().clone()}
+                for k, p in params.items()}
+
+    def update(params, grads, state, step):
+        inner = {k: None if s is None else s["inner"]
+                 for k, s in state.items()}
+        new_p, new_inner = optimizer.update(params, grads, inner, step)
+        t = _f32(step)
+        d = torch.clamp((1.0 + t) / (10.0 + t), max=decay)
+        out = {}
+        for k, s in state.items():
+            if s is None:
+                out[k] = None
+                continue
+            p = new_p[k]
+            out[k] = {"inner": new_inner[k],
+                      "ema": (d * s["ema"] + (1.0 - d) * p).to(p.dtype)}
+        return new_p, out
+
+    return Optimizer(init, update, f"ema{decay}({optimizer.name})")
+
+
+def ema_params(opt_state: dict) -> dict:
+    """The shadow params of a :func:`with_ema` optimizer state."""
+    if not any(isinstance(s, dict) and "ema" in s
+               for s in opt_state.values()):
+        raise ValueError("opt_state does not carry an EMA (use "
+                         "optim.with_ema)")
+    return {k: None if s is None else s["ema"] for k, s in opt_state.items()}
 
 
 def global_norm(grads: Params) -> torch.Tensor:

@@ -15,13 +15,14 @@ want one call for many tensors pack them first
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any
 
 import torch
 import torch.distributed as dist
 
 from ..mesh import Mesh
 from ..optim import div_const
+from ..tree import tree_map
 
 __all__ = ["all_gather", "pmean", "psum", "reduce_scatter", "tree_map"]
 
@@ -31,18 +32,6 @@ _reduce_scatter = (getattr(dist, "reduce_scatter_single", None)
                    or dist.reduce_scatter_tensor)
 _all_gather = (getattr(dist, "all_gather_single", None)
                or dist.all_gather_into_tensor)
-
-
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """``fn`` on every tensor leaf of ``tree``; ``None`` stays ``None``.
-    Dicts keep their keys, lists and tuples their order."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
 
 
 def psum(tree: Any, mesh: Mesh) -> Any:

@@ -11,14 +11,19 @@ same update, so the replicas stay equal.  That is the schedule of the
 JAX ``make_train_step_shardmap`` (dp.py:376-384); its GSPMD
 ``make_train_step`` differentiates the global mean instead, which is
 the same update up to the order of the sums.  The loss and the mutable
-model state are averaged over the ranks the same way.  A loss function
-has the JAX signature::
+model state are averaged over the ranks the same way, except model
+state that the loss function already took over the global batch
+(:func:`module_loss_fn` with a mesh: the BatchNorm running stats of
+synchronised BatchNorm are equal on every rank, and a mean of N equal
+values can differ from them by an ulp where N is not a power of two).
+A loss function has the JAX signature::
 
     loss_fn(params, model_state, batch, train, rng=None)
         -> (loss, (new_model_state, aux))
 
 where ``params`` is a dict of tensors by parameter name (see
-:func:`..models.lm_loss_fn`) and ``rng`` an integer dropout seed.  The
+:func:`..models.lm_loss_fn` and :func:`module_loss_fn`) and ``rng`` an
+integer dropout seed.  The
 step is eager PyTorch: forward, ``torch.autograd.grad`` of the loss with
 respect to the params, then the pure optimizer update, which returns new
 param tensors and leaves the old ones as they were until the step has
@@ -35,11 +40,13 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..mesh import Mesh
+from ..ops.metrics import topkaccuracy
 from ..optim import Optimizer, div_const
 from . import collectives
 
 __all__ = ["TrainState", "guard_sentinel", "local_grads", "make_eval_step",
-           "make_train_step", "make_train_step_shardmap"]
+           "make_train_step", "make_train_step_shardmap", "module_loss_fn",
+           "sync_model_state"]
 
 
 @dataclasses.dataclass
@@ -59,6 +66,56 @@ class TrainState:
         return cls(params=params, opt_state=optimizer.init(params),
                    model_state=model_state if model_state is not None else {},
                    step=0)
+
+
+def module_loss_fn(model, loss: Callable, mesh: Optional[Mesh] = None
+                   ) -> Callable:
+    """An image model and a loss (e.g. ``ops.logitcrossentropy``) in the
+    framework signature ``fn(params, model_state, batch, train) ->
+    (loss, (model_state, logits))``: the JAX ``flax_loss_fn``.
+
+    The batch is ``{"image": [B, H, W, C], "label": ...}``.  ``params``
+    and ``model_state`` (the model's buffers by name: BatchNorm running
+    stats) go into the model through ``torch.func.functional_call``.  In
+    train mode a model with model state returns its new running stats
+    as the new ``model_state``, in new tensors: the ``model_state``
+    passed in is never written (see :mod:`..models.norm`).  With a
+    ``mesh`` the BatchNorm statistics are those of the global batch,
+    all-reduced over the mesh's ranks inside every BatchNorm layer (the
+    JAX ``jit`` step's global-batch BatchNorm), even at one rank;
+    without one they are this rank's rows'."""
+    from torch.func import functional_call
+
+    from ..models.norm import BatchStats
+
+    names = {m: n for n, m in model.named_modules()}
+
+    def fn(params, model_state, batch, train: bool):
+        x, y = batch["image"], batch["label"]
+        tensors = {**params, **model_state}
+        if train and model_state:
+            stats = BatchStats(mesh)
+            out = functional_call(model, tensors, (x,),
+                                  {"train": True, "stats": stats})
+            new = dict(model_state)
+            for m, (mean, var) in stats.new.items():
+                new[f"{names[m]}.running_mean"] = mean
+                new[f"{names[m]}.running_var"] = var
+            return loss(out, y), (new, out)
+        out = functional_call(model, tensors, (x,), {"train": train})
+        return loss(out, y), (model_state, out)
+
+    fn.global_model_state = mesh is not None
+    return fn
+
+
+def sync_model_state(loss_fn: Callable, mstate, mesh: Optional[Mesh]):
+    """The model state a step keeps: the mean over the ranks, or
+    ``mstate`` itself where ``loss_fn`` computed it over the global
+    batch already (:func:`module_loss_fn` with a mesh)."""
+    if mesh is None or getattr(loss_fn, "global_model_state", False):
+        return mstate
+    return collectives.pmean(mstate, mesh)
 
 
 def _accepts_rng(loss_fn: Callable) -> bool:
@@ -190,7 +247,7 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
             if mesh is not None:
                 grads = collectives.pmean(grads, mesh)
                 loss = collectives.pmean(loss, mesh)
-                mstate = collectives.pmean(mstate, mesh)
+            mstate = sync_model_state(loss_fn, mstate, mesh)
             new_params, new_opt = optimizer.apply(
                 state.params, grads, state.opt_state, state.step)
             metrics = {"loss": loss}
@@ -211,17 +268,24 @@ def make_train_step_shardmap(loss_fn: Callable, optimizer: Optimizer,
     return make_train_step(loss_fn, optimizer, mesh=mesh, seed=seed)
 
 
-def make_eval_step(loss_fn: Callable, mesh: Optional[Mesh] = None):
+def make_eval_step(loss_fn: Callable, mesh: Optional[Mesh] = None,
+                   topk: tuple = (1, 5, 10)):
     """``eval_fn(state, batch) -> (loss, metrics)`` under ``no_grad``:
-    the JAX eval step with ``topk=()`` (the top-k image metrics come with
-    the vision slice), so ``metrics`` is empty.  With a mesh, ``batch``
-    holds this rank's rows and the loss is the mean over the ranks."""
+    one forward in eval mode gives the loss and, for each ``k`` in
+    ``topk``, ``metrics[f"top{k}"]``, the top-k accuracy of the logits
+    against ``batch["label"]`` (pass ``topk=()`` for batches without
+    labels, e.g. an LM's).  With a mesh, ``batch`` holds this rank's
+    rows and the loss and metrics are means over the ranks."""
 
     @torch.no_grad()
     def step(state: TrainState, batch):
-        loss, _ = loss_fn(state.params, state.model_state, batch, False)
+        loss, (_, logits) = loss_fn(state.params, state.model_state, batch,
+                                    False)
+        metrics = {f"top{k}": topkaccuracy(logits, batch["label"], k=k)
+                   for k in topk}
         if mesh is not None:
             loss = collectives.pmean(loss, mesh)
-        return loss, {}
+            metrics = collectives.pmean(metrics, mesh)
+        return loss, metrics
 
     return step

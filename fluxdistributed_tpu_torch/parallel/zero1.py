@@ -24,7 +24,8 @@ the same explicit schedule above.  Because each rank's rule sees only
 its slice, rules that need norms over whole leaves or the whole
 gradient (LARS, global-norm clipping) are refused by both; the JAX
 GSPMD variant takes them because XLA inserts the norm collectives.
-``zero1_ema_params`` waits for ``optim.with_ema`` (ROADMAP).
+``zero1_ema_params`` (the EMA of :func:`..optim.with_ema` gathered from
+the shards) is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -59,10 +60,22 @@ def _flatten_tree(tree: dict, nshards: int) -> dict:
             for k, x in tree.items()}
 
 
+def restore_layout(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` (``like``'s shape, contiguous) in ``like``'s memory layout:
+    a channels-last conv weight stays channels-last, so the convolutions
+    after an update run as before (and sum in the same order)."""
+    if (like.dim() == 4 and not like.is_contiguous()
+            and like.is_contiguous(memory_format=torch.channels_last)):
+        return x.contiguous(memory_format=torch.channels_last)
+    return x
+
+
 def _unflatten_like(flat_tree: dict, template: dict) -> dict:
-    """Invert :func:`_flatten_tree`: drop the pad, restore each shape."""
-    return {k: None if p is None else flat_tree[k][:p.numel()].reshape(
-        p.shape) for k, p in template.items()}
+    """Invert :func:`_flatten_tree`: drop the pad, restore each shape
+    and layout."""
+    return {k: None if p is None else restore_layout(
+        flat_tree[k][:p.numel()].reshape(p.shape), p)
+        for k, p in template.items()}
 
 
 def _local_chunk(flat_tree: dict, mesh: Mesh) -> dict:
@@ -147,7 +160,7 @@ def make_train_step_zero1(loss_fn: Callable, optimizer: Optimizer,
                                        batch, state.step)
         with torch.no_grad():
             loss = collectives.pmean(loss, mesh)
-            mstate = collectives.pmean(mstate, mesh)
+            mstate = dp.sync_model_state(loss_fn, mstate, mesh)
             new_params, new_opt = z.apply(state.params, grads,
                                           state.opt_state, state.step)
         return dp.TrainState(params=new_params, opt_state=new_opt,

@@ -35,6 +35,7 @@ from ..mesh import Mesh
 from ..ops.fused_adam import fused_adam
 from ..optim import _f32, _lr_at, _on, div_const
 from . import collectives, dp
+from .zero1 import restore_layout
 
 __all__ = [
     "fused_adam_update",
@@ -92,15 +93,17 @@ def pack_tree(tree: Any, nshards: int) -> torch.Tensor:
 
 def unpack_tree(flat: torch.Tensor, template: Any) -> Any:
     """Invert :func:`pack_tree` against ``template``'s shapes and dtypes
-    (the pad tail is dropped; ``None`` leaves stay ``None``).  Leaves of
-    f32 templates are views of ``flat``."""
+    (the pad tail is dropped; ``None`` leaves stay ``None``) and memory
+    layouts (channels-last conv weights).  Leaves of f32 contiguous
+    templates are views of ``flat``."""
     out, off = [], 0
     for leaf in _leaves(template):
         if leaf is None:
             out.append(None)
             continue
         n = leaf.numel()
-        out.append(flat[off:off + n].reshape(leaf.shape).to(leaf.dtype))
+        out.append(restore_layout(
+            flat[off:off + n].reshape(leaf.shape).to(leaf.dtype), leaf))
         off += n
     return _rebuild(template, iter(out))
 
@@ -170,7 +173,7 @@ def make_train_step_zero1_fused(loss_fn: Callable, mesh: Mesh, *, lr=1e-3,
                                        batch, state.step)
         with torch.no_grad():
             loss = collectives.pmean(loss, mesh)
-            mstate = collectives.pmean(mstate, mesh)
+            mstate = dp.sync_model_state(loss_fn, mstate, mesh)
             # a param the loss does not use gets a zero gradient, as in
             # JAX: the packed layout must not shift
             grads = {k: torch.zeros_like(p) if grads[k] is None

@@ -22,7 +22,7 @@ import torch
 import torch.distributed as dist
 
 from .mesh import Mesh
-from .parallel.collectives import tree_map
+from .tree import leaves_with_path, tree_map
 
 __all__ = ["ensure_synced", "replicate", "shard_batch"]
 
@@ -55,26 +55,15 @@ def shard_batch(batch: dict, mesh: Mesh) -> dict:
     return {k: rows(v) for k, v in batch.items()}
 
 
-def _leaves(tree: Any, path: str = ""):
-    if tree is None:
-        return
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, f"{path}/{k}" if path else str(k))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, f"{path}[{i}]")
-    else:
-        yield path, tree
-
-
 def ensure_synced(tree: Any, mesh: Mesh, rtol: float = 0.0,
                   atol: float = 0.0) -> bool:
     """Check that every rank's copy of each leaf equals rank 0's (within
     ``rtol``/``atol``; identical NaNs count as equal).  Every rank must
     call it.  Raises ``AssertionError`` naming the first leaf that
     differs on some rank; returns True otherwise."""
-    for path, leaf in _leaves(tree):
+    for path, leaf in leaves_with_path(tree):
+        if leaf is None:
+            continue
         ref = leaf.detach().clone()
         dist.broadcast(ref, src=0, group=mesh.group)
         same = torch.allclose(leaf, ref, rtol=rtol, atol=atol, equal_nan=True)

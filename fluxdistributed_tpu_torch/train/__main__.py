@@ -1,15 +1,23 @@
-"""Train a language model with the port:
+"""Train an image classifier or a language model with the port:
 ``python -m fluxdistributed_tpu_torch.train``.
 
-The LM subset of the JAX package's ``bin/driver.py``, with its flag
-names and defaults::
+The data-parallel subset of the JAX package's ``bin/driver.py``, with
+its flag names and defaults: the reference's main path, ResNet-50 on
+synthetic ImageNet-sized images with momentum, is the default::
+
+    python -m fluxdistributed_tpu_torch.train --model resnet50 \\
+        --dataset synthetic --image-size 224 --batch-size 256 \\
+        --opt momentum --lr 0.01 --cycles 30
+
+(``--dataset cifar:PATH`` reads the CIFAR-10 binaries; the eval cadence
+logs the top-1/5/10 accuracies), and an LM trains on token data::
 
     python -m fluxdistributed_tpu_torch.train --model lm_small \\
         --dataset synthetic-text --vocab 256 --seqlen 1024 --batch-size 8 \\
         --attn flash --opt adam --lr 3e-4 --cycles 40
 
-runs on the GPU, through the hand-written flash-attention kernels with
-``--attn flash``.  ``--device cpu`` runs the same path on the CPU with
+Both run on the GPU; an LM goes through the hand-written flash-attention
+kernels with ``--attn flash``.  ``--device cpu`` runs the same path on the CPU with
 the kernels' plain versions.  ``--zero1`` shards the optimizer state and
 update over the ranks (ZeRO-1), ``--spmd shard_map`` names the explicit
 per-rank step; both run on a process group, which is one rank unless
@@ -17,8 +25,9 @@ the command runs under ``torchrun``::
 
     torchrun --nproc-per-node 4 -m fluxdistributed_tpu_torch.train ...
 
-(one rank per GPU; ``--batch-size`` is the global batch).  The JAX
-CLI's image models and datasets, its other ``--spmd`` modes,
+(one rank per GPU; ``--batch-size`` is the global batch, and a ResNet's
+BatchNorm statistics are those of the global batch).  The JAX CLI's
+registered datasets (ImageNet), its other ``--spmd`` modes,
 checkpoints, the guard, fault plans and AOT belong to later slices and
 are not accepted.
 """
@@ -31,31 +40,43 @@ import sys
 
 __all__ = ["build_model", "build_parser", "main", "run"]
 
-MODELS = ("lm_tiny", "lm_small", "lm_medium")
+LM_MODELS = ("lm_tiny", "lm_small", "lm_medium")
+IMAGE_MODELS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+                "SimpleCNN")
+MODELS = IMAGE_MODELS + LM_MODELS
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m fluxdistributed_tpu_torch.train",
-        description="Train an LM with the PyTorch/H100 port.")
-    p.add_argument("--model", default="lm_small", choices=MODELS,
+        description="Train an image classifier or an LM with the "
+                    "PyTorch/H100 port.")
+    p.add_argument("--model", default="resnet50", choices=MODELS,
                    help="model factory in fluxdistributed_tpu_torch.models")
-    p.add_argument("--dataset", default="synthetic-text",
-                   help="'synthetic-text' (a learnable Markov token stream) "
-                        "or 'text:PATH' (byte-level LM on a local file)")
+    p.add_argument("--dataset", default=None,
+                   help="images: 'synthetic' (learnable class templates; the "
+                        "default) or 'cifar:PATH' (the CIFAR-10 binaries); "
+                        "tokens: 'synthetic-text' (a learnable Markov token "
+                        "stream; the default) or 'text:PATH' (byte-level LM "
+                        "on a local file)")
+    p.add_argument("--image-size", type=int, default=224,
+                   help="synthetic image side")
+    p.add_argument("--num-classes", type=int, default=None,
+                   help="class count (default: the dataset's; synthetic: "
+                        "1000)")
     p.add_argument("--vocab", type=int, default=256,
                    help="vocab size for the model and synthetic-text")
     p.add_argument("--seqlen", type=int, default=128,
                    help="sequence length of a training window")
     p.add_argument("--batch-size", type=int, default=256,
-                   help="batch size (sequences per step)")
+                   help="global batch size (images or sequences per step)")
     p.add_argument("--epochs", type=int, default=1,
                    help="epochs for text: datasets (derives --cycles)")
     p.add_argument("--cycles", type=int, default=None,
                    help="explicit step count (required for synthetic-text)")
     p.add_argument("--opt", default="momentum",
                    choices=["momentum", "nesterov", "adam", "adamw",
-                            "descent"],
+                            "descent", "lars"],
                    help="optimizer (fluxdistributed_tpu_torch.optim)")
     p.add_argument("--lr", type=float, default=0.01)
     p.add_argument("--warmup-steps", type=int, default=0)
@@ -65,8 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-every", type=int, default=50)
     p.add_argument("--attn", default="dense",
                    choices=["dense", "blockwise", "flash"],
-                   help="attention core: dense, the blockwise walk, or the "
-                        "hand-written flash kernels (fused fwd + bwd)")
+                   help="LMs: attention core: dense, the blockwise walk, or "
+                        "the hand-written flash kernels (fused fwd + bwd)")
     p.add_argument("--attn-block", type=int, default=None,
                    help="block size for --attn blockwise|flash (default "
                         "128; the flash kernels' own tiles are 64 rows)")
@@ -100,11 +121,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_model(args, device, **kwargs):
-    """The ``--model`` LM on ``device``, random weights from seed 0."""
+    """The ``--model`` LM or image model on ``device``, random weights
+    from seed 0 (an image model classifies ``args.num_classes``)."""
     from .. import models
 
-    return getattr(models, args.model)(vocab=args.vocab, device=device,
-                                       seed=0, **kwargs)
+    size = ({"vocab": args.vocab} if args.model in LM_MODELS
+            else {"num_classes": args.num_classes})
+    return getattr(models, args.model)(**size, device=device, seed=0,
+                                       **kwargs)
 
 
 def _model_kwargs(args) -> dict:
@@ -147,21 +171,10 @@ def run(argv=None):
     loss).  ``main`` is this plus an exit code."""
     args = build_parser().parse_args(argv)
 
-    from ..data import ByteTextDataset, SyntheticTextDataset
     from ..device import resolve_device
 
     device = resolve_device(args.device)
-    if args.dataset == "synthetic-text":
-        dataset = SyntheticTextDataset(vocab=args.vocab, seqlen=args.seqlen)
-    elif args.dataset.startswith("text:"):
-        dataset = ByteTextDataset(args.dataset[len("text:"):],
-                                  seqlen=args.seqlen)
-        args.vocab = dataset.vocab
-    else:
-        raise SystemExit(
-            f"--dataset {args.dataset}: the port trains LMs on "
-            "'synthetic-text' or 'text:PATH' (image datasets come with the "
-            "vision slice)")
+    dataset = _dataset(args)
     if args.cycles is None and not hasattr(dataset, "__len__"):
         raise SystemExit("--cycles is required for unbounded token streams "
                          "(synthetic-text has no epoch length; text: "
@@ -186,6 +199,44 @@ def run(argv=None):
             shutdown_distributed()
 
 
+def _dataset(args):
+    """The ``--dataset`` for the ``--model``'s kind: images for an image
+    model, tokens for an LM; the other kind is refused, as the JAX
+    package's ``bin/driver.py`` refuses it."""
+    from .. import data
+
+    is_lm = args.model in LM_MODELS
+    name = args.dataset or ("synthetic-text" if is_lm else "synthetic")
+    tokens = name == "synthetic-text" or name.startswith("text:")
+    if not tokens and name != "synthetic" and not name.startswith("cifar:"):
+        raise SystemExit(
+            f"--dataset {name}: the port reads 'synthetic', 'cifar:PATH', "
+            "'synthetic-text' or 'text:PATH' (registered datasets such as "
+            "ImageNet come with a later slice)")
+    if is_lm and not tokens:
+        raise SystemExit(f"--model {args.model} trains on tokens; use "
+                         "--dataset synthetic-text or text:PATH")
+    if tokens and not is_lm:
+        raise SystemExit(f"--dataset {name} is a token stream; use an lm_* "
+                         f"model (--model {args.model} classifies images: "
+                         "--dataset synthetic or cifar:PATH)")
+    if name == "synthetic-text":
+        return data.SyntheticTextDataset(vocab=args.vocab, seqlen=args.seqlen)
+    if name.startswith("text:"):
+        ds = data.ByteTextDataset(name[len("text:"):], seqlen=args.seqlen)
+        args.vocab = ds.vocab
+        return ds
+    if name == "synthetic":
+        ds = data.SyntheticDataset(
+            nsamples=max(args.batch_size * 8, 1024),
+            nclasses=args.num_classes or 1000,
+            shape=(args.image_size, args.image_size, 3))
+    else:
+        ds = data.CIFAR10Dataset(name[len("cifar:"):])
+    args.num_classes = args.num_classes or ds.nclasses
+    return ds
+
+
 def _train(args, dataset, device, mesh):
     import torch
 
@@ -194,8 +245,10 @@ def _train(args, dataset, device, mesh):
     from .logging import ConsoleLogger, NullLogger
     from .trainer import prepare_training, train
 
+    is_lm = args.model in LM_MODELS
     try:
-        model = build_model(args, device, **_model_kwargs(args))
+        model = build_model(args, device,
+                            **(_model_kwargs(args) if is_lm else {}))
     except ValueError as e:  # e.g. --kv-heads not dividing num_heads
         raise SystemExit(f"--model {args.model}: {e}")
 
@@ -205,7 +258,7 @@ def _train(args, dataset, device, mesh):
     opt = getattr(optim, args.opt)(lr)
     try:
         task = prepare_training(
-            model, dataset, opt, loss_fn=lm_loss_fn(model),
+            model, dataset, opt, loss_fn=lm_loss_fn(model) if is_lm else None,
             batch_size=args.batch_size, epochs=args.epochs,
             cycles=args.cycles, spmd=args.spmd, zero1=args.zero1, mesh=mesh,
             device=device)
@@ -220,8 +273,9 @@ def _train(args, dataset, device, mesh):
     if lead:
         print(f"device: {device} ({name}){ranks}, model {args.model} "
               f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
-              f"params, {str(model.dtype).split('.')[-1]}), attn {args.attn}",
-              flush=True)
+              f"params, {str(model.dtype).split('.')[-1]})"
+              + (f", attn {args.attn}" if is_lm else
+                 f", {args.num_classes} classes"), flush=True)
     train(task, print_every=args.print_every, eval_every=args.eval_every,
           logger=ConsoleLogger() if lead else NullLogger())
     if lead:

@@ -5,20 +5,22 @@ data-parallel modes ``spmd="jit"`` (alias ``"dp"``) and ``"shard_map"``,
 with or without ZeRO-1, on one GPU, on the ranks of a process group
 (:mod:`..mesh`), or on the CPU when asked:
 
-* ``prepare_training`` takes the model's parameters as the initial
+* ``prepare_training`` takes the model's parameters and buffers (the
+  BatchNorm running stats) as the initial
   :class:`..parallel.TrainState` (copied from rank 0 to every rank when
-  there is a mesh), builds the train and eval steps the mode picks and
-  the prefetching loader;
-* ``train`` is the loop: the print cadence logs steps/s and tokens/s,
-  the eval cadence logs the eval loss of the current batch, and a
-  device OOM skips the batch and counts it in ``num_missed`` (the
-  step's update is pure, so the pre-step state carries on);
-* ``evaluate`` aggregates the loss over a dataset.
+  there is a mesh), builds the train and eval steps the mode picks, the
+  prefetching loader and the val slice;
+* ``train`` is the loop: the print cadence logs steps/s and tokens/s
+  (images/s), the eval cadence logs the eval loss and top-k accuracies
+  of the val slice and of the current batch, and a device OOM skips the
+  batch and counts it in ``num_missed`` (the step's update is pure, so
+  the pre-step state carries on);
+* ``evaluate`` aggregates the loss and top-k accuracies over a dataset.
 
 Phase times, step counts and OOM skips land in the process registry
 (:mod:`..obs.metrics`) under the JAX trainer's ``fdtpu_train_*`` names.
-Top-k metrics, val slices, checkpoints, the anomaly guard, preemption,
-profiling and the other parallel modes come with later slices.  A
+Checkpoints, the anomaly guard, preemption, profiling and the other
+parallel modes come with later slices.  A
 device OOM on one rank of a mesh, and not on the others, leaves the
 others waiting in the step's next collective, as in the JAX package on
 several hosts.
@@ -30,18 +32,20 @@ import contextlib
 import dataclasses
 import inspect
 import time
-from typing import Any, Callable, Iterable, Optional
+from typing import Any, Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..data.loader import PrefetchLoader, batch_to_dict
+from ..data.loader import PrefetchLoader, apply_transform, batch_to_dict
 from ..device import DeviceLike, resolve_device
 from ..mesh import Mesh
 from ..obs import get_registry
+from ..ops.losses import logitcrossentropy
 from ..optim import Optimizer
 from ..parallel.dp import (TrainState, make_eval_step, make_train_step,
-                           make_train_step_shardmap)
+                           make_train_step_shardmap, module_loss_fn)
+from ..tree import to_host
 from .logging import ConsoleLogger, Logger
 
 __all__ = ["TrainTask", "evaluate", "prepare_training", "train"]
@@ -66,6 +70,12 @@ class TrainTask:
     skipped_items: list = dataclasses.field(default_factory=list)
     # the loss of every step that ran, in order (floats)
     losses: list = dataclasses.field(default_factory=list)
+    # the top-k accuracies the eval step computes
+    topk: tuple = ()
+    # the val slice on the step's device (this rank's rows), or None
+    val_batch: Optional[dict] = None
+    # the loader's host-side batch hook, also applied by ``evaluate``
+    transform: Optional[Callable] = None
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -83,7 +93,8 @@ def prepare_training(
     dataset,
     optimizer: Optimizer,
     *,
-    loss_fn: Callable,
+    loss_fn: Optional[Callable] = None,
+    loss: Callable = logitcrossentropy,
     batch_size: int = 32,
     epochs: int = 1,
     cycles: Optional[int] = None,
@@ -94,12 +105,29 @@ def prepare_training(
     accum_steps: int = 1,
     mesh: Optional[Mesh] = None,
     device: DeviceLike = None,
+    topk: Optional[Sequence[int]] = None,
+    val_dataset=None,
+    val_samples: int = 300,
+    transform: Optional[Callable] = None,
 ) -> TrainTask:
-    """The train state from the model's current parameters, the train
-    and eval steps, and the prefetching loader.
+    """The train state from the model's current parameters and buffers,
+    the train and eval steps, the prefetching loader and the val slice.
 
     ``loss_fn`` has the framework signature (e.g.
-    ``models.lm_loss_fn(model)``).  ``spmd`` takes the data-parallel
+    ``models.lm_loss_fn(model)``); without one, the image adapter
+    ``module_loss_fn(model, loss, mesh)`` trains the model on
+    ``{"image", "label"}`` batches with ``loss`` (default
+    ``logitcrossentropy``), its BatchNorm statistics taken over the
+    global batch when there is a mesh.  ``topk`` is the top-k
+    accuracies of the eval step; ``None`` is ``(1, 5, 10)`` with the
+    image adapter and ``()`` with a ``loss_fn`` of the caller's (an LM's
+    batches carry no labels).  ``val_dataset`` gives a slice of
+    ``val_samples`` rows (rounded down to a multiple of the ranks, at
+    least one row a rank; the reference's 300-sample slice), drawn once
+    with seed ``seed + 1`` and evaluated at the eval cadence.
+    ``transform`` is the host-side batch hook (``transform(images,
+    labels)`` for image datasets) applied to the train batches, the val
+    slice and ``evaluate``.  ``spmd`` takes the data-parallel
     modes ``"jit"`` (alias ``"dp"``) and ``"shard_map"``; the other
     modes raise.  ``zero1=True`` shards the optimizer state and update
     over the ranks (:mod:`..parallel.zero1`); it applies to those modes
@@ -114,8 +142,8 @@ def prepare_training(
     ends it with :func:`..mesh.shutdown_distributed`).  ``seed`` roots
     the loader's batches and the dropout seeds.  The model must already
     live on the step's device (default ``cuda``).  The JAX version's
-    other options (donation, the device loop, top-k metrics, val
-    slices, AOT, the guard) are not accepted.
+    other options (donation, the device loop, AOT, the guard) are not
+    accepted.
     """
     if spmd == "dp":
         spmd = "jit"
@@ -141,14 +169,22 @@ def prepare_training(
     if off:
         raise ValueError(f"the model's parameters {off[:3]} are not on "
                          f"{dev}; build the model with device={str(dev)!r}")
+    if topk is None:
+        topk = (1, 5, 10) if loss_fn is None else ()
+    topk = tuple(topk)
+    if loss_fn is None:
+        loss_fn = module_loss_fn(model, loss, mesh)
+    # the mutable model state: the buffers (BatchNorm running stats)
+    mstate = {k: b.detach().clone() for k, b in model.named_buffers()}
     if mesh is None:
-        state = TrainState.create(params, optimizer)
+        state = TrainState.create(params, optimizer, model_state=mstate)
         step_fn = make_train_step(loss_fn, optimizer,
                                   accum_steps=accum_steps, seed=seed)
     elif zero1:
         from ..parallel import zero1 as zero1_lib
 
-        state = zero1_lib.zero1_state(params, optimizer, mesh)
+        state = zero1_lib.zero1_state(params, optimizer, mesh,
+                                      model_state=mstate)
         if spmd == "shard_map":
             step_fn = zero1_lib.make_train_step_zero1_shardmap(
                 loss_fn, optimizer, mesh, seed=seed)
@@ -158,20 +194,35 @@ def prepare_training(
     else:
         from ..sharding import replicate
 
-        state = TrainState.create(replicate(
-            {k: p.detach() for k, p in params.items()}, mesh), optimizer)
+        state = TrainState.create(
+            replicate({k: p.detach() for k, p in params.items()}, mesh),
+            optimizer, model_state=replicate(mstate, mesh))
         if spmd == "shard_map":
             step_fn = make_train_step_shardmap(loss_fn, optimizer, mesh,
                                                seed=seed)
         else:
             step_fn = make_train_step(loss_fn, optimizer, mesh=mesh,
                                       accum_steps=accum_steps, seed=seed)
+    val_batch = None
+    if val_dataset is not None:
+        q = 1 if mesh is None else mesh.size
+        nval = max(q, val_samples // q * q)
+        draw = apply_transform(transform, val_dataset.batch(
+            np.random.default_rng(seed + 1), nval))
+        val_batch = batch_to_dict(draw, getattr(val_dataset, "nclasses", None))
+        if mesh is not None:
+            from ..sharding import shard_batch
+
+            val_batch = shard_batch(val_batch, mesh)
+        val_batch = _to_device(val_batch, dev)
     return TrainTask(
-        state=state, step_fn=step_fn, eval_fn=make_eval_step(loss_fn, mesh),
+        state=state, step_fn=step_fn,
+        eval_fn=make_eval_step(loss_fn, mesh, topk=topk),
         loader=PrefetchLoader(dataset, batch_size, cycles=cycles,
                               epochs=epochs, buffersize=buffersize, seed=seed,
-                              device=dev, mesh=mesh),
-        optimizer=optimizer, model=model, device=dev, mesh=mesh)
+                              device=dev, mesh=mesh, transform=transform),
+        optimizer=optimizer, model=model, device=dev, mesh=mesh, topk=topk,
+        val_batch=val_batch, transform=transform)
 
 
 def _is_oom(err: Exception) -> bool:
@@ -179,24 +230,41 @@ def _is_oom(err: Exception) -> bool:
             or "out of memory" in str(err).lower())
 
 
+def _require_topk(accs: dict, topk) -> None:
+    """Fail when a requested top-k accuracy is not one the eval step
+    computes."""
+    for k in topk:
+        if f"top{k}" not in accs:
+            raise KeyError(
+                f"top-{k} accuracy is not computed by the eval step; pass "
+                f"topk={tuple(topk)} to prepare_training")
+
+
 def _eval_and_log(task: TrainTask, batch, name: str, step: int,
                   logger: Logger) -> dict:
-    loss, _ = task.eval_fn(task.state, batch)
+    loss, accs = task.eval_fn(task.state, batch)
     metrics = {f"{name}_loss": float(loss)}
+    for k in task.topk:
+        metrics[f"{name}_top{k}"] = float(accs[f"top{k}"])
     logger.log(metrics, step)
     return metrics
 
 
 def evaluate(task: TrainTask, dataset, *, batch_size: int = 256,
-             max_batches: Optional[int] = None, seed: int = 0) -> dict:
-    """Sample-weighted mean loss over a dataset with the eval step.
+             max_batches: Optional[int] = None,
+             topk: Optional[Sequence[int]] = None, seed: int = 0) -> dict:
+    """Sample-weighted mean loss and top-k accuracies over a dataset
+    with the eval step.
 
     A dataset with a length whose ``batch`` takes ``indices`` is covered
     exactly once, in sequential index blocks plus one smaller remainder
     batch (``"exact": True``).  Otherwise batches are sampled and
-    ``max_batches`` is required (``"exact": False``).  Returns
-    ``{"loss", "samples", "exact"}``.
+    ``max_batches`` is required (``"exact": False``).  ``topk`` defaults
+    to the task's; each must be one the eval step computes.  The task's
+    ``transform`` applies to every draw.  Returns ``{"loss", "top{k}"
+    for each k, "samples", "exact"}``.
     """
+    topk = task.topk if topk is None else tuple(topk)
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     capable = (hasattr(dataset, "__len__")
@@ -220,15 +288,21 @@ def evaluate(task: TrainTask, dataset, *, batch_size: int = 256,
             rem_size = 0  # caller truncated: no remainder pass
     exact = capable and max_batches == full_batches
     rng = np.random.default_rng(seed)
-    total, n = 0.0, 0
+    total = {"loss": 0.0}
+    n = 0
 
     def accumulate(draw, bs):
-        nonlocal total, n
+        nonlocal n
+        draw = apply_transform(task.transform, draw)
         batch = _to_device(
             batch_to_dict(draw, getattr(dataset, "nclasses", None)),
             task.device)
-        loss, _ = task.eval_fn(task.state, batch)
-        total += float(loss) * bs
+        loss, accs = task.eval_fn(task.state, batch)
+        _require_topk(accs, topk)
+        total["loss"] += float(loss) * bs
+        for k in topk:
+            total[f"top{k}"] = (total.get(f"top{k}", 0.0)
+                                + float(accs[f"top{k}"]) * bs)
         n += bs
 
     for i in range(max_batches):
@@ -241,7 +315,9 @@ def evaluate(task: TrainTask, dataset, *, batch_size: int = 256,
         start = max_batches * batch_size
         idx = np.arange(start, start + rem_size)
         accumulate(dataset.batch(rng, rem_size, indices=idx), rem_size)
-    return {"loss": total / max(n, 1), "samples": n, "exact": exact}
+    out = {k: v / max(n, 1) for k, v in total.items()}
+    out.update(samples=n, exact=exact)
+    return out
 
 
 class _PhaseClock:
@@ -272,11 +348,13 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
 
     Every ``print_every`` items it logs steps/s and tokens/s (images/s
     for image batches) over the interval; every ``eval_every`` items the
-    eval loss of the current batch and the step's own loss.  Host-clock rates: the loop runs ahead of the device by
+    eval loss and top-k accuracies of the val slice (when there is one)
+    and of the current batch, and the step's own loss.  Host-clock rates: the loop runs ahead of the device by
     the launch queue, so interval averages hold.  A device OOM skips the
     batch (``task.num_missed``, ``task.skipped_items``).  Each step's
     loss lands in ``task.losses`` (read back once, at the end).  The
-    trained parameters are copied into ``task.model`` in place.
+    trained parameters and running stats are copied into ``task.model``
+    in place.
 
     Returns ``(host_params, model_state, task)``: CPU copies of the
     final parameters.
@@ -340,6 +418,9 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
                 losses.append(metrics["loss"])
                 if eval_every and j % eval_every == 0:
                     with phases("eval"):
+                        if task.val_batch is not None:
+                            _eval_and_log(task, task.val_batch, "val", j,
+                                          logger)
                         _eval_and_log(task, batch, "train", j, logger)
                         logger.log(
                             {"train_step_loss": float(metrics["loss"])}, j)
@@ -356,5 +437,7 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
     with torch.no_grad():
         for name, p in task.model.named_parameters():
             p.copy_(task.state.params[name])
-    host = {k: v.detach().cpu() for k, v in task.state.params.items()}
-    return host, task.state.model_state, task
+        for name, b in task.model.named_buffers():
+            if name in task.state.model_state:
+                b.copy_(task.state.model_state[name])
+    return to_host(task.state.params), task.state.model_state, task

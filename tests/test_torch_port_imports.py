@@ -40,6 +40,10 @@ def test_port_has_modules_to_scan():
     assert "fluxdistributed_tpu_torch/mesh.py" in names
     assert "fluxdistributed_tpu_torch/ops/fused_adam.py" in names
     assert "fluxdistributed_tpu_torch/parallel/zero1_fused.py" in names
+    assert "fluxdistributed_tpu_torch/models/resnet.py" in names
+    assert "fluxdistributed_tpu_torch/models/norm.py" in names
+    assert "fluxdistributed_tpu_torch/data/cifar.py" in names
+    assert "fluxdistributed_tpu_torch/tree.py" in names
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").is_file()
 
 

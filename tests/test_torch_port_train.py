@@ -334,8 +334,7 @@ def test_cli_main_and_refusals(capsys):
                          (["--kv-heads", "3"], "num_kv_heads")]:
         with pytest.raises(SystemExit, match=match):
             cli.run(base + extra)
-    for flag in (["--spmd", "fsdp"], ["--checkpoint-dir", "x"],
-                 ["--opt", "lars"]):
+    for flag in (["--spmd", "fsdp"], ["--checkpoint-dir", "x"]):
         with pytest.raises(SystemExit):  # argparse: not accepted
             cli.build_parser().parse_args(base + flag)
     with pytest.raises(SystemExit, match="--cycles"):
@@ -352,8 +351,7 @@ def _task(**kw):
 def test_prepare_training_refuses_other_modes():
     with pytest.raises(ValueError, match="not ported"):
         _task(spmd="fsdp")
-    for kw in ({"donate": True}, {"steps_per_call": 2}, {"topk": (1,)},
-               {"val_dataset": None}):
+    for kw in ({"donate": True}, {"steps_per_call": 2}):
         with pytest.raises(TypeError):  # not accepted, never ignored
             _task(**kw)
     assert _task(spmd="dp").state.step == 0
