@@ -109,7 +109,23 @@ Phases, each of which raises on failure (exit code != 0, no result):
     the eval top-1/top-5 on two fresh batches and the loader's and the
     loop's phase sums (``fdtpu_data_*``, ``fdtpu_train_phase_seconds``);
     B1-B6 launch no time in phases 17-19;
-20. a ``{"kernels": [...]}`` line, then the result line
+20. device loop: the train step at ``steps_per_call`` K as one CUDA
+    graph replay (``parallel/graphs.py``), held bit for bit to K eager
+    steps from the same state and batches (losses, params, optimizer and
+    model state), each with a control that must differ (the same replay
+    on a zeroed step table): lm_small (vocab 32000, B=8, T=1024, bf16,
+    flash B1-B3, adam under ``warmup_cosine``, dropout 0.1), resnet50
+    (224², batch 256, bf16, momentum) on a one-rank NCCL group with the
+    synchronised BatchNorm, and composable ZeRO-1 (adam) on that group,
+    at K = 4; then those three and the one-device resnet50 step timed at
+    K = 1 (eager) and K = 8 (graphed): step ms, tokens/s or images/s,
+    MFU, device idle share and kernels a step under the profiler, peak
+    allocated bytes, kernel launches a replay; then the dense and paged
+    engines' decode steps eager and graphed at the serve shapes: step
+    ms, idle share, greedy tokens equal, B4/B5 launches equal depth x
+    decode steps.  Every row carries the card's ``nvidia-smi`` name and
+    power limit;
+21. a ``{"kernels": [...]}`` line, then the result line
     ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -1985,6 +2001,354 @@ def vision_cli_phase(torch):
         raise RuntimeError(f"vision_cli: B1-B6 launched {counts}")
 
 
+# the device loop: graphed steps a call in the bit-equality runs and in
+# the timing
+DL_K, DL_KT = 4, 8
+
+
+def _state_leaves(state):
+    from fluxdistributed_tpu_torch.tree import leaves
+
+    return leaves((state.params, state.opt_state, state.model_state))
+
+
+def _clone_state(torch, state):
+    from fluxdistributed_tpu_torch.tree import tree_map
+
+    return type(state)(*(tree_map(torch.clone, x) for x in (
+        state.params, state.opt_state, state.model_state)), step=state.step)
+
+
+def _stack(torch, batches):
+    return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def graph_equality_run(torch, name, card, make_state, make_step, batches,
+                       attn_per_step):
+    """``make_step(DL_K)`` called twice — K eager steps and the capture,
+    then one replay — against 2K eager steps from the same state and
+    batches, bit for bit; then the replay on a zeroed step table from
+    the eager state after K steps, which must differ.  The replay must
+    launch B1-B3 ``attn_per_step`` times a step each (B4-B6 never)."""
+    k = DL_K
+    eager, state, losses = make_step(1), make_state(), []
+    for j, b in enumerate(batches):
+        state, m = eager(state, b)
+        losses.append(m["loss"])
+        if j == k - 1:
+            mid = _clone_state(torch, state)
+    graphed = make_step(k)
+    g, m1 = graphed(make_state(), _stack(torch, batches[:k]))
+    before = all_counts()
+    g, m2 = graphed(g, _stack(torch, batches[k:]))
+    torch.cuda.synchronize()
+    replay_launches = [a - b for a, b in zip(all_counts(), before)]
+    want = torch.stack(losses)
+    got = torch.cat([m1["loss"], m2["loss"]])
+    pairs = list(zip(_state_leaves(g), _state_leaves(state)))
+    unequal = sum(not torch.equal(a, b) for a, b in pairs)
+    graphed.table.buffer.zero_()
+    c, mc = graphed.run(_clone_state(torch, mid), _stack(torch, batches[k:]),
+                        fill=False)
+    torch.cuda.synchronize()
+    control_unequal = sum(not torch.equal(a, b) for a, b in zip(
+        _state_leaves(c), _state_leaves(state)))
+    row = {"phase": "device_loop_equality", "path": name, "card": card,
+           "k": k, "calls": 2, "losses_eager": want.tolist(),
+           "losses_graphed": got.tolist(),
+           "losses_equal": bool(torch.equal(got, want)),
+           "state_tensors": len(pairs), "state_tensors_unequal": unequal,
+           "launches_per_replay": graphed.graphs[0].launches_per_replay,
+           "replay_launches_b4_b5_b1_b2_b3_b6": replay_launches,
+           "control": "zeroed step table, fill=False",
+           "control_losses": mc["loss"].tolist(),
+           "control_state_tensors_unequal": control_unequal}
+    emit(row)
+    if not row["losses_equal"] or unequal or g.step != state.step:
+        raise RuntimeError(f"device_loop {name}: graphed steps differ from "
+                           f"eager ones ({unequal} of {len(pairs)} state "
+                           f"tensors, losses equal {row['losses_equal']})")
+    if not control_unequal:
+        raise RuntimeError(f"device_loop {name}: the control (a zeroed step "
+                           "table) matched the eager steps")
+    if replay_launches != [0, 0] + [attn_per_step * k] * 3 + [0]:
+        raise RuntimeError(f"device_loop {name}: the replay launched "
+                           f"B4, B5, B1-B3, B6 {replay_launches} times")
+    del graphed, g, c, state, mid
+
+
+def profile_steps(torch, step, state, batch, calls, steps):
+    """Device busy ms, idle share and kernels per optimizer step under
+    the profiler, over ``calls`` calls of ``steps`` steps together."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    busy, count = 0.0, 0
+    for r in prof.key_averages():
+        if r.device_type == torch.autograd.DeviceType.CUDA:
+            busy += getattr(r, "self_device_time_total",
+                            getattr(r, "self_cuda_time_total", 0.0))
+            count += r.count
+    if not count:
+        return state, {"wall_ms_per_step": wall_ms,
+                       "device_busy_ms_per_step": None,
+                       "device_idle_share": None, "kernels_per_step": None}
+    busy_ms = busy / steps / 1e3
+    return state, {"wall_ms_per_step": wall_ms,
+                   "device_busy_ms_per_step": busy_ms,
+                   "device_idle_share": 1 - busy_ms / wall_ms,
+                   "kernels_per_step": count / steps}
+
+
+def time_device_loop(torch, name, card, k, make_state, make_step, batch,
+                     rate):
+    """One path at ``k`` steps a call: ms per optimizer step over 10
+    steps (K = 1) or two replays (K > 1) with CUDA events, the rate and
+    MFU (``rate(step_ms) -> dict``), peak allocated bytes and a
+    profile."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, state = make_step(k), make_state()
+    b = batch if k == 1 else _stack(torch, [batch] * k)
+    for _ in range(3 if k == 1 else 2):  # K > 1: eager + capture, replay
+        state, m = step(state, b)
+    calls = 10 if k == 1 else 2
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
+    ev[0].record()
+    for i in range(calls):
+        state, m = step(state, b)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    ms = [ev[i].elapsed_time(ev[i + 1]) / k for i in range(calls)]
+    step_ms = sum(ms) / len(ms)
+    state, prof = profile_steps(torch, step, state, b,
+                                3 if k == 1 else 1, 3 if k == 1 else k)
+    row = {"phase": "device_loop_step", "path": name, "card": card, "k": k,
+           "graphed": k > 1, "step_ms": step_ms, "step_ms_each_call": ms,
+           **rate(step_ms), **prof,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches_per_replay": (step.graphs[0].launches_per_replay
+                                   if k > 1 else None),
+           "loss_last": m["loss"].reshape(-1)[-1].item()}
+    emit(row)
+    if not math.isfinite(row["loss_last"]):
+        raise RuntimeError(f"device_loop_step {name} k={k}: loss "
+                           f"{row['loss_last']}")
+    del step, state, m, b
+    return row
+
+
+def decode_graph_run(torch, card, model, layout, prompts, steps=48):
+    """The decode step of one engine layout, eager and graphed, from the
+    same prefilled slots: step ms, idle share, greedy tokens equal, the
+    decode kernel's launches against depth x steps."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch.ops.flash_decode import (
+        flash_decode, flash_decode_paged)
+    from fluxdistributed_tpu_torch.serve import LMEngine
+
+    kern = flash_decode_paged if layout == "paged" else flash_decode
+    row = {"phase": "decode_graph", "layout": layout, "card": card,
+           "model": "lm_small", "dtype": "bfloat16", "slots": len(prompts),
+           "prompt_tokens": [len(p) for p in prompts], "steps": steps}
+    toks = {}
+    for graphed in (False, True):
+        engine = LMEngine(model, max_slots=len(prompts), max_len=1024,
+                          layout=layout, cuda_graph=graphed)
+        for s, p in enumerate(prompts):
+            engine.prefill(s, p, 0.0, None)
+        torch.cuda.synchronize()
+        before = kern.launches
+        out, walls = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            out.append(engine.step_decode())  # ends in a device sync
+            walls.append(time.perf_counter() - t0)
+        launches = kern.launches - before
+        toks[graphed] = np.stack(out)
+        # steady steps only: the first is eager (and the capture)
+        wall_ms = statistics.median(walls[1:]) * 1e3
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                engine.step_decode()
+            torch.cuda.synchronize()
+        busy = sum(getattr(r, "self_device_time_total",
+                           getattr(r, "self_cuda_time_total", 0.0))
+                   for r in prof.key_averages()
+                   if r.device_type == torch.autograd.DeviceType.CUDA)
+        busy_ms = busy / 10 / 1e3
+        tag = "graphed" if graphed else "eager"
+        row[f"{tag}_step_ms_median"] = wall_ms
+        row[f"{tag}_device_busy_ms_per_step"] = busy_ms if busy else None
+        row[f"{tag}_device_idle_share"] = (1 - busy_ms / wall_ms
+                                           if busy else None)
+        row[f"{tag}_kernel_launches"] = launches
+        if graphed:
+            row["launches_per_replay"] = (
+                engine.decode_graph.launches_per_replay)
+        if launches != model.depth * steps:
+            raise RuntimeError(f"decode_graph {layout} {tag}: {launches} "
+                               f"launches for {steps} steps x depth "
+                               f"{model.depth}")
+        del engine
+    row["tokens_equal"] = bool((toks[True] == toks[False]).all())
+    emit(row)
+    if not row["tokens_equal"]:
+        raise RuntimeError(f"decode_graph {layout}: graphed greedy tokens "
+                           "differ from the eager ones")
+
+
+def dropout_cost(torch, card, flush):
+    """The dropout mask of one lm_small train step on the card: the
+    counter-based hash (mask and scaling) at the three sites' shapes,
+    device ms a call with a cold L2 and per step (12 layers: two
+    [8, 1024, 768] sites and one [8, 1024, 3072] a layer), beside one
+    ``torch.rand`` draw of the same shape as the library's yardstick."""
+    from fluxdistributed_tpu_torch.models.transformer_lm import (
+        _dropout, dropout_keys)
+
+    keys = dropout_keys(torch.tensor(12345, device="cuda"), 12)
+    row = {"phase": "dropout_cost", "card": card, "rate": 0.1,
+           "dtype": "bfloat16"}
+    per_step = per_step_rand = 0.0
+    for shape, sites in (((B, T_TRAIN, 768), 2), ((B, T_TRAIN, 3072), 1)):
+        x = torch.randn(shape, device="cuda").to(torch.bfloat16)
+        t = time_ms(torch, lambda: _dropout(x, 0.1, keys[0]), flush)
+        tr = time_ms(torch, lambda: torch.where(
+            torch.rand(shape, device="cuda") >= 0.1, x / 0.9,
+            torch.zeros((), dtype=x.dtype, device="cuda")), flush)
+        row[f"hash_ms_{shape[-1]}"], row[f"rand_ms_{shape[-1]}"] = t, tr
+        per_step += 12 * sites * t
+        per_step_rand += 12 * sites * tr
+    row["hash_ms_per_step"] = per_step
+    row["rand_ms_per_step"] = per_step_rand
+    emit(row)
+
+
+def device_loop_phase(torch, peaks, card):
+    """Graphed train steps against eager ones bit for bit, with failing
+    controls; K = 1 and K = 8 timed on four paths; the decode steps
+    eager and graphed."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.mesh import (init_distributed,
+                                                shutdown_distributed)
+    from fluxdistributed_tpu_torch.models import (lm_loss_fn, lm_small,
+                                                  resnet50)
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.ops.losses import logitcrossentropy
+    from fluxdistributed_tpu_torch.parallel import (
+        TrainState, make_train_step, make_train_step_zero1, module_loss_fn,
+        zero1_state)
+
+    rng = np.random.default_rng(9)
+    tok_batches = [{"tokens": torch.from_numpy(rng.integers(
+        0, 32000, (B, T_TRAIN)).astype(np.int32)).cuda()}
+        for _ in range(2 * DL_K)]
+    lm = lm_small(vocab=32000, attn_fn=attention_core("flash"), dropout=0.1,
+                  seed=0)
+    lm_params = dict(lm.named_parameters())
+    lm_n = sum(p.numel() for p in lm_params.values())
+    lm_opt = optim.adam(optim.warmup_cosine(3e-4, 4, 40))
+    lm_loss = lm_loss_fn(lm)
+
+    def lm_state():
+        return TrainState.create({k: p.detach().clone()
+                                  for k, p in lm_params.items()}, lm_opt)
+
+    def lm_rate(ms):
+        tok_s = B * T_TRAIN / (ms / 1e3)
+        return {"tokens_per_s": tok_s,
+                "mfu": 6 * lm_n * tok_s / peaks["bf16"]}
+
+    rn = resnet50(num_classes=1000, seed=0)
+    rn_params = dict(rn.named_parameters())
+    rn_flops = 3 * 2 * rn.forward_macs(VISION_SIZE)
+    rn_opt = optim.momentum(0.01, 0.9)
+    img_batches = [image_batch(torch, VISION_B, VISION_SIZE, 1000,
+                               torch.bfloat16, "cuda", 10 + s)
+                   for s in range(2 * DL_K)]
+
+    def rn_state():
+        return TrainState.create(
+            {k: p.detach().clone() for k, p in rn_params.items()}, rn_opt,
+            model_state={k: b.clone() for k, b in rn.named_buffers()})
+
+    def rn_rate(ms):
+        img_s = VISION_B / (ms / 1e3)
+        return {"images_per_s": img_s,
+                "mfu": rn_flops * img_s / peaks["bf16"]}
+
+    reset_all_counts()
+    lm_step = lambda k: make_train_step(  # noqa: E731
+        lm_loss, lm_opt, seed=0, steps_per_call=k)
+    graph_equality_run(torch, "lm_small_one_device", card, lm_state,
+                       lm_step, tok_batches, lm.depth)
+    rows = [time_device_loop(torch, "lm_small_one_device", card, k, lm_state,
+                             lm_step, tok_batches[0], lm_rate)
+            for k in (1, DL_KT)]
+    mesh = init_distributed("cuda")
+    try:
+        rn_mesh_loss = module_loss_fn(rn, logitcrossentropy, mesh)
+        rn_step = lambda k: make_train_step(  # noqa: E731
+            rn_mesh_loss, rn_opt, mesh=mesh, steps_per_call=k)
+        graph_equality_run(torch, "resnet50_nccl_rank", card, rn_state,
+                           rn_step, img_batches, 0)
+        rows += [time_device_loop(torch, "resnet50_nccl_rank", card, k,
+                                  rn_state, rn_step, img_batches[0], rn_rate)
+                 for k in (1, DL_KT)]
+        z_state = lambda: zero1_state(  # noqa: E731
+            {k: p.detach() for k, p in lm_params.items()}, lm_opt, mesh)
+        z_step = lambda k: make_train_step_zero1(  # noqa: E731
+            lm_loss, lm_opt, mesh, seed=0, steps_per_call=k)
+        graph_equality_run(torch, "lm_small_zero1_nccl_rank", card, z_state,
+                           z_step, tok_batches, lm.depth)
+        rows += [time_device_loop(torch, "lm_small_zero1_nccl_rank", card, k,
+                                  z_state, z_step, tok_batches[0], lm_rate)
+                 for k in (1, DL_KT)]
+    finally:
+        shutdown_distributed()
+    rn_local = module_loss_fn(rn, logitcrossentropy)
+    rows += [time_device_loop(
+        torch, "resnet50_one_device", card, k, rn_state,
+        lambda kk: make_train_step(rn_local, rn_opt, steps_per_call=kk),
+        img_batches[0], rn_rate) for k in (1, DL_KT)]
+    emit({"phase": "device_loop_summary", "card": card,
+          "speedup_k8_over_k1": {
+              r1["path"]: r1["step_ms"] / r8["step_ms"]
+              for r1, r8 in zip(rows[::2], rows[1::2])}})
+    del lm, lm_params, rn, rn_params, tok_batches, img_batches
+    torch.cuda.empty_cache()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    dropout_cost(torch, card, flush)
+    del flush
+
+    model = lm_small(vocab=32000, seed=0)
+    g = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, 32000, (n,), generator=g).tolist()
+               for n in (64, 160, 256, 352, 448, 544, 640, 768)]
+    for layout in ("dense", "paged"):
+        decode_graph_run(torch, card, model, layout, prompts)
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2062,6 +2426,7 @@ def main() -> int:
     vision_parity_phase(torch)
     vision_train_step_phase(torch, peaks, card.splitlines()[0])
     vision_cli_phase(torch)
+    device_loop_phase(torch, peaks, card.splitlines()[0])
 
     def kernel_entry(name, source, replaces, via, launches, row):
         entry = {"name": name, "route": "cuda", "source": source,

@@ -11,8 +11,10 @@ the same seed, and a run that starts at item ``start`` sees the same
 batches from there on.  With a mesh every rank draws that same global
 batch and keeps its own rows (:func:`..sharding.shard_batch`): what one
 JAX process feeding an N-device mesh does, so N ranks see the JAX
-N-device step's data.  Queue depth and timings land in the process
-registry under the JAX names (``fdtpu_data_*``).
+N-device step's data.  With ``chunk=K`` each item stacks K consecutive
+step batches on a new leading dim, the layout of the device loop
+(``make_train_step(steps_per_call=K)``).  Queue depth and timings land
+in the process registry under the JAX names (``fdtpu_data_*``).
 """
 
 from __future__ import annotations
@@ -77,6 +79,15 @@ class PrefetchLoader:
     ``mesh`` each rank yields its ``batch_size / N`` rows of it, on the
     mesh's device.  ``device`` defaults to the mesh's, else ``cuda``
     (see :func:`..device.resolve_device`).
+
+    ``chunk=K`` is the device loop's layout: each item stacks K step
+    batches on a new leading dim, ``[K, B, ...]`` (rows on dim 1), and
+    sub-batch ``j`` of item ``c`` is batch ``c * K + j`` of an unchunked
+    loader with the same seed, bit for bit.  ``cycles`` still counts
+    step batches and must be a multiple of ``chunk`` (a derived count is
+    rounded down to one); ``len()`` and ``start`` count items.  On a
+    card each stacked array goes to the device in one pinned,
+    asynchronous copy.
     """
 
     def __init__(
@@ -92,6 +103,7 @@ class PrefetchLoader:
         device: DeviceLike = None,
         mesh: Optional[Mesh] = None,
         transform: Optional[Callable] = None,
+        chunk: int = 1,
     ):
         from ..obs import get_registry
 
@@ -99,6 +111,9 @@ class PrefetchLoader:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if start < 0:
             raise ValueError(f"start must be >= 0, got {start}")
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self.chunk = chunk
         self.dataset = dataset
         self.batch_size = batch_size
         self.buffersize = max(1, buffersize)
@@ -134,12 +149,18 @@ class PrefetchLoader:
                     "stream, e.g. a generated token dataset) — pass cycles= "
                     "explicitly instead of deriving it from epochs")
             cycles = max(1, (len(dataset) * epochs) // batch_size)
+            # a derived count: round down to whole items (a caller never
+            # chose this exact number)
+            cycles = max(chunk, cycles // chunk * chunk)
+        if cycles % chunk:
+            raise ValueError(
+                f"cycles ({cycles}) must be a multiple of chunk ({chunk})")
         self.cycles = cycles
 
-    def _assemble(self, i: int):
-        """Host-side assembly of item ``i``: a pure function of (seed,
-        process 0, index), whichever worker assembles it; with a mesh,
-        this rank's rows of it."""
+    def _batch(self, i: int) -> dict:
+        """Host-side assembly of step batch ``i``: a pure function of
+        (seed, process 0, index), whichever worker assembles it; with a
+        mesh, this rank's rows of it."""
         rng = np.random.default_rng((self.seed, 0, i))
         out = batch_to_dict(
             apply_transform(self.transform,
@@ -150,6 +171,14 @@ class PrefetchLoader:
 
             out = shard_batch(out, self.mesh)
         return out
+
+    def _assemble(self, c: int) -> dict:
+        """Item ``c``: one step batch, or ``chunk`` consecutive ones
+        stacked on a new leading dim."""
+        if self.chunk == 1:
+            return self._batch(c)
+        subs = [self._batch(c * self.chunk + j) for j in range(self.chunk)]
+        return {k: np.stack([d[k] for d in subs]) for k in subs[0]}
 
     def _put(self, host: dict) -> dict:
         """Host arrays → device tensors: pinned staging and an
@@ -163,7 +192,8 @@ class PrefetchLoader:
         return out
 
     def __len__(self) -> int:
-        return self.cycles
+        """Items yielded (step batches / ``chunk``)."""
+        return self.cycles // self.chunk
 
     def __iter__(self) -> Iterator[dict]:
         if self.start > len(self):

@@ -20,8 +20,8 @@ layouts share one code path:
 The full-sequence forward (``cache=None``) is the training path: its
 attention core is pluggable (``attn_fn``, e.g. ``ops.attention_core
 ("flash")``, the hand-written training kernels), ``dropout`` applies at
-the JAX model's sites when ``train=True``, drawing each mask from a
-generator seeded by (step seed, layer, site), and ``remat`` recomputes
+the JAX model's sites when ``train=True``, each mask a counter-based
+hash of (step seed, layer, site, element), and ``remat`` recomputes
 each block in the backward (``torch.utils.checkpoint``).
 :func:`next_token_loss` and :func:`lm_loss_fn` give the training loss.
 
@@ -151,33 +151,75 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale.float()[..., None]).to(dtype)
 
 
-def _mix_seed(*parts: int) -> int:
-    """One 63-bit generator seed from integer parts (splitmix64 steps)."""
-    h = 0x9E3779B97F4A7C15
-    for part in parts:
-        h = (h ^ (int(part) & 0xFFFFFFFFFFFFFFFF)) * 0xBF58476D1CE4E5B9
-        h &= 0xFFFFFFFFFFFFFFFF
-        h ^= h >> 31
-    return h & 0x7FFFFFFFFFFFFFFF
+_HASH_MUL = 0x045D9F3B  # T. Mueller's 32-bit integer hash constant
+_M32 = 0xFFFFFFFF
+#: dropout sites of a block: the attention output, the MLP's hidden
+#: activation, the MLP output
+DROPOUT_SITES = 3
 
 
-def _dropout(x: torch.Tensor, rate: float, seed: Optional[int], layer: int,
-             site: int) -> torch.Tensor:
+def _hash32(x):
+    """A 32-bit integer hash (two multiply-xorshift rounds), the same
+    bits on a Python int in [0, 2^32) and on an int32 tensor, where it
+    computes in two's complement: shifts are masked to act as logical
+    shifts and products wrap."""
+    if isinstance(x, int):
+        for _ in range(2):
+            x = ((x ^ (x >> 16)) * _HASH_MUL) & _M32
+        return x ^ (x >> 16)
+    for _ in range(2):
+        x = torch.bitwise_xor(x, torch.bitwise_and(x >> 16, 0xFFFF))
+        x = x * _HASH_MUL
+    return torch.bitwise_xor(x, torch.bitwise_and(x >> 16, 0xFFFF))
+
+
+def _int32(x: int) -> int:
+    """The signed value of 32 bits (an int32 tensor's view of them)."""
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def dropout_keys(seed, depth: int):
+    """The dropout keys of one forward: one per (layer, site), in
+    ``layer * DROPOUT_SITES + site`` order, hashed from the step seed
+    (a non-negative integer below 2^63).  An int seed gives Python ints
+    (no device work); a 0-d int64 tensor (the step table's seed column,
+    read inside a captured step) gives an int32 tensor on its device.
+    Either way the same 32 bits."""
+    n = depth * DROPOUT_SITES
+    if isinstance(seed, int):
+        base = _hash32(_hash32(seed & _M32) ^ (seed >> 32))
+        return [_int32(_hash32(base ^ _hash32(i + 1))) for i in range(n)]
+    s = seed.to(torch.int64)
+    lo = torch.bitwise_and(s, _M32).to(torch.int32)
+    hi = (s >> 32).to(torch.int32)
+    base = _hash32(torch.bitwise_xor(_hash32(lo), hi))
+    ids = torch.arange(1, n + 1, dtype=torch.int32, device=s.device)
+    return _hash32(torch.bitwise_xor(base, _hash32(ids)))
+
+
+def _dropout(x: torch.Tensor, rate: float, key) -> torch.Tensor:
     """flax ``Dropout``: keep with probability ``1 - rate`` and scale the
-    kept values by ``1 / (1 - rate)``.  The mask comes from a fresh
-    generator seeded by (``seed``, layer, site), so a recompute under
-    ``torch.utils.checkpoint`` (which restores the global RNG, not an
-    explicit generator) draws the same mask."""
+    kept values by ``1 / (1 - rate)``.  The mask is a counter-based hash
+    of (``key``, element index): it depends on the step seed, layer and
+    site (through ``key``, see :func:`dropout_keys`) and nothing else —
+    no generator state — so a recompute under ``torch.utils.checkpoint``
+    and a replay of a captured step draw the same mask, and the CPU
+    draws the card's.  An element is kept where its hash, read as a
+    signed 32-bit integer, is at least ``-2^31 + round(rate * 2^32)``."""
     if not rate:
         return x
-    if seed is None:
+    if key is None:
         raise ValueError("dropout > 0 in training needs a dropout seed (the "
                          "rng of lm_loss_fn / make_train_step)")
     if rate >= 1.0:
         return torch.zeros_like(x)
-    gen = torch.Generator(device=x.device)
-    gen.manual_seed(_mix_seed(seed, layer, site))
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    if x.numel() >= 1 << 31:
+        raise ValueError(f"dropout indexes elements with int32: "
+                         f"{x.numel()} elements are too many")
+    idx = torch.arange(x.numel(), dtype=torch.int32,
+                       device=x.device).view(x.shape)
+    h = _hash32(torch.bitwise_xor(idx, key))
+    keep = h >= -(1 << 31) + min(round(rate * (1 << 32)), _M32)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
 
@@ -596,20 +638,21 @@ class DecoderBlock(nn.Module):
             self.fc2 = nn.Linear(mlp_dim, dim)
 
     def forward(self, x, dtype, cache=None, layer=0, step=None, train=False,
-                dropout_seed=None):
+                keys=None):
+        """``keys``: this block's dropout keys, one a site (a slice of
+        :func:`dropout_keys`), or ``None``."""
         rate = self.dropout if train else 0.0
+        key = (lambda site: None) if keys is None else keys.__getitem__
         y = self.attn(self.ln1(x, dtype), dtype, cache, layer, step)
-        x = x + _dropout(y, rate, dropout_seed, layer, 0)
+        x = x + _dropout(y, rate, key(0))
         y = self.ln2(x, dtype)
         if self.mlp == "swiglu":
             y = F.silu(_linear(self.gate, y, dtype)) * _linear(self.up, y, dtype)
-            y = _linear(self.down, _dropout(y, rate, dropout_seed, layer, 1),
-                        dtype)
+            y = _linear(self.down, _dropout(y, rate, key(1)), dtype)
         else:
             y = F.gelu(_linear(self.fc1, y, dtype), approximate="tanh")
-            y = _linear(self.fc2, _dropout(y, rate, dropout_seed, layer, 1),
-                        dtype)
-        return x + _dropout(y, rate, dropout_seed, layer, 2)
+            y = _linear(self.fc2, _dropout(y, rate, key(1)), dtype)
+        return x + _dropout(y, rate, key(2))
 
 
 class TransformerLM(nn.Module):
@@ -689,8 +732,9 @@ class TransformerLM(nn.Module):
         ``valid_len`` is the number of REAL positions in this call (a
         padded prefill's pads never write into a windowed ring).
         ``train=True`` turns dropout on (it needs ``dropout_seed``, this
-        step's seed); with ``remat`` each block of a full forward that
-        records gradients is recomputed in the backward."""
+        step's seed: an int, or a 0-d int64 tensor on any device); with
+        ``remat`` each block of a full forward that records gradients is
+        recomputed in the backward."""
         dt = self.dtype
         tokens = tokens.to(self.device)
         b, t = tokens.shape
@@ -709,12 +753,17 @@ class TransformerLM(nn.Module):
                 # output is discarded)
                 pos = torch.clamp(step.wpos, max=self.pos_embedding.shape[0] - 1)
                 x = x + self.pos_embedding[pos].to(dt)
-        # the dropout masks are drawn from generators seeded inside the
-        # block, so a recompute draws the same ones
+        # the dropout masks are hashes of (key, element): a recompute
+        # draws the same ones
+        keys = None
+        if train and self.dropout and dropout_seed is not None:
+            keys = dropout_keys(dropout_seed, self.depth)
         remat = self.remat and cache is None and torch.is_grad_enabled()
+        s = DROPOUT_SITES
         for i, blk in enumerate(self.blocks):
-            x = maybe_remat(blk, remat)(x, dt, cache, i, step, train,
-                                        dropout_seed)
+            x = maybe_remat(blk, remat)(
+                x, dt, cache, i, step, train,
+                None if keys is None else keys[i * s:(i + 1) * s])
         if cache is not None:
             if t > 1 and cache.slot_pos is not None:
                 step.put_positions(cache)

@@ -17,6 +17,13 @@ x -= v``, where ``torch.optim.SGD`` is ``v = ρv + g; x -= ηv``, and the
 two drift apart as soon as the learning rate changes.  Scalars (the
 bias corrections, the schedules) are computed in float32, as jnp does.
 
+Each rule is split in two so that a captured step (a CUDA graph,
+:mod:`.parallel.graphs`) reads them where they live: ``scalars(step)``
+computes a step's values on the host, and ``rule(params, grads, state,
+s)`` applies the update, reading them from ``s``, a float32 row on the
+params' device.  ``apply`` is the two in turn; the train steps fill
+``s`` from a device table instead, before each call or replay.
+
 Rules: ``descent``, ``momentum``, ``nesterov``, ``adam``, ``adamw``; the
 ``clip_by_global_norm`` wrapper; the schedules ``constant``,
 ``step_decay``, ``cosine_decay``, ``warmup_cosine`` (callables
@@ -89,21 +96,42 @@ def _zeros_like(params: Params):
             for k, p in params.items()}
 
 
+def _no_scalars(step) -> list:
+    return []
+
+
+def _lr_scalars(lr: LR) -> Callable[[Any], list]:
+    return lambda step: [_lr_at(lr, step)]
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     """A pure optimizer: ``init(params) -> state``;
-    ``apply(params, grads, state, step) -> (params, state)``."""
+    ``apply(params, grads, state, step) -> (params, state)``.
+
+    ``scalars(step)`` lists the step's host values (Python floats or 0-d
+    float32 tensors: the learning rate, Adam's bias corrections...);
+    ``rule(params, grads, state, s)`` is the update, reading them from
+    ``s``, a 1-D float32 tensor on the params' device.  A value is
+    rounded to float32 once, where the tensor op that used it as a
+    Python number would have rounded it, so the update is the same bit
+    for bit whichever way ``s`` arrives."""
 
     init: Callable[[Params], Any]
-    update: Callable[[Params, Params, Any, Any], tuple]
+    rule: Callable[[Params, Params, Any, torch.Tensor], tuple]
     name: str = "optimizer"
+    scalars: Callable[[Any], list] = _no_scalars
 
     def apply(self, params: Params, grads: Params, state, step=0):
-        return self.update(params, grads, state, step)
+        dev = next((p.device for p in params.values() if p is not None),
+                   torch.device("cpu"))
+        row = torch.tensor([float(x) for x in self.scalars(step)],
+                           dtype=torch.float32)
+        return self.rule(params, grads, state, _on(row, dev))
 
+    update = apply
     # the reference's call syntax: ``m, st = opt(m, grads, st)``
-    def __call__(self, params: Params, grads: Params, state, step=0):
-        return self.update(params, grads, state, step)
+    __call__ = apply
 
 
 def descent(lr: LR = 0.1) -> Optimizer:
@@ -112,20 +140,20 @@ def descent(lr: LR = 0.1) -> Optimizer:
     def init(params):
         return {k: None for k in params}
 
-    def update(params, grads, state, step):
-        eta = _lr_at(lr, step)
+    def rule(params, grads, state, s):
+        eta = s[0]
         new = {k: p if grads.get(k) is None else p - eta * grads[k]
                for k, p in params.items()}
         return new, state
 
-    return Optimizer(init, update, "descent")
+    return Optimizer(init, rule, "descent", _lr_scalars(lr))
 
 
 def momentum(lr: LR = 0.01, rho: float = 0.9) -> Optimizer:
     """Flux ``Momentum(η, ρ)``: ``v = ρ v + η g; x -= v``."""
 
-    def update(params, grads, state, step):
-        eta = _lr_at(lr, step)
+    def rule(params, grads, state, s):
+        eta = s[0]
         new_p, new_v = {}, {}
         for k, p in params.items():
             g, v = grads.get(k), state[k]
@@ -136,14 +164,18 @@ def momentum(lr: LR = 0.01, rho: float = 0.9) -> Optimizer:
             new_p[k], new_v[k] = p - v, v
         return new_p, new_v
 
-    return Optimizer(_zeros_like, update, "momentum")
+    return Optimizer(_zeros_like, rule, "momentum", _lr_scalars(lr))
 
 
 def nesterov(lr: LR = 0.01, rho: float = 0.9) -> Optimizer:
     """Flux ``Nesterov(η, ρ)`` lookahead momentum."""
 
-    def update(params, grads, state, step):
+    def scalars(step):
         eta = _lr_at(lr, step)
+        return [eta, (1 + rho) * eta]
+
+    def rule(params, grads, state, s):
+        eta, eta_ahead = s[0], s[1]
         new_p, new_v = {}, {}
         for k, p in params.items():
             g, v = grads.get(k), state[k]
@@ -151,11 +183,11 @@ def nesterov(lr: LR = 0.01, rho: float = 0.9) -> Optimizer:
                 new_p[k], new_v[k] = p, v
                 continue
             v2 = rho * v - eta * g
-            d = rho * rho * v - (1 + rho) * eta * g
+            d = rho * rho * v - eta_ahead * g
             new_p[k], new_v[k] = p + d, v2
         return new_p, new_v
 
-    return Optimizer(_zeros_like, update, "nesterov")
+    return Optimizer(_zeros_like, rule, "nesterov", scalars)
 
 
 def adam(lr: LR = 1e-3, b1: float = 0.9, b2: float = 0.999,
@@ -167,24 +199,22 @@ def adam(lr: LR = 1e-3, b1: float = 0.9, b2: float = 0.999,
                                            torch.zeros_like(p))
                 for k, p in params.items()}
 
-    def update(params, grads, state, step):
-        eta = _lr_at(lr, step)
+    def scalars(step):
         t = _f32(step) + 1.0
+        return [_lr_at(lr, step), 1.0 - torch.pow(_f32(b1), t),
+                1.0 - torch.pow(_f32(b2), t)]
+
+    def rule(params, grads, state, s):
         # the reference divides by traced bias corrections, a true
-        # division; on CUDA a CPU-scalar divisor would be multiplied by
-        # its reciprocal, so they move to the parameters' device
-        c = torch.stack([1.0 - torch.pow(_f32(b1), t),
-                         1.0 - torch.pow(_f32(b2), t)])
-        on_dev = {}
+        # division: they are tensors on the parameters' device (on CUDA
+        # a CPU-scalar divisor would be multiplied by its reciprocal)
+        eta, c1, c2 = s[0], s[1], s[2]
         new_p, new_s = {}, {}
         for k, p in params.items():
             g = grads.get(k)
             if g is None:
                 new_p[k], new_s[k] = p, state[k]
                 continue
-            if p.device not in on_dev:
-                on_dev[p.device] = _on(c, p.device)
-            c1, c2 = on_dev[p.device]
             m, v = state[k]
             m = b1 * m + (1 - b1) * g
             v = b2 * v + (1 - b2) * (g * g)
@@ -194,7 +224,7 @@ def adam(lr: LR = 1e-3, b1: float = 0.9, b2: float = 0.999,
             new_s[k] = (m, v)
         return new_p, new_s
 
-    return Optimizer(init, update, "adam")
+    return Optimizer(init, rule, "adam", scalars)
 
 
 def adamw(lr: LR = 1e-3, b1: float = 0.9, b2: float = 0.999,
@@ -202,15 +232,18 @@ def adamw(lr: LR = 1e-3, b1: float = 0.9, b2: float = 0.999,
     """Adam with decoupled weight decay."""
     base = adam(lr, b1, b2, eps)
 
-    def update(params, grads, state, step):
-        eta = _lr_at(lr, step)
-        new_p, new_s = base.update(params, grads, state, step)
+    def scalars(step):
+        return [*base.scalars(step), _lr_at(lr, step) * weight_decay]
+
+    def rule(params, grads, state, s):
+        new_p, new_s = base.rule(params, grads, state, s[:3])
+        decay = s[3]
         out = {k: np_ if grads.get(k) is None
-               else np_ - eta * weight_decay * params[k]
+               else np_ - decay * params[k]
                for k, np_ in new_p.items()}
         return out, new_s
 
-    return Optimizer(base.init, update, "adamw")
+    return Optimizer(base.init, rule, "adamw", scalars)
 
 
 def lars(lr: LR = 1.0, momentum_coef: float = 0.9, weight_decay: float = 0.0,
@@ -220,8 +253,8 @@ def lars(lr: LR = 1.0, momentum_coef: float = 0.9, weight_decay: float = 0.0,
     is 0), with ``g`` the gradient plus ``weight_decay * p``:
     ``v = ρ v + η trust g; x -= v``."""
 
-    def update(params, grads, state, step):
-        eta = _lr_at(lr, step)
+    def rule(params, grads, state, s):
+        eta = s[0]
         new_p, new_v = {}, {}
         for k, p in params.items():
             g, v = grads.get(k), state[k]
@@ -239,7 +272,7 @@ def lars(lr: LR = 1.0, momentum_coef: float = 0.9, weight_decay: float = 0.0,
             new_p[k], new_v[k] = p - v, v
         return new_p, new_v
 
-    return Optimizer(_zeros_like, update, "lars")
+    return Optimizer(_zeros_like, rule, "lars", _lr_scalars(lr))
 
 
 def with_ema(optimizer: Optimizer, decay: float = 0.9999) -> Optimizer:
@@ -257,23 +290,28 @@ def with_ema(optimizer: Optimizer, decay: float = 0.9999) -> Optimizer:
                                            "ema": p.detach().clone()}
                 for k, p in params.items()}
 
-    def update(params, grads, state, step):
-        inner = {k: None if s is None else s["inner"]
-                 for k, s in state.items()}
-        new_p, new_inner = optimizer.update(params, grads, inner, step)
+    def scalars(step):
         t = _f32(step)
         d = torch.clamp((1.0 + t) / (10.0 + t), max=decay)
+        return [*optimizer.scalars(step), d, 1.0 - d]
+
+    def rule(params, grads, state, s):
+        n = s.shape[0] - 2
+        inner = {k: None if st is None else st["inner"]
+                 for k, st in state.items()}
+        new_p, new_inner = optimizer.rule(params, grads, inner, s[:n])
+        d, keep = s[n], s[n + 1]
         out = {}
-        for k, s in state.items():
-            if s is None:
+        for k, st in state.items():
+            if st is None:
                 out[k] = None
                 continue
             p = new_p[k]
             out[k] = {"inner": new_inner[k],
-                      "ema": (d * s["ema"] + (1.0 - d) * p).to(p.dtype)}
+                      "ema": (d * st["ema"] + keep * p).to(p.dtype)}
         return new_p, out
 
-    return Optimizer(init, update, f"ema{decay}({optimizer.name})")
+    return Optimizer(init, rule, f"ema{decay}({optimizer.name})", scalars)
 
 
 def ema_params(opt_state: dict) -> dict:
@@ -296,17 +334,18 @@ def global_norm(grads: Params) -> torch.Tensor:
 def clip_by_global_norm(optimizer: Optimizer, max_norm: float) -> Optimizer:
     """Rescale gradients whose global norm exceeds ``max_norm`` to exactly
     ``max_norm`` before the wrapped rule runs; smaller ones pass
-    through.  ``None`` (frozen) gradients are kept."""
+    through.  ``None`` (frozen) gradients are kept.  The scale is
+    computed on the device from the gradients: no step scalar."""
 
-    def update(params, grads, state, step):
+    def rule(params, grads, state, s):
         norm = global_norm(grads)
         scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
         clipped = {k: None if g is None else (g * scale).to(g.dtype)
                    for k, g in grads.items()}
-        return optimizer.update(params, clipped, state, step)
+        return optimizer.rule(params, clipped, state, s)
 
-    return Optimizer(optimizer.init, update,
-                     f"clip{max_norm}({optimizer.name})")
+    return Optimizer(optimizer.init, rule,
+                     f"clip{max_norm}({optimizer.name})", optimizer.scalars)
 
 
 def constant(lr: float) -> Schedule:

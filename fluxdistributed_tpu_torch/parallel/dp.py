@@ -22,13 +22,16 @@ A loss function has the JAX signature::
         -> (loss, (new_model_state, aux))
 
 where ``params`` is a dict of tensors by parameter name (see
-:func:`..models.lm_loss_fn` and :func:`module_loss_fn`) and ``rng`` an
-integer dropout seed.  The
-step is eager PyTorch: forward, ``torch.autograd.grad`` of the loss with
-respect to the params, then the pure optimizer update, which returns new
-param tensors and leaves the old ones as they were until the step has
+:func:`..models.lm_loss_fn` and :func:`module_loss_fn`) and ``rng`` a
+dropout seed (an int, or a 0-d int64 tensor on the step's device).  A
+step is forward, ``torch.autograd.grad`` of the loss with respect to
+the params, then the pure optimizer update, which returns new param
+tensors and leaves the old ones as they were until the step has
 finished.  A step that fails (a device OOM) therefore leaves the
-caller's ``TrainState`` whole, which is what OOM-skip needs.
+caller's ``TrainState`` whole, which is what OOM-skip needs.  The
+step's host values (dropout seeds, optimizer scalars) reach it through
+a device table, and ``steps_per_call=K`` runs K steps a call: a plain
+loop on the CPU, one CUDA graph replay on a card (:mod:`.graphs`).
 """
 
 from __future__ import annotations
@@ -42,18 +45,19 @@ import torch
 from ..mesh import Mesh
 from ..ops.metrics import topkaccuracy
 from ..optim import Optimizer, div_const
-from . import collectives
+from . import collectives, graphs
 
 __all__ = ["TrainState", "guard_sentinel", "local_grads", "make_eval_step",
            "make_train_step", "make_train_step_shardmap", "module_loss_fn",
-           "sync_model_state"]
+           "step_seeds", "sync_model_state"]
 
 
 @dataclasses.dataclass
 class TrainState:
     """Params (a dict of tensors by name), optimizer state, mutable model
-    state and the step counter (a host int: schedules are evaluated on
-    the host each step)."""
+    state and the step counter (a host int: schedules and dropout seeds
+    are evaluated on the host each step, and reach the step through its
+    table)."""
 
     params: Dict[str, torch.Tensor]
     opt_state: Any
@@ -153,17 +157,61 @@ def guard_sentinel(loss: torch.Tensor, grads: Dict[str, torch.Tensor]):
     return torch.stack([loss.float() + 0.0 * gnorm, gnorm])
 
 
+def step_seeds(seed: int, step: int, accum_steps: int = 1,
+               rank: Optional[int] = None) -> list:
+    """The dropout seeds of step ``step``'s microbatches: microbatch
+    ``i`` takes the seed of index ``step * accum_steps + i`` rooted at
+    ``seed`` (:func:`_step_seed`)."""
+    return [_step_seed(seed, step * accum_steps + i, rank)
+            for i in range(accum_steps)]
+
+
 def _check_step_options(accum_steps: int, steps_per_call: int) -> None:
-    if steps_per_call != 1:
-        if steps_per_call < 1:
-            raise ValueError(
-                f"steps_per_call must be >= 1, got {steps_per_call}")
-        raise NotImplementedError(
-            "steps_per_call > 1 (the device loop) is not ported: its "
-            "counterpart on the GPU is a CUDA graph of the step, planned "
-            "for a later slice (ROADMAP)")
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+
+
+def _grads_of(loss_fn: Callable, accum_steps: int) -> Callable:
+    """``fn(params, model_state, batch, seeds) -> (loss, model_state,
+    grads)``: :func:`local_grads` with the microbatches' dropout seeds
+    given (ints, or a row of int64 tensors)."""
+    with_rng = _accepts_rng(loss_fn)
+
+    def grad_of(params, mstate, batch, rng):
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in params.items()}
+        kw = {"rng": rng} if with_rng else {}
+        loss, (mstate, _) = loss_fn(leaves, mstate, batch, True, **kw)
+        names = list(leaves)
+        grads = torch.autograd.grad(loss, [leaves[n] for n in names],
+                                    allow_unused=True)
+        return loss.detach(), mstate, dict(zip(names, grads))
+
+    def fn(params, mstate, batch, seeds):
+        if accum_steps == 1:
+            return grad_of(params, mstate, batch, seeds[0])
+        n = next(iter(batch.values())).shape[0]
+        if n % accum_steps:
+            raise ValueError(f"batch of {n} does not split into "
+                             f"accum_steps={accum_steps} microbatches")
+        micro = {k: v.reshape(accum_steps, n // accum_steps, *v.shape[1:])
+                 for k, v in batch.items()}
+        gsum, lsum = None, 0.0
+        for i in range(accum_steps):
+            mb = {k: v[i] for k, v in micro.items()}
+            l, mstate, g = grad_of(params, mstate, mb, seeds[i])
+            lsum = lsum + l
+            # an unused param has a None gradient in every microbatch
+            gsum = g if gsum is None else {
+                k: None if a is None else a + g[k] for k, a in gsum.items()}
+        # the reference divides by the constant accum_steps
+        grads = {k: None if g is None else div_const(g, accum_steps)
+                 for k, g in gsum.items()}
+        return div_const(lsum, accum_steps), mstate, grads
+
+    return fn
 
 
 def local_grads(loss_fn: Callable, *, accum_steps: int = 1, seed: int = 0,
@@ -175,46 +223,31 @@ def local_grads(loss_fn: Callable, *, accum_steps: int = 1, seed: int = 0,
 
     ``accum_steps > 1`` splits the rows into that many microbatches run
     one after the other and averages their gradients and losses.  The
-    dropout seed of microbatch ``i`` of step ``s`` is ``s * accum_steps
-    + i`` rooted at ``seed``, with this rank folded in when there is a
-    mesh.  The steps of :mod:`.dp`, :mod:`.zero1` and :mod:`.zero1_fused`
-    all start here."""
-    with_rng = _accepts_rng(loss_fn)
+    dropout seeds of step ``step`` are :func:`step_seeds`, with this
+    rank folded in when there is a mesh.  The steps of :mod:`.dp`,
+    :mod:`.zero1` and :mod:`.zero1_fused` all compute their gradients
+    this way."""
+    grads_of = _grads_of(loss_fn, accum_steps)
+    rank = None if mesh is None else mesh.rank
+    return lambda params, mstate, batch, step: grads_of(
+        params, mstate, batch, step_seeds(seed, step, accum_steps, rank))
+
+
+def device_loop(body: Callable, optimizer: Optimizer, *, seed: int,
+                accum_steps: int, mesh: Optional[Mesh],
+                steps_per_call: int) -> graphs.DeviceLoop:
+    """``body(state, batch, seeds, scalars)`` as a train step of
+    ``steps_per_call`` steps a call (:class:`.graphs.DeviceLoop`), its
+    table rows the step's :func:`step_seeds` and ``optimizer.scalars``."""
     rank = None if mesh is None else mesh.rank
 
-    def grad_of(params, mstate, batch, step_idx):
-        leaves = {k: p.detach().requires_grad_(True)
-                  for k, p in params.items()}
-        kw = {"rng": _step_seed(seed, step_idx, rank)} if with_rng else {}
-        loss, (mstate, _) = loss_fn(leaves, mstate, batch, True, **kw)
-        names = list(leaves)
-        grads = torch.autograd.grad(loss, [leaves[n] for n in names],
-                                    allow_unused=True)
-        return loss.detach(), mstate, dict(zip(names, grads))
+    def host_row(step):
+        return (step_seeds(seed, step, accum_steps, rank),
+                optimizer.scalars(step))
 
-    def fn(params, mstate, batch, step):
-        if accum_steps == 1:
-            return grad_of(params, mstate, batch, step)
-        n = next(iter(batch.values())).shape[0]
-        if n % accum_steps:
-            raise ValueError(f"batch of {n} does not split into "
-                             f"accum_steps={accum_steps} microbatches")
-        micro = {k: v.reshape(accum_steps, n // accum_steps, *v.shape[1:])
-                 for k, v in batch.items()}
-        gsum, lsum = None, 0.0
-        for i in range(accum_steps):
-            mb = {k: v[i] for k, v in micro.items()}
-            l, mstate, g = grad_of(params, mstate, mb, step * accum_steps + i)
-            lsum = lsum + l
-            # an unused param has a None gradient in every microbatch
-            gsum = g if gsum is None else {
-                k: None if a is None else a + g[k] for k, a in gsum.items()}
-        # the reference divides by the constant accum_steps
-        grads = {k: None if g is None else div_const(g, accum_steps)
-                 for k, g in gsum.items()}
-        return div_const(lsum, accum_steps), mstate, grads
-
-    return fn
+    return graphs.DeviceLoop(body, host_row, steps_per_call=steps_per_call,
+                             n_seeds=accum_steps,
+                             n_scalars=len(optimizer.scalars(0)))
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
@@ -233,30 +266,37 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
     batch for a mean loss.  ``seed`` roots the per-step dropout seed
     (see :func:`local_grads`).  ``guard=True`` adds
     ``metrics["guard"]`` (:func:`guard_sentinel`, of the summed
-    gradients).  ``steps_per_call > 1`` (the JAX device loop, a dispatch
-    trick whose counterpart here is a CUDA graph) is not ported yet.
+    gradients).
+
+    ``steps_per_call > 1`` is the JAX device loop: ``batch`` stacks that
+    many per-step batches on a new leading dim (the loader's ``chunk``
+    layout), the steps run one after the other, and the metrics come
+    back stacked (``loss`` [K], ``guard`` [K, 2]).  On a card the K
+    steps are one CUDA graph replay, which donates ``state`` (its
+    tensors are overwritten by the next call) and captures the
+    all-reduces too; see :class:`.graphs.DeviceLoop`.
     """
     _check_step_options(accum_steps, steps_per_call)
-    grads_of = local_grads(loss_fn, accum_steps=accum_steps, seed=seed,
-                           mesh=mesh)
+    grads_of = _grads_of(loss_fn, accum_steps)
 
-    def step(state: TrainState, batch):
+    def body(state: TrainState, batch, seeds, scalars):
         loss, mstate, grads = grads_of(state.params, state.model_state,
-                                       batch, state.step)
+                                       batch, seeds)
         with torch.no_grad():
             if mesh is not None:
                 grads = collectives.pmean(grads, mesh)
                 loss = collectives.pmean(loss, mesh)
             mstate = sync_model_state(loss_fn, mstate, mesh)
-            new_params, new_opt = optimizer.apply(
-                state.params, grads, state.opt_state, state.step)
+            new_params, new_opt = optimizer.rule(
+                state.params, grads, state.opt_state, scalars)
             metrics = {"loss": loss}
             if guard:
                 metrics["guard"] = guard_sentinel(loss, grads)
         return TrainState(params=new_params, opt_state=new_opt,
                           model_state=mstate, step=state.step + 1), metrics
 
-    return step
+    return device_loop(body, optimizer, seed=seed, accum_steps=accum_steps,
+                       mesh=mesh, steps_per_call=steps_per_call)
 
 
 def make_train_step_shardmap(loss_fn: Callable, optimizer: Optimizer,
@@ -264,7 +304,8 @@ def make_train_step_shardmap(loss_fn: Callable, optimizer: Optimizer,
     """The explicit per-rank DP step under its JAX name: each rank's
     gradients, one all-reduce per gradient, the mean, the same update
     everywhere.  In eager PyTorch this is :func:`make_train_step` with a
-    mesh; like the JAX shard_map step it takes no ``accum_steps``."""
+    mesh; like the JAX shard_map step it takes no ``accum_steps`` and no
+    ``steps_per_call`` (the JAX shard_map step has no device loop)."""
     return make_train_step(loss_fn, optimizer, mesh=mesh, seed=seed)
 
 

@@ -102,7 +102,7 @@ def zero1_optimizer(inner: Optimizer, mesh: Mesh) -> Optimizer:
     1/N of every flat padded leaf.
 
     ``init(params)`` initialises the inner rule on this rank's slices.
-    ``update(params, grads, state, step)`` takes whole params and this
+    ``apply(params, grads, state, step)`` takes whole params and this
     rank's OWN (not yet exchanged) gradients: it reduce-scatters the
     flat gradients and divides them by N, updates the slices, and
     all-gathers whole params.  Refuses LARS and clipping (see the module
@@ -113,16 +113,16 @@ def zero1_optimizer(inner: Optimizer, mesh: Mesh) -> Optimizer:
     def init(params):
         return inner.init(_local_chunk(_flatten_tree(params, n), mesh))
 
-    def update(params, grads, state, step):
+    def rule(params, grads, state, s):
         flat_g = collectives.reduce_scatter(_flatten_tree(grads, n), mesh)
         flat_g = {k: None if g is None else div_const(g, n)
                   for k, g in flat_g.items()}
         flat_p = _local_chunk(_flatten_tree(params, n), mesh)
-        new_flat_p, new_state = inner.update(flat_p, flat_g, state, step)
+        new_flat_p, new_state = inner.rule(flat_p, flat_g, state, s)
         gathered = collectives.all_gather(new_flat_p, mesh)
         return _unflatten_like(gathered, params), new_state
 
-    return Optimizer(init, update, name=f"zero1({inner.name})")
+    return Optimizer(init, rule, f"zero1({inner.name})", inner.scalars)
 
 
 def zero1_state(params: dict, optimizer: Optimizer, mesh: Mesh,
@@ -147,34 +147,38 @@ def make_train_step_zero1(loss_fn: Callable, optimizer: Optimizer,
     """The DP step with a ZeRO-1 sharded update: this rank's gradients
     (with ``accum_steps`` microbatches), the loss and model state
     averaged over the ranks, then :func:`zero1_optimizer`'s exchange and
-    update.  ``state`` comes from :func:`zero1_state`;
-    ``steps_per_call > 1`` is not ported (as in :func:`.dp.make_train_step`).
+    update.  ``state`` comes from :func:`zero1_state`.
+    ``steps_per_call > 1`` runs that many steps a call on stacked
+    batches, as :func:`.dp.make_train_step` does (the JAX step passes it
+    through to the DP step): on a card one CUDA graph replay, with the
+    reduce-scatters and all-gathers captured.
     """
     dp._check_step_options(accum_steps, steps_per_call)
     z = zero1_optimizer(optimizer, mesh)
-    grads_of = dp.local_grads(loss_fn, accum_steps=accum_steps, seed=seed,
-                              mesh=mesh)
+    grads_of = dp._grads_of(loss_fn, accum_steps)
 
-    def step(state: dp.TrainState, batch):
+    def body(state: dp.TrainState, batch, seeds, scalars):
         loss, mstate, grads = grads_of(state.params, state.model_state,
-                                       batch, state.step)
+                                       batch, seeds)
         with torch.no_grad():
             loss = collectives.pmean(loss, mesh)
             mstate = dp.sync_model_state(loss_fn, mstate, mesh)
-            new_params, new_opt = z.apply(state.params, grads,
-                                          state.opt_state, state.step)
+            new_params, new_opt = z.rule(state.params, grads,
+                                         state.opt_state, scalars)
         return dp.TrainState(params=new_params, opt_state=new_opt,
                              model_state=mstate,
                              step=state.step + 1), {"loss": loss}
 
-    return step
+    return dp.device_loop(body, z, seed=seed, accum_steps=accum_steps,
+                          mesh=mesh, steps_per_call=steps_per_call)
 
 
 def make_train_step_zero1_shardmap(loss_fn: Callable, optimizer: Optimizer,
                                    mesh: Mesh, *, seed: int = 0):
     """The explicit-collectives ZeRO-1 step under its JAX name: the same
     schedule as :func:`make_train_step_zero1`, and like the JAX shard_map
-    variant it takes no ``accum_steps`` and refuses LARS and clipping."""
+    variant it takes no ``accum_steps`` and no ``steps_per_call`` and
+    refuses LARS and clipping."""
     _refuse_cross_slice(optimizer)
     return make_train_step_zero1(loss_fn, optimizer, mesh, seed=seed)
 

@@ -29,9 +29,17 @@ Dense prefill and decode:
   attention runs the flash-decode kernel.  Finished requests free their
   slot; admissions splice a prefilled cache into a free row mid-flight.
 
-PyTorch runs eagerly, so there are no compiled programs to pool:
-``compile_stats`` keeps the JAX engine's keys (at 0) for the
-scheduler's gauges and reports the decode kernels' launch counts.
+On the GPU the decode step is one CUDA graph replay, the counterpart of
+the JAX engine's one compiled decode program: the model's forward over
+the engine's token buffer, its in-place cache writes and the greedy
+``argmax``, captured after the first (eager) decode step.  The host
+keeps the page-table bookkeeping and its pinned row copies before the
+replay, and samples the rows with a temperature from the replay's
+logits after it.  Prefill stays eager (its shapes vary by bucket), and
+so does the decode step on the CPU.  ``compile_stats`` keeps the JAX
+engine's keys for the scheduler's gauges (``decode_compiles`` counts
+the capture; the others read 0) and reports the decode kernels' launch
+counts.
 
 Greedy decoding is token-for-token identical to sequential
 :func:`..models.generate` (the golden parity test).  Temperature
@@ -50,6 +58,7 @@ from ..models.transformer_lm import (KV_QUANTS, DecodeCache, PagedCache,
                                      TransformerLM, make_decode_cache,
                                      make_paged_cache)
 from ..ops.flash_decode import flash_decode, flash_decode_paged
+from ..parallel.graphs import Graph
 from .cache_layout import DenseLayout, PagedLayout, reserved_kv_bytes
 
 __all__ = ["LMEngine", "DEFAULT_BUCKETS", "DEFAULT_KV_BLOCK_SIZE"]
@@ -97,6 +106,8 @@ class LMEngine:
       capacity, ``max_slots`` worst-case slots).
     * ``prefix_cache`` — paged, plain attention only: completed prompt
       blocks are shared by later prompts with the same prefix.
+    * ``cuda_graph`` — on the GPU, replay the decode step as one CUDA
+      graph (the default); ``False`` runs it eagerly (the comparison).
     """
 
     def __init__(self, model: TransformerLM, *, max_slots: int = 8,
@@ -107,7 +118,7 @@ class LMEngine:
                  layout: str = "dense",
                  kv_block_size: int = DEFAULT_KV_BLOCK_SIZE,
                  kv_blocks: Optional[int] = None,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, cuda_graph: bool = True):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         if max_len < 2:
@@ -192,6 +203,9 @@ class LMEngine:
         self._keys: List[Optional[torch.Generator]] = [None] * max_slots
         #: all-slot decode steps run so far
         self.decode_steps = 0
+        self.cuda_graph = cuda_graph and self.device.type == "cuda"
+        #: the captured decode step (a :class:`..parallel.graphs.Graph`)
+        self.decode_graph: Optional[Graph] = None
 
     # ---- device work ------------------------------------------------------
 
@@ -280,14 +294,20 @@ class LMEngine:
         if c.slot_pos is not None:
             c.slot_pos[slot] = -1
 
+    @staticmethod
+    def _draw(logits: torch.Tensor, temp: float, key) -> int:
+        """A softmax draw from one row: f32 logits / temperature, sampled
+        with the row's own CPU generator."""
+        p = torch.softmax(logits.float() / max(temp, 1e-6), dim=-1)
+        return int(torch.multinomial(p.cpu(), 1, generator=key)[0])
+
     def _sample(self, logits: torch.Tensor, temps, keys) -> torch.Tensor:
-        """Greedy (temperature 0) or softmax draw per row: f32 logits /
-        temperature, sampled with the row's own CPU generator."""
+        """Greedy (temperature 0) or softmax draw (:meth:`_draw`) per
+        row."""
         nxt = logits.argmax(dim=-1)
         for s, (temp, key) in enumerate(zip(temps, keys)):
             if temp > 0:
-                p = torch.softmax(logits[s].float() / max(temp, 1e-6), dim=-1)
-                nxt[s] = torch.multinomial(p.cpu(), 1, generator=key)[0]
+                nxt[s] = self._draw(logits[s], temp, key)
         return nxt
 
     # ---- host-side API (called by the scheduler loop thread) --------------
@@ -443,18 +463,36 @@ class LMEngine:
                 return first, st.padded
 
     @torch.no_grad()
+    def _decode(self) -> torch.Tensor:
+        """The device work of a decode step: the model over the token
+        buffer (the cache written in place) and the greedy next tokens
+        written back into it.  Returns the f32 logits [S, vocab]."""
+        logits = self.model(self._tok[:, None], self.cache)[:, 0]
+        self._tok.copy_(logits.argmax(dim=-1))
+        return logits
+
+    @torch.no_grad()
     def step_decode(self) -> np.ndarray:
         """One step over all slots; returns ``next[S]`` on the host (the
         scheduler's stop checks and streaming).  Parked rows compute
         too; their output is discarded.  In the paged layout each
         decoding slot's next write position is bound just in time
-        (reservation guarantees the pool can serve it)."""
+        (reservation guarantees the pool can serve it).  On the GPU the
+        device work is one graph replay after the first step."""
         for slot in self._decoding:
             if self.layout.alloc_rows(slot, self._host_pos[slot] + 1):
                 self._bind(slot)
             self._host_pos[slot] += 1
-        logits = self.model(self._tok[:, None], self.cache)
-        self._tok = self._sample(logits[:, 0], self._temp, self._keys)
+        if self.decode_graph is not None:
+            logits = self.decode_graph.replay()
+        else:
+            logits = self._decode()
+            if self.cuda_graph:
+                # the eager step above was the capture's warm-up
+                self.decode_graph = Graph(self._decode, "the decode step")
+        for s, (temp, key) in enumerate(zip(self._temp, self._keys)):
+            if temp > 0:
+                self._tok[s] = self._draw(logits[s], temp, key)
         self.decode_steps += 1
         return self._tok.cpu().numpy()
 
@@ -500,11 +538,13 @@ class LMEngine:
         return out
 
     def compile_stats(self) -> dict:
-        """The JAX engine's compile-count keys (eager PyTorch compiles
-        nothing, so they read 0) plus ``decode_kernel_launches`` and
+        """The JAX engine's compile-count keys (``decode_compiles``: the
+        decode step's graph captures; the others 0: prefill and inserts
+        run eagerly) plus ``decode_kernel_launches`` and
         ``paged_kernel_launches``, the two flash-decode kernels' launch
         counts."""
-        stats = {"decode_compiles": 0, "insert_compiles": 0,
+        stats = {"decode_compiles": int(self.decode_graph is not None),
+                 "insert_compiles": 0,
                  "prefill_compiles": 0, "aot_programs": 0,
                  "decode_kernel_launches": flash_decode.launches,
                  "paged_kernel_launches": flash_decode_paged.launches}

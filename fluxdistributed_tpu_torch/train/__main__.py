@@ -26,7 +26,10 @@ the command runs under ``torchrun``::
     torchrun --nproc-per-node 4 -m fluxdistributed_tpu_torch.train ...
 
 (one rank per GPU; ``--batch-size`` is the global batch, and a ResNet's
-BatchNorm statistics are those of the global batch).  The JAX CLI's
+BatchNorm statistics are those of the global batch).  ``--steps-per-call
+K`` runs K optimizer steps a call (the JAX device loop): the loader
+stacks K batches an item, and on the GPU the K steps are one CUDA graph
+replay (``--cycles`` must be a multiple of K; ``--spmd jit`` only).  The JAX CLI's
 registered datasets (ImageNet), its other ``--spmd`` modes,
 checkpoints, the guard, fault plans and AOT belong to later slices and
 are not accepted.
@@ -114,6 +117,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "shard the optimizer state and update 1/N over the "
                         "ranks, all-gather updated params — DP-identical "
                         "numerics, ~N x lower optimizer memory")
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="optimizer steps per call (the device loop; spmd="
+                        "jit): one CUDA graph replay of K steps on the GPU, "
+                        "a plain loop of them on the CPU")
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu (the kernels' plain "
                         "versions)")
@@ -261,7 +268,7 @@ def _train(args, dataset, device, mesh):
             model, dataset, opt, loss_fn=lm_loss_fn(model) if is_lm else None,
             batch_size=args.batch_size, epochs=args.epochs,
             cycles=args.cycles, spmd=args.spmd, zero1=args.zero1, mesh=mesh,
-            device=device)
+            device=device, steps_per_call=args.steps_per_call)
     except ValueError as e:  # e.g. a batch that does not split over ranks
         raise SystemExit(f"--spmd {args.spmd}: {e}")
     lead = mesh is None or mesh.rank == 0

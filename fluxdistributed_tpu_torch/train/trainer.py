@@ -15,6 +15,9 @@ with or without ZeRO-1, on one GPU, on the ranks of a process group
   of the val slice and of the current batch, and a device OOM skips the
   batch and counts it in ``num_missed`` (the step's update is pure, so
   the pre-step state carries on);
+* ``steps_per_call=K`` is the JAX device loop: each loader item stacks
+  K step batches and one call runs K optimizer steps (one CUDA graph
+  replay on a card), the cadences ticking per item;
 * ``evaluate`` aggregates the loss and top-k accuracies over a dataset.
 
 Phase times, step counts and OOM skips land in the process registry
@@ -76,6 +79,8 @@ class TrainTask:
     val_batch: Optional[dict] = None
     # the loader's host-side batch hook, also applied by ``evaluate``
     transform: Optional[Callable] = None
+    # optimizer steps a call of ``step_fn`` (one loader item) runs
+    steps_per_call: int = 1
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -109,6 +114,7 @@ def prepare_training(
     val_dataset=None,
     val_samples: int = 300,
     transform: Optional[Callable] = None,
+    steps_per_call: int = 1,
 ) -> TrainTask:
     """The train state from the model's current parameters and buffers,
     the train and eval steps, the prefetching loader and the val slice.
@@ -141,12 +147,22 @@ def prepare_training(
     ``device`` (forming a one-rank group when there is none; the caller
     ends it with :func:`..mesh.shutdown_distributed`).  ``seed`` roots
     the loader's batches and the dropout seeds.  The model must already
-    live on the step's device (default ``cuda``).  The JAX version's
-    other options (donation, the device loop, AOT, the guard) are not
-    accepted.
+    live on the step's device (default ``cuda``).
+
+    ``steps_per_call=K`` runs K optimizer steps a call (the JAX device
+    loop, ``spmd="jit"`` only, with or without ``zero1``): the loader
+    stacks K step batches an item (``chunk=K``; ``cycles`` counts steps
+    and must be a multiple of K) and the step runs them one after the
+    other, on a card as one CUDA graph replay that donates the state.
+    The JAX version's other options (donation as an option, AOT, the
+    guard) are not accepted.
     """
     if spmd == "dp":
         spmd = "jit"
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+    if steps_per_call != 1 and spmd != "jit":
+        raise ValueError("steps_per_call > 1 requires spmd='jit'")
     if zero1 and spmd not in ("jit", "shard_map"):
         raise ValueError(
             "zero1=True applies to the DP paths only (spmd='jit'/'dp'/"
@@ -179,7 +195,8 @@ def prepare_training(
     if mesh is None:
         state = TrainState.create(params, optimizer, model_state=mstate)
         step_fn = make_train_step(loss_fn, optimizer,
-                                  accum_steps=accum_steps, seed=seed)
+                                  accum_steps=accum_steps, seed=seed,
+                                  steps_per_call=steps_per_call)
     elif zero1:
         from ..parallel import zero1 as zero1_lib
 
@@ -190,7 +207,8 @@ def prepare_training(
                 loss_fn, optimizer, mesh, seed=seed)
         else:
             step_fn = zero1_lib.make_train_step_zero1(
-                loss_fn, optimizer, mesh, accum_steps=accum_steps, seed=seed)
+                loss_fn, optimizer, mesh, accum_steps=accum_steps, seed=seed,
+                steps_per_call=steps_per_call)
     else:
         from ..sharding import replicate
 
@@ -202,7 +220,8 @@ def prepare_training(
                                                seed=seed)
         else:
             step_fn = make_train_step(loss_fn, optimizer, mesh=mesh,
-                                      accum_steps=accum_steps, seed=seed)
+                                      accum_steps=accum_steps, seed=seed,
+                                      steps_per_call=steps_per_call)
     val_batch = None
     if val_dataset is not None:
         q = 1 if mesh is None else mesh.size
@@ -220,9 +239,11 @@ def prepare_training(
         eval_fn=make_eval_step(loss_fn, mesh, topk=topk),
         loader=PrefetchLoader(dataset, batch_size, cycles=cycles,
                               epochs=epochs, buffersize=buffersize, seed=seed,
-                              device=dev, mesh=mesh, transform=transform),
+                              device=dev, mesh=mesh, transform=transform,
+                              chunk=steps_per_call),
         optimizer=optimizer, model=model, device=dev, mesh=mesh, topk=topk,
-        val_batch=val_batch, transform=transform)
+        val_batch=val_batch, transform=transform,
+        steps_per_call=steps_per_call)
 
 
 def _is_oom(err: Exception) -> bool:
@@ -349,10 +370,12 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
     Every ``print_every`` items it logs steps/s and tokens/s (images/s
     for image batches) over the interval; every ``eval_every`` items the
     eval loss and top-k accuracies of the val slice (when there is one)
-    and of the current batch, and the step's own loss.  Host-clock rates: the loop runs ahead of the device by
-    the launch queue, so interval averages hold.  A device OOM skips the
-    batch (``task.num_missed``, ``task.skipped_items``).  Each step's
-    loss lands in ``task.losses`` (read back once, at the end).  The
+    and of the current batch (its last step batch under the device
+    loop), and the step's own loss.  Host-clock rates: the loop runs
+    ahead of the device by the launch queue, so interval averages hold.
+    A device OOM skips the item (``task.skipped_items``) and counts its
+    steps in ``task.num_missed``.  Each step's loss lands in
+    ``task.losses`` (read back once, at the end).  The
     trained parameters and running stats are copied into ``task.model``
     in place.
 
@@ -371,13 +394,15 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
     oom_total = reg.counter(
         "fdtpu_train_oom_skipped_total",
         "batches skipped by OOM fault tolerance")
+    # the device loop: an item is spc optimizer steps
+    spc = task.steps_per_call
     t_start = time.perf_counter()
     it = iter(task.loader)
     _end = object()
     j = int(getattr(task.loader, "start", 0))
     t_mark, j_mark = t_start, j
     done_steps = 0
-    losses = []  # device scalars, read back once at the end
+    losses = []  # fresh device tensors, read back once at the end
     try:
         while True:
             t_item = time.perf_counter()
@@ -388,8 +413,10 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
             if print_every and j % print_every == 0:
                 now = time.perf_counter()
                 if j > j_mark:
-                    dsteps, dt = j - j_mark, max(now - t_mark, 1e-9)
+                    dsteps = (j - j_mark) * spc
+                    dt = max(now - t_mark, 1e-9)
                     lead = next(iter(batch.values()))
+                    lead = lead[0] if spc > 1 else lead  # one step's batch
                     rate = {"steps_per_sec": round(dsteps / dt, 3)}
                     if "tokens" in batch:
                         rate["tokens_per_sec"] = round(
@@ -407,10 +434,11 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
             except Exception as e:  # OOM-skip fault tolerance
                 if not _is_oom(e):
                     raise
-                task.num_missed += 1
+                task.num_missed += spc
                 task.skipped_items.append(j)
-                oom_total.inc()
-                logger.log({"oom_skipped_item": j}, j)
+                oom_total.inc(spc)
+                logger.log({"oom_skipped_item": j,
+                            "oom_skipped_step_first": j * spc}, j)
                 logger.info(f"cycle {j}: device OOM — skipping batch "
                             f"({task.num_missed} missed)")
                 skipped = True
@@ -421,17 +449,22 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
                         if task.val_batch is not None:
                             _eval_and_log(task, task.val_batch, "val", j,
                                           logger)
-                        _eval_and_log(task, batch, "train", j, logger)
-                        logger.log(
-                            {"train_step_loss": float(metrics["loss"])}, j)
-                steps_total.inc()
-                done_steps += 1
+                        # the eval step takes one step's batch: the last
+                        eb = ({k: v[-1] for k, v in batch.items()}
+                              if spc > 1 else batch)
+                        _eval_and_log(task, eb, "train", j, logger)
+                        loss = metrics["loss"]
+                        logger.log({"train_step_loss": float(
+                            loss[-1] if spc > 1 else loss)}, j)
+                steps_total.inc(spc)
+                done_steps += spc
                 step_gauge.set(done_steps)
                 step_hist.observe(time.perf_counter() - t_item)
             j += 1
     finally:
         if losses:
-            task.losses.extend(torch.stack(losses).float().cpu().tolist())
+            task.losses.extend(torch.cat([x.reshape(-1) for x in losses])
+                               .float().cpu().tolist())
     if task.num_missed:
         logger.info(f"missed {task.num_missed} batches due to OOM")
     with torch.no_grad():

@@ -15,7 +15,7 @@ from typing import Any, Callable, Iterator, List, Tuple
 import numpy as np
 import torch
 
-__all__ = ["allclose", "assert_close", "cast", "count_params",
+__all__ = ["allclose", "assert_close", "cast", "count_params", "leaves",
            "leaves_with_path", "mismatches", "nbytes", "to_host",
            "tree_map"]
 
@@ -44,19 +44,21 @@ def leaves_with_path(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:
         yield path, tree
 
 
-def _leaves(tree: Any) -> List[Any]:
+def leaves(tree: Any) -> List[Any]:
+    """The leaves that are not ``None``, in :func:`leaves_with_path`
+    order."""
     return [x for _, x in leaves_with_path(tree) if x is not None]
 
 
 def count_params(tree: Any) -> int:
     """Number of scalars in the tree."""
-    return sum(int(np.prod(tuple(x.shape))) for x in _leaves(tree))
+    return sum(int(np.prod(tuple(x.shape))) for x in leaves(tree))
 
 
 def nbytes(tree: Any) -> int:
     """Bytes of every leaf together."""
     return sum(x.numel() * x.element_size() if torch.is_tensor(x)
-               else int(x.nbytes) for x in _leaves(tree))
+               else int(x.nbytes) for x in leaves(tree))
 
 
 def cast(tree: Any, dtype: torch.dtype) -> Any:

@@ -33,6 +33,13 @@ relative, params and running stats 1e-3 relative and 1e-5 of each
 leaf's scale, eval top-1/top-5 equal; the bf16 resnet50 step finite and
 channels-last; ``module_loss_fn`` never writes the model state it is
 given.
+The device loop and the decode step as CUDA graphs: K graphed steps
+(one replay) equal K eager steps bit for bit (losses, params, optimizer
+and model state) for SimpleCNN, lm_tiny (flash, dropout, a schedule)
+and resnet18 on a one-rank NCCL group; a capture that fails raises and
+nothing falls back; the wrappers' launch counts are exact under
+replay; the graphed decode step's greedy tokens equal the eager one's,
+dense and paged.
 """
 
 import importlib
@@ -801,3 +808,180 @@ def test_sync_batchnorm_on_one_nccl_rank_matches_local(cuda, no_tf32):
         for k, v in b.items():
             torch.testing.assert_close(
                 a[k], v, rtol=1e-3, atol=1e-5 * max(1.0, v.abs().max().item()))
+
+
+# ---------------------------------------------------------- CUDA graphs
+
+
+def _leaves(tree):
+    from fluxdistributed_tpu_torch.tree import leaves
+
+    return leaves(tree)
+
+
+def _graph_case(case, cuda):
+    """(make_state, make_step(k), 2K per-step batches) on the card."""
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import SimpleCNN, lm_loss_fn
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.ops.losses import logitcrossentropy
+    from fluxdistributed_tpu_torch.parallel import (TrainState,
+                                                    make_train_step,
+                                                    module_loss_fn)
+
+    g = torch.Generator().manual_seed(3)
+    mesh = None
+    if case == "lm_tiny":
+        model = lm_tiny(vocab=64, attn_fn=attention_core("flash"),
+                        dropout=0.1, seed=1)
+        loss_fn = lm_loss_fn(model)
+        opt = optim.adam(optim.warmup_cosine(3e-3, 2, 8))
+        batches = [{"tokens": torch.randint(0, 64, (4, 128), generator=g,
+                                            dtype=torch.int32).to(cuda)}
+                   for _ in range(6)]
+    else:
+        if case == "simplecnn":
+            model = SimpleCNN(num_classes=10, seed=1)
+            size = 16
+        else:
+            from fluxdistributed_tpu_torch.mesh import init_distributed
+            from fluxdistributed_tpu_torch.models import resnet18
+
+            model, size = resnet18(num_classes=10, seed=1), 64
+            mesh = init_distributed("cuda")
+        loss_fn = module_loss_fn(model, logitcrossentropy, mesh)
+        opt = optim.momentum(0.05, 0.9)
+        batches = [{"image": x.to(cuda, torch.bfloat16 if mesh else
+                                  torch.float32), "label": y.to(cuda)}
+                   for x, y in _image_batches(8, size, 6, seed=4)]
+
+    def make_state():
+        return TrainState.create(
+            {k: p.detach().clone() for k, p in model.named_parameters()},
+            opt, model_state={k: b.clone() for k, b in model.named_buffers()})
+
+    def make_step(k):
+        return make_train_step(loss_fn, opt, mesh=mesh, seed=5,
+                               steps_per_call=k, guard=True)
+
+    return make_state, make_step, batches
+
+
+@pytest.mark.parametrize("case", ["simplecnn", "lm_tiny", "resnet18_nccl"])
+def test_graphed_steps_equal_eager_steps_bitwise(cuda, case):
+    """Two calls of a K=3 step (K eager steps and the capture, then one
+    replay) equal 2K eager steps bit for bit; the same replay on a
+    zeroed table differs (the graph reads the table)."""
+    from fluxdistributed_tpu_torch.mesh import shutdown_distributed
+    from fluxdistributed_tpu_torch.tree import tree_map
+
+    try:
+        make_state, make_step, batches = _graph_case(case, cuda)
+        eager, state, losses = make_step(1), make_state(), []
+        for j, b in enumerate(batches):
+            state, m = eager(state, b)
+            losses.append(m["loss"])
+            if j == 2:
+                mid = type(state)(*(tree_map(torch.clone, x) for x in (
+                    state.params, state.opt_state, state.model_state)),
+                    step=state.step)
+        graphed = make_step(3)
+        stack = [{k: torch.stack([b[k] for b in batches[i:i + 3]])
+                  for k in batches[0]} for i in (0, 3)]
+        g, m1 = graphed(make_state(), stack[0])
+        g, m2 = graphed(g, stack[1])
+        assert len(graphed.graphs) == 1
+        assert torch.equal(torch.cat([m1["loss"], m2["loss"]]),
+                           torch.stack(losses))
+        assert g.step == state.step == 6
+        for part in ("params", "opt_state", "model_state"):
+            for a, b in zip(_leaves(getattr(g, part)),
+                            _leaves(getattr(state, part))):
+                assert torch.equal(a, b), part
+        graphed.table.buffer.zero_()
+        c, _ = graphed.run(mid, stack[1], fill=False)
+        assert not all(torch.equal(a, b) for a, b in zip(
+            _leaves(c.params), _leaves(state.params)))
+    finally:
+        shutdown_distributed()
+
+
+def test_launch_counts_exact_under_replay(cuda):
+    """B1-B3 count the kernels that ran: the eager call, nothing for the
+    capture, each replay's launches."""
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import lm_loss_fn
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.parallel import TrainState, make_train_step
+
+    fa = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_attention")
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_dq,
+                fa.flash_attention_dkv)
+    model = lm_tiny(vocab=64, attn_fn=attention_core("flash"), seed=1)
+    opt = optim.adam(1e-3)
+    step = make_train_step(lm_loss_fn(model), opt, steps_per_call=2)
+    state = TrainState.create(dict(model.named_parameters()), opt)
+    toks = torch.randint(0, 64, (2, 2, 128), dtype=torch.int32, device=cuda)
+    before = [w.launches for w in wrappers]
+    counts = []
+    for _ in range(3):
+        state, _ = step(state, {"tokens": toks})
+        counts.append([w.launches - b for w, b in zip(wrappers, before)])
+    d = model.depth
+    assert counts == [[2 * d] * 3, [4 * d] * 3, [6 * d] * 3]
+    assert step.graphs[0].launches_per_replay == {
+        "flash_attention_fwd": 2 * d, "flash_attention_dq": 2 * d,
+        "flash_attention_dkv": 2 * d}
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_graphed_decode_tokens_equal_eager(cuda, layout):
+    """The engine's decode step as a graph replay gives the eager step's
+    greedy tokens, and B4/B5 count depth x decode steps."""
+    import numpy as np
+
+    model = lm_tiny(vocab=128, seed=2)
+    g = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, 128, (n,), generator=g).tolist()
+               for n in (5, 17, 40)]
+    kern = flash_decode_paged if layout == "paged" else flash_decode
+    out = {}
+    for graphed in (False, True):
+        engine = LMEngine(model, max_slots=3, max_len=96, buckets=(64,),
+                          layout=layout, cuda_graph=graphed)
+        for s, p in enumerate(prompts):
+            engine.prefill(s, p, 0.0, None)
+        before = kern.launches
+        out[graphed] = np.stack([engine.step_decode() for _ in range(12)])
+        assert kern.launches - before == model.depth * 12
+        assert engine.compile_stats()["decode_compiles"] == int(graphed)
+    np.testing.assert_array_equal(out[True], out[False])
+
+
+def test_graph_capture_failure_raises_without_fallback(cuda):
+    """A step that synchronises with the host (``.item()``) runs
+    eagerly, but its capture raises naming the line; no graph is kept,
+    and the card works on.  Last in the file: a failed capture may leave
+    the default CUDA generator in capture mode."""
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import lm_loss_fn
+    from fluxdistributed_tpu_torch.parallel import TrainState, make_train_step
+
+    model = lm_tiny(vocab=64, depth=1, seed=1)
+    inner = lm_loss_fn(model)
+
+    def syncing_loss(params, mstate, batch, train, rng=None):
+        loss, aux = inner(params, mstate, batch, train, rng)
+        if loss.item() < 0:  # a host sync: illegal under capture
+            raise AssertionError
+        return loss, aux
+
+    opt = optim.momentum(0.05)
+    step = make_train_step(syncing_loss, opt, steps_per_call=2)
+    state = TrainState.create(dict(model.named_parameters()), opt)
+    toks = torch.randint(0, 64, (2, 2, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA graph capture of the train "
+                       r"step \(2 steps\) failed at .*loss.item\(\)"):
+        step(state, {"tokens": toks})
+    assert step.graphs == []
+    assert torch.ones(3, device=cuda).sum().item() == 3.0

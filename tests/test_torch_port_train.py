@@ -205,8 +205,8 @@ def test_guard_sentinel_and_step_validation():
     assert out.tolist() == [1.5, 5.0]
     assert torch.isnan(guard_sentinel(torch.tensor(1.0), {
         "a": torch.tensor([float("inf")])})[0])
-    with pytest.raises(NotImplementedError, match="CUDA graph"):
-        make_train_step(lambda *a: None, optim.descent(), steps_per_call=2)
+    with pytest.raises(ValueError, match="steps_per_call must be >= 1"):
+        make_train_step(lambda *a: None, optim.descent(), steps_per_call=0)
     with pytest.raises(ValueError, match="accum_steps"):
         make_train_step(lambda *a: None, optim.descent(), accum_steps=0)
 
@@ -351,9 +351,10 @@ def _task(**kw):
 def test_prepare_training_refuses_other_modes():
     with pytest.raises(ValueError, match="not ported"):
         _task(spmd="fsdp")
-    for kw in ({"donate": True}, {"steps_per_call": 2}):
-        with pytest.raises(TypeError):  # not accepted, never ignored
-            _task(**kw)
+    with pytest.raises(TypeError):  # not accepted, never ignored
+        _task(donate=True)
+    with pytest.raises(ValueError, match="requires spmd='jit'"):
+        _task(steps_per_call=3, spmd="shard_map")
     assert _task(spmd="dp").state.step == 0
 
 
