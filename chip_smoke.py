@@ -125,7 +125,34 @@ Phases, each of which raises on failure (exit code != 0, no result):
     ms, idle share, greedy tokens equal, B4/B5 launches equal depth x
     decode steps.  Every row carries the card's ``nvidia-smi`` name and
     power limit;
-21. a ``{"kernels": [...]}`` line, then the result line
+21. ViT kernel: B1, B2 and B3 at ViT-L/16's attention (batch 128, 196
+    tokens, 16 heads of 64, non-causal, q/k/v strided views of one QKV
+    projection that the kernels must read in place), at the class
+    token's 197 tokens and in f32, each as in phase 8 (the dropped-tile
+    control included: ragged last tiles, every row live);
+22. ViT train step: ViT-L/16 (224², 1000 classes, batch 128, bf16
+    compute and f32 params, adamw at the JAX defaults) with
+    ``attn_fn=partial(flash_attention, causal=False)``: B1-B3 24
+    launches each in one step and 192 in a K = 8 replay, step ms at
+    K = 1 and K = 8, images/s, MFU (3 x 2 x ``forward_macs`` over the
+    bf16 peak), peak allocated bytes, idle share and B1-B3's share of
+    device time, K = 4 graphs bit-equal to eager steps at batch 32 with
+    the zeroed table control, the rounding audit over the step's 24
+    layers (0 unflagged mismatches), the flax LayerNorm's cost a step
+    beside ``F.layer_norm``'s, then f32 ViT-B/16 logits (64², TF32 off)
+    on the card against the CPU;
+23. ConvNeXt train step: ConvNeXt-XL (224², batch 128 or the largest
+    power of two below it that fits, bf16, lars 0.1, drop path 0.1),
+    the same columns (the K = 4 graphs at batch 32); B1-B6 launch no
+    time;
+24. ViT CLI: ``python -m fluxdistributed_tpu_torch.train --model
+    vit_b16 --dataset synthetic --image-size 224 --num-classes 10
+    --batch-size 64 --opt adamw --lr 3e-4 --warmup-steps 5
+    --total-steps 20 --cycles 20 --eval-every 10`` in-process (dense
+    attention, as the JAX CLI's ViT): the mean of the last 5 losses is
+    below the first; eval top-1/top-5;
+25. a ``{"kernels": [...]}`` line (B1-B3 with their ViT-L/16 row and
+    launches a step beside the LM's), then the result line
     ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -177,6 +204,14 @@ VISION_ARGV = ["--model", "resnet50", "--dataset", "synthetic",
                "--image-size", str(VISION_SIZE), "--num-classes", "10",
                "--batch-size", str(VISION_B), "--opt", "momentum",
                "--lr", "0.01", "--cycles", "30", "--eval-every", "10"]
+# the ViT and ConvNeXt image path: ViT-L/16 at 224² (196 tokens, 16 heads
+# of 64) and ConvNeXt-XL, batch 128; the ViT CLI on ViT-B/16
+VIT_B, VIT_T, VIT_HEADS = 128, 196, 16
+VIT_ARGV = ["--model", "vit_b16", "--dataset", "synthetic",
+            "--image-size", str(VISION_SIZE), "--num-classes", "10",
+            "--batch-size", "64", "--opt", "adamw", "--lr", "3e-4",
+            "--warmup-steps", "5", "--total-steps", "20", "--cycles", "20",
+            "--eval-every", "10"]
 ADAM_SOURCE = "fluxdistributed_tpu_torch/ops/csrc/fused_adam.cu"
 ADAM_REPLACES = "fluxdistributed_tpu/parallel/zero1_fused.py:127"
 ADAM_VIA = "fluxdistributed_tpu/parallel/zero1_fused.py:170"
@@ -981,21 +1016,33 @@ def grad_check(torch, got, ref, bits):
 
 def dropped_tile_check(torch, fa, bargs, kw, rdq, rdk, rdv, bits):
     """The element-wise check against a B2 that skips its last K tile and
-    a B3 that skips its last Q tile (causal, Tq = Tk, no window), at the
-    kernels' tiles (``TILE_Q`` x ``TILE_K``): both faults are built from
-    the plain versions and each must exceed the limit.  Returns each
-    fault's ``excess`` (> 1 means caught) and its largest change over the
+    a B3 that skips its last Q tile (Tq = Tk, no window; causal, or
+    non-causal with a ragged last tile), at the kernels' tiles
+    (``TILE_Q`` x ``TILE_K``): both faults are built from the plain
+    versions and each must exceed the limit.  Returns each fault's
+    ``excess`` (> 1 means caught) and its largest change over the
     largest reference entry (``vs_max``)."""
     q, k, v, do, lse, delta = bargs
     nq, nk, tk = fa.TILE_Q, fa.TILE_K, k.shape[1]
-    tail = (q[:, -nq:], k, v, do[:, -nq:], lse[..., -nq:].contiguous(),
-            delta[..., -nq:].contiguous())
-    # the last query tile sees every key before the last key tile
-    # (nq <= nk): unmasked
-    head = (tail[0], k[:, :tk - nk], v[:, :tk - nk], *tail[3:])
-    fdq = rdq.float().clone()
-    fdq[:, -nq:] = fa.flash_attention_dq_reference(*head, causal=False).float()
-    cdk, cdv = fa.flash_attention_dkv_reference(*tail, **kw)
+    if not kw["causal"]:
+        # every query sees the last key tile and every key the last
+        # query tile; tiles are cut from 0, so the last may be ragged
+        ks, qs = (tk - 1) // nk * nk, (q.shape[1] - 1) // nq * nq
+        fdq = fa.flash_attention_dq_reference(
+            q, k[:, :ks], v[:, :ks], do, lse, delta, causal=False).float()
+        cdk, cdv = fa.flash_attention_dkv_reference(
+            q[:, qs:], k, v, do[:, qs:], lse[..., qs:].contiguous(),
+            delta[..., qs:].contiguous(), causal=False)
+    else:
+        tail = (q[:, -nq:], k, v, do[:, -nq:], lse[..., -nq:].contiguous(),
+                delta[..., -nq:].contiguous())
+        # the last query tile sees every key before the last key tile
+        # (nq <= nk): unmasked
+        head = (tail[0], k[:, :tk - nk], v[:, :tk - nk], *tail[3:])
+        fdq = rdq.float().clone()
+        fdq[:, -nq:] = fa.flash_attention_dq_reference(
+            *head, causal=False).float()
+        cdk, cdv = fa.flash_attention_dkv_reference(*tail, **kw)
     faults = {"dq": (fdq, rdq), "dk": (rdk.float() - cdk.float(), rdk),
               "dv": (rdv.float() - cdv.float(), rdv)}
     return {g: {"excess": grad_check(torch, f, r, bits)["excess"],
@@ -1012,7 +1059,6 @@ def attention_kernel_phase(torch, bw, peaks, flush):
     # the module (the ops package exports a function of the same name)
     fa = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_attention")
 
-    dev = torch.device("cuda")
     variants = {  # name: (Tq, Tk, H, Hkv, D, dtype, causal, window, sinks,
                   #        g_lse)
         "main": (T_TRAIN, T_TRAIN, H, H, D, "bf16", True, None, 0, False),
@@ -1030,126 +1076,152 @@ def attention_kernel_phase(torch, bw, peaks, flush):
     }
     g = torch.Generator().manual_seed(6)
     main = None
-    for name, (tq, tk, h, hkv, d, bits, causal, window, sinks,
-               with_lse) in variants.items():
-        dt = torch.float32 if bits == "f32" else torch.bfloat16
+    for name, spec in variants.items():
+        rows = attention_variant(torch, fa, bw, peaks, flush,
+                                 "attention_kernel", name, spec, g)
+        if name == "main":
+            main = rows
+    return main
+
+
+def attention_variant(torch, fa, bw, peaks, flush, phase, name, spec, g,
+                      batch=B, strided=False):
+    """One variant of B1, B2 and B3 against their plain versions at
+    ``batch`` rows: errors, the element-wise gradient check (with the
+    dropped-tile control where Tq = Tk and there is no window), times,
+    bound and the fastest SDPA backend; emits the row, raises if a
+    limit is broken, and returns the three kernels' rows.  ``strided``
+    makes q, k and v views of one ``[batch, T, 3, H, D]`` tensor (a
+    ViT's QKV projection), which the kernels must read in place."""
+    (tq, tk, h, hkv, d, bits, causal, window, sinks, with_lse) = spec
+    B = batch  # noqa: N806 — the rows of this variant
+    dt = torch.float32 if bits == "f32" else torch.bfloat16
+    dev = torch.device("cuda")
+    if strided:
+        qkv = torch.randn(B, tq, 3, h, d, generator=g).to(dt).to(dev)
+        q, k, v = qkv.unbind(2)
+        do = torch.randn(B, tq, h, d, generator=g).to(dt).to(dev)
+        in_place = all(fa._kernel_view(x) is x for x in (q, k, v))
+    else:
         q, do = (torch.randn(B, tq, h, d, generator=g).to(dt).to(dev)
                  for _ in range(2))
         k, v = (torch.randn(B, tk, hkv, d, generator=g).to(dt).to(dev)
                 for _ in range(2))
-        kw = dict(causal=causal, window=window, sinks=sinks)
-        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-        ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
-        delta = (do.float() * ref_out.float()).sum(-1).permute(0, 2, 1)
-        if with_lse:  # the LSE cotangent folds into delta
-            delta = delta - torch.randn(B, h, tq, generator=g).to(dev)
-        delta = delta.contiguous()
-        bargs = (q, k, v, do, ref_lse, delta)
-        dq = fa.flash_attention_dq(*bargs, **kw)
-        dk, dv = fa.flash_attention_dkv(*bargs, **kw)
-        rdq = fa.flash_attention_dq_reference(*bargs, **kw)
-        rdk, rdv = fa.flash_attention_dkv_reference(*bargs, **kw)
-        torch.cuda.synchronize()
-        allow = live_pairs(torch, tq, tk, causal, window, sinks)
-        live_rows = ref_lse > -1e29
-        pairs = int(allow.sum()) * B * h
-        es = q.element_size()
-        row_io = B * h * tq * 4  # one f32 [B, H, Tq] row-stat array
-        qo_bytes, kv_bytes = B * tq * h * d * es, B * tk * hkv * d * es
-        work = {  # kernel: (flops, bytes) of the least work
-            "fwd": (4 * pairs * d, 2 * qo_bytes + 2 * kv_bytes + row_io),
-            "dq": (6 * pairs * d, 3 * qo_bytes + 2 * kv_bytes + 2 * row_io),
-            "dkv": (8 * pairs * d, 2 * qo_bytes + 4 * kv_bytes + 2 * row_io),
-        }
-        errs = {
-            "o": (out.float() - ref_out.float()).abs().max().item(),
-            "lse": (lse - ref_lse)[live_rows].abs().max().item(),
-        }
-        tols = {"o": 1e-5 if bits == "f32" else 2e-2, "lse": 1e-4}
-        grads = {"dq": (dq, rdq), "dk": (dk, rdk), "dv": (dv, rdv)}
-        for gname, (got, ref) in grads.items():
-            errs[gname] = (got.float() - ref.float()).abs().max().item()
-            tols[gname] = GRAD_TOL[bits]
-        grad_stats = {gname: grad_check(torch, got, ref, bits)
-                      for gname, (got, ref) in grads.items()}
-        tiled = causal and tq == tk and window is None
-        if tiled:  # the check must see a dropped last tile
-            grad_stats["dropped_last_tile"] = dropped_tile_check(
-                torch, fa, bargs, kw, rdq, rdk, rdv, bits)
-        finite = all(bool(torch.isfinite(x.float()).all())
-                     for x in (out, dq, dk, dv))
-        same_dead = bool(((lse > -1e29) == live_rows).all())
-        lib_fwd = lib_bwd = None
-        sdpa_ms = {}
-        if not with_lse:  # SDPA gives no LSE output to take a cotangent
-            for backend, (fwd, bwd) in sdpa_train(
-                    torch, q, k, v, do, allow,
-                    causal and window is None and tq == tk).items():
-                sdpa_ms[backend] = {"fwd": time_stats(torch, fwd, flush),
-                                    "bwd": time_stats(torch, bwd, flush)}
-            # the yardstick is the fastest backend, named in the row
-            lib_fwd = min(sdpa_ms.items(), key=lambda kv: kv[1]["fwd"]["mean"])
-            lib_bwd = min(sdpa_ms.items(), key=lambda kv: kv[1]["bwd"]["mean"])
-            lib_fwd, lib_bwd = ((lib_fwd[0], lib_fwd[1]["fwd"]),
-                                (lib_bwd[0], lib_bwd[1]["bwd"]))
-        rows = {}
-        calls = {
-            "fwd": (lambda: fa.flash_attention_fwd(q, k, v, **kw),
-                    lambda: fa.flash_attention_fwd_reference(q, k, v, **kw)),
-            "dq": (lambda: fa.flash_attention_dq(*bargs, **kw),
-                   lambda: fa.flash_attention_dq_reference(*bargs, **kw)),
-            "dkv": (lambda: fa.flash_attention_dkv(*bargs, **kw),
-                    lambda: fa.flash_attention_dkv_reference(*bargs, **kw)),
-        }
-        for kname, (kern, plain) in calls.items():
-            flops, nbytes = work[kname]
-            t_ops = flops / peaks[bits] * 1e3
-            t_bytes = nbytes / bw * 1e3
-            kt = time_stats(torch, kern, flush)
-            lib = (lib_fwd if kname == "fwd" else lib_bwd) or (None, None)
-            lib = lib[1]
-            rows[kname] = {
-                "design": ("tensor cores, mma.sync" if bits == "bf16"
-                           else "SIMT f32"),
-                "ms": kt["mean"], "ms_median": kt["median"],
-                "ms_spread": [kt["min"], kt["max"]],
-                "plain_ms": time_ms(torch, plain, flush, iters=3),
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": lib and lib["mean"],
-                "library_ms_median": lib and lib["median"],
-                "library_ms_spread": lib and [lib["min"], lib["max"]],
-                "flops": flops, "bytes": nbytes}
-        max_err = {"fwd": errs["o"], "dq": errs["dq"],
-                   "dkv": max(errs["dk"], errs["dv"])}
-        for kname in rows:
-            rows[kname]["max_abs_err"] = max_err[kname]
-        row = {"phase": "attention_kernel", "variant": name,
-               "shape": [B, tq, tk, h, hkv, d], "dtype": bits,
-               "causal": causal, "window": window, "sinks": sinks,
-               "lse_cotangent": with_lse, "live_pairs_per_head":
-               int(allow.sum()), "errors": errs, "tolerances": tols,
-               "grad_check": grad_stats, "finite": finite,
-               "library": f"scaled_dot_product_attention forward "
-               f"({lib_fwd[0]}, B1) / backward ({lib_bwd[0]}, B2 + B3)"
-               if sdpa_ms else None,
-               "sdpa_ms": {b: {k: t["mean"] for k, t in ts.items()}
-                           for b, ts in sdpa_ms.items()},
-               "kernels": rows}
-        emit(row)
-        bad = [k for k in ("o", "lse") if not errs[k] <= tols[k]]
-        bad += [k for k in grads if not grad_stats[k]["excess"] <= 1.0]
-        if tiled:
-            bad += [f"dropped {k} passed" for k, r in
-                    grad_stats["dropped_last_tile"].items()
-                    if not r["excess"] > 1.0]
-        if bad or not finite or not same_dead:
-            raise RuntimeError(f"attention_kernel {name}: {bad} out of "
-                               f"tolerance, finite={finite}, dead rows "
-                               f"agree={same_dead}")
-        if name == "main":
-            main = rows
-    return main
+        in_place = None
+    kw = dict(causal=causal, window=window, sinks=sinks)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (do.float() * ref_out.float()).sum(-1).permute(0, 2, 1)
+    if with_lse:  # the LSE cotangent folds into delta
+        delta = delta - torch.randn(B, h, tq, generator=g).to(dev)
+    delta = delta.contiguous()
+    bargs = (q, k, v, do, ref_lse, delta)
+    dq = fa.flash_attention_dq(*bargs, **kw)
+    dk, dv = fa.flash_attention_dkv(*bargs, **kw)
+    rdq = fa.flash_attention_dq_reference(*bargs, **kw)
+    rdk, rdv = fa.flash_attention_dkv_reference(*bargs, **kw)
+    torch.cuda.synchronize()
+    allow = live_pairs(torch, tq, tk, causal, window, sinks)
+    live_rows = ref_lse > -1e29
+    pairs = int(allow.sum()) * B * h
+    es = q.element_size()
+    row_io = B * h * tq * 4  # one f32 [B, H, Tq] row-stat array
+    qo_bytes, kv_bytes = B * tq * h * d * es, B * tk * hkv * d * es
+    work = {  # kernel: (flops, bytes) of the least work
+        "fwd": (4 * pairs * d, 2 * qo_bytes + 2 * kv_bytes + row_io),
+        "dq": (6 * pairs * d, 3 * qo_bytes + 2 * kv_bytes + 2 * row_io),
+        "dkv": (8 * pairs * d, 2 * qo_bytes + 4 * kv_bytes + 2 * row_io),
+    }
+    errs = {
+        "o": (out.float() - ref_out.float()).abs().max().item(),
+        "lse": (lse - ref_lse)[live_rows].abs().max().item(),
+    }
+    tols = {"o": 1e-5 if bits == "f32" else 2e-2, "lse": 1e-4}
+    grads = {"dq": (dq, rdq), "dk": (dk, rdk), "dv": (dv, rdv)}
+    for gname, (got, ref) in grads.items():
+        errs[gname] = (got.float() - ref.float()).abs().max().item()
+        tols[gname] = GRAD_TOL[bits]
+    grad_stats = {gname: grad_check(torch, got, ref, bits)
+                  for gname, (got, ref) in grads.items()}
+    tiled = tq == tk and window is None
+    if tiled:  # the check must see a dropped last tile
+        grad_stats["dropped_last_tile"] = dropped_tile_check(
+            torch, fa, bargs, kw, rdq, rdk, rdv, bits)
+    finite = all(bool(torch.isfinite(x.float()).all())
+                 for x in (out, dq, dk, dv))
+    same_dead = bool(((lse > -1e29) == live_rows).all())
+    lib_fwd = lib_bwd = None
+    sdpa_ms = {}
+    if not with_lse:  # SDPA gives no LSE output to take a cotangent
+        for backend, (fwd, bwd) in sdpa_train(
+                torch, q, k, v, do, allow,
+                causal and window is None and tq == tk).items():
+            sdpa_ms[backend] = {"fwd": time_stats(torch, fwd, flush),
+                                "bwd": time_stats(torch, bwd, flush)}
+        # the yardstick is the fastest backend, named in the row
+        lib_fwd = min(sdpa_ms.items(), key=lambda kv: kv[1]["fwd"]["mean"])
+        lib_bwd = min(sdpa_ms.items(), key=lambda kv: kv[1]["bwd"]["mean"])
+        lib_fwd, lib_bwd = ((lib_fwd[0], lib_fwd[1]["fwd"]),
+                            (lib_bwd[0], lib_bwd[1]["bwd"]))
+    rows = {}
+    calls = {
+        "fwd": (lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                lambda: fa.flash_attention_fwd_reference(q, k, v, **kw)),
+        "dq": (lambda: fa.flash_attention_dq(*bargs, **kw),
+               lambda: fa.flash_attention_dq_reference(*bargs, **kw)),
+        "dkv": (lambda: fa.flash_attention_dkv(*bargs, **kw),
+                lambda: fa.flash_attention_dkv_reference(*bargs, **kw)),
+    }
+    for kname, (kern, plain) in calls.items():
+        flops, nbytes = work[kname]
+        t_ops = flops / peaks[bits] * 1e3
+        t_bytes = nbytes / bw * 1e3
+        kt = time_stats(torch, kern, flush)
+        lib = (lib_fwd if kname == "fwd" else lib_bwd) or (None, None)
+        lib = lib[1]
+        rows[kname] = {
+            "design": ("tensor cores, mma.sync" if bits == "bf16"
+                       else "SIMT f32"),
+            "ms": kt["mean"], "ms_median": kt["median"],
+            "ms_spread": [kt["min"], kt["max"]],
+            "plain_ms": time_ms(torch, plain, flush, iters=3),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib and lib["mean"],
+            "library_ms_median": lib and lib["median"],
+            "library_ms_spread": lib and [lib["min"], lib["max"]],
+            "flops": flops, "bytes": nbytes}
+    max_err = {"fwd": errs["o"], "dq": errs["dq"],
+               "dkv": max(errs["dk"], errs["dv"])}
+    for kname in rows:
+        rows[kname]["max_abs_err"] = max_err[kname]
+    row = {"phase": phase, "variant": name,
+           "shape": [B, tq, tk, h, hkv, d], "dtype": bits,
+           "strided_qkv_read_in_place": in_place,
+           "causal": causal, "window": window, "sinks": sinks,
+           "lse_cotangent": with_lse, "live_pairs_per_head":
+           int(allow.sum()), "errors": errs, "tolerances": tols,
+           "grad_check": grad_stats, "finite": finite,
+           "library": f"scaled_dot_product_attention forward "
+           f"({lib_fwd[0]}, B1) / backward ({lib_bwd[0]}, B2 + B3)"
+           if sdpa_ms else None,
+           "sdpa_ms": {b: {k: t["mean"] for k, t in ts.items()}
+                       for b, ts in sdpa_ms.items()},
+           "kernels": rows}
+    emit(row)
+    bad = [k for k in ("o", "lse") if not errs[k] <= tols[k]]
+    bad += [k for k in grads if not grad_stats[k]["excess"] <= 1.0]
+    if tiled:
+        bad += [f"dropped {k} passed" for k, r in
+                grad_stats["dropped_last_tile"].items()
+                if not r["excess"] > 1.0]
+    if strided and not in_place:
+        bad.append("strided q/k/v copied")
+    if bad or not finite or not same_dead:
+        raise RuntimeError(f"{phase} {name}: {bad} out of "
+                           f"tolerance, finite={finite}, dead rows "
+                           f"agree={same_dead}")
+    return rows
 
 
 def train_phase(torch):
@@ -1848,10 +1920,17 @@ def is_bn_kernel(name: str) -> bool:
     return "batch_norm" in low or low.startswith("bn_") or "_bn_" in low
 
 
-def profile_vision_step(torch, step, state, batch, steps=3):
-    """Where a ResNet-50 step's time goes: host wall per step, device busy
-    and idle share under the profiler, kernels a step, the largest device
-    ops, and BatchNorm's device time by kernel name."""
+def is_flash_kernel(name: str) -> bool:
+    """One of B1-B3 (``flash_fwd*``, ``flash_bwd_dq*``,
+    ``flash_bwd_dkv*``; the profiler gives the demangled signature)."""
+    return "flash_fwd" in name or "flash_bwd" in name
+
+
+def profile_vision_step(torch, step, state, batch, steps=3, share=None):
+    """Where an image model's step time goes: host wall per step, device
+    busy and idle share under the profiler, kernels a step, the largest
+    device ops, and the device time and share of the kernels ``share``
+    picks by name (``{label: predicate}``; default BatchNorm's)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1876,14 +1955,18 @@ def profile_vision_step(torch, step, state, batch, steps=3):
         return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": None,
                 "device_idle_share": None}
     busy_ms = sum(dev.values()) / steps / 1e3
-    bn_ms = sum(us for k, us in dev.items() if is_bn_kernel(k)) / steps / 1e3
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:12]
-    return {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
-            "device_idle_share": 1 - busy_ms / wall_ms,
-            "device_kernels_per_step": count / steps,
-            "bn_kernel_ms_per_step": bn_ms, "bn_kernel_share": bn_ms / busy_ms,
-            "top_device_ms_per_step": [[k[:80], v / steps / 1e3]
-                                       for k, v in top]}
+    out = {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms,
+           "device_kernels_per_step": count / steps}
+    for label, pick in (share if share is not None
+                        else {"bn": is_bn_kernel}).items():
+        ms = sum(us for k, us in dev.items() if pick(k)) / steps / 1e3
+        out[f"{label}_kernel_ms_per_step"] = ms
+        out[f"{label}_kernel_share"] = ms / busy_ms
+    out["top_device_ms_per_step"] = [[k[:80], v / steps / 1e3]
+                                     for k, v in top]
+    return out
 
 
 def vision_train_step_phase(torch, peaks, card):
@@ -2349,6 +2432,342 @@ def device_loop_phase(torch, peaks, card):
     torch.cuda.empty_cache()
 
 
+def vit_kernel_phase(torch, bw, peaks, flush):
+    """B1, B2 and B3 at ViT-L/16's attention (batch 128, 196 tokens, 16
+    heads of 64, non-causal, q/k/v strided views of one QKV projection):
+    bf16, the class token's 197 tokens, and f32; each against its plain
+    version with the dropped-tile control.  Returns the bf16 rows."""
+    import importlib
+
+    fa = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_attention")
+    variants = {
+        "vit_l16": (VIT_T, VIT_T, VIT_HEADS, VIT_HEADS, D, "bf16", False,
+                    None, 0, False),
+        "class_token": (VIT_T + 1, VIT_T + 1, VIT_HEADS, VIT_HEADS, D,
+                        "bf16", False, None, 0, False),
+        "f32": (VIT_T, VIT_T, VIT_HEADS, VIT_HEADS, D, "f32", False, None, 0,
+                False),
+    }
+    g = torch.Generator().manual_seed(16)
+    rows = {name: attention_variant(torch, fa, bw, peaks, flush, "vit_kernel",
+                                    name, spec, g, batch=VIT_B, strided=True)
+            for name, spec in variants.items()}
+    return rows["vit_l16"]
+
+
+def vit_audit(torch, fa, step, state, batch):
+    """The bf16 B2/B3 rounding audit on every layer's attention backward
+    of one train step (the third, as in training): counts by kernel."""
+    for _ in range(2):
+        state, _ = step(state, batch)
+    layers, backward = [], fa._backward
+
+    def audited(q, k, v, o, lse, g, g_lse, cfg):
+        delta = (g.float() * o.float()).sum(-1).permute(0, 2, 1)
+        layers.append(fa.rounding_audit(
+            q, k, v, g, lse, delta.contiguous(),
+            **{n: cfg[n] for n in ("causal", "window", "sinks")}))
+        return backward(q, k, v, o, lse, g, g_lse, cfg)
+
+    fa._backward = audited
+    try:
+        state, _ = step(state, batch)
+    finally:
+        fa._backward = backward
+    torch.cuda.synchronize()
+    total = {k: {c: sum(r[k][c] for r in layers) for c in fa.AUDIT_COUNTS}
+             for k in ("dq", "dkv")}
+    return layers, total
+
+
+def device_ms(torch, fn, calls=10):
+    """Device ms a call of ``fn``: the profiler's sum of the CUDA
+    kernels' time over ``calls`` calls (after one warm-up), so host time
+    between launches is not counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(r, "self_device_time_total",
+                     getattr(r, "self_cuda_time_total", 0.0))
+             for r in prof.key_averages()
+             if r.device_type == torch.autograd.DeviceType.CUDA)
+    return us / calls / 1e3
+
+
+def layernorm_cost(torch, card, depth):
+    """The flax LayerNorm (:class:`models.LayerNorm`, the formula in f32)
+    forward and backward on one ViT-L/16 activation ([128, 196, 1024]
+    bf16): device ms a call (:func:`device_ms`) and per step (2 a block
+    and the final one), beside ``F.layer_norm`` (two-pass variance, eps
+    1e-6) on the same input as the library's yardstick."""
+    import torch.nn.functional as F
+
+    from fluxdistributed_tpu_torch.models import LayerNorm
+
+    ln = LayerNorm(1024).cuda()
+    x = torch.randn(VIT_B, VIT_T, 1024, device="cuda").bfloat16()
+    x.requires_grad_(True)
+    g = torch.randn_like(x)
+
+    def port():
+        torch.autograd.grad(ln(x, torch.bfloat16), x, g)
+
+    def library():
+        y = F.layer_norm(x, (1024,), ln.weight.bfloat16(),
+                         ln.bias.bfloat16(), 1e-6)
+        torch.autograd.grad(y, x, g)
+
+    n = 2 * depth + 1
+    t, tl = device_ms(torch, port), device_ms(torch, library)
+    emit({"phase": "layernorm_cost", "card": card, "shape": [VIT_B, VIT_T,
+                                                              1024],
+          "dtype": "bfloat16", "timing": "profiler device time",
+          "fwd_bwd_ms": t, "library_fwd_bwd_ms": tl, "per_step": n,
+          "ms_per_step": n * t, "library_ms_per_step": n * tl})
+
+
+def vit_train_step_phase(torch, peaks, card):
+    """ViT-L/16 (224², 1000 classes, batch 128, bf16 compute and f32
+    params, adamw at the JAX defaults) through B1-B3: K = 4 graphs
+    bit-equal to eager steps (batch 32), launches a step and a replay,
+    step ms at K = 1 and K = 8, images/s, MFU, peak bytes, a profile
+    with B1-B3's share, the rounding audit over the step's 24 layers,
+    the LayerNorm's cost; then f32 ViT-B/16 logits on the card against
+    the CPU.  Returns B1-B3's launches in one step."""
+    import importlib
+    from functools import partial
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import vit_b16, vit_l16
+    from fluxdistributed_tpu_torch.ops import flash_attention
+    from fluxdistributed_tpu_torch.ops.losses import logitcrossentropy
+    from fluxdistributed_tpu_torch.parallel import (
+        TrainState, make_train_step, module_loss_fn)
+
+    fa = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_attention")
+    flash = partial(flash_attention, causal=False)
+    reset_all_counts()
+    model = vit_l16(num_classes=1000, attn_fn=flash, seed=0)
+    params = dict(model.named_parameters())
+    flops = 3 * 2 * model.forward_macs(VISION_SIZE)
+    opt = optim.adamw()
+    loss_fn = module_loss_fn(model, logitcrossentropy)
+    batches = [image_batch(torch, VIT_B, VISION_SIZE, 1000, torch.bfloat16,
+                           "cuda", 20 + s) for s in range(2 * DL_K)]
+
+    def make_state():
+        return TrainState.create({k: p.detach().clone()
+                                  for k, p in params.items()}, opt)
+
+    def make_step(k):
+        return make_train_step(loss_fn, opt, seed=0, steps_per_call=k)
+
+    def rate(ms):
+        img_s = VIT_B / (ms / 1e3)
+        return {"images_per_s": img_s, "mfu": flops * img_s / peaks["bf16"]}
+
+    # K = 4 graphs against eager steps first, while the card's memory is
+    # unfragmented, at batch 32 (five copies of the adamw state live)
+    graph_equality_run(torch, "vit_l16_one_device_batch32", card,
+                       make_state, make_step,
+                       [{k: v[:32] for k, v in bt.items()} for bt in batches],
+                       model.depth)
+    torch.cuda.empty_cache()
+    step, state = make_step(1), make_state()
+    before = all_counts()
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    per_step = [a - b for a, b in zip(all_counts(), before)]
+    prof = profile_vision_step(torch, step, state, batches[0],
+                               share={"b1_b3": is_flash_kernel})
+    del state, step, m
+    torch.cuda.empty_cache()
+    rows = [time_device_loop(torch, "vit_l16_one_device", card, k,
+                             make_state, make_step, batches[0], rate)
+            for k in (1, DL_KT)]
+    torch.cuda.empty_cache()
+    layers, total = vit_audit(torch, fa, make_step(1), make_state(),
+                              batches[0])
+    torch.cuda.empty_cache()
+    layernorm_cost(torch, card, model.depth)
+    emit({"phase": "vit_train_step", "card": card, "model": "vit_l16",
+          "image": VISION_SIZE, "tokens": model.tokens(VISION_SIZE),
+          "classes": 1000, "batch": VIT_B, "dtype": "bfloat16",
+          "params_dtype": "float32", "opt": "adamw (1e-3, wd 1e-2)",
+          "attn": "flash_attention, causal=False (B1-B3)",
+          "params": sum(p.numel() for p in params.values()),
+          "forward_macs_per_image": flops // 6,
+          "b4_b5_b1_b2_b3_b6_launches_one_step": per_step,
+          "k1": {k: rows[0][k] for k in ("step_ms", "images_per_s", "mfu",
+                                         "peak_allocated_bytes",
+                                         "device_idle_share")},
+          "k8": {k: rows[1][k] for k in ("step_ms", "images_per_s", "mfu",
+                                         "peak_allocated_bytes",
+                                         "device_idle_share",
+                                         "launches_per_replay")},
+          "profile_k1": prof})
+    emit({"phase": "vit_rounding_audit", "card": card, "model": "vit_l16",
+          "batch": VIT_B, "layers": len(layers), "counts": list(
+              fa.AUDIT_COUNTS), "total": total, "per_layer": layers})
+    want = [0, 0] + [model.depth] * 3 + [0]
+    replay = rows[1]["launches_per_replay"]
+    if per_step != want:
+        raise RuntimeError(f"vit_train_step: one step launched B4, B5, "
+                           f"B1-B3, B6 {per_step} times, want {want}")
+    if replay != {n: model.depth * DL_KT for n in (
+            "flash_attention_fwd", "flash_attention_dq",
+            "flash_attention_dkv")}:
+        raise RuntimeError(f"vit_train_step: a K={DL_KT} replay launched "
+                           f"{replay}")
+    if len(layers) != model.depth or any(
+            t["unflagged_differ"] for t in total.values()):
+        raise RuntimeError(f"vit_rounding_audit: {len(layers)} layers, "
+                           f"totals {total}")
+    del model, params, batches
+    torch.cuda.empty_cache()
+
+    # f32 card against CPU (TF32 off): the kernels against the plain
+    # versions through the whole model
+    x = image_batch(torch, 8, 64, 10, torch.float32, "cpu", 5)["image"]
+    logits, launched = {}, {}
+    for where in ("cuda", "cpu"):
+        before = attn_counts()
+        m = vit_b16(num_classes=10, image_size=64, dtype=torch.float32,
+                    attn_fn=flash, device=where, seed=1)
+        with torch.no_grad():
+            logits[where] = m(x.to(where)).cpu()
+        launched[where] = [a - b for a, b in zip(attn_counts(), before)]
+        del m
+    rel = ((logits["cuda"] - logits["cpu"]).abs().max()
+           / logits["cpu"].abs().max()).item()
+    emit({"phase": "vit_parity", "model": "vit_b16", "dtype": "float32",
+          "tf32": False, "image": 64, "tokens": 16, "batch": 8,
+          "logits_max_err_over_max": rel, "tol": 1e-4,
+          "b1_b3_launches": launched})
+    if not rel <= 1e-4 or launched != {"cuda": [12, 0, 0],
+                                       "cpu": [0, 0, 0]}:
+        raise RuntimeError(f"vit_parity: {rel} over the largest logit, "
+                           f"launches {launched}")
+    return per_step[2:5]
+
+
+def convnext_train_step_phase(torch, peaks, card):
+    """ConvNeXt-XL (224², 1000 classes, bf16 compute and f32 params, lars
+    0.1, drop path 0.1): K = 4 graphs bit-equal to eager steps (batch
+    32); at batch 128, or the largest power of two below that fits,
+    step ms at K = 1 and K = 8, images/s, MFU, peak bytes and a profile;
+    B1-B6 never launch."""
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import convnext_xlarge
+    from fluxdistributed_tpu_torch.ops.losses import logitcrossentropy
+    from fluxdistributed_tpu_torch.parallel import (
+        TrainState, make_train_step, module_loss_fn)
+
+    reset_all_counts()
+    model = convnext_xlarge(num_classes=1000, drop_path_rate=0.1, seed=0)
+    params = dict(model.named_parameters())
+    flops = 3 * 2 * model.forward_macs(VISION_SIZE)
+    opt = optim.lars(0.1)
+    loss_fn = module_loss_fn(model, logitcrossentropy)
+
+    def make_state():
+        return TrainState.create({k: p.detach().clone()
+                                  for k, p in params.items()}, opt)
+
+    def make_step(k):
+        return make_train_step(loss_fn, opt, seed=0, steps_per_call=k)
+
+    graph_equality_run(torch, "convnext_xlarge_one_device_batch32", card,
+                       make_state, make_step,
+                       [image_batch(torch, 32, VISION_SIZE, 1000,
+                                    torch.bfloat16, "cuda", 30 + s)
+                        for s in range(2 * DL_K)], 0)
+    torch.cuda.empty_cache()
+    batch = VIT_B
+    while True:
+        try:
+            batches = [image_batch(torch, batch, VISION_SIZE, 1000,
+                                   torch.bfloat16, "cuda", 30)]
+
+            def rate(ms):
+                img_s = batch / (ms / 1e3)
+                return {"images_per_s": img_s,
+                        "mfu": flops * img_s / peaks["bf16"]}
+
+            rows = [time_device_loop(torch, "convnext_xlarge_one_device",
+                                     card, k, make_state, make_step,
+                                     batches[0], rate)
+                    for k in (1, DL_KT)]
+            break
+        except (torch.cuda.OutOfMemoryError, RuntimeError) as e:
+            # a capture that runs out raises RuntimeError from the OOM
+            if "out of memory" not in str(e):
+                raise
+            batches = None
+            torch.cuda.empty_cache()
+            if batch <= 16:
+                raise
+            batch //= 2
+    step, state = make_step(1), make_state()
+    state, _ = step(state, batches[0])
+    prof = profile_vision_step(torch, step, state, batches[0], share={})
+    counts = all_counts()
+    emit({"phase": "convnext_train_step", "card": card,
+          "model": "convnext_xlarge", "image": VISION_SIZE,
+          "classes": 1000, "batch": batch, "batch_wanted": VIT_B,
+          "dtype": "bfloat16", "params_dtype": "float32",
+          "opt": "lars 0.1", "drop_path_rate": 0.1,
+          "params": sum(p.numel() for p in params.values()),
+          "forward_macs_per_image": flops // 6,
+          "k1": {k: rows[0][k] for k in ("step_ms", "images_per_s", "mfu",
+                                         "peak_allocated_bytes",
+                                         "device_idle_share")},
+          "k8": {k: rows[1][k] for k in ("step_ms", "images_per_s", "mfu",
+                                         "peak_allocated_bytes",
+                                         "device_idle_share",
+                                         "launches_per_replay")},
+          "profile_k1": prof, "b1_b6_launches": counts})
+    if counts != [0] * 6:
+        raise RuntimeError(f"convnext_train_step: B1-B6 launched {counts}")
+    del model, params, state, step, batches
+    torch.cuda.empty_cache()
+
+
+def vit_cli_phase(torch):
+    """``python -m fluxdistributed_tpu_torch.train --model vit_b16
+    --dataset synthetic ...`` in-process (the CLI's ViT is dense, as in
+    JAX): the loss falls, eval top-1/top-5 on two fresh batches."""
+    from fluxdistributed_tpu_torch.train import evaluate
+    from fluxdistributed_tpu_torch.train.__main__ import run
+
+    reset_all_counts()
+    t0 = time.perf_counter()
+    task = run(VIT_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = task.losses
+    ev = evaluate(task, task.loader.dataset, batch_size=64, max_batches=2,
+                  topk=(1, 5))
+    counts = all_counts()
+    first, last5 = losses[0], sum(losses[-5:]) / 5
+    emit({"phase": "vit_cli", "argv": VIT_ARGV, "steps": len(losses),
+          "wall_s": wall, "losses": losses, "loss_first": first,
+          "loss_last5_mean": last5, "eval": ev, "b1_b6_launches": counts})
+    if len(losses) != 20 or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"vit_cli: {len(losses)} losses, not all finite")
+    if not last5 < first:
+        raise RuntimeError(f"vit_cli: loss {first:.3f} -> mean of the last "
+                           f"5 {last5:.3f}")
+    if counts != [0] * 6:
+        raise RuntimeError(f"vit_cli: B1-B6 launched {counts}")
+
+
 def main() -> int:
     import torch
 
@@ -2427,6 +2846,12 @@ def main() -> int:
     vision_train_step_phase(torch, peaks, card.splitlines()[0])
     vision_cli_phase(torch)
     device_loop_phase(torch, peaks, card.splitlines()[0])
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    vit_rows = vit_kernel_phase(torch, bw, peaks, flush)
+    del flush
+    vit_launches = vit_train_step_phase(torch, peaks, card.splitlines()[0])
+    convnext_train_step_phase(torch, peaks, card.splitlines()[0])
+    vit_cli_phase(torch)
 
     def kernel_entry(name, source, replaces, via, launches, row):
         entry = {"name": name, "route": "cuda", "source": source,
@@ -2439,15 +2864,27 @@ def main() -> int:
             entry["design"] = row["design"]
         return entry
 
+    def vit_entry(row, launches):
+        """The kernel on the ViT-L/16 path: launches in one train step,
+        its row at that step's attention shape (bf16, non-causal)."""
+        return {"shape": [VIT_B, VIT_T, VIT_T, VIT_HEADS, VIT_HEADS, D],
+                "launches_per_step": launches,
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}}
+
     emit({"kernels": [
         kernel_entry("flash_decode", KERNEL_SOURCE, KERNEL_REPLACES,
                      DENSE_VIA, dense_launches, dense_row),
         kernel_entry("flash_decode_paged", KERNEL_SOURCE, KERNEL_REPLACES,
                      PAGED_VIA, paged_launches, paged_row),
-        *(kernel_entry(name, ATTN_SOURCE, replaces, via, n, row)
-          for (name, replaces, via), n, row in zip(
+        *(dict(kernel_entry(name, ATTN_SOURCE, replaces, via, n, row),
+               vit=vit_entry(vrow, vn))
+          for (name, replaces, via), n, row, vrow, vn in zip(
               ATTN_KERNELS, attn_launches,
-              (attn_rows["fwd"], attn_rows["dq"], attn_rows["dkv"]))),
+              (attn_rows["fwd"], attn_rows["dq"], attn_rows["dkv"]),
+              (vit_rows["fwd"], vit_rows["dq"], vit_rows["dkv"]),
+              vit_launches)),
         kernel_entry("fused_adam", ADAM_SOURCE, ADAM_REPLACES, ADAM_VIA,
                      adam_launches, adam_row)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,10 +1,15 @@
 """The port's models: the decoder-only LM, its training loss and its
 decode caches; the ResNet family and the small image models, with the
-BatchNorm that returns its running stats."""
+BatchNorm that returns its running stats; the ViT and ConvNeXt
+families."""
 
-from .common import maybe_remat
-from .from_jax import (flax_to_state_dict, load_flax_params,
-                       load_flax_resnet, load_flax_simple)
+from .common import LayerNorm, maybe_remat
+from .convnext import (ConvNeXt, ConvNeXtBlock, convnext_base,
+                       convnext_large, convnext_small, convnext_test,
+                       convnext_tiny, convnext_xlarge)
+from .from_jax import (flax_to_state_dict, load_flax_convnext,
+                       load_flax_params, load_flax_resnet, load_flax_simple,
+                       load_flax_vit)
 from .norm import BatchNorm, BatchStats
 from .resnet import (BasicBlock, BottleneckBlock, ResNet, resnet18, resnet34,
                      resnet50, resnet101, resnet152, s2d_stem_kernel,
@@ -15,14 +20,21 @@ from .transformer_lm import (KV_QUANTS, VALID_UNGATED, DecodeCache,
                              generate, lm_loss_fn, lm_medium, lm_small,
                              lm_tiny, make_decode_cache, make_paged_cache,
                              next_token_loss, quantize_kv, rope)
+from .vit import (EncoderBlock, MlpBlock, MultiHeadAttention, ViT, vit_b16,
+                  vit_h14, vit_l16, vit_tiny)
 
 __all__ = [
     "KV_QUANTS", "MLP", "VALID_UNGATED", "BasicBlock", "BatchNorm",
-    "BatchStats", "BottleneckBlock", "DecodeCache", "PagedCache", "ResNet",
-    "SimpleCNN", "TransformerLM", "dequantize_kv", "flax_to_state_dict",
-    "generate", "lm_loss_fn", "lm_medium", "lm_small", "lm_tiny",
+    "BatchStats", "BottleneckBlock", "ConvNeXt", "ConvNeXtBlock",
+    "DecodeCache", "EncoderBlock", "LayerNorm", "MlpBlock",
+    "MultiHeadAttention", "PagedCache", "ResNet", "SimpleCNN",
+    "TransformerLM", "ViT", "convnext_base", "convnext_large",
+    "convnext_small", "convnext_test", "convnext_tiny", "convnext_xlarge",
+    "dequantize_kv", "flax_to_state_dict", "generate", "lm_loss_fn",
+    "lm_medium", "lm_small", "lm_tiny", "load_flax_convnext",
     "load_flax_params", "load_flax_resnet", "load_flax_simple",
-    "make_decode_cache", "make_paged_cache", "maybe_remat",
+    "load_flax_vit", "make_decode_cache", "make_paged_cache", "maybe_remat",
     "next_token_loss", "quantize_kv", "resnet18", "resnet34", "resnet50",
     "resnet101", "resnet152", "rope", "s2d_stem_kernel", "space_to_depth",
+    "vit_b16", "vit_h14", "vit_l16", "vit_tiny",
 ]

@@ -20,6 +20,17 @@ A flax kernel [in..., out...] becomes a torch ``Linear`` weight
 [out, in] after flattening.  Every port parameter must be filled and
 every flax leaf used; anything else raises.
 
+``load_flax_vit(model, params)`` fills a port :class:`.vit.ViT` (either
+token readout) and ``load_flax_convnext(model, params)`` a
+:class:`.convnext.ConvNeXt`, under torchvision's and the official
+ConvNeXt names: the ViT's ``qkv`` kernel [D, 3, H, Dh] becomes
+``in_proj_weight`` [3D, D] (rows q, k, v), its ``out`` kernel
+[H, Dh, D] ``out_proj.weight`` [D, D], ``cls_token`` / ``pos_embed``
+``class_token`` / ``encoder.pos_embedding``; the ConvNeXt's
+``layer_scale`` becomes ``gamma`` and the depthwise kernel [7, 7, 1, C]
+``[C, 1, 7, 7]``.  (The JAX package's ``import_torch_vit`` and
+``import_torch_convnext`` are the inverses.)
+
 ``load_flax_resnet(model, params, batch_stats)`` fills a port ResNet
 (and its BatchNorm running stats) from a flax ResNet's ``params`` and
 ``batch_stats`` trees; ``load_flax_simple`` a ``SimpleCNN`` or ``MLP``.
@@ -45,8 +56,8 @@ import torch
 
 from .transformer_lm import TransformerLM
 
-__all__ = ["flax_to_state_dict", "load_flax_params", "load_flax_resnet",
-           "load_flax_simple"]
+__all__ = ["flax_to_state_dict", "load_flax_convnext", "load_flax_params",
+           "load_flax_resnet", "load_flax_simple", "load_flax_vit"]
 
 
 def _dense(kernel, in_dims: int):
@@ -194,4 +205,65 @@ def load_flax_simple(model, params: dict):
             _linear(sd, "fc" if is_cnn else f"layers.{idx}", p)
         else:
             raise KeyError(f"unknown flax param {name}")
+    return _fill(model, sd)
+
+
+def _conv_bias(out: dict, prefix: str, p: dict) -> None:
+    out[prefix + ".weight"] = _conv(p["kernel"])
+    out[prefix + ".bias"] = np.asarray(p["bias"])
+
+
+def load_flax_vit(model, params: dict):
+    """Fill a port :class:`.vit.ViT` from a flax ViT's ``params`` (numpy
+    leaves), mean-pooled or with a class token.  Returns ``model``."""
+    sd: Dict[str, np.ndarray] = {}
+    rest = dict(params)
+    _conv_bias(sd, "conv_proj", rest.pop("patch_embed"))
+    if "cls_token" in rest:
+        sd["class_token"] = np.asarray(rest.pop("cls_token"))
+    sd["encoder.pos_embedding"] = np.asarray(rest.pop("pos_embed"))
+    _norm(sd, "encoder.ln", rest.pop("final_norm"))
+    _linear(sd, "heads.head", rest.pop("head"))
+    for i in range(model.depth):
+        bp, pre = rest.pop(f"block{i}"), f"encoder.layers.encoder_layer_{i}"
+        _norm(sd, pre + ".ln_1", bp["LayerNorm_0"])
+        _norm(sd, pre + ".ln_2", bp["LayerNorm_1"])
+        att, mlp = bp["MultiHeadAttention_0"], bp["MlpBlock_0"]
+        sd[pre + ".self_attention.in_proj_weight"] = _dense(
+            att["qkv"]["kernel"], 1)
+        sd[pre + ".self_attention.in_proj_bias"] = np.asarray(
+            att["qkv"]["bias"]).reshape(-1)
+        _linear(sd, pre + ".self_attention.out_proj", att["out"], in_dims=2)
+        _linear(sd, pre + ".mlp.0", mlp["Dense_0"])
+        _linear(sd, pre + ".mlp.3", mlp["Dense_1"])
+    if rest:
+        raise KeyError(f"unknown flax params {sorted(rest)}")
+    return _fill(model, sd)
+
+
+def load_flax_convnext(model, params: dict):
+    """Fill a port :class:`.convnext.ConvNeXt` from a flax ConvNeXt's
+    ``params`` (numpy leaves).  Returns ``model``."""
+    sd: Dict[str, np.ndarray] = {}
+    rest = dict(params)
+    _conv_bias(sd, "downsample_layers.0.0", rest.pop("stem"))
+    _norm(sd, "downsample_layers.0.1", rest.pop("stem_norm"))
+    for s in range(1, len(model.dims)):
+        dp = rest.pop(f"down{s}")
+        _norm(sd, f"downsample_layers.{s}.0", dp["norm"])
+        _conv_bias(sd, f"downsample_layers.{s}.1", dp["conv"])
+    k = 0
+    for s, depth in enumerate(model.depths):
+        for b in range(depth):
+            bp, pre = rest.pop(f"block{k}"), f"stages.{s}.{b}"
+            _conv_bias(sd, pre + ".dwconv", bp["dwconv"])
+            _norm(sd, pre + ".norm", bp["norm"])
+            _linear(sd, pre + ".pwconv1", bp["pwconv1"])
+            _linear(sd, pre + ".pwconv2", bp["pwconv2"])
+            sd[pre + ".gamma"] = np.asarray(bp["layer_scale"])
+            k += 1
+    _norm(sd, "norm", rest.pop("head_norm"))
+    _linear(sd, "head", rest.pop("head"))
+    if rest:
+        raise KeyError(f"unknown flax params {sorted(rest)}")
     return _fill(model, sd)

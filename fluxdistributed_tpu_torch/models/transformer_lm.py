@@ -63,7 +63,7 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import dot_product_attention, validate_window
 from ..ops.flash_decode import flash_decode, flash_decode_paged
-from .common import maybe_remat
+from .common import _dropout, dense, maybe_remat, site_keys
 
 __all__ = [
     "KV_QUANTS",
@@ -151,83 +151,17 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale.float()[..., None]).to(dtype)
 
 
-_HASH_MUL = 0x045D9F3B  # T. Mueller's 32-bit integer hash constant
-_M32 = 0xFFFFFFFF
 #: dropout sites of a block: the attention output, the MLP's hidden
 #: activation, the MLP output
 DROPOUT_SITES = 3
 
 
-def _hash32(x):
-    """A 32-bit integer hash (two multiply-xorshift rounds), the same
-    bits on a Python int in [0, 2^32) and on an int32 tensor, where it
-    computes in two's complement: shifts are masked to act as logical
-    shifts and products wrap."""
-    if isinstance(x, int):
-        for _ in range(2):
-            x = ((x ^ (x >> 16)) * _HASH_MUL) & _M32
-        return x ^ (x >> 16)
-    for _ in range(2):
-        x = torch.bitwise_xor(x, torch.bitwise_and(x >> 16, 0xFFFF))
-        x = x * _HASH_MUL
-    return torch.bitwise_xor(x, torch.bitwise_and(x >> 16, 0xFFFF))
-
-
-def _int32(x: int) -> int:
-    """The signed value of 32 bits (an int32 tensor's view of them)."""
-    return x - (1 << 32) if x >= 1 << 31 else x
-
-
 def dropout_keys(seed, depth: int):
     """The dropout keys of one forward: one per (layer, site), in
-    ``layer * DROPOUT_SITES + site`` order, hashed from the step seed
-    (a non-negative integer below 2^63).  An int seed gives Python ints
-    (no device work); a 0-d int64 tensor (the step table's seed column,
-    read inside a captured step) gives an int32 tensor on its device.
-    Either way the same 32 bits."""
-    n = depth * DROPOUT_SITES
-    if isinstance(seed, int):
-        base = _hash32(_hash32(seed & _M32) ^ (seed >> 32))
-        return [_int32(_hash32(base ^ _hash32(i + 1))) for i in range(n)]
-    s = seed.to(torch.int64)
-    lo = torch.bitwise_and(s, _M32).to(torch.int32)
-    hi = (s >> 32).to(torch.int32)
-    base = _hash32(torch.bitwise_xor(_hash32(lo), hi))
-    ids = torch.arange(1, n + 1, dtype=torch.int32, device=s.device)
-    return _hash32(torch.bitwise_xor(base, _hash32(ids)))
-
-
-def _dropout(x: torch.Tensor, rate: float, key) -> torch.Tensor:
-    """flax ``Dropout``: keep with probability ``1 - rate`` and scale the
-    kept values by ``1 / (1 - rate)``.  The mask is a counter-based hash
-    of (``key``, element index): it depends on the step seed, layer and
-    site (through ``key``, see :func:`dropout_keys`) and nothing else —
-    no generator state — so a recompute under ``torch.utils.checkpoint``
-    and a replay of a captured step draw the same mask, and the CPU
-    draws the card's.  An element is kept where its hash, read as a
-    signed 32-bit integer, is at least ``-2^31 + round(rate * 2^32)``."""
-    if not rate:
-        return x
-    if key is None:
-        raise ValueError("dropout > 0 in training needs a dropout seed (the "
-                         "rng of lm_loss_fn / make_train_step)")
-    if rate >= 1.0:
-        return torch.zeros_like(x)
-    if x.numel() >= 1 << 31:
-        raise ValueError(f"dropout indexes elements with int32: "
-                         f"{x.numel()} elements are too many")
-    idx = torch.arange(x.numel(), dtype=torch.int32,
-                       device=x.device).view(x.shape)
-    h = _hash32(torch.bitwise_xor(idx, key))
-    keep = h >= -(1 << 31) + min(round(rate * (1 << 32)), _M32)
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
-                                                            device=x.device))
-
-
-def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
-    """``x @ W^T + b`` in the compute dtype (flax ``Dense(dtype=...)``)."""
-    b = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), b)
+    ``layer * DROPOUT_SITES + site`` order (:func:`.common.site_keys`
+    of the step seed: an int gives Python ints, a 0-d int64 tensor an
+    int32 tensor on its device; the same 32 bits)."""
+    return site_keys(seed, depth * DROPOUT_SITES)
 
 
 class _Norm(nn.Module):
@@ -535,10 +469,10 @@ class CausalSelfAttention(nn.Module):
         b, t, _ = x.shape
         h, hkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
         if hkv != h:
-            q = _linear(self.q, x, dtype).view(b, t, h, hd)
-            kv = _linear(self.kv, x, dtype).view(b, t, 2, hkv, hd)
+            q = dense(self.q, x, dtype).view(b, t, h, hd)
+            kv = dense(self.kv, x, dtype).view(b, t, 2, hkv, hd)
             return q, kv[:, :, 0], kv[:, :, 1]
-        qkv = _linear(self.qkv, x, dtype).view(b, t, 3, h, hd)
+        qkv = dense(self.qkv, x, dtype).view(b, t, 3, h, hd)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
@@ -556,7 +490,7 @@ class CausalSelfAttention(nn.Module):
             out = attn(q, k, v)  # [B, T, H, Dh]
         else:
             out = self._decode(q, k, v, dtype, cache, layer, step)
-        return _linear(self.out, out.reshape(b, t, -1), dtype)
+        return dense(self.out, out.reshape(b, t, -1), dtype)
 
     def _decode(self, q, k, v, dtype, cache, layer: int, st):
         if self.use_rope:
@@ -647,11 +581,11 @@ class DecoderBlock(nn.Module):
         x = x + _dropout(y, rate, key(0))
         y = self.ln2(x, dtype)
         if self.mlp == "swiglu":
-            y = F.silu(_linear(self.gate, y, dtype)) * _linear(self.up, y, dtype)
-            y = _linear(self.down, _dropout(y, rate, key(1)), dtype)
+            y = F.silu(dense(self.gate, y, dtype)) * dense(self.up, y, dtype)
+            y = dense(self.down, _dropout(y, rate, key(1)), dtype)
         else:
-            y = F.gelu(_linear(self.fc1, y, dtype), approximate="tanh")
-            y = _linear(self.fc2, _dropout(y, rate, key(1)), dtype)
+            y = F.gelu(dense(self.fc1, y, dtype), approximate="tanh")
+            y = dense(self.fc2, _dropout(y, rate, key(1)), dtype)
         return x + _dropout(y, rate, key(2))
 
 
@@ -772,7 +706,7 @@ class TransformerLM(nn.Module):
         if self.head is None:
             logits = x @ self.embed.weight.to(dt).t()
         else:
-            logits = _linear(self.head, x, dt)
+            logits = dense(self.head, x, dt)
         return logits.float()
 
 

@@ -75,8 +75,9 @@ class TrainState:
 def module_loss_fn(model, loss: Callable, mesh: Optional[Mesh] = None
                    ) -> Callable:
     """An image model and a loss (e.g. ``ops.logitcrossentropy``) in the
-    framework signature ``fn(params, model_state, batch, train) ->
-    (loss, (model_state, logits))``: the JAX ``flax_loss_fn``.
+    framework signature ``fn(params, model_state, batch, train,
+    rng=None) -> (loss, (model_state, logits))``: the JAX
+    ``flax_loss_fn``.
 
     The batch is ``{"image": [B, H, W, C], "label": ...}``.  ``params``
     and ``model_state`` (the model's buffers by name: BatchNorm running
@@ -87,26 +88,33 @@ def module_loss_fn(model, loss: Callable, mesh: Optional[Mesh] = None
     ``mesh`` the BatchNorm statistics are those of the global batch,
     all-reduced over the mesh's ranks inside every BatchNorm layer (the
     JAX ``jit`` step's global-batch BatchNorm), even at one rank;
-    without one they are this rank's rows'."""
+    without one they are this rank's rows'.  ``rng`` is the step's
+    dropout seed (an int, or a 0-d int64 tensor: the step table's), the
+    JAX ``dropout`` stream: in train mode it reaches a model whose
+    forward takes a ``dropout_seed`` (ViT dropout, ConvNeXt drop path)."""
     from torch.func import functional_call
 
     from ..models.norm import BatchStats
 
     names = {m: n for n, m in model.named_modules()}
+    takes_seed = "dropout_seed" in inspect.signature(model.forward).parameters
 
-    def fn(params, model_state, batch, train: bool):
+    def fn(params, model_state, batch, train: bool, rng=None):
         x, y = batch["image"], batch["label"]
         tensors = {**params, **model_state}
+        kw = {"train": train}
+        if train and takes_seed and rng is not None:
+            kw["dropout_seed"] = rng
         if train and model_state:
             stats = BatchStats(mesh)
             out = functional_call(model, tensors, (x,),
-                                  {"train": True, "stats": stats})
+                                  {**kw, "stats": stats})
             new = dict(model_state)
             for m, (mean, var) in stats.new.items():
                 new[f"{names[m]}.running_mean"] = mean
                 new[f"{names[m]}.running_var"] = var
             return loss(out, y), (new, out)
-        out = functional_call(model, tensors, (x,), {"train": train})
+        out = functional_call(model, tensors, (x,), kw)
         return loss(out, y), (model_state, out)
 
     fn.global_model_state = mesh is not None

@@ -120,7 +120,8 @@ class Graph:
     kernel modules load).  The capture is thread-local, so the loader's
     threads keep staging batches meanwhile.  A capture that fails
     raises ``RuntimeError`` naming the op; nothing falls back to eager.
-    What the capture launched through a kernel wrapper is taken off its
+    The allocator's cached blocks are released before the capture,
+    whose private pool could not reuse them.  What the capture launched through a kernel wrapper is taken off its
     count and added to it at each replay, so the counts stay those of
     the kernels that ran."""
 
@@ -131,6 +132,11 @@ class Graph:
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
         torch.cuda.synchronize()
+        # the capture allocates from the graph's own pool, which cannot
+        # take the blocks the eager warm-up left cached: hand them back
+        # (a ConvNeXt-XL step at batch 128 otherwise runs out with 40 GB
+        # cached and free)
+        torch.cuda.empty_cache()
         err = out = None
         with torch.cuda.stream(stream):
             self.graph.capture_begin(capture_error_mode="thread_local")

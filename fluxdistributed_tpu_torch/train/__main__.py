@@ -9,8 +9,9 @@ synthetic ImageNet-sized images with momentum, is the default::
         --dataset synthetic --image-size 224 --batch-size 256 \\
         --opt momentum --lr 0.01 --cycles 30
 
-(``--dataset cifar:PATH`` reads the CIFAR-10 binaries; the eval cadence
-logs the top-1/5/10 accuracies), and an LM trains on token data::
+(the eval cadence logs the top-1/5/10 accuracies; ``--model
+vit_b16|vit_l16|...`` and ``convnext_*`` train the ViT and ConvNeXt
+families), and an LM trains on token data::
 
     python -m fluxdistributed_tpu_torch.train --model lm_small \\
         --dataset synthetic-text --vocab 256 --seqlen 1024 --batch-size 8 \\
@@ -29,10 +30,17 @@ the command runs under ``torchrun``::
 BatchNorm statistics are those of the global batch).  ``--steps-per-call
 K`` runs K optimizer steps a call (the JAX device loop): the loader
 stacks K batches an item, and on the GPU the K steps are one CUDA graph
-replay (``--cycles`` must be a multiple of K; ``--spmd jit`` only).  The JAX CLI's
-registered datasets (ImageNet), its other ``--spmd`` modes,
-checkpoints, the guard, fault plans and AOT belong to later slices and
-are not accepted.
+replay (``--cycles`` must be a multiple of K; ``--spmd jit`` only).
+
+``--dataset`` takes the JAX CLI's forms: ``synthetic``,
+``synthetic-text``, ``text:PATH`` and a name registered by
+``--data-toml`` (a ``[[datasets]]`` TOML: ImageNet, CIFAR-10, synthetic
+or text drivers, :mod:`..data.registry`); ``cifar:PATH`` registers a
+``cifar10`` entry for PATH and opens it the same way.  ``--val-dataset``
+names a registered dataset whose slice the eval cadence reports, and
+``--final-eval`` evaluates the whole of it after training.  The JAX
+CLI's other ``--spmd`` modes, checkpoints, the guard, fault plans and
+AOT belong to later slices and are not accepted.
 """
 
 from __future__ import annotations
@@ -44,8 +52,11 @@ import sys
 __all__ = ["build_model", "build_parser", "main", "run"]
 
 LM_MODELS = ("lm_tiny", "lm_small", "lm_medium")
+VIT_MODELS = ("vit_tiny", "vit_b16", "vit_l16", "vit_h14")
 IMAGE_MODELS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
-                "SimpleCNN")
+                "SimpleCNN", *VIT_MODELS, "convnext_test", "convnext_tiny",
+                "convnext_small", "convnext_base", "convnext_large",
+                "convnext_xlarge")
 MODELS = IMAGE_MODELS + LM_MODELS
 
 
@@ -57,13 +68,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="resnet50", choices=MODELS,
                    help="model factory in fluxdistributed_tpu_torch.models")
     p.add_argument("--dataset", default=None,
-                   help="images: 'synthetic' (learnable class templates; the "
+                   help="a registered dataset name (--data-toml), or: "
+                        "images: 'synthetic' (learnable class templates; the "
                         "default) or 'cifar:PATH' (the CIFAR-10 binaries); "
                         "tokens: 'synthetic-text' (a learnable Markov token "
                         "stream; the default) or 'text:PATH' (byte-level LM "
                         "on a local file)")
+    p.add_argument("--data-toml", default=None,
+                   help="dataset registry TOML to load (Data.toml analog)")
+    p.add_argument("--val-dataset", default=None,
+                   help="registered val dataset name")
+    p.add_argument("--final-eval", action="store_true",
+                   help="after training, aggregate loss/top-k over the FULL "
+                        "--val-dataset with train.evaluate")
     p.add_argument("--image-size", type=int, default=224,
-                   help="synthetic image side")
+                   help="synthetic image side (and a ViT's input side)")
     p.add_argument("--num-classes", type=int, default=None,
                    help="class count (default: the dataset's; synthetic: "
                         "1000)")
@@ -129,26 +148,38 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_model(args, device, **kwargs):
     """The ``--model`` LM or image model on ``device``, random weights
-    from seed 0 (an image model classifies ``args.num_classes``)."""
+    from seed 0 (an image model classifies ``args.num_classes``; a ViT
+    takes ``args.image_size`` images)."""
     from .. import models
 
     size = ({"vocab": args.vocab} if args.model in LM_MODELS
             else {"num_classes": args.num_classes})
+    if args.model in VIT_MODELS:
+        size["image_size"] = args.image_size
     return getattr(models, args.model)(**size, device=device, seed=0,
                                        **kwargs)
 
 
 def _model_kwargs(args) -> dict:
     """The attention core and architecture flags, validated as the
-    driver validates them."""
+    driver validates them: they apply to ``lm_*`` models only (an image
+    model's attention, a ViT's, is the dense core, as in the JAX CLI)."""
     from ..ops import attention_core, validate_window
 
     kw = {}
+    is_lm = args.model in LM_MODELS
     if args.attn_block is not None and args.attn == "dense":
         raise SystemExit("--attn-block only applies with --attn "
                          "blockwise|flash")
     if args.attn_block is not None and args.attn_block <= 0:
         raise SystemExit(f"--attn-block must be > 0, got {args.attn_block}")
+    for flag, given in (("--window", args.window is not None),
+                        ("--attn", args.attn != "dense"),
+                        ("--kv-heads", args.kv_heads is not None)):
+        if given and not is_lm:
+            raise SystemExit(f"{flag} only applies to lm_* models")
+    if (args.norm != "layernorm" or args.mlp != "gelu") and not is_lm:
+        raise SystemExit("--norm/--mlp only apply to lm_* models")
     try:
         validate_window(True, args.window, args.sinks)
     except ValueError as e:
@@ -181,7 +212,7 @@ def run(argv=None):
     from ..device import resolve_device
 
     device = resolve_device(args.device)
-    dataset = _dataset(args)
+    dataset, val_dataset = _dataset(args)
     if args.cycles is None and not hasattr(dataset, "__len__"):
         raise SystemExit("--cycles is required for unbounded token streams "
                          "(synthetic-text has no epoch length; text: "
@@ -198,7 +229,7 @@ def run(argv=None):
         mesh = init_distributed(device)
         device = mesh.device
     try:
-        return _train(args, dataset, device, mesh)
+        return _train(args, dataset, val_dataset, device, mesh)
     finally:
         if formed:
             from ..mesh import shutdown_distributed
@@ -207,55 +238,70 @@ def run(argv=None):
 
 
 def _dataset(args):
-    """The ``--dataset`` for the ``--model``'s kind: images for an image
+    """The ``--dataset`` for the ``--model``'s kind (images for an image
     model, tokens for an LM; the other kind is refused, as the JAX
-    package's ``bin/driver.py`` refuses it."""
+    package's ``bin/driver.py`` refuses it) and the ``--val-dataset``, or
+    ``None``.  A registered dataset's kind is its driver's, checked
+    before it is opened."""
     from .. import data
 
+    if args.data_toml:
+        data.load_registry(args.data_toml)
+    if args.final_eval and args.val_dataset is None:
+        raise SystemExit("--final-eval needs --val-dataset")
     is_lm = args.model in LM_MODELS
     name = args.dataset or ("synthetic-text" if is_lm else "synthetic")
-    tokens = name == "synthetic-text" or name.startswith("text:")
-    if not tokens and name != "synthetic" and not name.startswith("cifar:"):
-        raise SystemExit(
-            f"--dataset {name}: the port reads 'synthetic', 'cifar:PATH', "
-            "'synthetic-text' or 'text:PATH' (registered datasets such as "
-            "ImageNet come with a later slice)")
+    if name.startswith("cifar:"):
+        # the port's alias: a cifar10 registry entry for PATH
+        data.register_dataset(name, "cifar10", path=name[len("cifar:"):])
+    if name in ("synthetic", "synthetic-text") or name.startswith("text:"):
+        tokens = name != "synthetic"
+    else:
+        try:
+            tokens = data.driver_of(name) == "text"
+        except KeyError as e:
+            raise SystemExit(f"--dataset {name}: {e.args[0]}")
     if is_lm and not tokens:
         raise SystemExit(f"--model {args.model} trains on tokens; use "
                          "--dataset synthetic-text or text:PATH")
     if tokens and not is_lm:
         raise SystemExit(f"--dataset {name} is a token stream; use an lm_* "
                          f"model (--model {args.model} classifies images: "
-                         "--dataset synthetic or cifar:PATH)")
+                         "--dataset synthetic or a registered image "
+                         "dataset)")
+    try:
+        val = (data.open_dataset(args.val_dataset) if args.val_dataset
+               else None)
+    except KeyError as e:
+        raise SystemExit(f"--val-dataset {args.val_dataset}: {e.args[0]}")
     if name == "synthetic-text":
-        return data.SyntheticTextDataset(vocab=args.vocab, seqlen=args.seqlen)
-    if name.startswith("text:"):
+        ds = data.SyntheticTextDataset(vocab=args.vocab, seqlen=args.seqlen)
+    elif name.startswith("text:"):
         ds = data.ByteTextDataset(name[len("text:"):], seqlen=args.seqlen)
         args.vocab = ds.vocab
-        return ds
-    if name == "synthetic":
+    elif name == "synthetic":
         ds = data.SyntheticDataset(
             nsamples=max(args.batch_size * 8, 1024),
             nclasses=args.num_classes or 1000,
             shape=(args.image_size, args.image_size, 3))
     else:
-        ds = data.CIFAR10Dataset(name[len("cifar:"):])
-    args.num_classes = args.num_classes or ds.nclasses
-    return ds
+        ds = data.open_dataset(name)
+    if not tokens:
+        args.num_classes = args.num_classes or ds.nclasses
+    return ds, val
 
 
-def _train(args, dataset, device, mesh):
+def _train(args, dataset, val_dataset, device, mesh):
     import torch
 
     from .. import optim
     from ..models import lm_loss_fn
     from .logging import ConsoleLogger, NullLogger
-    from .trainer import prepare_training, train
+    from .trainer import evaluate, prepare_training, train
 
     is_lm = args.model in LM_MODELS
     try:
-        model = build_model(args, device,
-                            **(_model_kwargs(args) if is_lm else {}))
+        model = build_model(args, device, **_model_kwargs(args))
     except ValueError as e:  # e.g. --kv-heads not dividing num_heads
         raise SystemExit(f"--model {args.model}: {e}")
 
@@ -268,7 +314,8 @@ def _train(args, dataset, device, mesh):
             model, dataset, opt, loss_fn=lm_loss_fn(model) if is_lm else None,
             batch_size=args.batch_size, epochs=args.epochs,
             cycles=args.cycles, spmd=args.spmd, zero1=args.zero1, mesh=mesh,
-            device=device, steps_per_call=args.steps_per_call)
+            device=device, steps_per_call=args.steps_per_call,
+            val_dataset=val_dataset)
     except ValueError as e:  # e.g. a batch that does not split over ranks
         raise SystemExit(f"--spmd {args.spmd}: {e}")
     lead = mesh is None or mesh.rank == 0
@@ -285,6 +332,14 @@ def _train(args, dataset, device, mesh):
                  f", {args.num_classes} classes"), flush=True)
     train(task, print_every=args.print_every, eval_every=args.eval_every,
           logger=ConsoleLogger() if lead else NullLogger())
+    if args.final_eval:
+        metrics = evaluate(task, val_dataset, batch_size=args.batch_size,
+                           topk=() if is_lm else (1, 5, 10))
+        if lead:
+            parts = ", ".join(
+                f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in metrics.items())
+            print(f"final eval: {parts}", flush=True)
     if lead:
         print(f"done: {task.state.step} steps, {task.num_missed} missed",
               flush=True)

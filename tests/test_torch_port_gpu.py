@@ -958,6 +958,120 @@ def test_graphed_decode_tokens_equal_eager(cuda, layout):
     np.testing.assert_array_equal(out[True], out[False])
 
 
+@pytest.mark.parametrize("t", [196, 197])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_attention_at_vit_shapes(cuda, t, dt):
+    """B1-B3 non-causal at ViT's sequence lengths (196 patches, 197 with
+    the class token: a ragged last tile), 16 heads of 64, q/k/v strided
+    views of one [B, T, 3, H, D] projection, which the kernels read in
+    place; against the plain versions at the limits above."""
+    g = torch.Generator().manual_seed(t)
+    q, k, v = torch.randn(4, t, 3, 16, 64, generator=g).to(dt).to(
+        cuda).unbind(2)
+    do = torch.randn(4, t, 16, 64, generator=g).to(dt).to(cuda)
+    assert all(fa._kernel_view(x) is x for x in (q, k, v))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v)
+    delta = (do.float() * ref_out.float()).sum(-1).permute(0, 2, 1)
+    args = (q, k, v, do, ref_lse, delta.contiguous())
+    got = (fa.flash_attention_dq(*args), *fa.flash_attention_dkv(*args))
+    refs = (fa.flash_attention_dq_reference(*args),
+            *fa.flash_attention_dkv_reference(*args))
+    f32 = dt == torch.float32
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               atol=1e-5 if f32 else 2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+    atol, rtol = (1e-4, 0.0) if f32 else (1e-5, 1.6e-2)
+    for a, r in zip(got, refs):
+        torch.testing.assert_close(a.float(), r.float(), atol=atol,
+                                   rtol=rtol)
+
+
+def test_vit_h14_flash_core_refuses_head_dim_80(cuda):
+    """ViT-H/14's heads are 1280 / 16 = 80 wide, which the kernels do
+    not take: the flash core raises their ValueError, with no fallback
+    to the plain version (ROADMAP Queue B2); the dense core runs."""
+    from functools import partial
+
+    from fluxdistributed_tpu_torch.models import vit_h14
+    from fluxdistributed_tpu_torch.ops import flash_attention
+
+    x = torch.randn(1, 224, 224, 3, device=cuda)
+    flash = vit_h14(depth=1, attn_fn=partial(flash_attention, causal=False),
+                    seed=1)
+    before = fa.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match=r"head_dim in \(32, 64, 128\), "
+                       "got 80"), torch.no_grad():
+        flash(x)
+    assert fa.flash_attention_fwd.launches == before
+    dense = vit_h14(depth=1, seed=1)
+    with torch.no_grad():
+        assert torch.isfinite(dense(x)).all()
+
+
+@pytest.mark.parametrize("case", ["vit_b16", "convnext_test"])
+def test_image_model_graphed_steps_equal_eager_steps_bitwise(cuda, case):
+    """ViT-B/16 (224², flash core, dropout 0.1, adamw) and ConvNeXt
+    (drop path 0.5, lars) at K = 2: two graphed calls equal four eager
+    steps bit for bit; the masks change per step through the table, so
+    a replay on a zeroed table differs."""
+    from functools import partial
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import convnext_test, vit_b16
+    from fluxdistributed_tpu_torch.ops import flash_attention
+    from fluxdistributed_tpu_torch.ops.losses import logitcrossentropy
+    from fluxdistributed_tpu_torch.parallel import (TrainState,
+                                                    make_train_step,
+                                                    module_loss_fn)
+
+    if case == "vit_b16":
+        model = vit_b16(num_classes=10, dropout=0.1, seed=1,
+                        attn_fn=partial(flash_attention, causal=False))
+        opt, size = optim.adamw(1e-3), 224
+    else:
+        model = convnext_test(drop_path_rate=0.5, seed=1)
+        opt, size = optim.lars(0.1), 64
+    loss_fn = module_loss_fn(model, logitcrossentropy)
+    batches = [{"image": x.to(cuda, torch.bfloat16), "label": y.to(cuda)}
+               for x, y in _image_batches(2, size, 4, seed=6)]
+
+    def make_state():
+        return TrainState.create({k: p.detach().clone()
+                                  for k, p in model.named_parameters()}, opt)
+
+    eager, state, losses = make_train_step(loss_fn, opt, seed=2), \
+        make_state(), []
+    for j, b in enumerate(batches):
+        state, m = eager(state, b)
+        losses.append(m["loss"])
+        if j == 1:
+            mid = TrainState(params={k: v.clone() for k, v in
+                                     state.params.items()},
+                             opt_state=_clone_tree(state.opt_state),
+                             model_state={}, step=state.step)
+    graphed = make_train_step(loss_fn, opt, seed=2, steps_per_call=2)
+    stack = [{k: torch.stack([b[k] for b in batches[i:i + 2]])
+              for k in batches[0]} for i in (0, 2)]
+    g, m1 = graphed(make_state(), stack[0])
+    g, m2 = graphed(g, stack[1])
+    assert torch.equal(torch.cat([m1["loss"], m2["loss"]]),
+                       torch.stack(losses))
+    for k, v in state.params.items():
+        assert torch.equal(g.params[k], v), k
+    graphed.table.buffer.zero_()
+    c, _ = graphed.run(mid, stack[1], fill=False)
+    assert not all(torch.equal(c.params[k], v)
+                   for k, v in state.params.items())
+
+
+def _clone_tree(tree):
+    from fluxdistributed_tpu_torch.tree import tree_map
+
+    return tree_map(torch.clone, tree)
+
+
 def test_graph_capture_failure_raises_without_fallback(cuda):
     """A step that synchronises with the host (``.item()``) runs
     eagerly, but its capture raises naming the line; no graph is kept,

@@ -44,6 +44,10 @@ def test_port_has_modules_to_scan():
     assert "fluxdistributed_tpu_torch/models/norm.py" in names
     assert "fluxdistributed_tpu_torch/data/cifar.py" in names
     assert "fluxdistributed_tpu_torch/tree.py" in names
+    for mod in ("models/vit.py", "models/convnext.py", "data/imagenet.py",
+                "data/native.py", "data/preprocess.py", "data/registry.py",
+                "data/sources.py"):
+        assert f"fluxdistributed_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").is_file()
 
 
