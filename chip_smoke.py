@@ -9,8 +9,9 @@ Phases, each of which raises on failure (exit code != 0, no result):
 1. the card: ``nvidia-smi`` name and power limit, and PyTorch's name;
 2. build: every kernel source of the package, compiled by ``nvcc``, and
    ``ptxas`` lines with the registers and spills of bf16 B2 (the
-   tensor-core dQ kernel) at head dims 32, 64 and 128 and of every
-   instantiation of B4's split kernel;
+   tensor-core dQ kernel) at head dims 32, 64, 80 and 128, of every
+   B1-B3 instantiation at head dim 80 and of every instantiation of
+   B4's split kernel;
 3. kernel: the dense flash-decode kernel (B4, split-KV over runs of
    whole tiles cut from each slot's cursor, then a combine kernel, with
    its split and CTA counts) against its plain PyTorch version at
@@ -151,9 +152,36 @@ Phases, each of which raises on failure (exit code != 0, no result):
     --total-steps 20 --cycles 20 --eval-every 10`` in-process (dense
     attention, as the JAX CLI's ViT): the mean of the last 5 losses is
     below the first; eval top-1/top-5;
-25. a ``{"kernels": [...]}`` line (B1-B3 with their ViT-L/16 row and
-    launches a step beside the LM's), then the result line
-    ``{"ok": true, "device": {...}}`` last.
+25. ViT-H kernel: B1, B2 and B3 at head dim 80, ViT-H/14's attention
+    (batch 32, 256 tokens and the class token's 257, 16 heads of 80,
+    non-causal, strided q/k/v read in place) in bf16 and f32, and a
+    causal windowed GQA row with sinks at D = 80 in bf16 and f32, each
+    as in phase 8 (the plain versions at one whole-sequence block for the
+    ViT-H rows); then the bf16 rounding audit at the 257-token shape
+    over 4 seeds (0 unflagged mismatches);
+26. ViT-H train step: ViT-H/14 (224², 632 M params) with the flash
+    core, first f32 at batch 2 against the dense core on the same weights
+    (logits within 1e-4 of the largest, each gradient leaf within 1e-3
+    of its largest entry; B1-B3 32 launches each), then bf16 compute, f32
+    params, adamw, batch 32: B1-B3 32 launches each in one step, the
+    eager step ms, images/s, MFU, peak allocated bytes and idle share;
+27. resume: ResNet-50 (224², batch 256, bf16, momentum) at
+    ``steps_per_call`` 8 (graph replays) trained 4 items uninterrupted,
+    and again with a fault-plan SIGTERM at item 2, checkpointed and
+    resumed in a fresh task: every loss and state tensor equal; the
+    checkpoint's bytes, a blocking save's and a load's seconds, an
+    item's ms with and without a non-blocking save; then the fused
+    ZeRO-1 step (B6) on lm_small (vocab 32000) on one NCCL rank, 6 steps
+    against 3, a SIGTERM, a checkpoint and 3 from a fresh state loaded
+    from it: equal;
+28. vision serve: ``serve.vision.make_app`` on ResNet-50 from phase 27's
+    checkpoint, 64 single-image requests through ``predict.from_array``
+    (uint8 256x256 images: the card machine has no JPEG decoder), each
+    top-1 equal to the model's own eval forward; p50/p99 ms a request
+    and images/s;
+29. a ``{"kernels": [...]}`` line (B1-B3 with their ViT-L/16 and
+    ViT-H/14 rows and launches a step beside the LM's), then the result
+    line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -1085,14 +1113,15 @@ def attention_kernel_phase(torch, bw, peaks, flush):
 
 
 def attention_variant(torch, fa, bw, peaks, flush, phase, name, spec, g,
-                      batch=B, strided=False):
+                      batch=B, strided=False, ref_block=128):
     """One variant of B1, B2 and B3 against their plain versions at
     ``batch`` rows: errors, the element-wise gradient check (with the
     dropped-tile control where Tq = Tk and there is no window), times,
     bound and the fastest SDPA backend; emits the row, raises if a
     limit is broken, and returns the three kernels' rows.  ``strided``
     makes q, k and v views of one ``[batch, T, 3, H, D]`` tensor (a
-    ViT's QKV projection), which the kernels must read in place."""
+    ViT's QKV projection), which the kernels must read in place.
+    ``ref_block`` is the plain versions' query and key block."""
     (tq, tk, h, hkv, d, bits, causal, window, sinks, with_lse) = spec
     B = batch  # noqa: N806 — the rows of this variant
     dt = torch.float32 if bits == "f32" else torch.bfloat16
@@ -1109,8 +1138,9 @@ def attention_variant(torch, fa, bw, peaks, flush, phase, name, spec, g,
                 for _ in range(2))
         in_place = None
     kw = dict(causal=causal, window=window, sinks=sinks)
+    rkw = dict(kw, block_q=ref_block, block_k=ref_block)
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **rkw)
     delta = (do.float() * ref_out.float()).sum(-1).permute(0, 2, 1)
     if with_lse:  # the LSE cotangent folds into delta
         delta = delta - torch.randn(B, h, tq, generator=g).to(dev)
@@ -1118,8 +1148,8 @@ def attention_variant(torch, fa, bw, peaks, flush, phase, name, spec, g,
     bargs = (q, k, v, do, ref_lse, delta)
     dq = fa.flash_attention_dq(*bargs, **kw)
     dk, dv = fa.flash_attention_dkv(*bargs, **kw)
-    rdq = fa.flash_attention_dq_reference(*bargs, **kw)
-    rdk, rdv = fa.flash_attention_dkv_reference(*bargs, **kw)
+    rdq = fa.flash_attention_dq_reference(*bargs, **rkw)
+    rdk, rdv = fa.flash_attention_dkv_reference(*bargs, **rkw)
     torch.cuda.synchronize()
     allow = live_pairs(torch, tq, tk, causal, window, sinks)
     live_rows = ref_lse > -1e29
@@ -1166,11 +1196,11 @@ def attention_variant(torch, fa, bw, peaks, flush, phase, name, spec, g,
     rows = {}
     calls = {
         "fwd": (lambda: fa.flash_attention_fwd(q, k, v, **kw),
-                lambda: fa.flash_attention_fwd_reference(q, k, v, **kw)),
+                lambda: fa.flash_attention_fwd_reference(q, k, v, **rkw)),
         "dq": (lambda: fa.flash_attention_dq(*bargs, **kw),
-               lambda: fa.flash_attention_dq_reference(*bargs, **kw)),
+               lambda: fa.flash_attention_dq_reference(*bargs, **rkw)),
         "dkv": (lambda: fa.flash_attention_dkv(*bargs, **kw),
-                lambda: fa.flash_attention_dkv_reference(*bargs, **kw)),
+                lambda: fa.flash_attention_dkv_reference(*bargs, **rkw)),
     }
     for kname, (kern, plain) in calls.items():
         flops, nbytes = work[kname]
@@ -1197,6 +1227,7 @@ def attention_variant(torch, fa, bw, peaks, flush, phase, name, spec, g,
         rows[kname]["max_abs_err"] = max_err[kname]
     row = {"phase": phase, "variant": name,
            "shape": [B, tq, tk, h, hkv, d], "dtype": bits,
+           "plain_block": ref_block,
            "strided_qkv_read_in_place": in_place,
            "causal": causal, "window": window, "sinks": sinks,
            "lse_cotangent": with_lse, "live_pairs_per_head":
@@ -2768,6 +2799,512 @@ def vit_cli_phase(torch):
         raise RuntimeError(f"vit_cli: B1-B6 launched {counts}")
 
 
+VITH_B, VITH_T, VITH_HEADS, VITH_D = 32, 256, 16, 80  # ViT-H/14 at 224²
+VITH_AUDIT_SEEDS = 4
+
+
+def vith_kernel_phase(torch, bw, peaks, flush):
+    """B1, B2 and B3 at head dim 80, ViT-H/14's attention (batch 32, 256
+    tokens and the class token's 257, 16 heads of 80, non-causal, q/k/v
+    strided views of one QKV projection), bf16 and f32, each against its
+    plain version with the dropped-tile control; one causal windowed GQA
+    row with sinks in bf16 and f32, so that every mask runs at D = 80;
+    then the bf16 rounding audit at the ViT-H/14 shape over
+    ``VITH_AUDIT_SEEDS`` seeds (0 unflagged mismatches).  Returns the
+    bf16 T = 256 rows."""
+    import importlib
+
+    fa = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_attention")
+    T, H, Dh = VITH_T, VITH_HEADS, VITH_D  # noqa: N806
+    strided = {
+        "vit_h14": (T, T, H, H, Dh, "bf16", False, None, 0, False),
+        "vit_h14_class_token": (T + 1, T + 1, H, H, Dh, "bf16", False, None,
+                                0, False),
+        "vit_h14_f32": (T, T, H, H, Dh, "f32", False, None, 0, False),
+        "vit_h14_class_token_f32": (T + 1, T + 1, H, H, Dh, "f32", False,
+                                    None, 0, False),
+    }
+    g = torch.Generator().manual_seed(18)
+    # the plain versions take the whole sequence as one block: a 1-row
+    # remainder block (257 = 2 x 128 + 1) sends its products through
+    # cuBLAS's matrix-vector path, which sums in another order than the
+    # sequential f32 order the kernels' rounding flag re-sums in
+    rows = {name: attention_variant(torch, fa, bw, peaks, flush,
+                                    "vith_kernel", name, spec, g,
+                                    batch=VITH_B, strided=True,
+                                    ref_block=512)
+            for name, spec in strided.items()}
+    for bits in ("bf16", "f32"):
+        attention_variant(torch, fa, bw, peaks, flush, "vith_kernel",
+                          f"d80_causal_window_gqa_{bits}",
+                          (T_TRAIN, T_TRAIN, H, 4, Dh, bits, True, 256, 4,
+                           False), g, batch=B)
+    audits = []
+    for seed in range(VITH_AUDIT_SEEDS):
+        ga = torch.Generator().manual_seed(200 + seed)
+        qkv = torch.randn(VITH_B, T + 1, 3, H, Dh,
+                          generator=ga).bfloat16().cuda()
+        q, k, v = qkv.unbind(2)
+        do = torch.randn(VITH_B, T + 1, H, Dh, generator=ga).bfloat16().cuda()
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)
+        audits.append(fa.rounding_audit(q, k, v, do, lse, delta.contiguous(),
+                                        causal=False))
+    torch.cuda.synchronize()
+    total = {kn: {c: sum(a[kn][c] for a in audits) for c in fa.AUDIT_COUNTS}
+             for kn in ("dq", "dkv")}
+    emit({"phase": "vith_rounding_audit", "shape": [VITH_B, T + 1, H, Dh],
+          "dtype": "bf16", "causal": False, "seeds": VITH_AUDIT_SEEDS,
+          "counts": list(fa.AUDIT_COUNTS), "total": total,
+          "per_seed": audits})
+    if any(t["unflagged_differ"] for t in total.values()) or not all(
+            t["live_pairs"] for t in total.values()):
+        raise RuntimeError(f"vith_rounding_audit: {total}")
+    return rows["vit_h14"]
+
+
+def _set_core(model, attn_fn):
+    """Every block of a ViT with the attention core ``attn_fn`` (None:
+    the dense core)."""
+    for mod in model.modules():
+        if hasattr(mod, "attn_fn") and hasattr(mod, "in_proj_weight"):
+            mod.attn_fn = attn_fn
+
+
+def vith_train_step_phase(torch, peaks, card):
+    """ViT-H/14 (224², 1000 classes, 32 blocks, 632 M params) with the
+    flash core: first in f32 (TF32 off) at batch 2, the flash core's
+    logits and gradients against the dense core's on the same weights
+    and images (logits within 1e-4 of the largest, as ``vit_parity``;
+    each gradient leaf within 1e-3 of its largest entry); then in bf16
+    compute, f32 params, adamw, batch 32: B1-B3 32 launches each a step,
+    the eager step ms, images/s, MFU, peak allocated bytes, idle share.
+    Returns B1-B3's launches in one step."""
+    from functools import partial
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import vit_h14
+    from fluxdistributed_tpu_torch.ops import flash_attention
+    from fluxdistributed_tpu_torch.ops.losses import logitcrossentropy
+    from fluxdistributed_tpu_torch.parallel import (
+        TrainState, make_train_step, module_loss_fn)
+
+    flash = partial(flash_attention, causal=False)
+    torch.cuda.empty_cache()
+    model = vit_h14(num_classes=1000, dtype=torch.float32, attn_fn=flash,
+                    seed=3)
+    batch = image_batch(torch, 2, VISION_SIZE, 1000, torch.float32, "cuda", 9)
+    loss_fn = module_loss_fn(model, logitcrossentropy)
+    params = dict(model.named_parameters())
+    out = {}
+    for core in ("flash", "dense"):
+        _set_core(model, flash if core == "flash" else None)
+        model.zero_grad(set_to_none=True)
+        before = attn_counts()
+        logits = model(batch["image"]).float()
+        logitcrossentropy(logits, batch["label"]).backward()
+        torch.cuda.synchronize()
+        out[core] = (logits.detach(), {k: p.grad.detach().clone()
+                                       for k, p in params.items()},
+                     [a - b for a, b in zip(attn_counts(), before)])
+    model.zero_grad(set_to_none=True)
+    (lf, gf, nf), (ld, gd, nd) = out["flash"], out["dense"]
+    logit_rel = ((lf - ld).abs().max() / ld.abs().max()).item()
+    grad_rel = max(((gf[k] - gd[k]).abs().max()
+                    / gd[k].abs().max().clamp(min=1e-30)).item() for k in gd)
+    depth = model.depth
+    nparams = sum(p.numel() for p in params.values())
+    emit({"phase": "vith_parity", "model": "vit_h14", "dtype": "float32",
+          "tf32": False, "image": VISION_SIZE, "batch": 2,
+          "tokens": model.tokens(VISION_SIZE), "head_dim": VITH_D,
+          "params": nparams, "logits_max_err_over_max": logit_rel,
+          "logits_tol": 1e-4, "grad_max_err_over_leaf_max": grad_rel,
+          "grad_tol": 1e-3, "b1_b3_launches_flash": nf,
+          "b1_b3_launches_dense": nd})
+    if not (logit_rel <= 1e-4 and grad_rel <= 1e-3) or nf != [depth] * 3 \
+            or nd != [0, 0, 0]:
+        raise RuntimeError(f"vith_parity: logits {logit_rel}, grads "
+                           f"{grad_rel}, launches flash {nf} dense {nd}")
+    del model, params, loss_fn, out, lf, gf, ld, gd, batch
+    torch.cuda.empty_cache()
+
+    model = vit_h14(num_classes=1000, attn_fn=flash, seed=0)
+    params = dict(model.named_parameters())
+    flops = 3 * 2 * model.forward_macs(VISION_SIZE)
+    opt = optim.adamw()
+    loss_fn = module_loss_fn(model, logitcrossentropy)
+    batch = image_batch(torch, VITH_B, VISION_SIZE, 1000, torch.bfloat16,
+                        "cuda", 21)
+
+    def make_state():
+        return TrainState.create({k: p.detach().clone()
+                                  for k, p in params.items()}, opt)
+
+    def make_step(k):
+        return make_train_step(loss_fn, opt, seed=0, steps_per_call=k)
+
+    def rate(ms):
+        img_s = VITH_B / (ms / 1e3)
+        return {"images_per_s": img_s, "mfu": flops * img_s / peaks["bf16"]}
+
+    step, state = make_step(1), make_state()
+    reset_all_counts()  # one step of this path, counted alone
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    per_step = all_counts()
+    del step, state, m
+    torch.cuda.empty_cache()
+    row = time_device_loop(torch, "vit_h14_one_device", card, 1, make_state,
+                           make_step, batch, rate)
+    emit({"phase": "vith_train_step", "card": card, "model": "vit_h14",
+          "image": VISION_SIZE, "tokens": model.tokens(VISION_SIZE),
+          "head_dim": VITH_D, "classes": 1000, "batch": VITH_B,
+          "dtype": "bfloat16", "params_dtype": "float32",
+          "opt": "adamw (1e-3, wd 1e-2)",
+          "attn": "flash_attention, causal=False (B1-B3 at D = 80)",
+          "params": nparams, "forward_macs_per_image": flops // 6,
+          "b4_b5_b1_b2_b3_b6_launches_one_step": per_step,
+          "k1": {k: row[k] for k in ("step_ms", "images_per_s", "mfu",
+                                     "peak_allocated_bytes",
+                                     "device_idle_share",
+                                     "device_busy_ms_per_step",
+                                     "kernels_per_step")}})
+    want = [0, 0] + [depth] * 3 + [0]
+    if per_step != want:
+        raise RuntimeError(f"vith_train_step: one step launched B4, B5, "
+                           f"B1-B3, B6 {per_step} times, want {want}")
+    del model, params, batch
+    torch.cuda.empty_cache()
+    return per_step[2:5]
+
+
+RESUME_K, RESUME_ITEMS, RESUME_AT = 8, 4, 2
+#: checkpoints of the resume phases, inside the checkout (git-ignored),
+#: removed by the vision server phase
+CKPT_DIR = "_chip_smoke_ckpt"
+
+
+class _ImageBank:
+    """Images drawn from a bank of 64 random ones made from a seed: a
+    loader's batch is a gather, so a 256-image batch costs the host a
+    copy, not 38 M normal draws."""
+
+    def __init__(self, size, nclasses, seed=0):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        self.bank = rng.standard_normal((64, size, size, 3), np.float32)
+        self.bank_labels = rng.integers(0, nclasses, 64).astype(np.int32)
+        self.nclasses = nclasses
+
+    def __len__(self):
+        return 64
+
+    def batch(self, rng, n):
+        idx = rng.integers(0, 64, n)
+        return self.bank[idx], self.bank_labels[idx]
+
+
+def _dir_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def _preempt_and_resume(torch, make_task, directory, at):
+    """A task trained under a fault plan that SIGTERMs at item ``at``
+    (checkpoint and RESUME manifest in ``directory``), then a fresh task
+    resumed from them and trained to the end: (the resumed task, its
+    manifest, the preempted run's losses)."""
+    from fluxdistributed_tpu_torch import faults
+    from fluxdistributed_tpu_torch.train import (NullLogger, resume_training,
+                                                 train)
+
+    task = make_task()
+    faults.install_plan(faults.FaultPlan().sigterm_at_step(at))
+    try:
+        train(task, print_every=0, eval_every=0, logger=NullLogger(),
+              checkpoint_dir=directory, checkpoint_every=0,
+              handle_signals=True)
+        raise RuntimeError("resume: the fault plan's SIGTERM did not "
+                           "preempt the run")
+    except faults.Preempted:
+        pass
+    finally:
+        faults.clear_plan()
+    head = list(task.losses)
+    del task
+    torch.cuda.empty_cache()
+    task = make_task()
+    manifest = resume_training(task, directory)
+    train(task, print_every=0, eval_every=0, logger=NullLogger(),
+          checkpoint_dir=directory, checkpoint_every=0)
+    return task, manifest, head
+
+
+def resume_phase(torch, card):
+    """Preempt and resume on the card, bit for bit.  ResNet-50 (224²,
+    1000 classes, batch 256, bf16, momentum 0.01) on one device at
+    ``steps_per_call`` 8, each call one CUDA graph replay: 4 items
+    uninterrupted, then 4 items with a fault-plan SIGTERM at item 2,
+    resumed in a fresh task (its step captured anew); every state tensor
+    and every loss must be equal.  Then the checkpoint's bytes, the
+    blocking save and the load seconds, and the ms of an item with and
+    without a non-blocking save after it.  Then the fused ZeRO-1 step
+    (B6) on lm_small (vocab 32000, B=8, T=1024, bf16, flash) on one NCCL
+    rank: 6 steps, against 3 steps, a SIGTERM, a checkpoint (the flat
+    buffers gathered) and 3 steps from a fresh state loaded from it.
+    Returns the ResNet-50 checkpoint's directory."""
+    import os
+    import shutil
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import resnet50
+    from fluxdistributed_tpu_torch.train import (
+        NullLogger, load_checkpoint, prepare_training, save_checkpoint,
+        train, wait_for_pending)
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    bank = _ImageBank(VISION_SIZE, 1000, seed=7)
+    cycles = RESUME_K * RESUME_ITEMS
+
+    def make_task():
+        model = resnet50(num_classes=1000, seed=0)
+        return prepare_training(model, bank, optim.momentum(0.01, 0.9),
+                                batch_size=VISION_B, cycles=cycles,
+                                steps_per_call=RESUME_K)
+
+    t0 = time.perf_counter()
+    base = make_task()
+    train(base, print_every=0, eval_every=0, logger=NullLogger())
+    base_leaves = [x.clone() for x in _state_leaves(base.state)]
+    base_losses, base_step = list(base.losses), base.state.step
+    del base
+    torch.cuda.empty_cache()
+    d = os.path.join(CKPT_DIR, "resnet50")
+    task, manifest, head = _preempt_and_resume(torch, make_task, d,
+                                               RESUME_AT)
+    torch.cuda.synchronize()
+    leaves = _state_leaves(task.state)
+    unequal = sum(not torch.equal(a, b) for a, b in zip(leaves, base_leaves))
+    losses_equal = head + task.losses == base_losses
+    wall = time.perf_counter() - t0
+
+    # the checkpoint's cost: bytes, a blocking save and a load
+    ck = os.path.join(CKPT_DIR, "cost")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    save_checkpoint(task.state, ck, task.state.step)
+    save_s = time.perf_counter() - t1
+    nbytes = _dir_bytes(os.path.join(ck, f"step_{task.state.step}"))
+    t1 = time.perf_counter()
+    back = load_checkpoint(ck, task.state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    back_equal = all(torch.equal(a, b) for a, b in zip(
+        _state_leaves(back), leaves))
+    del back
+    # an item (8 graphed steps) with and without a non-blocking save
+    batch = _stack(torch, [image_batch(torch, VISION_B, VISION_SIZE, 1000,
+                                       torch.float32, "cuda", 30 + j)
+                           for j in range(RESUME_K)])
+    state, step = task.state, task.step_fn
+    state, _ = step(state, batch)
+    # two items a sample: with a save after the first, whose write then
+    # overlaps the second, as a cadence save overlaps the next items
+    item_ms = {"no_save": [], "nonblocking_save": []}
+    for _ in range(3):
+        for mode in item_ms:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, _ = step(state, batch)
+            if mode == "nonblocking_save":
+                save_checkpoint(state, ck, state.step, block=False)
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            item_ms[mode].append((time.perf_counter() - t1) * 1e3 / 2)
+            wait_for_pending()
+    row = {"phase": "resume_resnet50", "card": card, "model": "resnet50",
+           "image": VISION_SIZE, "classes": 1000, "batch": VISION_B,
+           "dtype": "bfloat16", "opt": "momentum 0.01",
+           "steps_per_call": RESUME_K, "graphed": True,
+           "items": RESUME_ITEMS, "preempted_at_item": RESUME_AT,
+           "manifest": manifest, "steps": task.state.step,
+           "state_tensors": len(leaves), "state_tensors_unequal": unequal,
+           "losses_equal": losses_equal, "wall_s": wall,
+           "checkpoint_bytes": nbytes, "blocking_save_s": save_s,
+           "load_s": load_s, "load_equal": back_equal,
+           "item_ms": item_ms,
+           "item_ms_mean": {k: sum(v) / len(v) for k, v in item_ms.items()},
+           "nonblocking_save_cost_ms_per_item": 2 * (
+               sum(item_ms["nonblocking_save"]) - sum(item_ms["no_save"]))
+           / len(item_ms["no_save"])}
+    emit(row)
+    if (unequal or not losses_equal or task.state.step != base_step
+            or manifest is None or manifest["next_item"] != RESUME_AT
+            or not back_equal):
+        raise RuntimeError(f"resume_resnet50: {unequal} of {len(leaves)} "
+                           f"state tensors differ, losses equal "
+                           f"{losses_equal}, manifest {manifest}")
+    shutil.rmtree(ck, ignore_errors=True)
+    del task, state, step, batch, leaves, base_leaves
+    torch.cuda.empty_cache()
+    resume_fused_phase(torch, card)
+    return d
+
+
+def resume_fused_phase(torch, card):
+    """The fused ZeRO-1 step (B6) preempted and resumed on one NCCL rank
+    (see :func:`resume_phase`)."""
+    import os
+
+    from fluxdistributed_tpu_torch import faults
+    from fluxdistributed_tpu_torch.mesh import (init_distributed,
+                                                shutdown_distributed)
+    from fluxdistributed_tpu_torch.models import lm_loss_fn, lm_small
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.ops.fused_adam import fused_adam
+    from fluxdistributed_tpu_torch.parallel import (
+        make_train_step_zero1_fused, zero1_fused_state)
+    from fluxdistributed_tpu_torch.train import (load_checkpoint,
+                                                 save_checkpoint)
+
+    steps, at = 6, 3
+    mesh = init_distributed("cuda")
+    try:
+        model = lm_small(vocab=32000, attn_fn=attention_core("flash"), seed=0)
+        params = dict(model.named_parameters())
+        g = torch.Generator(device="cuda").manual_seed(11)
+        batches = [{"tokens": torch.randint(0, 32000, (B, T_TRAIN),
+                                            generator=g, device="cuda",
+                                            dtype=torch.int32)}
+                   for _ in range(steps)]
+        step = make_train_step_zero1_fused(lm_loss_fn(model), mesh, lr=3e-4)
+
+        def run(state, start, plan_at=None, directory=None):
+            """Steps from ``start`` with the trainer's boundary check: a
+            signal checkpoints and stops."""
+            flag = faults.SignalFlag().install()
+            if plan_at is not None:
+                faults.install_plan(faults.FaultPlan().sigterm_at_step(
+                    plan_at))
+            losses = []
+            try:
+                for j in range(start, steps):
+                    faults.fire("step", index=j)
+                    if flag.is_set():
+                        save_checkpoint(state, directory, state.step,
+                                        mesh=mesh, zero1=True)
+                        return state, losses, j
+                    state, m = step(state, batches[j])
+                    losses.append(m["loss"])
+            finally:
+                flag.uninstall()
+                faults.clear_plan()
+            return state, losses, steps
+
+        reset_all_counts()
+        base, base_losses, _ = run(zero1_fused_state(params, mesh), 0)
+        launches = fused_adam.launches
+        base_leaves = [x.clone() for x in _state_leaves(base)]
+        del base
+        d = os.path.join(CKPT_DIR, "lm_small_zero1_fused")
+        st, head, stopped = run(zero1_fused_state(params, mesh), 0,
+                                plan_at=at, directory=d)
+        del st
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        st = load_checkpoint(d, zero1_fused_state(params, mesh), mesh=mesh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        st, tail, _ = run(st, at)
+        torch.cuda.synchronize()
+        leaves = _state_leaves(st)
+        unequal = sum(not torch.equal(a, b)
+                      for a, b in zip(leaves, base_leaves))
+        losses_equal = bool(torch.equal(torch.stack(head + tail),
+                                        torch.stack(base_losses)))
+        row = {"phase": "resume_zero1_fused", "card": card,
+               "model": "lm_small", "vocab": 32000, "batch": B,
+               "seqlen": T_TRAIN, "dtype": "bfloat16", "opt": "adam (B6)",
+               "ranks": mesh.size, "backend": "nccl", "steps": steps,
+               "preempted_at_step": stopped, "state_tensors": len(leaves),
+               "state_tensors_unequal": unequal,
+               "losses_equal": losses_equal,
+               "fused_adam_launches_uninterrupted": launches,
+               "checkpoint_bytes": _dir_bytes(os.path.join(d, f"step_{at}")),
+               "load_s": load_s}
+        emit(row)
+        if unequal or not losses_equal or stopped != at or launches != steps:
+            raise RuntimeError(f"resume_zero1_fused: {row}")
+        del model, params, batches, st, leaves, base_leaves
+        torch.cuda.empty_cache()
+    finally:
+        shutdown_distributed()
+
+
+VISION_REQUESTS = 64
+
+
+def vision_serve_phase(torch, card, checkpoint):
+    """The vision server's ``predict`` built by ``make_app`` on ResNet-50
+    from the resume phase's checkpoint, 64 single-image requests through
+    its decode-free twin (uint8 256x256 images; the card machine has no
+    JPEG decoder): each top-1 must equal the model's own eval forward on
+    the same image, loaded from the checkpoint apart; p50/p99 ms a
+    request and images/s.  Removes the checkpoints."""
+    import argparse
+    import shutil
+
+    import numpy as np
+
+    from fluxdistributed_tpu_torch.data.preprocess import preprocess
+    from fluxdistributed_tpu_torch.serve.vision import (load_image_model,
+                                                        make_app)
+
+    args = argparse.Namespace(model="resnet50", num_classes=1000,
+                              checkpoint=checkpoint, step=None,
+                              torch_weights=None, synset=None, topk=5,
+                              device="cuda")
+    predict = make_app(args)
+    rng = np.random.default_rng(5)
+    images = rng.integers(0, 256, (VISION_REQUESTS, 256, 256, 3),
+                          dtype=np.uint8)
+    for img in images[:4]:  # warm-up
+        predict.from_array(img)
+    ms, top1 = [], []
+    t0 = time.perf_counter()
+    for img in images:
+        t1 = time.perf_counter()
+        preds = predict.from_array(img)
+        ms.append((time.perf_counter() - t1) * 1e3)
+        top1.append(int(preds[0]["label"].split()[-1]))
+    wall = time.perf_counter() - t0
+    model, source = load_image_model("resnet50", 1000,
+                                     checkpoint=checkpoint, device="cuda")
+    want = []
+    with torch.no_grad():
+        for img in images:
+            x = torch.from_numpy(preprocess(img)[None]).cuda()
+            want.append(int(model(x).float().argmax(-1)))
+    agree = sum(a == b for a, b in zip(top1, want))
+    q = np.percentile(ms, [50, 99])
+    row = {"phase": "vision_serve", "card": card, "model": "resnet50",
+           "weights": source, "requests": VISION_REQUESTS,
+           "input": "uint8 256x256x3 (predict.from_array)", "topk": 5,
+           "p50_ms": float(q[0]), "p99_ms": float(q[1]),
+           "mean_ms": sum(ms) / len(ms), "images_per_s": VISION_REQUESTS / wall,
+           "top1_agree": agree, "distinct_top1": len(set(top1))}
+    emit(row)
+    del model, predict
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if agree != VISION_REQUESTS:
+        raise RuntimeError(f"vision_serve: top-1 of {agree} of "
+                           f"{VISION_REQUESTS} requests equals the model's")
+
+
 def main() -> int:
     import torch
 
@@ -2815,8 +3352,12 @@ def main() -> int:
     emit({"phase": "ptxas", "kernel": "flash_bwd_dq_tc_kernel<D, audit>",
           "by_dim": {f"D={d}{' audit' if a else ''}": r
                      for name, r in dq_tc.items()
-                     for d in (32, 64, 128) for a in (0, 1)
+                     for d in (32, 64, 80, 128) for a in (0, 1)
                      if f"ILi{d}ELb{a}E" in name}})
+    emit({"phase": "ptxas", "kernel": "B1-B3 at D = 80 (ViT-H/14)",
+          "instantiations": {
+              demangle(n): r for n, r in ptxas_summary(
+                  logs.get("flash_attention", ""), "Li80E").items()}})
     split = ptxas_summary(logs.get("flash_decode", ""),
                           "flash_decode_split_kernel")
     emit({"phase": "ptxas",
@@ -2852,6 +3393,12 @@ def main() -> int:
     vit_launches = vit_train_step_phase(torch, peaks, card.splitlines()[0])
     convnext_train_step_phase(torch, peaks, card.splitlines()[0])
     vit_cli_phase(torch)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    vith_rows = vith_kernel_phase(torch, bw, peaks, flush)
+    del flush
+    vith_launches = vith_train_step_phase(torch, peaks, card.splitlines()[0])
+    checkpoint = resume_phase(torch, card.splitlines()[0])
+    vision_serve_phase(torch, card.splitlines()[0], checkpoint)
 
     def kernel_entry(name, source, replaces, via, launches, row):
         entry = {"name": name, "route": "cuda", "source": source,
@@ -2864,11 +3411,10 @@ def main() -> int:
             entry["design"] = row["design"]
         return entry
 
-    def vit_entry(row, launches):
-        """The kernel on the ViT-L/16 path: launches in one train step,
-        its row at that step's attention shape (bf16, non-causal)."""
-        return {"shape": [VIT_B, VIT_T, VIT_T, VIT_HEADS, VIT_HEADS, D],
-                "launches_per_step": launches,
+    def vit_entry(row, launches, shape):
+        """The kernel on a ViT path: launches in one train step, its row
+        at that step's attention shape (bf16, non-causal)."""
+        return {"shape": shape, "launches_per_step": launches,
                 **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")}}
@@ -2879,12 +3425,18 @@ def main() -> int:
         kernel_entry("flash_decode_paged", KERNEL_SOURCE, KERNEL_REPLACES,
                      PAGED_VIA, paged_launches, paged_row),
         *(dict(kernel_entry(name, ATTN_SOURCE, replaces, via, n, row),
-               vit=vit_entry(vrow, vn))
-          for (name, replaces, via), n, row, vrow, vn in zip(
+               vit=vit_entry(vrow, vn, [VIT_B, VIT_T, VIT_T, VIT_HEADS,
+                                        VIT_HEADS, D]),
+               vit_h14=vit_entry(hrow, hn, [VITH_B, VITH_T, VITH_T,
+                                            VITH_HEADS, VITH_HEADS,
+                                            VITH_D]))
+          for (name, replaces, via), n, row, vrow, vn, hrow, hn in zip(
               ATTN_KERNELS, attn_launches,
               (attn_rows["fwd"], attn_rows["dq"], attn_rows["dkv"]),
               (vit_rows["fwd"], vit_rows["dq"], vit_rows["dkv"]),
-              vit_launches)),
+              vit_launches,
+              (vith_rows["fwd"], vith_rows["dq"], vith_rows["dkv"]),
+              vith_launches)),
         kernel_entry("fused_adam", ADAM_SOURCE, ADAM_REPLACES, ADAM_VIA,
                      adam_launches, adam_row)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,7 +12,10 @@ flash-attention kernels, :mod:`.ops.flash_attention`; :mod:`.optim`,
 ``python -m fluxdistributed_tpu_torch.train``), and data-parallel and
 ZeRO-1 training across process ranks (:mod:`.mesh`, :mod:`.sharding`,
 :mod:`.parallel.zero1`, :mod:`.parallel.zero1_fused` and the fused Adam
-kernel, :mod:`.ops.fused_adam`).
+kernel, :mod:`.ops.fused_adam`), image training (ResNet, ViT, ConvNeXt
+and the ImageNet data path), checkpoints with preemption and resume
+(:mod:`.faults`, :mod:`.train.checkpoint`), and image inference
+(:mod:`.serve.vision`, ``python -m fluxdistributed_tpu_torch.infer``).
 
 The port imports ``torch`` and never ``jax``, ``flax`` or the JAX
 package.  Entry points run on ``cuda`` unless the caller passes

@@ -202,6 +202,16 @@ class ImageNetDataset:
 
     __del__ = close
 
+    def __copy__(self):
+        """A shallow copy (the trainer's eval view) without the worker
+        pool: the copy's ``close`` on GC would otherwise shut down the
+        pool of the dataset it came from, which a loader may still be
+        drawing through.  The copy makes its own pool at first use."""
+        view = object.__new__(type(self))
+        view.__dict__.update(self.__dict__)
+        view._pool = None
+        return view
+
     def __enter__(self):
         return self
 

@@ -78,7 +78,10 @@ class PrefetchLoader:
     (:func:`apply_transform`).  ``batch_size`` is the global batch; with a
     ``mesh`` each rank yields its ``batch_size / N`` rows of it, on the
     mesh's device.  ``device`` defaults to the mesh's, else ``cuda``
-    (see :func:`..device.resolve_device`).
+    (see :func:`..device.resolve_device`).  ``retries`` is how many
+    times a failed assembly (an I/O hiccup, or a fault plan's
+    ``"loader"`` site) is retried after a short backoff: a batch is a
+    pure function of its index, so a retry is bit-identical.
 
     ``chunk=K`` is the device loop's layout: each item stacks K step
     batches on a new leading dim, ``[K, B, ...]`` (rows on dim 1), and
@@ -104,6 +107,7 @@ class PrefetchLoader:
         mesh: Optional[Mesh] = None,
         transform: Optional[Callable] = None,
         chunk: int = 1,
+        retries: int = 2,
     ):
         from ..obs import get_registry
 
@@ -123,6 +127,7 @@ class PrefetchLoader:
             raise ValueError(f"batch_size {batch_size} does not split over "
                              f"{mesh.size} ranks")
         self.start = start
+        self.retries = max(0, retries)
         self.mesh = mesh
         self.transform = transform
         self.device = resolve_device(
@@ -161,6 +166,9 @@ class PrefetchLoader:
         """Host-side assembly of step batch ``i``: a pure function of
         (seed, process 0, index), whichever worker assembles it; with a
         mesh, this rank's rows of it."""
+        from .. import faults
+
+        faults.fire("loader", index=i)
         rng = np.random.default_rng((self.seed, 0, i))
         out = batch_to_dict(
             apply_transform(self.transform,
@@ -196,10 +204,12 @@ class PrefetchLoader:
         return self.cycles // self.chunk
 
     def __iter__(self) -> Iterator[dict]:
+        from .. import faults
+
         if self.start > len(self):
             raise ValueError(
                 f"start item {self.start} is past the end of the run "
-                f"({len(self)} items)")
+                f"({len(self)} items) — a stale RESUME manifest?")
         q: queue.Queue = queue.Queue(maxsize=self.buffersize)
         counter = iter(range(self.start, len(self)))
         lock = threading.Lock()
@@ -218,7 +228,9 @@ class PrefetchLoader:
                     break
                 try:
                     t0 = time.perf_counter()
-                    host = self._assemble(i)
+                    host = faults.with_retries(
+                        lambda: self._assemble(i), tries=self.retries + 1,
+                        backoff=0.05, site="loader")
                     t1 = time.perf_counter()
                     self._m_assemble.observe(t1 - t0)
                     dev = self._put(host)

@@ -63,13 +63,17 @@ def resize_smallest_dimension(img: np.ndarray, size: int = 256) -> np.ndarray:
     The reference lowpass-filters with a Gaussian before downscaling
     (src/preprocess.jl:30-42, ``imfilter`` + ``imresize``); PIL's
     ``BILINEAR`` with ``reducing_gap`` performs the equivalent
-    antialiased area reduction.
+    antialiased area reduction.  An image already at the target size
+    comes back as it is, as PIL's resize returns a copy then (so the
+    eval pipeline runs without PIL on such images).
     """
-    from PIL import Image
-
     h, w = img.shape[:2]
     scale = size / min(h, w)
     nh, nw = max(size, round(h * scale)), max(size, round(w * scale))
+    if (nh, nw) == (h, w):
+        return img
+    from PIL import Image
+
     pil = Image.fromarray(img)
     pil = pil.resize((nw, nh), Image.BILINEAR, reducing_gap=2.0)
     return np.asarray(pil, np.uint8)

@@ -67,17 +67,21 @@
 //       tiles start first.
 //   B2: a (b, h, query tile) per CTA, walked last tile first as B1; each
 //       warp's 16 rows of Q and dO stay in registers as A fragments (D <=
-//       64; at D = 128 they are re-read from shared memory, and the keys
-//       of a tile taken 32 at a time); K/V tiles of 64 keys stream through
+//       64; at D = 80 and 128 they are re-read from shared memory, and the
+//       keys of a tile taken 32 at a time); K/V tiles of 64 keys stream through
 //       the ring; S = Q.K^T and dP = dO.V^T stay in registers, dS becomes
 //       a bf16 A fragment in place, and dQ += dS.K reads K through
 //       ldmatrix.trans.  dQ accumulates in registers and is written once.
 //       ds rounds to bf16 exactly as the plain version's (see "B2 bf16").
 //   B3: a (b, KV head, key tile) per CTA; each warp's 16 key rows of K and
-//       V stay in registers (D <= 64; at D = 128 they are re-read from
-//       shared memory, and the 64 queries of a tile are taken in two
+//       V stay in registers (D <= 64; at D = 80 and 128 they are re-read
+//       from shared memory, and the 64 queries of a tile are taken in two
 //       halves of 32, so that the dK/dV accumulators fit the 255
-//       registers, with a few bytes spilled).
+//       registers, with a few bytes spilled at 128).
+//
+// Head dims: 32, 64, 80 (ViT-H/14) and 128.  Every loop over the features
+// runs D / 16 k-steps or D / 8 n-tiles (5 and 10 at D = 80), and a row is
+// D / 8 16-byte copies, so no count needs to be a power of two.
 //       The CTA loops over (group member, query tile) with each Q/dO tile
 //       and its LSE/delta rows in the ring; each warp forms S^T = K_w.Q^T
 //       and dP^T = V_w.dO^T, then P^T and dS^T, and accumulates dV_w +=
@@ -653,7 +657,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
 // to bf16 pairs, are the A fragment of k-step j.
 
 // bf16 row stride of a shared-memory tile: 16 bytes of padding put the 8
-// rows an ldmatrix phase reads in distinct banks
+// rows an ldmatrix phase reads in distinct banks.  At D = 80 a row is 176
+// bytes (44 words), so the 8 rows start at words 0, 12, 24, 4, 16, 28, 8,
+// 20 mod 32: distinct 4-word groups, no conflict (an XOR swizzle over 10
+// chunks of 16 bytes would not be closed).
 template <int D>
 __host__ __device__ constexpr int tc_ld() { return D + 8; }
 
@@ -755,7 +762,7 @@ struct LdsmLane {
 template <int D>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const View& x, int b, int h,
                                                 int t0, int nvalid) {
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row: 4, 8, 10 or 16
   const bf16* base = static_cast<const bf16*>(x.p) + static_cast<long long>(b) * x.sb +
                      static_cast<long long>(h) * x.sh;
   static_assert(kTile * kChunks % kTcThreads == 0, "whole rounds of copies");
@@ -1129,9 +1136,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(Params p) 
   constexpr int KD = D / 16;
   constexpr int ND = D / 8;
   // D <= 64: each warp keeps its K and V rows as A fragments in registers
-  // and takes a query tile's 64 columns at once.  D = 128: the dK/dV
-  // accumulators alone take 128 registers, so K/V are re-read from shared
-  // memory and the queries taken 32 at a time.
+  // and takes a query tile's 64 columns at once.  D = 80 and 128: the
+  // dK/dV accumulators alone take 80 or 128 registers, so K/V are re-read
+  // from shared memory and the queries taken 32 at a time.
   constexpr bool kKeepKV = D <= 64;
   constexpr int QN = D <= 64 ? 64 : 32;
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -1428,9 +1435,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(Params p) {
   constexpr int KD = D / 16;
   constexpr int ND = D / 8;
   // D <= 64: each warp keeps its Q and dO rows as A fragments in
-  // registers and takes a key tile's 64 columns at once.  D = 128: the dQ
-  // accumulators alone take 64 registers, so Q and dO are re-read from
-  // shared memory and the keys taken 32 at a time.
+  // registers and takes a key tile's 64 columns at once.  D = 80 and 128:
+  // the dQ accumulators take 40 or 64 registers, so Q and dO are re-read
+  // from shared memory and the keys taken 32 at a time.
   constexpr bool kKeepQ = D <= 64;
   constexpr int KN = D <= 64 ? 64 : 32;
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -1693,6 +1700,7 @@ cudaError_t dispatch_dim(int which, int D, const Params& p, cudaStream_t stream)
   switch (D) {
     case 32: return run<T, 32>(which, p, stream);
     case 64: return run<T, 64>(which, p, stream);
+    case 80: return run<T, 80>(which, p, stream);  // ViT-H/14: 1280 / 16
     case 128: return run<T, 128>(which, p, stream);
     default: return cudaErrorInvalidValue;
   }

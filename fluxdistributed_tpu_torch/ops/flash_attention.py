@@ -64,7 +64,7 @@ __all__ = [
 # dtype codes and kernel ids shared with csrc/flash_attention.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD, _DQ, _DKV = 0, 1, 2
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 80, 128)
 #: the kernels' tiles: query rows and key rows (``kTile`` in the source);
 #: a tile outside the causal / window band is skipped whole
 TILE_Q = TILE_K = 64

@@ -24,8 +24,8 @@ the same explicit schedule above.  Because each rank's rule sees only
 its slice, rules that need norms over whole leaves or the whole
 gradient (LARS, global-norm clipping) are refused by both; the JAX
 GSPMD variant takes them because XLA inserts the norm collectives.
-``zero1_ema_params`` (the EMA of :func:`..optim.with_ema` gathered from
-the shards) is not ported yet (ROADMAP).
+:func:`zero1_ema_params` gathers the EMA of :func:`..optim.with_ema`
+from the shards into model shapes.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ __all__ = [
     "make_train_step_zero1",
     "make_train_step_zero1_shardmap",
     "per_device_state_bytes",
+    "zero1_ema_params",
     "zero1_optimizer",
     "zero1_state",
 ]
@@ -181,6 +182,21 @@ def make_train_step_zero1_shardmap(loss_fn: Callable, optimizer: Optimizer,
     refuses LARS and clipping."""
     _refuse_cross_slice(optimizer)
     return make_train_step_zero1(loss_fn, optimizer, mesh, seed=seed)
+
+
+def zero1_ema_params(state: dp.TrainState, mesh: Mesh) -> dict:
+    """The EMA shadow params of a ZeRO-1 state whose optimizer is
+    ``optim.with_ema(...)``, in model shapes and layouts.  Under ZeRO-1
+    each rank's shadow is its 1/N slice of every flat padded leaf, like
+    every other optimizer slot, so :func:`..optim.ema_params` alone gives
+    slices a model cannot take: the slices are all-gathered (every rank
+    of ``mesh`` calls this) and unflattened against the params.
+    Evaluate with ``dataclasses.replace(state,
+    params=zero1_ema_params(state, mesh))``."""
+    from ..optim import ema_params
+
+    gathered = collectives.all_gather(ema_params(state.opt_state), mesh)
+    return _unflatten_like(gathered, state.params)
 
 
 def per_device_state_bytes(tree) -> dict:

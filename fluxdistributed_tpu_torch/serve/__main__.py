@@ -1,5 +1,7 @@
-"""Serve a ``TransformerLM`` over HTTP: ``POST /v1/generate`` (optionally
-streaming), ``GET /healthz`` and ``GET /metrics``.
+"""Serve a ``TransformerLM`` over HTTP (``POST /v1/generate``,
+optionally streaming, ``GET /healthz`` and ``GET /metrics``), or an
+image classifier (the webcam demo: ``GET /`` and ``POST /predict``,
+:mod:`.vision`).
 
     python -m fluxdistributed_tpu_torch.serve --model lm_small --port 8000
     curl -d '{"prompt_tokens": [1, 2, 3], "max_tokens": 64}' \\
@@ -8,9 +10,18 @@ streaming), ``GET /healthz`` and ``GET /metrics``.
     # paged KV cache with the prefix cache (on the CPU: add --device cpu)
     python -m fluxdistributed_tpu_torch.serve --paged --prefix-cache
 
-Weights are random, made from ``--seed``.  Runs on the GPU unless
-``--device cpu`` is given.  The flags are the JAX package's
-``bin/serve.py --lm`` flags for the dense and paged layouts.
+    # an image model serves images: a trained checkpoint's top-3 labels
+    python -m fluxdistributed_tpu_torch.serve --model resnet50 \\
+        --checkpoint ck/ --synset LOC_synset_mapping.txt --port 8000
+
+The mode follows ``--model``: an ``lm_*`` name serves tokens (the
+default, ``lm_small``), an image model serves images (the JAX
+``bin/serve.py`` picks with ``--lm``).  An LM's weights are random,
+made from ``--seed``, or a trained checkpoint's params (``--checkpoint``,
+``--step``); an image model's come from ``--checkpoint``,
+``--torch-weights`` (torchvision layout) or seed 0.  Runs on the GPU
+unless ``--device cpu`` is given.  The flags are the JAX package's
+``bin/serve.py`` flags.
 """
 
 from __future__ import annotations
@@ -21,9 +32,28 @@ import time
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from ..train.__main__ import IMAGE_MODELS, LM_MODELS
+
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model", default="lm_small",
-                   choices=["lm_tiny", "lm_small", "lm_medium"])
+                   choices=[*LM_MODELS, *IMAGE_MODELS],
+                   help="an lm_* model serves /v1/generate; an image model "
+                        "serves the webcam demo (/predict)")
+    p.add_argument("--checkpoint", default=None,
+                   help="trainer checkpoint dir (the latest step, or "
+                        "--step); http(s):// or gs:// are fetched")
+    p.add_argument("--step", type=int, default=None,
+                   help="specific checkpoint step")
+    p.add_argument("--torch-weights", default=None,
+                   help="image models: a torchvision-layout state_dict "
+                        "file (.pt/.pth)")
+    p.add_argument("--synset", default=None,
+                   help="image models: LOC_synset_mapping.txt for the "
+                        "class names")
+    p.add_argument("--topk", type=int, default=3,
+                   help="image models: predictions per image")
+    p.add_argument("--num-classes", type=int, default=1000,
+                   help="image models: classes of the head")
     p.add_argument("--vocab", type=int, default=32000,
                    help="LM vocab size (256 = byte-level text prompts)")
     p.add_argument("--max-slots", type=int, default=8,
@@ -93,6 +123,14 @@ def build_server(args):
         vocab=args.vocab, num_kv_heads=args.kv_heads, window=args.window,
         sinks=args.sinks, norm=args.norm, mlp=args.mlp, device=args.device,
         seed=args.seed)
+    if args.checkpoint:
+        from ..data.sources import fetch_checkpoint
+        from ..train.checkpoint import load_checkpoint
+
+        restored = load_checkpoint(fetch_checkpoint(args.checkpoint),
+                                   step=args.step)
+        model.load_state_dict({**restored["params"],
+                               **restored.get("model_state", {})})
     engine = LMEngine(model, max_slots=args.max_slots, max_len=args.max_len,
                       buckets=buckets, prefill_chunk=args.prefill_chunk,
                       kv_dtype=args.kv_dtype,
@@ -104,11 +142,37 @@ def build_server(args):
     return LMServer(scheduler, args.vocab), scheduler
 
 
+def _serve_images(args) -> int:
+    from .vision import make_app, serve
+
+    predict = make_app(args)
+    httpd = serve(args, predict)
+    print(f"FDTPU_SERVE_PORT={httpd.server_address[1]}", flush=True)
+    print(f"serving {args.model} on http://{args.host}:"
+          f"{httpd.server_address[1]}/ (ctrl-c to stop)", flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+    return 0
+
+
 def main(argv=None) -> int:
+    from ..train.__main__ import LM_MODELS
+
     args = build_parser().parse_args(argv)
+    if args.model not in LM_MODELS:
+        return _serve_images(args)
+    if args.torch_weights:
+        raise SystemExit("--torch-weights is for image models; an LM "
+                         "takes --checkpoint")
     t0 = time.perf_counter()
     server, _ = build_server(args)
-    print(f"random-init {args.model} ready in "
+    what = (f"checkpoint {args.checkpoint}" if args.checkpoint
+            else "random-init")
+    print(f"{what} {args.model} ready in "
           f"{time.perf_counter() - t0:.1f}s on {server.scheduler.engine.device}",
           file=sys.stderr)
     httpd = server.serve(args.host, args.port)

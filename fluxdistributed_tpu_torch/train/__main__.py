@@ -38,9 +38,21 @@ replay (``--cycles`` must be a multiple of K; ``--spmd jit`` only).
 or text drivers, :mod:`..data.registry`); ``cifar:PATH`` registers a
 ``cifar10`` entry for PATH and opens it the same way.  ``--val-dataset``
 names a registered dataset whose slice the eval cadence reports, and
-``--final-eval`` evaluates the whole of it after training.  The JAX
-CLI's other ``--spmd`` modes, checkpoints, the guard, fault plans and
-AOT belong to later slices and are not accepted.
+``--final-eval`` evaluates the whole of it after training.
+
+``--checkpoint-dir DIR`` saves the state every ``--checkpoint-every``
+items (default 20, the reference's cadence), and a SIGTERM or SIGINT
+checkpoints at the next step boundary, writes ``DIR/RESUME.json`` and
+exits with code 75 (``faults.PREEMPTED_RC``: requeue me); ``--resume``
+then continues from there, step for step::
+
+    python -m fluxdistributed_tpu_torch.train ... --checkpoint-dir ck
+    python -m fluxdistributed_tpu_torch.train ... --checkpoint-dir ck --resume
+
+``--fault-plan JSON`` (or ``@file.json``) installs a deterministic
+fault plan first (:class:`..faults.FaultPlan`), e.g.
+``'{"sigterm_at_step": 3}'``.  The JAX CLI's other ``--spmd`` modes,
+the guard and AOT belong to later slices and are not accepted.
 """
 
 from __future__ import annotations
@@ -104,6 +116,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup-steps", type=int, default=0)
     p.add_argument("--total-steps", type=int, default=None,
                    help="enable the warmup-cosine schedule to this horizon")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=20,
+                   help="cycles between checkpoints (reference: 20)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint (and RESUME "
+                        "manifest) in --checkpoint-dir")
+    p.add_argument("--fault-plan", default=None, metavar="JSON",
+                   help="install a deterministic fault-injection plan "
+                        "(fluxdistributed_tpu_torch.faults) before anything "
+                        "else runs: a JSON object or @path/to/plan.json, "
+                        "e.g. '{\"sigterm_at_step\": 50}'")
     p.add_argument("--print-every", type=int, default=10)
     p.add_argument("--eval-every", type=int, default=50)
     p.add_argument("--attn", default="dense",
@@ -208,7 +231,37 @@ def run(argv=None):
     :class:`~.trainer.TrainTask` (``task.losses`` holds every step's
     loss).  ``main`` is this plus an exit code."""
     args = build_parser().parse_args(argv)
+    if args.resume and not args.checkpoint_dir:
+        raise SystemExit("--resume needs --checkpoint-dir")
+    plan = _install_fault_plan(args.fault_plan)
+    try:
+        return _run(args)
+    finally:
+        if plan is not None:
+            from .. import faults
 
+            faults.clear_plan()
+
+
+def _install_fault_plan(spec):
+    """``--fault-plan``'s plan, installed, or ``None``."""
+    if not spec:
+        return None
+    import json
+
+    from .. import faults
+
+    if spec.startswith("@"):
+        with open(spec[1:]) as f:
+            spec = f.read()
+    try:
+        plan = faults.FaultPlan.from_spec(json.loads(spec))
+    except (ValueError, TypeError) as e:
+        raise SystemExit(f"--fault-plan: {e}")
+    return faults.install_plan(plan)
+
+
+def _run(args):
     from ..device import resolve_device
 
     device = resolve_device(args.device)
@@ -319,6 +372,15 @@ def _train(args, dataset, val_dataset, device, mesh):
     except ValueError as e:  # e.g. a batch that does not split over ranks
         raise SystemExit(f"--spmd {args.spmd}: {e}")
     lead = mesh is None or mesh.rank == 0
+    if args.resume:
+        from .trainer import resume_training
+
+        manifest = resume_training(task, args.checkpoint_dir)
+        if lead and (manifest is not None or task.state.step):
+            src = ("RESUME manifest" if manifest is not None
+                   else "latest checkpoint (no manifest)")
+            print(f"resumed from step {task.state.step} at item "
+                  f"{task.loader.start} via {src}", flush=True)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     ranks = "" if mesh is None else (
@@ -331,7 +393,9 @@ def _train(args, dataset, val_dataset, device, mesh):
               + (f", attn {args.attn}" if is_lm else
                  f", {args.num_classes} classes"), flush=True)
     train(task, print_every=args.print_every, eval_every=args.eval_every,
-          logger=ConsoleLogger() if lead else NullLogger())
+          logger=ConsoleLogger() if lead else NullLogger(),
+          checkpoint_dir=args.checkpoint_dir,
+          checkpoint_every=args.checkpoint_every, handle_signals=True)
     if args.final_eval:
         metrics = evaluate(task, val_dataset, batch_size=args.batch_size,
                            topk=() if is_lm else (1, 5, 10))
@@ -347,7 +411,18 @@ def _train(args, dataset, val_dataset, device, mesh):
 
 
 def main(argv=None) -> int:
-    run(argv)
+    """:func:`run`, with the exit code: 0 when done, ``PREEMPTED_RC``
+    (75) when a signal checkpointed the run and stopped it."""
+    from ..faults import PREEMPTED_RC, Preempted
+
+    try:
+        run(argv)
+    except Preempted as e:
+        if int(os.environ.get("RANK", "0")) == 0:
+            print(f"preempted: {e} — resume with --resume "
+                  f"--checkpoint-dir {e.checkpoint_dir} "
+                  f"(exit code {PREEMPTED_RC})", flush=True)
+        return PREEMPTED_RC
     return 0
 
 

@@ -18,20 +18,28 @@ with or without ZeRO-1, on one GPU, on the ranks of a process group
 * ``steps_per_call=K`` is the JAX device loop: each loader item stacks
   K step batches and one call runs K optimizer steps (one CUDA graph
   replay on a card), the cadences ticking per item;
-* ``evaluate`` aggregates the loss and top-k accuracies over a dataset.
+* ``evaluate`` aggregates the loss and top-k accuracies over a dataset,
+  drawing (as the val slice does) through an eval view of the dataset
+  with augmentation off;
+* checkpoints and preemption: ``train(checkpoint_dir=...)`` saves at the
+  JAX cadence, and with ``handle_signals`` a SIGTERM or SIGINT becomes a
+  blocking checkpoint, a RESUME manifest and :class:`..faults.Preempted`
+  at the next step boundary; ``resume_training`` restores the state and
+  the loader cursor, so a resumed run is step for step the
+  uninterrupted one (:mod:`.checkpoint`).
 
 Phase times, step counts and OOM skips land in the process registry
 (:mod:`..obs.metrics`) under the JAX trainer's ``fdtpu_train_*`` names.
-Checkpoints, the anomaly guard, preemption, profiling and the other
-parallel modes come with later slices.  A
-device OOM on one rank of a mesh, and not on the others, leaves the
-others waiting in the step's next collective, as in the JAX package on
-several hosts.
+The anomaly guard, profiling and the other parallel modes come with
+later slices.  A device OOM on one rank of a mesh, and not on the
+others, leaves the others waiting in the step's next collective, as in
+the JAX package on several hosts.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import inspect
 import time
@@ -40,6 +48,7 @@ from typing import Any, Callable, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import faults
 from ..data.loader import PrefetchLoader, apply_transform, batch_to_dict
 from ..device import DeviceLike, resolve_device
 from ..mesh import Mesh
@@ -49,9 +58,14 @@ from ..optim import Optimizer
 from ..parallel.dp import (TrainState, make_eval_step, make_train_step,
                            make_train_step_shardmap, module_loss_fn)
 from ..tree import to_host
+from .checkpoint import (clear_resume_manifest, latest_step, load_checkpoint,
+                         load_checkpoint_elastic, read_resume_manifest,
+                         save_checkpoint, wait_for_pending,
+                         write_resume_manifest)
 from .logging import ConsoleLogger, Logger
 
-__all__ = ["TrainTask", "evaluate", "prepare_training", "train"]
+__all__ = ["TrainTask", "evaluate", "prepare_training", "restore_training",
+           "resume_training", "train"]
 
 
 @dataclasses.dataclass
@@ -81,6 +95,9 @@ class TrainTask:
     transform: Optional[Callable] = None
     # optimizer steps a call of ``step_fn`` (one loader item) runs
     steps_per_call: int = 1
+    # the optimizer state is ZeRO-1-sharded over ``mesh`` (a checkpoint
+    # gathers it)
+    zero1: bool = False
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -91,6 +108,24 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 def _same_device(p: torch.device, dev: torch.device) -> bool:
     """``cuda:0`` is on ``cuda``; an index counts only when given."""
     return p.type == dev.type and (dev.index is None or p.index == dev.index)
+
+
+def _eval_view(dataset):
+    """A non-mutating eval view of ``dataset``: the same tables and
+    decoders with augmentation off.
+
+    Eval draws go through the eval pipeline even when the dataset
+    augments (an ImageNet train split, a registry entry with ``augment =
+    true``).  Turning ``dataset.augment`` off in place would race a
+    prefetch loader that shares the object, so the view is a shallow
+    copy with its own ``augment`` flag over the shared, read-only sample
+    tables.
+    """
+    if getattr(dataset, "augment", False):
+        view = copy.copy(dataset)
+        view.augment = False
+        return view
+    return dataset
 
 
 def prepare_training(
@@ -226,7 +261,8 @@ def prepare_training(
     if val_dataset is not None:
         q = 1 if mesh is None else mesh.size
         nval = max(q, val_samples // q * q)
-        draw = apply_transform(transform, val_dataset.batch(
+        # the eval pipeline, even where the val dataset augments
+        draw = apply_transform(transform, _eval_view(val_dataset).batch(
             np.random.default_rng(seed + 1), nval))
         val_batch = batch_to_dict(draw, getattr(val_dataset, "nclasses", None))
         if mesh is not None:
@@ -243,7 +279,66 @@ def prepare_training(
                               chunk=steps_per_call),
         optimizer=optimizer, model=model, device=dev, mesh=mesh, topk=topk,
         val_batch=val_batch, transform=transform,
-        steps_per_call=steps_per_call)
+        steps_per_call=steps_per_call, zero1=zero1)
+
+
+def restore_training(task: TrainTask, checkpoint_dir: str,
+                     step: Optional[int] = None) -> TrainTask:
+    """Restore the latest (or the given) step of ``checkpoint_dir`` into
+    the prepared task's state (params, optimizer state, model state and
+    step counter; a ZeRO-1 state on this rank's slices).  For the
+    preemption-aware resume, with the loader cursor, use
+    :func:`resume_training`."""
+    task.state = load_checkpoint(checkpoint_dir, task.state, step=step,
+                                 mesh=task.mesh)
+    return task
+
+
+def _topology(task: TrainTask) -> tuple:
+    """(mesh shape, device count) as the RESUME manifest records them."""
+    n = 1 if task.mesh is None else task.mesh.size
+    return {"data": n}, n
+
+
+def resume_training(task: TrainTask, checkpoint_dir: str,
+                    step: Optional[int] = None) -> Optional[dict]:
+    """Preemption-aware resume: restore the state and the run's cursor,
+    so that the resumed run is step for step the uninterrupted one.
+
+    Reads the RESUME manifest a preempted ``train`` left beside its
+    checkpoint.  At the manifest's rank count the checkpoint restores
+    as it is; at another one (the elastic case) ZeRO-1's flat padded
+    optimizer buffers are re-split for the new count
+    (:func:`.checkpoint.load_checkpoint_elastic`).  The loader starts at
+    the manifest's ``next_item`` and ``num_missed`` and
+    ``skipped_items`` carry over.  Without a manifest the cursor is the
+    step counter over ``steps_per_call`` (right when nothing was
+    OOM-skipped before the checkpoint).
+
+    Returns the manifest, or ``None``: no manifest (a plain latest
+    checkpoint resume), or nothing on disk at all, in which case the
+    task is left untouched (a fresh run)."""
+    faults.fire("resume")
+    manifest = read_resume_manifest(checkpoint_dir)
+    ckpt_step = (manifest or {}).get("checkpoint_step", step)
+    if ckpt_step is None:
+        ckpt_step = latest_step(checkpoint_dir)
+        if ckpt_step is None:
+            return None  # nothing saved yet: a fresh run
+    mesh_now, ndev = _topology(task)
+    same = manifest is None or (manifest.get("device_count") == ndev
+                                and manifest.get("mesh") == mesh_now)
+    load = load_checkpoint if same else load_checkpoint_elastic
+    task.state = load(checkpoint_dir, task.state, step=ckpt_step,
+                      mesh=task.mesh)
+    if manifest is not None:
+        task.loader.start = int(manifest.get("next_item", 0))
+        task.num_missed = int(manifest.get("num_missed", 0))
+        task.skipped_items = [int(x) for x in
+                              manifest.get("skipped_items", [])]
+    else:
+        task.loader.start = int(task.state.step) // task.steps_per_call
+    return manifest
 
 
 def _is_oom(err: Exception) -> bool:
@@ -309,6 +404,9 @@ def evaluate(task: TrainTask, dataset, *, batch_size: int = 256,
             rem_size = 0  # caller truncated: no remainder pass
     exact = capable and max_batches == full_batches
     rng = np.random.default_rng(seed)
+    # the eval pipeline; the caller's dataset (which a loader may share)
+    # keeps augmenting
+    dataset = _eval_view(dataset)
     total = {"loss": 0.0}
     n = 0
 
@@ -364,7 +462,9 @@ class _PhaseClock:
 
 
 def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
-          logger: Optional[Logger] = None):
+          logger: Optional[Logger] = None,
+          checkpoint_dir: Optional[str] = None, checkpoint_every: int = 20,
+          handle_signals: bool = False):
     """The training loop.
 
     Every ``print_every`` items it logs steps/s and tokens/s (images/s
@@ -378,6 +478,23 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
     ``task.losses`` (read back once, at the end).  The
     trained parameters and running stats are copied into ``task.model``
     in place.
+
+    With a ``checkpoint_dir``, the state is saved every
+    ``checkpoint_every`` items (the reference's 20 cycles) after item
+    ``j > 0``, without blocking (the host snapshot is taken at once, the
+    write overlaps the next steps), and at the end the last write is
+    waited for and any RESUME manifest removed.  ``handle_signals=True``
+    arms checkpoint-on-preemption: SIGTERM/SIGINT set a flag
+    (:class:`..faults.SignalFlag`) that the loop reads at the next step
+    boundary, where the state is consistent (no step and no graph replay
+    in flight), and there it saves a blocking checkpoint and the RESUME
+    manifest (step, loader cursor, skipped items, ranks) and raises
+    :class:`..faults.Preempted`; on a mesh the ranks agree on the
+    boundary.  A second signal during that exit raises
+    ``KeyboardInterrupt``.  The loop starts at ``task.loader.start``
+    (:func:`resume_training` sets it), and each item's batch is a
+    function of its index, so a resumed run draws what the uninterrupted
+    one drew.
 
     Returns ``(host_params, model_state, task)``: CPU copies of the
     final parameters.
@@ -403,8 +520,68 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
     t_mark, j_mark = t_start, j
     done_steps = 0
     losses = []  # fresh device tensors, read back once at the end
+    preempt = faults.SignalFlag().install() if handle_signals else None
+
+    def preempted() -> bool:
+        if preempt is None:
+            return False
+        hit = preempt.is_set()
+        if task.mesh is not None and task.mesh.size > 1:
+            # every rank stops at the same boundary, or one rank enters a
+            # collective (the checkpoint's gather, the next step) alone
+            flag = torch.tensor([float(hit)], device=task.mesh.device)
+            torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX,
+                                         group=task.mesh.group)
+            hit = bool(flag.item())
+        return hit
+
+    def checkpoint_and_exit():
+        step_now = int(task.state.step)
+        mesh_now, ndev = _topology(task)
+        manifest = {
+            "version": 1,
+            "reason": preempt.reason,
+            "checkpoint_step": step_now,
+            "next_item": j,
+            "steps_per_call": spc,
+            "num_missed": int(task.num_missed),
+            "skipped_items": [int(x) for x in task.skipped_items],
+            "mesh": mesh_now,
+            "device_count": ndev,
+            "process_count": ndev,
+            # both streams re-derive from restored values: nothing of an
+            # rng needs saving
+            "rng": {
+                "step": "dropout seed of (seed, state.step), on the host",
+                "loader": "np.random.default_rng((seed, 0, item))",
+            },
+        }
+        if checkpoint_dir:
+            with phases("checkpoint"):
+                # blocking: the process is about to exit
+                save_checkpoint(task.state, checkpoint_dir, step_now,
+                                block=True, mesh=task.mesh, zero1=task.zero1)
+                write_resume_manifest(checkpoint_dir, manifest)
+            faults.record_preemption()
+            logger.info(f"preempted ({manifest['reason']}): checkpointed "
+                        f"step {step_now} + RESUME manifest (next item "
+                        f"{j}) in {checkpoint_dir}")
+        else:
+            logger.info(f"preempted ({manifest['reason']}) with no "
+                        "checkpoint_dir: nothing persisted, the run "
+                        "cannot be resumed")
+        raise faults.Preempted(
+            f"training preempted at step {step_now} (item {j})",
+            step=step_now, next_item=j, checkpoint_dir=checkpoint_dir,
+            manifest=manifest)
+
     try:
         while True:
+            # the fault plan's SIGTERM-at-item-j lands here, and the
+            # step-boundary check sees it at once
+            faults.fire("step", index=j)
+            if preempted():
+                checkpoint_and_exit()
             t_item = time.perf_counter()
             with phases("data_wait"):
                 batch = next(it, _end)
@@ -456,17 +633,33 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
                         loss = metrics["loss"]
                         logger.log({"train_step_loss": float(
                             loss[-1] if spc > 1 else loss)}, j)
+                if (checkpoint_dir and checkpoint_every and j > 0
+                        and j % checkpoint_every == 0):
+                    # the snapshot is queued now; the disk write overlaps
+                    # the next steps (waited for at the end)
+                    with phases("checkpoint"):
+                        save_checkpoint(task.state, checkpoint_dir,
+                                        int(task.state.step), block=False,
+                                        mesh=task.mesh, zero1=task.zero1)
                 steps_total.inc(spc)
                 done_steps += spc
                 step_gauge.set(done_steps)
                 step_hist.observe(time.perf_counter() - t_item)
             j += 1
     finally:
+        if preempt is not None:
+            preempt.uninstall()
         if losses:
             task.losses.extend(torch.cat([x.reshape(-1) for x in losses])
                                .float().cpu().tolist())
     if task.num_missed:
         logger.info(f"missed {task.num_missed} batches due to OOM")
+    if checkpoint_dir:
+        wait_for_pending()
+        # a completed run must not leave a mid-run cursor behind
+        clear_resume_manifest(checkpoint_dir)
+        if task.mesh is not None and task.mesh.size > 1:
+            torch.distributed.barrier(group=task.mesh.group)
     with torch.no_grad():
         for name, p in task.model.named_parameters():
             p.copy_(task.state.params[name])

@@ -46,6 +46,10 @@ VARIANTS = {
     "window16_sinks4_gqa": (1, 48, 48, 4, 2, 16, True, 16, 16, 4),
     "fully_masked_rows": (2, 8, 4, 2, 2, 16, True, 4, None, 0),
     "big_block": (1, 96, 96, 2, 1, 32, True, 32, None, 0),
+    # head dim 80 (ViT-H/14's 1280 / 16) at its 257 tokens: the kernels'
+    # fourth head dim, with a ragged last block
+    "d80_noncausal": (2, 257, 257, 2, 2, 80, False, 128, None, 0),
+    "d80_causal_window_sinks": (1, 257, 257, 2, 2, 80, True, 128, 64, 2),
 }
 
 
@@ -308,3 +312,14 @@ def test_blockwise_matches_jax(window, sinks):
                               sinks=sinks)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
                                rtol=0)
+
+
+def test_kernels_take_head_dim_80():
+    """The kernels' head dims are 32, 64, 80 and 128: the wrapper's check
+    passes D = 80 (ViT-H/14) and still refuses the others."""
+    ok = [torch.zeros(1, 8, 2, 80) for _ in range(3)]
+    fa_mod._check_kernel_inputs(*ok)
+    assert fa_mod._HEAD_DIMS == (32, 64, 80, 128)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_mod._check_kernel_inputs(*(torch.zeros(1, 8, 2, 48)
+                                      for _ in range(3)))

@@ -988,26 +988,77 @@ def test_flash_attention_at_vit_shapes(cuda, t, dt):
                                    rtol=rtol)
 
 
-def test_vit_h14_flash_core_refuses_head_dim_80(cuda):
-    """ViT-H/14's heads are 1280 / 16 = 80 wide, which the kernels do
-    not take: the flash core raises their ValueError, with no fallback
-    to the plain version (ROADMAP Queue B2); the dense core runs."""
+@pytest.mark.parametrize("t", [256, 257])
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_attention_at_vit_h14_shapes(cuda, t, dt):
+    """B1-B3 at head dim 80 (ViT-H/14: 1280 / 16), non-causal at 256
+    patches and 257 with the class token, q/k/v strided views read in
+    place; against the plain versions at the limits above, which take
+    the whole sequence as one block (at 128 the last block is one row,
+    whose products cuBLAS sums in another order than the sequential one
+    the kernels' rounding flag re-sums in)."""
+    g = torch.Generator().manual_seed(t)
+    q, k, v = torch.randn(4, t, 3, 16, 80, generator=g).to(dt).to(
+        cuda).unbind(2)
+    do = torch.randn(4, t, 16, 80, generator=g).to(dt).to(cuda)
+    assert all(fa._kernel_view(x) is x for x in (q, k, v))
+    blk = dict(block_q=512, block_k=512)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **blk)
+    delta = (do.float() * ref_out.float()).sum(-1).permute(0, 2, 1)
+    args = (q, k, v, do, ref_lse, delta.contiguous())
+    got = (fa.flash_attention_dq(*args), *fa.flash_attention_dkv(*args))
+    refs = (fa.flash_attention_dq_reference(*args, **blk),
+            *fa.flash_attention_dkv_reference(*args, **blk))
+    f32 = dt == torch.float32
+    torch.testing.assert_close(out.float(), ref_out.float(),
+                               atol=1e-5 if f32 else 2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=0)
+    atol, rtol = (1e-4, 0.0) if f32 else (1e-5, 1.6e-2)
+    for a, r in zip(got, refs):
+        torch.testing.assert_close(a.float(), r.float(), atol=atol,
+                                   rtol=rtol)
+
+
+def test_vit_h14_flash_core_refuses_head_dim_80(cuda, no_tf32):
+    """ViT-H/14's heads are 1280 / 16 = 80 wide.  The kernels refused
+    that head dim until they took it (the name is the test's from then):
+    now the flash core's f32 logits and gradients (two blocks, the class
+    token's 257 tokens, TF32 off) equal the dense core's on the same
+    weights within 1e-4 of the largest logit and 1e-3 of each gradient
+    leaf's largest entry, with one launch of each of B1-B3 a block and
+    none falling back to the plain versions."""
     from functools import partial
 
     from fluxdistributed_tpu_torch.models import vit_h14
     from fluxdistributed_tpu_torch.ops import flash_attention
+    from fluxdistributed_tpu_torch.ops.losses import logitcrossentropy
 
-    x = torch.randn(1, 224, 224, 3, device=cuda)
-    flash = vit_h14(depth=1, attn_fn=partial(flash_attention, causal=False),
-                    seed=1)
-    before = fa.flash_attention_fwd.launches
-    with pytest.raises(ValueError, match=r"head_dim in \(32, 64, 128\), "
-                       "got 80"), torch.no_grad():
-        flash(x)
-    assert fa.flash_attention_fwd.launches == before
-    dense = vit_h14(depth=1, seed=1)
-    with torch.no_grad():
-        assert torch.isfinite(dense(x)).all()
+    flash = partial(flash_attention, causal=False)
+    model = vit_h14(depth=2, num_classes=10, dtype=torch.float32,
+                    use_class_token=True, attn_fn=flash, seed=1)
+    x = torch.randn(2, 224, 224, 3, device=cuda)
+    y = torch.eye(10, device=cuda)[torch.tensor([3, 7], device=cuda)]
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_dq,
+                fa.flash_attention_dkv)
+    out = {}
+    for core in (flash, None):
+        for blk in model.encoder.layers.values():
+            blk.self_attention.attn_fn = core
+        model.zero_grad(set_to_none=True)
+        before = [w.launches for w in wrappers]
+        logits = model(x).float()
+        logitcrossentropy(logits, y).backward()
+        torch.cuda.synchronize()
+        out[core is None] = (logits.detach(), {
+            n: p.grad.clone() for n, p in model.named_parameters()},
+            [w.launches - b for w, b in zip(wrappers, before)])
+    (lf, gf, nf), (ld, gd, nd) = out[False], out[True]
+    assert nf == [2, 2, 2] and nd == [0, 0, 0]
+    assert (lf - ld).abs().max() <= 1e-4 * ld.abs().max()
+    for n in gd:
+        assert (gf[n] - gd[n]).abs().max() <= 1e-3 * gd[n].abs().max(), n
 
 
 @pytest.mark.parametrize("case", ["vit_b16", "convnext_test"])
@@ -1070,6 +1121,52 @@ def _clone_tree(tree):
     from fluxdistributed_tpu_torch.tree import tree_map
 
     return tree_map(torch.clone, tree)
+
+
+def test_graphed_preempt_and_resume_equal_uninterrupted_bitwise(
+        cuda, tmp_path):
+    """SimpleCNN at steps_per_call 2 (each call one graph replay): 4
+    items uninterrupted against 4 items SIGTERMed by the fault plan at
+    item 2, checkpointed and resumed in a fresh task: every loss and
+    every state tensor equal."""
+    from fluxdistributed_tpu_torch import faults, optim
+    from fluxdistributed_tpu_torch.data import SyntheticDataset
+    from fluxdistributed_tpu_torch.models import SimpleCNN
+    from fluxdistributed_tpu_torch.train import (NullLogger,
+                                                 prepare_training,
+                                                 resume_training, train)
+    from fluxdistributed_tpu_torch.tree import leaves
+
+    def task():
+        ds = SyntheticDataset(nsamples=64, nclasses=10, shape=(16, 16, 3))
+        return prepare_training(SimpleCNN(num_classes=10, seed=0), ds,
+                                optim.momentum(0.05, 0.9), batch_size=8,
+                                cycles=8, steps_per_call=2, topk=())
+
+    def state_of(t):
+        return leaves((t.state.params, t.state.opt_state,
+                       t.state.model_state))
+
+    base = task()
+    train(base, print_every=0, eval_every=0, logger=NullLogger())
+    assert base.step_fn.graphs
+    head = task()
+    faults.install_plan(faults.FaultPlan().sigterm_at_step(2))
+    try:
+        with pytest.raises(faults.Preempted):
+            train(head, print_every=0, eval_every=0, logger=NullLogger(),
+                  checkpoint_dir=str(tmp_path), checkpoint_every=0,
+                  handle_signals=True)
+    finally:
+        faults.clear_plan()
+    tail = task()
+    assert resume_training(tail, str(tmp_path))["next_item"] == 2
+    train(tail, print_every=0, eval_every=0, logger=NullLogger(),
+          checkpoint_dir=str(tmp_path), checkpoint_every=0)
+    assert head.losses + tail.losses == base.losses
+    assert tail.state.step == base.state.step == 8
+    for a, b in zip(state_of(tail), state_of(base)):
+        assert torch.equal(a, b)
 
 
 def test_graph_capture_failure_raises_without_fallback(cuda):

@@ -473,3 +473,58 @@ def test_cli_dataset_refusals(imagenet_root, tmp_path):
               "lm_tiny"], "trains on tokens")]:
         with pytest.raises(SystemExit, match=match):
             cli.run(argv + base)
+
+
+# ------------------------------------------------------ eval view (C1)
+
+
+def test_eval_view_val_slice_and_evaluate_match_jax(imagenet_root):
+    """An augmenting val dataset (an ImageNet train split): the val slice
+    and ``evaluate`` draw through the eval pipeline, as the JAX trainer's
+    ``_eval_view`` does, so the port's val batch equals the JAX one bit
+    for bit and ``evaluate`` gives JAX ``evaluate``'s metrics on the
+    same weights (loss within 1e-5 relative: two frameworks' f32
+    convolutions; top-k equal).  The dataset itself keeps augmenting,
+    and its decode pool outlives the views (the port's dataset copies
+    without its pool).  The JAX side takes a fresh dataset object for
+    each role: its view shares the pool and shuts it down on GC
+    (ROADMAP C10)."""
+    import jax
+
+    from fluxdistributed_tpu import optim as joptim
+    from fluxdistributed_tpu.mesh import data_mesh
+    from fluxdistributed_tpu.models import SimpleCNN as JSimpleCNN
+    from fluxdistributed_tpu.train import evaluate as jevaluate
+    from fluxdistributed_tpu.train import prepare_training as jprepare
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import SimpleCNN, load_flax_simple
+    from fluxdistributed_tpu_torch.train import (NullLogger, evaluate,
+                                                 prepare_training, train)
+
+    ds, jds = _pair(imagenet_root, "train", use_native=False)
+    jval, jeval = (_pair(imagenet_root, "train", use_native=False)[1]
+                   for _ in range(2))
+    assert ds.augment and jds.augment
+    ncls = ds.nclasses
+    jtask = jprepare(JSimpleCNN(num_classes=ncls), jds,
+                     joptim.momentum(0.05, 0.9), mesh=data_mesh(1),
+                     batch_size=6, cycles=1, val_dataset=jval, val_samples=6,
+                     topk=(1, 2))
+    model = load_flax_simple(SimpleCNN(num_classes=ncls, device="cpu"),
+                             jax.tree.map(np.asarray, jtask.state.params))
+    task = prepare_training(model, ds, optim.momentum(0.05, 0.9),
+                            batch_size=6, cycles=1, device="cpu",
+                            val_dataset=ds, val_samples=6, topk=(1, 2))
+    for key in ("image", "label"):
+        np.testing.assert_array_equal(task.val_batch[key].numpy(),
+                                      np.asarray(jtask.val_batch[key]))
+    got = evaluate(task, ds, batch_size=4, topk=(1, 2))
+    want = jevaluate(jtask, jeval, batch_size=4, topk=(1, 2))
+    assert got["exact"] and want["exact"]
+    assert got["samples"] == want["samples"] == len(ds)
+    assert got["loss"] == pytest.approx(float(want["loss"]), rel=1e-5)
+    for k in ("top1", "top2"):
+        assert got[k] == pytest.approx(float(want[k]), abs=1e-7)
+    assert ds.augment and jds.augment
+    train(task, print_every=0, eval_every=0, logger=NullLogger())
+    _batches_equal(ds, jds)  # the pool still draws, augmenting

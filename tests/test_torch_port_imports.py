@@ -46,7 +46,8 @@ def test_port_has_modules_to_scan():
     assert "fluxdistributed_tpu_torch/tree.py" in names
     for mod in ("models/vit.py", "models/convnext.py", "data/imagenet.py",
                 "data/native.py", "data/preprocess.py", "data/registry.py",
-                "data/sources.py"):
+                "data/sources.py", "faults.py", "train/checkpoint.py",
+                "serve/vision.py", "infer.py"):
         assert f"fluxdistributed_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").is_file()
 

@@ -334,9 +334,13 @@ def test_cli_main_and_refusals(capsys):
                          (["--kv-heads", "3"], "num_kv_heads")]:
         with pytest.raises(SystemExit, match=match):
             cli.run(base + extra)
-    for flag in (["--spmd", "fsdp"], ["--checkpoint-dir", "x"]):
+    for flag in (["--spmd", "fsdp"], ["--guard"]):
         with pytest.raises(SystemExit):  # argparse: not accepted
             cli.build_parser().parse_args(base + flag)
+    with pytest.raises(SystemExit, match="--resume needs --checkpoint-dir"):
+        cli.run(base + ["--resume"])
+    with pytest.raises(SystemExit, match="--fault-plan"):
+        cli.run(base + ["--fault-plan", '{"sigkill_at_step": 1}'])
     with pytest.raises(SystemExit, match="--cycles"):
         cli.run(["--model", "lm_tiny", "--device", "cpu"])
 
