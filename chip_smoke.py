@@ -179,7 +179,25 @@ Phases, each of which raises on failure (exit code != 0, no result):
     (uint8 256x256 images: the card machine has no JPEG decoder), each
     top-1 equal to the model's own eval forward; p50/p99 ms a request
     and images/s;
-29. a ``{"kernels": [...]}`` line (B1-B3 with their ViT-L/16 and
+29. guard: lm_small (vocab 32000, B = 8, T = 1024, bf16, flash, adam)
+    at ``steps_per_call`` 8, graphed and guarded: a ``train.grad`` NaN at
+    item 2 quarantined, bit-equal to the clean run that skips item 2;
+    three poisoned items rolled back onto the banked checkpoint, bit-equal
+    to their clean skip; the CLI halted by anomalies that keep coming
+    (``HALTED_RC``, the manifest left); the fused ZeRO-1 step (B6)
+    guarded on one NCCL rank at K = 1, bit-equal to its clean skip;
+    B1-B3 and B6 launches over the phase;
+30. guard cost: ms per item guarded and unguarded at K = 8 (median of
+    6), ResNet-50 (224², batch 256, bf16) and lm_small; the pre-step
+    state copy alone in device ms, the sentinel read's share of the
+    item and the state bytes kept;
+31. observe: the CLI on lm_small at K = 8 with the observation flags,
+    ``/metrics`` and ``/healthz`` scraped mid-run (``fdtpu_hbm_*`` read
+    the card), the trace's dispatch and loader h2d spans, the flight
+    dump; a ``torch.profiler`` window through ``train(profile_dir=)``
+    naming B1; ms per item with ``observation`` None, default and full;
+    model selection of 8 ResNet-18 replicas (32², 10 classes);
+32. a ``{"kernels": [...]}`` line (B1-B3 with their ViT-L/16 and
     ViT-H/14 rows and launches a step beside the LM's), then the result
     line ``{"ok": true, "device": {...}}`` last.
 """
@@ -3305,6 +3323,515 @@ def vision_serve_phase(torch, card, checkpoint):
                            f"{VISION_REQUESTS} requests equals the model's")
 
 
+
+# the guard and observation phases: lm_small (vocab 32000, B = 8,
+# T = 1024, bf16, flash, adam) at K = 8 graphed steps an item
+GUARD_K = 8
+ROLLBACK_CFG = {"rollback_after": 3, "anomaly_window": 8}
+
+
+class _TokenBank:
+    """Random tokens at ``vocab``, drawn from the loader's generator (a
+    synthetic Markov stream at vocab 32000 would need 8 GB of host
+    tables)."""
+
+    def __init__(self, vocab, seqlen):
+        self.vocab, self.seqlen = vocab, seqlen
+
+    def batch(self, rng, n):
+        import numpy as np
+
+        return rng.integers(0, self.vocab, (n, self.seqlen), dtype=np.int32)
+
+
+def _lm_task(items, k=GUARD_K, guard=True):
+    """The lm_small task of the guard phases: ``items`` loader items of
+    ``k`` steps, the sentinel in the step with ``guard``."""
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import lm_loss_fn, lm_small
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.train import prepare_training
+
+    model = lm_small(vocab=32000, attn_fn=attention_core("flash"), seed=0)
+    return prepare_training(model, _TokenBank(32000, T_TRAIN),
+                            optim.adam(3e-4), loss_fn=lm_loss_fn(model),
+                            batch_size=B, cycles=k * items,
+                            steps_per_call=k, topk=(), guard=guard)
+
+
+def _guarded_run(torch, make_task, plan=None, **kw):
+    """``train`` of a fresh task under a fault plan: (losses, state
+    tensors, quarantined items, step)."""
+    from fluxdistributed_tpu_torch import faults
+    from fluxdistributed_tpu_torch.train import NullLogger, train
+
+    task = make_task()
+    if plan:
+        faults.install_plan(faults.FaultPlan.from_spec({"fail": plan}))
+    try:
+        train(task, print_every=0, eval_every=0, logger=NullLogger(), **kw)
+    finally:
+        faults.clear_plan()
+    out = (list(task.losses), [x.clone() for x in _state_leaves(task.state)],
+           list(task.quarantined_items), task.state.step)
+    del task
+    torch.cuda.empty_cache()
+    return out
+
+
+def _same_run(a, b) -> dict:
+    return {"losses_equal": a[0] == b[0],
+            "state_tensors": len(a[1]),
+            "state_tensors_unequal": sum(not x.equal(y)
+                                         for x, y in zip(a[1], b[1])),
+            "quarantined": a[2], "steps": a[3]}
+
+
+def guard_phase(torch, card):
+    """The anomaly guard on the card.  lm_small at K = 8, graphed: a
+    ``train.grad`` NaN at item 2 is quarantined, bit-equal to the clean
+    run given ``quarantine=[2]`` (every loss, every state tensor); three
+    poisoned items inside the anomaly window roll back to the banked
+    checkpoint and replay, bit-equal to their clean-skip run; anomalies
+    that keep coming halt the CLI with ``HALTED_RC`` and leave the
+    manifest.  Then the fused ZeRO-1 step (B6) guarded on one NCCL rank
+    at K = 1: one poisoned step quarantined, bit-equal to its clean
+    skip.  B1-B3 and B6 launches over the phase."""
+    import importlib
+    import os
+    import shutil
+
+    from fluxdistributed_tpu_torch import faults, optim
+    from fluxdistributed_tpu_torch.data import PrefetchLoader
+    from fluxdistributed_tpu_torch.mesh import (init_distributed,
+                                                shutdown_distributed)
+    from fluxdistributed_tpu_torch.models import lm_loss_fn, lm_small
+    from fluxdistributed_tpu_torch.obs import get_registry
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.parallel import (
+        make_eval_step, make_train_step_zero1_fused, zero1_fused_state)
+    from fluxdistributed_tpu_torch.train import (GuardConfig,
+                                                 read_resume_manifest)
+    from fluxdistributed_tpu_torch.train.trainer import TrainTask
+
+    t0 = time.perf_counter()
+    reset_all_counts()
+    reg = get_registry()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    clean = _guarded_run(torch, lambda: _lm_task(3),
+                         guard=GuardConfig(quarantine=(2,)))
+    hit = _guarded_run(torch, lambda: _lm_task(3), plan=[
+        {"site": "train.grad", "at": 2, "action": "nan"}],
+        guard=GuardConfig())
+    skip = _same_run(hit, clean)
+    rb_clean = _guarded_run(torch, lambda: _lm_task(5),
+                            guard=GuardConfig(quarantine=(2, 3, 4),
+                                              **ROLLBACK_CFG))
+    before = reg.value("fdtpu_guard_rollbacks_total")
+    t1 = time.perf_counter()
+    rb = _guarded_run(torch, lambda: _lm_task(5), plan=[
+        {"site": "train.grad", "at": 2, "action": "nan"},
+        {"site": "train.loss", "at": 3, "action": "inf"},
+        {"site": "train.grad", "at": 4, "action": "inf"}],
+        checkpoint_dir=os.path.join(CKPT_DIR, "rollback"),
+        checkpoint_every=2, guard=GuardConfig(**ROLLBACK_CFG))
+    rollback = dict(_same_run(rb, rb_clean), wall_s=time.perf_counter() - t1,
+                    rollbacks=reg.value("fdtpu_guard_rollbacks_total")
+                    - before)
+    del clean, hit, rb_clean, rb
+
+    cli = importlib.import_module("fluxdistributed_tpu_torch.train.__main__")
+    d = os.path.join(CKPT_DIR, "halt")
+    t1 = time.perf_counter()
+    rc = cli.main([*TRAIN_ARGV[:-4], "--cycles", "6", "--eval-every", "0",
+                   "--print-every", "0", "--guard", "--checkpoint-dir", d,
+                   "--checkpoint-every", "2", "--guard-rollback-after", "2",
+                   "--fault-plan", json.dumps({"fail": [
+                       {"site": "train.loss", "times": 99,
+                        "action": "nan"}]})])
+    manifest = read_resume_manifest(d)
+    halt = {"rc": rc, "wall_s": time.perf_counter() - t1,
+            "manifest_reason": (manifest or {}).get("reason"),
+            "manifest_quarantined": (manifest or {}).get(
+                "quarantined_items")}
+    torch.cuda.empty_cache()
+
+    mesh = init_distributed("cuda")
+    try:
+        def fused_task():
+            model = lm_small(vocab=32000, attn_fn=attention_core("flash"),
+                             seed=0)
+            loss_fn = lm_loss_fn(model)
+            return TrainTask(
+                state=zero1_fused_state(dict(model.named_parameters()),
+                                        mesh),
+                step_fn=make_train_step_zero1_fused(loss_fn, mesh, lr=3e-4,
+                                                    guard=True),
+                eval_fn=make_eval_step(loss_fn, mesh, topk=()),
+                loader=PrefetchLoader(_TokenBank(32000, T_TRAIN), B,
+                                      cycles=4, mesh=mesh),
+                optimizer=optim.adam(3e-4), model=model, device=mesh.device,
+                mesh=mesh, zero1=True)
+
+        f_clean = _guarded_run(torch, fused_task,
+                               guard=GuardConfig(quarantine=(1,)))
+        f_hit = _guarded_run(torch, fused_task, plan=[
+            {"site": "train.grad", "at": 1, "action": "nan"}],
+            guard=GuardConfig())
+        fused = dict(_same_run(f_hit, f_clean), ranks=mesh.size,
+                     backend="nccl")
+        del f_clean, f_hit
+    finally:
+        shutdown_distributed()
+    counts = dict(zip(("flash_decode", "flash_decode_paged",
+                       "flash_attention_fwd", "flash_attention_dq",
+                       "flash_attention_dkv", "fused_adam"), all_counts()))
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    row = {"phase": "guard", "card": card, "model": "lm_small",
+           "vocab": 32000, "batch": B, "seqlen": T_TRAIN,
+           "dtype": "bfloat16", "attn": "flash", "opt": "adam 3e-4",
+           "steps_per_call": GUARD_K, "graphed": True,
+           "quarantine_item_2": skip, "rollback": rollback, "halt": halt,
+           "fused_zero1_k1": fused, "launches": counts,
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    bad = [name for name, r in (("skip", skip), ("rollback", rollback),
+                                ("fused", fused))
+           if not r["losses_equal"] or r["state_tensors_unequal"]]
+    if (bad or skip["quarantined"] != [2]
+            or rollback["quarantined"] != [2, 3, 4]
+            or rollback["rollbacks"] != 1 or fused["quarantined"] != [1]
+            or rc != faults.HALTED_RC or halt["manifest_reason"] != "guard"
+            or not all(counts[k] for k in ("flash_attention_fwd",
+                                           "flash_attention_dq",
+                                           "flash_attention_dkv",
+                                           "fused_adam"))):
+        raise RuntimeError(f"guard: {bad} differ from their clean skips, "
+                           f"or a verdict is wrong: {row}")
+
+
+def _item_ms(torch, step, state, batch, items, guarded):
+    """Per-item wall ms of ``items`` items after a warm-up (the eager
+    call and the capture, then a replay); guarded items read the
+    sentinel and take the verdict before committing, as the trainer
+    does.  Returns (ms each item, ms in the sentinel read each item,
+    state)."""
+    from fluxdistributed_tpu_torch.obs import Registry
+    from fluxdistributed_tpu_torch.train import GuardConfig, NullLogger
+    from fluxdistributed_tpu_torch.train.guard import TrainGuard
+
+    guard = TrainGuard(GuardConfig(), registry=Registry(),
+                       logger=NullLogger())
+    for _ in range(2):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    ms, read = [], []
+    for j in range(items):
+        t1 = time.perf_counter()
+        new, m = step(state, batch)
+        if guarded:
+            t2 = time.perf_counter()
+            verdict = guard.observe(j, m)
+            read.append((time.perf_counter() - t2) * 1e3)
+            if verdict != "ok":
+                raise RuntimeError(f"guard_cost: item {j} read {verdict}")
+        state = new
+        ms.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    return ms, read, state
+
+
+def guard_cost_phase(torch, card):
+    """ms per item guarded and unguarded at K = 8 (graph replays),
+    median over 6 items: ResNet-50 (224², batch 256, bf16, momentum) and
+    lm_small.  The guarded item copies the state into the shadow before
+    its replay and reads the sentinel before its commit; the copy alone
+    in device ms, the read's share of the item, and the bytes kept."""
+    import statistics as st
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import (lm_loss_fn, lm_small,
+                                                  resnet50)
+    from fluxdistributed_tpu_torch.obs import memstats
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.ops.losses import logitcrossentropy
+    from fluxdistributed_tpu_torch.parallel import (TrainState,
+                                                    make_train_step,
+                                                    module_loss_fn)
+    from fluxdistributed_tpu_torch.tree import leaves
+
+    items = 6
+    rn = resnet50(num_classes=1000, seed=0)
+    lm = lm_small(vocab=32000, attn_fn=attention_core("flash"), seed=0)
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    cases = {
+        "resnet50": (rn, module_loss_fn(rn, logitcrossentropy),
+                     optim.momentum(0.01, 0.9), _stack(torch, [
+                         image_batch(torch, VISION_B, VISION_SIZE, 1000,
+                                     torch.bfloat16, "cuda", 40 + j)
+                         for j in range(GUARD_K)]), VISION_B),
+        "lm_small": (lm, lm_loss_fn(lm), optim.adam(3e-4), {
+            "tokens": torch.from_numpy(rng.integers(
+                0, 32000, (GUARD_K, B, T_TRAIN)).astype(np.int32)).cuda()},
+            B),
+    }
+    for name, (model, loss_fn, opt, batch, nb) in cases.items():
+        row = {"phase": "guard_cost", "card": card, "model": name,
+               "batch": nb, "steps_per_call": GUARD_K, "graphed": True,
+               "items": items}
+        for guarded in (False, True):
+            torch.cuda.empty_cache()
+            state = TrainState.create(
+                {k: p.detach().clone() for k, p in model.named_parameters()},
+                opt, model_state={k: b.clone()
+                                  for k, b in model.named_buffers()})
+            step = make_train_step(loss_fn, opt, steps_per_call=GUARD_K,
+                                   guard=guarded)
+            ms, read, state = _item_ms(torch, step, state, batch, items,
+                                       guarded)
+            key = "guarded" if guarded else "unguarded"
+            row[f"{key}_item_ms"] = ms
+            row[f"{key}_item_ms_median"] = st.median(ms)
+            if guarded:
+                _, static, _, shadow = next(iter(step._graphs.values()))
+                own, kept = leaves(static), leaves(shadow)
+                row["sentinel_read_ms"] = read
+                row["sentinel_read_share"] = st.median(read) / st.median(ms)
+                row["state_bytes_kept"] = memstats.tree_bytes(shadow)
+                row["state_copy_device_ms"] = device_ms(
+                    torch, lambda: torch._foreach_copy_(kept, own))
+                row["state_copy_bound_ms"] = (
+                    2 * row["state_bytes_kept"] / card_rates(
+                        torch.cuda.get_device_name(0))[0] * 1e3)
+            del step, state
+        row["guard_cost_ms_per_item"] = (row["guarded_item_ms_median"]
+                                         - row["unguarded_item_ms_median"])
+        row["guard_cost_share"] = (row["guard_cost_ms_per_item"]
+                                   / row["unguarded_item_ms_median"])
+        emit(row)
+    del rn, lm, cases
+    torch.cuda.empty_cache()
+
+
+def _prom_value(text, prefix):
+    for line in text.splitlines():
+        if line.startswith(prefix):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def observe_phase(torch, card):
+    """The observation layer on the card.  The port's CLI trains lm_small
+    (vocab 256, flash, adam) at K = 8 for 6 items with --metrics-port,
+    --trace-events, --metrics-jsonl, --flight and --watchdog-factor 5; a
+    thread scrapes /metrics and /healthz mid-run (``fdtpu_hbm_*`` must
+    read the card: in use > 0, at most its memory); the trace holds
+    dispatch spans and the loader's h2d spans, the flight dump one record
+    an item with its phase split.  A library run takes
+    ``train(profile_dir=..., profile_start=2, profile_steps=2)``
+    (lm_small, vocab 32000, eager steps): the trace names B1.  Then ms
+    per item of lm_small at K = 8 with ``observation=None``,
+    ``Observation.default()`` and ``Observation.full()`` (5 items each,
+    two interleaved rounds, after a warm-up run).  Last, model
+    selection: 8 replicas of ResNet-18 at 32², 10 classes, 64 images a
+    replica a step, 2 cycles of 4 steps; after each selection the replicas are equal and the
+    chosen one is the argmin of the val losses."""
+    import functools
+    import importlib
+    import os
+    import shutil
+
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import obs as obs_pkg
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.data import SyntheticDataset
+    from fluxdistributed_tpu_torch.models import resnet18
+    from fluxdistributed_tpu_torch.obs import Observation, read_flight
+    from fluxdistributed_tpu_torch.ops.metrics import onehot
+    from fluxdistributed_tpu_torch.train import (NullLogger,
+                                                 prepare_model_selection,
+                                                 train,
+                                                 train_model_selection)
+
+    d = os.path.join(CKPT_DIR, "observe")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    total = torch.cuda.mem_get_info()[1]
+    started, servers, scraped = threading.Event(), [], {}
+    real = obs_pkg.start_metrics_server
+
+    def spy(**kw):
+        srv = real(**kw)
+        servers.append(srv)
+        started.set()
+        return srv
+
+    def scrape():
+        if not started.wait(300):
+            return
+        base = f"http://127.0.0.1:{servers[0].port}"
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            try:
+                text = urllib.request.urlopen(base + "/metrics",
+                                              timeout=10).read().decode()
+            except OSError:
+                return
+            step = _prom_value(text, "fdtpu_train_step ")
+            if step is not None and step >= 2 * GUARD_K:
+                scraped["step"] = step
+                scraped["hbm_in_use"] = _prom_value(
+                    text, "fdtpu_hbm_bytes_in_use{")
+                scraped["hbm_peak"] = _prom_value(text, "fdtpu_hbm_bytes_peak{")
+                scraped["hbm_limit"] = _prom_value(
+                    text, "fdtpu_hbm_bytes_limit{")
+                scraped["headroom"] = _prom_value(
+                    text, "fdtpu_hbm_headroom_ratio ")
+                scraped["health"] = json.loads(urllib.request.urlopen(
+                    base + "/healthz", timeout=10).read())
+                return
+            time.sleep(0.05)
+
+    cli = importlib.import_module("fluxdistributed_tpu_torch.train.__main__")
+    obs_pkg.start_metrics_server = spy
+    th = threading.Thread(target=scrape, daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main([*TRAIN_ARGV[:-4], "--cycles", str(6 * GUARD_K),
+                       "--eval-every", "0", "--print-every", "2",
+                       "--steps-per-call", str(GUARD_K), "--metrics-port",
+                       "0", "--trace-events", os.path.join(d, "trace.json"),
+                       "--metrics-jsonl", os.path.join(d, "metrics.jsonl"),
+                       "--flight", os.path.join(d, "flight.jsonl"),
+                       "--watchdog-factor", "5"])
+    finally:
+        obs_pkg.start_metrics_server = real
+    th.join(60)
+    cli_s = time.perf_counter() - t0
+    with open(os.path.join(d, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events]
+    main_tid = next(e["tid"] for e in events if e["name"] == "dispatch")
+    fl = read_flight(os.path.join(d, "flight.jsonl"))
+    flight_phases = sorted({k for r in fl["records"] for k in r["phases"]})
+    row = {"phase": "observe_cli", "card": card, "rc": rc, "wall_s": cli_s,
+           "scraped": scraped,
+           "card_bytes": total, "spans": {n: names.count(n) for n in
+                                          sorted(set(names))},
+           "h2d_on_loader_threads": all(e["tid"] != main_tid for e in events
+                                        if e["name"] == "h2d"),
+           "flight_records": len(fl["records"]),
+           "flight_phases": flight_phases,
+           "flight_end": (fl["end"] or {}).get("status"),
+           "jsonl_lines": sum(1 for _ in open(os.path.join(
+               d, "metrics.jsonl")))}
+    emit(row)
+    hbm = scraped.get("hbm_in_use")
+    if (rc != 0 or hbm is None or not 0 < hbm <= total
+            or scraped.get("hbm_limit") != total
+            or not scraped["health"].get("ok")
+            or row["spans"].get("dispatch", 0) != 6
+            or row["spans"].get("h2d", 0) != 6
+            or not row["h2d_on_loader_threads"]
+            or row["flight_records"] != 6 or row["flight_end"] != "done"
+            or not {"data_wait", "dispatch", "device"} <= set(flight_phases)):
+        raise RuntimeError(f"observe_cli: {row}")
+
+    # the profiler window, through the library
+    t = _lm_task(5, k=1, guard=False)
+    pd = os.path.join(d, "profile")
+    train(t, print_every=0, eval_every=0, logger=NullLogger(),
+          profile_dir=pd, profile_start=2, profile_steps=2)
+    with open(os.path.join(pd, "trace.json")) as f:
+        kernels = sorted({e["name"] for e in json.load(f)["traceEvents"]
+                          if e.get("cat") == "kernel"})
+    flash = [k for k in kernels if "flash_" in k]
+    emit({"phase": "observe_profile", "card": card, "model": "lm_small",
+          "profile_start": 2, "profile_steps": 2,
+          "trace_bytes": os.path.getsize(os.path.join(pd, "trace.json")),
+          "kernels": len(kernels), "flash_kernels": flash})
+    if not any("flash_fwd" in k for k in flash):
+        raise RuntimeError(f"observe_profile: no B1 kernel in the trace "
+                           f"({flash})")
+    del t
+    torch.cuda.empty_cache()
+
+    # observation=None / default / full, on one captured task, in two
+    # interleaved rounds (the item time drifts by a few % within a run)
+    t = _lm_task(5, guard=False)
+    train(t, print_every=0, eval_every=0, logger=NullLogger())  # captures
+    item_ms = {"none": [], "default": [], "full": []}
+    for _ in range(2):
+        for name, make in (("none", lambda: None),
+                           ("default", Observation.default),
+                           ("full", Observation.full)):
+            t.loader.start = 0
+            t1 = time.perf_counter()
+            train(t, print_every=0, eval_every=0, logger=NullLogger(),
+                  observation=make())
+            item_ms[name].append((time.perf_counter() - t1) * 1e3 / 5)
+    mean = {k: sum(v) / len(v) for k, v in item_ms.items()}
+    spread = abs(item_ms["none"][0] - item_ms["none"][1]) / mean["none"]
+    row = {"phase": "observe_cost", "card": card, "model": "lm_small",
+           "steps_per_call": GUARD_K, "items": 5, "rounds": 2,
+           "item_ms": item_ms, "item_ms_mean": mean,
+           "none_round_spread": spread,
+           "default_over_none": mean["default"] / mean["none"],
+           "full_over_none": mean["full"] / mean["none"]}
+    emit(row)
+    if row["default_over_none"] > 1 + max(0.1, 2 * spread):
+        raise RuntimeError(f"observe_cost: Observation.default() costs "
+                           f"{row['default_over_none']:.3f}x of None, "
+                           f"beyond the noise ({spread:.3f})")
+    del t
+    torch.cuda.empty_cache()
+
+    # model selection: 8 ResNet-18 replicas on the card
+    ds = SyntheticDataset(nsamples=1024, nclasses=10, shape=(32, 32, 3))
+    imgs, labels = ds.batch(np.random.default_rng(1), 256)
+    val = {"image": torch.from_numpy(imgs).cuda(),
+           "label": onehot(torch.from_numpy(labels).cuda(), 10)}
+    task = prepare_model_selection(
+        functools.partial(resnet18, num_classes=10),
+        optim.momentum(0.05, 0.9), replicas=8, input_shape=(32, 32, 3))
+    checks = []
+
+    class _Check:
+        def log(self, metrics, cycle):
+            equal = all(torch.equal(p[k], task.params[0][k])
+                        for p in task.params for k in p)
+            checks.append({"cycle": cycle, "replicas_equal": equal,
+                           **metrics})
+
+        def info(self, msg):
+            pass
+
+    t1 = time.perf_counter()
+    _, history = train_model_selection(task, ds, val, cycles=2,
+                                       steps_per_cycle=4,
+                                       batch_size_per_replica=64,
+                                       logger=_Check())
+    torch.cuda.synchronize()
+    row = {"phase": "model_selection", "card": card, "model": "resnet18",
+           "image": 32, "classes": 10, "replicas": 8,
+           "images_per_replica_step": 64, "cycles": 2, "steps_per_cycle": 4,
+           "val_losses": [h.tolist() for h in history], "checks": checks,
+           "wall_s": time.perf_counter() - t1}
+    emit(row)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if len(checks) != 2 or not all(
+            c["replicas_equal"] and c["selection_best_replica"]
+            == int(np.argmin(h)) for c, h in zip(checks, history)) or not all(
+            np.isfinite(h).all() for h in history):
+        raise RuntimeError(f"model_selection: {row}")
+    del task, val
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3399,6 +3926,9 @@ def main() -> int:
     vith_launches = vith_train_step_phase(torch, peaks, card.splitlines()[0])
     checkpoint = resume_phase(torch, card.splitlines()[0])
     vision_serve_phase(torch, card.splitlines()[0], checkpoint)
+    guard_phase(torch, card.splitlines()[0])
+    guard_cost_phase(torch, card.splitlines()[0])
+    observe_phase(torch, card.splitlines()[0])
 
     def kernel_entry(name, source, replaces, via, launches, row):
         entry = {"name": name, "route": "cuda", "source": source,

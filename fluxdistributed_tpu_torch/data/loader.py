@@ -133,6 +133,9 @@ class PrefetchLoader:
         self.device = resolve_device(
             mesh.device if device is None and mesh is not None else device)
         reg = get_registry()
+        # a span tracer (set by train() when spans are on) puts each h2d
+        # copy on the worker threads' own rows of the trace
+        self.tracer = None
         self._m_depth = reg.gauge(
             "fdtpu_data_prefetch_depth",
             "device-ready batches waiting in the prefetch queue "
@@ -233,7 +236,12 @@ class PrefetchLoader:
                         backoff=0.05, site="loader")
                     t1 = time.perf_counter()
                     self._m_assemble.observe(t1 - t0)
-                    dev = self._put(host)
+                    tracer = self.tracer
+                    if tracer is not None:
+                        with tracer.span("h2d", batch=i):
+                            dev = self._put(host)
+                    else:
+                        dev = self._put(host)
                     self._m_h2d.observe(time.perf_counter() - t1)
                     self._m_batches.inc()
                     item = (i, dev, None)

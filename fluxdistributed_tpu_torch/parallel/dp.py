@@ -152,15 +152,30 @@ def _step_seed(seed: int, step: int, rank: Optional[int] = None) -> int:
     return ((s * 0x100000001B3) ^ (int(rank) + 1)) & 0x7FFFFFFFFFFFFFFF
 
 
-def guard_sentinel(loss: torch.Tensor, grads: Dict[str, torch.Tensor]):
+def guard_sentinel(loss: torch.Tensor, grads: Dict[str, torch.Tensor],
+                   mesh: Optional[Mesh] = None):
     """``[poisoned_loss, grad_norm]`` (f32 [2]): the global L2 norm of the
-    gradients (f32 accumulation; NaN or Inf anywhere poisons it) and the
-    loss plus ``0 * grad_norm``, which equals the loss when the
-    gradients are finite and is NaN when anything is not."""
+    gradients (NaN or Inf anywhere poisons it) and the loss plus ``0 *
+    grad_norm``, which equals the loss when the gradients are finite and
+    is NaN when anything is not.  On a card each leaf's norm comes from
+    one multi-tensor kernel in f32 (``torch._foreach_norm``) and their
+    squares add up: a few launches a step, where a square and a sum a
+    leaf would add hundreds to a captured step.  On the CPU, whose norm
+    kernels accumulate sequentially (1e-3 relative off at 24 M entries),
+    each leaf's sum of squares adds up, as in the JAX function.  With a
+    ``mesh``, ``grads`` are this rank's shards of the exchanged gradient
+    (ZeRO-1's reduce-scattered slices) and the squared sums add up over
+    the ranks."""
+    gs = [g for g in grads.values() if g is not None]
     gsq = torch.zeros((), dtype=torch.float32, device=loss.device)
-    for g in grads.values():
-        if g is not None:
+    if loss.device.type == "cuda" and gs:
+        norms = torch._foreach_norm(gs, 2, dtype=torch.float32)
+        gsq = torch.sum(torch.square(torch.stack(norms)))
+    else:
+        for g in gs:
             gsq = gsq + torch.sum(torch.square(g.float()))
+    if mesh is not None:
+        gsq = collectives.psum(gsq, mesh)
     gnorm = torch.sqrt(gsq)
     return torch.stack([loss.float() + 0.0 * gnorm, gnorm])
 
@@ -243,10 +258,13 @@ def local_grads(loss_fn: Callable, *, accum_steps: int = 1, seed: int = 0,
 
 def device_loop(body: Callable, optimizer: Optimizer, *, seed: int,
                 accum_steps: int, mesh: Optional[Mesh],
-                steps_per_call: int) -> graphs.DeviceLoop:
+                steps_per_call: int,
+                keep_state: bool = False) -> graphs.DeviceLoop:
     """``body(state, batch, seeds, scalars)`` as a train step of
     ``steps_per_call`` steps a call (:class:`.graphs.DeviceLoop`), its
-    table rows the step's :func:`step_seeds` and ``optimizer.scalars``."""
+    table rows the step's :func:`step_seeds` and ``optimizer.scalars``;
+    ``keep_state`` keeps the state a graph replay is given (the guard's
+    recovery needs it)."""
     rank = None if mesh is None else mesh.rank
 
     def host_row(step):
@@ -255,7 +273,8 @@ def device_loop(body: Callable, optimizer: Optimizer, *, seed: int,
 
     return graphs.DeviceLoop(body, host_row, steps_per_call=steps_per_call,
                              n_seeds=accum_steps,
-                             n_scalars=len(optimizer.scalars(0)))
+                             n_scalars=len(optimizer.scalars(0)),
+                             keep_state=keep_state)
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
@@ -273,8 +292,9 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
     averages their gradients and losses: the same update as one full
     batch for a mean loss.  ``seed`` roots the per-step dropout seed
     (see :func:`local_grads`).  ``guard=True`` adds
-    ``metrics["guard"]`` (:func:`guard_sentinel`, of the summed
-    gradients).
+    ``metrics["guard"]`` (:func:`guard_sentinel`, of the averaged
+    gradients) and keeps the state a call is given: the guard discards
+    an anomalous step and carries on from the state before it.
 
     ``steps_per_call > 1`` is the JAX device loop: ``batch`` stacks that
     many per-step batches on a new leading dim (the loader's ``chunk``
@@ -304,7 +324,8 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *,
                           model_state=mstate, step=state.step + 1), metrics
 
     return device_loop(body, optimizer, seed=seed, accum_steps=accum_steps,
-                       mesh=mesh, steps_per_call=steps_per_call)
+                       mesh=mesh, steps_per_call=steps_per_call,
+                       keep_state=guard)
 
 
 def make_train_step_shardmap(loss_fn: Callable, optimizer: Optimizer,

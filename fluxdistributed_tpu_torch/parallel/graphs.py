@@ -32,7 +32,15 @@ import torch
 
 from ..tree import leaves, tree_map
 
-__all__ = ["DeviceLoop", "Graph", "StepTable", "launch_counters"]
+__all__ = ["DeviceLoop", "Graph", "StepTable", "launch_counters",
+           "state_donated"]
+
+
+def state_donated(state) -> bool:
+    """True when ``state`` was given to a donating graph replay: its
+    tensors may be the graph's own, which the next replay overwrites, so
+    it cannot be recovered after a failed or discarded step."""
+    return bool(getattr(state, "donated", False))
 
 
 class StepTable:
@@ -213,20 +221,31 @@ class DeviceLoop:
       not the graph's (the first call's result, or a state loaded from
       elsewhere) is copied in once.  Metrics come back as fresh tensors.
       A capture that fails raises; nothing falls back to eager steps.
+
+    ``keep_state=True`` keeps the state a replay is given, as a step
+    that does not donate: when that state holds the graph's own tensors,
+    they are copied into a shadow set (one more copy of the state in
+    memory) before the replay, and the given state is re-pointed at the
+    shadow, so it still holds the pre-step values after the call (until
+    the next call).  The anomaly guard discards a step's result and
+    carries on from that state.  Without it, a replayed state is marked
+    donated (:func:`state_donated`).
     """
 
     def __init__(self, body: Callable, host_row: Callable, *,
-                 steps_per_call: int, n_seeds: int, n_scalars: int):
+                 steps_per_call: int, n_seeds: int, n_scalars: int,
+                 keep_state: bool = False):
         self.body, self.host_row = body, host_row
         self.k = steps_per_call
         self.n_seeds, self.n_scalars = n_seeds, n_scalars
+        self.keep_state = keep_state
         self.table = None
         self._graphs: Dict[tuple, tuple] = {}
 
     @property
     def graphs(self) -> List[Graph]:
         """The captured graphs, one a batch layout."""
-        return [g for g, _, _ in self._graphs.values()]
+        return [g for g, _, _, _ in self._graphs.values()]
 
     def _table(self, device: torch.device) -> StepTable:
         if self.table is None:
@@ -267,19 +286,46 @@ class DeviceLoop:
             if dev.type == "cuda":
                 self._graphs[key] = self._capture(state, batch, table)
             return state, metrics
-        graph, static, static_batch = cap
-        _copy_into(leaves(static), leaves(
-            (state.params, state.opt_state, state.model_state)))
+        graph, static, static_batch, shadow = cap
+        own, given = leaves(static), leaves(
+            (state.params, state.opt_state, state.model_state))
+        aliased = any(a.data_ptr() == b.data_ptr()
+                      for a, b in zip(own, given))
+        _copy_into(own, given)
         for k, v in batch.items():
             if v.data_ptr() != static_batch[k].data_ptr():
                 static_batch[k].copy_(v)
         if fill:
             table.fill(self._rows(state.step))
+        if not self.keep_state:
+            state.donated = True
+        elif aliased:
+            self._keep(state, shadow, own)
         metrics = graph.replay()
         params, opt_state, mstate = tree_map(lambda x: x, static)
         return (type(state)(params=params, opt_state=opt_state,
                             model_state=mstate, step=state.step + self.k),
                 {k: v.clone() for k, v in metrics.items()})
+
+    def eager(self, state, batch: dict):
+        """One call run eagerly, never captured or replayed: the K steps
+        as a plain loop on new tensors (the given state is not written).
+        What a debugging harness runs under
+        ``torch.autograd.detect_anomaly``, which a capture refuses."""
+        dev = next(iter(batch.values())).device
+        table = self._table(dev)
+        table.fill(self._rows(state.step))
+        if self.k == 1:
+            return self.body(state, batch, table.seeds[0], table.scalars[0])
+        return self._steps(state, batch, table)
+
+    @staticmethod
+    def _keep(state, shadow, own: List[torch.Tensor]) -> None:
+        """Copy the graph's own tensors ``own`` into ``shadow`` (one
+        multi-tensor copy) and point ``state`` at the shadow."""
+        torch._foreach_copy_(leaves(shadow), own)
+        state.params, state.opt_state, state.model_state = tree_map(
+            lambda x: x, shadow)
 
     def _steps(self, state, batch: dict, table: StepTable, static=None):
         """The K steps from ``state``, step ``j`` on sub-batch ``j`` and
@@ -314,4 +360,6 @@ class DeviceLoop:
         graph = Graph(lambda: self._steps(st, static_batch, table,
                                           static=targets)[1],
                       f"the train step ({self.k} steps)")
-        return graph, static, static_batch
+        shadow = (tree_map(torch.empty_like, static) if self.keep_state
+                  else None)
+        return graph, static, static_batch, shadow

@@ -115,15 +115,29 @@ def zero1_optimizer(inner: Optimizer, mesh: Mesh) -> Optimizer:
         return inner.init(_local_chunk(_flatten_tree(params, n), mesh))
 
     def rule(params, grads, state, s):
-        flat_g = collectives.reduce_scatter(_flatten_tree(grads, n), mesh)
-        flat_g = {k: None if g is None else div_const(g, n)
-                  for k, g in flat_g.items()}
-        flat_p = _local_chunk(_flatten_tree(params, n), mesh)
-        new_flat_p, new_state = inner.rule(flat_p, flat_g, state, s)
-        gathered = collectives.all_gather(new_flat_p, mesh)
-        return _unflatten_like(gathered, params), new_state
+        return _sharded_update(inner, mesh, params,
+                               _exchange(grads, mesh), state, s)
 
     return Optimizer(init, rule, f"zero1({inner.name})", inner.scalars)
+
+
+def _exchange(grads: dict, mesh: Mesh) -> dict:
+    """This rank's slices of the averaged flat gradients: the ranks' own
+    gradients reduce-scattered, divided by N."""
+    n = mesh.size
+    flat_g = collectives.reduce_scatter(_flatten_tree(grads, n), mesh)
+    return {k: None if g is None else div_const(g, n)
+            for k, g in flat_g.items()}
+
+
+def _sharded_update(inner: Optimizer, mesh: Mesh, params: dict,
+                    flat_g: dict, state, s):
+    """The inner rule on this rank's slices, then the all-gather of the
+    updated params."""
+    flat_p = _local_chunk(_flatten_tree(params, mesh.size), mesh)
+    new_flat_p, new_state = inner.rule(flat_p, flat_g, state, s)
+    gathered = collectives.all_gather(new_flat_p, mesh)
+    return _unflatten_like(gathered, params), new_state
 
 
 def zero1_state(params: dict, optimizer: Optimizer, mesh: Mesh,
@@ -144,7 +158,8 @@ def zero1_state(params: dict, optimizer: Optimizer, mesh: Mesh,
 
 def make_train_step_zero1(loss_fn: Callable, optimizer: Optimizer,
                           mesh: Mesh, *, accum_steps: int = 1,
-                          seed: int = 0, steps_per_call: int = 1):
+                          seed: int = 0, steps_per_call: int = 1,
+                          guard: bool = False):
     """The DP step with a ZeRO-1 sharded update: this rank's gradients
     (with ``accum_steps`` microbatches), the loss and model state
     averaged over the ranks, then :func:`zero1_optimizer`'s exchange and
@@ -152,7 +167,10 @@ def make_train_step_zero1(loss_fn: Callable, optimizer: Optimizer,
     ``steps_per_call > 1`` runs that many steps a call on stacked
     batches, as :func:`.dp.make_train_step` does (the JAX step passes it
     through to the DP step): on a card one CUDA graph replay, with the
-    reduce-scatters and all-gathers captured.
+    reduce-scatters and all-gathers captured.  ``guard=True`` adds
+    ``metrics["guard"]`` (:func:`.dp.guard_sentinel` of the exchanged
+    gradient slices, their squares summed over the ranks) and keeps the
+    state a call is given, as :func:`.dp.make_train_step` does.
     """
     dp._check_step_options(accum_steps, steps_per_call)
     z = zero1_optimizer(optimizer, mesh)
@@ -164,14 +182,20 @@ def make_train_step_zero1(loss_fn: Callable, optimizer: Optimizer,
         with torch.no_grad():
             loss = collectives.pmean(loss, mesh)
             mstate = dp.sync_model_state(loss_fn, mstate, mesh)
-            new_params, new_opt = z.rule(state.params, grads,
-                                         state.opt_state, scalars)
+            flat_g = _exchange(grads, mesh)
+            new_params, new_opt = _sharded_update(
+                optimizer, mesh, state.params, flat_g, state.opt_state,
+                scalars)
+            metrics = {"loss": loss}
+            if guard:
+                metrics["guard"] = dp.guard_sentinel(loss, flat_g, mesh)
         return dp.TrainState(params=new_params, opt_state=new_opt,
                              model_state=mstate,
-                             step=state.step + 1), {"loss": loss}
+                             step=state.step + 1), metrics
 
     return dp.device_loop(body, z, seed=seed, accum_steps=accum_steps,
-                          mesh=mesh, steps_per_call=steps_per_call)
+                          mesh=mesh, steps_per_call=steps_per_call,
+                          keep_state=guard)
 
 
 def make_train_step_zero1_shardmap(loss_fn: Callable, optimizer: Optimizer,

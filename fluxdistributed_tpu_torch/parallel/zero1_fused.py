@@ -155,7 +155,8 @@ def zero1_fused_state(params: dict, mesh: Mesh,
 
 def make_train_step_zero1_fused(loss_fn: Callable, mesh: Mesh, *, lr=1e-3,
                                 b1: float = 0.9, b2: float = 0.999,
-                                eps: float = 1e-8, seed: int = 0):
+                                eps: float = 1e-8, seed: int = 0,
+                                guard: bool = False):
     """ZeRO-1 with the fused packed update, per rank: this rank's
     gradients → pack → ONE reduce-scatter → ÷ N → this rank's chunk of
     the packed params → the fused Adam kernel → ONE all-gather → unpack.
@@ -164,7 +165,10 @@ def make_train_step_zero1_fused(loss_fn: Callable, mesh: Mesh, *, lr=1e-3,
     at two ranks, where a sum of two is exact in either order), with
     collective and kernel counts independent of the number of leaves.
     ``state`` comes from :func:`zero1_fused_state`; ``lr`` may be a
-    schedule."""
+    schedule.  ``guard=True`` adds ``metrics["guard"]``
+    (:func:`.dp.guard_sentinel` of the reduce-scattered flat gradient,
+    its squares summed over the ranks).  The step never writes the
+    state it is given, so the guard can discard its result."""
     n = mesh.size
     grads_of = dp.local_grads(loss_fn, seed=seed, mesh=mesh)
 
@@ -189,8 +193,12 @@ def make_train_step_zero1_fused(loss_fn: Callable, mesh: Mesh, *, lr=1e-3,
                 state.step, lr=lr, b1=b1, b2=b2, eps=eps)
             gathered = collectives.all_gather(p2, mesh)
             new_params = unpack_tree(gathered, state.params)
+            metrics = {"loss": loss}
+            if guard:
+                metrics["guard"] = dp.guard_sentinel(loss, {"flat": flat_g},
+                                                     mesh)
         return dp.TrainState(params=new_params, opt_state={"m": m2, "v": v2},
                              model_state=mstate,
-                             step=state.step + 1), {"loss": loss}
+                             step=state.step + 1), metrics
 
     return step

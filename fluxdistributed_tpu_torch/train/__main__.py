@@ -51,8 +51,34 @@ then continues from there, step for step::
 
 ``--fault-plan JSON`` (or ``@file.json``) installs a deterministic
 fault plan first (:class:`..faults.FaultPlan`), e.g.
-``'{"sigterm_at_step": 3}'``.  The JAX CLI's other ``--spmd`` modes,
-the guard and AOT belong to later slices and are not accepted.
+``'{"sigterm_at_step": 3}'``.
+
+``--guard`` arms the anomaly guard (:mod:`.guard`): the step carries the
+sentinel, an anomalous batch is quarantined and skipped, persisting
+anomalies roll back to the last checkpoint of ``--checkpoint-dir``, and
+a rollback loop halts with exit code 65 (``faults.HALTED_RC``: not
+retryable).  ``--guard-zmax``, ``--guard-window`` and
+``--guard-rollback-after`` tune it; ``--replay-step K`` re-runs loader
+item K (after ``--resume``, from the checkpoint) under
+``torch.autograd.detect_anomaly``, prints one JSON report and exits::
+
+    python -m fluxdistributed_tpu_torch.train ... --checkpoint-dir ck \
+        --guard --fault-plan '{"fail": [{"site": "train.loss", "at": 2,
+        "action": "nan"}]}'
+    python -m fluxdistributed_tpu_torch.train ... --checkpoint-dir ck \
+        --guard --resume --replay-step 2
+
+The observation flags are ``bin/driver.py``'s: ``--metrics-port``
+serves ``/metrics`` and ``/healthz`` (the watchdog's stall, the
+guard's quarantine) for the run, ``--trace-events`` writes a Chrome
+trace of the phase spans (and syncs the card each item),
+``--metrics-jsonl`` appends registry snapshots, ``--flight`` keeps the
+flight recorder, ``--runs-ledger`` appends a run record on every exit,
+``--watchdog-factor`` / ``--watchdog-escalate`` set the stall
+watchdog, ``--wandb`` logs to Weights & Biases and ``--verbose`` logs
+more.  The JAX CLI's other ``--spmd`` modes, ``--profile-out``,
+``--steady-after``, ``--compile-cache``, ``--aot``, ``--prewarm`` and
+``--strict-checks`` belong to later slices and are not accepted.
 """
 
 from __future__ import annotations
@@ -166,6 +192,74 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu (the kernels' plain "
                         "versions)")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--wandb", action="store_true",
+                   help="log to Weights & Biases")
+    # observability (fluxdistributed_tpu_torch.obs)
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve GET /metrics (Prometheus text: step counter, "
+                        "per-phase histograms, OOM skips, prefetch depth, "
+                        "HBM gauges, guard counters) and GET /healthz on "
+                        "this port for the duration of the run (rank 0 "
+                        "only)")
+    p.add_argument("--trace-events", default=None, metavar="PATH",
+                   help="record nested step-phase spans (data_wait/h2d/"
+                        "dispatch/device/eval/checkpoint) and write "
+                        "Chrome/Perfetto trace-event JSON here at exit; "
+                        "implies a device sync each item so device time is "
+                        "honestly attributed")
+    p.add_argument("--metrics-jsonl", default=None, metavar="PATH",
+                   help="append registry snapshots (JSON lines) here at the "
+                        "print cadence — offline run diffing without a "
+                        "Prometheus server")
+    p.add_argument("--flight", default=None, metavar="PATH",
+                   help="black-box flight recorder (obs.flight): append "
+                        "per-step records (step, loss, guard verdict, "
+                        "phase seconds, headroom) here, flushed + "
+                        "checkpointed every few records — a SIGKILL "
+                        "loses at most one flush interval, and the dump "
+                        "footer (or its absence) says how the run ended")
+    p.add_argument("--runs-ledger", default=None, metavar="PATH",
+                   help="append one cross-run ledger record (obs.runs "
+                        "schema: status, topology fingerprint, steps, "
+                        "flight-dump path) here on every exit path")
+    p.add_argument("--watchdog-factor", type=float, default=5.0,
+                   help="stall watchdog threshold as a multiple of the "
+                        "rolling-median step time (warns + flips /healthz "
+                        "to 503 when no step lands inside it; eval and "
+                        "checkpoint phases are exempt). 0 disables the "
+                        "watchdog")
+    p.add_argument("--watchdog-escalate", type=int, default=4, metavar="N",
+                   help="after a stall persists N further threshold "
+                        "windows with no step, count a watchdog "
+                        "ESCALATION (fdtpu_watchdog_escalations_total). "
+                        "0 disables escalation")
+    # the anomaly guard (train/guard.py)
+    p.add_argument("--guard", action="store_true",
+                   help="self-healing training: build the anomaly sentinel "
+                        "into the train step (global isfinite over "
+                        "loss+grads and the global grad norm, ONE extra "
+                        "scalar fetch per item) and arm the policy ladder "
+                        "— quarantine-and-skip anomalous batches, roll "
+                        "back to the last checkpoint when anomalies "
+                        "persist, halt (exit rc 65, not retryable) when "
+                        "rollbacks loop.  Decisions are recorded in the "
+                        "RESUME manifest and as fdtpu_guard_* metrics")
+    p.add_argument("--guard-zmax", type=float, default=8.0,
+                   help="robust z-score above which a finite loss counts "
+                        "as a spike anomaly")
+    p.add_argument("--guard-window", type=int, default=64,
+                   help="rolling window (accepted losses) behind the "
+                        "spike detector's median/MAD")
+    p.add_argument("--guard-rollback-after", type=int, default=3,
+                   help="anomalies within the guard's anomaly window "
+                        "that escalate skip -> rollback")
+    p.add_argument("--replay-step", type=int, default=None, metavar="K",
+                   help="diagnosis harness: instead of training, re-run "
+                        "loader item K deterministically against the "
+                        "prepared — or, with --resume, the restored — "
+                        "state under torch.autograd.detect_anomaly, print "
+                        "one JSON report line and exit")
     return p
 
 
@@ -229,7 +323,8 @@ def _model_kwargs(args) -> dict:
 def run(argv=None):
     """Parse ``argv``, train, and return the finished
     :class:`~.trainer.TrainTask` (``task.losses`` holds every step's
-    loss).  ``main`` is this plus an exit code."""
+    loss), or with ``--replay-step`` the replay's report.  ``main`` is
+    this plus an exit code."""
     args = build_parser().parse_args(argv)
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume needs --checkpoint-dir")
@@ -349,7 +444,6 @@ def _train(args, dataset, val_dataset, device, mesh):
 
     from .. import optim
     from ..models import lm_loss_fn
-    from .logging import ConsoleLogger, NullLogger
     from .trainer import evaluate, prepare_training, train
 
     is_lm = args.model in LM_MODELS
@@ -362,16 +456,24 @@ def _train(args, dataset, val_dataset, device, mesh):
     if args.total_steps:
         lr = optim.warmup_cosine(args.lr, args.warmup_steps, args.total_steps)
     opt = getattr(optim, args.opt)(lr)
+    lead = mesh is None or mesh.rank == 0
+    # the sentinel rides dp.make_train_step; shard_map runs the guard's
+    # policy on the loss alone, as bin/driver.py degrades it
+    sentinel = args.guard and args.spmd in ("jit", "dp")
+    if args.guard and not sentinel and lead:
+        print(f"guard: spmd={args.spmd} has no compiled grad sentinel — "
+              "running loss-only (non-finite loss + spike detection; "
+              "gradient blow-ups that keep the loss finite pass unseen)",
+              flush=True)
     try:
         task = prepare_training(
             model, dataset, opt, loss_fn=lm_loss_fn(model) if is_lm else None,
             batch_size=args.batch_size, epochs=args.epochs,
             cycles=args.cycles, spmd=args.spmd, zero1=args.zero1, mesh=mesh,
             device=device, steps_per_call=args.steps_per_call,
-            val_dataset=val_dataset)
+            val_dataset=val_dataset, guard=sentinel)
     except ValueError as e:  # e.g. a batch that does not split over ranks
         raise SystemExit(f"--spmd {args.spmd}: {e}")
-    lead = mesh is None or mesh.rank == 0
     if args.resume:
         from .trainer import resume_training
 
@@ -392,10 +494,18 @@ def _train(args, dataset, val_dataset, device, mesh):
               f"params, {str(model.dtype).split('.')[-1]})"
               + (f", attn {args.attn}" if is_lm else
                  f", {args.num_classes} classes"), flush=True)
-    train(task, print_every=args.print_every, eval_every=args.eval_every,
-          logger=ConsoleLogger() if lead else NullLogger(),
-          checkpoint_dir=args.checkpoint_dir,
-          checkpoint_every=args.checkpoint_every, handle_signals=True)
+    if args.replay_step is not None:
+        import json
+
+        from .guard import replay_item
+
+        # one item re-run from the checkpoint and cursor for diagnosis:
+        # never trains, never writes the state
+        report = replay_item(task, args.replay_step)
+        if lead:
+            print(json.dumps(report), flush=True)
+        return report
+    _observed_train(args, task, mesh, lead, is_lm, train)
     if args.final_eval:
         metrics = evaluate(task, val_dataset, batch_size=args.batch_size,
                            topk=() if is_lm else (1, 5, 10))
@@ -410,15 +520,120 @@ def _train(args, dataset, val_dataset, device, mesh):
     return task
 
 
-def main(argv=None) -> int:
-    """:func:`run`, with the exit code: 0 when done, ``PREEMPTED_RC``
-    (75) when a signal checkpointed the run and stopped it."""
-    from ..faults import PREEMPTED_RC, Preempted
+def _logger(args, task, mesh, lead):
+    """``--wandb``'s logger with the run configuration, else console
+    records on rank 0 (every rank with ``--verbose``)."""
+    from .logging import ConsoleLogger, NullLogger, WandbLogger
+
+    if args.wandb:
+        config = dict(sorted(vars(args).items()))
+        config.update(device=str(task.device),
+                      ranks=1 if mesh is None else mesh.size)
+        return WandbLogger(project="fluxdistributed_tpu", config=config)
+    return ConsoleLogger() if (lead or args.verbose) else NullLogger()
+
+
+def _observed_train(args, task, mesh, lead, is_lm, train) -> None:
+    """``train`` with the observation layer, the guard and the endpoints
+    the flags ask for, and a run-ledger record on every exit."""
+    import time
+
+    from ..obs import (Observation, SpanTracer, StepWatchdog, get_registry,
+                       runs, start_metrics_server)
+    from .guard import GuardConfig
+
+    reg = get_registry()
+    observation = Observation(
+        tracer=SpanTracer() if args.trace_events else None,
+        watchdog=(StepWatchdog(factor=args.watchdog_factor,
+                               escalate_after=args.watchdog_escalate)
+                  if args.watchdog_factor else None),
+        trace_path=args.trace_events,
+        device_sync=bool(args.trace_events),
+        jsonl_path=args.metrics_jsonl, flight_path=args.flight)
+    server = None
+    if args.metrics_port is not None and lead:
+        def health():
+            return {
+                "ok": reg.value("fdtpu_watchdog_stalled") < 1,
+                "steps": reg.value("fdtpu_train_steps_total"),
+                "oom_skipped": reg.value("fdtpu_train_oom_skipped_total"),
+                "escalations": reg.value("fdtpu_watchdog_escalations_total"),
+                "quarantined": reg.value("fdtpu_guard_quarantine_size"),
+            }
+
+        server = start_metrics_server(port=args.metrics_port,
+                                      health_fn=health)
+        print(f"metrics: http://0.0.0.0:{server.port}/metrics (+ /healthz)",
+              flush=True)
+    guard = None
+    if args.guard:
+        guard = GuardConfig(zmax=args.guard_zmax, window=args.guard_window,
+                            rollback_after=args.guard_rollback_after)
+    t0 = time.monotonic()
+
+    def ledger(status, error=None, retryable=None):
+        """This run's row of the cross-run ledger; best-effort, it never
+        changes an exit code."""
+        if not args.runs_ledger or not lead:
+            return
+        try:
+            wall = max(time.monotonic() - t0, 1e-9)
+            steps = reg.value("fdtpu_train_steps_total")
+            runs.append_run(args.runs_ledger, runs.run_record(
+                "train", fingerprint=runs.topology_fingerprint(mesh),
+                phase="train", retryable=retryable, error=error,
+                metrics={"steps": steps, "steps_per_sec": steps / wall,
+                         "wall_seconds": wall,
+                         "oom_skipped": reg.value(
+                             "fdtpu_train_oom_skipped_total")},
+                flight=args.flight, status=status))
+        except Exception as e:  # noqa: BLE001
+            print(f"runs ledger append failed: {type(e).__name__}: {e}",
+                  file=sys.stderr)
+
+    from .. import faults
+    from .guard import GuardHalt
 
     try:
+        train(task, print_every=args.print_every, eval_every=args.eval_every,
+              topk=() if is_lm else (1, 5, 10),
+              logger=_logger(args, task, mesh, lead),
+              checkpoint_dir=args.checkpoint_dir,
+              checkpoint_every=args.checkpoint_every, verbose=args.verbose,
+              observation=observation, handle_signals=True, guard=guard)
+    except GuardHalt as e:
+        ledger("halted", error=str(e), retryable=False)
+        raise
+    except faults.Preempted as e:
+        ledger("preempted", error=str(e), retryable=True)
+        raise
+    except BaseException as e:
+        ledger("crashed", error=f"{type(e).__name__}: {e}")
+        raise
+    finally:
+        if server is not None:
+            server.stop()
+    ledger("done")
+
+
+def main(argv=None) -> int:
+    """:func:`run`, with the exit code: 0 when done, ``PREEMPTED_RC``
+    (75) when a signal checkpointed the run and stopped it,
+    ``HALTED_RC`` (65, not retryable) when the guard halted it."""
+    from ..faults import HALTED_RC, PREEMPTED_RC, Preempted
+    from .guard import GuardHalt
+
+    lead = int(os.environ.get("RANK", "0")) == 0
+    try:
         run(argv)
+    except GuardHalt as e:
+        if lead:
+            print(f"guard halt: {e} (exit code {HALTED_RC}, retryable: "
+                  "false)", flush=True)
+        return HALTED_RC
     except Preempted as e:
-        if int(os.environ.get("RANK", "0")) == 0:
+        if lead:
             print(f"preempted: {e} — resume with --resume "
                   f"--checkpoint-dir {e.checkpoint_dir} "
                   f"(exit code {PREEMPTED_RC})", flush=True)

@@ -1,18 +1,24 @@
 """Metric logging for the trainer.
 
-Port of ``fluxdistributed_tpu/train/logging.py``'s console and null
-loggers: ``@info``-style ``key=value`` records (the reference logs
-through Julia's ``Logging`` stdlib).  Any object with ``log(metrics,
+Port of ``fluxdistributed_tpu/train/logging.py``: ``@info``-style
+``key=value`` console records (the reference logs through Julia's
+``Logging`` stdlib), a null logger, the Weights & Biases sink (its
+``wandb`` imported only when one is built), and the current logger of a
+context (:func:`current_logger`, :func:`with_logger`), through which
+the guard and model selection log.  Any object with ``log(metrics,
 step)`` and ``info(msg)`` can stand in for them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import sys
 import time
 from typing import Any, Mapping, Protocol
 
-__all__ = ["ConsoleLogger", "Logger", "NullLogger"]
+__all__ = ["ConsoleLogger", "Logger", "NullLogger", "WandbLogger",
+           "current_logger", "with_logger"]
 
 
 class Logger(Protocol):
@@ -65,3 +71,51 @@ class NullLogger:
 
     def info(self, msg: str) -> None:
         pass
+
+
+class WandbLogger:
+    """Weights & Biases sink.  ``wandb`` is imported when the logger is
+    built, so its absence raises ``ImportError`` there and nowhere else.
+    ``config`` (the run configuration) goes to ``wandb.init`` as the
+    reference's ``WandbLogger(...; config=...)`` passes it;
+    :meth:`log_config` merges more later."""
+
+    def __init__(self, config: Mapping[str, Any] | None = None,
+                 **init_kwargs):
+        import wandb
+
+        self._wandb = wandb
+        if config is not None:
+            init_kwargs.setdefault("config", dict(config))
+        self.run = wandb.init(**init_kwargs)
+
+    def log_config(self, config: Mapping[str, Any]) -> None:
+        """Merge more run config after init (``wandb.config.update``)."""
+        self.run.config.update(dict(config), allow_val_change=True)
+
+    def log(self, metrics: Mapping[str, Any], step: int) -> None:
+        self._wandb.log(dict(metrics), step=step)
+
+    def info(self, msg: str) -> None:
+        print(msg)
+
+
+_current: contextvars.ContextVar[Logger] = contextvars.ContextVar(
+    "fluxdistributed_tpu_torch_logger", default=ConsoleLogger())
+
+
+def current_logger() -> Logger:
+    """The logger of this context (a :class:`ConsoleLogger` unless
+    :func:`with_logger` set another)."""
+    return _current.get()
+
+
+@contextlib.contextmanager
+def with_logger(logger: Logger):
+    """Route the framework's logging through ``logger`` for the dynamic
+    extent (the ``Logging.with_logger`` analog)."""
+    token = _current.set(logger)
+    try:
+        yield logger
+    finally:
+        _current.reset(token)

@@ -26,14 +26,22 @@ with or without ZeRO-1, on one GPU, on the ranks of a process group
   blocking checkpoint, a RESUME manifest and :class:`..faults.Preempted`
   at the next step boundary; ``resume_training`` restores the state and
   the loader cursor, so a resumed run is step for step the
-  uninterrupted one (:mod:`.checkpoint`).
+  uninterrupted one (:mod:`.checkpoint`);
+* the anomaly guard (:mod:`.guard`): ``prepare_training(guard=True)``
+  builds the sentinel into the step and keeps the pre-step state, and
+  ``train(guard=...)`` judges each item before it commits it, with
+  quarantine, rollback onto the last checkpoint and halt;
+* the observation layer (:mod:`..obs`): ``train(observation=...)``
+  threads the phase histograms and spans, the stall watchdog, the
+  flight recorder, the JSONL sink and the ``fdtpu_hbm_*`` gauges
+  through the loop, and ``profile_dir`` takes a ``torch.profiler``
+  trace of a window of items.
 
 Phase times, step counts and OOM skips land in the process registry
 (:mod:`..obs.metrics`) under the JAX trainer's ``fdtpu_train_*`` names.
-The anomaly guard, profiling and the other parallel modes come with
-later slices.  A device OOM on one rank of a mesh, and not on the
-others, leaves the others waiting in the step's next collective, as in
-the JAX package on several hosts.
+The other parallel modes come with later slices.  A device OOM on one
+rank of a mesh, and not on the others, leaves the others waiting in the
+step's next collective, as in the JAX package on several hosts.
 """
 
 from __future__ import annotations
@@ -52,17 +60,18 @@ from .. import faults
 from ..data.loader import PrefetchLoader, apply_transform, batch_to_dict
 from ..device import DeviceLike, resolve_device
 from ..mesh import Mesh
-from ..obs import get_registry
+from ..obs import FlightRecorder, JsonlSink, Observation, memstats, runs
 from ..ops.losses import logitcrossentropy
 from ..optim import Optimizer
 from ..parallel.dp import (TrainState, make_eval_step, make_train_step,
                            make_train_step_shardmap, module_loss_fn)
-from ..tree import to_host
+from ..tree import synchronize, to_host
 from .checkpoint import (clear_resume_manifest, latest_step, load_checkpoint,
                          load_checkpoint_elastic, read_resume_manifest,
                          save_checkpoint, wait_for_pending,
                          write_resume_manifest)
-from .logging import ConsoleLogger, Logger
+from .guard import GuardConfig, GuardHalt, TrainGuard, state_donated
+from .logging import Logger, current_logger
 
 __all__ = ["TrainTask", "evaluate", "prepare_training", "restore_training",
            "resume_training", "train"]
@@ -85,6 +94,9 @@ class TrainTask:
     num_missed: int = 0
     # loader items skipped by OOM fault tolerance, in order
     skipped_items: list = dataclasses.field(default_factory=list)
+    # loader items the anomaly guard quarantined (a resumed run reads
+    # them from the RESUME manifest and skips them again)
+    quarantined_items: list = dataclasses.field(default_factory=list)
     # the loss of every step that ran, in order (floats)
     losses: list = dataclasses.field(default_factory=list)
     # the top-k accuracies the eval step computes
@@ -150,6 +162,7 @@ def prepare_training(
     val_samples: int = 300,
     transform: Optional[Callable] = None,
     steps_per_call: int = 1,
+    guard: bool = False,
 ) -> TrainTask:
     """The train state from the model's current parameters and buffers,
     the train and eval steps, the prefetching loader and the val slice.
@@ -189,8 +202,17 @@ def prepare_training(
     stacks K step batches an item (``chunk=K``; ``cycles`` counts steps
     and must be a multiple of K) and the step runs them one after the
     other, on a card as one CUDA graph replay that donates the state.
-    The JAX version's other options (donation as an option, AOT, the
-    guard) are not accepted.
+
+    ``guard=True`` builds the anomaly sentinel into the train step
+    (:func:`..parallel.dp.guard_sentinel`: ``metrics["guard"] =
+    [poisoned_loss, grad_norm]``) and keeps the state a step is given
+    (on a card, a graph replay first copies the state into a shadow), so
+    that ``train(guard=...)`` can discard an anomalous step.  It applies
+    to ``spmd="jit"`` (with or without ``zero1``), the path of the JAX
+    ``dp.make_train_step``; ``"shard_map"`` has no sentinel and is
+    refused, as the JAX trainer refuses it (``train(guard=...)`` still
+    runs there on the loss alone).  The JAX version's other options
+    (donation as an option, AOT) are not accepted.
     """
     if spmd == "dp":
         spmd = "jit"
@@ -210,6 +232,12 @@ def prepare_training(
             "other modes come with later slices (ROADMAP)")
     if spmd == "shard_map" and accum_steps != 1:
         raise ValueError("accum_steps > 1 requires spmd='jit'")
+    if guard and spmd != "jit":
+        raise ValueError(
+            f"guard=True builds the grad sentinel into the step of "
+            f"dp.make_train_step, which spmd={spmd!r} does not use "
+            "(supported: jit/dp [+zero1]); the guard still runs loss-only "
+            "there: drop guard=True and pass train(guard=GuardConfig(...))")
     if mesh is None and (zero1 or spmd == "shard_map"):
         from ..mesh import data_mesh
 
@@ -231,7 +259,7 @@ def prepare_training(
         state = TrainState.create(params, optimizer, model_state=mstate)
         step_fn = make_train_step(loss_fn, optimizer,
                                   accum_steps=accum_steps, seed=seed,
-                                  steps_per_call=steps_per_call)
+                                  steps_per_call=steps_per_call, guard=guard)
     elif zero1:
         from ..parallel import zero1 as zero1_lib
 
@@ -243,7 +271,7 @@ def prepare_training(
         else:
             step_fn = zero1_lib.make_train_step_zero1(
                 loss_fn, optimizer, mesh, accum_steps=accum_steps, seed=seed,
-                steps_per_call=steps_per_call)
+                steps_per_call=steps_per_call, guard=guard)
     else:
         from ..sharding import replicate
 
@@ -256,7 +284,8 @@ def prepare_training(
         else:
             step_fn = make_train_step(loss_fn, optimizer, mesh=mesh,
                                       accum_steps=accum_steps, seed=seed,
-                                      steps_per_call=steps_per_call)
+                                      steps_per_call=steps_per_call,
+                                      guard=guard)
     val_batch = None
     if val_dataset is not None:
         q = 1 if mesh is None else mesh.size
@@ -310,10 +339,10 @@ def resume_training(task: TrainTask, checkpoint_dir: str,
     as it is; at another one (the elastic case) ZeRO-1's flat padded
     optimizer buffers are re-split for the new count
     (:func:`.checkpoint.load_checkpoint_elastic`).  The loader starts at
-    the manifest's ``next_item`` and ``num_missed`` and
-    ``skipped_items`` carry over.  Without a manifest the cursor is the
-    step counter over ``steps_per_call`` (right when nothing was
-    OOM-skipped before the checkpoint).
+    the manifest's ``next_item``, and ``num_missed``, ``skipped_items``
+    and the guard's ``quarantined_items`` carry over.  Without a
+    manifest the cursor is the step counter over ``steps_per_call``
+    (right when nothing was OOM-skipped before the checkpoint).
 
     Returns the manifest, or ``None``: no manifest (a plain latest
     checkpoint resume), or nothing on disk at all, in which case the
@@ -336,6 +365,8 @@ def resume_training(task: TrainTask, checkpoint_dir: str,
         task.num_missed = int(manifest.get("num_missed", 0))
         task.skipped_items = [int(x) for x in
                               manifest.get("skipped_items", [])]
+        task.quarantined_items = [int(x) for x in
+                                  manifest.get("quarantined_items", [])]
     else:
         task.loader.start = int(task.state.step) // task.steps_per_call
     return manifest
@@ -356,11 +387,12 @@ def _require_topk(accs: dict, topk) -> None:
                 f"topk={tuple(topk)} to prepare_training")
 
 
-def _eval_and_log(task: TrainTask, batch, name: str, step: int,
+def _eval_and_log(task: TrainTask, batch, name: str, step: int, topk,
                   logger: Logger) -> dict:
     loss, accs = task.eval_fn(task.state, batch)
+    _require_topk(accs, topk)
     metrics = {f"{name}_loss": float(loss)}
-    for k in task.topk:
+    for k in topk:
         metrics[f"{name}_top{k}"] = float(accs[f"top{k}"])
     logger.log(metrics, step)
     return metrics
@@ -440,44 +472,107 @@ def evaluate(task: TrainTask, dataset, *, batch_size: int = 256,
 
 
 class _PhaseClock:
-    """``with phases("dispatch"):`` observes the block's wall seconds
-    into ``fdtpu_train_phase_seconds{phase=...}`` (data_wait / dispatch
-    / eval)."""
+    """Step-phase brackets: every ``with phases("dispatch"):`` block
+    observes its wall seconds into ``fdtpu_train_phase_seconds{phase}``
+    and, when a tracer rides along, opens a span of the same name, so
+    one set of brackets feeds the live ``/metrics`` percentiles and the
+    offline Chrome trace.  Without a tracer the block registers as the
+    active phase (``obs.spans.phase_scope``), so the stall watchdog can
+    still name where the loop wedged.  When the card reports memory and
+    a watchdog rides along, every phase exit samples the headroom into
+    the watchdog's OOM-margin alert (allocator counters and one driver
+    query: no stream sync)."""
 
-    def __init__(self, registry):
-        self.hist = registry.histogram(
+    def __init__(self, observation: Observation, hbm=None):
+        from ..obs.spans import phase_scope
+
+        self.tracer = observation.tracer
+        self._phase_scope = phase_scope
+        self.watchdog = (observation.watchdog
+                         if hbm is not None and hbm.available else None)
+        self.hist = observation.registry.histogram(
             "fdtpu_train_phase_seconds",
-            "wall seconds per train-step phase (data_wait/dispatch/eval)",
+            "wall seconds per train-step phase "
+            "(data_wait/h2d/dispatch/device/eval/checkpoint)",
             labelnames=("phase",))
+        # per-phase seconds since the last take(): a flight record's split
+        self.last: dict = {}
+
+    def take(self) -> dict:
+        """Return and clear the per-phase seconds since the last call."""
+        out, self.last = self.last, {}
+        return out
 
     @contextlib.contextmanager
-    def __call__(self, name: str):
+    def __call__(self, name: str, **args):
+        span = (self.tracer.span(name, **args) if self.tracer is not None
+                else self._phase_scope(name))
         t0 = time.perf_counter()
         try:
-            yield
+            with span:
+                yield
         finally:
             # observed on the exception path too: an OOM-heavy run must
             # not show artificially fast dispatch percentiles
-            self.hist.labels(phase=name).observe(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.hist.labels(phase=name).observe(dt)
+            self.last[name] = self.last.get(name, 0.0) + dt
+            if self.watchdog is not None:
+                from ..obs import memstats
+
+                self.watchdog.note_headroom(memstats.min_headroom_ratio())
+
+
+def _last_loss(metrics) -> float:
+    loss = metrics["loss"]
+    return float(loss[-1] if loss.ndim else loss)
 
 
 def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
+          topk: Optional[Sequence[int]] = None,
+          sched: Optional[Callable] = None,
           logger: Optional[Logger] = None,
           checkpoint_dir: Optional[str] = None, checkpoint_every: int = 20,
-          handle_signals: bool = False):
+          verbose: bool = False, profile_dir: Optional[str] = None,
+          profile_start: int = 10, profile_steps: int = 5,
+          observation: Optional[Observation] = None,
+          handle_signals: bool = False, guard=None):
     """The training loop.
 
     Every ``print_every`` items it logs steps/s and tokens/s (images/s
     for image batches) over the interval; every ``eval_every`` items the
-    eval loss and top-k accuracies of the val slice (when there is one)
-    and of the current batch (its last step batch under the device
-    loop), and the step's own loss.  Host-clock rates: the loop runs
-    ahead of the device by the launch queue, so interval averages hold.
-    A device OOM skips the item (``task.skipped_items``) and counts its
-    steps in ``task.num_missed``.  Each step's loss lands in
-    ``task.losses`` (read back once, at the end).  The
-    trained parameters and running stats are copied into ``task.model``
-    in place.
+    eval loss and ``topk`` accuracies (default: the task's) of the val
+    slice (when there is one) and of the current batch (its last step
+    batch under the device loop), and the step's own loss.  Host-clock
+    rates: the loop runs ahead of the device by the launch queue, so
+    interval averages hold.  ``sched(step)`` is called once an item, in
+    optimizer steps, and its value logged with ``verbose`` (the
+    reference's schedule callback; it feeds nothing into the step, whose
+    schedules live in the optimizer).  ``verbose`` also logs each
+    dispatch.  A device OOM skips the item (``task.skipped_items``) and
+    counts its steps in ``task.num_missed``.  Each committed step's loss
+    lands in ``task.losses`` (read back once, at the end; a rollback
+    drops those it rewinds).  The trained parameters and running stats
+    are copied into ``task.model`` in place.
+
+    ``profile_dir`` takes a ``torch.profiler`` trace (CPU activity, and
+    the card's kernels on a card) of items ``[profile_start,
+    profile_start + profile_steps)`` and exports it there as Chrome JSON
+    (``trace.json``).
+
+    ``observation`` threads the observation layer (:mod:`..obs`)
+    through the loop.  The default (``None``: :meth:`Observation.default`)
+    is metrics only: step counters, the per-phase wall-time histograms
+    and the OOM-skip counter land in the process registry (the CLI's
+    ``--metrics-port``), with no device sync and no thread.
+    :meth:`Observation.full` adds nested phase spans (a Chrome trace at
+    ``trace_path``), a stall watchdog against the rolling-median item
+    time (paused around eval and checkpoints), and a
+    ``torch.cuda.synchronize`` each item in a ``device`` phase.  A
+    ``jsonl_path`` appends registry snapshots at the print cadence, a
+    flight recorder (``flight`` / ``flight_path``) one record an item
+    with its phase split and the guard's verdict and z.  The
+    ``fdtpu_hbm_*`` gauges read the card at scrape time.
 
     With a ``checkpoint_dir``, the state is saved every
     ``checkpoint_every`` items (the reference's 20 cycles) after item
@@ -488,39 +583,142 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
     (:class:`..faults.SignalFlag`) that the loop reads at the next step
     boundary, where the state is consistent (no step and no graph replay
     in flight), and there it saves a blocking checkpoint and the RESUME
-    manifest (step, loader cursor, skipped items, ranks) and raises
-    :class:`..faults.Preempted`; on a mesh the ranks agree on the
-    boundary.  A second signal during that exit raises
+    manifest (step, loader cursor, skipped and quarantined items, ranks)
+    and raises :class:`..faults.Preempted`; on a mesh the ranks agree on
+    the boundary.  A second signal during that exit raises
     ``KeyboardInterrupt``.  The loop starts at ``task.loader.start``
     (:func:`resume_training` sets it), and each item's batch is a
     function of its index, so a resumed run draws what the uninterrupted
     one drew.
 
+    ``guard`` (a :class:`.guard.GuardConfig`, or ``True`` for the
+    defaults) arms the anomaly guard (:class:`.guard.TrainGuard`): each
+    item's sentinel (``metrics["guard"]`` of a step prepared with
+    ``guard=True``, else the loss) is read, and judged, BEFORE the new
+    state is committed.  An anomalous item is quarantined and its result
+    discarded (the state before it carries on); anomalies that persist
+    roll back to the last checkpoint, rewind the loader's cursor and
+    replay with the quarantined items skipped; rollbacks that loop raise
+    :class:`.guard.GuardHalt`.  With a ``checkpoint_dir`` the starting
+    state is banked as the first rollback target, cadence checkpoints
+    block, and each refreshes the RESUME manifest, so a SIGKILL at any
+    point resumes onto a consistent (checkpoint, cursor, quarantine)
+    triple.  Items in ``task.quarantined_items`` (a resumed run's
+    manifest) or ``GuardConfig.quarantine`` are skipped before dispatch:
+    also how a clean run skips the items a guarded run quarantined.
+
     Returns ``(host_params, model_state, task)``: CPU copies of the
     final parameters.
     """
-    logger = logger or ConsoleLogger()
-    reg = get_registry()
-    phases = _PhaseClock(reg)
+    logger = logger or current_logger()
+    obs = observation or Observation.default()
+    reg = obs.registry
+    hbm = memstats.HbmGauges(reg)
+    phases = _PhaseClock(obs, hbm=hbm)
     steps_total = reg.counter(
         "fdtpu_train_steps_total", "optimizer steps completed")
     step_hist = reg.histogram(
-        "fdtpu_train_step_seconds", "wall seconds per loader item")
+        "fdtpu_train_step_seconds",
+        "wall seconds per loader item (= steps_per_call optimizer steps)")
     step_gauge = reg.gauge(
         "fdtpu_train_step", "optimizer steps completed this train() call")
     oom_total = reg.counter(
         "fdtpu_train_oom_skipped_total",
         "batches skipped by OOM fault tolerance")
+    sink = JsonlSink(obs.jsonl_path, reg) if obs.jsonl_path else None
+    # the black box: a footer-less dump is the hard-death signature
+    flight = obs.flight
+    if flight is None and obs.flight_path:
+        flight = FlightRecorder(obs.flight_path, meta={"component": "train"})
+    runs.set_run_info(reg, "train")
+    if topk is None:
+        topk = task.topk
     # the device loop: an item is spc optimizer steps
     spc = task.steps_per_call
+    cuda = task.device.type == "cuda"
     t_start = time.perf_counter()
+    # the profiler window runs once (a rollback may pass its start again)
+    profiler, profiled = None, False
+    if obs.watchdog is not None:
+        obs.watchdog.start()
+    traced_loader = (obs.tracer is not None
+                     and isinstance(task.loader, PrefetchLoader))
+    if traced_loader:
+        # the prefetch workers' h2d spans land on their own thread rows
+        task.loader.tracer = obs.tracer
     it = iter(task.loader)
     _end = object()
-    j = int(getattr(task.loader, "start", 0))
+    start_item = int(getattr(task.loader, "start", 0))
+    j = start_item
     t_mark, j_mark = t_start, j
     done_steps = 0
     losses = []  # fresh device tensors, read back once at the end
     preempt = faults.SignalFlag().install() if handle_signals else None
+    # eval and checkpoints are known-long work: the watchdog pauses
+    wd_pause = (obs.watchdog.pause if obs.watchdog is not None
+                else contextlib.nullcontext)
+
+    guard_obj = None
+    if guard is not None and guard is not False:
+        cfg = guard if isinstance(guard, GuardConfig) else GuardConfig()
+        guard_obj = TrainGuard(cfg, registry=reg, logger=logger)
+        # decisions a previous process recorded (the RESUME manifest)
+        for q in task.quarantined_items:
+            if not guard_obj.is_quarantined(q):
+                guard_obj.quarantine(q)
+    # the rollback target: the newest blocking checkpoint, the item a
+    # resume from it starts at, and the committed losses it holds
+    last_good: Optional[dict] = None
+
+    def run_manifest(reason: str, checkpoint_step: int,
+                     next_item: int) -> dict:
+        mesh_now, ndev = _topology(task)
+        m = {
+            "version": 1,
+            "reason": reason,
+            "checkpoint_step": int(checkpoint_step),
+            "next_item": int(next_item),
+            "steps_per_call": spc,
+            "num_missed": int(task.num_missed),
+            "skipped_items": [int(x) for x in task.skipped_items],
+            "mesh": mesh_now,
+            "device_count": ndev,
+            "process_count": ndev,
+            # both streams re-derive from restored values: nothing of an
+            # rng needs saving
+            "rng": {
+                "step": "dropout seed of (seed, state.step), on the host",
+                "loader": "np.random.default_rng((seed, 0, item))",
+            },
+        }
+        if guard_obj is not None:
+            m["quarantined_items"] = guard_obj.quarantined_items()
+        return m
+
+    def save(block: bool) -> None:
+        save_checkpoint(task.state, checkpoint_dir, int(task.state.step),
+                        block=block, mesh=task.mesh, zero1=task.zero1)
+
+    def write_guard_manifest() -> None:
+        """The guard's (checkpoint, cursor, quarantine) triple, written
+        at once: a SIGKILL after a decision resumes onto that decision."""
+        if guard_obj is None or not checkpoint_dir or last_good is None:
+            return
+        write_resume_manifest(checkpoint_dir, run_manifest(
+            "guard", last_good["step"], last_good["item"]))
+
+    if guard_obj is not None and checkpoint_dir:
+        # bank the starting state: rollback has a target from the first
+        # item on, and on a resumed run it is on the current topology
+        with wd_pause(), phases("checkpoint"):
+            save(block=True)
+        last_good = {"step": int(task.state.step), "item": start_item,
+                     "losses": 0}
+        write_guard_manifest()
+    elif guard_obj is not None:
+        logger.info("guard: no checkpoint_dir — the rollback tier is "
+                    "disabled, the policy ladder is skip-and-quarantine "
+                    "-> halt")
 
     def preempted() -> bool:
         if preempt is None:
@@ -537,30 +735,11 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
 
     def checkpoint_and_exit():
         step_now = int(task.state.step)
-        mesh_now, ndev = _topology(task)
-        manifest = {
-            "version": 1,
-            "reason": preempt.reason,
-            "checkpoint_step": step_now,
-            "next_item": j,
-            "steps_per_call": spc,
-            "num_missed": int(task.num_missed),
-            "skipped_items": [int(x) for x in task.skipped_items],
-            "mesh": mesh_now,
-            "device_count": ndev,
-            "process_count": ndev,
-            # both streams re-derive from restored values: nothing of an
-            # rng needs saving
-            "rng": {
-                "step": "dropout seed of (seed, state.step), on the host",
-                "loader": "np.random.default_rng((seed, 0, item))",
-            },
-        }
+        manifest = run_manifest(preempt.reason, step_now, j)
         if checkpoint_dir:
-            with phases("checkpoint"):
+            with wd_pause(), phases("checkpoint"):
                 # blocking: the process is about to exit
-                save_checkpoint(task.state, checkpoint_dir, step_now,
-                                block=True, mesh=task.mesh, zero1=task.zero1)
+                save(block=True)
                 write_resume_manifest(checkpoint_dir, manifest)
             faults.record_preemption()
             logger.info(f"preempted ({manifest['reason']}): checkpointed "
@@ -583,6 +762,7 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
             if preempted():
                 checkpoint_and_exit()
             t_item = time.perf_counter()
+            # host time blocked on the prefetch queue
             with phases("data_wait"):
                 batch = next(it, _end)
             if batch is _end:
@@ -604,51 +784,161 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
                     logger.log(rate, j)
                     t_mark, j_mark = now, j
                 logger.info(f"cycle {j} (t={now - t_start:.1f}s)")
+                if sink is not None:
+                    sink.write(step=j * spc)
+            if profile_dir is not None:
+                if j == profile_start and profiler is None and not profiled:
+                    profiler = _start_profiler(cuda)
+                elif (profiler is not None
+                      and j == profile_start + profile_steps):
+                    _stop_profiler(profiler, task, profile_dir, logger)
+                    profiler, profiled = None, True
+            if sched is not None:
+                lr = sched(j * spc)  # optimizer steps, not loader items
+                if verbose and lr is not None:
+                    logger.log({"lr": float(lr)}, j)
             skipped = False
-            try:
-                with phases("dispatch"):
-                    task.state, metrics = task.step_fn(task.state, batch)
-            except Exception as e:  # OOM-skip fault tolerance
-                if not _is_oom(e):
-                    raise
-                task.num_missed += spc
-                task.skipped_items.append(j)
-                oom_total.inc(spc)
-                logger.log({"oom_skipped_item": j,
-                            "oom_skipped_step_first": j * spc}, j)
-                logger.info(f"cycle {j}: device OOM — skipping batch "
-                            f"({task.num_missed} missed)")
+            verdict = None
+            if guard_obj is not None and guard_obj.is_quarantined(j):
+                # drawn (the cursor advances as when the quarantine was
+                # decided) but never stepped
+                guard_obj.note_replayed_skip(j)
+                logger.info(f"cycle {j}: guard — quarantined batch skipped")
                 skipped = True
+            else:
+                # the try covers only the dispatch and the sentinel read:
+                # a failure in a recovery below is never taken for a
+                # skippable OOM
+                try:
+                    if verbose:
+                        logger.info(f"  step {j}: dispatching the train step")
+                    with phases("dispatch"):
+                        new_state, metrics = task.step_fn(task.state, batch)
+                        if guard_obj is None:
+                            task.state = new_state
+                    if obs.device_sync and cuda:
+                        with phases("device"):
+                            torch.cuda.synchronize(task.device)
+                    if guard_obj is not None:
+                        # the verdict before the commit: an anomalous
+                        # step's result is dropped
+                        verdict = guard_obj.observe(
+                            j, metrics, can_rollback=last_good is not None)
+                        if verdict == "ok":
+                            task.state = new_state
+                        else:
+                            task.quarantined_items = (
+                                guard_obj.quarantined_items())
+                            if state_donated(task.state):
+                                raise RuntimeError(
+                                    "guard anomaly on a state given to a "
+                                    "donating CUDA graph: the pre-step "
+                                    "state cannot be recovered; prepare "
+                                    "the task with prepare_training("
+                                    "guard=True)")
+                except Exception as e:  # OOM-skip fault tolerance
+                    if not _is_oom(e):
+                        raise
+                    if state_donated(task.state):
+                        raise RuntimeError(
+                            "device OOM on a state given to a donating "
+                            "CUDA graph: it cannot be recovered; prepare "
+                            "the task with prepare_training(guard=True) "
+                            "to keep the pre-step state") from e
+                    task.num_missed += spc
+                    task.skipped_items.append(j)
+                    oom_total.inc(spc)
+                    logger.log({"oom_skipped_item": j,
+                                "oom_skipped_step_first": j * spc}, j)
+                    logger.info(f"cycle {j}: device OOM — skipping batch "
+                                f"({task.num_missed} missed)")
+                    skipped = True
+            # the verdict's recovery, outside the OOM try: a failure while
+            # restoring must surface
+            if verdict == "skip":
+                skipped = True
+                write_guard_manifest()
+            elif verdict == "rollback":
+                logger.info(
+                    f"guard: rolling back to checkpoint step "
+                    f"{last_good['step']} (item {last_good['item']}); "
+                    f"quarantined {guard_obj.quarantined_items()}")
+                with wd_pause(), phases("checkpoint"):
+                    wait_for_pending()
+                    task.state = load_checkpoint(
+                        checkpoint_dir, task.state, step=last_good["step"],
+                        mesh=task.mesh)
+                write_guard_manifest()
+                del losses[last_good["losses"]:]
+                # rewind the cursor and replay; the quarantined items
+                # skip on the way through
+                it.close()
+                task.loader.start = last_good["item"]
+                it = iter(task.loader)
+                j = last_good["item"]
+                continue
+            elif verdict == "halt":
+                write_guard_manifest()
+                raise guard_obj.halt(
+                    f"anomalies persist across {guard_obj._rollbacks} "
+                    "rollback(s)" if last_good is not None else
+                    "rollback needed but no checkpoint_dir to roll back to")
             if not skipped:
                 losses.append(metrics["loss"])
                 if eval_every and j % eval_every == 0:
-                    with phases("eval"):
+                    with wd_pause(), phases("eval"):
                         if task.val_batch is not None:
                             _eval_and_log(task, task.val_batch, "val", j,
-                                          logger)
+                                          topk, logger)
                         # the eval step takes one step's batch: the last
                         eb = ({k: v[-1] for k, v in batch.items()}
                               if spc > 1 else batch)
-                        _eval_and_log(task, eb, "train", j, logger)
-                        loss = metrics["loss"]
-                        logger.log({"train_step_loss": float(
-                            loss[-1] if spc > 1 else loss)}, j)
+                        _eval_and_log(task, eb, "train", j, topk, logger)
+                        logger.log({"train_step_loss": _last_loss(metrics)},
+                                   j)
                 if (checkpoint_dir and checkpoint_every and j > 0
                         and j % checkpoint_every == 0):
-                    # the snapshot is queued now; the disk write overlaps
-                    # the next steps (waited for at the end)
-                    with phases("checkpoint"):
-                        save_checkpoint(task.state, checkpoint_dir,
-                                        int(task.state.step), block=False,
-                                        mesh=task.mesh, zero1=task.zero1)
+                    # unguarded: the snapshot is queued now and the write
+                    # overlaps the next steps; guarded: blocking, so the
+                    # rollback target is always durably on disk
+                    with wd_pause(), phases("checkpoint"):
+                        save(block=guard_obj is not None)
+                    if guard_obj is not None:
+                        last_good = {"step": int(task.state.step),
+                                     "item": j + 1, "losses": len(losses)}
+                        write_guard_manifest()
                 steps_total.inc(spc)
                 done_steps += spc
                 step_gauge.set(done_steps)
                 step_hist.observe(time.perf_counter() - t_item)
+            if obs.watchdog is not None:
+                # a skipped batch is still loop progress
+                obs.watchdog.beat()
+            if flight is not None:
+                _flight_record(flight, reg, hbm, phases, task, j,
+                               done_steps, skipped, verdict,
+                               None if skipped else metrics)
             j += 1
     finally:
+        if profiler is not None:
+            # a run that ended (or failed) inside the window exports it
+            _stop_profiler(profiler, task, profile_dir, logger)
+        if flight is not None:
+            _flight_dump(flight, done_steps)
         if preempt is not None:
             preempt.uninstall()
+        if obs.watchdog is not None:
+            obs.watchdog.stop()
+        if traced_loader:
+            task.loader.tracer = None
+        if obs.tracer is not None and obs.trace_path:
+            # exported on an exception too: the timeline up to a crash
+            # is what a postmortem needs
+            n = obs.tracer.export_chrome_trace(obs.trace_path)
+            logger.info(f"span trace ({n} events) written to "
+                        f"{obs.trace_path}")
+        if sink is not None:
+            sink.write(step=j * spc, final=True)
         if losses:
             task.losses.extend(torch.cat([x.reshape(-1) for x in losses])
                                .float().cpu().tolist())
@@ -667,3 +957,81 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
             if name in task.state.model_state:
                 b.copy_(task.state.model_state[name])
     return to_host(task.state.params), task.state.model_state, task
+
+
+def _start_profiler(cuda: bool):
+    """A ``torch.profiler`` session over the CPU and, on a card, its
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, task: TrainTask, profile_dir: str,
+                   logger: Logger) -> None:
+    """Wait for the window's device work, stop and export Chrome JSON to
+    ``profile_dir/trace.json``."""
+    import os
+
+    synchronize(task.state.params)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    logger.info(f"profiler trace written to {path}")
+
+
+def _flight_record(flight, reg, hbm, phases, task, j, done_steps, skipped,
+                   verdict, metrics) -> None:
+    """One flight record for item ``j``.  ``record`` never raises, and
+    neither does this: forensics must not kill the loop."""
+    try:
+        frec: dict = {"step": j, "opt_step": done_steps,
+                      "phases": {k: round(v, 4)
+                                 for k, v in phases.take().items()}}
+        if skipped:
+            frec["skipped"] = True
+        else:
+            try:
+                frec["loss"] = _last_loss(metrics)
+            except Exception:  # noqa: BLE001
+                pass
+        if verdict is not None:
+            frec["guard_verdict"] = verdict
+            z = reg.value("fdtpu_guard_last_z")
+            if z is not None:
+                frec["guard_z"] = round(float(z), 3)
+        if hbm.available:
+            hr = memstats.min_headroom_ratio()
+            if hr is not None and hr == hr:  # NaN: unavailable, not 0
+                frec["headroom"] = round(hr, 4)
+        if task.num_missed:
+            frec["oom_skipped"] = int(task.num_missed)
+        stalled = reg.value("fdtpu_watchdog_stalled")
+        if stalled:
+            frec["stalled"] = int(stalled)
+        flight.record(**frec)
+    except Exception:  # noqa: BLE001 — never kill the loop
+        pass
+
+
+def _flight_dump(flight, done_steps: int) -> None:
+    """Stamp a soft exit's verdict into the dump's footer (a SIGKILL
+    never gets here: a footer-less dump is its signature)."""
+    import sys
+
+    try:
+        etype, evalue = sys.exc_info()[:2]
+        if etype is None:
+            flight.dump("done", steps=done_steps)
+        elif issubclass(etype, faults.Preempted):
+            flight.dump("preempted", error=str(evalue), steps=done_steps)
+        else:
+            flight.dump("halt" if issubclass(etype, GuardHalt) else "crash",
+                        error=f"{etype.__name__}: {evalue}",
+                        steps=done_steps)
+    except Exception:  # noqa: BLE001
+        pass

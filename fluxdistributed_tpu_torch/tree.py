@@ -15,9 +15,10 @@ from typing import Any, Callable, Iterator, List, Tuple
 import numpy as np
 import torch
 
-__all__ = ["allclose", "assert_close", "cast", "count_params", "leaves",
-           "leaves_with_path", "mismatches", "nbytes", "to_host",
-           "tree_map"]
+__all__ = ["accum", "add_scaled", "allclose", "assert_close", "cast",
+           "count_params", "div", "getfirst", "leaves", "leaves_with_path",
+           "mean", "mismatches", "nbytes", "scale", "synchronize", "to_host",
+           "tree_map", "zeros_like"]
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -30,6 +31,128 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _map2(fn: Callable, a: Any, b: Any) -> Any:
+    """``fn(x, y)`` over the leaves of two trees of one structure; a
+    ``None`` leaf on either side reaches ``fn`` as ``None``."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        ref = a if isinstance(a, dict) else b
+        return {k: _map2(fn, None if a is None else a[k],
+                         None if b is None else b[k]) for k in ref}
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        ref = a if isinstance(a, (list, tuple)) else b
+        return type(ref)(_map2(fn, None if a is None else a[i],
+                               None if b is None else b[i])
+                         for i in range(len(ref)))
+    return fn(a, b)
+
+
+def zeros_like(tree: Any) -> Any:
+    """A zeroed gradient tree of ``tree``'s structure (the reference's
+    ``destruct``); ``None`` leaves stay ``None``."""
+    return tree_map(torch.zeros_like, tree)
+
+
+def accum(a: Any, b: Any) -> Any:
+    """Leafwise ``a + b``, ``None`` the additive identity (the
+    reference's ``_accum``)."""
+    def f(x, y):
+        if x is None:
+            return y
+        if y is None:
+            return x
+        return x + y
+
+    return _map2(f, a, b)
+
+
+def div(tree: Any, denom) -> Any:
+    """Leafwise division by a scalar, ``None`` leaves skipped (the
+    reference's ``_dodiv``).  It divides as the JAX package's compiled
+    steps do (:func:`..optim.div_const`): a Python number is a
+    compile-time constant there, which XLA turns into a product with its
+    f32 reciprocal; a tensor ``denom`` is a traced value, a true
+    division."""
+    from .optim import div_const
+
+    if torch.is_tensor(denom):
+        return tree_map(lambda x: x / denom, tree)
+    return tree_map(lambda x: div_const(x, denom), tree)
+
+
+def scale(tree: Any, s) -> Any:
+    """Leafwise ``x * s``, ``None`` leaves skipped."""
+    return tree_map(lambda x: x * s, tree)
+
+
+def add_scaled(a: Any, b: Any, s) -> Any:
+    """``a + s * b`` leafwise, ``None``-tolerant."""
+    def f(x, y):
+        if y is None:
+            return x
+        if x is None:
+            return y * s
+        return x + y * s
+
+    return _map2(f, a, b)
+
+
+def mean(trees) -> Any:
+    """The sequential fold of :func:`accum` over a list of trees, then
+    :func:`div` by their count (the reference's hub all-reduce)."""
+    trees = list(trees)
+    if not trees:
+        raise ValueError("mean() of an empty list of trees")
+    acc = trees[0]
+    for t in trees[1:]:
+        acc = accum(acc, t)
+    return div(acc, float(len(trees)))
+
+
+def getfirst(tree: Any, name: str):
+    """The first leaf (or subtree) under a key named ``name``, depth
+    first in insertion order, or ``None`` (the reference's test helper
+    ``getfirst``).  Matches dict keys, and the fields of a non-tuple
+    object with ``_fields``; a list or tuple (a NamedTuple too) is
+    walked by position, in the JAX function's order."""
+    found: list = []
+
+    def walk(node):
+        if found:
+            return
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if found:
+                    return
+                if k == name:
+                    found.append(v)
+                    return
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        elif hasattr(node, "_fields"):
+            for k in node._fields:
+                v = getattr(node, k)
+                if k == name:
+                    found.append(v)
+                    return
+                walk(v)
+
+    walk(tree)
+    return found[0] if found else None
+
+
+def synchronize(tree: Any) -> Any:
+    """Wait until the work that produces ``tree``'s leaves has run;
+    returns the tree (the reference's ``synchronize()`` shim).  On a
+    card that is ``torch.cuda.synchronize`` of each device the leaves
+    live on; CPU leaves are ready already."""
+    for dev in {x.device for x in leaves(tree)
+                if torch.is_tensor(x) and x.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+    return tree
 
 
 def leaves_with_path(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:

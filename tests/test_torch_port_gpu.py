@@ -40,6 +40,10 @@ and resnet18 on a one-rank NCCL group; a capture that fails raises and
 nothing falls back; the wrappers' launch counts are exact under
 replay; the graphed decode step's greedy tokens equal the eager one's,
 dense and paged.
+The guard and the observation layer: a guarded graphed step keeps the
+state it is given (the shadow copy) and a poisoned item's run equals the
+clean skip bit for bit; ``Observation.default()`` issues no device sync;
+the memory gauges read the card.
 """
 
 import importlib
@@ -1167,6 +1171,104 @@ def test_graphed_preempt_and_resume_equal_uninterrupted_bitwise(
     assert tail.state.step == base.state.step == 8
     for a, b in zip(state_of(tail), state_of(base)):
         assert torch.equal(a, b)
+
+
+def _guarded_cnn_task(guard=True, cycles=8):
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.data import SyntheticDataset
+    from fluxdistributed_tpu_torch.models import SimpleCNN
+    from fluxdistributed_tpu_torch.train import prepare_training
+
+    ds = SyntheticDataset(nsamples=64, nclasses=10, shape=(16, 16, 3))
+    return prepare_training(SimpleCNN(num_classes=10, seed=0), ds,
+                            optim.momentum(0.05, 0.9), batch_size=8,
+                            cycles=cycles, steps_per_call=2, topk=(),
+                            guard=guard)
+
+
+def test_guard_shadow_state_survives_a_poisoned_replay(cuda):
+    """A guarded graphed step (steps_per_call 2) keeps the state it is
+    given: after a replay on the graph's own tensors the given state
+    still holds the pre-step values (the shadow), where an unguarded
+    replay marks its state donated.  A guarded run with a NaN planted
+    in item 2's gradient sentinel equals the clean run that skips item
+    2, bit for bit."""
+    from fluxdistributed_tpu_torch import faults
+    from fluxdistributed_tpu_torch.parallel.graphs import state_donated
+    from fluxdistributed_tpu_torch.train import GuardConfig, NullLogger, train
+    from fluxdistributed_tpu_torch.tree import leaves
+
+    def state_of(st):
+        return leaves((st.params, st.opt_state, st.model_state))
+
+    t = _guarded_cnn_task()
+    batch = next(iter(t.loader))
+    st, _ = t.step_fn(t.state, batch)  # eager warm-up, then the capture
+    st, _ = t.step_fn(st, batch)       # a replay: st is the graph's own
+    before = [x.clone() for x in state_of(st)]
+    new, m = t.step_fn(st, batch)
+    assert m["guard"].shape == (2, 2) and not state_donated(st)
+    assert all(torch.equal(a, b) for a, b in zip(state_of(st), before))
+    assert not all(torch.equal(a, b) for a, b in zip(state_of(new), before))
+    u = _guarded_cnn_task(guard=False)
+    us, _ = u.step_fn(u.state, batch)
+    u.step_fn(us, batch)
+    assert state_donated(us)
+
+    clean = _guarded_cnn_task()
+    train(clean, print_every=0, eval_every=0, logger=NullLogger(),
+          guard=GuardConfig(quarantine=(2,)))
+    hit = _guarded_cnn_task()
+    faults.install_plan(faults.FaultPlan.from_spec({"fail": [
+        {"site": "train.grad", "at": 2, "action": "nan"}]}))
+    try:
+        train(hit, print_every=0, eval_every=0, logger=NullLogger(),
+              guard=GuardConfig())
+    finally:
+        faults.clear_plan()
+    assert hit.quarantined_items == [2] and hit.losses == clean.losses
+    assert all(torch.equal(a, b) for a, b in zip(state_of(hit.state),
+                                                 state_of(clean.state)))
+
+
+def test_observation_default_issues_no_device_sync(cuda, monkeypatch):
+    """Once the graph is captured, a train() with Observation.default()
+    calls torch.cuda.synchronize zero times; Observation.full() once an
+    item (its device phase)."""
+    from fluxdistributed_tpu_torch.obs import Observation, Registry
+    from fluxdistributed_tpu_torch.train import NullLogger, train
+
+    t = _guarded_cnn_task(guard=False)
+    train(t, print_every=0, eval_every=0, logger=NullLogger())  # captures
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    for obs, want in ((Observation.default(), 0),
+                      (Observation.full(registry=Registry()), 4)):
+        calls.clear()
+        t.loader.start = 0
+        train(t, print_every=0, eval_every=0, logger=NullLogger(),
+              observation=obs)
+        assert len(calls) == want
+
+
+def test_hbm_gauges_read_the_card(cuda):
+    from fluxdistributed_tpu_torch.obs import HbmGauges, Registry, memstats
+
+    block = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
+    reg = Registry()
+    g = HbmGauges(reg)
+    assert g.available and reg.value("fdtpu_hbm_available") == 1
+    (dev,) = memstats.hbm_device_stats()
+    total = torch.cuda.mem_get_info()[1]
+    assert dev["bytes_limit"] == total and dev["bytes_in_use"] >= 256 << 20
+    assert dev["peak_bytes_in_use"] >= dev["bytes_in_use"]
+    text = reg.prometheus_text()
+    assert f'fdtpu_hbm_bytes_in_use{{device="{dev["device"]}"}}' in text
+    assert 0.0 < memstats.min_headroom_ratio() < 1.0
+    del block
+    g.close()
 
 
 def test_graph_capture_failure_raises_without_fallback(cuda):

@@ -3,13 +3,17 @@
 
 A static (AST) scan: the test process itself has JAX loaded already, so
 a ``sys.modules`` check could not tell.  Imports inside functions count
-too.
+too.  The entry points default to ``cuda``: without a card (this box)
+they raise rather than run on the CPU unasked.
 """
 
 import ast
+import importlib
+import inspect
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "fluxdistributed_tpu"}
@@ -47,7 +51,11 @@ def test_port_has_modules_to_scan():
     for mod in ("models/vit.py", "models/convnext.py", "data/imagenet.py",
                 "data/native.py", "data/preprocess.py", "data/registry.py",
                 "data/sources.py", "faults.py", "train/checkpoint.py",
-                "serve/vision.py", "infer.py"):
+                "serve/vision.py", "infer.py", "train/guard.py",
+                "train/model_selection.py", "train/logging.py",
+                "obs/spans.py", "obs/watchdog.py", "obs/flight.py",
+                "obs/server.py", "obs/memstats.py", "obs/runs.py",
+                "obs/__init__.py"):
         assert f"fluxdistributed_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").is_file()
 
@@ -56,3 +64,31 @@ def test_port_has_modules_to_scan():
 def test_no_jax_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_new_entry_points_default_to_cuda():
+    """prepare_model_selection, replay_item (through the CLI's
+    --replay-step) and the CLI with the guard and observation flags run
+    on ``cuda`` unless asked for the CPU."""
+    import functools
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import MLP
+    from fluxdistributed_tpu_torch.train import prepare_model_selection
+
+    cli = importlib.import_module("fluxdistributed_tpu_torch.train.__main__")
+    assert inspect.signature(prepare_model_selection).parameters[
+        "device"].default is None
+    assert cli.build_parser().parse_args([]).device is None
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prepare_model_selection(functools.partial(MLP, 192, (4,)),
+                                optim.descent(), replicas=2,
+                                input_shape=(8, 8, 3))
+    for extra in (["--guard", "--metrics-port", "0"],
+                  ["--guard", "--replay-step", "0"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.run(["--model", "SimpleCNN", "--image-size", "8",
+                     "--num-classes", "4", "--batch-size", "8",
+                     "--cycles", "2", *extra])

@@ -334,7 +334,7 @@ def test_cli_main_and_refusals(capsys):
                          (["--kv-heads", "3"], "num_kv_heads")]:
         with pytest.raises(SystemExit, match=match):
             cli.run(base + extra)
-    for flag in (["--spmd", "fsdp"], ["--guard"]):
+    for flag in (["--spmd", "fsdp"], ["--aot", "d"], ["--steady-after", "3"]):
         with pytest.raises(SystemExit):  # argparse: not accepted
             cli.build_parser().parse_args(base + flag)
     with pytest.raises(SystemExit, match="--resume needs --checkpoint-dir"):
