@@ -197,9 +197,29 @@ Phases, each of which raises on failure (exit code != 0, no result):
     dump; a ``torch.profiler`` window through ``train(profile_dir=)``
     naming B1; ms per item with ``observation`` None, default and full;
     model selection of 8 ResNet-18 replicas (32², 10 classes);
-32. a ``{"kernels": [...]}`` line (B1-B3 with their ViT-L/16 and
-    ViT-H/14 rows and launches a step beside the LM's), then the result
-    line ``{"ok": true, "device": {...}}`` last.
+32. sharded train: lm_small (vocab 32000, B = 8, T = 1024, bf16,
+    flash, adam 3e-4, dropout 0) 3 steps from one seed and the same
+    batches through the one-device DP step and, on one NCCL rank,
+    ``spmd="fsdp"``, ``"tp"`` and ``"fsdp_tp"`` on ``{data: 1, model:
+    1}`` and ``layout=Layout("dp_fsdp_tp", 1, 1, 1)``: losses and
+    gathered params against DP (fsdp and the layout bit for bit; tp and
+    fsdp_tp within 1e-2 relative and 6 lr, the row-parallel bias being
+    added after the sum), B1-B3 12 launches each a step on every path,
+    step ms (profiler device time) and peak allocated bytes;
+33. sharded ViT: ViT-L/16 (224², batch 128, flash core, adamw, dropout
+    0) 3 steps under ``spmd="tp"`` against DP, B1-B3 24 launches a step,
+    the same columns;
+34. FSDP ResNet-50 (224², batch 256, bf16, momentum) 3 steps under
+    ``spmd="fsdp"`` against the DP step on the same NCCL rank (bit for
+    bit), step ms and images/s;
+35. sharded CLI: ``python -m fluxdistributed_tpu_torch.train --model
+    lm_small ... --spmd fsdp`` and ``--layout dp``, 6 cycles each, B1-B3
+    launching 12 a step; ``--spmd tp --tp 2`` and ``--spmd fsdp_tp``
+    refused with ``bin/driver.py``'s messages;
+36. a ``{"kernels": [...]}`` line (B1-B3 with their ViT-L/16 and
+    ViT-H/14 rows, launches a step beside the LM's, and the sharded
+    paths' launches a step), then the result line ``{"ok": true,
+    "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -3832,6 +3852,300 @@ def observe_phase(torch, card):
     torch.cuda.empty_cache()
 
 
+SHARD_STEPS = 3
+SHARD_LR = 3e-4
+
+
+def _shard_run(torch, make_model, data, opt, batches, kw, *, lm=True,
+               batch_size):
+    """``prepare_training`` of a fresh model under ``kw`` (its ``mesh``
+    a function forming it) and ``SHARD_STEPS`` steps on ``batches``:
+    losses, global params, launches (B4, B5, B1-B3, B6) over the steps,
+    peak allocated bytes and device ms a step.  The process group is
+    ended after."""
+    from fluxdistributed_tpu_torch.mesh import shutdown_distributed
+    from fluxdistributed_tpu_torch.models import lm_loss_fn
+    from fluxdistributed_tpu_torch.parallel.fsdp import gather_state
+    from fluxdistributed_tpu_torch.train import prepare_training
+
+    kw = dict(kw)
+    make_mesh = kw.pop("mesh", None)
+    model = make_model()
+    try:
+        task = prepare_training(
+            model, data, opt, batch_size=batch_size, cycles=SHARD_STEPS,
+            mesh=make_mesh() if make_mesh else None,
+            loss_fn=lm_loss_fn(model) if lm else None,
+            topk=() if lm else (1,), **kw)
+        state, losses = task.state, []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        for b in batches:
+            state, m = task.step_fn(state, b)
+            losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / len(batches) * 1e3
+        launches = all_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ms = device_ms(torch, lambda: task.step_fn(state, batches[0]),
+                       calls=2)
+        params = (state.params if task.specs is None else gather_state(
+            state.params, task.specs.params, task.mesh))
+        shapes = (None if task.specs is None else
+                  {k: list(v.shape) for k, v in list(
+                      task.state.params.items())[:4]})
+        params = {k: v.detach().clone() for k, v in params.items()}
+        del task, state, m
+        return {"losses": losses, "params": params, "launches": launches,
+                "peak_allocated_bytes": peak, "step_ms": ms,
+                "wall_ms_per_step_first3": wall, "local_shapes": shapes}
+    finally:
+        del model
+        shutdown_distributed()
+        torch.cuda.empty_cache()
+
+
+def _against(torch, run, ref) -> dict:
+    """A sharded run against the DP run: equal losses and params, and
+    the largest differences."""
+    diffs = [(run["params"][k].float() - v.float()).abs().max().item()
+             for k, v in ref["params"].items()]
+    return {"losses_equal": run["losses"] == ref["losses"],
+            "loss_max_rel_err": max(abs(a - b) / abs(b) for a, b in zip(
+                run["losses"], ref["losses"])),
+            "params_equal": all(torch.equal(run["params"][k], v)
+                                for k, v in ref["params"].items()),
+            "param_max_abs_err": max(diffs)}
+
+
+def _row(torch, phase, card, name, run, ref, per_step, extra=None) -> dict:
+    cmp = {} if run is ref else _against(torch, run, ref)
+    row = {"phase": phase, "card": card, "path": name, **(extra or {}),
+           "losses": run["losses"], **cmp,
+           "b1_b2_b3_launches_per_step": per_step,
+           "launches_b4_b5_b1_b2_b3_b6": run["launches"],
+           "step_ms_device": run["step_ms"],
+           "wall_ms_per_step_first3": run["wall_ms_per_step_first3"],
+           "peak_allocated_bytes": run["peak_allocated_bytes"],
+           "local_shapes_first4": run["local_shapes"]}
+    emit(row)
+    return row
+
+
+def _check_sharded(phase, name, row, depth, exact, loss_rtol=None,
+                   param_atol=None):
+    """A sharded path's row: B1-B3 ``depth`` launches a step (B4, B5,
+    B6 none), and DP's result bit for bit (``exact``) or within the
+    stated limits."""
+    want = [depth] * 3
+    launches = row["launches_b4_b5_b1_b2_b3_b6"]
+    if (row["b1_b2_b3_launches_per_step"] != want or launches[0]
+            or launches[1] or launches[5]):
+        raise RuntimeError(f"{phase} {name}: launches {launches}, want "
+                           f"B1-B3 {depth} a step")
+    if not all(math.isfinite(x) for x in row["losses"]):
+        raise RuntimeError(f"{phase} {name}: losses {row['losses']}")
+    if exact:
+        if not (row["losses_equal"] and row["params_equal"]):
+            raise RuntimeError(f"{phase} {name}: not bit-equal to DP: "
+                               f"{row}")
+    elif (row["loss_max_rel_err"] > loss_rtol
+          or row["param_max_abs_err"] > param_atol):
+        raise RuntimeError(f"{phase} {name}: loss rel err "
+                           f"{row['loss_max_rel_err']} (limit {loss_rtol}),"
+                           f" param err {row['param_max_abs_err']} (limit "
+                           f"{param_atol})")
+
+
+def sharded_train_phase(torch, card):
+    """lm_small (vocab 32000, B=8, T=1024, bf16, flash, adam, dropout 0)
+    3 steps through the one-device DP step and, on one NCCL rank,
+    spmd fsdp, tp and fsdp_tp on {data: 1, model: 1} and the all-size-1
+    dp_fsdp_tp layout, from the same weights and batches.  Returns
+    B1-B3's launches a step on each sharded path."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.mesh import data_mesh, make_mesh
+    from fluxdistributed_tpu_torch.models import lm_small
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.parallel.layout import Layout
+
+    batches = [{"tokens": torch.from_numpy(np.random.default_rng(s).integers(
+        0, 32000, (B, T_TRAIN)).astype(np.int64)).cuda()}
+        for s in range(SHARD_STEPS)]
+
+    def make_model():
+        return lm_small(vocab=32000, attn_fn=attention_core("flash"), seed=0)
+
+    def model_mesh():
+        return make_mesh({"data": 1, "model": 1}, device="cuda")
+
+    modes = [("dp", {}),
+             ("fsdp", {"spmd": "fsdp",
+                       "mesh": lambda: data_mesh(device="cuda")}),
+             ("tp", {"spmd": "tp", "mesh": model_mesh}),
+             ("fsdp_tp", {"spmd": "fsdp_tp", "mesh": model_mesh}),
+             ("layout_dp_fsdp_tp_1x1x1",
+              {"layout": Layout("dp_fsdp_tp", 1, 1, 1), "device": "cuda"})]
+    ref, out = None, {}
+    depth = 12
+    for name, kw in modes:
+        run = _shard_run(torch, make_model, _TokenBank(32000, T_TRAIN),
+                         optim.adam(SHARD_LR), batches, kw, batch_size=B)
+        per = [n // SHARD_STEPS for n in run["launches"][2:5]]
+        ref = ref or run
+        row = _row(torch, "sharded_train", card, name, run, ref, per, {
+            "model": "lm_small", "vocab": 32000, "batch": B,
+            "seqlen": T_TRAIN, "dtype": "bfloat16", "opt": "adam 3e-4",
+            "dp_step_ms_device": ref["step_ms"],
+            "dp_peak_allocated_bytes": ref["peak_allocated_bytes"]})
+        if run is not ref:
+            exact = name in ("fsdp", "layout_dp_fsdp_tp_1x1x1")
+            _check_sharded("sharded_train", name, row, depth, exact,
+                           loss_rtol=1e-2, param_atol=6 * SHARD_LR)
+            out[f"lm_small_{name}"] = per
+        del run
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_vit_phase(torch, card):
+    """ViT-L/16 (224², batch 128, flash core, adamw, dropout 0) 3 steps
+    under spmd="tp" on {data: 1, model: 1} against the one-device DP
+    step.  Returns B1-B3's launches a step."""
+    from functools import partial
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.mesh import make_mesh
+    from fluxdistributed_tpu_torch.models import vit_l16
+    from fluxdistributed_tpu_torch.ops import flash_attention
+
+    batches = [image_batch(torch, VIT_B, VISION_SIZE, 1000, torch.bfloat16,
+                           "cuda", 40 + s) for s in range(SHARD_STEPS)]
+
+    def make_model():
+        return vit_l16(num_classes=1000, seed=0,
+                       attn_fn=partial(flash_attention, causal=False))
+
+    data = _ImageBank(VISION_SIZE, 1000)
+    ref = _shard_run(torch, make_model, data, optim.adamw(), batches, {},
+                     lm=False, batch_size=VIT_B)
+    extra = {"model": "vit_l16", "batch": VIT_B, "image": VISION_SIZE,
+             "dtype": "bfloat16", "opt": "adamw (1e-3, wd 1e-2)",
+             "dp_step_ms_device": ref["step_ms"],
+             "dp_peak_allocated_bytes": ref["peak_allocated_bytes"]}
+    _row(torch, "sharded_vit", card, "dp", ref, ref,
+         [n // SHARD_STEPS for n in ref["launches"][2:5]], extra)
+    run = _shard_run(torch, make_model, data, optim.adamw(), batches,
+                     {"spmd": "tp", "mesh": lambda: make_mesh(
+                         {"data": 1, "model": 1}, device="cuda")},
+                     lm=False, batch_size=VIT_B)
+    per = [n // SHARD_STEPS for n in run["launches"][2:5]]
+    row = _row(torch, "sharded_vit", card, "tp", run, ref, per, extra)
+    _check_sharded("sharded_vit", "tp", row, 24, False, loss_rtol=1e-2,
+                   param_atol=6e-3)
+    del run, ref, batches
+    torch.cuda.empty_cache()
+    return per
+
+
+def fsdp_resnet_phase(torch, card):
+    """The reference's ResNet-50 (224², batch 256, bf16, momentum 0.01)
+    3 steps under spmd="fsdp" against the DP step, both on one NCCL
+    rank (the synchronised BatchNorm path): bit for bit; step ms and
+    images/s from device time."""
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.mesh import data_mesh
+    from fluxdistributed_tpu_torch.models import resnet50
+
+    batches = [image_batch(torch, VISION_B, VISION_SIZE, 1000,
+                           torch.bfloat16, "cuda", 60 + s)
+               for s in range(SHARD_STEPS)]
+
+    def make_model():
+        return resnet50(num_classes=1000, seed=0)
+
+    def mesh():
+        return data_mesh(device="cuda")
+
+    data = _ImageBank(VISION_SIZE, 1000)
+    runs = {name: _shard_run(torch, make_model, data,
+                             optim.momentum(0.01, 0.9), batches,
+                             {"spmd": spmd, "mesh": mesh}, lm=False,
+                             batch_size=VISION_B)
+            for name, spmd in (("dp", "jit"), ("fsdp", "fsdp"))}
+    ref = runs["dp"]
+    for name, run in runs.items():
+        row = _row(torch, "fsdp_resnet", card, name, run, ref, None, {
+            "model": "resnet50", "batch": VISION_B, "image": VISION_SIZE,
+            "dtype": "bfloat16", "opt": "momentum 0.01",
+            "images_per_s_device": VISION_B / (run["step_ms"] / 1e3)})
+        if any(run["launches"]) or not all(
+                math.isfinite(x) for x in run["losses"]):
+            raise RuntimeError(f"fsdp_resnet {name}: {row}")
+        if run is not ref and not (row["losses_equal"]
+                                   and row["params_equal"]):
+            raise RuntimeError(f"fsdp_resnet: fsdp not bit-equal to DP: "
+                               f"{row}")
+    del runs, ref, batches
+    torch.cuda.empty_cache()
+
+
+SHARD_CLI = ["--model", "lm_small", "--dataset", "synthetic-text", "--vocab",
+             "256", "--seqlen", "1024", "--batch-size", "8", "--attn",
+             "flash", "--opt", "adam", "--lr", "3e-4", "--cycles", "6",
+             "--print-every", "3", "--eval-every", "0"]
+
+
+def sharded_cli_phase(torch):
+    """``python -m fluxdistributed_tpu_torch.train ... --spmd fsdp`` and
+    ``--layout dp`` in-process, 6 cycles each; ``--spmd tp --tp 2`` and
+    ``--spmd fsdp_tp`` on one card refused with the driver's messages.
+    Returns B1-B3's launches a step of the fsdp run."""
+    from fluxdistributed_tpu_torch.train.__main__ import run
+
+    per = None
+    for extra in (["--spmd", "fsdp"], ["--layout", "dp"]):
+        reset_all_counts()
+        t0 = time.perf_counter()
+        task = run(SHARD_CLI + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_counts()
+        row = {"phase": "sharded_cli", "argv_extra": extra,
+               "steps": task.state.step, "losses": task.losses,
+               "mesh": task.mesh.shape, "wall_s": wall,
+               "launches_b4_b5_b1_b2_b3_b6": launches}
+        emit(row)
+        if (task.specs is None or len(task.losses) != 6
+                or not all(math.isfinite(x) for x in task.losses)
+                or launches != [0, 0, 72, 72, 72, 0]):
+            raise RuntimeError(f"sharded_cli {extra}: {row}")
+        per = per or [n // 6 for n in launches[2:5]]
+        del task
+        torch.cuda.empty_cache()
+    refusals = {}
+    for extra, want in (
+            (["--spmd", "tp", "--tp", "2"],
+             "--tp 2 must be >=1 and divide 1 devices"),
+            (["--spmd", "fsdp_tp"],
+             "--spmd fsdp_tp needs --tp < device count")):
+        try:
+            run(SHARD_CLI + extra)
+        except SystemExit as e:
+            refusals[" ".join(extra)] = str(e)
+            if want not in str(e):
+                raise RuntimeError(f"sharded_cli {extra}: refused with {e}")
+        else:
+            raise RuntimeError(f"sharded_cli {extra}: not refused")
+    emit({"phase": "sharded_cli_refusals", "refusals": refusals})
+    return per
+
+
 def main() -> int:
     import torch
 
@@ -3929,6 +4243,10 @@ def main() -> int:
     guard_phase(torch, card.splitlines()[0])
     guard_cost_phase(torch, card.splitlines()[0])
     observe_phase(torch, card.splitlines()[0])
+    sharded = sharded_train_phase(torch, card.splitlines()[0])
+    sharded["vit_l16_tp"] = sharded_vit_phase(torch, card.splitlines()[0])
+    fsdp_resnet_phase(torch, card.splitlines()[0])
+    sharded["cli_lm_small_fsdp"] = sharded_cli_phase(torch)
 
     def kernel_entry(name, source, replaces, via, launches, row):
         entry = {"name": name, "route": "cuda", "source": source,
@@ -3959,14 +4277,17 @@ def main() -> int:
                                         VIT_HEADS, D]),
                vit_h14=vit_entry(hrow, hn, [VITH_B, VITH_T, VITH_T,
                                             VITH_HEADS, VITH_HEADS,
-                                            VITH_D]))
-          for (name, replaces, via), n, row, vrow, vn, hrow, hn in zip(
+                                            VITH_D]),
+               sharded_launches_per_step={
+                   path: per[i] for path, per in sharded.items()})
+          for i, ((name, replaces, via), n, row, vrow, vn, hrow, hn)
+          in enumerate(zip(
               ATTN_KERNELS, attn_launches,
               (attn_rows["fwd"], attn_rows["dq"], attn_rows["dkv"]),
               (vit_rows["fwd"], vit_rows["dq"], vit_rows["dkv"]),
               vit_launches,
               (vith_rows["fwd"], vith_rows["dq"], vith_rows["dkv"]),
-              vith_launches)),
+              vith_launches))),
         kernel_entry("fused_adam", ADAM_SOURCE, ADAM_REPLACES, ADAM_VIA,
                      adam_launches, adam_row)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

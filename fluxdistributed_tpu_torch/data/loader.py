@@ -180,7 +180,7 @@ class PrefetchLoader:
         if self.mesh is not None:
             from ..sharding import shard_batch
 
-            out = shard_batch(out, self.mesh)
+            out = shard_batch(out, self.mesh, axis=self.mesh.axis_names)
         return out
 
     def _assemble(self, c: int) -> dict:

@@ -7,9 +7,9 @@ from .common import LayerNorm, maybe_remat
 from .convnext import (ConvNeXt, ConvNeXtBlock, convnext_base,
                        convnext_large, convnext_small, convnext_test,
                        convnext_tiny, convnext_xlarge)
-from .from_jax import (flax_to_state_dict, load_flax_convnext,
-                       load_flax_params, load_flax_resnet, load_flax_simple,
-                       load_flax_vit)
+from .from_jax import (flax_to_state_dict, flax_vit_to_state_dict,
+                       load_flax_convnext, load_flax_params, load_flax_resnet,
+                       load_flax_simple, load_flax_vit)
 from .norm import BatchNorm, BatchStats
 from .resnet import (BasicBlock, BottleneckBlock, ResNet, resnet18, resnet34,
                      resnet50, resnet101, resnet152, s2d_stem_kernel,
@@ -30,7 +30,8 @@ __all__ = [
     "MultiHeadAttention", "PagedCache", "ResNet", "SimpleCNN",
     "TransformerLM", "ViT", "convnext_base", "convnext_large",
     "convnext_small", "convnext_test", "convnext_tiny", "convnext_xlarge",
-    "dequantize_kv", "flax_to_state_dict", "generate", "lm_loss_fn",
+    "dequantize_kv", "flax_to_state_dict", "flax_vit_to_state_dict",
+    "generate", "lm_loss_fn",
     "lm_medium", "lm_small", "lm_tiny", "load_flax_convnext",
     "load_flax_params", "load_flax_resnet", "load_flax_simple",
     "load_flax_vit", "make_decode_cache", "make_paged_cache", "maybe_remat",

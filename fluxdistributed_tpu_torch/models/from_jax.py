@@ -56,8 +56,9 @@ import torch
 
 from .transformer_lm import TransformerLM
 
-__all__ = ["flax_to_state_dict", "load_flax_convnext", "load_flax_params",
-           "load_flax_resnet", "load_flax_simple", "load_flax_vit"]
+__all__ = ["flax_to_state_dict", "flax_vit_to_state_dict",
+           "load_flax_convnext", "load_flax_params", "load_flax_resnet",
+           "load_flax_simple", "load_flax_vit"]
 
 
 def _dense(kernel, in_dims: int):
@@ -216,6 +217,12 @@ def _conv_bias(out: dict, prefix: str, p: dict) -> None:
 def load_flax_vit(model, params: dict):
     """Fill a port :class:`.vit.ViT` from a flax ViT's ``params`` (numpy
     leaves), mean-pooled or with a class token.  Returns ``model``."""
+    return _fill(model, flax_vit_to_state_dict(params))
+
+
+def flax_vit_to_state_dict(params: dict) -> Dict[str, np.ndarray]:
+    """The port's ``state_dict`` names for a flax ViT tree (any block of
+    its leaves too: a device's shard of each converts the same way)."""
     sd: Dict[str, np.ndarray] = {}
     rest = dict(params)
     _conv_bias(sd, "conv_proj", rest.pop("patch_embed"))
@@ -224,7 +231,8 @@ def load_flax_vit(model, params: dict):
     sd["encoder.pos_embedding"] = np.asarray(rest.pop("pos_embed"))
     _norm(sd, "encoder.ln", rest.pop("final_norm"))
     _linear(sd, "heads.head", rest.pop("head"))
-    for i in range(model.depth):
+    depth = sum(1 for k in rest if k.startswith("block"))
+    for i in range(depth):
         bp, pre = rest.pop(f"block{i}"), f"encoder.layers.encoder_layer_{i}"
         _norm(sd, pre + ".ln_1", bp["LayerNorm_0"])
         _norm(sd, pre + ".ln_2", bp["LayerNorm_1"])
@@ -238,7 +246,7 @@ def load_flax_vit(model, params: dict):
         _linear(sd, pre + ".mlp.3", mlp["Dense_1"])
     if rest:
         raise KeyError(f"unknown flax params {sorted(rest)}")
-    return _fill(model, sd)
+    return sd
 
 
 def load_flax_convnext(model, params: dict):

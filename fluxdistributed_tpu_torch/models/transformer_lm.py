@@ -24,6 +24,9 @@ the JAX model's sites when ``train=True``, each mask a counter-based
 hash of (step seed, layer, site, element), and ``remat`` recomputes
 each block in the backward (``torch.utils.checkpoint``).
 :func:`next_token_loss` and :func:`lm_loss_fn` give the training loss.
+Made tensor-parallel by :func:`..parallel.tp.tensor_parallel`, the
+attention, the MLP, the embedding and the logits run the Megatron
+collectives of the ``tp`` context they are given (training only).
 
 Every batch row has its own cursor, so one code path serves
 ``generate`` (all rows at the same depth), batch-1 prefill and the
@@ -457,6 +460,8 @@ class CausalSelfAttention(nn.Module):
         self.head_dim = dim // num_heads
         self.window, self.sinks, self.use_rope = window, sinks, use_rope
         self.attn_fn = attn_fn
+        # the tensor-parallel context (parallel.tp), or None
+        self.tp = None
         hd = self.head_dim
         if hkv != num_heads:
             self.q = nn.Linear(dim, num_heads * hd)
@@ -479,6 +484,8 @@ class CausalSelfAttention(nn.Module):
                 cache: Optional[DecodeCache] = None, layer: int = 0,
                 step: Optional[_Step] = None) -> torch.Tensor:
         b, t, _ = x.shape
+        if self.tp is not None:
+            x = self.tp.enter(x)
         q, k, v = self._project(x, dtype)
         if cache is None:
             if self.use_rope:
@@ -490,6 +497,8 @@ class CausalSelfAttention(nn.Module):
             out = attn(q, k, v)  # [B, T, H, Dh]
         else:
             out = self._decode(q, k, v, dtype, cache, layer, step)
+        if self.tp is not None:
+            return self.tp.row(self.out, out.reshape(b, t, -1), dtype)
         return dense(self.out, out.reshape(b, t, -1), dtype)
 
     def _decode(self, q, k, v, dtype, cache, layer: int, st):
@@ -558,6 +567,8 @@ class DecoderBlock(nn.Module):
         if mlp not in ("gelu", "swiglu"):
             raise ValueError(f"unknown mlp {mlp!r} (gelu|swiglu)")
         self.mlp, self.dropout = mlp, dropout
+        # the MLP's tensor-parallel context (parallel.tp), or None
+        self.tp = None
         self.ln1 = _Norm(dim, norm, norm_eps)
         self.attn = CausalSelfAttention(
             dim, num_heads, num_kv_heads=num_kv_heads, window=window,
@@ -580,12 +591,17 @@ class DecoderBlock(nn.Module):
         y = self.attn(self.ln1(x, dtype), dtype, cache, layer, step)
         x = x + _dropout(y, rate, key(0))
         y = self.ln2(x, dtype)
+        if self.tp is not None:
+            y = self.tp.enter(y)
+            down = lambda layer, h: self.tp.row(layer, h, dtype)  # noqa: E731
+        else:
+            down = lambda layer, h: dense(layer, h, dtype)  # noqa: E731
         if self.mlp == "swiglu":
             y = F.silu(dense(self.gate, y, dtype)) * dense(self.up, y, dtype)
-            y = dense(self.down, _dropout(y, rate, key(1)), dtype)
+            y = down(self.down, _dropout(y, rate, key(1)))
         else:
             y = F.gelu(dense(self.fc1, y, dtype), approximate="tanh")
-            y = dense(self.fc2, _dropout(y, rate, key(1)), dtype)
+            y = down(self.fc2, _dropout(y, rate, key(1)))
         return x + _dropout(y, rate, key(2))
 
 
@@ -638,6 +654,9 @@ class TransformerLM(nn.Module):
             for _ in range(depth))
         self.final_ln = _Norm(dim, norm, norm_eps)
         self.head = None if tie_embeddings else nn.Linear(dim, vocab)
+        # the vocab-parallel embedding's and the column-parallel head's
+        # tensor-parallel contexts (parallel.tp), or None
+        self.tp_embed = self.tp_head = None
         self._init_weights(seed)
         self.to(dev)
 
@@ -672,7 +691,13 @@ class TransformerLM(nn.Module):
         dt = self.dtype
         tokens = tokens.to(self.device)
         b, t = tokens.shape
-        x = F.embedding(tokens, self.embed.weight.to(dt))
+        if cache is not None and getattr(self, "tp_applied", False):
+            raise NotImplementedError("a tensor-parallel model has no "
+                                      "decode path")
+        if self.tp_embed is not None:
+            x = self.tp_embed.embed(tokens, self.embed.weight.to(dt))
+        else:
+            x = F.embedding(tokens, self.embed.weight.to(dt))
         step = None
         if cache is not None:
             kind = _PagedStep if isinstance(cache, PagedCache) else _Step
@@ -703,10 +728,15 @@ class TransformerLM(nn.Module):
                 step.put_positions(cache)
             cache.index += t
         x = self.final_ln(x, dt)
+        tp = self.tp_embed if self.head is None else self.tp_head
+        if tp is not None:
+            x = tp.enter(x)
         if self.head is None:
             logits = x @ self.embed.weight.to(dt).t()
         else:
             logits = dense(self.head, x, dt)
+        if tp is not None:
+            logits = tp.gather(logits)
         return logits.float()
 
 

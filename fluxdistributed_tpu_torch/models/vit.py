@@ -28,6 +28,8 @@ position embedding; in each block after the attention, after the GELU
 and after the MLP), each mask a counter-based hash of (step seed, site,
 element) (:func:`.common.site_keys`), so remat and graph replays draw
 the same masks; ``remat`` recomputes each block in the backward.
+:func:`..parallel.tp.tensor_parallel` makes the attention and the MLP
+Megatron modules (their ``tp`` context).
 
 Parameter names are torchvision's ``VisionTransformer``'s
 (``conv_proj``, ``class_token``, ``encoder.pos_embedding``,
@@ -70,12 +72,20 @@ class MlpBlock(nn.Module):
     def __init__(self, dim: int, mlp_dim: int, gelu_exact: bool = False):
         super().__init__()
         self.gelu_exact = gelu_exact
+        # the tensor-parallel context (parallel.tp), or None
+        self.tp = None
         self.add_module("0", nn.Linear(dim, mlp_dim))
         self.add_module("3", nn.Linear(mlp_dim, dim))
 
     def forward(self, x, dtype, rate: float = 0.0, keys=(None, None)):
+        if self.tp is not None:
+            x = self.tp.enter(x)
         y = gelu(dense(self._modules["0"], x, dtype), self.gelu_exact)
-        y = dense(self._modules["3"], _dropout(y, rate, keys[0]), dtype)
+        y = _dropout(y, rate, keys[0])
+        if self.tp is not None:
+            y = self.tp.row(self._modules["3"], y, dtype)
+        else:
+            y = dense(self._modules["3"], y, dtype)
         return _dropout(y, rate, keys[1])
 
 
@@ -91,19 +101,25 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"embed dim ({dim}) must divide num_heads "
                              f"({num_heads})")
         self.num_heads, self.attn_fn = num_heads, attn_fn
+        # the tensor-parallel context (parallel.tp), or None
+        self.tp = None
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        b, t, d = x.shape
+        b, t, _ = x.shape
+        if self.tp is not None:
+            x = self.tp.enter(x)
         qkv = F.linear(x.to(dtype), self.in_proj_weight.to(dtype),
                        self.in_proj_bias.to(dtype))
         q, k, v = qkv.view(b, t, 3, self.num_heads, -1).unbind(2)
         attn = self.attn_fn if self.attn_fn is not None else \
             dot_product_attention
-        out = attn(q, k, v)  # [B, T, H, Dh]
-        return dense(self.out_proj, out.reshape(b, t, d), dtype)
+        out = attn(q, k, v).reshape(b, t, -1)  # [B, T, H * Dh]
+        if self.tp is not None:
+            return self.tp.row(self.out_proj, out, dtype)
+        return dense(self.out_proj, out, dtype)
 
 
 class EncoderBlock(nn.Module):

@@ -30,10 +30,17 @@ Rules: ``descent``, ``momentum``, ``nesterov``, ``adam``, ``adamw``; the
 ``step -> lr``, usable anywhere ``lr`` is); ``lars`` (layer-wise
 trust ratios for large batches); ``with_ema`` (a shadow average of the
 params in the optimizer state, read with ``ema_params``).
+
+The norms of ``lars`` and ``clip_by_global_norm`` are over whole
+leaves.  A step whose leaves are blocks of sharded tensors (FSDP, tensor
+parallelism) runs the rule under :func:`sharded_norms`, which sums each
+leaf's squares over the ranks that hold its blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Union
@@ -58,6 +65,7 @@ __all__ = [
     "lars",
     "momentum",
     "nesterov",
+    "sharded_norms",
     "step_decay",
     "warmup_cosine",
     "with_ema",
@@ -262,8 +270,7 @@ def lars(lr: LR = 1.0, momentum_coef: float = 0.9, weight_decay: float = 0.0,
                 new_p[k], new_v[k] = p, v
                 continue
             g = g + weight_decay * p
-            p_norm = torch.linalg.vector_norm(p)
-            g_norm = torch.linalg.vector_norm(g)
+            p_norm, g_norm = _leaf_norm(k, p), _leaf_norm(k, g)
             # the norms stay on the device: no host sync per leaf
             trust = torch.where((p_norm > 0) & (g_norm > 0),
                                 trust_coefficient * p_norm / (g_norm + eps),
@@ -323,12 +330,46 @@ def ema_params(opt_state: dict) -> dict:
     return {k: None if s is None else s["ema"] for k, s in opt_state.items()}
 
 
+# ``fn(name, local_sum_of_squares) -> global_sum_of_squares`` of the
+# sharded step whose rule is running, or None: every leaf is whole
+_NORM_REDUCE: contextvars.ContextVar = contextvars.ContextVar(
+    "norm_reduce", default=None)
+
+
+@contextlib.contextmanager
+def sharded_norms(reduce: Callable):
+    """Within the block, the norms of :func:`lars` and
+    :func:`global_norm` treat each leaf as this rank's block of a
+    sharded tensor: ``reduce(name, sq)`` returns the sum of ``sq`` (the
+    block's f32 sum of squares) over the ranks that hold the leaf's
+    blocks (a collective, which every one of them reaches in the same
+    leaf order)."""
+    token = _NORM_REDUCE.set(reduce)
+    try:
+        yield
+    finally:
+        _NORM_REDUCE.reset(token)
+
+
+def _leaf_norm(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The L2 norm of leaf ``name``, whole or (under
+    :func:`sharded_norms`) summed over its blocks."""
+    reduce = _NORM_REDUCE.get()
+    if reduce is None:
+        return torch.linalg.vector_norm(x)
+    return torch.sqrt(reduce(name, torch.sum(torch.square(x.float()))))
+
+
 def global_norm(grads: Params) -> torch.Tensor:
     """L2 norm over every non-``None`` gradient (f32 accumulation)."""
-    leaves = [g for g in grads.values() if g is not None]
+    leaves = [(k, g) for k, g in grads.items() if g is not None]
     if not leaves:
         return torch.zeros(())
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    sq = [torch.sum(torch.square(g.float())) for _, g in leaves]
+    reduce = _NORM_REDUCE.get()
+    if reduce is not None:
+        sq = [reduce(k, s) for (k, _), s in zip(leaves, sq)]
+    return torch.sqrt(sum(sq))
 
 
 def clip_by_global_norm(optimizer: Optimizer, max_norm: float) -> Optimizer:

@@ -32,6 +32,25 @@ K`` runs K optimizer steps a call (the JAX device loop): the loader
 stacks K batches an item, and on the GPU the K steps are one CUDA graph
 replay (``--cycles`` must be a multiple of K; ``--spmd jit`` only).
 
+Models too big for one replica shard: ``--spmd fsdp`` shards every
+large parameter and optimizer-state leaf over the ranks (ZeRO-3),
+``--spmd tp --tp K`` makes an LM or a ViT Megatron tensor-parallel over
+``{data: N/K, model: K}`` (K defaults to every rank and must divide
+them), ``--spmd fsdp_tp --tp K`` (K below the rank count) also shards
+each leaf's leftover dim over ``data``, and ``--layout NAME`` (``dp``,
+``fsdp``, ``tp``, ``dp_fsdp``, ``fsdp_tp``, ``dp_fsdp_tp``) shards by
+the rules engine over a ``(data, fsdp, model)`` mesh, with ``--spmd
+jit``.  Each runs as one rank on one card too, and across cards under
+``torchrun``::
+
+    torchrun --nproc-per-node 4 -m fluxdistributed_tpu_torch.train \
+        --model lm_small --dataset synthetic-text --seqlen 1024 \
+        --batch-size 8 --attn flash --opt adam --lr 3e-4 --cycles 40 \
+        --spmd fsdp_tp --tp 2
+
+``--layout auto`` (the picker), ``--hbm-bytes`` and ``--layout-report``
+come with slice 7 and raise ``NotImplementedError``.
+
 ``--dataset`` takes the JAX CLI's forms: ``synthetic``,
 ``synthetic-text``, ``text:PATH`` and a name registered by
 ``--data-toml`` (a ``[[datasets]]`` TOML: ImageNet, CIFAR-10, synthetic
@@ -76,9 +95,10 @@ trace of the phase spans (and syncs the card each item),
 flight recorder, ``--runs-ledger`` appends a run record on every exit,
 ``--watchdog-factor`` / ``--watchdog-escalate`` set the stall
 watchdog, ``--wandb`` logs to Weights & Biases and ``--verbose`` logs
-more.  The JAX CLI's other ``--spmd`` modes, ``--profile-out``,
-``--steady-after``, ``--compile-cache``, ``--aot``, ``--prewarm`` and
-``--strict-checks`` belong to later slices and are not accepted.
+more.  The JAX CLI's context, pipeline and expert ``--spmd`` modes,
+``--profile-out``, ``--steady-after``, ``--compile-cache``, ``--aot``,
+``--prewarm`` and ``--strict-checks`` belong to later slices and are not
+accepted.
 """
 
 from __future__ import annotations
@@ -174,11 +194,31 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["layernorm", "rmsnorm"])
     p.add_argument("--mlp", default="gelu", choices=["gelu", "swiglu"])
     p.add_argument("--spmd", default="jit",
-                   choices=["jit", "dp", "shard_map"],
-                   help="data-parallel mode: jit/dp (one device, or DP "
-                        "across torchrun ranks) or shard_map (the explicit "
-                        "per-rank step); the JAX CLI's other modes are not "
-                        "ported")
+                   choices=["jit", "dp", "shard_map", "fsdp", "tp",
+                            "fsdp_tp"],
+                   help="parallel mode: jit/dp (one device, or DP across "
+                        "torchrun ranks), shard_map (the explicit per-rank "
+                        "step), fsdp (ZeRO-3: params and optimizer state "
+                        "sharded over the ranks), tp (Megatron tensor "
+                        "parallelism over a model axis of --tp ranks) or "
+                        "fsdp_tp (both); the JAX CLI's context, pipeline "
+                        "and expert modes are not ported")
+    p.add_argument("--layout", default=None, metavar="NAME|auto",
+                   help="declarative dp x fsdp x tp layout "
+                        "(parallel/layout.py): a preset name (dp, fsdp, tp, "
+                        "dp_fsdp, fsdp_tp, dp_fsdp_tp) shards the model "
+                        "from its committed rule table + the fsdp overlay; "
+                        "'auto' (the picker) comes with slice 7.  Keep "
+                        "--spmd jit (default)")
+    p.add_argument("--hbm-bytes", type=float, default=None,
+                   help="per-device HBM budget for --layout auto (slice 7)")
+    p.add_argument("--layout-report", default=None, metavar="PATH",
+                   help="the layout picker's report for --layout auto "
+                        "(slice 7)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="model-axis size for --spmd tp / fsdp_tp (the mesh "
+                        "becomes {data: N/tp, model: tp}; required for "
+                        "fsdp_tp, defaults to all ranks for tp)")
     p.add_argument("--zero1", action="store_true",
                    help="ZeRO-1 weight-update sharding for the DP paths "
                         "(--spmd jit/dp/shard_map): reduce-scatter grads, "
@@ -365,10 +405,11 @@ def _run(args):
         raise SystemExit("--cycles is required for unbounded token streams "
                          "(synthetic-text has no epoch length; text: "
                          "datasets derive cycles from --epochs)")
-    # a process group for ZeRO-1, the shard_map step, or torchrun's ranks;
-    # one this call forms, it also ends
+    # a process group for ZeRO-1, the shard_map step, the sharded modes,
+    # or torchrun's ranks; one this call forms, it also ends
     mesh, formed = None, False
-    if args.zero1 or args.spmd == "shard_map" or "WORLD_SIZE" in os.environ:
+    if (args.zero1 or args.spmd in ("shard_map", "fsdp", "tp", "fsdp_tp")
+            or args.layout is not None or "WORLD_SIZE" in os.environ):
         import torch.distributed as dist
 
         from ..mesh import init_distributed
@@ -447,6 +488,17 @@ def _train(args, dataset, val_dataset, device, mesh):
     from .trainer import evaluate, prepare_training, train
 
     is_lm = args.model in LM_MODELS
+    ndev = 1 if mesh is None else mesh.size
+    if (args.kv_heads is not None and args.spmd in ("tp", "fsdp_tp")
+            and not (args.spmd == "fsdp_tp" and args.tp is None)):
+        # the rules head-shard the kv projection: the model axis must
+        # divide the KV head count (fsdp_tp without --tp is refused below)
+        model_k = args.tp if args.tp is not None else ndev
+        if args.kv_heads % model_k:
+            raise SystemExit(
+                f"--kv-heads {args.kv_heads} must be a multiple of the TP "
+                f"model-axis size ({model_k}) so the grouped kv projection "
+                "can be head-sharded")
     try:
         model = build_model(args, device, **_model_kwargs(args))
     except ValueError as e:  # e.g. --kv-heads not dividing num_heads
@@ -456,6 +508,7 @@ def _train(args, dataset, val_dataset, device, mesh):
     if args.total_steps:
         lr = optim.warmup_cosine(args.lr, args.warmup_steps, args.total_steps)
     opt = getattr(optim, args.opt)(lr)
+    mesh, layout = _sharded_mesh(args, mesh, ndev)
     lead = mesh is None or mesh.rank == 0
     # the sentinel rides dp.make_train_step; shard_map runs the guard's
     # policy on the loss alone, as bin/driver.py degrades it
@@ -471,7 +524,7 @@ def _train(args, dataset, val_dataset, device, mesh):
             batch_size=args.batch_size, epochs=args.epochs,
             cycles=args.cycles, spmd=args.spmd, zero1=args.zero1, mesh=mesh,
             device=device, steps_per_call=args.steps_per_call,
-            val_dataset=val_dataset, guard=sentinel)
+            val_dataset=val_dataset, guard=sentinel, layout=layout)
     except ValueError as e:  # e.g. a batch that does not split over ranks
         raise SystemExit(f"--spmd {args.spmd}: {e}")
     if args.resume:
@@ -486,8 +539,10 @@ def _train(args, dataset, val_dataset, device, mesh):
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     ranks = "" if mesh is None else (
-        f", {mesh.size} rank(s) ({torch.distributed.get_backend()})"
-        f"{', zero1' if args.zero1 else ''}")
+        f", {mesh.size} rank(s) ({torch.distributed.get_backend()}), mesh "
+        f"{mesh.shape}{', zero1' if args.zero1 else ''}"
+        f"{f', spmd {args.spmd}' if args.spmd not in ('jit', 'dp') else ''}"
+        f"{f', layout {layout.describe()}' if layout is not None else ''}")
     if lead:
         print(f"device: {device} ({name}){ranks}, model {args.model} "
               f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
@@ -518,6 +573,51 @@ def _train(args, dataset, val_dataset, device, mesh):
         print(f"done: {task.state.step} steps, {task.num_missed} missed",
               flush=True)
     return task
+
+
+def _sharded_mesh(args, mesh, ndev):
+    """The mesh and the layout of ``--spmd tp|fsdp_tp`` / ``--layout``,
+    with ``bin/driver.py``'s checks and messages; otherwise ``mesh`` as
+    it is and no layout."""
+    if args.tp is not None and args.spmd not in ("tp", "fsdp_tp"):
+        raise SystemExit("--tp only applies with --spmd tp or fsdp_tp")
+    if args.zero1 and args.spmd not in ("jit", "dp", "shard_map"):
+        raise SystemExit("--zero1 only applies with --spmd jit/dp/shard_map "
+                         "(fsdp already shards the optimizer state)")
+    if args.layout is not None:
+        if args.spmd not in ("jit", "dp"):
+            raise SystemExit("--layout builds the rule-derived 3-D step "
+                             "and needs --spmd jit (the default)")
+        if args.zero1:
+            raise SystemExit("--layout cannot combine with --zero1 (a "
+                             "layout's fsdp axis already shards the "
+                             "optimizer state)")
+    if ((args.hbm_bytes is not None or args.layout_report)
+            and args.layout != "auto"):
+        raise SystemExit("--hbm-bytes/--layout-report only apply with "
+                         "--layout auto")
+    if args.spmd in ("tp", "fsdp_tp"):
+        from ..mesh import make_mesh
+
+        if args.spmd == "fsdp_tp" and (args.tp is None or args.tp >= ndev):
+            raise SystemExit(
+                "--spmd fsdp_tp needs --tp < device count: with no data-axis "
+                "extent there is nothing for FSDP to shard over")
+        k = args.tp if args.tp is not None else ndev
+        if k < 1 or ndev % k:
+            raise SystemExit(f"--tp {k} must be >=1 and divide {ndev} "
+                             "devices")
+        return make_mesh({"data": ndev // k, "model": k},
+                         device=mesh.device), None
+    if args.layout is not None:
+        from ..parallel import layout as layout_lib
+
+        try:
+            chosen = layout_lib.resolve_layout(args.layout, ndev)
+        except layout_lib.LayoutError as e:
+            raise SystemExit(f"--layout {args.layout}: {e}")
+        return chosen.build_mesh(device=mesh.device), chosen
+    return mesh, None
 
 
 def _logger(args, task, mesh, lead):

@@ -33,6 +33,12 @@ jax); the port's format is its own and keeps the JAX contract:
   array.  A load slices this rank's part back out;
   :func:`load_checkpoint_elastic` re-pads the buffers for another rank
   count (the pad is zeros and inert, at the end of each buffer);
+* a state of blocks (FSDP, tensor parallelism, their hybrid, a layout:
+  ``specs=``, a ``TrainState`` of :class:`~..sharding.P`) is
+  all-gathered to global shapes first and written once, by rank 0, as
+  the JAX checkpoint holds each global array; a load cuts this rank's
+  blocks for the target's specs, so it restores onto any layout and
+  rank count (or onto a plain replicated state);
 * ``RESUME.json`` (``write_``/``read_``/``clear_resume_manifest``) is
   the manifest a preempted run leaves beside its checkpoint, written
   atomically, with the JAX package's keys.
@@ -212,7 +218,7 @@ def _sweep(directory: str) -> None:
 
 def save_checkpoint(state, directory: str, step: int, overwrite: bool = True,
                     block: bool = True, *, mesh: Optional[Mesh] = None,
-                    zero1: bool = False) -> str:
+                    zero1: bool = False, specs=None) -> str:
     """Write ``state`` (a ``TrainState`` or a dict of tensors) at
     ``directory/step_<n>``; returns that path.
 
@@ -226,10 +232,20 @@ def save_checkpoint(state, directory: str, step: int, overwrite: bool = True,
 
     ``mesh``: every rank of it calls this; rank 0 writes.  ``zero1``:
     the optimizer state is ZeRO-1-sharded over ``mesh`` and is
-    all-gathered (a collective) before the write.  A blocking save on
-    several ranks returns on every rank after rank 0 has published, and
-    a refusal raises on every rank."""
+    all-gathered (a collective) before the write.  ``specs``: the state
+    is this rank's blocks by those specs, gathered to global shapes (a
+    collective) before the write.  A blocking save on several ranks
+    returns on every rank after rank 0 has published, and a refusal
+    raises on every rank."""
     tree = dict(_as_tree(state))
+    if specs is not None:
+        if mesh is None:
+            raise ValueError("specs= needs the mesh the state is sharded "
+                             "over")
+        from ..parallel.fsdp import gather_state
+
+        for f in _FIELDS:
+            tree[f] = gather_state(tree[f], getattr(specs, f), mesh)
     if zero1:
         if mesh is None:
             raise ValueError("zero1=True needs the mesh the optimizer "
@@ -336,16 +352,20 @@ def _read(directory: str, step: Optional[int]):
 
 
 def _restore(saved: dict, meta: dict, target, mesh: Optional[Mesh],
-             elastic: bool):
+             elastic: bool, specs=None):
     """``saved`` in ``target``'s structure, each tensor leaf with the
     target leaf's dtype, device and memory layout.  Optimizer-state
     leaves of a ZeRO-1 checkpoint are whole padded buffers: this rank's
     slice is cut at the target's slice length; at another rank count the
-    buffer is first trimmed or zero-padded (``elastic``) or refused."""
+    buffer is first trimmed or zero-padded (``elastic``) or refused.
+    With ``specs`` (the target's, a tree beside it) each global leaf is
+    cut to this rank's block first."""
+    from ..sharding import P, local_block
+
     saved_ranks = meta.get("zero1_ranks")
     rank, size = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
 
-    def leaf(path, s, t):
+    def leaf(path, s, t, spec):
         where = "/".join(path)
         if not isinstance(s, torch.Tensor):
             raise ValueError(f"checkpoint leaf {where} is not a tensor")
@@ -368,13 +388,18 @@ def _restore(saved: dict, meta: dict, target, mesh: Optional[Mesh],
                 out[:m] = s[:m]
                 s = out
             s = s[rank * t.shape[0]:(rank + 1) * t.shape[0]]
+        if isinstance(spec, P) and any(e is not None for e in spec):
+            s = local_block(s, spec, mesh)
         if tuple(s.shape) != tuple(t.shape):
             raise ValueError(f"leaf {where}: saved shape {tuple(s.shape)}, "
                              f"the target's {tuple(t.shape)}")
         return restore_layout(s.to(device=t.device, dtype=t.dtype,
                                    copy=True), t)
 
-    def walk(path, s, t):
+    def sub(spec, key):
+        return None if spec is None or isinstance(spec, P) else spec[key]
+
+    def walk(path, s, t, spec=None):
         if isinstance(t, dict):
             if not isinstance(s, dict):
                 raise ValueError(f"checkpoint node {'/'.join(path)} is not "
@@ -385,28 +410,30 @@ def _restore(saved: dict, meta: dict, target, mesh: Optional[Mesh],
                     f"checkpoint lacks {len(missing)} leaves the restoring "
                     f"state needs (e.g. {'/'.join(path + (missing[0],))}) "
                     "— was it saved by another model or optimizer?")
-            return {k: walk(path + (k,), s[k], v) for k, v in t.items()}
+            return {k: walk(path + (k,), s[k], v, sub(spec, k))
+                    for k, v in t.items()}
         if isinstance(t, (list, tuple)):
             if not isinstance(s, (list, tuple)) or len(s) != len(t):
                 raise ValueError(f"checkpoint node {'/'.join(path)} does "
                                  "not match the target's sequence")
-            return type(t)(walk(path + (str(i),), a, b)
+            return type(t)(walk(path + (str(i),), a, b, sub(spec, i))
                            for i, (a, b) in enumerate(zip(s, t)))
         if t is None:
             return None
         if isinstance(t, torch.Tensor):
-            return leaf(path, s, t)
+            return leaf(path, s, t, spec)
         return s
 
     if isinstance(target, TrainState):
-        fields = {f: walk((f,), saved[f], getattr(target, f))
+        fields = {f: walk((f,), saved[f], getattr(target, f),
+                          None if specs is None else getattr(specs, f))
                   for f in _FIELDS}
         return TrainState(**fields, step=int(saved["step"]))
-    return walk((), saved, target)
+    return walk((), saved, target, specs)
 
 
 def load_checkpoint(directory: str, target=None, step: Optional[int] = None,
-                    mesh: Optional[Mesh] = None):
+                    mesh: Optional[Mesh] = None, specs=None):
     """Restore a checkpoint onto the structure of ``target``.
 
     ``target=None`` returns the raw tree as saved (nested dicts of host
@@ -418,16 +445,18 @@ def load_checkpoint(directory: str, target=None, step: Optional[int] = None,
     owns is copied into its buffers by the step's next call, never
     rebound under it); a ZeRO-1 target's optimizer state is this rank
     of ``mesh``'s slice, and a checkpoint saved at another rank count is
-    refused (:func:`load_checkpoint_elastic` takes it)."""
+    refused (:func:`load_checkpoint_elastic` takes it).  ``specs``: the
+    target is a state of blocks by those specs (every global leaf is cut
+    to this rank of ``mesh``'s block)."""
     saved, meta = _read(directory, step)
     if target is None:
         return saved
-    return _restore(saved, meta, target, mesh, elastic=False)
+    return _restore(saved, meta, target, mesh, elastic=False, specs=specs)
 
 
 def load_checkpoint_elastic(directory: str, target,
                             step: Optional[int] = None,
-                            mesh: Optional[Mesh] = None):
+                            mesh: Optional[Mesh] = None, specs=None):
     """Restore a checkpoint saved at another rank count (the elastic
     resume: the next grant had a different number of GPUs).  The one
     rank-count-dependent layout is ZeRO-1's flat padded optimizer
@@ -438,7 +467,7 @@ def load_checkpoint_elastic(directory: str, target,
     leaves need no adaptation."""
     faults.fire("resume")
     saved, meta = _read(directory, step)
-    return _restore(saved, meta, target, mesh, elastic=True)
+    return _restore(saved, meta, target, mesh, elastic=True, specs=specs)
 
 
 # ------------------------------------------------------------ manifest

@@ -1,9 +1,11 @@
 """Training orchestration: ``prepare_training`` + ``train``.
 
 Port of the core of ``fluxdistributed_tpu/train/trainer.py`` for the
-data-parallel modes ``spmd="jit"`` (alias ``"dp"``) and ``"shard_map"``,
-with or without ZeRO-1, on one GPU, on the ranks of a process group
-(:mod:`..mesh`), or on the CPU when asked:
+data-parallel modes ``spmd="jit"`` (alias ``"dp"``) and ``"shard_map"``
+(with or without ZeRO-1), FSDP (``"fsdp"``), Megatron tensor
+parallelism (``"tp"``) and their hybrid (``"fsdp_tp"``), and the
+rule-derived dp x fsdp x tp layouts (``layout=``), on one GPU, on the
+ranks of a process group (:mod:`..mesh`), or on the CPU when asked:
 
 * ``prepare_training`` takes the model's parameters and buffers (the
   BatchNorm running stats) as the initial
@@ -39,9 +41,10 @@ with or without ZeRO-1, on one GPU, on the ranks of a process group
 
 Phase times, step counts and OOM skips land in the process registry
 (:mod:`..obs.metrics`) under the JAX trainer's ``fdtpu_train_*`` names.
-The other parallel modes come with later slices.  A device OOM on one
-rank of a mesh, and not on the others, leaves the others waiting in the
-step's next collective, as in the JAX package on several hosts.
+Context, pipeline and expert parallelism come with later slices.  A
+device OOM on one rank of a mesh, and not on the others, leaves the
+others waiting in the step's next collective, as in the JAX package on
+several hosts.
 """
 
 from __future__ import annotations
@@ -59,12 +62,13 @@ import torch
 from .. import faults
 from ..data.loader import PrefetchLoader, apply_transform, batch_to_dict
 from ..device import DeviceLike, resolve_device
-from ..mesh import Mesh
+from ..mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from ..obs import FlightRecorder, JsonlSink, Observation, memstats, runs
 from ..ops.losses import logitcrossentropy
 from ..optim import Optimizer
 from ..parallel.dp import (TrainState, make_eval_step, make_train_step,
                            make_train_step_shardmap, module_loss_fn)
+from ..parallel.fsdp import make_eval_step_sharded, make_train_step_sharded
 from ..tree import synchronize, to_host
 from .checkpoint import (clear_resume_manifest, latest_step, load_checkpoint,
                          load_checkpoint_elastic, read_resume_manifest,
@@ -110,6 +114,9 @@ class TrainTask:
     # the optimizer state is ZeRO-1-sharded over ``mesh`` (a checkpoint
     # gathers it)
     zero1: bool = False
+    # the state's specs (a TrainState of sharding.P) when it is a state
+    # of blocks (fsdp, tp, fsdp_tp, layouts), else None
+    specs: Optional[TrainState] = None
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -163,6 +170,7 @@ def prepare_training(
     transform: Optional[Callable] = None,
     steps_per_call: int = 1,
     guard: bool = False,
+    layout=None,
 ) -> TrainTask:
     """The train state from the model's current parameters and buffers,
     the train and eval steps, the prefetching loader and the val slice.
@@ -176,17 +184,37 @@ def prepare_training(
     accuracies of the eval step; ``None`` is ``(1, 5, 10)`` with the
     image adapter and ``()`` with a ``loss_fn`` of the caller's (an LM's
     batches carry no labels).  ``val_dataset`` gives a slice of
-    ``val_samples`` rows (rounded down to a multiple of the ranks, at
+    ``val_samples`` rows (rounded down to a multiple of the batch ranks, at
     least one row a rank; the reference's 300-sample slice), drawn once
     with seed ``seed + 1`` and evaluated at the eval cadence.
     ``transform`` is the host-side batch hook (``transform(images,
     labels)`` for image datasets) applied to the train batches, the val
     slice and ``evaluate``.  ``spmd`` takes the data-parallel
-    modes ``"jit"`` (alias ``"dp"``) and ``"shard_map"``; the other
-    modes raise.  ``zero1=True`` shards the optimizer state and update
-    over the ranks (:mod:`..parallel.zero1`); it applies to those modes
-    only, and ``"shard_map"`` takes no ``accum_steps``, as in the JAX
-    trainer.
+    modes ``"jit"`` (alias ``"dp"``) and ``"shard_map"``, ``"fsdp"``,
+    ``"tp"`` and ``"fsdp_tp"``; context, pipeline and expert parallelism
+    raise (not ported).  ``zero1=True`` shards the optimizer state and
+    update over the ranks (:mod:`..parallel.zero1`); it applies to the
+    data-parallel modes only, and ``"shard_map"`` takes no
+    ``accum_steps``, as in the JAX trainer.
+
+    ``"fsdp"`` shards every large param and optimizer-state leaf over
+    the mesh's ``data`` axis (:mod:`..parallel.fsdp`).  ``"tp"`` makes
+    the model (an LM or a ViT) Megatron tensor-parallel over a mesh with
+    a ``model`` axis (:func:`..mesh.make_mesh`, ``{"data": D, "model":
+    K}``; :mod:`..parallel.tp`: the model's weights are rebound to this
+    rank's blocks), with the batch over ``data``; ``"fsdp_tp"`` also
+    FSDP-shards each leaf's leftover dim over ``data``.  The tensor-
+    parallel modes refuse ``accum_steps > 1``, a mesh without a
+    ``model`` axis, ``dropout > 0`` and a model without rules, as the
+    JAX trainer does.  ``layout`` (a :class:`..parallel.layout.Layout`
+    or a preset name) shards by the rules engine over the ``(data,
+    fsdp, model)`` mesh (:mod:`..parallel.layout`; the caller's mesh, or
+    ``layout.build_mesh``), the batch split over ``data`` and ``fsdp``;
+    it keeps ``spmd="jit"`` and refuses ``zero1`` and ``steps_per_call >
+    1``, and a layout with ``tp > 1`` refuses ``dropout > 0``.
+    ``layout="auto"`` (the picker) is not ported.  These modes keep a
+    state of blocks (``TrainTask.specs``): checkpoints hold global
+    shapes, and the eval step and ``evaluate`` take the state as it is.
 
     ``mesh`` is the process group the step spans (:mod:`..mesh`);
     ``batch_size`` is the global batch, of which each rank trains its
@@ -208,14 +236,33 @@ def prepare_training(
     [poisoned_loss, grad_norm]``) and keeps the state a step is given
     (on a card, a graph replay first copies the state into a shadow), so
     that ``train(guard=...)`` can discard an anomalous step.  It applies
-    to ``spmd="jit"`` (with or without ``zero1``), the path of the JAX
-    ``dp.make_train_step``; ``"shard_map"`` has no sentinel and is
-    refused, as the JAX trainer refuses it (``train(guard=...)`` still
-    runs there on the loss alone).  The JAX version's other options
+    to ``spmd="jit"`` (with or without ``zero1``, and with a
+    ``layout``), the path of the JAX ``dp.make_train_step``;
+    ``"shard_map"``, ``"fsdp"``, ``"tp"`` and ``"fsdp_tp"`` have no
+    sentinel and are refused, as the JAX trainer refuses them
+    (``train(guard=...)`` still runs there on the loss alone).  The JAX version's other options
     (donation as an option, AOT) are not accepted.
     """
     if spmd == "dp":
         spmd = "jit"
+    if layout is not None:
+        from ..parallel import layout as layout_lib
+
+        if spmd != "jit":
+            raise ValueError(
+                f"layout= builds the rule-derived 3-D step and cannot "
+                f"combine with spmd={spmd!r} (keep the default "
+                "spmd='jit'/'dp')")
+        if zero1:
+            raise ValueError(
+                "layout= cannot combine with zero1=True: a layout's fsdp "
+                "axis already shards the optimizer state (ZeRO-3 placement "
+                "subsumes ZeRO-1) — use e.g. layout='fsdp' or 'dp_fsdp'")
+        if steps_per_call != 1:
+            raise ValueError("steps_per_call > 1 is not supported with "
+                             "layout= (yet) — drop one of them")
+        layout = layout_lib.resolve_layout(
+            layout, ndev=mesh.size if mesh is not None else None)
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     if steps_per_call != 1 and spmd != "jit":
@@ -225,20 +272,29 @@ def prepare_training(
             "zero1=True applies to the DP paths only (spmd='jit'/'dp'/"
             f"'shard_map'); got spmd={spmd!r} — fsdp already shards the "
             "optimizer state (ZeRO-3 subsumes ZeRO-1)")
-    if spmd not in ("jit", "shard_map"):
+    if spmd in ("pp", "pp_1f1b", "ep", "sp"):
         raise ValueError(
-            f"spmd={spmd!r} is not ported: the port trains data-parallel "
-            "(spmd='jit', 'dp' or 'shard_map', with or without zero1); the "
-            "other modes come with later slices (ROADMAP)")
+            f"spmd={spmd!r} is not ported: the port trains jit/dp, "
+            "shard_map, fsdp, tp and fsdp_tp (and layouts); context, "
+            "pipeline and expert parallelism come with later slices "
+            "(ROADMAP)")
+    if spmd not in ("jit", "shard_map", "fsdp", "tp", "fsdp_tp"):
+        raise ValueError(
+            f"unknown spmd mode {spmd!r}; pick one of jit (alias dp) / "
+            "shard_map / fsdp / tp / fsdp_tp / pp / pp_1f1b / ep / sp")
     if spmd == "shard_map" and accum_steps != 1:
         raise ValueError("accum_steps > 1 requires spmd='jit'")
     if guard and spmd != "jit":
         raise ValueError(
             f"guard=True builds the grad sentinel into the step of "
             f"dp.make_train_step, which spmd={spmd!r} does not use "
-            "(supported: jit/dp [+zero1]); the guard still runs loss-only "
-            "there: drop guard=True and pass train(guard=GuardConfig(...))")
-    if mesh is None and (zero1 or spmd == "shard_map"):
+            "(supported: jit/dp [+zero1, layouts]); the guard still runs "
+            "loss-only there: drop guard=True and pass "
+            "train(guard=GuardConfig(...))")
+    if layout is not None:
+        mesh = mesh or layout.build_mesh(device=device)
+        layout.validate_mesh(mesh)
+    elif mesh is None and (zero1 or spmd in ("shard_map", "fsdp")):
         from ..mesh import data_mesh
 
         mesh = data_mesh(device=device)
@@ -251,64 +307,170 @@ def prepare_training(
     if topk is None:
         topk = (1, 5, 10) if loss_fn is None else ()
     topk = tuple(topk)
-    if loss_fn is None:
-        loss_fn = module_loss_fn(model, loss, mesh)
     # the mutable model state: the buffers (BatchNorm running stats)
     mstate = {k: b.detach().clone() for k, b in model.named_buffers()}
-    if mesh is None:
-        state = TrainState.create(params, optimizer, model_state=mstate)
-        step_fn = make_train_step(loss_fn, optimizer,
-                                  accum_steps=accum_steps, seed=seed,
-                                  steps_per_call=steps_per_call, guard=guard)
-    elif zero1:
-        from ..parallel import zero1 as zero1_lib
+    specs = None
+    # the ranks the batch splits over: the mesh, or its batch axes
+    bmesh = mesh
+    if layout is not None:
+        if batch_size % layout.batch_shards:
+            raise ValueError(
+                f"batch_size {batch_size} must be divisible by the "
+                f"layout's dp x fsdp = {layout.batch_shards} "
+                f"({layout.describe()})")
+        bmesh = mesh.sub(layout.batch_axes)
+        if loss_fn is None:
+            loss_fn = module_loss_fn(model, loss, bmesh)
+        state, specs = _sharded_state(
+            model, params, mstate, optimizer, mesh,
+            lambda st: layout_lib.state_specs_for(model, st, layout, mesh),
+            tp=layout.tp > 1, what=f"layout {layout.name!r}")
+        step_fn = make_train_step_sharded(
+            loss_fn, optimizer, mesh, specs, batch_axes=layout.batch_axes,
+            accum_steps=accum_steps, seed=seed, guard=guard)
+    elif spmd in ("tp", "fsdp_tp"):
+        from ..models import TransformerLM, ViT
+        from ..parallel import fsdp as fsdp_lib
+        from ..parallel import tp as tp_lib
 
-        state = zero1_lib.zero1_state(params, optimizer, mesh,
-                                      model_state=mstate)
-        if spmd == "shard_map":
-            step_fn = zero1_lib.make_train_step_zero1_shardmap(
-                loss_fn, optimizer, mesh, seed=seed)
+        if accum_steps != 1:
+            raise ValueError("accum_steps > 1 requires spmd='jit' or 'fsdp'")
+        if mesh is None or MODEL_AXIS not in mesh.shape:
+            raise ValueError(
+                f"spmd={spmd!r} needs a mesh with a 'model' axis, e.g. "
+                "make_mesh({'data': D, 'model': K})")
+        if getattr(model, "dropout", 0.0):
+            raise ValueError(
+                f"spmd={spmd!r} supports dropout=0 only (no rng stream "
+                "threads through the TP step)")
+        if isinstance(model, ViT):
+            rules = tp_lib.vit_tp_rules()
+        elif isinstance(model, TransformerLM):
+            rules = tp_lib.lm_tp_rules()
         else:
-            step_fn = zero1_lib.make_train_step_zero1(
-                loss_fn, optimizer, mesh, accum_steps=accum_steps, seed=seed,
-                steps_per_call=steps_per_call, guard=guard)
+            raise ValueError(
+                f"no TP sharding rules for {type(model).__name__}; "
+                f"spmd={spmd!r} supports ViT and TransformerLM (CNN params "
+                "are small — use DP/FSDP there)")
+
+        def tp_specs(st):
+            if spmd == "fsdp_tp":
+                p = fsdp_lib.hybrid_fsdp_tp_specs(st.params, mesh, rules)
+            else:
+                p = tp_lib.param_specs(st.params, rules)
+            return tp_lib.state_specs(st, p)
+
+        bmesh = mesh.sub(DATA_AXIS)
+        if loss_fn is None:
+            loss_fn = module_loss_fn(model, loss, bmesh)
+        state, specs = _sharded_state(model, params, mstate, optimizer,
+                                      mesh, tp_specs, tp=True, what=spmd)
+        step_fn = make_train_step_sharded(
+            loss_fn, optimizer, mesh, specs, batch_axes=(DATA_AXIS,),
+            seed=seed)
+    elif spmd == "fsdp":
+        from ..parallel import fsdp as fsdp_lib
+
+        bmesh = mesh.sub(DATA_AXIS)
+        if loss_fn is None:
+            loss_fn = module_loss_fn(model, loss, bmesh)
+        state, specs = _sharded_state(
+            model, params, mstate, optimizer, mesh,
+            lambda st: fsdp_lib.fsdp_specs(st, mesh), tp=False, what=spmd)
+        step_fn = make_train_step_sharded(
+            loss_fn, optimizer, mesh, specs, batch_axes=(DATA_AXIS,),
+            accum_steps=accum_steps, seed=seed)
     else:
-        from ..sharding import replicate
-
-        state = TrainState.create(
-            replicate({k: p.detach() for k, p in params.items()}, mesh),
-            optimizer, model_state=replicate(mstate, mesh))
-        if spmd == "shard_map":
-            step_fn = make_train_step_shardmap(loss_fn, optimizer, mesh,
-                                               seed=seed)
-        else:
-            step_fn = make_train_step(loss_fn, optimizer, mesh=mesh,
-                                      accum_steps=accum_steps, seed=seed,
-                                      steps_per_call=steps_per_call,
-                                      guard=guard)
+        if loss_fn is None:
+            loss_fn = module_loss_fn(model, loss, mesh)
+        state, step_fn = _dp_state_and_step(
+            loss_fn, optimizer, params, mstate, mesh, spmd=spmd,
+            zero1=zero1, accum_steps=accum_steps, seed=seed,
+            steps_per_call=steps_per_call, guard=guard)
+    if specs is not None:
+        eval_fn = make_eval_step_sharded(loss_fn, mesh, specs,
+                                         batch_axes=bmesh.axis_names,
+                                         topk=topk)
+    else:
+        eval_fn = make_eval_step(loss_fn, mesh, topk=topk)
     val_batch = None
     if val_dataset is not None:
-        q = 1 if mesh is None else mesh.size
+        q = 1 if bmesh is None else bmesh.size
         nval = max(q, val_samples // q * q)
         # the eval pipeline, even where the val dataset augments
         draw = apply_transform(transform, _eval_view(val_dataset).batch(
             np.random.default_rng(seed + 1), nval))
         val_batch = batch_to_dict(draw, getattr(val_dataset, "nclasses", None))
-        if mesh is not None:
+        if bmesh is not None:
             from ..sharding import shard_batch
 
-            val_batch = shard_batch(val_batch, mesh)
+            val_batch = shard_batch(val_batch, bmesh, axis=bmesh.axis_names)
         val_batch = _to_device(val_batch, dev)
     return TrainTask(
-        state=state, step_fn=step_fn,
-        eval_fn=make_eval_step(loss_fn, mesh, topk=topk),
+        state=state, step_fn=step_fn, eval_fn=eval_fn,
         loader=PrefetchLoader(dataset, batch_size, cycles=cycles,
                               epochs=epochs, buffersize=buffersize, seed=seed,
-                              device=dev, mesh=mesh, transform=transform,
+                              device=dev, mesh=bmesh, transform=transform,
                               chunk=steps_per_call),
         optimizer=optimizer, model=model, device=dev, mesh=mesh, topk=topk,
         val_batch=val_batch, transform=transform,
-        steps_per_call=steps_per_call, zero1=zero1)
+        steps_per_call=steps_per_call, zero1=zero1, specs=specs)
+
+
+def _dp_state_and_step(loss_fn, optimizer, params, mstate, mesh, *, spmd,
+                       zero1, accum_steps, seed, steps_per_call, guard):
+    """The state and the train step of the data-parallel modes."""
+    if mesh is None:
+        state = TrainState.create(params, optimizer, model_state=mstate)
+        return state, make_train_step(
+            loss_fn, optimizer, accum_steps=accum_steps, seed=seed,
+            steps_per_call=steps_per_call, guard=guard)
+    if zero1:
+        from ..parallel import zero1 as zero1_lib
+
+        state = zero1_lib.zero1_state(params, optimizer, mesh,
+                                      model_state=mstate)
+        if spmd == "shard_map":
+            return state, zero1_lib.make_train_step_zero1_shardmap(
+                loss_fn, optimizer, mesh, seed=seed)
+        return state, zero1_lib.make_train_step_zero1(
+            loss_fn, optimizer, mesh, accum_steps=accum_steps, seed=seed,
+            steps_per_call=steps_per_call, guard=guard)
+    from ..sharding import replicate
+
+    state = TrainState.create(
+        replicate({k: p.detach() for k, p in params.items()}, mesh),
+        optimizer, model_state=replicate(mstate, mesh))
+    if spmd == "shard_map":
+        return state, make_train_step_shardmap(loss_fn, optimizer, mesh,
+                                               seed=seed)
+    return state, make_train_step(
+        loss_fn, optimizer, mesh=mesh, accum_steps=accum_steps, seed=seed,
+        steps_per_call=steps_per_call, guard=guard)
+
+
+def _sharded_state(model, params, mstate, optimizer, mesh,
+                   specs_of: Callable, *, tp: bool, what: str):
+    """This rank's blocks of the state made from the model's params
+    (rank 0's values) and their specs (``specs_of(global_state)``).
+    With ``tp``, a model whose specs split it over the ``model`` axis
+    becomes tensor-parallel (its weights rebound to this rank's blocks);
+    a model with dropout is refused there (the masks of its split
+    activations would be drawn over each rank's slice)."""
+    from ..parallel import fsdp as fsdp_lib
+    from ..parallel import tp as tp_lib
+    from ..sharding import spec_axes
+
+    gstate = TrainState.create(params, optimizer, model_state=mstate)
+    specs = specs_of(gstate)
+    state = fsdp_lib.shard_state(gstate, specs, mesh)
+    del gstate
+    if tp and any(MODEL_AXIS in spec_axes(s) for s in specs.params.values()):
+        if getattr(model, "dropout", 0.0):
+            raise ValueError(f"{what} splits the model over its 'model' "
+                             "axis, which supports dropout=0 only")
+        tp_lib.tensor_parallel(model, mesh, specs.params)
+    return state, specs
 
 
 def restore_training(task: TrainTask, checkpoint_dir: str,
@@ -319,14 +481,15 @@ def restore_training(task: TrainTask, checkpoint_dir: str,
     preemption-aware resume, with the loader cursor, use
     :func:`resume_training`."""
     task.state = load_checkpoint(checkpoint_dir, task.state, step=step,
-                                 mesh=task.mesh)
+                                 mesh=task.mesh, specs=task.specs)
     return task
 
 
 def _topology(task: TrainTask) -> tuple:
     """(mesh shape, device count) as the RESUME manifest records them."""
-    n = 1 if task.mesh is None else task.mesh.size
-    return {"data": n}, n
+    if task.mesh is None:
+        return {"data": 1}, 1
+    return dict(task.mesh.shape), task.mesh.size
 
 
 def resume_training(task: TrainTask, checkpoint_dir: str,
@@ -338,7 +501,9 @@ def resume_training(task: TrainTask, checkpoint_dir: str,
     checkpoint.  At the manifest's rank count the checkpoint restores
     as it is; at another one (the elastic case) ZeRO-1's flat padded
     optimizer buffers are re-split for the new count
-    (:func:`.checkpoint.load_checkpoint_elastic`).  The loader starts at
+    (:func:`.checkpoint.load_checkpoint_elastic`).  A state of blocks
+    (fsdp, tp, layouts) is saved at global shapes and cut anew for the
+    task's specs, whatever layout or rank count saved it.  The loader starts at
     the manifest's ``next_item``, and ``num_missed``, ``skipped_items``
     and the guard's ``quarantined_items`` carry over.  Without a
     manifest the cursor is the step counter over ``steps_per_call``
@@ -359,7 +524,7 @@ def resume_training(task: TrainTask, checkpoint_dir: str,
                                 and manifest.get("mesh") == mesh_now)
     load = load_checkpoint if same else load_checkpoint_elastic
     task.state = load(checkpoint_dir, task.state, step=ckpt_step,
-                      mesh=task.mesh)
+                      mesh=task.mesh, specs=task.specs)
     if manifest is not None:
         task.loader.start = int(manifest.get("next_item", 0))
         task.num_missed = int(manifest.get("num_missed", 0))
@@ -608,7 +773,8 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
     also how a clean run skips the items a guarded run quarantined.
 
     Returns ``(host_params, model_state, task)``: CPU copies of the
-    final parameters.
+    final parameters, at global shapes (a state of blocks is gathered;
+    every rank of its mesh takes part).
     """
     logger = logger or current_logger()
     obs = observation or Observation.default()
@@ -697,7 +863,8 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
 
     def save(block: bool) -> None:
         save_checkpoint(task.state, checkpoint_dir, int(task.state.step),
-                        block=block, mesh=task.mesh, zero1=task.zero1)
+                        block=block, mesh=task.mesh, zero1=task.zero1,
+                        specs=task.specs)
 
     def write_guard_manifest() -> None:
         """The guard's (checkpoint, cursor, quarantine) triple, written
@@ -867,7 +1034,7 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
                     wait_for_pending()
                     task.state = load_checkpoint(
                         checkpoint_dir, task.state, step=last_good["step"],
-                        mesh=task.mesh)
+                        mesh=task.mesh, specs=task.specs)
                 write_guard_manifest()
                 del losses[last_good["losses"]:]
                 # rewind the cursor and replay; the quarantined items
@@ -950,13 +1117,30 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
         clear_resume_manifest(checkpoint_dir)
         if task.mesh is not None and task.mesh.size > 1:
             torch.distributed.barrier(group=task.mesh.group)
+    model_params, host_params = _final_params(task)
     with torch.no_grad():
         for name, p in task.model.named_parameters():
-            p.copy_(task.state.params[name])
+            p.copy_(model_params[name])
         for name, b in task.model.named_buffers():
             if name in task.state.model_state:
                 b.copy_(task.state.model_state[name])
-    return to_host(task.state.params), task.state.model_state, task
+    return to_host(host_params), task.state.model_state, task
+
+
+def _final_params(task: TrainTask) -> tuple:
+    """(the params the model holds, the global params): the state's,
+    or for a state of blocks its gathers (a collective), the model's
+    keeping a tensor-parallel model's own blocks."""
+    params = task.state.params
+    if task.specs is None:
+        return params, params
+    from ..parallel.fsdp import gather_state
+
+    whole = gather_state(params, task.specs.params, task.mesh)
+    if not getattr(task.model, "tp_applied", False):
+        return whole, whole
+    return gather_state(params, task.specs.params, task.mesh,
+                        keep_axis=MODEL_AXIS), whole
 
 
 def _start_profiler(cuda: bool):

@@ -1298,3 +1298,110 @@ def test_graph_capture_failure_raises_without_fallback(cuda):
         step(state, {"tokens": toks})
     assert step.graphs == []
     assert torch.ones(3, device=cuda).sum().item() == 3.0
+
+
+def _sharded_lm_runs(modes, steps=3):
+    """lm_tiny (bf16, flash B1-B3, adam) from one seed through the
+    one-device DP step and, on one NCCL rank, through each sharded
+    ``mode`` (``prepare_training`` keywords): each run's losses and
+    global params."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.mesh import shutdown_distributed
+    from fluxdistributed_tpu_torch.models import lm_loss_fn
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.parallel.fsdp import gather_state
+    from fluxdistributed_tpu_torch.train import prepare_training
+
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (steps, 4, 128)).astype(np.int64)).cuda()
+
+    class Bank:
+        def batch(self, rng, n):
+            return rng.integers(0, 256, (n, 128), dtype=np.int32)
+
+    out = {}
+    for name, kw in [("dp", {}), *modes]:
+        model = lm_tiny(attn_fn=attention_core("flash"), seed=0)
+        try:
+            mesh = kw.pop("mesh", lambda: None)()
+            task = prepare_training(model, Bank(), optim.adam(1e-3),
+                                    loss_fn=lm_loss_fn(model), batch_size=4,
+                                    cycles=steps, mesh=mesh, **kw)
+            state, losses = task.state, []
+            for i in range(steps):
+                state, m = task.step_fn(state, {"tokens": toks[i]})
+                losses.append(m["loss"].item())
+            params = state.params if task.specs is None else gather_state(
+                state.params, task.specs.params, task.mesh)
+            out[name] = (losses, {k: v.float().cpu()
+                                  for k, v in params.items()})
+        finally:
+            shutdown_distributed()
+    return out
+
+
+def test_fsdp_and_dp_layout_equal_dp_bitwise_on_one_nccl_rank(cuda):
+    """FSDP and the all-size-1 dp_fsdp_tp layout on one NCCL rank: every
+    collective is a copy, so each equals the one-device step bit for
+    bit (losses and params after 3 steps)."""
+    from fluxdistributed_tpu_torch.mesh import data_mesh
+    from fluxdistributed_tpu_torch.parallel.layout import Layout
+
+    runs = _sharded_lm_runs([
+        ("fsdp", {"spmd": "fsdp", "mesh": lambda: data_mesh(device="cuda")}),
+        ("layout", {"layout": Layout("dp_fsdp_tp", 1, 1, 1),
+                    "device": "cuda"})])
+    for name in ("fsdp", "layout"):
+        assert runs[name][0] == runs["dp"][0], name
+        for k, v in runs["dp"][1].items():
+            assert torch.equal(runs[name][1][k], v), (name, k)
+
+
+def test_tp_on_one_nccl_rank_matches_dp(cuda):
+    """``spmd="tp"`` and ``"fsdp_tp"`` on ``{data: 1, model: 1}``: the
+    row-parallel bias is added after the (one-term) sum, two bf16
+    roundings where DP's fused GEMM bias makes one, so losses within
+    1e-2 relative and params within 6 lr (Adam moves an element about
+    lr a step)."""
+    from fluxdistributed_tpu_torch.mesh import make_mesh
+
+    def mm():
+        return make_mesh({"data": 1, "model": 1}, device="cuda")
+
+    runs = _sharded_lm_runs([("tp", {"spmd": "tp", "mesh": mm}),
+                             ("fsdp_tp", {"spmd": "fsdp_tp", "mesh": mm})])
+    for name in ("tp", "fsdp_tp"):
+        for a, b in zip(runs[name][0], runs["dp"][0]):
+            assert abs(a - b) <= 1e-2 * abs(b), (name, a, b)
+        for k, v in runs["dp"][1].items():
+            err = (runs[name][1][k] - v).abs().max().item()
+            assert err <= 6e-3, (name, k, err)
+
+
+def test_sharded_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """An FSDP state on one NCCL rank saved at global shapes and
+    restored onto the blocks, bit for bit."""
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.mesh import (data_mesh,
+                                                shutdown_distributed)
+    from fluxdistributed_tpu_torch.parallel import TrainState, fsdp
+    from fluxdistributed_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                            save_checkpoint)
+    from fluxdistributed_tpu_torch.tree import leaves
+
+    model = lm_tiny(seed=0)
+    try:
+        mesh = data_mesh(device="cuda")
+        st = TrainState.create(dict(model.named_parameters()),
+                               optim.adam(1e-3))
+        specs = fsdp.fsdp_specs(st, mesh)
+        st = fsdp.shard_state(st, specs, mesh)
+        save_checkpoint(st, str(tmp_path), 0, mesh=mesh, specs=specs)
+        back = load_checkpoint(str(tmp_path), st, mesh=mesh, specs=specs)
+        for a, b in zip(leaves(st.params) + leaves(st.opt_state),
+                        leaves(back.params) + leaves(back.opt_state)):
+            assert a.is_cuda and torch.equal(a, b)
+    finally:
+        shutdown_distributed()

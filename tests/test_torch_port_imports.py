@@ -55,7 +55,8 @@ def test_port_has_modules_to_scan():
                 "train/model_selection.py", "train/logging.py",
                 "obs/spans.py", "obs/watchdog.py", "obs/flight.py",
                 "obs/server.py", "obs/memstats.py", "obs/runs.py",
-                "obs/__init__.py"):
+                "obs/__init__.py", "parallel/fsdp.py", "parallel/tp.py",
+                "parallel/rules.py", "parallel/layout.py", "sharding.py"):
         assert f"fluxdistributed_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").is_file()
 

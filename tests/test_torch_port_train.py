@@ -334,7 +334,7 @@ def test_cli_main_and_refusals(capsys):
                          (["--kv-heads", "3"], "num_kv_heads")]:
         with pytest.raises(SystemExit, match=match):
             cli.run(base + extra)
-    for flag in (["--spmd", "fsdp"], ["--aot", "d"], ["--steady-after", "3"]):
+    for flag in (["--spmd", "pp"], ["--aot", "d"], ["--steady-after", "3"]):
         with pytest.raises(SystemExit):  # argparse: not accepted
             cli.build_parser().parse_args(base + flag)
     with pytest.raises(SystemExit, match="--resume needs --checkpoint-dir"):
@@ -354,7 +354,7 @@ def _task(**kw):
 
 def test_prepare_training_refuses_other_modes():
     with pytest.raises(ValueError, match="not ported"):
-        _task(spmd="fsdp")
+        _task(spmd="pp")
     with pytest.raises(TypeError):  # not accepted, never ignored
         _task(donate=True)
     with pytest.raises(ValueError, match="requires spmd='jit'"):
