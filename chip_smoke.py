@@ -216,10 +216,35 @@ Phases, each of which raises on failure (exit code != 0, no result):
     lm_small ... --spmd fsdp`` and ``--layout dp``, 6 cycles each, B1-B3
     launching 12 a step; ``--spmd tp --tp 2`` and ``--spmd fsdp_tp``
     refused with ``bin/driver.py``'s messages;
-36. a ``{"kernels": [...]}`` line (B1-B3 with their ViT-L/16 and
-    ViT-H/14 rows, launches a step beside the LM's, and the sharded
-    paths' launches a step), then the result line ``{"ok": true,
-    "device": {...}}`` last.
+36. context kernel: the ring-flash hop body
+    (``parallel.context.ring_flash_hops``) over 4 sequence shards held in
+    one process at lm_small's attention (B = 8, T = 1024, 256 a shard,
+    12 heads of 64, bf16, causal): the forward against one
+    whole-sequence ``flash_attention`` call (within 2e-2); in the
+    backward each hop's B2/B3, fed the nonzero LSE cotangent the
+    log-sum-exp merge produces, held element by element against the
+    plain versions on the same inputs, with the dropped-tile control on
+    a causal and a non-causal hop; 16 launches of each of B1-B3; the
+    ring's ms against the whole-sequence call's (CUDA events);
+37. sp train: lm_small (vocab 32000, B = 8, T = 1024, bf16, adam 3e-4)
+    3 steps under ``spmd="sp"`` on one NCCL rank ``{data: 1, seq: 1}``,
+    with the flash ring (B1-B3 12 a step) and with Ulysses (the dense
+    core), each bit-equal to the one-device DP step with the same core;
+    device ms a step and peak bytes over DP;
+38. ep train: an MoE lm_small (every 2nd of 12 blocks routed over 8
+    experts, top-1, capacity factor 2.0, flash core) 3 steps under
+    ``spmd="ep"`` on ``{data: 1, expert: 1}``, bit-equal to the same
+    model's DP step; device ms, peak bytes, the dispatch/combine
+    einsums' share of the step (timed alone at a block's shapes), and
+    one MoE layer at a block's shape against its single-shard golden
+    (``router_dispatch``, the einsums, a loop over the experts);
+39. sp/ep CLI: ``--spmd sp`` and ``--spmd ep`` on one card refused with
+    ``bin/driver.py``'s messages;
+40. a ``phase_seconds`` line (each phase's wall seconds), a
+    ``{"kernels": [...]}`` line (B1-B3 with their ViT-L/16 and ViT-H/14
+    rows, launches a step beside the LM's, the sharded paths', the sp
+    and ep paths' launches a step, and the context ring's hops), then
+    the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -1995,7 +2020,7 @@ def is_flash_kernel(name: str) -> bool:
     return "flash_fwd" in name or "flash_bwd" in name
 
 
-def profile_vision_step(torch, step, state, batch, steps=3, share=None):
+def profile_vision_step(torch, step, state, batch, steps=1, share=None):
     """Where an image model's step time goes: host wall per step, device
     busy and idle share under the profiler, kernels a step, the largest
     device ops, and the device time and share of the kernels ``share``
@@ -2229,17 +2254,14 @@ def graph_equality_run(torch, name, card, make_state, make_step, batches,
     del graphed, g, c, state, mid
 
 
-def profile_steps(torch, step, state, batch, calls, steps):
+def profile_steps(torch, step, state, batch, calls, steps, wall_ms):
     """Device busy ms, idle share and kernels per optimizer step under
-    the profiler, over ``calls`` calls of ``steps`` steps together."""
+    the profiler, over ``calls`` calls of ``steps`` steps together; the
+    idle share is against ``wall_ms``, the step's ms timed unprofiled by
+    the caller (CUDA events between calls: the stream's time, launch
+    gaps included)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        state, _ = step(state, batch)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
@@ -2264,10 +2286,10 @@ def profile_steps(torch, step, state, batch, calls, steps):
 
 def time_device_loop(torch, name, card, k, make_state, make_step, batch,
                      rate):
-    """One path at ``k`` steps a call: ms per optimizer step over 10
-    steps (K = 1) or two replays (K > 1) with CUDA events, the rate and
-    MFU (``rate(step_ms) -> dict``), peak allocated bytes and a
-    profile."""
+    """One path at ``k`` steps a call: ms per optimizer step over 5
+    steps (K = 1) or one replay (K > 1) with CUDA events, the rate and
+    MFU (``rate(step_ms) -> dict``), peak allocated bytes and a profile
+    of one step (K = 1) or one replay."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2275,7 +2297,7 @@ def time_device_loop(torch, name, card, k, make_state, make_step, batch,
     b = batch if k == 1 else _stack(torch, [batch] * k)
     for _ in range(3 if k == 1 else 2):  # K > 1: eager + capture, replay
         state, m = step(state, b)
-    calls = 10 if k == 1 else 2
+    calls = 5 if k == 1 else 1
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
     ev[0].record()
     for i in range(calls):
@@ -2284,8 +2306,7 @@ def time_device_loop(torch, name, card, k, make_state, make_step, batch,
     torch.cuda.synchronize()
     ms = [ev[i].elapsed_time(ev[i + 1]) / k for i in range(calls)]
     step_ms = sum(ms) / len(ms)
-    state, prof = profile_steps(torch, step, state, b,
-                                3 if k == 1 else 1, 3 if k == 1 else k)
+    state, prof = profile_steps(torch, step, state, b, 1, k, step_ms)
     row = {"phase": "device_loop_step", "path": name, "card": card, "k": k,
            "graphed": k > 1, "step_ms": step_ms, "step_ms_each_call": ms,
            **rate(step_ms), **prof,
@@ -2567,6 +2588,23 @@ def device_ms(torch, fn, calls=10):
              for r in prof.key_averages()
              if r.device_type == torch.autograd.DeviceType.CUDA)
     return us / calls / 1e3
+
+
+def event_ms(torch, fn, calls=5):
+    """Stream ms a call of ``fn`` between two CUDA events around
+    ``calls`` calls (after one warm-up): kernel time plus any gap the
+    host leaves between launches.  For chains whose kernels the
+    profiler can miss (:func:`device_ms` read 0.005 ms for B1-B3's
+    forward and backward late in a full run)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def layernorm_cost(torch, card, depth):
@@ -2916,8 +2954,9 @@ def vith_train_step_phase(torch, peaks, card):
     and images (logits within 1e-4 of the largest, as ``vit_parity``;
     each gradient leaf within 1e-3 of its largest entry); then in bf16
     compute, f32 params, adamw, batch 32: B1-B3 32 launches each a step,
-    the eager step ms, images/s, MFU, peak allocated bytes, idle share.
-    Returns B1-B3's launches in one step."""
+    the eager step ms, images/s, MFU, peak allocated bytes, idle share
+    (the f32 model's weights, switched to bf16 compute).  Returns
+    B1-B3's launches in one step."""
     from functools import partial
 
     from fluxdistributed_tpu_torch import optim
@@ -2963,11 +3002,13 @@ def vith_train_step_phase(torch, peaks, card):
             or nd != [0, 0, 0]:
         raise RuntimeError(f"vith_parity: logits {logit_rel}, grads "
                            f"{grad_rel}, launches flash {nf} dense {nd}")
-    del model, params, loss_fn, out, lf, gf, ld, gd, batch
+    del loss_fn, out, lf, gf, ld, gd, batch
     torch.cuda.empty_cache()
 
-    model = vit_h14(num_classes=1000, attn_fn=flash, seed=0)
-    params = dict(model.named_parameters())
+    # the same weights (f32 params) in bf16 compute with the flash core:
+    # a second 632 M-parameter init would repeat the first
+    model.dtype = torch.bfloat16
+    _set_core(model, flash)
     flops = 3 * 2 * model.forward_macs(VISION_SIZE)
     opt = optim.adamw()
     loss_fn = module_loss_fn(model, logitcrossentropy)
@@ -3959,12 +4000,14 @@ def _check_sharded(phase, name, row, depth, exact, loss_rtol=None,
                            f"{param_atol})")
 
 
-def sharded_train_phase(torch, card):
+def sharded_train_phase(torch, card, keep=None):
     """lm_small (vocab 32000, B=8, T=1024, bf16, flash, adam, dropout 0)
     3 steps through the one-device DP step and, on one NCCL rank,
     spmd fsdp, tp and fsdp_tp on {data: 1, model: 1} and the all-size-1
     dp_fsdp_tp layout, from the same weights and batches.  Returns
-    B1-B3's launches a step on each sharded path."""
+    B1-B3's launches a step on each sharded path; the DP run goes into
+    ``keep["dp_flash"]`` when ``keep`` is given (the sp phase's
+    reference)."""
     import numpy as np
 
     from fluxdistributed_tpu_torch import optim
@@ -4008,6 +4051,8 @@ def sharded_train_phase(torch, card):
                            loss_rtol=1e-2, param_atol=6 * SHARD_LR)
             out[f"lm_small_{name}"] = per
         del run
+    if keep is not None:
+        keep["dp_flash"] = ref
     del ref
     torch.cuda.empty_cache()
     return out
@@ -4146,6 +4191,350 @@ def sharded_cli_phase(torch):
     return per
 
 
+# ------------------------------------------------ context and expert parallelism
+
+CTX_S = 4  # simulated seq ranks of the context kernel phase
+
+
+def context_kernel_phase(torch, bw, peaks, flush, card):
+    """The ring-flash hop body (``parallel.context.ring_flash_hops``)
+    over ``CTX_S`` sequence shards held in one process, at lm_small's
+    attention (B = 8, T = 1024, 256 a shard, 12 heads of 64, bf16,
+    causal): the forward against one whole-sequence ``flash_attention``
+    call; in the backward every hop's B2/B3 launch, fed the nonzero LSE
+    cotangent the combine produces, held element by element against the
+    plain versions on the same inputs, with the dropped-tile control;
+    16 launches of each of B1-B3; the ring's ms against the
+    whole-sequence call's (CUDA events).  Returns the row."""
+    import importlib
+
+    from fluxdistributed_tpu_torch.ops import flash_attention
+    from fluxdistributed_tpu_torch.parallel.context import ring_flash_hops
+
+    fa = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_attention")
+    g = torch.Generator().manual_seed(14)
+    q, k, v, do = (torch.randn(B, T_TRAIN, H, D, generator=g).to(
+        torch.bfloat16).cuda() for _ in range(4))
+    t = T_TRAIN // CTX_S
+
+    def shard(x, s):
+        return x[:, s * t:(s + 1) * t]
+
+    def ring(q, k, v):
+        """Every simulated rank's hops; blocks in arrival order."""
+        outs = []
+        for s in range(CTX_S):
+            blocks = [(shard(k, (s - i) % CTX_S), shard(v, (s - i) % CTX_S))
+                      for i in range(CTX_S)]
+            outs.append(ring_flash_hops(shard(q, s), blocks, s, causal=True))
+        return torch.cat(outs, dim=1)
+
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    hops = []  # each B2/B3 call's inputs and outputs, in backward order
+    inner = fa._backward
+
+    def recording(q_, k_, v_, o_, lse_, g_, g_lse, cfg):
+        dq, dk, dv = inner(q_, k_, v_, o_, lse_, g_, g_lse, cfg)
+        hops.append(((q_, k_, v_, o_, lse_, g_, g_lse, dict(cfg)),
+                     (dq, dk, dv)))
+        return dq, dk, dv
+
+    reset_all_counts()
+    fa._backward = recording
+    try:
+        out = ring(*leaves)
+        out.backward(do)
+    finally:
+        fa._backward = inner
+    torch.cuda.synchronize()
+    launches = attn_counts()
+    whole = flash_attention(q, k, v, True)
+    fwd_err = (out.detach().float() - whole.float()).abs().max().item()
+    checks, nonzero, dropped = [], 0, {}
+    for (q_, k_, v_, o_, lse_, g_, g_lse, cfg), (dq, dk, dv) in hops:
+        delta = (g_.float() * o_.float()).sum(-1).permute(0, 2, 1)
+        if g_lse is not None:
+            delta = delta - g_lse.float()
+            nonzero += bool((g_lse != 0).any())
+        kw = dict(causal=cfg["causal"], window=None, sinks=0)
+        bargs = (q_, k_, v_, g_, lse_, delta.contiguous())
+        rdq = fa.flash_attention_dq_reference(*bargs, **kw)
+        rdk, rdv = fa.flash_attention_dkv_reference(*bargs, **kw)
+        checks.append({n: grad_check(torch, got, ref, "bf16")["excess"]
+                       for n, got, ref in (("dq", dq, rdq), ("dk", dk, rdk),
+                                           ("dv", dv, rdv))})
+        name = "causal" if cfg["causal"] else "noncausal"
+        if name not in dropped and g_lse is not None:
+            dropped[name] = dropped_tile_check(torch, fa, bargs, kw, rdq,
+                                               rdk, rdv, "bf16")
+
+    def ring_step():
+        o = ring(*leaves)
+        o.backward(do)
+
+    def whole_step():
+        o = flash_attention(*leaves, True)
+        o.backward(do)
+
+    ring_ms = event_ms(torch, ring_step)
+    whole_ms = event_ms(torch, whole_step)
+    pairs = B * H * (CTX_S * t * (t + 1) // 2 + CTX_S * (CTX_S - 1) * t * t)
+    bytes_fb = 0
+    for _ in range(CTX_S * CTX_S):  # each hop: B1, B2 and B3's least bytes
+        qo, kv = B * t * H * D * 2, B * t * H * D * 2
+        bytes_fb += (2 * qo + 2 * kv) + (3 * qo + 2 * kv) + (2 * qo + 4 * kv)
+    t_ops = 18 * pairs * D / peaks["bf16"] * 1e3
+    t_bytes = bytes_fb / bw * 1e3
+    row = {"phase": "context_kernel", "card": card,
+           "shape": [B, T_TRAIN, H, D], "shards": CTX_S, "dtype": "bfloat16",
+           "causal": True, "hops": len(hops),
+           "hops_with_nonzero_lse_cotangent": nonzero,
+           "launches_b1_b2_b3": launches,
+           "fwd_max_abs_err_vs_whole_sequence": fwd_err,
+           "fwd_tol": 2e-2, "grad_excess_max": {
+               n: max(c[n] for c in checks) for n in ("dq", "dk", "dv")},
+           "grad_tol": GRAD_TOL["bf16"], "dropped_last_tile": dropped,
+           "ring_fwd_bwd_event_ms": ring_ms,
+           "whole_sequence_flash_fwd_bwd_event_ms": whole_ms,
+           "ring_over_whole": ring_ms / whole_ms,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    emit(row)
+    bad = []
+    if launches != [CTX_S * CTX_S] * 3:
+        bad.append(f"launches {launches}")
+    if not fwd_err <= 2e-2:
+        bad.append(f"forward err {fwd_err}")
+    if any(x > 1.0 for c in checks for x in c.values()):
+        bad.append("a hop's gradient is out of its element-wise limit")
+    if not nonzero:
+        bad.append("no hop saw a nonzero LSE cotangent")
+    if set(dropped) != {"causal", "noncausal"} or not all(
+            r["excess"] > 1.0 for d in dropped.values() for r in d.values()):
+        bad.append(f"dropped-tile control not caught: {dropped}")
+    if not all(bool(torch.isfinite(x.grad.float()).all()) for x in leaves):
+        bad.append("non-finite gradients")
+    if bad:
+        raise RuntimeError(f"context_kernel: {bad}")
+    return row
+
+
+def _one_rank(make, axes):
+    """A model factory for ``_shard_run`` whose ``attn_fn`` / ``moe_fn``
+    is bound to a one-rank NCCL mesh over ``axes``, and that mesh."""
+    from fluxdistributed_tpu_torch.mesh import make_mesh
+
+    box = {}
+
+    def model():
+        box["mesh"] = make_mesh(axes, device="cuda")
+        return make(box["mesh"])
+
+    return model, lambda: box["mesh"]
+
+
+def sp_train_phase(torch, card, dp_flash=None):
+    """lm_small (vocab 32000, B = 8, T = 1024, bf16, adam 3e-4, dropout
+    0) 3 steps under spmd="sp" on one NCCL rank ``{data: 1, seq: 1}``,
+    with the flash ring and with Ulysses, each against the one-device
+    DP step with the same core (flash; dense), bit for bit.  ``dp_flash``
+    is the flash DP run of :func:`sharded_train_phase` (the same model,
+    seed, batches and optimizer), run here when not given.  Returns
+    B1-B3's launches a step of each path."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import lm_small
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.parallel import (make_ring_attention,
+                                                    make_ulysses_attention)
+
+    batches = [{"tokens": torch.from_numpy(np.random.default_rng(s).integers(
+        0, 32000, (B, T_TRAIN)).astype(np.int64)).cuda()}
+        for s in range(SHARD_STEPS)]
+    axes = {"data": 1, "seq": 1}
+    paths = {
+        "ring_flash": (lambda m: make_ring_attention(
+            m, batch_axis="data", causal=True, impl="flash"),
+            attention_core("flash"), 12),
+        "ulysses": (lambda m: make_ulysses_attention(
+            m, batch_axis="data", causal=True), None, 0)}
+    out = {}
+    for name, (attn, dp_core, per_step) in paths.items():
+        ref = dp_flash if dp_core is not None else None
+        if ref is None:
+            ref = _shard_run(torch, lambda: lm_small(
+                vocab=32000, attn_fn=dp_core, seed=0),
+                _TokenBank(32000, T_TRAIN), optim.adam(SHARD_LR), batches,
+                {}, batch_size=B)
+        make, mesh = _one_rank(lambda m: lm_small(
+            vocab=32000, attn_fn=attn(m), seed=0), axes)
+        run = _shard_run(torch, make, _TokenBank(32000, T_TRAIN),
+                         optim.adam(SHARD_LR), batches,
+                         {"spmd": "sp", "mesh": mesh}, batch_size=B)
+        extra = {"model": "lm_small", "vocab": 32000, "batch": B,
+                 "seqlen": T_TRAIN, "dtype": "bfloat16", "opt": "adam 3e-4",
+                 "mesh": axes, "dp_core": "flash" if dp_core else "dense",
+                 "dp_step_ms_device": ref["step_ms"],
+                 "dp_peak_allocated_bytes": ref["peak_allocated_bytes"],
+                 "peak_over_dp_bytes": run["peak_allocated_bytes"]
+                 - ref["peak_allocated_bytes"]}
+        per = [n // SHARD_STEPS for n in run["launches"][2:5]]
+        row = _row(torch, "sp_train", card, name, run, ref, per, extra)
+        _check_sharded("sp_train", name, row, per_step, exact=True)
+        out[f"lm_small_sp_{name}"] = per
+        del run, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+MOE_EXPERTS, MOE_EVERY, MOE_CF = 8, 2, 2.0
+
+
+def _moe_golden(torch, experts, router, x, cap):
+    """One MoE layer on one shard as the JAX test's golden model
+    computes it: ``router_dispatch``, the dispatch einsum, a loop over
+    the experts, the combine einsum."""
+    from fluxdistributed_tpu_torch.models import moe_expert_fn
+    from fluxdistributed_tpu_torch.parallel import router_dispatch
+
+    logits = x.float() @ router.float()
+    dispatch, combine, aux = router_dispatch(logits, cap)
+    expert_in = torch.einsum("td,tec->ecd", x.float(), dispatch)
+    y = torch.stack([moe_expert_fn({n: w[e] for n, w in experts.items()},
+                                   expert_in[e])
+                     for e in range(router.shape[1])])
+    return torch.einsum("ecd,tec->td", y, combine), aux
+
+
+def ep_train_phase(torch, card):
+    """An MoE lm_small (every 2nd of 12 blocks routed over 8 experts,
+    top-1, capacity factor 2.0, flash core; vocab 32000, B = 8, T =
+    1024, bf16, adam 3e-4) 3 steps under spmd="ep" on one NCCL rank
+    ``{data: 1, expert: 1}`` against the same model's one-device DP step,
+    bit for bit; device ms, peak bytes and the dispatch/combine einsums'
+    share (timed alone with CUDA events at the block's shapes, 6 blocks,
+    forward and backward); one MoE layer at the block's shape against its
+    single-shard golden.  Returns B1-B3's launches a step."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import lm_small, moe_expert_fn
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.parallel import moe_apply
+
+    batches = [{"tokens": torch.from_numpy(np.random.default_rng(20 + s)
+                                           .integers(0, 32000, (B, T_TRAIN))
+                                           .astype(np.int64)).cuda()}
+               for s in range(SHARD_STEPS)]
+    axes = {"data": 1, "expert": 1}
+
+    def moe_model(m):
+        return lm_small(vocab=32000, attn_fn=attention_core("flash"), seed=0,
+                        moe_every=MOE_EVERY, num_experts=MOE_EXPERTS,
+                        moe_fn=moe_apply(moe_expert_fn, m,
+                                         capacity_factor=MOE_CF,
+                                         batch_axis="data"))
+
+    make, mesh = _one_rank(moe_model, axes)
+    ref = _shard_run(torch, make, _TokenBank(32000, T_TRAIN),
+                     optim.adam(SHARD_LR), batches, {}, batch_size=B)
+    make, mesh = _one_rank(moe_model, axes)
+    run = _shard_run(torch, make, _TokenBank(32000, T_TRAIN),
+                     optim.adam(SHARD_LR), batches,
+                     {"spmd": "ep", "mesh": mesh}, batch_size=B)
+    # the einsums alone at one block's shapes: T = B x T_TRAIN tokens
+    tokens = B * T_TRAIN
+    cap = math.ceil(tokens / MOE_EXPERTS * MOE_CF)
+    g = torch.Generator().manual_seed(15)
+    x = torch.randn(tokens, 768, generator=g).to(torch.bfloat16).cuda()
+    router = (torch.randn(768, MOE_EXPERTS, generator=g) * 768 ** -0.5).cuda()
+    experts = {"w1": torch.randn(MOE_EXPERTS, 768, 3072, generator=g)
+               * (768 * 8) ** -0.5, "b1": torch.zeros(MOE_EXPERTS, 3072),
+               "w2": torch.randn(MOE_EXPERTS, 3072, 768, generator=g)
+               * (3072 * 8) ** -0.5, "b2": torch.zeros(MOE_EXPERTS, 768)}
+    experts = {n: w.to(torch.bfloat16).cuda() for n, w in experts.items()}
+    from fluxdistributed_tpu_torch.parallel import router_dispatch
+
+    with torch.no_grad():
+        dispatch, combine, _ = router_dispatch(x.float() @ router, cap)
+    xf = x.float().requires_grad_(True)
+    y = torch.randn(MOE_EXPERTS, cap, 768, generator=g).cuda()
+    y.requires_grad_(True)
+    comb = combine.clone().requires_grad_(True)
+
+    def einsums():
+        a = torch.einsum("td,tec->ecd", xf, dispatch)
+        b = torch.einsum("ecd,tec->td", y, comb)
+        (a.sum() + b.sum()).backward()
+
+    einsum_ms = event_ms(torch, einsums, calls=3) * (12 // MOE_EVERY)
+    del dispatch, combine, xf, y, comb
+    torch.cuda.empty_cache()
+    # one MoE layer against its single-shard golden
+    from fluxdistributed_tpu_torch.mesh import make_mesh, shutdown_distributed
+
+    try:
+        layer = moe_apply(moe_expert_fn, make_mesh(axes, device="cuda"),
+                          capacity_factor=MOE_CF, batch_axis="data")
+        with torch.no_grad():
+            got, aux = layer(experts, router, x)
+            want, want_aux = _moe_golden(torch, experts, router, x, cap)
+            p = torch.softmax(x.float() @ router, dim=-1)
+            top = torch.topk(p, 2, dim=-1).values
+            margin = (top[:, 0] - top[:, 1]).min().item()
+    finally:
+        shutdown_distributed()
+    layer_err = (got.float() - want.float()).abs().max().item()
+    layer_tol = 1e-3
+    per = [n // SHARD_STEPS for n in run["launches"][2:5]]
+    extra = {"model": "lm_small MoE", "vocab": 32000, "batch": B,
+             "seqlen": T_TRAIN, "dtype": "bfloat16", "opt": "adam 3e-4",
+             "moe_every": MOE_EVERY, "experts": MOE_EXPERTS, "top_k": 1,
+             "capacity_factor": MOE_CF, "capacity": cap, "mesh": axes,
+             "dp_step_ms_device": ref["step_ms"],
+             "dp_peak_allocated_bytes": ref["peak_allocated_bytes"],
+             "peak_over_dp_bytes": run["peak_allocated_bytes"]
+             - ref["peak_allocated_bytes"],
+             "dispatch_combine_einsum_ms_per_step": einsum_ms,
+             "einsum_share_of_step": einsum_ms / run["step_ms"],
+             "layer_vs_golden_max_abs_err": layer_err,
+             "layer_tol": layer_tol,
+             "layer_aux": aux.item(), "golden_aux": want_aux.item(),
+             "layer_min_top1_top2_margin": margin}
+    row = _row(torch, "ep_train", card, "ep", run, ref, per, extra)
+    _check_sharded("ep_train", "ep", row, 12, exact=True)
+    if not layer_err <= layer_tol or aux.item() != want_aux.item():
+        raise RuntimeError(f"ep_train: the MoE layer against its golden: "
+                           f"err {layer_err} (limit {layer_tol}), aux "
+                           f"{aux.item()} vs {want_aux.item()}")
+    del run, ref, experts, x
+    torch.cuda.empty_cache()
+    return {"lm_small_moe_ep": per}
+
+
+def sp_ep_cli_phase(torch):
+    """``--spmd sp`` and ``--spmd ep`` on one card, refused with
+    ``bin/driver.py``'s messages (it needs two devices for either)."""
+    from fluxdistributed_tpu_torch.train.__main__ import run
+
+    refusals = {}
+    for extra, want in (
+            (["--spmd", "sp"],
+             "--seq-parallel 1 must be >=2 and divide 1 devices"),
+            (["--spmd", "ep"],
+             "--expert-parallel 1 must be >=2 and divide 1 devices")):
+        try:
+            run(SHARD_CLI + extra)
+        except SystemExit as e:
+            refusals[" ".join(extra)] = str(e)
+            if want not in str(e):
+                raise RuntimeError(f"sp_ep_cli {extra}: refused with {e}")
+        else:
+            raise RuntimeError(f"sp_ep_cli {extra}: not refused")
+    emit({"phase": "sp_ep_cli_refusals", "refusals": refusals})
+
+
 def main() -> int:
     import torch
 
@@ -4206,47 +4595,79 @@ def main() -> int:
                     "(any D)",
           "instantiations": {demangle(n): r for n, r in split.items()}})
 
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its wall seconds kept under ``name``."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
+    cardname = card.splitlines()[0]
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    dense_row = kernel_phase(torch, bw, peaks, flush)
-    paged_row = paged_kernel_phase(torch, bw, peaks, flush)
-    attn_rows = attention_kernel_phase(torch, bw, peaks, flush)
+    dense_row = timed("kernel", kernel_phase, torch, bw, peaks, flush)
+    paged_row = timed("paged_kernel", paged_kernel_phase, torch, bw, peaks,
+                      flush)
+    attn_rows = timed("attention_kernel", attention_kernel_phase, torch, bw,
+                      peaks, flush)
     del flush
-    dense_launches = serve_phase(torch)
-    paged_launches = paged_serve_phase(torch)
-    parity_phase(torch)
-    attn_launches = train_phase(torch)
-    train_step_phase(torch, peaks)
-    train_parity_phase(torch)
+    dense_launches = timed("serve", serve_phase, torch)
+    paged_launches = timed("paged_serve", paged_serve_phase, torch)
+    timed("parity", parity_phase, torch)
+    attn_launches = timed("train", train_phase, torch)
+    timed("train_step", train_step_phase, torch, peaks)
+    timed("train_parity", train_parity_phase, torch)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    rounding_audit_phase(torch, flush)
-    adam_row = fused_adam_phase(torch, bw, flush)
+    timed("rounding_audit", rounding_audit_phase, torch, flush)
+    adam_row = timed("fused_adam", fused_adam_phase, torch, bw, flush)
     del flush
-    adam_launches = zero1_train_phase(torch, peaks)
-    zero1_cli_phase(torch)
-    zero1_parity_phase(torch)
-    vision_parity_phase(torch)
-    vision_train_step_phase(torch, peaks, card.splitlines()[0])
-    vision_cli_phase(torch)
-    device_loop_phase(torch, peaks, card.splitlines()[0])
+    adam_launches = timed("zero1_train", zero1_train_phase, torch, peaks)
+    timed("zero1_cli", zero1_cli_phase, torch)
+    timed("zero1_parity", zero1_parity_phase, torch)
+    timed("vision_parity", vision_parity_phase, torch)
+    timed("vision_train_step", vision_train_step_phase, torch, peaks,
+          cardname)
+    timed("vision_cli", vision_cli_phase, torch)
+    timed("device_loop", device_loop_phase, torch, peaks, cardname)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    vit_rows = vit_kernel_phase(torch, bw, peaks, flush)
+    vit_rows = timed("vit_kernel", vit_kernel_phase, torch, bw, peaks, flush)
     del flush
-    vit_launches = vit_train_step_phase(torch, peaks, card.splitlines()[0])
-    convnext_train_step_phase(torch, peaks, card.splitlines()[0])
-    vit_cli_phase(torch)
+    vit_launches = timed("vit_train_step", vit_train_step_phase, torch,
+                         peaks, cardname)
+    timed("convnext_train_step", convnext_train_step_phase, torch, peaks,
+          cardname)
+    timed("vit_cli", vit_cli_phase, torch)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    vith_rows = vith_kernel_phase(torch, bw, peaks, flush)
+    vith_rows = timed("vith_kernel", vith_kernel_phase, torch, bw, peaks,
+                      flush)
     del flush
-    vith_launches = vith_train_step_phase(torch, peaks, card.splitlines()[0])
-    checkpoint = resume_phase(torch, card.splitlines()[0])
-    vision_serve_phase(torch, card.splitlines()[0], checkpoint)
-    guard_phase(torch, card.splitlines()[0])
-    guard_cost_phase(torch, card.splitlines()[0])
-    observe_phase(torch, card.splitlines()[0])
-    sharded = sharded_train_phase(torch, card.splitlines()[0])
-    sharded["vit_l16_tp"] = sharded_vit_phase(torch, card.splitlines()[0])
-    fsdp_resnet_phase(torch, card.splitlines()[0])
-    sharded["cli_lm_small_fsdp"] = sharded_cli_phase(torch)
+    vith_launches = timed("vith_train_step", vith_train_step_phase, torch,
+                          peaks, cardname)
+    checkpoint = timed("resume", resume_phase, torch, cardname)
+    timed("vision_serve", vision_serve_phase, torch, cardname, checkpoint)
+    timed("guard", guard_phase, torch, cardname)
+    timed("guard_cost", guard_cost_phase, torch, cardname)
+    timed("observe", observe_phase, torch, cardname)
+    kept = {}
+    sharded = timed("sharded_train", sharded_train_phase, torch, cardname,
+                    kept)
+    sharded["vit_l16_tp"] = timed("sharded_vit", sharded_vit_phase, torch,
+                                  cardname)
+    timed("fsdp_resnet", fsdp_resnet_phase, torch, cardname)
+    sharded["cli_lm_small_fsdp"] = timed("sharded_cli", sharded_cli_phase,
+                                         torch)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    ctx_row = timed("context_kernel", context_kernel_phase, torch, bw, peaks,
+                    flush, cardname)
+    del flush
+    sp_ep = timed("sp_train", sp_train_phase, torch, cardname,
+                  kept.pop("dp_flash"))
+    sp_ep.update(timed("ep_train", ep_train_phase, torch, cardname))
+    timed("sp_ep_cli", sp_ep_cli_phase, torch)
+    emit({"phase": "phase_seconds", "seconds": seconds,
+          "total": sum(seconds.values())})
 
     def kernel_entry(name, source, replaces, via, launches, row):
         entry = {"name": name, "route": "cuda", "source": source,
@@ -4267,6 +4688,21 @@ def main() -> int:
                                        "bound_ms", "bound_by",
                                        "library_ms")}}
 
+    def ctx_entry(row):
+        """B1-B3 through ``flash_attention_lse`` in the ring's hops (the
+        context_kernel phase): launches of each over its 4 x 4 hops,
+        forward and backward, and the ring's device ms against one
+        whole-sequence flash call."""
+        return {"shape": row["shape"], "shards": row["shards"],
+                "launches": row["launches_b1_b2_b3"][0],
+                "hops_with_nonzero_lse_cotangent":
+                    row["hops_with_nonzero_lse_cotangent"],
+                "fwd_max_abs_err": row["fwd_max_abs_err_vs_whole_sequence"],
+                "ring_fwd_bwd_ms": row["ring_fwd_bwd_event_ms"],
+                "whole_sequence_fwd_bwd_ms":
+                    row["whole_sequence_flash_fwd_bwd_event_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
+
     emit({"kernels": [
         kernel_entry("flash_decode", KERNEL_SOURCE, KERNEL_REPLACES,
                      DENSE_VIA, dense_launches, dense_row),
@@ -4279,7 +4715,10 @@ def main() -> int:
                                             VITH_HEADS, VITH_HEADS,
                                             VITH_D]),
                sharded_launches_per_step={
-                   path: per[i] for path, per in sharded.items()})
+                   path: per[i] for path, per in sharded.items()},
+               sp_ep_launches_per_step={
+                   path: per[i] for path, per in sp_ep.items()},
+               context_ring=ctx_entry(ctx_row))
           for i, ((name, replaces, via), n, row, vrow, vn, hrow, hn)
           in enumerate(zip(
               ATTN_KERNELS, attn_launches,

@@ -46,13 +46,16 @@ import torch.distributed as dist
 
 from .device import DeviceLike, resolve_device
 
-__all__ = ["DATA_AXIS", "FSDP_AXIS", "MODEL_AXIS", "Mesh", "data_mesh",
-           "init_distributed", "make_mesh", "make_mesh_3d", "run_ranks",
-           "shutdown_distributed"]
+__all__ = ["DATA_AXIS", "EXPERT_AXIS", "FSDP_AXIS", "MODEL_AXIS", "PIPE_AXIS",
+           "SEQ_AXIS", "Mesh", "data_mesh", "init_distributed", "make_mesh",
+           "make_mesh_3d", "run_ranks", "shutdown_distributed"]
 
 DATA_AXIS = "data"
 FSDP_AXIS = "fsdp"
 MODEL_AXIS = "model"
+SEQ_AXIS = "seq"  # context parallelism (parallel/context.py)
+EXPERT_AXIS = "expert"  # MoE expert parallelism (parallel/ep.py)
+PIPE_AXIS = "pipe"  # pipeline stages (not ported yet)
 
 _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
@@ -205,7 +208,9 @@ def make_mesh(axes: Mapping[str, int], device: DeviceLike = None) -> Mesh:
     Axis order follows the mapping's; the sizes must multiply to the
     number of ranks.  Rank ``r`` sits at the row-major coordinates of
     ``r`` (the last axis fastest), where the JAX package's ``make_mesh``
-    puts device ``r`` (``np.array(devs).reshape(shape)``).  Every tuple
+    puts device ``r`` (``np.array(devs).reshape(shape)``): on
+    ``{"data": 2, "seq": 2}`` or ``{"data": 2, "expert": 2}`` ranks 0
+    and 1 share data row 0.  Every tuple
     of axes gets its process group, formed on every rank in one order
     (``dist.new_group``); a group that holds every rank is the default
     group itself.  The backend is the default group's (NCCL for the

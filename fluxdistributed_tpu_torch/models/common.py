@@ -147,8 +147,28 @@ def site_keys(seed, n: int):
     return _hash32(torch.bitwise_xor(base, _hash32(ids)))
 
 
+def _shard_index(shape, offset: int, total: int,
+                 device) -> torch.Tensor:
+    """The element indices of positions ``[offset, offset + shape[1])``
+    of a ``[shape[0], total, *shape[2:]]`` tensor, row major, int32."""
+    rest = math.prod(shape[2:])
+    if shape[0] * total * rest >= 1 << 31:
+        raise ValueError(f"dropout indexes elements with int32: "
+                         f"{shape[0] * total * rest} elements are too many")
+
+    def ar(n, at):
+        view = [1] * 3
+        view[at] = n
+        return torch.arange(n, dtype=torch.int32, device=device).view(view)
+
+    idx = (ar(shape[0], 0) * (total * rest)
+           + (ar(shape[1], 1) + offset) * rest + ar(rest, 2))
+    return idx.view(shape)
+
+
 def _dropout(x: torch.Tensor, rate: float, key,
-             mask_shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+             mask_shape: Optional[Sequence[int]] = None,
+             seq: Optional[Sequence[int]] = None) -> torch.Tensor:
     """flax ``Dropout``: keep with probability ``1 - rate`` and scale the
     kept values by ``1 / (1 - rate)``.  The mask is a counter-based hash
     of (``key``, element index): it depends on the step seed and the
@@ -159,7 +179,12 @@ def _dropout(x: torch.Tensor, rate: float, key,
     signed 32-bit integer, is at least ``-2^31 + round(rate * 2^32)``.
     ``mask_shape`` (flax's ``broadcast_dims``: 1 on each broadcast dim)
     draws one bit per entry of that shape, broadcast over ``x``: the
-    drop path's ``[B, 1, 1, 1]`` keeps or drops whole samples."""
+    drop path's ``[B, 1, 1, 1]`` keeps or drops whole samples.
+    ``seq=(offset, total)`` says that ``x``'s dim 1 holds positions
+    ``[offset, offset + x.shape[1])`` of a sequence of ``total`` (a
+    sequence shard, :mod:`..parallel.context`): each element is indexed
+    as in the whole sequence, so the shards together draw the mask of
+    one rank running all of it."""
     if not rate:
         return x
     if key is None:
@@ -172,7 +197,10 @@ def _dropout(x: torch.Tensor, rate: float, key,
     if n >= 1 << 31:
         raise ValueError(f"dropout indexes elements with int32: {n} "
                          "elements are too many")
-    idx = torch.arange(n, dtype=torch.int32, device=x.device).view(shape)
+    if seq is not None and (seq[0] or seq[1] != shape[1]):
+        idx = _shard_index(shape, seq[0], seq[1], x.device)
+    else:
+        idx = torch.arange(n, dtype=torch.int32, device=x.device).view(shape)
     h = _hash32(torch.bitwise_xor(idx, key))
     keep = h >= -(1 << 31) + min(round(rate * (1 << 32)), _M32)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,

@@ -14,7 +14,13 @@ place.  The mapping, flax → port:
   ``attn.qkv`` (or ``q`` [d, H, Dh] and ``kv`` [d, 2, Hkv, Dh] under
   GQA); ``out`` kernel [H, Dh, d] → ``attn.out``;
 * ``Dense_{0,1}`` → ``fc1``/``fc2``, or ``gate``/``up``/``down``;
-* ``final_ln`` → ``final_ln``; ``head`` → ``head`` (untied embeddings).
+* ``final_ln`` → ``final_ln``; ``head`` → ``head`` (untied embeddings);
+* an MoE block's ``router`` [d, E] and stacked experts ``w1`` [E, d, m],
+  ``b1`` [E, m], ``w2`` [E, m, d], ``b2`` [E, d] → the same names under
+  ``blocks.{i}``, as they are (the port keeps the flax layouts);
+  ``flax_to_state_dict(params, experts=(r, S))`` keeps the block of
+  experts ``[r E/S, (r + 1) E/S)`` that the rank at expert index ``r``
+  of ``S`` holds.
 
 A flax kernel [in..., out...] becomes a torch ``Linear`` weight
 [out, in] after flattening.  Every port parameter must be filled and
@@ -80,8 +86,13 @@ def _norm(out, prefix: str, p: dict):
         out[prefix + ".bias"] = np.asarray(p["bias"])
 
 
-def flax_to_state_dict(params: dict) -> Dict[str, np.ndarray]:
-    """The port's ``state_dict`` names for a flax ``TransformerLM`` tree."""
+_EXPERT_LEAVES = ("w1", "b1", "w2", "b2")
+
+
+def flax_to_state_dict(params: dict, experts=None) -> Dict[str, np.ndarray]:
+    """The port's ``state_dict`` names for a flax ``TransformerLM`` tree.
+    ``experts=(r, S)``: an MoE model's expert leaves cut to the block of
+    the rank at expert index ``r`` of ``S`` (the rest whole)."""
     out: Dict[str, np.ndarray] = {}
     for name, sub in params.items():
         if name == "embed":
@@ -112,6 +123,19 @@ def flax_to_state_dict(params: dict) -> Dict[str, np.ndarray]:
                                         else ".fc2"), p)
                 elif child in ("gate", "up", "down"):
                     _linear(out, f"{pre}.{child}", p)
+                elif child == "router":
+                    out[f"{pre}.router"] = np.asarray(p)
+                elif child in _EXPERT_LEAVES:
+                    a = np.asarray(p)
+                    if experts is not None:
+                        r, n = experts
+                        if a.shape[0] % n:
+                            raise ValueError(f"{name}/{child}: {a.shape[0]} "
+                                             f"experts do not split over "
+                                             f"{n} ranks")
+                        m = a.shape[0] // n
+                        a = a[r * m:(r + 1) * m]
+                    out[f"{pre}.{child}"] = a
                 else:
                     raise KeyError(f"unknown flax param {name}/{child}")
         else:

@@ -27,6 +27,14 @@ each block in the backward (``torch.utils.checkpoint``).
 Made tensor-parallel by :func:`..parallel.tp.tensor_parallel`, the
 attention, the MLP, the embedding and the logits run the Megatron
 collectives of the ``tp`` context they are given (training only).
+With a sequence-parallel ``attn_fn`` (:mod:`..parallel.context`) each
+rank runs the whole model on its shard of positions (``seq_shard``:
+RoPE, the learned table and the dropout masks read global positions)
+and :func:`lm_loss_fn` takes that shard's part of the loss.  With
+``moe_every`` every that-many-th block is a :class:`MoEDecoderBlock`
+whose MLP is a routed expert layer (``moe_fn``, built by
+:func:`..parallel.ep.moe_apply`), and the loss adds the router's
+load-balance term.
 
 Every batch row has its own cursor, so one code path serves
 ``generate`` (all rows at the same depth), batch-1 prefill and the
@@ -64,6 +72,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..mesh import EXPERT_AXIS
 from ..ops.attention import dot_product_attention, validate_window
 from ..ops.flash_decode import flash_decode, flash_decode_paged
 from .common import _dropout, dense, maybe_remat, site_keys
@@ -74,16 +83,19 @@ __all__ = [
     "CausalSelfAttention",
     "DecodeCache",
     "DecoderBlock",
+    "MoEDecoderBlock",
     "PagedCache",
     "TransformerLM",
     "dequantize_kv",
     "generate",
     "lm_loss_fn",
     "lm_medium",
+    "lm_moe_specs",
     "lm_small",
     "lm_tiny",
     "make_decode_cache",
     "make_paged_cache",
+    "moe_expert_fn",
     "next_token_loss",
     "quantize_kv",
     "rope",
@@ -482,14 +494,16 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
                 cache: Optional[DecodeCache] = None, layer: int = 0,
-                step: Optional[_Step] = None) -> torch.Tensor:
+                step: Optional[_Step] = None, pos0: int = 0) -> torch.Tensor:
+        """``pos0``: the global position of ``x``'s first row (a
+        sequence shard's offset) in the full-sequence forward."""
         b, t, _ = x.shape
         if self.tp is not None:
             x = self.tp.enter(x)
         q, k, v = self._project(x, dtype)
         if cache is None:
             if self.use_rope:
-                pos = torch.arange(t, device=x.device)
+                pos = torch.arange(t, device=x.device) + pos0
                 q, k = rope(q, pos), rope(k, pos)
             attn = (self.attn_fn if self.attn_fn is not None else
                     partial(dot_product_attention, causal=True,
@@ -583,13 +597,16 @@ class DecoderBlock(nn.Module):
             self.fc2 = nn.Linear(mlp_dim, dim)
 
     def forward(self, x, dtype, cache=None, layer=0, step=None, train=False,
-                keys=None):
+                keys=None, seq=None):
         """``keys``: this block's dropout keys, one a site (a slice of
-        :func:`dropout_keys`), or ``None``."""
+        :func:`dropout_keys`), or ``None``; ``seq``: ``(offset, total)``
+        of a sequence shard, or ``None``."""
         rate = self.dropout if train else 0.0
         key = (lambda site: None) if keys is None else keys.__getitem__
-        y = self.attn(self.ln1(x, dtype), dtype, cache, layer, step)
-        x = x + _dropout(y, rate, key(0))
+        drop = partial(_dropout, seq=seq)
+        y = self.attn(self.ln1(x, dtype), dtype, cache, layer, step,
+                      0 if seq is None else seq[0])
+        x = x + drop(y, rate, key(0))
         y = self.ln2(x, dtype)
         if self.tp is not None:
             y = self.tp.enter(y)
@@ -598,11 +615,87 @@ class DecoderBlock(nn.Module):
             down = lambda layer, h: dense(layer, h, dtype)  # noqa: E731
         if self.mlp == "swiglu":
             y = F.silu(dense(self.gate, y, dtype)) * dense(self.up, y, dtype)
-            y = down(self.down, _dropout(y, rate, key(1)))
+            y = down(self.down, drop(y, rate, key(1)))
         else:
             y = F.gelu(dense(self.fc1, y, dtype), approximate="tanh")
-            y = down(self.fc2, _dropout(y, rate, key(1)))
-        return x + _dropout(y, rate, key(2))
+            y = down(self.fc2, drop(y, rate, key(1)))
+        return x + drop(y, rate, key(2))
+
+
+class MoEDecoderBlock(nn.Module):
+    """:class:`DecoderBlock` with the MLP replaced by a routed expert
+    layer (Switch top-1 or GShard top-k, :mod:`..parallel.ep`).
+
+    The parameters keep the flax layouts: ``router`` [dim, E] (f32 in
+    use), the stacked experts ``w1`` [E, dim, mlp], ``b1`` [E, mlp],
+    ``w2`` [E, mlp, dim], ``b2`` [E, dim], so ``x @ w1`` over the experts
+    is one batched product (:func:`moe_expert_fn`).  ``moe_fn(experts,
+    router, tokens) -> (out, aux)`` routes this rank's tokens; under
+    expert parallelism the expert leaves are this rank's block of
+    experts.  The forward returns ``(x, aux)``, the router's
+    load-balance term beside the block's output.  Dropout applies to
+    the attention output and the expert layer's output."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_dim: int,
+                 num_experts: int, moe_fn: Callable, *, num_kv_heads=None,
+                 window=None, sinks=0, use_rope=True, norm="layernorm",
+                 norm_eps=1e-6, dropout=0.0, attn_fn=None):
+        super().__init__()
+        self.moe_fn, self.dropout = moe_fn, dropout
+        self.ln1 = _Norm(dim, norm, norm_eps)
+        self.attn = CausalSelfAttention(
+            dim, num_heads, num_kv_heads=num_kv_heads, window=window,
+            sinks=sinks, use_rope=use_rope, attn_fn=attn_fn)
+        self.ln2 = _Norm(dim, norm, norm_eps)
+        e, m = num_experts, mlp_dim
+        self.router = nn.Parameter(torch.zeros(dim, e))
+        self.w1 = nn.Parameter(torch.zeros(e, dim, m))
+        self.b1 = nn.Parameter(torch.zeros(e, m))
+        self.w2 = nn.Parameter(torch.zeros(e, m, dim))
+        self.b2 = nn.Parameter(torch.zeros(e, dim))
+
+    def forward(self, x, dtype, cache=None, layer=0, step=None, train=False,
+                keys=None, seq=None):
+        rate = self.dropout if train else 0.0
+        key = (lambda site: None) if keys is None else keys.__getitem__
+        y = self.attn(self.ln1(x, dtype), dtype, cache, layer, step,
+                      0 if seq is None else seq[0])
+        x = x + _dropout(y, rate, key(0), seq=seq)
+        y = self.ln2(x, dtype)
+        b, t, d = y.shape
+        experts = {n: getattr(self, n).to(dtype)
+                   for n in ("w1", "b1", "w2", "b2")}
+        out, aux = self.moe_fn(experts, self.router.float(),
+                               y.reshape(b * t, d))
+        return x + _dropout(out.reshape(b, t, d), rate, key(2), seq=seq), aux
+
+
+def moe_expert_fn(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The expert MLP of :class:`MoEDecoderBlock`'s params, over leading
+    expert dims: ``gelu(x @ w1 + b1) @ w2 + b2`` with ``p`` leaves [E,
+    ...] and ``x`` [E, n, dim] (or one expert's, unbatched).  Pass it to
+    :func:`..parallel.ep.moe_apply` when building the block's
+    ``moe_fn``.  Mixed dtypes compute in their promotion (the f32
+    dispatched tokens promote bf16 weights, as in JAX)."""
+    dt = torch.promote_types(x.dtype, p["w1"].dtype)
+    h = x.to(dt) @ p["w1"].to(dt) + p["b1"].to(dt).unsqueeze(-2)
+    h = F.gelu(h, approximate="tanh")
+    return h @ p["w2"].to(dt) + p["b2"].to(dt).unsqueeze(-2)
+
+
+def lm_moe_specs(params: dict, axis: str = EXPERT_AXIS) -> dict:
+    """Specs of an MoE LM's params (the JAX ``lm_moe_specs``): the
+    stacked expert leaves (``w1``/``b1``/``w2``/``b2`` of the MoE
+    blocks, leading dim E) split over ``axis``, everything else (the
+    routers, the dense leaves) replicated."""
+    from ..sharding import P
+
+    def spec(name, p):
+        if name.split(".")[-1] in ("w1", "b1", "w2", "b2"):
+            return P(axis, *([None] * (p.ndim - 1)))
+        return P()
+
+    return {k: spec(k, p) for k, p in params.items()}
 
 
 class TransformerLM(nn.Module):
@@ -615,7 +708,11 @@ class TransformerLM(nn.Module):
     :func:`..device.resolve_device`).  ``use_rope=False`` needs
     ``max_len``, the learned positional table's length.  ``attn_fn``,
     ``dropout`` and ``remat`` shape the full-sequence (training)
-    forward only; the decode paths ignore them.
+    forward only; the decode paths ignore them.  ``moe_every > 0`` makes
+    blocks ``moe_every - 1``, ``2 moe_every - 1``, ... MoE blocks of
+    ``num_experts`` experts routed by ``moe_fn``
+    (``parallel.ep.moe_apply(models.moe_expert_fn, mesh, ...)``), whose
+    load-balance terms :func:`lm_loss_fn` adds with ``moe_aux_weight``.
     """
 
     def __init__(self, vocab: int, depth: int = 4, dim: int = 256,
@@ -627,7 +724,9 @@ class TransformerLM(nn.Module):
                  norm: str = "layernorm", norm_eps: float = 1e-6,
                  mlp: str = "gelu", max_len: Optional[int] = None,
                  attn_fn: Optional[Callable] = None, dropout: float = 0.0,
-                 remat: bool = False, device: DeviceLike = None,
+                 remat: bool = False, moe_every: int = 0,
+                 num_experts: int = 0, moe_fn: Optional[Callable] = None,
+                 moe_aux_weight: float = 0.01, device: DeviceLike = None,
                  seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
@@ -636,6 +735,16 @@ class TransformerLM(nn.Module):
                              "positional table's length)")
         if not 0.0 <= dropout <= 1.0:
             raise ValueError(f"dropout must be in [0, 1], got {dropout}")
+        if moe_every:
+            # a silently dense "MoE" model or a late per-block error would
+            # hide the misconfiguration
+            if moe_fn is None or num_experts < 1:
+                raise ValueError(
+                    "moe_every > 0 needs moe_fn (parallel.ep.moe_apply("
+                    "models.moe_expert_fn, mesh, ...)) and num_experts")
+            if moe_every > depth:
+                raise ValueError(f"moe_every ({moe_every}) > depth ({depth}):"
+                                 " no block would be MoE")
         self.vocab, self.depth, self.dim = vocab, depth, dim
         self.num_heads, self.mlp_dim = num_heads, mlp_dim
         self.num_kv_heads = num_kv_heads
@@ -643,15 +752,20 @@ class TransformerLM(nn.Module):
         self.use_rope, self.tie_embeddings = use_rope, tie_embeddings
         self.max_len, self.dtype = max_len, dtype
         self.attn_fn, self.dropout, self.remat = attn_fn, dropout, remat
+        self.moe_every, self.num_experts = moe_every, num_experts
+        self.moe_fn, self.moe_aux_weight = moe_fn, moe_aux_weight
         self.embed = nn.Embedding(vocab, dim)
         self.pos_embedding = (None if use_rope else
                               nn.Parameter(torch.zeros(max_len, dim)))
+        attn_kw = dict(num_kv_heads=num_kv_heads, window=window, sinks=sinks,
+                       use_rope=use_rope, norm=norm, norm_eps=norm_eps,
+                       dropout=dropout, attn_fn=attn_fn)
         self.blocks = nn.ModuleList(
-            DecoderBlock(dim, num_heads, mlp_dim, num_kv_heads=num_kv_heads,
-                         window=window, sinks=sinks, use_rope=use_rope,
-                         norm=norm, norm_eps=norm_eps, mlp=mlp,
-                         dropout=dropout, attn_fn=attn_fn)
-            for _ in range(depth))
+            MoEDecoderBlock(dim, num_heads, mlp_dim, num_experts, moe_fn,
+                            **attn_kw)
+            if moe_every and (i + 1) % moe_every == 0 else
+            DecoderBlock(dim, num_heads, mlp_dim, mlp=mlp, **attn_kw)
+            for i in range(depth))
         self.final_ln = _Norm(dim, norm, norm_eps)
         self.head = None if tie_embeddings else nn.Linear(dim, vocab)
         # the vocab-parallel embedding's and the column-parallel head's
@@ -671,6 +785,15 @@ class TransformerLM(nn.Module):
         self.embed.weight.normal_(0.0, 0.02, generator=gen)
         if self.pos_embedding is not None:
             self.pos_embedding.normal_(0.0, 0.02, generator=gen)
+        for blk in self.blocks:
+            if isinstance(blk, MoEDecoderBlock):
+                # flax's lecun_normal fan-in: a leading expert dim counts
+                # as receptive field (w1: dim x E, w2: mlp x E)
+                e = blk.router.shape[1]
+                blk.router.normal_(0.0, blk.router.shape[0] ** -0.5,
+                                   generator=gen)
+                for w in (blk.w1, blk.w2):
+                    w.normal_(0.0, (w.shape[1] * e) ** -0.5, generator=gen)
 
     @property
     def device(self) -> torch.device:
@@ -678,7 +801,9 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, cache=None, *,
                 valid_len: int = VALID_UNGATED, train: bool = False,
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[int] = None,
+                seq_shard: Optional[tuple] = None,
+                moe_aux: Optional[list] = None) -> torch.Tensor:
         """Full causal forward (``cache=None``), or one decode call that
         advances every row of ``cache`` (a :class:`DecodeCache` or a
         :class:`PagedCache`) by ``T`` positions.
@@ -687,13 +812,21 @@ class TransformerLM(nn.Module):
         ``train=True`` turns dropout on (it needs ``dropout_seed``, this
         step's seed: an int, or a 0-d int64 tensor on any device); with
         ``remat`` each block of a full forward that records gradients is
-        recomputed in the backward."""
+        recomputed in the backward.  ``seq_shard=(offset, total)``: the
+        tokens are positions ``[offset, offset + T)`` of sequences of
+        ``total`` (this rank's shard under a sequence-parallel
+        ``attn_fn``).  ``moe_aux``: a list that receives each MoE
+        block's load-balance term, in block order."""
         dt = self.dtype
         tokens = tokens.to(self.device)
         b, t = tokens.shape
         if cache is not None and getattr(self, "tp_applied", False):
             raise NotImplementedError("a tensor-parallel model has no "
                                       "decode path")
+        if cache is not None and seq_shard is not None:
+            raise ValueError("seq_shard applies to the full-sequence "
+                             "forward only")
+        off = 0 if seq_shard is None else int(seq_shard[0])
         if self.tp_embed is not None:
             x = self.tp_embed.embed(tokens, self.embed.weight.to(dt))
         else:
@@ -706,7 +839,7 @@ class TransformerLM(nn.Module):
                 step.put_positions(cache)  # write-then-attend
         if self.pos_embedding is not None:
             if cache is None:
-                x = x + self.pos_embedding[:t].to(dt)[None]
+                x = x + self.pos_embedding[off:off + t].to(dt)[None]
             else:
                 # parked slots may run past the table: clamp (their
                 # output is discarded)
@@ -722,7 +855,12 @@ class TransformerLM(nn.Module):
         for i, blk in enumerate(self.blocks):
             x = maybe_remat(blk, remat)(
                 x, dt, cache, i, step, train,
-                None if keys is None else keys[i * s:(i + 1) * s])
+                None if keys is None else keys[i * s:(i + 1) * s],
+                None if seq_shard is None else (off, int(seq_shard[1])))
+            if isinstance(blk, MoEDecoderBlock):
+                x, aux = x
+                if moe_aux is not None:
+                    moe_aux.append(aux)
         if cache is not None:
             if t > 1 and cache.slot_pos is not None:
                 step.put_positions(cache)
@@ -755,6 +893,53 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
     return nll.mean()
 
 
+def _seq_axis(model):
+    """The sequence-parallel ``attn_fn`` of ``model`` (one that names a
+    ``seq_axis``, :mod:`..parallel.context`), or ``None``."""
+    fn = getattr(model, "attn_fn", None)
+    return fn if getattr(fn, "seq_axis", None) is not None else None
+
+
+def _shard_loss(model, params, tokens, mask, kw, sp):
+    """This sequence shard's part of the mean next-token loss: the
+    model runs on this rank's positions of the full rows ``tokens``,
+    each position's target is read from the full row (so the shift
+    crosses the shard boundary; the last global position has none), and
+    the sum is divided by the global count.  The shards' parts add up
+    to the whole sequence's mean (the mask's count is summed over the
+    axis when there is a mask).  Returns ``(part, local logits)``."""
+    from torch.func import functional_call
+
+    from ..parallel.collectives import psum
+
+    mesh, axis = sp.mesh, sp.seq_axis
+    n, s = mesh.axis_size(axis), mesh.axis_index(axis)
+    b, total = tokens.shape
+    if total % n:
+        raise ValueError(f"sequence length {total} does not split over the "
+                         f"{n} ranks of the {axis!r} axis")
+    t = total // n
+    off = s * t
+    logits = functional_call(model, params, (tokens[:, off:off + t],),
+                             {**kw, "seq_shard": (off, total)})
+    live = min(t, total - 1 - off)  # positions with a target
+    logp = torch.log_softmax(logits[:, :live].float(), dim=-1)
+    tgt = tokens[:, off + 1:off + 1 + live].long().to(logp.device)
+    nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]  # [B, live]
+    if mask is not None:
+        m = mask[:, off + 1:off + 1 + live].to(device=nll.device,
+                                               dtype=nll.dtype)
+        count = m.sum()
+        if n > 1:
+            count = psum(count, mesh.sub(axis))
+        return (nll * m).sum() / torch.clamp(count, min=1), logits
+    if live == 0:
+        return logits.sum() * 0.0, logits
+    # the local mean scaled by this shard's share of the positions: the
+    # share is exactly 1 on one rank, where this is next_token_loss
+    return nll.mean() * (live / (total - 1)), logits
+
+
 def lm_loss_fn(model: TransformerLM) -> Callable:
     """The LM in the framework loss signature ``fn(params, model_state,
     batch, train, rng=None) -> (loss, (model_state, logits))``.
@@ -763,15 +948,35 @@ def lm_loss_fn(model: TransformerLM) -> Callable:
     applied with them through ``torch.func.functional_call``, as flax
     applies a param tree); ``rng`` is an integer dropout seed.  The
     batch is ``{"tokens": [B, T]}`` with optional ``{"mask": [B, T]}``.
-    (The JAX version's MoE auxiliary loss is not ported.)"""
+    An MoE model adds, in training only, ``moe_aux_weight`` times the
+    mean of its blocks' load-balance terms.  A model whose ``attn_fn``
+    is sequence-parallel (:mod:`..parallel.context`) runs on this rank's
+    positions of the full rows and returns this shard's part of the
+    loss (see :func:`_shard_loss`) and its logits; the parts of the
+    ``seq`` ranks sum to the mean (``prepare_training(spmd="sp")`` sums
+    them)."""
     from torch.func import functional_call
+
+    from ..optim import div_const
+
+    moe = getattr(model, "moe_every", 0) > 0
+    sp = _seq_axis(model)
 
     def fn(params, model_state, batch, train: bool, rng=None):
         tokens = batch["tokens"]
-        logits = functional_call(
-            model, params, (tokens,),
-            {"train": train, "dropout_seed": rng if train else None})
-        loss = next_token_loss(logits, tokens, batch.get("mask"))
+        aux = []
+        kw = {"train": train, "dropout_seed": rng if train else None}
+        if moe:
+            kw["moe_aux"] = aux
+        if sp is not None:
+            loss, logits = _shard_loss(model, params, tokens,
+                                       batch.get("mask"), kw, sp)
+        else:
+            logits = functional_call(model, params, (tokens,), kw)
+            loss = next_token_loss(logits, tokens, batch.get("mask"))
+        if aux and train:
+            loss = loss + div_const(model.moe_aux_weight * sum(aux),
+                                    len(aux))
         return loss, (model_state, logits)
 
     return fn

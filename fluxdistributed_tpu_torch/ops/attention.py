@@ -51,6 +51,13 @@ def validate_window(causal: bool, window: Optional[int], sinks: int) -> None:
                              "attends every past position)")
 
 
+def _scale(q: torch.Tensor) -> torch.Tensor:
+    """``q`` divided by sqrt(head_dim), the divisor rounded to q's dtype
+    first (the JAX ``_scale``)."""
+    return q / torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32)).to(
+        q.dtype)
+
+
 def _expand_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Broadcast grouped KV heads up to the query head count (GQA)."""
     h, hkv = q.shape[2], k.shape[2]
@@ -87,7 +94,7 @@ def dot_product_attention(
     validate_window(causal, window, sinks)
     k, v = _expand_kv(q, k, v)
     # scale in q's dtype, then contract in f32 (preferred_element_type)
-    qs = q / torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32)).to(q.dtype)
+    qs = _scale(q)
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
     tq, tk = s.shape[-2], s.shape[-1]
     allow = None
@@ -205,7 +212,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    q_scaled = q / torch.sqrt(torch.tensor(d, dtype=torch.float32)).to(q.dtype)
+    q_scaled = _scale(q)
     q_pos = torch.arange(tq, device=q.device) + (tk - tq)
     carry = attn_init(q)
     for j in range(0, tk + pad, block_size):

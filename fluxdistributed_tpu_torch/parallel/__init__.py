@@ -3,10 +3,17 @@
 composable (``parallel/zero1.py``) and fused (``parallel/zero1_fused.py``,
 through the fused Adam update), FSDP (``parallel/fsdp.py``), Megatron
 tensor parallelism (``parallel/tp.py``), the sharding rules engine
-(``parallel/rules.py``) and the dp x fsdp x tp layouts
-(``parallel/layout.py``)."""
+(``parallel/rules.py``), the dp x fsdp x tp layouts
+(``parallel/layout.py``), context parallelism (``parallel/context.py``:
+ring attention and Ulysses) and MoE expert parallelism
+(``parallel/ep.py``)."""
 
-from . import fsdp, layout, rules, tp
+from . import context, ep, fsdp, layout, rules, tp
+from .context import (make_ring_attention, make_ulysses_attention,
+                      ring_attention, ring_flash_attention,
+                      ulysses_attention)
+from .ep import (moe_apply, router_dispatch, router_dispatch_expert_choice,
+                 stack_expert_params)
 from .dp import (TrainState, guard_sentinel, local_grads, make_eval_step,
                  make_train_step, make_train_step_shardmap, module_loss_fn,
                  sync_model_state)
@@ -25,16 +32,21 @@ from .zero1_fused import (fused_adam_update, make_train_step_zero1_fused,
                           zero1_fused_state)
 
 __all__ = ["Layout", "LayoutError", "RULE_TABLES", "ShardLargest",
-           "TrainState", "fsdp", "fsdp_specs", "fused_adam_update",
+           "TrainState", "context", "ep", "fsdp", "fsdp_specs",
+           "fused_adam_update",
            "guard_sentinel", "hybrid_fsdp_tp_specs", "layout",
            "layout_candidates", "lm_tp_rules", "local_grads",
-           "make_eval_step", "make_eval_step_fsdp", "make_train_step",
+           "make_eval_step", "make_eval_step_fsdp", "make_ring_attention",
+           "make_train_step", "make_ulysses_attention", "moe_apply",
            "make_train_step_fsdp", "make_train_step_shardmap",
            "make_train_step_tp", "make_train_step_zero1",
            "make_train_step_zero1_fused", "make_train_step_zero1_shardmap",
            "match_partition_rules", "module_loss_fn", "pack_tree",
            "packed_size", "param_specs", "per_device_state_bytes",
-           "resolve_layout", "rules", "rules_for_model", "shard_state",
-           "sync_model_state", "tensor_parallel", "tp", "unpack_tree",
+           "resolve_layout", "ring_attention", "ring_flash_attention",
+           "router_dispatch", "router_dispatch_expert_choice", "rules",
+           "rules_for_model", "shard_state", "stack_expert_params",
+           "sync_model_state", "tensor_parallel", "tp", "ulysses_attention",
+           "unpack_tree",
            "vit_tp_rules", "with_fsdp", "zero1_ema_params",
            "zero1_fused_state", "zero1_optimizer", "zero1_state"]

@@ -39,7 +39,13 @@ their blocks from the port's plain-tensor optimizer.
 
 A spec entry naming ``tp_axis`` (the model axis) is not gathered: the
 tensor-parallel modules (:mod:`.tp`) compute on those blocks as they
-are, and no gradient is reduced over that axis.
+are, and no gradient is reduced over that axis.  Nor is one naming a
+``block_axes`` axis (the expert axis, :mod:`.ep`): the MoE layer
+computes on this rank's experts, and its exchanges' backward has
+already summed their gradient over that axis, which is also a batch
+axis.  Over ``partial_axes`` (the sequence axis, :mod:`.context`) each
+rank's loss is a part of one mean: the loss and every gradient are
+summed over them and divided by the batch group's size alone.
 """
 
 from __future__ import annotations
@@ -199,21 +205,26 @@ def _sub(mesh: Mesh, axes) -> Mesh:
 
 class _Plan:
     """How a sharded step reaches each param: the (dim, axes) gathers of
-    its spec's non-model entries, the batch axes its gradient is still
-    summed over, and the axes its blocks span (its norms' reduction)."""
+    its spec's non-model entries, the batch (and partial-loss) axes its
+    gradient is still summed over, and the axes its blocks span (its
+    norms' reduction)."""
 
     def __init__(self, mesh: Mesh, p_specs: dict, batch_axes: tuple,
-                 tp_axis: Optional[str]):
+                 tp_axis: Optional[str], block_axes: tuple = (),
+                 partial_axes: tuple = ()):
         self.mesh = mesh
         self.gathers, self.rest, self.held, self._subs = {}, {}, {}, {}
+        local = set(block_axes) | ({tp_axis} if tp_axis is not None else set())
         for k, spec in p_specs.items():
             gathers = []
+            summed = set()  # block axes: summed by the model's exchanges
             for d, e in enumerate(spec):
                 axes = entry_axes(e)
-                if not axes or (tp_axis is not None and tp_axis in axes):
+                if not axes or local & set(axes):
                     if len(axes) > 1:
                         raise ValueError(f"{k}: spec entry {e!r} mixes the "
-                                         f"model axis with others")
+                                         f"model or expert axis with others")
+                    summed |= set(axes) & set(block_axes)
                     continue
                 if isinstance(e, Stacked):
                     raise ValueError(f"{k}: a stacked entry {e!r} over a "
@@ -227,7 +238,9 @@ class _Plan:
                     f"the batch does not split over (batch axes "
                     f"{tuple(batch_axes)})")
             self.gathers[k] = gathers
-            self.rest[k] = tuple(a for a in batch_axes if a not in done)
+            done |= summed
+            self.rest[k] = tuple(a for a in batch_axes + tuple(partial_axes)
+                                 if a not in done)
             self.held[k] = spec_axes(spec)
 
     def sub(self, axes) -> Mesh:
@@ -297,10 +310,30 @@ def _batch_axes(axes) -> tuple:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
+def _step_plan(mesh: Mesh, specs: dp.TrainState, batch_axes, tp_axis,
+               block_axes, partial_axes):
+    """(batch-group mesh, partial-loss mesh or None, :class:`_Plan`) of
+    a sharded step."""
+    axes, partial = _batch_axes(batch_axes), _batch_axes(partial_axes)
+    return (_sub(mesh, axes), _sub(mesh, partial) if partial else None,
+            _Plan(mesh, specs.params, axes, tp_axis,
+                  _batch_axes(block_axes), partial))
+
+
+def _loss_mean(loss, bmesh: Mesh, pmesh: Optional[Mesh]):
+    """The loss over the batch group: summed over the partial-loss
+    axes first, when there are any."""
+    if pmesh is not None:
+        loss = collectives.psum(loss, pmesh)
+    return collectives.pmean(loss, bmesh)
+
+
 def make_train_step_sharded(loss_fn: Callable, optimizer: Optimizer,
                             mesh: Mesh, specs: dp.TrainState, *,
                             batch_axes: Sequence[str] = (DATA_AXIS,),
                             tp_axis: Optional[str] = MODEL_AXIS,
+                            block_axes: Sequence[str] = (),
+                            partial_axes: Sequence[str] = (),
                             accum_steps: int = 1, seed: int = 0,
                             guard: bool = False):
     """``step_fn(state, batch) -> (state, metrics)`` on a state of blocks
@@ -313,13 +346,18 @@ def make_train_step_sharded(loss_fn: Callable, optimizer: Optimizer,
     on the model axis draw the same masks).  ``accum_steps`` and
     ``seed`` are the DP step's.  The model's entries over ``tp_axis``
     must already be the tensor-parallel modules' blocks
-    (:func:`.tp.tensor_parallel`).  ``guard=True`` adds
+    (:func:`.tp.tensor_parallel`).  Entries over ``block_axes`` (a batch
+    axis: the expert axis) are blocks the model computes on and whose
+    gradient its exchanges already summed over that axis; over
+    ``partial_axes`` (the sequence axis) the loss of each rank is a part
+    of one mean, so the loss and the gradients are summed over them and
+    divided by the batch group alone (see the module docstring); the
+    dropout seeds do not fold in those axes.  ``guard=True`` adds
     ``metrics["guard"]``, :func:`.dp.guard_sentinel`'s ``[poisoned_loss,
     grad_norm]`` with each leaf's squares summed over its blocks."""
     dp._check_step_options(accum_steps, 1)
-    axes = _batch_axes(batch_axes)
-    bmesh = _sub(mesh, axes)
-    plan = _Plan(mesh, specs.params, axes, tp_axis)
+    bmesh, pmesh, plan = _step_plan(mesh, specs, batch_axes, tp_axis,
+                                    block_axes, partial_axes)
     grads_of = dp._grads_of(_gathered_loss(loss_fn, plan), accum_steps)
 
     def body(state: dp.TrainState, batch, seeds, scalars):
@@ -328,7 +366,7 @@ def make_train_step_sharded(loss_fn: Callable, optimizer: Optimizer,
         with torch.no_grad():
             grads = {k: plan.reduce(k, g, bmesh.size)
                      for k, g in grads.items()}
-            loss = collectives.pmean(loss, bmesh)
+            loss = _loss_mean(loss, bmesh, pmesh)
             mstate = dp.sync_model_state(loss_fn, mstate, bmesh)
             with optim_lib.sharded_norms(plan.norm_sq):
                 new_params, new_opt = optimizer.rule(
@@ -351,13 +389,15 @@ def make_eval_step_sharded(loss_fn: Callable, mesh: Mesh,
                            specs: dp.TrainState, *,
                            batch_axes: Sequence[str] = (DATA_AXIS,),
                            tp_axis: Optional[str] = MODEL_AXIS,
+                           block_axes: Sequence[str] = (),
+                           partial_axes: Sequence[str] = (),
                            topk: tuple = (1, 5, 10)):
     """The eval step on a state of blocks: the params gathered, one
-    forward in eval mode, the loss and top-k accuracies averaged over
-    the batch group (see :func:`.dp.make_eval_step`)."""
-    axes = _batch_axes(batch_axes)
-    bmesh = _sub(mesh, axes)
-    plan = _Plan(mesh, specs.params, axes, tp_axis)
+    forward in eval mode, the loss (summed over ``partial_axes`` first)
+    and top-k accuracies averaged over the batch group (see
+    :func:`.dp.make_eval_step`)."""
+    bmesh, pmesh, plan = _step_plan(mesh, specs, batch_axes, tp_axis,
+                                    block_axes, partial_axes)
 
     @torch.no_grad()
     def step(state: dp.TrainState, batch):
@@ -365,7 +405,7 @@ def make_eval_step_sharded(loss_fn: Callable, mesh: Mesh,
                                     state.model_state, batch, False)
         metrics = {f"top{k}": topkaccuracy(logits, batch["label"], k=k)
                    for k in topk}
-        return (collectives.pmean(loss, bmesh),
+        return (_loss_mean(loss, bmesh, pmesh),
                 collectives.pmean(metrics, bmesh))
 
     return step

@@ -119,6 +119,11 @@ class LMEngine:
                  kv_block_size: int = DEFAULT_KV_BLOCK_SIZE,
                  kv_blocks: Optional[int] = None,
                  prefix_cache: bool = False, cuda_graph: bool = True):
+        if getattr(model, "moe_every", 0):
+            raise ValueError(
+                "the serving engine supports dense models only (MoE decode "
+                "routes per-token expert dispatch; build the model with "
+                "moe_every=0)")
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         if max_len < 2:

@@ -22,6 +22,8 @@ data; here each rank holds its own tensors, so:
   counterpart of ``make_shardings`` and ``device_put``), and
   :func:`gather_global` all-gathers the blocks back into the global
   tensor;
+* :func:`stack_on_axis` stacks N per-item trees on a new leading dim
+  split over an axis (MoE experts, later pipeline stages);
 * :func:`ensure_synced` checks that every rank holds the same values
   (the reference's ``ensure_synced`` debug check).
 """
@@ -39,7 +41,8 @@ from .tree import leaves_with_path, tree_map
 
 __all__ = ["P", "Stacked", "ensure_synced", "entry_axes", "gather_dim", "gather_global", "global_shape",
            "local_block", "map_with_specs", "partition_by_rules",
-           "reduce_scatter_dim", "replicate", "shard_batch", "spec_axes"]
+           "reduce_scatter_dim", "replicate", "shard_batch", "spec_axes",
+           "stack_on_axis"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,6 +257,23 @@ def shard_batch(batch: dict, mesh: Mesh, axis=DATA_AXIS) -> dict:
         return x[i * k:(i + 1) * k]
 
     return {k: rows(v) for k, v in batch.items()}
+
+
+def stack_on_axis(per_item: Sequence[Any], mesh: Mesh, axis: str) -> Any:
+    """Stack N per-item trees (dicts, lists or tuples of tensors of one
+    structure) on a new leading dim split over ``axis``, and keep this
+    rank's block: item ``i`` lives on the rank at index ``i // (N / n)``
+    of the axis's ``n`` (contiguous blocks, the JAX ``P(axis)``
+    placement).  Every rank passes all N items."""
+    first = per_item[0]
+    if isinstance(first, dict):
+        return {k: stack_on_axis([it[k] for it in per_item], mesh, axis)
+                for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(
+            stack_on_axis([it[i] for it in per_item], mesh, axis)
+            for i in range(len(first)))
+    return local_block(torch.stack(list(per_item)), P(axis), mesh)
 
 
 def ensure_synced(tree: Any, mesh: Mesh, rtol: float = 0.0,

@@ -51,6 +51,21 @@ jit``.  Each runs as one rank on one card too, and across cards under
 ``--layout auto`` (the picker), ``--hbm-bytes`` and ``--layout-report``
 come with slice 7 and raise ``NotImplementedError``.
 
+Long sequences and MoE models: ``--spmd sp --seq-parallel K`` cuts each
+sequence over a ``seq`` axis of K ranks (``{data: N/K, seq: K}``; the LM
+attends through ring attention, or Ulysses with ``--sp-strategy
+ulysses``), and ``--spmd ep --expert-parallel K`` makes every
+``--moe-every``-th block (default 2) a routed MoE layer of
+``--experts`` experts (default K) split over an ``expert`` axis of K
+ranks (``{data: N/K, expert: K}``; capacity factor 2.0, routed within
+each data row).  Both need two ranks at least, as ``bin/driver.py``
+needs two devices::
+
+    torchrun --nproc-per-node 4 -m fluxdistributed_tpu_torch.train \
+        --model lm_small --dataset synthetic-text --seqlen 1024 \
+        --batch-size 8 --opt adam --lr 3e-4 --cycles 40 \
+        --spmd sp --seq-parallel 2 --sp-strategy ulysses
+
 ``--dataset`` takes the JAX CLI's forms: ``synthetic``,
 ``synthetic-text``, ``text:PATH`` and a name registered by
 ``--data-toml`` (a ``[[datasets]]`` TOML: ImageNet, CIFAR-10, synthetic
@@ -95,7 +110,7 @@ trace of the phase spans (and syncs the card each item),
 flight recorder, ``--runs-ledger`` appends a run record on every exit,
 ``--watchdog-factor`` / ``--watchdog-escalate`` set the stall
 watchdog, ``--wandb`` logs to Weights & Biases and ``--verbose`` logs
-more.  The JAX CLI's context, pipeline and expert ``--spmd`` modes,
+more.  The JAX CLI's pipeline ``--spmd`` modes,
 ``--profile-out``, ``--steady-after``, ``--compile-cache``, ``--aot``,
 ``--prewarm`` and ``--strict-checks`` belong to later slices and are not
 accepted.
@@ -195,14 +210,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mlp", default="gelu", choices=["gelu", "swiglu"])
     p.add_argument("--spmd", default="jit",
                    choices=["jit", "dp", "shard_map", "fsdp", "tp",
-                            "fsdp_tp"],
+                            "fsdp_tp", "sp", "ep"],
                    help="parallel mode: jit/dp (one device, or DP across "
                         "torchrun ranks), shard_map (the explicit per-rank "
                         "step), fsdp (ZeRO-3: params and optimizer state "
                         "sharded over the ranks), tp (Megatron tensor "
-                        "parallelism over a model axis of --tp ranks) or "
-                        "fsdp_tp (both); the JAX CLI's context, pipeline "
-                        "and expert modes are not ported")
+                        "parallelism over a model axis of --tp ranks), "
+                        "fsdp_tp (both), sp (context parallelism: the "
+                        "sequence cut over --seq-parallel ranks) or ep (MoE "
+                        "experts over --expert-parallel ranks); the JAX "
+                        "CLI's pipeline modes are not ported")
+    p.add_argument("--seq-parallel", type=int, default=None,
+                   help="seq-axis size for --spmd sp (the mesh becomes "
+                        "{data: N/sp, seq: sp}; the LM attends across the "
+                        "sequence shards; defaults to all ranks)")
+    p.add_argument("--sp-strategy", default="ring",
+                   choices=["ring", "ulysses"],
+                   help="context-parallel attention for --spmd sp: 'ring' "
+                        "(K/V blocks passed around the seq ranks, any head "
+                        "count) or 'ulysses' (two all_to_alls re-shard "
+                        "seq<->heads; needs num_heads %% seq-axis == 0)")
+    p.add_argument("--expert-parallel", type=int, default=None,
+                   help="expert-axis size for --spmd ep (the mesh becomes "
+                        "{data: N/ep, expert: ep}; defaults to all ranks)")
+    p.add_argument("--experts", type=int, default=None,
+                   help="number of MoE experts for --spmd ep (a multiple of "
+                        "the expert axis; defaults to the axis size)")
+    p.add_argument("--moe-every", type=int, default=None,
+                   help="route every K-th decoder block through the MoE "
+                        "layer (--spmd ep; default 2)")
     p.add_argument("--layout", default=None, metavar="NAME|auto",
                    help="declarative dp x fsdp x tp layout "
                         "(parallel/layout.py): a preset name (dp, fsdp, tp, "
@@ -320,7 +356,8 @@ def build_model(args, device, **kwargs):
 def _model_kwargs(args) -> dict:
     """The attention core and architecture flags, validated as the
     driver validates them: they apply to ``lm_*`` models only (an image
-    model's attention, a ViT's, is the dense core, as in the JAX CLI)."""
+    model's attention, a ViT's, is the dense core, as in the JAX CLI),
+    and ``--spmd sp`` picks its own attention core, unwindowed."""
     from ..ops import attention_core, validate_window
 
     kw = {}
@@ -335,6 +372,14 @@ def _model_kwargs(args) -> dict:
                         ("--kv-heads", args.kv_heads is not None)):
         if given and not is_lm:
             raise SystemExit(f"{flag} only applies to lm_* models")
+    if args.spmd == "sp":
+        if args.window is not None:
+            raise SystemExit("--window is not supported with --spmd sp "
+                             "(context-parallel attention is unwindowed)")
+        if args.attn != "dense":
+            raise SystemExit("--attn conflicts with --spmd sp: sequence "
+                             "parallelism picks its own attention core "
+                             "(use --sp-strategy)")
     if (args.norm != "layernorm" or args.mlp != "gelu") and not is_lm:
         raise SystemExit("--norm/--mlp only apply to lm_* models")
     try:
@@ -405,10 +450,12 @@ def _run(args):
         raise SystemExit("--cycles is required for unbounded token streams "
                          "(synthetic-text has no epoch length; text: "
                          "datasets derive cycles from --epochs)")
+    _check_mode_flags(args)
     # a process group for ZeRO-1, the shard_map step, the sharded modes,
     # or torchrun's ranks; one this call forms, it also ends
     mesh, formed = None, False
-    if (args.zero1 or args.spmd in ("shard_map", "fsdp", "tp", "fsdp_tp")
+    if (args.zero1 or args.spmd in ("shard_map", "fsdp", "tp", "fsdp_tp",
+                                    "sp", "ep")
             or args.layout is not None or "WORLD_SIZE" in os.environ):
         import torch.distributed as dist
 
@@ -499,8 +546,9 @@ def _train(args, dataset, val_dataset, device, mesh):
                 f"--kv-heads {args.kv_heads} must be a multiple of the TP "
                 f"model-axis size ({model_k}) so the grouped kv projection "
                 "can be head-sharded")
+    mesh, mode_kw = _context_mesh(args, mesh, ndev, is_lm)
     try:
-        model = build_model(args, device, **_model_kwargs(args))
+        model = build_model(args, device, **_model_kwargs(args), **mode_kw)
     except ValueError as e:  # e.g. --kv-heads not dividing num_heads
         raise SystemExit(f"--model {args.model}: {e}")
 
@@ -512,7 +560,7 @@ def _train(args, dataset, val_dataset, device, mesh):
     lead = mesh is None or mesh.rank == 0
     # the sentinel rides dp.make_train_step; shard_map runs the guard's
     # policy on the loss alone, as bin/driver.py degrades it
-    sentinel = args.guard and args.spmd in ("jit", "dp")
+    sentinel = args.guard and args.spmd in ("jit", "dp", "sp", "ep")
     if args.guard and not sentinel and lead:
         print(f"guard: spmd={args.spmd} has no compiled grad sentinel — "
               "running loss-only (non-finite loss + spike detection; "
@@ -573,6 +621,84 @@ def _train(args, dataset, val_dataset, device, mesh):
         print(f"done: {task.state.step} steps, {task.num_missed} missed",
               flush=True)
     return task
+
+
+def _check_mode_flags(args) -> None:
+    """The mode flags that apply to one ``--spmd`` only
+    (``bin/driver.py``'s checks and messages)."""
+    if (args.expert_parallel is not None or args.experts is not None
+            or args.moe_every is not None) and args.spmd != "ep":
+        raise SystemExit(
+            "--expert-parallel/--experts/--moe-every only apply with --spmd ep")
+    if args.seq_parallel is not None and args.spmd != "sp":
+        raise SystemExit("--seq-parallel only applies with --spmd sp")
+    if args.sp_strategy != "ring" and args.spmd != "sp":
+        raise SystemExit("--sp-strategy only applies with --spmd sp")
+
+
+def _data_x_mesh(mesh, ndev: int, axis: str, flag: str, requested,
+                 min_k: int = 2):
+    """``bin/driver.py``'s ``data_x_mesh``: the ``{data: N/k, axis: k}``
+    mesh over the ranks, ``k`` defaulting to all of them."""
+    from ..mesh import make_mesh
+
+    k = requested if requested is not None else ndev
+    if k < min_k or ndev % k:
+        raise SystemExit(
+            f"{flag} {k} must be >={min_k} and divide {ndev} devices")
+    return make_mesh({"data": ndev // k, axis: k}, device=mesh.device), k
+
+
+def _context_mesh(args, mesh, ndev: int, is_lm: bool):
+    """The mesh and the model arguments of ``--spmd sp|ep``, built
+    before the model (its ``attn_fn`` or ``moe_fn`` is bound to the
+    mesh), with ``bin/driver.py``'s checks and messages; otherwise ``mesh`` as
+    it is and no arguments."""
+    if args.spmd == "sp":
+        from ..parallel import make_ring_attention, make_ulysses_attention
+
+        if not is_lm:
+            raise SystemExit("--spmd sp needs an lm_* model (context-"
+                             "parallel attention over the sequence)")
+        sp_mesh, sp = _data_x_mesh(mesh, ndev, "seq", "--seq-parallel",
+                                   args.seq_parallel)
+        if args.seqlen % sp:
+            raise SystemExit(f"--seqlen {args.seqlen} must be a multiple of "
+                             f"the seq axis size {sp}")
+        make_attn = make_ring_attention
+        if args.sp_strategy == "ulysses":
+            # Ulysses re-shards heads over the seq axis: probe the
+            # factory's head count without allocating its weights
+            import torch
+
+            with torch.device("meta"):
+                nheads = build_model(args, "meta").num_heads
+            if nheads % sp:
+                raise SystemExit(
+                    f"--sp-strategy ulysses needs num_heads ({nheads} for "
+                    f"{args.model}) divisible by the seq axis size {sp}; "
+                    f"use --seq-parallel accordingly or --sp-strategy ring")
+            make_attn = make_ulysses_attention
+        return sp_mesh, {"attn_fn": make_attn(sp_mesh, batch_axis="data",
+                                              causal=True)}
+    if args.spmd == "ep":
+        from .. import models
+        from ..parallel import moe_apply
+
+        if not is_lm:
+            raise SystemExit("--spmd ep needs an lm_* model (MoE blocks)")
+        ep_mesh, ep = _data_x_mesh(mesh, ndev, "expert",
+                                   "--expert-parallel", args.expert_parallel)
+        nex = args.experts if args.experts is not None else ep
+        if nex % ep:
+            raise SystemExit(f"--experts {nex} must be a multiple of the "
+                             f"expert axis size {ep}")
+        return ep_mesh, {
+            "moe_every": args.moe_every if args.moe_every is not None else 2,
+            "num_experts": nex,
+            "moe_fn": moe_apply(models.moe_expert_fn, ep_mesh,
+                                capacity_factor=2.0, batch_axis="data")}
+    return mesh, {}
 
 
 def _sharded_mesh(args, mesh, ndev):

@@ -3,8 +3,9 @@
 Port of the core of ``fluxdistributed_tpu/train/trainer.py`` for the
 data-parallel modes ``spmd="jit"`` (alias ``"dp"``) and ``"shard_map"``
 (with or without ZeRO-1), FSDP (``"fsdp"``), Megatron tensor
-parallelism (``"tp"``) and their hybrid (``"fsdp_tp"``), and the
-rule-derived dp x fsdp x tp layouts (``layout=``), on one GPU, on the
+parallelism (``"tp"``) and their hybrid (``"fsdp_tp"``), the
+rule-derived dp x fsdp x tp layouts (``layout=``), context parallelism
+(``"sp"``) and MoE expert parallelism (``"ep"``), on one GPU, on the
 ranks of a process group (:mod:`..mesh`), or on the CPU when asked:
 
 * ``prepare_training`` takes the model's parameters and buffers (the
@@ -41,7 +42,7 @@ ranks of a process group (:mod:`..mesh`), or on the CPU when asked:
 
 Phase times, step counts and OOM skips land in the process registry
 (:mod:`..obs.metrics`) under the JAX trainer's ``fdtpu_train_*`` names.
-Context, pipeline and expert parallelism come with later slices.  A
+Pipeline parallelism comes with a later slice.  A
 device OOM on one rank of a mesh, and not on the others, leaves the
 others waiting in the step's next collective, as in the JAX package on
 several hosts.
@@ -62,7 +63,7 @@ import torch
 from .. import faults
 from ..data.loader import PrefetchLoader, apply_transform, batch_to_dict
 from ..device import DeviceLike, resolve_device
-from ..mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from ..mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh
 from ..obs import FlightRecorder, JsonlSink, Observation, memstats, runs
 from ..ops.losses import logitcrossentropy
 from ..optim import Optimizer
@@ -115,7 +116,7 @@ class TrainTask:
     # gathers it)
     zero1: bool = False
     # the state's specs (a TrainState of sharding.P) when it is a state
-    # of blocks (fsdp, tp, fsdp_tp, layouts), else None
+    # of blocks (fsdp, tp, fsdp_tp, layouts, sp, ep), else None
     specs: Optional[TrainState] = None
 
 
@@ -191,8 +192,8 @@ def prepare_training(
     labels)`` for image datasets) applied to the train batches, the val
     slice and ``evaluate``.  ``spmd`` takes the data-parallel
     modes ``"jit"`` (alias ``"dp"``) and ``"shard_map"``, ``"fsdp"``,
-    ``"tp"`` and ``"fsdp_tp"``; context, pipeline and expert parallelism
-    raise (not ported).  ``zero1=True`` shards the optimizer state and
+    ``"tp"`` and ``"fsdp_tp"``, ``"sp"`` and ``"ep"``; pipeline
+    parallelism raises (not ported).  ``zero1=True`` shards the optimizer state and
     update over the ranks (:mod:`..parallel.zero1`); it applies to the
     data-parallel modes only, and ``"shard_map"`` takes no
     ``accum_steps``, as in the JAX trainer.
@@ -212,7 +213,23 @@ def prepare_training(
     ``layout.build_mesh``), the batch split over ``data`` and ``fsdp``;
     it keeps ``spmd="jit"`` and refuses ``zero1`` and ``steps_per_call >
     1``, and a layout with ``tp > 1`` refuses ``dropout > 0``.
-    ``layout="auto"`` (the picker) is not ported.  These modes keep a
+    ``layout="auto"`` (the picker) is not ported.
+
+    ``"sp"`` (context parallelism) needs a mesh with ``data`` and ``seq``
+    axes and a model whose ``attn_fn`` is that mesh's
+    ``parallel.make_ring_attention`` or ``make_ulysses_attention``: the
+    params are replicated, each rank takes its data row's rows of the
+    batch (the full sequences; tokens are cheap) and runs the whole model
+    on its ``T/S`` positions, and the seq ranks' parts of the loss and
+    their gradients are summed before the data-parallel mean.  ``"ep"``
+    (expert parallelism) needs a mesh with ``data`` and ``expert`` axes
+    and an MoE ``TransformerLM`` whose ``moe_fn`` is that mesh's
+    ``parallel.moe_apply(models.moe_expert_fn, mesh, ...)``: the expert
+    leaves are split over ``expert`` (``models.lm_moe_specs``), the batch
+    over ``data`` and ``expert`` jointly, the loss is ``lm_loss_fn``'s
+    (with the router's load-balance term) and ``topk`` is ``()``.  Both
+    refuse ``accum_steps > 1`` (``ep``), ``zero1`` and ``steps_per_call
+    > 1``, and take ``guard=True``.  These modes keep a
     state of blocks (``TrainTask.specs``): checkpoints hold global
     shapes, and the eval step and ``evaluate`` take the state as it is.
 
@@ -237,9 +254,10 @@ def prepare_training(
     (on a card, a graph replay first copies the state into a shadow), so
     that ``train(guard=...)`` can discard an anomalous step.  It applies
     to ``spmd="jit"`` (with or without ``zero1``, and with a
-    ``layout``), the path of the JAX ``dp.make_train_step``;
-    ``"shard_map"``, ``"fsdp"``, ``"tp"`` and ``"fsdp_tp"`` have no
-    sentinel and are refused, as the JAX trainer refuses them
+    ``layout``), ``"sp"`` and ``"ep"``, the paths of the JAX
+    ``dp.make_train_step``; ``"shard_map"``, ``"fsdp"``, ``"tp"`` and
+    ``"fsdp_tp"`` have no sentinel and are refused, as the JAX trainer
+    refuses them
     (``train(guard=...)`` still runs there on the loss alone).  The JAX version's other options
     (donation as an option, AOT) are not accepted.
     """
@@ -272,24 +290,24 @@ def prepare_training(
             "zero1=True applies to the DP paths only (spmd='jit'/'dp'/"
             f"'shard_map'); got spmd={spmd!r} — fsdp already shards the "
             "optimizer state (ZeRO-3 subsumes ZeRO-1)")
-    if spmd in ("pp", "pp_1f1b", "ep", "sp"):
+    if spmd in ("pp", "pp_1f1b"):
         raise ValueError(
             f"spmd={spmd!r} is not ported: the port trains jit/dp, "
-            "shard_map, fsdp, tp and fsdp_tp (and layouts); context, "
-            "pipeline and expert parallelism come with later slices "
-            "(ROADMAP)")
-    if spmd not in ("jit", "shard_map", "fsdp", "tp", "fsdp_tp"):
+            "shard_map, fsdp, tp, fsdp_tp, sp and ep (and layouts); "
+            "pipeline parallelism comes with a later slice (ROADMAP)")
+    if spmd not in ("jit", "shard_map", "fsdp", "tp", "fsdp_tp", "sp",
+                    "ep"):
         raise ValueError(
             f"unknown spmd mode {spmd!r}; pick one of jit (alias dp) / "
             "shard_map / fsdp / tp / fsdp_tp / pp / pp_1f1b / ep / sp")
     if spmd == "shard_map" and accum_steps != 1:
         raise ValueError("accum_steps > 1 requires spmd='jit'")
-    if guard and spmd != "jit":
+    if guard and spmd not in ("jit", "sp", "ep"):
         raise ValueError(
             f"guard=True builds the grad sentinel into the step of "
             f"dp.make_train_step, which spmd={spmd!r} does not use "
-            "(supported: jit/dp [+zero1, layouts]); the guard still runs "
-            "loss-only there: drop guard=True and pass "
+            "(supported: jit/dp [+zero1, layouts], sp, ep); the guard "
+            "still runs loss-only there: drop guard=True and pass "
             "train(guard=GuardConfig(...))")
     if layout is not None:
         mesh = mesh or layout.build_mesh(device=device)
@@ -312,6 +330,8 @@ def prepare_training(
     specs = None
     # the ranks the batch splits over: the mesh, or its batch axes
     bmesh = mesh
+    # the sharded step's expert-block and partial-loss axes (ep, sp)
+    block_axes, partial_axes = (), ()
     if layout is not None:
         if batch_size % layout.batch_shards:
             raise ValueError(
@@ -368,6 +388,41 @@ def prepare_training(
         step_fn = make_train_step_sharded(
             loss_fn, optimizer, mesh, specs, batch_axes=(DATA_AXIS,),
             seed=seed)
+    elif spmd == "sp":
+        from ..parallel import tp as tp_lib
+        from ..sharding import P
+
+        _check_sp(model, mesh)
+        bmesh = mesh.sub(DATA_AXIS)
+        partial_axes = (SEQ_AXIS,)
+        if loss_fn is None:
+            loss_fn = module_loss_fn(model, loss, bmesh)
+        state, specs = _sharded_state(  # every leaf replicated
+            model, params, mstate, optimizer, mesh,
+            lambda st: tp_lib.state_specs(st, {k: P() for k in st.params}),
+            tp=False, what=spmd)
+        step_fn = make_train_step_sharded(
+            loss_fn, optimizer, mesh, specs, batch_axes=(DATA_AXIS,),
+            tp_axis=None, partial_axes=partial_axes,
+            accum_steps=accum_steps, seed=seed, guard=guard)
+    elif spmd == "ep":
+        from ..models import lm_loss_fn, lm_moe_specs
+        from ..parallel import tp as tp_lib
+
+        _check_ep(model, mesh, accum_steps)
+        if loss_fn is None:
+            loss_fn = lm_loss_fn(model)  # the token protocol
+        topk = ()  # image metrics never apply to the LM
+        bmesh = mesh.sub((DATA_AXIS, EXPERT_AXIS))
+        block_axes = (EXPERT_AXIS,)
+        state, specs = _sharded_state(
+            model, params, mstate, optimizer, mesh,
+            lambda st: tp_lib.state_specs(st, lm_moe_specs(st.params)),
+            tp=False, what=spmd)
+        step_fn = make_train_step_sharded(
+            loss_fn, optimizer, mesh, specs,
+            batch_axes=(DATA_AXIS, EXPERT_AXIS), tp_axis=None,
+            block_axes=block_axes, seed=seed, guard=guard)
     elif spmd == "fsdp":
         from ..parallel import fsdp as fsdp_lib
 
@@ -390,6 +445,8 @@ def prepare_training(
     if specs is not None:
         eval_fn = make_eval_step_sharded(loss_fn, mesh, specs,
                                          batch_axes=bmesh.axis_names,
+                                         block_axes=block_axes,
+                                         partial_axes=partial_axes,
                                          topk=topk)
     else:
         eval_fn = make_eval_step(loss_fn, mesh, topk=topk)
@@ -447,6 +504,48 @@ def _dp_state_and_step(loss_fn, optimizer, params, mstate, mesh, *, spmd,
     return state, make_train_step(
         loss_fn, optimizer, mesh=mesh, accum_steps=accum_steps, seed=seed,
         steps_per_call=steps_per_call, guard=guard)
+
+
+def _check_sp(model, mesh) -> None:
+    """``spmd="sp"``'s mesh and model, with the JAX trainer's message
+    for a mesh without its axes."""
+    for ax in (SEQ_AXIS, DATA_AXIS):
+        if mesh is None or ax not in mesh.shape:
+            raise ValueError(
+                "spmd='sp' needs a mesh with 'data' and 'seq' axes, e.g. "
+                "make_mesh({'data': 1, 'seq': 8}), and a model built with "
+                "attn_fn=make_ring_attention(mesh, batch_axis='data', ...)")
+    attn = getattr(model, "attn_fn", None)
+    if getattr(attn, "seq_axis", None) != SEQ_AXIS:
+        raise ValueError(
+            "spmd='sp' needs a model whose attn_fn is sequence-parallel "
+            "over the 'seq' axis (parallel.make_ring_attention or "
+            f"make_ulysses_attention on the mesh); got {attn!r}")
+    if attn.mesh.shape != mesh.shape:
+        raise ValueError(f"the model's attn_fn runs on the mesh "
+                         f"{attn.mesh.shape}, the step on {mesh.shape}")
+
+
+def _check_ep(model, mesh, accum_steps: int) -> None:
+    """``spmd="ep"``'s model and mesh, with the JAX trainer's checks and
+    messages."""
+    from ..models import TransformerLM
+
+    if not isinstance(model, TransformerLM) or not model.moe_every:
+        raise ValueError(
+            "spmd='ep' needs a TransformerLM with moe_every > 0 and a "
+            "mesh-bound moe_fn (models.moe_expert_fn via ep.moe_apply)")
+    if accum_steps != 1:
+        raise ValueError("accum_steps > 1 requires spmd='jit' or 'fsdp'")
+    for ax in (EXPERT_AXIS, DATA_AXIS):
+        if mesh is None or ax not in mesh.shape:
+            raise ValueError(
+                "spmd='ep' needs a mesh with 'data' and 'expert' axes, "
+                "e.g. make_mesh({'data': 1, 'expert': 8})")
+    bound = getattr(model.moe_fn, "mesh", None)
+    if bound is not None and bound.shape != mesh.shape:
+        raise ValueError(f"the model's moe_fn runs on the mesh "
+                         f"{bound.shape}, the step on {mesh.shape}")
 
 
 def _sharded_state(model, params, mstate, optimizer, mesh,

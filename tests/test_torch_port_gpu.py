@@ -1271,6 +1271,98 @@ def test_hbm_gauges_read_the_card(cuda):
     g.close()
 
 
+def test_ring_shift_and_all_to_all_send_nothing_on_one_nccl_rank(
+        cuda, monkeypatch):
+    """On a one-rank NCCL mesh the ring shift, the all_to_all and the
+    gradient-carrying mean are the identity and ask NCCL for nothing
+    (no send to its own rank); the flash ring over one seq rank is
+    ``flash_attention``, forward and gradients bit for bit."""
+    import torch.distributed as dist
+
+    from fluxdistributed_tpu_torch.mesh import make_mesh, shutdown_distributed
+    from fluxdistributed_tpu_torch.ops import flash_attention
+    from fluxdistributed_tpu_torch.parallel.collectives import (
+        all_to_all, pmean_grad, ring_shift_start)
+    from fluxdistributed_tpu_torch.parallel.context import (
+        ring_flash_attention)
+
+    try:
+        mesh = make_mesh({"data": 1, "seq": 1}, device="cuda")
+
+        def refuse(*a, **k):
+            raise AssertionError("a one-rank group sent something")
+
+        for name in ("batch_isend_irecv", "all_to_all_single", "all_reduce"):
+            monkeypatch.setattr(dist, name, refuse)
+        x = torch.randn(4, 8, device=cuda, requires_grad=True)
+        (y,) = ring_shift_start([x], mesh, "seq").wait()
+        assert y is x
+        assert all_to_all(x, mesh, "seq", 0, 1) is x
+        assert pmean_grad(x, mesh, "seq") is x
+        g = torch.Generator().manual_seed(3)
+        q, k, v, do = (torch.randn(2, 256, 4, 64, generator=g).bfloat16()
+                       .to(cuda) for _ in range(4))
+        grads = []
+        for fn in (lambda a, b, c: ring_flash_attention(a, b, c, mesh, "seq",
+                                                       causal=True),
+                   lambda a, b, c: flash_attention(a, b, c, True)):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*leaves)
+            out.backward(do)
+            grads.append([out.detach()] + [t.grad for t in leaves])
+        for a, b in zip(*grads):
+            assert torch.equal(a, b)
+    finally:
+        monkeypatch.undo()
+        shutdown_distributed()
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_flash_attention_lse_backward_with_lse_cotangent_matches_plain(
+        cuda, dt, monkeypatch):
+    """``flash_attention_lse``'s backward with a nonzero LSE cotangent:
+    the cotangent reaches ``_backward``, folds into delta, and B2/B3
+    (one launch each) equal their plain versions fed the same inputs,
+    element by element: bf16 within 1e-5 + two bf16 ulps of each entry,
+    f32 within 1e-4."""
+    from fluxdistributed_tpu_torch.ops import flash_attention_lse
+
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn(2, 192, 4, 64, generator=g).to(dt).to(cuda)
+                   for _ in range(4))
+    gl = torch.randn(2, 4, 192, generator=g).to(cuda)
+    seen = []
+    inner = fa._backward
+
+    def recording(*args):
+        out = inner(*args)
+        seen.append((args, out))
+        return out
+
+    monkeypatch.setattr(fa, "_backward", recording)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    out, lse = flash_attention_lse(*leaves, True, 64, 64)
+    torch.autograd.backward((out, lse), (do, gl))
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == tuple(n + 1 for n in before)
+    (q_, k_, v_, o_, lse_, g_, g_lse, cfg), (dq, dk, dv) = seen[0]
+    assert torch.equal(g_lse, gl)
+    delta = ((g_.float() * o_.float()).sum(-1).permute(0, 2, 1)
+             - g_lse.float()).contiguous()
+    kw = dict(causal=True, window=None, sinks=0)
+    args = (q_, k_, v_, g_, lse_, delta)
+    refs = (fa.flash_attention_dq_reference(*args, **kw),
+            *fa.flash_attention_dkv_reference(*args, **kw))
+    atol, rtol = (1e-4, 0.0) if dt == torch.float32 else (1e-5, 1.6e-2)
+    for got, ref, leaf in zip((dq, dk, dv), refs, leaves):
+        assert torch.equal(got, leaf.grad)
+        assert torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+
+
 def test_graph_capture_failure_raises_without_fallback(cuda):
     """A step that synchronises with the host (``.item()``) runs
     eagerly, but its capture raises naming the line; no graph is kept,
