@@ -240,11 +240,25 @@ Phases, each of which raises on failure (exit code != 0, no result):
     (``router_dispatch``, the einsums, a loop over the experts);
 39. sp/ep CLI: ``--spmd sp`` and ``--spmd ep`` on one card refused with
     ``bin/driver.py``'s messages;
-40. a ``phase_seconds`` line (each phase's wall seconds), a
+40. pp train: lm_small (vocab 32000, B = 8, T = 1024, bf16, flash, adam
+    3e-4) 3 steps under the trainer's ``spmd="pp"`` (GPipe, 2
+    microbatches) on one NCCL rank ``{data: 1, pipe: 1}`` against the
+    one-device DP step, then ``make_train_step_1f1b`` at S = 2, M = 4
+    with both pipe devices in this process (``parallel.LocalPipe``):
+    1F1B, zero-bubble and interleaved (V = 6) against the GPipe run, zb
+    bit for bit against 1F1B (losses within 1e-2 relative and params
+    within 6 lr otherwise: bf16 microbatch GEMMs and gradient sums);
+    B1-B3 launches a step against the timetable's count (24/24/24,
+    96/48/48, 144/96/96, 96/48/48), device ms and peak bytes beside
+    DP's;
+41. pp CLI: ``--spmd pp --pipe 1`` for 2 cycles (B1-B3 24 a step), and
+    ``--spmd pp_1f1b --pipe 1`` refused (1F1B needs two pipe devices);
+42. a ``phase_seconds`` line (each phase's wall seconds), a
     ``{"kernels": [...]}`` line (B1-B3 with their ViT-L/16 and ViT-H/14
-    rows, launches a step beside the LM's, the sharded paths', the sp
-    and ep paths' launches a step, and the context ring's hops), then
-    the result line ``{"ok": true, "device": {...}}`` last.
+    rows, launches a step beside the LM's, the sharded paths', the sp,
+    ep and pipeline paths' launches a step, and the context ring's
+    hops), then the result line ``{"ok": true, "device": {...}}``
+    last.
 """
 
 from __future__ import annotations
@@ -3897,13 +3911,46 @@ SHARD_STEPS = 3
 SHARD_LR = 3e-4
 
 
+def _run_steps(torch, state, step, batches, merge, *, timed=True) -> dict:
+    """``step`` from ``state`` over ``batches``: the losses and the
+    params after (``merge(params)`` on the model's names, detached
+    copies).  When ``timed``, also the launches (B4, B5, B1-B3, B6) over
+    the steps, the peak allocated bytes, device ms a step (profiler
+    kernel time over 2 more steps, host work left out), wall ms a step
+    over all of them and over the steps after the first (``warm``), and
+    the device's idle share of the warm wall time, 1 - device ms / warm
+    wall ms."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    losses, marks = [], [time.perf_counter()]
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(m["loss"].item())  # waits for the step
+        marks.append(time.perf_counter())
+    out = {"losses": losses}
+    if timed:
+        launches = all_counts()
+        out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        ms = device_ms(torch, lambda: step(state, batches[0]), calls=2)
+        warm = (marks[-1] - marks[1]) / (len(batches) - 1) * 1e3
+        out.update(launches=launches, step_ms=ms,
+                   wall_ms_per_step_first3=(marks[-1] - marks[0])
+                   / len(batches) * 1e3,
+                   wall_ms_per_step_warm=warm,
+                   device_idle_share_warm=1 - ms / warm)
+    out["params"] = {k: v.detach().clone()
+                     for k, v in merge(state.params).items()}
+    return out
+
+
 def _shard_run(torch, make_model, data, opt, batches, kw, *, lm=True,
-               batch_size):
+               batch_size, timed=True):
     """``prepare_training`` of a fresh model under ``kw`` (its ``mesh``
-    a function forming it) and ``SHARD_STEPS`` steps on ``batches``:
-    losses, global params, launches (B4, B5, B1-B3, B6) over the steps,
-    peak allocated bytes and device ms a step.  The process group is
-    ended after."""
+    a function forming it) and ``SHARD_STEPS`` steps on ``batches``
+    (:func:`_run_steps`'s columns, the global params), with the shapes
+    of the first rank-local leaves.  The process group is ended
+    after."""
     from fluxdistributed_tpu_torch.mesh import shutdown_distributed
     from fluxdistributed_tpu_torch.models import lm_loss_fn
     from fluxdistributed_tpu_torch.parallel.fsdp import gather_state
@@ -3912,36 +3959,29 @@ def _shard_run(torch, make_model, data, opt, batches, kw, *, lm=True,
     kw = dict(kw)
     make_mesh = kw.pop("mesh", None)
     model = make_model()
+    # the pipeline modes train on their own next-token loss
+    own_loss = lm and kw.get("spmd") not in ("pp", "pp_1f1b")
     try:
         task = prepare_training(
             model, data, opt, batch_size=batch_size, cycles=SHARD_STEPS,
             mesh=make_mesh() if make_mesh else None,
-            loss_fn=lm_loss_fn(model) if lm else None,
+            loss_fn=lm_loss_fn(model) if own_loss else None,
             topk=() if lm else (1,), **kw)
-        state, losses = task.state, []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_all_counts()
-        t0 = time.perf_counter()
-        for b in batches:
-            state, m = task.step_fn(state, b)
-            losses.append(m["loss"].item())
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / len(batches) * 1e3
-        launches = all_counts()
-        peak = torch.cuda.max_memory_allocated()
-        ms = device_ms(torch, lambda: task.step_fn(state, batches[0]),
-                       calls=2)
-        params = (state.params if task.specs is None else gather_state(
-            state.params, task.specs.params, task.mesh))
-        shapes = (None if task.specs is None else
-                  {k: list(v.shape) for k, v in list(
-                      task.state.params.items())[:4]})
-        params = {k: v.detach().clone() for k, v in params.items()}
-        del task, state, m
-        return {"losses": losses, "params": params, "launches": launches,
-                "peak_allocated_bytes": peak, "step_ms": ms,
-                "wall_ms_per_step_first3": wall, "local_shapes": shapes}
+
+        def merge(params):
+            if task.specs is not None:
+                params = gather_state(params, task.specs.params, task.mesh)
+            if task.merge_params is not None:  # a pipeline's split tree
+                params = task.merge_params(params)
+            return params
+
+        out = _run_steps(torch, task.state, task.step_fn, batches, merge,
+                         timed=timed)
+        out["local_shapes"] = (None if task.specs is None else
+                               {k: list(v.shape) for k, v in list(
+                                   task.state.params.items())[:4]})
+        del task
+        return out
     finally:
         del model
         shutdown_distributed()
@@ -3969,6 +4009,8 @@ def _row(torch, phase, card, name, run, ref, per_step, extra=None) -> dict:
            "launches_b4_b5_b1_b2_b3_b6": run["launches"],
            "step_ms_device": run["step_ms"],
            "wall_ms_per_step_first3": run["wall_ms_per_step_first3"],
+           "wall_ms_per_step_warm": run["wall_ms_per_step_warm"],
+           "device_idle_share_warm": run["device_idle_share_warm"],
            "peak_allocated_bytes": run["peak_allocated_bytes"],
            "local_shapes_first4": run["local_shapes"]}
     emit(row)
@@ -3977,12 +4019,11 @@ def _row(torch, phase, card, name, run, ref, per_step, extra=None) -> dict:
 
 def _check_sharded(phase, name, row, depth, exact, loss_rtol=None,
                    param_atol=None):
-    """A sharded path's row: B1-B3 ``depth`` launches a step (B4, B5,
-    B6 none), and DP's result bit for bit (``exact``) or within the
-    stated limits."""
-    want = [depth] * 3
+    """A sharded path's row: B1, B2, B3 ``depth[i]`` launches a step
+    (B4, B5, B6 none), and its reference's result (DP's) bit for bit
+    (``exact``) or within the stated limits."""
     launches = row["launches_b4_b5_b1_b2_b3_b6"]
-    if (row["b1_b2_b3_launches_per_step"] != want or launches[0]
+    if (row["b1_b2_b3_launches_per_step"] != depth or launches[0]
             or launches[1] or launches[5]):
         raise RuntimeError(f"{phase} {name}: launches {launches}, want "
                            f"B1-B3 {depth} a step")
@@ -3990,8 +4031,8 @@ def _check_sharded(phase, name, row, depth, exact, loss_rtol=None,
         raise RuntimeError(f"{phase} {name}: losses {row['losses']}")
     if exact:
         if not (row["losses_equal"] and row["params_equal"]):
-            raise RuntimeError(f"{phase} {name}: not bit-equal to DP: "
-                               f"{row}")
+            raise RuntimeError(f"{phase} {name}: not bit-equal to its "
+                               f"reference: {row}")
     elif (row["loss_max_rel_err"] > loss_rtol
           or row["param_max_abs_err"] > param_atol):
         raise RuntimeError(f"{phase} {name}: loss rel err "
@@ -4047,7 +4088,7 @@ def sharded_train_phase(torch, card, keep=None):
             "dp_peak_allocated_bytes": ref["peak_allocated_bytes"]})
         if run is not ref:
             exact = name in ("fsdp", "layout_dp_fsdp_tp_1x1x1")
-            _check_sharded("sharded_train", name, row, depth, exact,
+            _check_sharded("sharded_train", name, row, [depth] * 3, exact,
                            loss_rtol=1e-2, param_atol=6 * SHARD_LR)
             out[f"lm_small_{name}"] = per
         del run
@@ -4091,7 +4132,7 @@ def sharded_vit_phase(torch, card):
                      lm=False, batch_size=VIT_B)
     per = [n // SHARD_STEPS for n in run["launches"][2:5]]
     row = _row(torch, "sharded_vit", card, "tp", run, ref, per, extra)
-    _check_sharded("sharded_vit", "tp", row, 24, False, loss_rtol=1e-2,
+    _check_sharded("sharded_vit", "tp", row, [24] * 3, False, loss_rtol=1e-2,
                    param_atol=6e-3)
     del run, ref, batches
     torch.cuda.empty_cache()
@@ -4381,7 +4422,8 @@ def sp_train_phase(torch, card, dp_flash=None):
                  - ref["peak_allocated_bytes"]}
         per = [n // SHARD_STEPS for n in run["launches"][2:5]]
         row = _row(torch, "sp_train", card, name, run, ref, per, extra)
-        _check_sharded("sp_train", name, row, per_step, exact=True)
+        _check_sharded("sp_train", name, row, [per_step] * 3,
+                       exact=True)
         out[f"lm_small_sp_{name}"] = per
         del run, ref
         torch.cuda.empty_cache()
@@ -4503,7 +4545,7 @@ def ep_train_phase(torch, card):
              "layer_aux": aux.item(), "golden_aux": want_aux.item(),
              "layer_min_top1_top2_margin": margin}
     row = _row(torch, "ep_train", card, "ep", run, ref, per, extra)
-    _check_sharded("ep_train", "ep", row, 12, exact=True)
+    _check_sharded("ep_train", "ep", row, [12] * 3, exact=True)
     if not layer_err <= layer_tol or aux.item() != want_aux.item():
         raise RuntimeError(f"ep_train: the MoE layer against its golden: "
                            f"err {layer_err} (limit {layer_tol}), aux "
@@ -4533,6 +4575,263 @@ def sp_ep_cli_phase(torch):
         else:
             raise RuntimeError(f"sp_ep_cli {extra}: not refused")
     emit({"phase": "sp_ep_cli_refusals", "refusals": refusals})
+
+
+# ------------------------------------------------ pipeline parallelism
+
+PP_S, PP_M = 2, 4  # the local exchange's pipe devices and microbatches
+# B1-B3 launches a step the timetables give lm_small (12 blocks, B = 8):
+# GPipe at S = 1, M = 2 runs each block forward and backward once a
+# microbatch; 1F1B adds the B tick's recompute of each stage forward;
+# zb a second recompute and backward at the W tick
+PP_EXPECTED = {"gpipe_s1_m2": [24, 24, 24], "1f1b_s2_m4": [96, 48, 48],
+               "zb_s2_m4": [144, 96, 96],
+               "interleaved_v6_s2_m4": [96, 48, 48]}
+
+
+# A probe step descends at this rate, a power of two, so that (p0 - p1)
+# / rate is the step's gradient to f32 rounding, on the model's names
+PROBE_LR = 1024.0
+# The pipelines against DP (GPipe) and against GPipe (1F1B, interleaved):
+# losses over the 3 steps, and the probe step's gradient, as the largest
+# relative norm of a leaf's difference.  On an H100 the losses read
+# 7.2e-6 and 4.7e-6 (PERF.md has the gradients').  A dropped microbatch
+# reads far above PP_GRAD_RTOL and a doubled cotangent reads 1; the phase
+# measures the first and fails if it does not exceed the limit.
+PP_LOSS_RTOL = 1e-4
+PP_GRAD_RTOL = 5e-2
+
+
+def _worst_leaf_rel_err(torch, grads, ref) -> float:
+    """The largest ``||grads[k] - ref[k]|| / ||ref[k]||`` over leaves."""
+    return max(((grads[k].float() - r.float()).norm()
+                / r.float().norm().clamp_min(1e-30)).item()
+               for k, r in ref.items())
+
+
+def _probe_grads(p1, p0) -> dict:
+    """A probe step's gradient from its params before and after."""
+    return {k: (p0[k].float() - v.float()) / PROBE_LR
+            for k, v in p1.items()}
+
+
+def _microbatch_faults(torch, make_model, tokens, counts) -> dict:
+    """What the gradient check reads for a dropped microbatch: for each
+    M in ``counts``, the DP loss's gradient (autograd through
+    ``lm_loss_fn``) on ``M`` equal row slices of ``tokens``, summed over
+    all M and over the first M - 1, each over M; the worst leaf's
+    relative error of the second against the first."""
+    from fluxdistributed_tpu_torch.models import lm_loss_fn
+
+    model = make_model()
+    fn = lm_loss_fn(model)
+    params = {k: p.detach().requires_grad_(True)
+              for k, p in model.named_parameters()}
+    out = {}
+    for M in counts:
+        whole = drop = None
+        for i, rows in enumerate(tokens.chunk(M)):
+            loss, _ = fn(params, {}, {"tokens": rows}, True)
+            g = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+            whole = g if whole is None else {
+                k: whole[k] + v for k, v in g.items()}
+            if i < M - 1:
+                drop = g if drop is None else {
+                    k: drop[k] + v for k, v in g.items()}
+        out[f"m{M}_dropped_microbatch"] = _worst_leaf_rel_err(
+            torch, drop, whole)
+        del whole, drop
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pp_local_run(torch, batches, schedule, interleave, opt=None,
+                  timed=True):
+    """lm_small (flash, bf16; ``opt``, adam 3e-4 by default) over
+    ``batches`` through ``make_train_step_1f1b`` with all ``PP_S`` pipe
+    devices in this process (``parallel.LocalPipe``):
+    :func:`_run_steps`'s columns, params on the model's names."""
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import lm_pp_1f1b, lm_small
+    from fluxdistributed_tpu_torch.models.transformer_lm import (
+        pp_merge_params)
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.parallel import (LocalPipe, TrainState,
+                                                    make_train_step_1f1b)
+
+    model = lm_small(vocab=32000, attn_fn=attention_core("flash"), seed=0)
+    pipe, opt = LocalPipe(PP_S), opt or optim.adam(SHARD_LR)
+    w = lm_pp_1f1b(model, pipe, interleave=interleave)
+    state = TrainState.create(w.split_params(dict(model.named_parameters())),
+                              opt)
+    step = make_train_step_1f1b(*w.fns, opt, pipe, num_microbatches=PP_M,
+                                interleave=w.interleave, schedule=schedule)
+    try:
+        return {**_run_steps(torch, state, step, batches, pp_merge_params(
+            model, PP_S, interleave=interleave), timed=timed),
+                "local_shapes": None}
+    finally:
+        del model, state, step, w
+        torch.cuda.empty_cache()
+
+
+def pp_train_phase(torch, card, dp_flash=None):
+    """lm_small (vocab 32000, B = 8, T = 1024, bf16, flash, adam 3e-4,
+    dropout 0) 3 steps from one seed and the same batches: the trainer's
+    ``spmd="pp"`` (GPipe, M = 2) on one NCCL rank ``{data: 1, pipe: 1}``
+    against the one-device DP step (``dp_flash``, the sharded phase's
+    run; run here when not given), then 1F1B, zb and the interleaved
+    placement (V = 6) at S = 2, M = 4 over the local exchange against
+    the GPipe run, zb against 1F1B bit for bit.  Each path also takes
+    one probe step (descent at ``PROBE_LR``) on the first batch, whose
+    gradient is held against DP's probe step's within ``PP_GRAD_RTOL``
+    (zb's bit for bit against 1F1B's).  GPipe and 1F1B are not bit-equal
+    to DP: the microbatches' half- and quarter-batch GEMMs and the
+    gradient sums over them round apart in bf16, so losses within
+    ``PP_LOSS_RTOL`` and, after 3 steps, params within 6 lr (Adam moves
+    an element about lr a step: a cap, not a fault detector).  Returns
+    B1-B3's launches a step of each path."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.mesh import make_mesh
+    from fluxdistributed_tpu_torch.models import lm_small
+    from fluxdistributed_tpu_torch.ops import attention_core
+
+    batches = [{"tokens": torch.from_numpy(np.random.default_rng(s).integers(
+        0, 32000, (B, T_TRAIN)).astype(np.int64)).cuda()}
+        for s in range(SHARD_STEPS)]
+
+    def make_model():
+        return lm_small(vocab=32000, attn_fn=attention_core("flash"), seed=0)
+
+    def trainer_run(kw, opt, steps, timed=True):
+        return _shard_run(torch, make_model, _TokenBank(32000, T_TRAIN),
+                          opt, steps, kw, batch_size=B, timed=timed)
+
+    gpipe_kw = {"spmd": "pp", "num_microbatches": 2,
+                "mesh": lambda: make_mesh({"data": 1, "pipe": 1},
+                                          device="cuda")}
+    p0 = {k: p.detach().clone() for k, p in make_model().named_parameters()}
+    probe = optim.descent(PROBE_LR)
+    dp_grads = _probe_grads(trainer_run({}, probe, batches[:1], False)[
+        "params"], p0)
+    faults = _microbatch_faults(torch, make_model, batches[0]["tokens"],
+                                (2, PP_M))
+    emit({"phase": "pp_train_grad_limits", "card": card,
+          "grad_rtol": PP_GRAD_RTOL, "loss_rtol": PP_LOSS_RTOL,
+          "fault_readings": faults, "doubled_cotangent_reads": 1.0})
+    if min(faults.values()) <= PP_GRAD_RTOL:
+        raise RuntimeError(f"pp_train: a dropped microbatch reads "
+                           f"{faults}, inside the limit {PP_GRAD_RTOL}")
+
+    def grad_err(grads):
+        return _worst_leaf_rel_err(torch, grads, dp_grads)
+
+    ref = dp_flash or trainer_run({}, optim.adam(SHARD_LR), batches)
+    extra = {"model": "lm_small", "vocab": 32000, "batch": B,
+             "seqlen": T_TRAIN, "dtype": "bfloat16", "opt": "adam 3e-4",
+             "dp_step_ms_device": ref["step_ms"],
+             "dp_wall_ms_per_step_warm": ref["wall_ms_per_step_warm"],
+             "dp_peak_allocated_bytes": ref["peak_allocated_bytes"],
+             "note": "one card and one process: no collective crosses a "
+                     "card, so no bubble or NCCL time; step_ms_device is "
+                     "the kernels' time, host work left out, which the "
+                     "warm wall time and the idle share hold"}
+    out = {}
+    gpipe = trainer_run(gpipe_kw, optim.adam(SHARD_LR), batches)
+    gpipe_grads = _probe_grads(trainer_run(gpipe_kw, probe, batches[:1],
+                                           False)["params"], p0)
+    per = [n // SHARD_STEPS for n in gpipe["launches"][2:5]]
+    row = _row(torch, "pp_train", card, "gpipe_s1_m2", gpipe, ref, per, {
+        **extra, "against": "dp", "mesh": {"data": 1, "pipe": 1},
+        "microbatches": 2,
+        "probe_grad_worst_leaf_rel_err_vs_dp": grad_err(gpipe_grads)})
+    _check_sharded("pp_train", "gpipe_s1_m2", row,
+                   PP_EXPECTED["gpipe_s1_m2"], exact=False,
+                   loss_rtol=PP_LOSS_RTOL, param_atol=6 * SHARD_LR)
+    checked = [("gpipe_s1_m2", row)]
+    out["gpipe_s1_m2"] = per
+    del gpipe_grads
+    f1b = f1b_grads = None
+    for name, schedule, inter in (
+            ("1f1b_s2_m4", "1f1b", False), ("zb_s2_m4", "zb", False),
+            ("interleaved_v6_s2_m4", "1f1b", True)):
+        run = _pp_local_run(torch, batches, schedule, inter)
+        grads = _probe_grads(_pp_local_run(torch, batches[:1], schedule,
+                                           inter, probe, False)["params"],
+                             p0)
+        per = [n // SHARD_STEPS for n in run["launches"][2:5]]
+        zb = name == "zb_s2_m4"
+        against = f1b if zb else gpipe
+        row = _row(torch, "pp_train", card, name, run, against, per, {
+            **extra, "against": "1f1b_s2_m4" if zb else "gpipe_s1_m2",
+            "pipe_devices": PP_S, "microbatches": PP_M,
+            "exchange": "local", "gpipe_step_ms_device": gpipe["step_ms"],
+            "peak_over_dp_bytes": run["peak_allocated_bytes"]
+            - ref["peak_allocated_bytes"],
+            "probe_grad_worst_leaf_rel_err_vs_dp": grad_err(grads),
+            **({"probe_grads_equal_1f1b": all(
+                torch.equal(grads[k], v) for k, v in f1b_grads.items())}
+               if zb else {})})
+        _check_sharded("pp_train", name, row, PP_EXPECTED[name], exact=zb,
+                       loss_rtol=PP_LOSS_RTOL, param_atol=6 * SHARD_LR)
+        if zb and not row["probe_grads_equal_1f1b"]:
+            raise RuntimeError(f"pp_train {name}: probe gradients not "
+                               f"bit-equal to 1F1B's: {row}")
+        checked.append((name, row))
+        out[name] = per
+        if name == "1f1b_s2_m4":
+            f1b, f1b_grads = run, grads
+        else:
+            del run, grads
+    for name, row in checked:
+        if row["probe_grad_worst_leaf_rel_err_vs_dp"] > PP_GRAD_RTOL:
+            raise RuntimeError(
+                f"pp_train {name}: probe gradient off DP's by "
+                f"{row['probe_grad_worst_leaf_rel_err_vs_dp']} (limit "
+                f"{PP_GRAD_RTOL}): {row}")
+    del gpipe, f1b, f1b_grads, ref, dp_grads, p0
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_cli_phase(torch):
+    """``python -m fluxdistributed_tpu_torch.train ... --spmd pp --pipe
+    1`` in-process, 2 cycles, B1-B3 launching 24 a step (12 blocks x 2
+    microbatches); ``--spmd pp_1f1b --pipe 1`` refused (1F1B needs two
+    pipe devices)."""
+    from fluxdistributed_tpu_torch.train.__main__ import run
+
+    argv = list(SHARD_CLI)
+    argv[argv.index("--cycles") + 1] = "2"
+    reset_all_counts()
+    t0 = time.perf_counter()
+    task = run(argv + ["--spmd", "pp", "--pipe", "1"])
+    torch.cuda.synchronize()
+    launches = all_counts()
+    row = {"phase": "pp_cli", "argv_extra": ["--spmd", "pp", "--pipe", "1"],
+           "steps": task.state.step, "losses": task.losses,
+           "mesh": task.mesh.shape, "wall_s": time.perf_counter() - t0,
+           "launches_b4_b5_b1_b2_b3_b6": launches}
+    emit(row)
+    if (task.mesh.shape != {"data": 1, "pipe": 1} or len(task.losses) != 2
+            or not all(math.isfinite(x) for x in task.losses)
+            or launches != [0, 0, 48, 48, 48, 0]):
+        raise RuntimeError(f"pp_cli: {row}")
+    del task
+    torch.cuda.empty_cache()
+    try:
+        run(argv + ["--spmd", "pp_1f1b", "--pipe", "1"])
+    except SystemExit as e:
+        if "1F1B needs >= 2 pipeline stages" not in str(e):
+            raise RuntimeError(f"pp_cli pp_1f1b: refused with {e}")
+        emit({"phase": "pp_cli_refusal", "refusal": str(e)})
+    else:
+        raise RuntimeError("pp_cli: --spmd pp_1f1b --pipe 1 not refused")
+    return [n // 2 for n in launches[2:5]]
 
 
 def main() -> int:
@@ -4663,9 +4962,12 @@ def main() -> int:
                     flush, cardname)
     del flush
     sp_ep = timed("sp_train", sp_train_phase, torch, cardname,
-                  kept.pop("dp_flash"))
+                  kept["dp_flash"])
     sp_ep.update(timed("ep_train", ep_train_phase, torch, cardname))
     timed("sp_ep_cli", sp_ep_cli_phase, torch)
+    pp = timed("pp_train", pp_train_phase, torch, cardname,
+               kept.pop("dp_flash"))
+    pp["cli_gpipe_s1_m2"] = timed("pp_cli", pp_cli_phase, torch)
     emit({"phase": "phase_seconds", "seconds": seconds,
           "total": sum(seconds.values())})
 
@@ -4718,6 +5020,8 @@ def main() -> int:
                    path: per[i] for path, per in sharded.items()},
                sp_ep_launches_per_step={
                    path: per[i] for path, per in sp_ep.items()},
+               pp_launches_per_step={
+                   path: per[i] for path, per in pp.items()},
                context_ring=ctx_entry(ctx_row))
           for i, ((name, replaces, via), n, row, vrow, vn, hrow, hn)
           in enumerate(zip(

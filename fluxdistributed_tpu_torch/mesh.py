@@ -55,7 +55,7 @@ FSDP_AXIS = "fsdp"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"  # context parallelism (parallel/context.py)
 EXPERT_AXIS = "expert"  # MoE expert parallelism (parallel/ep.py)
-PIPE_AXIS = "pipe"  # pipeline stages (not ported yet)
+PIPE_AXIS = "pipe"  # pipeline stages (parallel/pp.py, parallel/pp_1f1b.py)
 
 _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
@@ -209,8 +209,9 @@ def make_mesh(axes: Mapping[str, int], device: DeviceLike = None) -> Mesh:
     number of ranks.  Rank ``r`` sits at the row-major coordinates of
     ``r`` (the last axis fastest), where the JAX package's ``make_mesh``
     puts device ``r`` (``np.array(devs).reshape(shape)``): on
-    ``{"data": 2, "seq": 2}`` or ``{"data": 2, "expert": 2}`` ranks 0
-    and 1 share data row 0.  Every tuple
+    ``{"data": 2, "seq": 2}``, ``{"data": 2, "expert": 2}`` or
+    ``{"data": 2, "pipe": 2}`` ranks 0 and 1 share data row 0 (and on
+    a pipe axis the rank at pipe index *s* hosts stage *s*).  Every tuple
     of axes gets its process group, formed on every rank in one order
     (``dist.new_group``); a group that holds every rank is the default
     group itself.  The backend is the default group's (NCCL for the

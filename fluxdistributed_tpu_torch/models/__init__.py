@@ -7,7 +7,8 @@ from .common import LayerNorm, maybe_remat
 from .convnext import (ConvNeXt, ConvNeXtBlock, convnext_base,
                        convnext_large, convnext_small, convnext_test,
                        convnext_tiny, convnext_xlarge)
-from .from_jax import (flax_to_state_dict, flax_vit_to_state_dict,
+from .from_jax import (flax_split_to_state_dict, flax_to_state_dict,
+                       flax_vit_to_state_dict,
                        load_flax_convnext, load_flax_params, load_flax_resnet,
                        load_flax_simple, load_flax_vit)
 from .norm import BatchNorm, BatchStats
@@ -16,9 +17,10 @@ from .resnet import (BasicBlock, BottleneckBlock, ResNet, resnet18, resnet34,
                      space_to_depth)
 from .simple import MLP, SimpleCNN
 from .transformer_lm import (KV_QUANTS, VALID_UNGATED, DecodeCache,
-                             MoEDecoderBlock, PagedCache, TransformerLM,
-                             dequantize_kv, generate, lm_loss_fn, lm_medium,
-                             lm_moe_specs, lm_small, lm_tiny,
+                             LMPipelineWiring, MoEDecoderBlock, PagedCache,
+                             TransformerLM, dequantize_kv, generate,
+                             lm_loss_fn, lm_medium, lm_moe_specs, lm_pp,
+                             lm_pp_1f1b, lm_small, lm_tiny,
                              make_decode_cache, make_paged_cache,
                              moe_expert_fn, next_token_loss, quantize_kv,
                              rope)
@@ -28,13 +30,16 @@ from .vit import (EncoderBlock, MlpBlock, MultiHeadAttention, ViT, vit_b16,
 __all__ = [
     "KV_QUANTS", "MLP", "VALID_UNGATED", "BasicBlock", "BatchNorm",
     "BatchStats", "BottleneckBlock", "ConvNeXt", "ConvNeXtBlock",
-    "DecodeCache", "EncoderBlock", "LayerNorm", "MlpBlock",
+    "DecodeCache", "EncoderBlock", "LMPipelineWiring", "LayerNorm",
+    "MlpBlock",
     "MoEDecoderBlock", "MultiHeadAttention", "PagedCache", "ResNet", "SimpleCNN",
     "TransformerLM", "ViT", "convnext_base", "convnext_large",
     "convnext_small", "convnext_test", "convnext_tiny", "convnext_xlarge",
-    "dequantize_kv", "flax_to_state_dict", "flax_vit_to_state_dict",
+    "dequantize_kv", "flax_split_to_state_dict", "flax_to_state_dict",
+    "flax_vit_to_state_dict",
     "generate", "lm_loss_fn",
-    "lm_medium", "lm_moe_specs", "lm_small", "lm_tiny",
+    "lm_medium", "lm_moe_specs", "lm_pp", "lm_pp_1f1b", "lm_small",
+    "lm_tiny",
     "load_flax_convnext", "load_flax_params", "load_flax_resnet",
     "load_flax_simple", "load_flax_vit", "make_decode_cache",
     "make_paged_cache", "maybe_remat", "moe_expert_fn",

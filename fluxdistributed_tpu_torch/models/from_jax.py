@@ -22,6 +22,13 @@ place.  The mapping, flax → port:
   experts ``[r E/S, (r + 1) E/S)`` that the rank at expert index ``r``
   of ``S`` holds.
 
+``flax_split_to_state_dict(split)`` maps a pipelined LM's JAX split
+tree ``{"outer": ..., "stages": ...}`` (``lm_pp``'s ``split_params``;
+each stage leaf stacked ``(S, ...)`` or ``(S, V, ...)``) onto the port's
+flat split tree: ``outer/<name>`` for the outer leaves and
+``stages/<name>`` for one block's leaves under the port's names, stacked
+the same way.
+
 A flax kernel [in..., out...] becomes a torch ``Linear`` weight
 [out, in] after flattening.  Every port parameter must be filled and
 every flax leaf used; anything else raises.
@@ -62,7 +69,8 @@ import torch
 
 from .transformer_lm import TransformerLM
 
-__all__ = ["flax_to_state_dict", "flax_vit_to_state_dict",
+__all__ = ["flax_split_to_state_dict", "flax_to_state_dict",
+           "flax_vit_to_state_dict",
            "load_flax_convnext", "load_flax_params", "load_flax_resnet",
            "load_flax_simple", "load_flax_vit"]
 
@@ -141,6 +149,34 @@ def flax_to_state_dict(params: dict, experts=None) -> Dict[str, np.ndarray]:
         else:
             raise KeyError(f"unknown flax param {name}")
     return out
+
+
+def flax_split_to_state_dict(split: dict) -> Dict[str, np.ndarray]:
+    """The port's flat split tree (``outer/``, ``stages/`` names, see
+    the module docstring) of a JAX ``{"outer", "stages"}`` tree of numpy
+    leaves."""
+    out = {f"outer/{k}": v
+           for k, v in flax_to_state_dict(split["outer"]).items()}
+    stages = split["stages"]
+    # the stacked dims: those in front of a block norm's [d] scale
+    norm = next(v for k, v in stages.items() if k.endswith("Norm_0"))
+    dims = np.asarray(norm["scale"]).shape[:-1]
+    per = []
+    for idx in np.ndindex(*dims):
+        block = _index(stages, idx)
+        per.append({k[len("blocks.0."):]: a for k, a in
+                    flax_to_state_dict({"block0": block}).items()})
+    for k in per[0]:
+        out[f"stages/{k}"] = np.stack([p[k] for p in per]).reshape(
+            dims + per[0][k].shape)
+    return out
+
+
+def _index(tree, idx):
+    """Every leaf of a tree of nested dicts at ``idx``."""
+    if isinstance(tree, dict):
+        return {k: _index(v, idx) for k, v in tree.items()}
+    return np.asarray(tree)[idx]
 
 
 @torch.no_grad()

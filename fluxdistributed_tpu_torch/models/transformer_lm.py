@@ -65,14 +65,14 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from functools import partial
-from typing import Callable, List, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..mesh import EXPERT_AXIS
+from ..mesh import EXPERT_AXIS, PIPE_AXIS
 from ..ops.attention import dot_product_attention, validate_window
 from ..ops.flash_decode import flash_decode, flash_decode_paged
 from .common import _dropout, dense, maybe_remat, site_keys
@@ -980,6 +980,295 @@ def lm_loss_fn(model: TransformerLM) -> Callable:
         return loss, (model_state, logits)
 
     return fn
+
+
+def _validate_pp_boundaries(boundaries, S: int, depth: int, what: str):
+    """Planner boundaries sanity: S+1 monotone cut points covering the
+    whole stack with >= 1 block per stage.  Returns them as a tuple."""
+    b = tuple(int(x) for x in boundaries)
+    if len(b) != S + 1:
+        raise ValueError(
+            f"{what}: boundaries needs S+1 = {S + 1} cut points for the "
+            f"{S}-stage pipe axis, got {len(b)} ({list(b)})")
+    if b[0] != 0 or b[-1] != depth:
+        raise ValueError(
+            f"{what}: boundaries must span the whole stack "
+            f"(0 .. depth={depth}), got {list(b)}")
+    if any(b[s + 1] <= b[s] for s in range(S)):
+        raise ValueError(
+            f"{what}: every stage needs >= 1 block (strictly increasing "
+            f"boundaries), got {list(b)}")
+    return b
+
+
+def _is_local_pipe(mesh) -> bool:
+    from ..parallel.pp_1f1b import LocalPipe
+
+    return isinstance(mesh, LocalPipe)
+
+
+def _pipe_size(mesh, pipe_axis: str) -> int:
+    """The number of pipe devices of a mesh or a ``LocalPipe``."""
+    return mesh.S if _is_local_pipe(mesh) else mesh.axis_size(pipe_axis)
+
+
+def _pp_validate_and_stage(model: "TransformerLM", mesh, pipe_axis: str,
+                           what: str, blocked: bool = True,
+                           boundaries=None):
+    """Shared ``lm_pp``/``lm_pp_1f1b`` front half: check the model can
+    be pipelined and build the stage callable.  Returns ``(S, V,
+    stage_fn)``: V blocks a pipe device (``max(counts)`` under planner
+    ``boundaries``, run by a counts-aware ``chunk_stages``).
+    ``blocked=True`` wraps V > 1 blocks into one ``chunk_stages`` stage
+    (GPipe, plain 1F1B); ``blocked=False`` returns the one-block stage
+    for the interleaved schedule.  A stage is the model's
+    :class:`DecoderBlock` (with its ``attn_fn``) applied to one block's
+    params through ``torch.func.functional_call``."""
+    from torch.func import functional_call
+
+    from ..parallel.pp import chunk_stages
+
+    if not model.use_rope:
+        raise ValueError(f"{what} needs use_rope=True (a positional table "
+                         "would have to enter mid-pipeline)")
+    if model.dropout:
+        raise ValueError(f"{what} supports dropout=0 only (no rng stream "
+                         "threads through the pipeline schedule)")
+    if model.moe_every:
+        raise ValueError(
+            f"{what} does not support moe_every > 0: MoE and dense blocks "
+            "have different param trees, so blocks cannot stack as "
+            "homogeneous pipe stages")
+    S = _pipe_size(mesh, pipe_axis)
+    counts = None
+    if boundaries is not None:
+        if not blocked:
+            raise ValueError(
+                f"{what}: planner boundaries use the blocked chunk "
+                "layout and cannot combine with interleave=True (the "
+                "round-robin placement has no contiguous stage ranges)")
+        boundaries = _validate_pp_boundaries(boundaries, S, model.depth,
+                                             what)
+        counts = [boundaries[s + 1] - boundaries[s] for s in range(S)]
+        V = max(counts)
+    else:
+        if model.depth % S:
+            raise ValueError(
+                f"model.depth ({model.depth}) must be a multiple of the "
+                f"'{pipe_axis}' axis size ({S}) — or pass a pp plan, "
+                "whose non-uniform boundaries lift the divisibility "
+                "requirement")
+        V = model.depth // S
+    blk, dt = model.blocks[0], model.dtype
+
+    def base_fn(p, x):
+        return functional_call(blk, p, (x, dt))
+
+    if counts is not None and V > 1 and any(c != V for c in counts):
+        return S, V, chunk_stages(base_fn, counts=counts)
+    return S, V, (base_fn if V == 1 or not blocked else chunk_stages(base_fn))
+
+
+def _pp_split_params(model: "TransformerLM", mesh, pipe_axis: str, S: int,
+                     V: int, placement: str = "blocked", boundaries=None):
+    """Shared splitter: the model's params (by name, global) -> the flat
+    split tree: ``outer/<name>`` for the embedding, the final norm and
+    the head, ``stages/<name>`` for one block's params (the
+    ``blocks.{i}.`` prefix dropped) stacked ``(S, ...)``, or ``(S, V,
+    ...)`` when V > 1.  On a process-group mesh the stage leaves are
+    this rank's block (leading dim 1); a ``LocalPipe`` keeps all S.
+
+    ``placement`` puts block ``s V + c`` (``"blocked"``, the
+    ``chunk_stages`` layout GPipe and plain 1F1B share) or block ``c S +
+    s`` (``"interleaved"``) at ``[s, c]``.  Planner ``boundaries`` take
+    the plan's contiguous ranges instead, devices with fewer than ``V =
+    max(counts)`` blocks padded with zero blocks that are never run."""
+    from ..parallel.pp import join_tree, stack_stage_params
+
+    def stack(trees):
+        return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+    def split_params(params):
+        blocks = [{} for _ in range(model.depth)]
+        outer = {}
+        for k, v in params.items():
+            v = v.detach()
+            if k.startswith("blocks."):
+                i, name = k[len("blocks."):].split(".", 1)
+                blocks[int(i)][name] = v
+            else:
+                outer[k] = v
+        if boundaries is not None:
+            groups = [blocks[boundaries[s]:boundaries[s + 1]]
+                      for s in range(S)]
+            if V > 1:
+                pad = {k: torch.zeros_like(v) for k, v in blocks[0].items()}
+                stages = [stack(g + [pad] * (V - len(g))) for g in groups]
+            else:
+                stages = [g[0] for g in groups]
+        elif V > 1:
+            if placement == "interleaved":
+                groups = [[blocks[c * S + s] for c in range(V)]
+                          for s in range(S)]
+            else:
+                groups = [blocks[s * V:(s + 1) * V] for s in range(S)]
+            stages = [stack(g) for g in groups]
+        else:
+            stages = blocks
+        if _is_local_pipe(mesh):  # it holds every stage
+            stacked = stack(stages)
+        else:
+            stacked = stack_stage_params(stages, mesh, pipe_axis)
+        return join_tree(outer, stacked)
+
+    return split_params
+
+
+def pp_merge_params(model: "TransformerLM", S: int, interleave: bool = False,
+                    boundaries=None) -> Callable:
+    """The inverse of the wirings' ``split_params`` on global shapes:
+    ``merge(flat)`` maps a gathered split tree (``outer/``, ``stages/``
+    leaves ``(S, ...)`` or ``(S, V, ...)``) back onto the model's
+    parameter names, the padded chunks of a planned split dropped."""
+    from ..parallel.pp import split_tree
+
+    bounds = (tuple(boundaries) if boundaries is not None else
+              tuple(range(0, model.depth + 1, model.depth // S)))
+    counts = [bounds[s + 1] - bounds[s] for s in range(S)]
+    V = max(counts)
+
+    def merge(flat):
+        outer, stages = split_tree(flat)
+        out = dict(outer)
+        for name, v in stages.items():
+            for s in range(S):
+                for c in range(counts[s]):
+                    i = c * S + s if interleave else bounds[s] + c
+                    out[f"blocks.{i}.{name}"] = v[s][c] if V > 1 else v[s]
+        return out
+
+    return merge
+
+
+def _pp_embed(model: "TransformerLM", outer: dict,
+              tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, outer["embed.weight"].to(model.dtype))
+
+
+def _pp_logits(model: "TransformerLM", outer: dict,
+               x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the logits (f32) from the outer leaves."""
+    from torch.func import functional_call
+
+    dt = model.dtype
+    ln = {k[len("final_ln."):]: v for k, v in outer.items()
+          if k.startswith("final_ln.")}
+    x = functional_call(model.final_ln, ln, (x, dt))
+    if model.tie_embeddings:
+        logits = x @ outer["embed.weight"].to(dt).t()
+    else:
+        logits = F.linear(x, outer["head.weight"].to(dt),
+                          outer["head.bias"].to(dt))
+    return logits.float()
+
+
+def lm_pp(model: TransformerLM, mesh, pipe_axis: str = PIPE_AXIS,
+          batch_axis: Optional[str] = None,
+          num_microbatches: Optional[int] = None, remat: bool = False,
+          boundaries=None):
+    """Pipeline-parallelize the LM on the GPipe schedule: block *i* of
+    each pipe device's range is a stage of ``parallel.pp.pipeline_apply``,
+    and the embedding, the final norm and the (tied) logits run outside
+    the pipelined middle, on every pipe rank.
+
+    Returns ``(split_params, loss_fn, state_specs)``:
+
+    * ``split_params(params)`` maps the model's params (by name) to the
+      flat split tree (``outer/``, ``stages/``), this rank's block of the
+      stages;
+    * ``loss_fn`` has the framework loss signature on that tree;
+    * ``state_specs(state)`` is the ``TrainState`` of specs (stages on
+      ``pipe_axis``, outer replicated), the state's ``TrainTask.specs``.
+
+    ``batch_axis`` composes data parallelism on a ``(data, pipe)`` mesh.
+    Needs ``use_rope`` and ``dropout == 0``, and no MoE.  ``boundaries``
+    (a planner's S+1 cut points, ``parallel.pp_plan``) replaces the
+    uniform split by the plan's non-uniform ranges and lifts ``depth %
+    S == 0``."""
+    from ..parallel.pp import pipeline_apply, split_tree
+    from ..parallel.pp_1f1b import split_state_specs
+
+    S, V, stage_fn = _pp_validate_and_stage(model, mesh, pipe_axis, "lm_pp",
+                                            boundaries=boundaries)
+    fwd = pipeline_apply(stage_fn, mesh, axis=pipe_axis,
+                         num_microbatches=num_microbatches,
+                         batch_axis=batch_axis, remat=remat)
+    split_params = _pp_split_params(model, mesh, pipe_axis, S, V,
+                                    boundaries=boundaries)
+
+    def loss_fn(params, model_state, batch, train: bool, rng=None):
+        outer, stages = split_tree(params)
+        tokens = batch["tokens"]
+        x = fwd(stages, _pp_embed(model, outer, tokens))
+        logits = _pp_logits(model, outer, x)
+        return next_token_loss(logits, tokens, batch.get("mask")), (
+            model_state, logits)
+
+    return split_params, loss_fn, split_state_specs(pipe_axis)
+
+
+class LMPipelineWiring(NamedTuple):
+    """Everything ``parallel.pp_1f1b.make_train_step_1f1b`` needs, with
+    the interleave factor (1 for the blocked placement, whose V blocks a
+    device ride inside ``chunk_stages``)::
+
+        w = lm_pp_1f1b(model, mesh, interleave=True)
+        step = make_train_step_1f1b(*w.fns, opt, mesh,
+                                    interleave=w.interleave, ...)
+        state = TrainState.create(w.split_params(params), opt)
+    """
+
+    split_params: Callable
+    fns: tuple  # (stage_fn, embed_fn, head_fn)
+    state_specs: Callable
+    interleave: int = 1
+
+
+def lm_pp_1f1b(model: TransformerLM, mesh, pipe_axis: str = PIPE_AXIS,
+               interleave: bool = False, boundaries=None) -> LMPipelineWiring:
+    """Pipeline-parallelize the LM on the hand-scheduled 1F1B schedule
+    (``parallel.pp_1f1b``): the same stages and, for the blocked
+    placement, the same split tree as :func:`lm_pp`, so checkpoints move
+    between the two schedules.  The embedding runs at logical stage 0
+    and the final norm, logits and each microbatch's loss at the last
+    one, inside the schedule; their gradients are summed over the pipe,
+    which sums a tied embedding's two parts.
+
+    ``interleave=True`` takes the Megatron interleaved placement (device
+    *i* hosts blocks ``c S + i``; its split tree differs from the
+    blocked one).  ``mesh`` is a process-group mesh or a
+    ``parallel.LocalPipe``.  ``lm_pp``'s constraints hold, the batch
+    carries no ``mask`` (the per-microbatch loss reads tokens only), and
+    ``boundaries`` cannot combine with ``interleave``."""
+    from ..parallel.pp_1f1b import split_state_specs
+
+    S, V, stage_fn = _pp_validate_and_stage(
+        model, mesh, pipe_axis, "lm_pp_1f1b", blocked=not interleave,
+        boundaries=boundaries)
+
+    def embed_fn(outer, tokens_mb):
+        return _pp_embed(model, outer, tokens_mb)
+
+    def head_fn(outer, y, tokens_mb):
+        return next_token_loss(_pp_logits(model, outer, y), tokens_mb)
+
+    return LMPipelineWiring(
+        _pp_split_params(model, mesh, pipe_axis, S, V,
+                         placement="interleaved" if interleave else "blocked",
+                         boundaries=boundaries),
+        (stage_fn, embed_fn, head_fn),
+        split_state_specs(pipe_axis),
+        V if interleave else 1)
 
 
 def make_decode_cache(model: TransformerLM, batch: int, total_len: int,

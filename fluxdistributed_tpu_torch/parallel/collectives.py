@@ -17,9 +17,11 @@ group of an N-D mesh and carry gradients (each an
 ``autograd.Function``):
 
 * :func:`ring_shift_start` posts the JAX ``ppermute`` of a ring (send to
-  the axis's next rank, receive from its previous one, with
-  ``batch_isend_irecv``) and :meth:`RingShift.wait` finishes it; the
-  backward shifts the gradient the other way;
+  the axis's next rank, receive from its previous one, or the other way
+  round, with ``batch_isend_irecv``) and :meth:`RingShift.wait`
+  finishes it; the backward shifts the gradient the other way (the
+  pipeline's activation hand-off, :mod:`.pp` and :mod:`.pp_1f1b`, rides
+  it too);
 * :func:`all_to_all` is the JAX tiled ``all_to_all``: split one dim
   into the axis's ranks, send block ``i`` to rank ``i``, concatenate
   what arrives along another dim in rank order
@@ -174,16 +176,19 @@ class _Held:
         return tuple(self.tensors)
 
 
-def ring_shift_start(tensors, mesh: Mesh, axis: str):
+def ring_shift_start(tensors, mesh: Mesh, axis: str, reverse: bool = False):
     """Post one hop of the ring over ``axis`` (the JAX ``ppermute`` with
-    pairs ``(j, j + 1 mod n)``) for a list of tensors and return its
-    handle; ``handle.wait()`` gives the tensors the previous rank sent.
-    Post before the work the transfer should overlap, wait after it."""
+    pairs ``(j, j + 1 mod n)``, or ``(j, j - 1 mod n)`` with
+    ``reverse``) for a list of tensors and return its handle;
+    ``handle.wait()`` gives the tensors the previous rank of the hop
+    sent.  Post before the work the transfer should overlap, wait after
+    it."""
     group, n, i, glob = _axis_group(mesh, axis)
     if n == 1:
         return _Held(list(tensors))
-    return RingShift(list(tensors), group, glob[(i + 1) % n],
-                     glob[(i - 1) % n])
+    step = -1 if reverse else 1
+    return RingShift(list(tensors), group, glob[(i + step) % n],
+                     glob[(i - step) % n])
 
 
 def _exchange(x: torch.Tensor, split: int, concat: int, group,

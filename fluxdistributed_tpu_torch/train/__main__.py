@@ -66,6 +66,21 @@ needs two devices::
         --batch-size 8 --opt adam --lr 3e-4 --cycles 40 \
         --spmd sp --seq-parallel 2 --sp-strategy ulysses
 
+Pipelines: ``--spmd pp`` (GPipe) and ``--spmd pp_1f1b`` (the
+hand-written 1F1B schedule, ``--pp-schedule zb`` its zero-bubble
+variant, ``--pp-interleave`` the Megatron interleaved placement) stage
+an LM's blocks over a ``pipe`` axis of ``--pipe`` ranks (``{data:
+N/pipe, pipe: pipe}``, all ranks by default) with ``--microbatches``
+microbatches a step (default 2 x pipe); ``--pp-plan PATH`` loads a saved
+stage plan (``parallel.pp_plan``; ``--pp-plan auto`` comes with slice 7
+and raises ``NotImplementedError``).  ``--spmd pp --pipe 1`` runs the
+GPipe schedule on one card; 1F1B needs two pipe ranks::
+
+    torchrun --nproc-per-node 4 -m fluxdistributed_tpu_torch.train \
+        --model lm_small --dataset synthetic-text --seqlen 1024 \
+        --batch-size 8 --attn flash --opt adam --lr 3e-4 --cycles 40 \
+        --spmd pp_1f1b --pipe 2 --microbatches 4 --pp-schedule zb
+
 ``--dataset`` takes the JAX CLI's forms: ``synthetic``,
 ``synthetic-text``, ``text:PATH`` and a name registered by
 ``--data-toml`` (a ``[[datasets]]`` TOML: ImageNet, CIFAR-10, synthetic
@@ -110,10 +125,9 @@ trace of the phase spans (and syncs the card each item),
 flight recorder, ``--runs-ledger`` appends a run record on every exit,
 ``--watchdog-factor`` / ``--watchdog-escalate`` set the stall
 watchdog, ``--wandb`` logs to Weights & Biases and ``--verbose`` logs
-more.  The JAX CLI's pipeline ``--spmd`` modes,
-``--profile-out``, ``--steady-after``, ``--compile-cache``, ``--aot``,
-``--prewarm`` and ``--strict-checks`` belong to later slices and are not
-accepted.
+more.  The JAX CLI's ``--profile-out``, ``--steady-after``,
+``--compile-cache``, ``--aot``, ``--prewarm`` and ``--strict-checks``
+belong to later slices and are not accepted.
 """
 
 from __future__ import annotations
@@ -210,16 +224,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mlp", default="gelu", choices=["gelu", "swiglu"])
     p.add_argument("--spmd", default="jit",
                    choices=["jit", "dp", "shard_map", "fsdp", "tp",
-                            "fsdp_tp", "sp", "ep"],
+                            "fsdp_tp", "pp", "pp_1f1b", "sp", "ep"],
                    help="parallel mode: jit/dp (one device, or DP across "
                         "torchrun ranks), shard_map (the explicit per-rank "
                         "step), fsdp (ZeRO-3: params and optimizer state "
                         "sharded over the ranks), tp (Megatron tensor "
                         "parallelism over a model axis of --tp ranks), "
-                        "fsdp_tp (both), sp (context parallelism: the "
-                        "sequence cut over --seq-parallel ranks) or ep (MoE "
-                        "experts over --expert-parallel ranks); the JAX "
-                        "CLI's pipeline modes are not ported")
+                        "fsdp_tp (both), pp / pp_1f1b (an LM's blocks "
+                        "pipelined over --pipe ranks: GPipe, or the "
+                        "hand-written 1F1B schedule), sp (context "
+                        "parallelism: the sequence cut over --seq-parallel "
+                        "ranks) or ep (MoE experts over --expert-parallel "
+                        "ranks)")
+    p.add_argument("--pipe", type=int, default=None,
+                   help="pipe-axis size for --spmd pp / pp_1f1b (the mesh "
+                        "becomes {data: N/pipe, pipe: pipe}; defaults to "
+                        "all ranks, i.e. data=1)")
+    p.add_argument("--microbatches", type=int, default=None,
+                   help="pipeline microbatches per step (default 2x pipe "
+                        "size; the (S-1)/(M+S-1) bubble shrinks as M grows)")
+    p.add_argument("--pp-interleave", action="store_true",
+                   help="Megatron interleaved virtual stages for --spmd "
+                        "pp_1f1b (depth/pipe chunks per device; ~V-fold "
+                        "smaller fill/drain bubble)")
+    p.add_argument("--pp-schedule", default="1f1b", choices=["1f1b", "zb"],
+                   help="pipeline timetable for --spmd pp_1f1b: classic "
+                        "1F1B, or 'zb' (zero-bubble ZB-H1: each backward "
+                        "splits into input-grad + deferred weight-grad "
+                        "ticks and the weight-grad work fills the drain "
+                        "bubble; bit-identical gradients)")
+    p.add_argument("--pp-plan", default=None, metavar="PATH|auto",
+                   help="stage placement for --spmd pp/pp_1f1b: PATH loads "
+                        "a saved plan JSON (parallel.pp_plan; non-uniform "
+                        "stage boundaries, which also lift the depth %% "
+                        "pipe divisibility requirement; a plan from "
+                        "another topology is refused); 'auto' and cost-"
+                        "profile artifacts come with slice 7")
     p.add_argument("--seq-parallel", type=int, default=None,
                    help="seq-axis size for --spmd sp (the mesh becomes "
                         "{data: N/sp, seq: sp}; the LM attends across the "
@@ -455,7 +495,7 @@ def _run(args):
     # or torchrun's ranks; one this call forms, it also ends
     mesh, formed = None, False
     if (args.zero1 or args.spmd in ("shard_map", "fsdp", "tp", "fsdp_tp",
-                                    "sp", "ep")
+                                    "sp", "ep", "pp", "pp_1f1b")
             or args.layout is not None or "WORLD_SIZE" in os.environ):
         import torch.distributed as dist
 
@@ -558,21 +598,26 @@ def _train(args, dataset, val_dataset, device, mesh):
     opt = getattr(optim, args.opt)(lr)
     mesh, layout = _sharded_mesh(args, mesh, ndev)
     lead = mesh is None or mesh.rank == 0
+    pp_kw = _pipeline_kwargs(args, model, mesh, ndev, lead)
+    if pp_kw:
+        mesh = pp_kw.pop("mesh")
     # the sentinel rides dp.make_train_step; shard_map runs the guard's
     # policy on the loss alone, as bin/driver.py degrades it
-    sentinel = args.guard and args.spmd in ("jit", "dp", "sp", "ep")
+    sentinel = args.guard and args.spmd in ("jit", "dp", "sp", "ep", "pp")
     if args.guard and not sentinel and lead:
         print(f"guard: spmd={args.spmd} has no compiled grad sentinel — "
               "running loss-only (non-finite loss + spike detection; "
               "gradient blow-ups that keep the loss finite pass unseen)",
               flush=True)
     try:
+        # the pipeline modes train on their own per-microbatch loss
         task = prepare_training(
-            model, dataset, opt, loss_fn=lm_loss_fn(model) if is_lm else None,
+            model, dataset, opt,
+            loss_fn=lm_loss_fn(model) if is_lm and not pp_kw else None,
             batch_size=args.batch_size, epochs=args.epochs,
             cycles=args.cycles, spmd=args.spmd, zero1=args.zero1, mesh=mesh,
             device=device, steps_per_call=args.steps_per_call,
-            val_dataset=val_dataset, guard=sentinel, layout=layout)
+            val_dataset=val_dataset, guard=sentinel, layout=layout, **pp_kw)
     except ValueError as e:  # e.g. a batch that does not split over ranks
         raise SystemExit(f"--spmd {args.spmd}: {e}")
     if args.resume:
@@ -634,6 +679,20 @@ def _check_mode_flags(args) -> None:
         raise SystemExit("--seq-parallel only applies with --spmd sp")
     if args.sp_strategy != "ring" and args.spmd != "sp":
         raise SystemExit("--sp-strategy only applies with --spmd sp")
+    if args.pipe is not None and args.spmd not in ("pp", "pp_1f1b"):
+        raise SystemExit("--pipe only applies with --spmd pp or pp_1f1b")
+    if args.microbatches is not None and args.spmd not in ("pp", "pp_1f1b"):
+        raise SystemExit(
+            "--microbatches only applies with --spmd pp or pp_1f1b")
+    if args.pp_interleave and args.spmd != "pp_1f1b":
+        raise SystemExit("--pp-interleave only applies with --spmd pp_1f1b")
+    if args.pp_schedule != "1f1b" and args.spmd != "pp_1f1b":
+        raise SystemExit("--pp-schedule zb only applies with --spmd pp_1f1b")
+    if args.pp_plan is not None and args.spmd not in ("pp", "pp_1f1b"):
+        raise SystemExit("--pp-plan only applies with --spmd pp or pp_1f1b")
+    if args.pp_plan is not None and args.pp_interleave:
+        raise SystemExit("--pp-plan cannot combine with --pp-interleave "
+                         "(planner boundaries are contiguous block ranges)")
 
 
 def _data_x_mesh(mesh, ndev: int, axis: str, flag: str, requested,
@@ -744,6 +803,34 @@ def _sharded_mesh(args, mesh, ndev):
             raise SystemExit(f"--layout {args.layout}: {e}")
         return chosen.build_mesh(device=mesh.device), chosen
     return mesh, None
+
+
+def _pipeline_kwargs(args, model, mesh, ndev: int, lead: bool) -> dict:
+    """``--spmd pp|pp_1f1b``'s mesh (``{data: N/pipe, pipe: pipe}``) and
+    ``prepare_training`` arguments, the ``--pp-plan`` resolved (a saved
+    plan; refused with ``bin/driver.py``'s message form); ``{}`` for the
+    other modes.  ``--pipe 1`` is accepted (the JAX CLI asks for two
+    devices): the GPipe schedule runs on one card."""
+    if args.spmd not in ("pp", "pp_1f1b"):
+        return {}
+    pmesh, S = _data_x_mesh(mesh, ndev, "pipe", "--pipe", args.pipe, min_k=1)
+    kw = {"mesh": pmesh, "num_microbatches": args.microbatches,
+          "pipeline_interleave": args.pp_interleave,
+          "pipeline_schedule": args.pp_schedule}
+    if args.pp_plan:
+        from ..parallel.pp_plan import PlanError, resolve_plan
+
+        try:
+            plan = resolve_plan(
+                args.pp_plan, S, args.microbatches or 2 * S,
+                schedule=(args.pp_schedule if args.spmd == "pp_1f1b"
+                          else "1f1b"), model=model)
+        except (PlanError, ValueError, OSError) as e:
+            raise SystemExit(f"--pp-plan {args.pp_plan}: {e}")
+        kw["pp_plan"] = plan
+        if lead:
+            print(plan.describe(), flush=True)
+    return kw
 
 
 def _logger(args, task, mesh, lead):

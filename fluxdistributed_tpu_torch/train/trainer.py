@@ -5,8 +5,10 @@ data-parallel modes ``spmd="jit"`` (alias ``"dp"``) and ``"shard_map"``
 (with or without ZeRO-1), FSDP (``"fsdp"``), Megatron tensor
 parallelism (``"tp"``) and their hybrid (``"fsdp_tp"``), the
 rule-derived dp x fsdp x tp layouts (``layout=``), context parallelism
-(``"sp"``) and MoE expert parallelism (``"ep"``), on one GPU, on the
-ranks of a process group (:mod:`..mesh`), or on the CPU when asked:
+(``"sp"``), MoE expert parallelism (``"ep"``) and pipeline parallelism
+(``"pp"``, the GPipe schedule, and ``"pp_1f1b"``, the hand-written 1F1B
+and zero-bubble schedules), on one GPU, on the ranks of a process group
+(:mod:`..mesh`), or on the CPU when asked:
 
 * ``prepare_training`` takes the model's parameters and buffers (the
   BatchNorm running stats) as the initial
@@ -41,8 +43,7 @@ ranks of a process group (:mod:`..mesh`), or on the CPU when asked:
   trace of a window of items.
 
 Phase times, step counts and OOM skips land in the process registry
-(:mod:`..obs.metrics`) under the JAX trainer's ``fdtpu_train_*`` names.
-Pipeline parallelism comes with a later slice.  A
+(:mod:`..obs.metrics`) under the JAX trainer's ``fdtpu_train_*`` names.  A
 device OOM on one rank of a mesh, and not on the others, leaves the
 others waiting in the step's next collective, as in the JAX package on
 several hosts.
@@ -63,7 +64,8 @@ import torch
 from .. import faults
 from ..data.loader import PrefetchLoader, apply_transform, batch_to_dict
 from ..device import DeviceLike, resolve_device
-from ..mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh
+from ..mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
+                    Mesh)
 from ..obs import FlightRecorder, JsonlSink, Observation, memstats, runs
 from ..ops.losses import logitcrossentropy
 from ..optim import Optimizer
@@ -116,8 +118,16 @@ class TrainTask:
     # gathers it)
     zero1: bool = False
     # the state's specs (a TrainState of sharding.P) when it is a state
-    # of blocks (fsdp, tp, fsdp_tp, layouts, sp, ep), else None
+    # of blocks (fsdp, tp, fsdp_tp, layouts, sp, ep, pp, pp_1f1b), else
+    # None
     specs: Optional[TrainState] = None
+    # the size every eval batch must divide (0: any): the pipeline modes
+    # set data ranks x microbatches (each data row's rows split into M
+    # microbatches)
+    batch_quantum: int = 0
+    # the pipeline modes: maps the gathered split tree onto the model's
+    # parameter names (``train`` copies the result into the model)
+    merge_params: Optional[Callable] = None
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
@@ -172,6 +182,10 @@ def prepare_training(
     steps_per_call: int = 1,
     guard: bool = False,
     layout=None,
+    num_microbatches: Optional[int] = None,
+    pipeline_interleave: bool = False,
+    pipeline_schedule: str = "1f1b",
+    pp_plan=None,
 ) -> TrainTask:
     """The train state from the model's current parameters and buffers,
     the train and eval steps, the prefetching loader and the val slice.
@@ -192,8 +206,8 @@ def prepare_training(
     labels)`` for image datasets) applied to the train batches, the val
     slice and ``evaluate``.  ``spmd`` takes the data-parallel
     modes ``"jit"`` (alias ``"dp"``) and ``"shard_map"``, ``"fsdp"``,
-    ``"tp"`` and ``"fsdp_tp"``, ``"sp"`` and ``"ep"``; pipeline
-    parallelism raises (not ported).  ``zero1=True`` shards the optimizer state and
+    ``"tp"`` and ``"fsdp_tp"``, ``"sp"`` and ``"ep"``, ``"pp"`` and
+    ``"pp_1f1b"``.  ``zero1=True`` shards the optimizer state and
     update over the ranks (:mod:`..parallel.zero1`); it applies to the
     data-parallel modes only, and ``"shard_map"`` takes no
     ``accum_steps``, as in the JAX trainer.
@@ -232,6 +246,25 @@ def prepare_training(
     > 1``, and take ``guard=True``.  These modes keep a
     state of blocks (``TrainTask.specs``): checkpoints hold global
     shapes, and the eval step and ``evaluate`` take the state as it is.
+
+    ``"pp"`` and ``"pp_1f1b"`` pipeline a ``TransformerLM``'s blocks
+    over the ``pipe`` axis of a ``{"data": D, "pipe": S}`` mesh (the
+    pipe rank at index *s* hosts stage *s*), with data parallelism over
+    ``data``: the state is the flat split tree of
+    ``models.lm_pp`` (``outer/`` leaves replicated, ``stages/`` leaves
+    this rank's stage), each data row's rows split into
+    ``num_microbatches`` (default ``2 S``) microbatches.  ``"pp"`` is the
+    GPipe schedule, its backward derived by autograd (and takes
+    ``guard=True``); ``"pp_1f1b"`` the hand-written 1F1B schedule, or its
+    zero-bubble variant with ``pipeline_schedule="zb"``, and with
+    ``pipeline_interleave=True`` the Megatron interleaved placement
+    (whose eval runs the 1F1B program; the others evaluate through the
+    GPipe forward on the same tree).  ``pp_plan`` (a
+    ``parallel.pp_plan.PipelinePlan`` or the path of a saved one) places
+    non-uniform stage boundaries.  Both train on the pipeline's own
+    next-token loss (a ``loss_fn`` is refused), ``topk`` is ``()``, and
+    eval batches must divide ``D x M`` (``TrainTask.batch_quantum``: the
+    val slice and ``evaluate`` round to it).
 
     ``mesh`` is the process group the step spans (:mod:`..mesh`);
     ``batch_size`` is the global batch, of which each rank trains its
@@ -290,25 +323,22 @@ def prepare_training(
             "zero1=True applies to the DP paths only (spmd='jit'/'dp'/"
             f"'shard_map'); got spmd={spmd!r} — fsdp already shards the "
             "optimizer state (ZeRO-3 subsumes ZeRO-1)")
-    if spmd in ("pp", "pp_1f1b"):
-        raise ValueError(
-            f"spmd={spmd!r} is not ported: the port trains jit/dp, "
-            "shard_map, fsdp, tp, fsdp_tp, sp and ep (and layouts); "
-            "pipeline parallelism comes with a later slice (ROADMAP)")
     if spmd not in ("jit", "shard_map", "fsdp", "tp", "fsdp_tp", "sp",
-                    "ep"):
+                    "ep", "pp", "pp_1f1b"):
         raise ValueError(
             f"unknown spmd mode {spmd!r}; pick one of jit (alias dp) / "
             "shard_map / fsdp / tp / fsdp_tp / pp / pp_1f1b / ep / sp")
     if spmd == "shard_map" and accum_steps != 1:
         raise ValueError("accum_steps > 1 requires spmd='jit'")
-    if guard and spmd not in ("jit", "sp", "ep"):
+    if guard and spmd not in ("jit", "sp", "ep", "pp"):
         raise ValueError(
             f"guard=True builds the grad sentinel into the step of "
             f"dp.make_train_step, which spmd={spmd!r} does not use "
-            "(supported: jit/dp [+zero1, layouts], sp, ep); the guard "
+            "(supported: jit/dp [+zero1, layouts], sp, ep, pp); the guard "
             "still runs loss-only there: drop guard=True and pass "
             "train(guard=GuardConfig(...))")
+    _check_pp_options(spmd, num_microbatches, pipeline_interleave,
+                      pipeline_schedule, pp_plan)
     if layout is not None:
         mesh = mesh or layout.build_mesh(device=device)
         layout.validate_mesh(mesh)
@@ -332,7 +362,18 @@ def prepare_training(
     bmesh = mesh
     # the sharded step's expert-block and partial-loss axes (ep, sp)
     block_axes, partial_axes = (), ()
-    if layout is not None:
+    batch_quantum, merge, eval_fn = 0, None, None
+    if spmd in ("pp", "pp_1f1b"):
+        topk = ()  # image metrics never apply to the LM pipeline
+        state, specs, step_fn, eval_fn, batch_quantum, merge = _pp_task(
+            model, dataset, optimizer, params, mstate, mesh, spmd=spmd,
+            loss_fn=loss_fn, accum_steps=accum_steps,
+            batch_size=batch_size, seed=seed,
+            num_microbatches=num_microbatches,
+            interleave=pipeline_interleave, schedule=pipeline_schedule,
+            pp_plan=pp_plan, guard=guard, transform=transform)
+        bmesh = mesh.sub(DATA_AXIS)
+    elif layout is not None:
         if batch_size % layout.batch_shards:
             raise ValueError(
                 f"batch_size {batch_size} must be divisible by the "
@@ -442,7 +483,9 @@ def prepare_training(
             loss_fn, optimizer, params, mstate, mesh, spmd=spmd,
             zero1=zero1, accum_steps=accum_steps, seed=seed,
             steps_per_call=steps_per_call, guard=guard)
-    if specs is not None:
+    if eval_fn is not None:
+        pass  # the pipeline modes' own
+    elif specs is not None:
         eval_fn = make_eval_step_sharded(loss_fn, mesh, specs,
                                          batch_axes=bmesh.axis_names,
                                          block_axes=block_axes,
@@ -452,7 +495,7 @@ def prepare_training(
         eval_fn = make_eval_step(loss_fn, mesh, topk=topk)
     val_batch = None
     if val_dataset is not None:
-        q = 1 if bmesh is None else bmesh.size
+        q = batch_quantum or (1 if bmesh is None else bmesh.size)
         nval = max(q, val_samples // q * q)
         # the eval pipeline, even where the val dataset augments
         draw = apply_transform(transform, _eval_view(val_dataset).batch(
@@ -471,7 +514,8 @@ def prepare_training(
                               chunk=steps_per_call),
         optimizer=optimizer, model=model, device=dev, mesh=mesh, topk=topk,
         val_batch=val_batch, transform=transform,
-        steps_per_call=steps_per_call, zero1=zero1, specs=specs)
+        steps_per_call=steps_per_call, zero1=zero1, specs=specs,
+        batch_quantum=batch_quantum, merge_params=merge)
 
 
 def _dp_state_and_step(loss_fn, optimizer, params, mstate, mesh, *, spmd,
@@ -546,6 +590,142 @@ def _check_ep(model, mesh, accum_steps: int) -> None:
     if bound is not None and bound.shape != mesh.shape:
         raise ValueError(f"the model's moe_fn runs on the mesh "
                          f"{bound.shape}, the step on {mesh.shape}")
+
+
+def _check_pp_options(spmd, num_microbatches, interleave, schedule,
+                      pp_plan) -> None:
+    """The pipeline options, checked before any model wiring with the
+    JAX trainer's messages."""
+    if num_microbatches is not None and spmd not in ("pp", "pp_1f1b"):
+        raise ValueError("num_microbatches requires spmd='pp' or 'pp_1f1b'")
+    if num_microbatches is not None and num_microbatches < 1:
+        raise ValueError(
+            f"num_microbatches must be >= 1, got {num_microbatches}")
+    if interleave and spmd != "pp_1f1b":
+        raise ValueError(
+            "pipeline_interleave requires spmd='pp_1f1b' (the hand-written "
+            "schedule; GPipe-via-AD cannot interleave)")
+    if schedule not in ("1f1b", "zb"):
+        raise ValueError(f"unknown pipeline_schedule {schedule!r} "
+                         "(pick '1f1b' or 'zb')")
+    if schedule != "1f1b" and spmd != "pp_1f1b":
+        raise ValueError(
+            "pipeline_schedule='zb' requires spmd='pp_1f1b' (the zero-"
+            "bubble B/W split only exists in the hand-written schedule)")
+    if pp_plan is not None and spmd not in ("pp", "pp_1f1b"):
+        raise ValueError("pp_plan requires spmd='pp' or 'pp_1f1b'")
+    if pp_plan is not None and interleave:
+        raise ValueError(
+            "pp_plan cannot combine with pipeline_interleave: planner "
+            "boundaries are contiguous block ranges, the interleaved "
+            "placement is round-robin")
+
+
+def _pp_task(model, dataset, optimizer, params, mstate, mesh, *, spmd,
+             loss_fn, accum_steps, batch_size, seed, num_microbatches,
+             interleave, schedule, pp_plan, guard, transform):
+    """``spmd="pp"|"pp_1f1b"``'s checks (the JAX trainer's, in its order
+    and with its messages), state, specs, train and eval steps, the
+    batch quantum and the split tree's merge onto the model's names."""
+    from ..models import TransformerLM
+    from ..models.transformer_lm import lm_pp, lm_pp_1f1b, pp_merge_params
+    from ..parallel.pp import split_tree
+    from ..parallel.pp_1f1b import make_train_step_1f1b, pipeline_grads_1f1b
+    from ..sharding import replicate
+
+    if not isinstance(model, TransformerLM):
+        raise ValueError(
+            f"spmd={spmd!r} supports TransformerLM only (CNN stages "
+            "change activation shapes mid-network)")
+    if accum_steps != 1:
+        raise ValueError("accum_steps > 1 requires spmd='jit' or 'fsdp'")
+    if loss_fn is not None:
+        raise ValueError(
+            f"spmd={spmd!r} trains on the pipeline's own per-microbatch "
+            "next-token loss; a loss_fn override cannot apply (drop it)")
+    for ax in (PIPE_AXIS, DATA_AXIS):
+        if mesh is None or ax not in mesh.shape:
+            raise ValueError(
+                f"spmd={spmd!r} needs a mesh with 'data' and 'pipe' "
+                "axes, e.g. make_mesh({'data': 1, 'pipe': 8})")
+    if mstate:
+        raise ValueError(f"spmd={spmd!r} supports stateless models only "
+                         f"(got model state {list(mstate)[:3]})")
+    if spmd == "pp_1f1b":
+        probe = batch_to_dict(
+            apply_transform(transform,
+                            dataset.batch(np.random.default_rng(0), 1)),
+            getattr(dataset, "nclasses", None))
+        if "mask" in probe:
+            raise ValueError(
+                "spmd='pp_1f1b' does not support batch['mask'] (the "
+                "1F1B per-microbatch loss reads tokens only) — use "
+                "spmd='pp', whose loss applies the mask")
+    S, n_data = mesh.shape[PIPE_AXIS], mesh.shape[DATA_AXIS]
+    M = num_microbatches or 2 * S
+    boundaries = None
+    if pp_plan is not None:
+        from ..parallel.pp_plan import PipelinePlan
+
+        if isinstance(pp_plan, str):
+            pp_plan = PipelinePlan.load(pp_plan)
+        pp_plan.verify_source_topology()
+        if pp_plan.S != S:
+            raise ValueError(
+                f"pp_plan places {pp_plan.S} stages but the "
+                f"'{PIPE_AXIS}' axis has {S} — re-plan for this mesh")
+        if pp_plan.depth != model.depth:
+            raise ValueError(
+                f"pp_plan partitions {pp_plan.depth} blocks but the model "
+                f"has depth {model.depth} — re-plan for this model")
+        boundaries = pp_plan.boundaries
+    per_row = batch_size // n_data
+    if batch_size % n_data or per_row % M:
+        raise ValueError(
+            f"batch_size {batch_size} must split into data axis {n_data} x "
+            f"microbatches {M} (per-row batch {per_row})")
+    gparams = replicate({k: p.detach() for k, p in params.items()}, mesh)
+    kw = dict(num_microbatches=M, batch_axis=DATA_AXIS, seed=seed)
+    if interleave:
+        # the round-robin layout cannot feed the blocked GPipe forward:
+        # eval runs the 1F1B program and keeps its loss
+        w = lm_pp_1f1b(model, mesh, interleave=True)
+        state = TrainState.create(w.split_params(gparams), optimizer)
+        step_fn = make_train_step_1f1b(*w.fns, optimizer, mesh,
+                                       interleave=w.interleave,
+                                       schedule=schedule, **kw)
+        eval_run = pipeline_grads_1f1b(
+            *w.fns, mesh, num_microbatches=M, batch_axis=DATA_AXIS,
+            interleave=w.interleave)
+
+        def eval_fn(state, batch):
+            outer, stages = split_tree(state.params)
+            loss, _, _ = eval_run(stages, outer, batch["tokens"],
+                                  batch["tokens"])
+            return loss, {}
+
+        return (state, w.state_specs(state), step_fn, eval_fn, n_data * M,
+                pp_merge_params(model, S, interleave=True))
+    split_params, pp_loss_fn, specs_of = lm_pp(
+        model, mesh, batch_axis=DATA_AXIS, num_microbatches=M,
+        boundaries=boundaries)
+    state = TrainState.create(split_params(gparams), optimizer)
+    specs = specs_of(state)
+    if spmd == "pp":
+        step_fn = make_train_step_sharded(
+            pp_loss_fn, optimizer, mesh, specs, batch_axes=(DATA_AXIS,),
+            tp_axis=None, block_axes=(PIPE_AXIS,), seed=seed, guard=guard)
+    else:
+        w = lm_pp_1f1b(model, mesh, boundaries=boundaries)
+        step_fn = make_train_step_1f1b(*w.fns, optimizer, mesh,
+                                       interleave=w.interleave,
+                                       schedule=schedule, **kw)
+    # eval through the GPipe forward: the same tree and specs
+    eval_fn = make_eval_step_sharded(
+        pp_loss_fn, mesh, specs, batch_axes=(DATA_AXIS,), tp_axis=None,
+        block_axes=(PIPE_AXIS,), topk=())
+    return (state, specs, step_fn, eval_fn, n_data * M,
+            pp_merge_params(model, S, boundaries=boundaries))
 
 
 def _sharded_state(model, params, mstate, optimizer, mesh,
@@ -673,21 +853,33 @@ def evaluate(task: TrainTask, dataset, *, batch_size: int = 256,
     batch (``"exact": True``).  Otherwise batches are sampled and
     ``max_batches`` is required (``"exact": False``).  ``topk`` defaults
     to the task's; each must be one the eval step computes.  The task's
-    ``transform`` applies to every draw.  Returns ``{"loss", "top{k}"
-    for each k, "samples", "exact"}``.
+    ``transform`` applies to every draw.  A task with a
+    ``batch_quantum`` (the pipeline modes) rounds every batch, the
+    remainder too, down to a multiple of it, as the JAX ``evaluate``
+    does: fewer than a quantum of samples is left out.  Returns
+    ``{"loss", "top{k}" for each k, "samples", "exact"}``.
     """
     topk = task.topk if topk is None else tuple(topk)
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     capable = (hasattr(dataset, "__len__")
                and "indices" in inspect.signature(dataset.batch).parameters)
+    q = task.batch_quantum or 1
     full_batches = rem_size = 0
     if capable:
-        if len(dataset) == 0:
-            raise ValueError("dataset is empty")
-        batch_size = min(batch_size, len(dataset))
+        if len(dataset) < q:
+            raise ValueError(
+                "dataset is empty" if not len(dataset) else
+                f"dataset has {len(dataset)} samples — fewer than the "
+                f"batch granularity {q}")
+        batch_size = min(batch_size, len(dataset) // q * q)
+    requested, batch_size = batch_size, batch_size // q * q
+    if batch_size == 0:
+        raise ValueError(f"batch_size {requested} rounds down to 0 at batch "
+                         f"granularity {q}; pass batch_size >= {q}")
+    if capable:
         full_batches = len(dataset) // batch_size
-        rem_size = len(dataset) - full_batches * batch_size
+        rem_size = (len(dataset) - full_batches * batch_size) // q * q
     if max_batches is None:
         if not hasattr(dataset, "__len__"):
             raise ValueError(
@@ -1229,13 +1421,16 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
 def _final_params(task: TrainTask) -> tuple:
     """(the params the model holds, the global params): the state's,
     or for a state of blocks its gathers (a collective), the model's
-    keeping a tensor-parallel model's own blocks."""
+    keeping a tensor-parallel model's own blocks; a pipeline's split
+    tree goes back onto the model's names."""
     params = task.state.params
     if task.specs is None:
         return params, params
     from ..parallel.fsdp import gather_state
 
     whole = gather_state(params, task.specs.params, task.mesh)
+    if task.merge_params is not None:
+        return task.merge_params(whole), whole
     if not getattr(task.model, "tp_applied", False):
         return whole, whole
     return gather_state(params, task.specs.params, task.mesh,

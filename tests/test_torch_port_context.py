@@ -292,7 +292,7 @@ def test_prepare_training_sp_refusals():
                    attn_fn=make_ring_attention(seq, batch_axis="data"))
     for kw, msg in (({"zero1": True}, "zero1=True applies to the DP paths"),
                     ({"steps_per_call": 2}, "steps_per_call > 1 requires"),
-                    ({"spmd": "pp"}, "is not ported")):
+                    ({"spmd": "pp"}, "loss_fn override cannot apply")):
         with pytest.raises(ValueError, match=msg):
             prepare_training(ring, ds, optim.adam(1e-3), mesh=seq,
                              loss_fn=lm_loss_fn(ring), topk=(),

@@ -1392,11 +1392,11 @@ def test_graph_capture_failure_raises_without_fallback(cuda):
     assert torch.ones(3, device=cuda).sum().item() == 3.0
 
 
-def _sharded_lm_runs(modes, steps=3):
-    """lm_tiny (bf16, flash B1-B3, adam) from one seed through the
-    one-device DP step and, on one NCCL rank, through each sharded
-    ``mode`` (``prepare_training`` keywords): each run's losses and
-    global params."""
+def _sharded_lm_runs(modes, steps=3, opt=None):
+    """lm_tiny (bf16, flash B1-B3; ``opt``, adam 1e-3 by default) from
+    one seed through the one-device DP step and, on one NCCL rank,
+    through each sharded ``mode`` (``prepare_training`` keywords): each
+    run's losses and global params."""
     import numpy as np
 
     from fluxdistributed_tpu_torch import optim
@@ -1418,8 +1418,11 @@ def _sharded_lm_runs(modes, steps=3):
         model = lm_tiny(attn_fn=attention_core("flash"), seed=0)
         try:
             mesh = kw.pop("mesh", lambda: None)()
-            task = prepare_training(model, Bank(), optim.adam(1e-3),
-                                    loss_fn=lm_loss_fn(model), batch_size=4,
+            # the pipeline modes train on their own next-token loss
+            own = kw.get("spmd") not in ("pp", "pp_1f1b")
+            task = prepare_training(model, Bank(), opt or optim.adam(1e-3),
+                                    loss_fn=lm_loss_fn(model) if own
+                                    else None, batch_size=4,
                                     cycles=steps, mesh=mesh, **kw)
             state, losses = task.state, []
             for i in range(steps):
@@ -1427,6 +1430,8 @@ def _sharded_lm_runs(modes, steps=3):
                 losses.append(m["loss"].item())
             params = state.params if task.specs is None else gather_state(
                 state.params, task.specs.params, task.mesh)
+            if task.merge_params is not None:  # a pipeline's split tree
+                params = task.merge_params(params)
             out[name] = (losses, {k: v.float().cpu()
                                   for k, v in params.items()})
         finally:
@@ -1497,3 +1502,148 @@ def test_sharded_checkpoint_round_trip_on_card(cuda, tmp_path):
             assert a.is_cuda and torch.equal(a, b)
     finally:
         shutdown_distributed()
+
+
+# A probe step descends at this rate, a power of two, so that (p0 - p1)
+# / rate is its gradient to f32 rounding; the pipelines' gradients are
+# held to DP's within PROBE_RTOL on every leaf by relative norm
+PROBE_LR = 1024.0
+PROBE_RTOL = 5e-2
+
+
+def _worst_leaf_rel_err(grads, ref):
+    return max(((grads[k].float() - r.float()).norm()
+                / r.float().norm()).item() for k, r in ref.items())
+
+
+def _probe_grads(params, p0):
+    return {k: (p0[k] - v.float().cpu()) / PROBE_LR
+            for k, v in params.items()}
+
+
+def _tiny_init():
+    return {k: p.detach().float().cpu()
+            for k, p in lm_tiny(seed=0).named_parameters()}
+
+
+def _dp_grads(tokens, M=1):
+    """The DP loss's gradient (lm_tiny, bf16, flash; autograd through
+    ``lm_loss_fn``) on each of ``M`` row slices of ``tokens``, on the
+    CPU in f32."""
+    from fluxdistributed_tpu_torch.models import lm_loss_fn
+    from fluxdistributed_tpu_torch.ops import attention_core
+
+    model = lm_tiny(attn_fn=attention_core("flash"), seed=0)
+    fn = lm_loss_fn(model)
+    params = {k: p.detach().requires_grad_(True)
+              for k, p in model.named_parameters()}
+    return [{k: g.float().cpu() for k, g in zip(params, torch.autograd.grad(
+        fn(params, {}, {"tokens": rows}, True)[0], list(params.values())))}
+        for rows in tokens.chunk(M)]
+
+
+def _dropped_microbatch_reading(tokens, M):
+    """What the probe check reads when a pipeline drops a microbatch:
+    the DP loss's gradient on ``M`` row slices of ``tokens``, summed
+    over the first M - 1 against all M."""
+    gs = _dp_grads(tokens, M)
+    return _worst_leaf_rel_err(
+        {k: sum(g[k] for g in gs[:-1]) for k in gs[0]},
+        {k: sum(g[k] for g in gs) for k in gs[0]})
+
+
+def test_gpipe_on_one_nccl_rank_matches_dp(cuda):
+    """``spmd="pp"`` (GPipe, 2 microbatches) on ``{data: 1, pipe: 1}``
+    against the one-device DP step: the half-batch GEMMs and the
+    gradient sum over the microbatches round apart in bf16, so losses
+    within 1e-4 relative and params within 6 lr after 3 adam steps (a
+    cap: Adam moves an element about lr a step), and a probe step's
+    gradient within ``PROBE_RTOL`` of DP's, a limit that a dropped
+    microbatch's gradient (read here) and a doubled cotangent (1)
+    exceed."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.mesh import make_mesh
+
+    def pp():
+        return ("pp", {
+            "spmd": "pp", "num_microbatches": 2,
+            "mesh": lambda: make_mesh({"data": 1, "pipe": 1},
+                                      device="cuda")})
+
+    runs = _sharded_lm_runs([pp()])
+    for a, b in zip(runs["pp"][0], runs["dp"][0]):
+        assert abs(a - b) <= 1e-4 * abs(b), (a, b)
+    for k, v in runs["dp"][1].items():
+        err = (runs["pp"][1][k] - v).abs().max().item()
+        assert err <= 6e-3, (k, err)
+    probe = _sharded_lm_runs([pp()], steps=1,
+                             opt=optim.descent(PROBE_LR))
+    p0 = _tiny_init()
+    err = _worst_leaf_rel_err(_probe_grads(probe["pp"][1], p0),
+                              _probe_grads(probe["dp"][1], p0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (1, 4, 128)).astype(np.int64)).cuda()[0]
+    fault = _dropped_microbatch_reading(toks, 2)
+    assert err <= PROBE_RTOL < fault, (err, fault)
+
+
+@pytest.mark.parametrize("interleave", [False, True])
+def test_1f1b_and_zb_on_the_local_exchange_bitwise_on_card(cuda, interleave):
+    """lm_tiny (bf16, flash) at S = 2, M = 4 with both pipe devices in
+    one process: zb equals 1F1B bit for bit over 2 steps, B1-B3 launch
+    as the timetable says (4 blocks: 1F1B 32/16/16 a step, zb
+    48/32/32), and a 1F1B probe step's gradient is within
+    ``PROBE_RTOL`` of DP's, a limit that a dropped microbatch's
+    gradient (read here) exceeds."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import lm_pp_1f1b
+    from fluxdistributed_tpu_torch.models.transformer_lm import (
+        pp_merge_params)
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.parallel import (LocalPipe, TrainState,
+                                                    make_train_step_1f1b)
+
+    fa = importlib.import_module(
+        "fluxdistributed_tpu_torch.ops.flash_attention")
+
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 8, 128)).astype(np.int64)).cuda()
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_dq,
+                fa.flash_attention_dkv)
+    out = {}
+
+    def make_step(schedule, opt):
+        model = lm_tiny(attn_fn=attention_core("flash"), seed=0)
+        w = lm_pp_1f1b(model, LocalPipe(2), interleave=interleave)
+        state = TrainState.create(
+            w.split_params(dict(model.named_parameters())), opt)
+        return state, make_train_step_1f1b(
+            *w.fns, opt, LocalPipe(2), num_microbatches=4,
+            interleave=w.interleave, schedule=schedule)
+
+    for schedule in ("1f1b", "zb"):
+        state, step = make_step(schedule, optim.adam(1e-3))
+        for f in wrappers:
+            f.launches = 0
+        losses = []
+        for i in range(2):
+            state, m = step(state, {"tokens": toks[i]})
+            losses.append(m["loss"].item())
+        out[schedule] = (losses, state.params,
+                         [f.launches // 2 for f in wrappers])
+    assert out["1f1b"][2] == [32, 16, 16]
+    assert out["zb"][2] == [48, 32, 32]
+    assert out["zb"][0] == out["1f1b"][0]
+    for k, v in out["1f1b"][1].items():
+        assert torch.equal(out["zb"][1][k], v), k
+    state, step = make_step("1f1b", optim.descent(PROBE_LR))
+    state, _ = step(state, {"tokens": toks[0]})
+    merge = pp_merge_params(lm_tiny(seed=0), 2, interleave=interleave)
+    err = _worst_leaf_rel_err(
+        _probe_grads(merge(state.params), _tiny_init()), _dp_grads(toks[0])[0])
+    fault = _dropped_microbatch_reading(toks[0], 4)
+    assert err <= PROBE_RTOL < fault, (err, fault)

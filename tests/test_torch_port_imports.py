@@ -58,7 +58,8 @@ def test_port_has_modules_to_scan():
                 "obs/__init__.py", "parallel/fsdp.py", "parallel/tp.py",
                 "parallel/rules.py", "parallel/layout.py", "sharding.py",
                 "parallel/context.py", "parallel/ep.py",
-                "parallel/collectives.py"):
+                "parallel/collectives.py", "parallel/pp.py",
+                "parallel/pp_1f1b.py", "parallel/pp_plan.py"):
         assert f"fluxdistributed_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").is_file()
 
@@ -95,3 +96,14 @@ def test_new_entry_points_default_to_cuda():
             cli.run(["--model", "SimpleCNN", "--image-size", "8",
                      "--num-classes", "4", "--batch-size", "8",
                      "--cycles", "2", *extra])
+
+
+def test_pipeline_entry_points_default_to_cuda():
+    """The CLI's pipeline modes and ``lm_pp``'s model run on ``cuda``
+    unless asked for the CPU."""
+    cli = importlib.import_module("fluxdistributed_tpu_torch.train.__main__")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    for spmd in ("pp", "pp_1f1b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.run(["--model", "lm_tiny", "--cycles", "1", "--spmd", spmd])
