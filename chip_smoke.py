@@ -253,12 +253,31 @@ Phases, each of which raises on failure (exit code != 0, no result):
     DP's;
 41. pp CLI: ``--spmd pp --pipe 1`` for 2 cycles (B1-B3 24 a step), and
     ``--spmd pp_1f1b --pipe 1`` refused (1F1B needs two pipe devices);
-42. a ``phase_seconds`` line (each phase's wall seconds), a
+42. multihost CLI: the training CLI with ``--coordinator localhost:PORT
+    --num-processes 1 --process-id 0`` (one NCCL rank formed over TCP)
+    on lm_small, 3 cycles, losses bit-equal to ``--spmd dp``, B1-B3 12
+    a step, the coordinator's ``devices: 1 (1/host x 1 hosts)`` banner;
+43. vit ring: ViT-L/16 (batch 128, 196 tokens, bf16) sequence-sharded
+    with the flash ring on ``{data: 1, seq: 1}``: its forward and 3
+    ``spmd="sp"`` adamw steps bit-equal to the flash DP ViT, B1-B3 24 a
+    step;
+44. fsdp schedule: lm_small and ResNet-50 under spmd="fsdp" with the
+    per-block gather schedule and with every leaf gathered up front:
+    equal losses; peak allocated and live gathered bytes, device ms,
+    warm wall ms and idle share over steps 2-3;
+45. supervise: the supervisor over the lm_small CLI with a SIGTERM
+    planted at step 2: rc 75, a resume without the plan, rc 0 at step
+    4, the episode ledger;
+46. generate: GPT-2 small (f32) from a seeded HF-named state_dict
+    through ``python -m fluxdistributed_tpu_torch.generate
+    --gpt2-weights``: 64 greedy tokens equal to the plain decode's, B4
+    12 a single-token step, decode ms a token;
+47. a ``phase_seconds`` line (each phase's wall seconds), a
     ``{"kernels": [...]}`` line (B1-B3 with their ViT-L/16 and ViT-H/14
     rows, launches a step beside the LM's, the sharded paths', the sp,
-    ep and pipeline paths' launches a step, and the context ring's
-    hops), then the result line ``{"ok": true, "device": {...}}``
-    last.
+    ep, pipeline and slice-16 paths' launches a step, and the context
+    ring's hops; B4 with generate's launches a step), then the result
+    line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -3932,6 +3951,9 @@ def _run_steps(torch, state, step, batches, merge, *, timed=True) -> dict:
     if timed:
         launches = all_counts()
         out["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        plan = getattr(step, "gather_plan", None)
+        # the FSDP schedule's live gathered bytes at most (storages)
+        out["gather_peak_bytes"] = None if plan is None else plan.live.peak
         ms = device_ms(torch, lambda: step(state, batches[0]), calls=2)
         warm = (marks[-1] - marks[1]) / (len(batches) - 1) * 1e3
         out.update(launches=launches, step_ms=ms,
@@ -4012,6 +4034,7 @@ def _row(torch, phase, card, name, run, ref, per_step, extra=None) -> dict:
            "wall_ms_per_step_warm": run["wall_ms_per_step_warm"],
            "device_idle_share_warm": run["device_idle_share_warm"],
            "peak_allocated_bytes": run["peak_allocated_bytes"],
+           "gather_peak_bytes": run.get("gather_peak_bytes"),
            "local_shapes_first4": run["local_shapes"]}
     emit(row)
     return row
@@ -4834,6 +4857,459 @@ def pp_cli_phase(torch):
     return [n // 2 for n in launches[2:5]]
 
 
+# ------------------------------------------------ multi-process runs, the
+# sequence-sharded ViT, the FSDP schedule, the supervisor, generate
+
+MH_ARGV = ["--model", "lm_small", "--dataset", "synthetic-text", "--vocab",
+           "256", "--seqlen", str(T_TRAIN), "--batch-size", "8", "--attn",
+           "flash", "--opt", "adam", "--lr", "3e-4", "--cycles", "3",
+           "--print-every", "1", "--eval-every", "0"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _task_times(torch, task, batch) -> dict:
+    """Device ms a step (the profiler over 2 steps), warm wall ms a step
+    (3 steps after one, synchronised) and the idle share of a finished
+    task's step on one batch."""
+    ms = device_ms(torch, lambda: task.step_fn(task.state, batch), calls=2)
+    task.step_fn(task.state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        task.step_fn(task.state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    return {"step_ms_device": ms, "wall_ms_per_step_warm": wall,
+            "device_idle_share_warm": 1 - ms / wall}
+
+
+def multihost_cli_phase(torch, card):
+    """The training CLI with ``--coordinator localhost:PORT
+    --num-processes 1 --process-id 0`` on the card (the process group
+    formed over TCP: one NCCL rank, since NCCL refuses two ranks on one
+    GPU), lm_small 3 cycles, against ``--spmd dp`` without the flags:
+    losses bit for bit, B1-B3 12 launches a step, the coordinator's
+    banner.  Returns B1-B3's launches a step of the cluster run."""
+    import contextlib
+    import io
+
+    from fluxdistributed_tpu_torch.mesh import shutdown_distributed
+    from fluxdistributed_tpu_torch.parallel import multihost
+    from fluxdistributed_tpu_torch.train.__main__ import run
+
+    port = _free_port()
+    rows = {}
+    for name, extra in (
+            ("dp", ["--spmd", "dp"]),
+            ("cluster", ["--coordinator", f"localhost:{port}",
+                         "--num-processes", "1", "--process-id", "0",
+                         "--platform", "gpu", "--local-devices", "1"])):
+        try:
+            if name == "cluster":
+                # formed here, so that the CLI joins it and leaves it up
+                # for the timing below
+                multihost.initialize(f"localhost:{port}", 1, 0,
+                                     device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_all_counts()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                task = run(MH_ARGV + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = all_counts()
+            peak = torch.cuda.max_memory_allocated()
+            batch = next(iter(task.loader))
+            rows[name] = {"losses": task.losses, "launches": launches,
+                          "wall_s": wall, "peak_allocated_bytes": peak,
+                          "stdout_head": out.getvalue().splitlines()[:2],
+                          **_task_times(torch, task, batch)}
+            del task, batch
+        finally:
+            shutdown_distributed()
+            torch.cuda.empty_cache()
+    cl = rows["cluster"]
+    per = [n // 3 for n in cl["launches"][2:5]]
+    row = {"phase": "multihost_cli", "card": card, "model": "lm_small",
+           "batch": 8, "seqlen": T_TRAIN, "dtype": "bfloat16", **rows,
+           "losses_equal": cl["losses"] == rows["dp"]["losses"],
+           "b1_b2_b3_launches_per_step": per}
+    emit(row)
+    if (not row["losses_equal"] or per != [12, 12, 12]
+            or cl["launches"][0] or cl["launches"][1] or cl["launches"][5]
+            or not any("devices: 1 (1/host x 1 hosts), platform gpu" in ln
+                       for ln in cl["stdout_head"])
+            or not all(math.isfinite(x) for x in cl["losses"])):
+        raise RuntimeError(f"multihost_cli: {row}")
+    return per
+
+
+def vit_ring_phase(torch, card):
+    """ViT-L/16 (224², batch 128, 196 tokens, bf16) sequence-sharded on
+    one NCCL rank ``{data: 1, seq: 1}`` with the flash ring: one forward
+    against the flash DP ViT's (bit for bit, B1 24 launches), then 3
+    steps of ``prepare_training(spmd="sp")`` against the flash DP step
+    (adamw), bit for bit, B1-B3 24 a step; the same two models serve
+    both.  Returns those launches."""
+    from functools import partial
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import vit_l16
+    from fluxdistributed_tpu_torch.ops import flash_attention
+    from fluxdistributed_tpu_torch.parallel import make_ring_attention
+
+    axes = {"data": 1, "seq": 1}
+    make, mesh = _one_rank(lambda m: vit_l16(
+        num_classes=1000, seed=0,
+        attn_fn=make_ring_attention(m, impl="flash")), axes)
+    models = {"dp": vit_l16(num_classes=1000, seed=0,
+                            attn_fn=partial(flash_attention, causal=False)),
+              "ring": make()}  # forms the one-rank group
+    x = image_batch(torch, VIT_B, VISION_SIZE, 1000, torch.bfloat16,
+                    "cuda", 80)["image"]
+    fwd = {}
+    for name, model in models.items():
+        with torch.no_grad():
+            model(x)  # first call: the kernels load
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_all_counts()
+            t0 = time.perf_counter()
+            out = model(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            fwd[name] = {"out": out, "launches": all_counts(),
+                         "wall_ms": wall,
+                         "peak_allocated_bytes":
+                             torch.cuda.max_memory_allocated(),
+                         "ms_device": device_ms(torch, lambda: model(x), 2)}
+    equal = torch.equal(fwd["ring"]["out"], fwd["dp"]["out"])
+    for v in fwd.values():
+        v.pop("out")
+    row = {"phase": "vit_ring_forward", "card": card, "model": "vit_l16",
+           "batch": VIT_B, "tokens": VIT_T, "dtype": "bfloat16",
+           "mesh": axes, "bit_equal_to_dp_flash": equal, **fwd}
+    emit(row)
+    if not equal or fwd["ring"]["launches"][2] != 24:
+        raise RuntimeError(f"vit_ring forward: {row}")
+    batches = [image_batch(torch, VIT_B, VISION_SIZE, 1000, torch.bfloat16,
+                           "cuda", 90 + s) for s in range(SHARD_STEPS)]
+    data = _ImageBank(VISION_SIZE, 1000)
+    # the sp run first: it ends the group the ring model is bound to
+    run = _shard_run(torch, lambda: models.pop("ring"), data, optim.adamw(),
+                     batches, {"spmd": "sp", "mesh": mesh}, lm=False,
+                     batch_size=VIT_B)
+    ref = _shard_run(torch, lambda: models.pop("dp"), data, optim.adamw(),
+                     batches, {}, lm=False, batch_size=VIT_B)
+    per = [n // SHARD_STEPS for n in run["launches"][2:5]]
+    row = _row(torch, "vit_ring", card, "sp_ring_flash", run, ref, per, {
+        "model": "vit_l16", "batch": VIT_B, "tokens": VIT_T,
+        "dtype": "bfloat16", "opt": "adamw (1e-3, wd 1e-2)", "mesh": axes,
+        "dp_step_ms_device": ref["step_ms"],
+        "dp_peak_allocated_bytes": ref["peak_allocated_bytes"]})
+    _check_sharded("vit_ring", "sp_ring_flash", row, [24] * 3, exact=True)
+    del run, ref, batches
+    torch.cuda.empty_cache()
+    return per
+
+
+def _fsdp_steps(torch, make_model, data, opt, batches, lm, batch_size):
+    """``prepare_training(spmd="fsdp")`` on one NCCL rank, one step (the
+    schedule learns the blocks' order), then the others with the peaks
+    reset: their losses (all steps), peak allocated bytes, peak live
+    gathered bytes, device ms a step, warm wall ms and idle share."""
+    from fluxdistributed_tpu_torch.mesh import data_mesh, shutdown_distributed
+    from fluxdistributed_tpu_torch.models import lm_loss_fn
+    from fluxdistributed_tpu_torch.train import prepare_training
+
+    model = make_model()
+    try:
+        task = prepare_training(
+            model, data, opt, batch_size=batch_size, cycles=SHARD_STEPS,
+            spmd="fsdp", mesh=data_mesh(device="cuda"),
+            loss_fn=lm_loss_fn(model) if lm else None,
+            topk=() if lm else (1,))
+        plan = task.step_fn.gather_plan
+        state, m = task.step_fn(task.state, batches[0])
+        losses = [m["loss"].item()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        plan.live.peak = plan.live.now
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            state, m = task.step_fn(state, b)
+            losses.append(m["loss"].item())
+        wall = (time.perf_counter() - t0) / (len(batches) - 1) * 1e3
+        out = {"losses": losses,
+               "peak_allocated_bytes_steps_2_3":
+                   torch.cuda.max_memory_allocated(),
+               "gather_peak_bytes_steps_2_3": plan.live.peak,
+               "blocks_scheduled": len(plan.order or ()),
+               "wall_ms_per_step_warm": wall}
+        ms = device_ms(torch, lambda: task.step_fn(state, batches[0]),
+                       calls=2)
+        out.update(step_ms_device=ms, device_idle_share_warm=1 - ms / wall)
+        del task, state
+        return out
+    finally:
+        del model
+        shutdown_distributed()
+        torch.cuda.empty_cache()
+
+
+def fsdp_schedule_phase(torch, card):
+    """The FSDP gather schedule against the gather-everything step
+    (every leaf gathered up front, as before it: the step given no
+    model): lm_small (B = 8, T = 1024, bf16, flash, adam) and ResNet-50
+    (224², batch 256, bf16, momentum) 3 steps each under spmd="fsdp" on
+    one NCCL rank; equal losses (sharded_train and fsdp_resnet hold the
+    scheduled step to DP bit for bit); over steps 2-3 (the first learns
+    the blocks' order) the peak allocated bytes, the peak live gathered
+    bytes, device ms, warm wall ms and idle share of both.  At one rank
+    an all-gather copies the whole leaf, so the gathered copies are what
+    the schedule frees; across ranks it frees the other ranks' blocks
+    too (the gloo tests count those)."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import lm_small, resnet50
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.train import trainer
+
+    lm_batches = [{"tokens": torch.from_numpy(
+        np.random.default_rng(s).integers(0, 32000, (B, T_TRAIN)).astype(
+            np.int64)).cuda()} for s in range(SHARD_STEPS)]
+    cases = {
+        "lm_small": (lambda: lm_small(vocab=32000, seed=0,
+                                      attn_fn=attention_core("flash")),
+                     _TokenBank(32000, T_TRAIN), lambda: optim.adam(SHARD_LR),
+                     lm_batches, True, B),
+        "resnet50": (lambda: resnet50(num_classes=1000, seed=0),
+                     _ImageBank(VISION_SIZE, 1000),
+                     lambda: optim.momentum(0.01, 0.9), None, False,
+                     VISION_B)}
+    step = trainer.make_train_step_sharded
+    out = {}
+    for name, (make, data, opt, batches, lm, bsz) in cases.items():
+        if batches is None:
+            batches = [image_batch(torch, VISION_B, VISION_SIZE, 1000,
+                                   torch.bfloat16, "cuda", 60 + s)
+                       for s in range(SHARD_STEPS)]
+        runs = {}
+        for mode in ("schedule", "gather_all"):
+            if mode == "gather_all":
+                trainer.make_train_step_sharded = (
+                    lambda *a, **k: step(*a, **{**k, "model": None}))
+            try:
+                runs[mode] = _fsdp_steps(torch, make, data, opt(), batches,
+                                         lm, bsz)
+            finally:
+                trainer.make_train_step_sharded = step
+        sch, ga = runs["schedule"], runs["gather_all"]
+        row = {"phase": "fsdp_schedule", "card": card, "model": name,
+               **runs, "losses_equal": sch["losses"] == ga["losses"],
+               "peak_saved_bytes": ga["peak_allocated_bytes_steps_2_3"]
+               - sch["peak_allocated_bytes_steps_2_3"],
+               "note": "one NCCL rank: each all-gather copies the whole "
+                       "leaf; across ranks the saving also holds the "
+                       "other ranks' blocks (not shown by one card)"}
+        emit(row)
+        if (not row["losses_equal"] or not sch["blocks_scheduled"]
+                or sch["gather_peak_bytes_steps_2_3"]
+                >= ga["gather_peak_bytes_steps_2_3"]):
+            raise RuntimeError(f"fsdp_schedule {name}: {row}")
+        out[name] = row
+        del runs, batches
+    return out
+
+
+SUP_ARGV = ["--model", "lm_small", "--dataset", "synthetic-text", "--vocab",
+            "256", "--seqlen", str(T_TRAIN), "--batch-size", "8", "--attn",
+            "flash", "--opt", "adam", "--lr", "3e-4", "--cycles", "4",
+            "--print-every", "1", "--eval-every", "0",
+            "--checkpoint-every", "0", "--metrics-port", "0"]
+
+
+def supervise_phase(torch, card):
+    """The supervisor over the port's CLI on the card: lm_small 4 cycles
+    with a fault plan that preempts at step 2 gives rc 75 (checkpoint and
+    RESUME manifest), a resume without the plan and rc 0 at step 4; the
+    episode ledger printed.  The children are processes of their own:
+    their device time is not measured here."""
+    import os
+
+    from fluxdistributed_tpu_torch.supervise import Supervisor
+
+    torch.cuda.empty_cache()
+    work = os.path.join(CKPT_DIR, "supervise")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cmd = [sys.executable, "-m", "fluxdistributed_tpu_torch.train",
+           *SUP_ARGV, "--checkpoint-dir", os.path.join(work, "ck"),
+           "--fault-plan", json.dumps({"sigterm_at_step": 2})]
+    ledger = os.path.join(work, "ledger.json")
+    sup = Supervisor(cmd, ledger=ledger, stall_timeout=300.0,
+                     startup_grace=600.0, poll_interval=0.5, verbose=False)
+    t0 = time.perf_counter()
+    try:
+        rc = sup.run()
+        wall = time.perf_counter() - t0
+        with open(ledger) as f:
+            led = json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    eps = led["episodes"]
+    row = {"phase": "supervise", "card": card, "rc": rc,
+           "result": led["result"], "wall_s": wall,
+           "episodes": [{k: e[k] for k in ("n", "rc", "class", "action",
+                                           "wall_seconds", "steps")}
+                        for e in eps],
+           "resume_argv_tail": eps[-1]["argv"][-3:],
+           "final_tail": eps[-1]["log_tail"][-2:],
+           "step_ms_device": None, "note": "the trainer runs in child "
+           "processes: device ms, idle share and peak bytes not measured"}
+    emit(row)
+    tail = "\n".join(eps[-1]["log_tail"])
+    if (rc != 0 or [e["class"] for e in eps] != ["preempted", "done"]
+            or eps[0]["rc"] != 75 or "--resume" not in eps[-1]["argv"]
+            or "--fault-plan" in eps[-1]["argv"]
+            or "resumed from step 2" not in tail
+            or "done: 4 steps" not in tail):
+        raise RuntimeError(f"supervise: {row}")
+
+
+GPT2_LAYERS, GPT2_D, GPT2_VOCAB, GPT2_POS = 12, 768, 50257, 1024
+GEN_PROMPT, GEN_NEW = 8, 64
+
+
+def _gpt2_state_dict(torch, seed: int) -> dict:
+    """A GPT-2 small ``state_dict`` with HF's names and shapes, built on
+    the card from ``seed`` (weights N(0, 0.02), norms 1, biases 0)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def w(*shape):
+        return torch.randn(*shape, device="cuda", generator=g) * 0.02
+
+    d = GPT2_D
+    sd = {"transformer.wte.weight": w(GPT2_VOCAB, d),
+          "transformer.wpe.weight": w(GPT2_POS, d),
+          "transformer.ln_f.weight": torch.ones(d, device="cuda"),
+          "transformer.ln_f.bias": torch.zeros(d, device="cuda")}
+    for i in range(GPT2_LAYERS):
+        t = f"transformer.h.{i}"
+        for ln in ("ln_1", "ln_2"):
+            sd[f"{t}.{ln}.weight"] = torch.ones(d, device="cuda")
+            sd[f"{t}.{ln}.bias"] = torch.zeros(d, device="cuda")
+        for name, (i_, o_) in (("attn.c_attn", (d, 3 * d)),
+                               ("attn.c_proj", (d, d)),
+                               ("mlp.c_fc", (d, 4 * d)),
+                               ("mlp.c_proj", (4 * d, d))):
+            sd[f"{t}.{name}.weight"] = w(i_, o_)  # Conv1D: [in, out]
+            sd[f"{t}.{name}.bias"] = torch.zeros(o_, device="cuda")
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    return sd
+
+
+def generate_phase(torch, card):
+    """GPT-2 small (12 layers, d = 768, 12 heads, vocab 50257, 1024
+    positions, f32) from a seeded HF-named ``state_dict`` through
+    ``python -m fluxdistributed_tpu_torch.generate --gpt2-weights``:
+    greedy decode of 64 tokens from an 8-token prompt; the tokens equal
+    the plain decode's (the decode kernel's plain version on the same
+    model); B4 12 launches a single-token step; decode ms a token (wall
+    and device).  Returns B4's launches a step."""
+    import os
+
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import generate as gen
+    from fluxdistributed_tpu_torch import models
+    from fluxdistributed_tpu_torch.models import gpt2
+    from fluxdistributed_tpu_torch.models import transformer_lm as tlm
+    from fluxdistributed_tpu_torch.ops.flash_decode import (
+        flash_decode_reference)
+
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    path = os.path.join(CKPT_DIR, "gpt2_small.pt")
+    sd = _gpt2_state_dict(torch, 0)
+    torch.save(sd, path)
+    prompt = np.random.default_rng(7).integers(0, GPT2_VOCAB, GEN_PROMPT)
+    total = GEN_PROMPT + GEN_NEW
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        cli_toks, vocab = gen.run(
+            ["--gpt2-weights", path, "--prompt-tokens",
+             ",".join(map(str, prompt)), "--length", str(total)])
+        cli_s = time.perf_counter() - t0
+        cli_launches = all_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        os.remove(path)
+    model = gpt2.gpt2_model(sd, seqlen=total, device="cuda")
+    del sd
+    p = torch.as_tensor(prompt)[None].cuda()
+
+    def decode():
+        with torch.no_grad():
+            return models.generate(model, p, total)
+
+    toks = decode()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = decode()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ms = device_ms(torch, decode, calls=1)
+    kernel = decode
+
+    def plain_decode(q, k, v, idx, **kw):
+        return flash_decode_reference(q, k, v, idx, **kw)
+
+    keep = tlm.flash_decode
+    tlm.flash_decode = plain_decode
+    try:
+        plain = kernel()
+    finally:
+        tlm.flash_decode = keep
+    steps = GEN_NEW - 1  # single-token steps after the prefill's token
+    per_step = cli_launches[0] / steps
+    row = {"phase": "generate", "card": card, "model": "gpt2_small (seeded)",
+           "layers": GPT2_LAYERS, "dim": GPT2_D, "vocab": vocab,
+           "dtype": "float32", "prompt": GEN_PROMPT, "new_tokens": GEN_NEW,
+           "cli_tokens_equal_decode": bool(np.array_equal(
+               cli_toks, toks[0].cpu().numpy())),
+           "tokens_equal_plain_decode": torch.equal(toks, plain),
+           "b4_launches": cli_launches[0],
+           "b4_launches_per_step": per_step,
+           "launches_b4_b5_b1_b2_b3_b6": cli_launches,
+           "cli_seconds": cli_s, "peak_allocated_bytes": peak,
+           "decode_ms_per_token_wall": wall / GEN_NEW,
+           "decode_ms_per_token_device": ms / GEN_NEW,
+           "device_idle_share": 1 - ms / wall}
+    emit(row)
+    if (not row["tokens_equal_plain_decode"]
+            or not row["cli_tokens_equal_decode"]
+            or cli_launches[0] != GPT2_LAYERS * steps
+            or any(cli_launches[1:])):
+        raise RuntimeError(f"generate: {row}")
+    del model
+    torch.cuda.empty_cache()
+    return GPT2_LAYERS
+
+
+
 def main() -> int:
     import torch
 
@@ -4968,6 +5444,15 @@ def main() -> int:
     pp = timed("pp_train", pp_train_phase, torch, cardname,
                kept.pop("dp_flash"))
     pp["cli_gpipe_s1_m2"] = timed("pp_cli", pp_cli_phase, torch)
+    slice16 = {"multihost_cli_lm_small": timed(
+        "multihost_cli", multihost_cli_phase, torch, cardname)}
+    slice16["vit_ring_vit_l16"] = timed("vit_ring", vit_ring_phase, torch,
+                                        cardname)
+    timed("fsdp_schedule", fsdp_schedule_phase, torch, cardname)
+    # the scheduled fsdp step's launches are sharded_train's fsdp row's
+    slice16["fsdp_schedule_lm_small"] = sharded["lm_small_fsdp"]
+    timed("supervise", supervise_phase, torch, cardname)
+    generate_b4 = timed("generate", generate_phase, torch, cardname)
     emit({"phase": "phase_seconds", "seconds": seconds,
           "total": sum(seconds.values())})
 
@@ -5006,8 +5491,9 @@ def main() -> int:
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
 
     emit({"kernels": [
-        kernel_entry("flash_decode", KERNEL_SOURCE, KERNEL_REPLACES,
-                     DENSE_VIA, dense_launches, dense_row),
+        dict(kernel_entry("flash_decode", KERNEL_SOURCE, KERNEL_REPLACES,
+                          DENSE_VIA, dense_launches, dense_row),
+             generate_gpt2_small_launches_per_step=generate_b4),
         kernel_entry("flash_decode_paged", KERNEL_SOURCE, KERNEL_REPLACES,
                      PAGED_VIA, paged_launches, paged_row),
         *(dict(kernel_entry(name, ATTN_SOURCE, replaces, via, n, row),
@@ -5022,6 +5508,8 @@ def main() -> int:
                    path: per[i] for path, per in sp_ep.items()},
                pp_launches_per_step={
                    path: per[i] for path, per in pp.items()},
+               slice16_launches_per_step={
+                   path: per[i] for path, per in slice16.items()},
                context_ring=ctx_entry(ctx_row))
           for i, ((name, replaces, via), n, row, vrow, vn, hrow, hn)
           in enumerate(zip(

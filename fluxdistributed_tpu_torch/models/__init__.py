@@ -11,6 +11,7 @@ from .from_jax import (flax_split_to_state_dict, flax_to_state_dict,
                        flax_vit_to_state_dict,
                        load_flax_convnext, load_flax_params, load_flax_resnet,
                        load_flax_simple, load_flax_vit)
+from .gpt2 import gpt2_config, gpt2_model, import_gpt2
 from .norm import BatchNorm, BatchStats
 from .resnet import (BasicBlock, BottleneckBlock, ResNet, resnet18, resnet34,
                      resnet50, resnet101, resnet152, s2d_stem_kernel,
@@ -37,7 +38,7 @@ __all__ = [
     "convnext_small", "convnext_test", "convnext_tiny", "convnext_xlarge",
     "dequantize_kv", "flax_split_to_state_dict", "flax_to_state_dict",
     "flax_vit_to_state_dict",
-    "generate", "lm_loss_fn",
+    "generate", "gpt2_config", "gpt2_model", "import_gpt2", "lm_loss_fn",
     "lm_medium", "lm_moe_specs", "lm_pp", "lm_pp_1f1b", "lm_small",
     "lm_tiny",
     "load_flax_convnext", "load_flax_params", "load_flax_resnet",

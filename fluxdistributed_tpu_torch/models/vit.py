@@ -31,6 +31,23 @@ the same masks; ``remat`` recomputes each block in the backward.
 :func:`..parallel.tp.tensor_parallel` makes the attention and the MLP
 Megatron modules (their ``tp`` context).
 
+With a sequence-parallel ``attn_fn`` (:mod:`..parallel.context`: the
+ring, flash or not, or Ulysses) the model is sequence-sharded, the
+counterpart of the JAX model with ``make_ring_attention``, which shards
+inside ``shard_map``: each rank patch-embeds the images (its rows of
+the attention's ``batch_axis``, when it names one: the forward then
+takes the global batch), adds the position table, keeps its ``T/S``
+tokens of the ``seq_axis``, runs the blocks and the final norm on them,
+and reads out over the sequence group: the mean is each shard's sum
+scaled by ``1/T`` and summed over the group, the class token global
+position 0's row, shared from the shard that holds it.  Both sums carry
+the gradient (:func:`..parallel.collectives.psum_grad`), so a loss
+divided by ``S`` on every rank gives each rank its part of the gradient
+(``prepare_training(spmd="sp")`` does that).  Every rank returns the
+logits of its rows.  A token count that does not divide over the axis
+raises, as ``shard_map`` refuses it; training dropout is refused (its
+masks hash the local element index).
+
 Parameter names are torchvision's ``VisionTransformer``'s
 (``conv_proj``, ``class_token``, ``encoder.pos_embedding``,
 ``encoder.layers.encoder_layer_{i}.{ln_1, self_attention.in_proj_*,
@@ -184,6 +201,7 @@ class ViT(nn.Module):
         self.num_classes, self.image_size = num_classes, image_size
         self.dtype, self.dropout, self.remat = dtype, dropout, remat
         self.use_class_token, self.gelu_exact = use_class_token, gelu_exact
+        self.attn_fn = attn_fn
         self.conv_proj = nn.Conv2d(3, dim, patch, patch)
         if use_class_token:
             self.class_token = nn.Parameter(torch.zeros(1, 1, dim))
@@ -224,6 +242,9 @@ class ViT(nn.Module):
         if x.shape[1:3] != (self.image_size, self.image_size):
             raise ValueError(f"this ViT takes {self.image_size}² images "
                              f"(its position table), got {tuple(x.shape)}")
+        sp = self.attn_fn if getattr(self.attn_fn, "seq_axis", None) else None
+        if sp is not None and sp.batch_axis is not None:
+            x = _rows(x, sp.mesh, sp.batch_axis)
         x = conv_nhwc(self.conv_proj, x, dt)
         b, h, w, c = x.shape
         x = x.reshape(b, h * w, c)
@@ -235,6 +256,13 @@ class ViT(nn.Module):
         keys = None
         if rate and dropout_seed is not None:
             keys = site_keys(dropout_seed, 1 + BLOCK_SITES * self.depth)
+        if sp is not None:
+            if keys is not None:
+                raise ValueError("a sequence-sharded ViT trains with "
+                                 "dropout 0: the masks hash the element "
+                                 "index, which sharding changes")
+            total = x.shape[1]
+            x = _tokens(x, sp.mesh, sp.seq_axis)
         x = _dropout(x, rate, None if keys is None else keys[0])
         remat = self.remat and torch.is_grad_enabled()
         s = BLOCK_SITES
@@ -243,7 +271,11 @@ class ViT(nn.Module):
                 x, dt, rate,
                 None if keys is None else keys[1 + i * s:1 + (i + 1) * s])
         x = self.encoder.ln(x, dt)
-        x = x[:, 0] if self.use_class_token else x.mean(dim=1)
+        if sp is not None:
+            x = _readout(x, sp.mesh, sp.seq_axis, total,
+                         self.use_class_token)
+        else:
+            x = x[:, 0] if self.use_class_token else x.mean(dim=1)
         hd = torch.promote_types(dt, torch.float32)
         head = self.heads["head"]
         return F.linear(x.to(hd), head.weight.to(hd), head.bias.to(hd))
@@ -259,6 +291,44 @@ class ViT(nn.Module):
         per_block = t * d * 3 * d + 2 * t * t * d + t * d * d + 2 * t * d * m
         return (patches * d * 3 * self.patch ** 2 + self.depth * per_block
                 + d * self.num_classes)
+
+
+def _rows(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """This rank's rows of the global batch ``x`` over ``axis``."""
+    n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+    if x.shape[0] % n:
+        raise ValueError(f"batch {x.shape[0]} does not split over the {n} "
+                         f"ranks of the {axis!r} axis")
+    b = x.shape[0] // n
+    return x[i * b:(i + 1) * b]
+
+
+def _tokens(x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """This rank's ``T/S`` tokens of ``x`` [B, T, D] over ``axis``."""
+    n, i = mesh.axis_size(axis), mesh.axis_index(axis)
+    if x.shape[1] % n:
+        raise ValueError(f"{x.shape[1]} tokens do not split over the {n} "
+                         f"ranks of the {axis!r} axis")
+    t = x.shape[1] // n
+    return x[:, i * t:(i + 1) * t]
+
+
+def _readout(x: torch.Tensor, mesh, axis, total: int,
+             class_token: bool) -> torch.Tensor:
+    """The sequence-sharded readout of this shard ``x`` [B, T/S, D] of
+    ``total`` tokens: global position 0's row with a class token, else
+    the mean over every token (this shard's mean scaled by its share,
+    summed over the group: exactly the mean on one rank)."""
+    from ..parallel.collectives import psum_grad
+
+    if class_token:
+        first = mesh.axis_index(axis) == 0
+        row = x[:, 0] if first else torch.zeros_like(x[:, 0])
+        return psum_grad(row, mesh, axis)
+    share = x.mean(dim=1)
+    if x.shape[1] != total:
+        share = share * (x.shape[1] / total)
+    return psum_grad(share, mesh, axis)
 
 
 def _vit(kw: dict, **defaults) -> ViT:

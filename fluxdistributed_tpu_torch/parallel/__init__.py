@@ -8,9 +8,10 @@ tensor parallelism (``parallel/tp.py``), the sharding rules engine
 ring attention and Ulysses), MoE expert parallelism
 (``parallel/ep.py``) and pipeline parallelism (``parallel/pp.py``,
 GPipe; ``parallel/pp_1f1b.py``, 1F1B, zero-bubble and interleaved;
-``parallel/pp_plan.py``, planned stage boundaries)."""
+``parallel/pp_plan.py``, planned stage boundaries), and multi-process
+runs (``parallel/multihost.py``)."""
 
-from . import context, ep, fsdp, layout, pp_plan, rules, tp
+from . import context, ep, fsdp, layout, multihost, pp_plan, rules, tp
 from .context import (make_ring_attention, make_ulysses_attention,
                       ring_attention, ring_flash_attention,
                       ulysses_attention)
@@ -52,7 +53,7 @@ __all__ = ["GroupPipe", "Layout", "LayoutError", "LocalPipe",
            "make_train_step_pp", "make_train_step_shardmap",
            "make_train_step_tp", "make_train_step_zero1",
            "make_train_step_zero1_fused", "make_train_step_zero1_shardmap",
-           "match_partition_rules", "module_loss_fn", "pack_tree",
+           "match_partition_rules", "module_loss_fn", "multihost", "pack_tree",
            "packed_size", "param_specs", "per_device_state_bytes",
            "pipeline_apply", "pipeline_grads_1f1b", "plan_from_model",
            "plan_from_profile", "plan_stages", "pp_plan",

@@ -29,7 +29,8 @@ group of an N-D mesh and carry gradients (each an
 * :func:`pmean_grad` is the JAX ``pmean`` of a value that carries a
   gradient: its backward averages the cotangents the same way, so a
   replicated term of the loss (the MoE auxiliary loss) reaches each
-  rank's inputs once.
+  rank's inputs once; :func:`psum_grad` is the ``psum`` whose backward
+  sums them (the sequence-sharded ViT's pooling).
 
 In a group of one each is the identity and sends nothing: NCCL is never
 asked to send to its own rank.
@@ -47,7 +48,7 @@ from ..optim import div_const
 from ..tree import tree_map
 
 __all__ = ["RingShift", "all_gather", "all_to_all", "pmean", "pmean_grad",
-           "psum", "reduce_scatter", "ring_shift_start", "tree_map"]
+           "psum", "psum_grad", "reduce_scatter", "ring_shift_start", "tree_map"]
 
 # torch >= 2.13 names these ``*_single`` and warns on the older names,
 # which are the only ones older releases have
@@ -243,6 +244,32 @@ class _PmeanGrad(torch.autograd.Function):
         out = g.contiguous().clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
         return div_const(out, n), None, None
+
+
+class _PsumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.detach().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.group)
+        return out, None
+
+
+def psum_grad(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
+    """The sum of ``x`` over ``axis``'s ranks that carries its gradient:
+    the backward sums the cotangents over the same ranks (the JAX
+    ``psum``'s transpose), so when each rank's loss is its part of one
+    total, each rank's input gets the whole total's cotangent.  The
+    identity in a group of one."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _PsumGrad.apply(x, mesh.group_of(axis))
 
 
 def pmean_grad(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:

@@ -28,10 +28,33 @@ collectives:
   over the ranks that hold a leaf's blocks (:func:`..optim.sharded_norms`),
   which ZeRO-1's sliced update refuses.
 
-The whole state is gathered once a step: persistent params and
-optimizer state are 1/N a rank, but the gathered params live through
-the step.  Freeing them between forward and backward, with a per-block
-prefetch, is later work (ROADMAP).  ``torch.distributed.fsdp`` is not
+Given the ``model`` the loss applies, the gathers follow its blocks
+(:func:`model_blocks`: the modules its ``ModuleList``, ``ModuleDict``
+and ``Sequential`` containers hold), the schedule the JAX package's XLA
+emits (an all-gather per layer where the forward or backward needs the
+full parameter):
+
+* the first forward gathers every leaf up front and records the order in
+  which the blocks run; from then on each block's sharded leaves are
+  gathered when its forward starts (a forward pre-hook swaps them in for
+  placeholders on the ``meta`` device, which fail loudly if anything
+  reads them outside the block) and dropped when it ends;
+* what the backward needs of them is not kept: a
+  ``saved_tensors_hooks`` pair packs a saved tensor that is a gathered
+  leaf, a view of one or a cast of one as a recipe (the leaf's shard and
+  the view's geometry) and re-gathers it when the backward unpacks it;
+* the next block's all-gathers are posted, in the recorded order,
+  before the current block computes: on the card NCCL runs them on its
+  own stream beside that compute (gloo on a worker thread), and the
+  next block waits for them;
+* the leaves outside the blocks (embeddings, heads, final norms) are
+  gathered up front, live through the step, as before.
+
+The gathers move in time and nothing else changes: every leaf is the
+same all-gather of the same shard, its gradient the same reduce-scatter
+in the same graph, so a step is bit-equal to the gather-everything step.
+The plan counts the live gathered bytes (a step's ``gather_plan.live``).
+``torch.distributed.fsdp`` is not
 used: its reduction divides before or while it sums (pre/post division,
 ``ReduceOp.AVG``), which rounds otherwise than the sum-then-divide the
 port's DP and ZeRO-1 steps are held to, and its sharded parameters hide
@@ -51,16 +74,19 @@ summed over them and divided by the batch group's size alone.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Callable, Optional, Sequence
 
 import torch
+from torch import nn
 
 from .. import optim as optim_lib
 from ..mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from ..ops.metrics import topkaccuracy
 from ..optim import Optimizer, div_const
 from ..sharding import (P, Stacked, entry_axes, gather_dim, local_block,
-                        map_with_specs, reduce_scatter_dim, spec_axes)
+                        map_with_specs, reduce_scatter_dim, spec_axes,
+                        start_gather_dim)
 from ..tree import tree_map
 from . import collectives, dp
 from .zero1 import restore_layout
@@ -76,6 +102,7 @@ __all__ = [
     "make_eval_step_sharded",
     "make_train_step_fsdp",
     "make_train_step_sharded",
+    "model_blocks",
     "shard_state",
 ]
 
@@ -184,17 +211,45 @@ def gather_state(tree, specs, mesh: Mesh, keep_axis: Optional[str] = None):
 class AllGatherShard(torch.autograd.Function):
     """``x``'s blocks all-gathered along ``dim`` over ``group`` (``n``
     ranks); the backward reduce-scatters (sums) the gradient along that
-    dim, so each rank gets its block of the sum."""
+    dim, so each rank gets its block of the sum.  ``ready``, when given,
+    is the ``finish`` of that gather already posted
+    (:func:`..sharding.start_gather_dim`)."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, n):
+    def forward(ctx, x, dim, group, n, ready=None):
         ctx.dim, ctx.group, ctx.n = dim, group, n
-        return gather_dim(x, dim, group, n)
+        return ready() if ready is not None else gather_dim(x, dim, group, n)
 
     @staticmethod
     def backward(ctx, g):
         return (reduce_scatter_dim(g, ctx.dim, ctx.group, ctx.n), None,
-                None, None)
+                None, None, None)
+
+
+_CONTAINERS = (nn.ModuleList, nn.ModuleDict, nn.Sequential)
+
+
+def model_blocks(model: nn.Module) -> list:
+    """``(name, module)`` of each block of ``model``, in registration
+    order: a module that a container (``ModuleList``, ``ModuleDict``,
+    ``Sequential``) holds and that is not a container itself (a
+    transformer's layers, a ResNet stage's residual blocks; a container
+    of containers is walked into).  A block's own submodules are not
+    blocks."""
+    out = []
+
+    def walk(prefix: str, mod: nn.Module, held: bool) -> None:
+        for name, child in mod.named_children():
+            full = prefix + name
+            if isinstance(child, _CONTAINERS):
+                walk(full + ".", child, True)
+            elif held:
+                out.append((full, child))
+            else:
+                walk(full + ".", child, False)
+
+    walk("", model, isinstance(model, _CONTAINERS))
+    return out
 
 
 def _sub(mesh: Mesh, axes) -> Mesh:
@@ -249,18 +304,58 @@ class _Plan:
             self._subs[axes] = _sub(self.mesh, axes)
         return self._subs[axes]
 
+    def gather(self, k: str, p: torch.Tensor, ready=None) -> torch.Tensor:
+        """Leaf ``k``'s global value from its shard ``p``, through
+        :class:`AllGatherShard` (``ready``: the first gather, posted),
+        in the shard's memory layout."""
+        x = p
+        for i, (d, axes) in enumerate(self.gathers.get(k, ())):
+            sub = self.sub(axes)
+            x = AllGatherShard.apply(x, d, sub.group, sub.size,
+                                     ready if i == 0 else None)
+        return restore_layout(x, p) if x is not p else p
+
+    def start(self, k: str, p: torch.Tensor):
+        """Post leaf ``k``'s first all-gather without waiting for it
+        (NCCL runs it on its own stream, beside the compute the current
+        stream goes on with) and return what :meth:`gather` takes as
+        ``ready``: its ``finish``, which makes the current stream wait
+        for it."""
+        d, axes = self.gathers[k][0]
+        sub = self.sub(axes)
+        return self.live.posted(
+            start_gather_dim(p.detach(), d, sub.group, sub.size))
+
     def view(self, params: dict) -> dict:
         """The params the model computes with: each sharded leaf
         gathered (through :class:`AllGatherShard`), in its block's
         memory layout."""
-        out = {}
-        for k, p in params.items():
-            x = p
-            for d, axes in self.gathers.get(k, ()):
-                sub = self.sub(axes)
-                x = AllGatherShard.apply(x, d, sub.group, sub.size)
-            out[k] = restore_layout(x, p) if x is not p else p
-        return out
+        return {k: self.gather(k, p) for k, p in params.items()}
+
+    def bind(self, model: Optional[nn.Module]):
+        """The blocks of ``model`` whose leaves the schedule gathers
+        (:class:`_Schedule`): for each, ``[(owner module, attribute,
+        key)]`` of its sharded leaves."""
+        self.blocks, self.order, self.seen = {}, None, []
+        self.live = _LiveBytes()
+        if model is None:
+            return
+        for name, blk in model_blocks(model):
+            leaves = []
+            for pname, _ in blk.named_parameters(prefix=name):
+                if self.gathers.get(pname):
+                    owner, _, attr = pname[len(name) + 1:].rpartition(".")
+                    leaves.append((blk.get_submodule(owner), attr, pname))
+            if leaves:
+                self.blocks[name] = (blk, leaves)
+
+    def global_shape(self, k: str, p: torch.Tensor) -> tuple:
+        """Leaf ``k``'s gathered shape, from its shard ``p``."""
+        shape = list(p.shape)
+        for d, axes in self.gathers.get(k, ()):
+            shape[d] *= self.sub(axes).size
+        return tuple(shape)
+
 
     def reduce(self, k: str, g: Optional[torch.Tensor], n: int):
         """Gradient ``g`` of leaf ``k`` summed over its remaining batch
@@ -294,13 +389,247 @@ class _Plan:
         return total
 
 
+class _LiveBytes:
+    """The gathered bytes the plan holds now and at most (``peak``): the
+    storage of each gathered tensor, counted once from the first tracked
+    tensor on it until the last is freed (``weakref.finalize``), and
+    each posted gather's buffer from its post until it is finished (the
+    backend may hold a finished buffer a moment longer: its worker
+    thread's reference is not the plan's)."""
+
+    def __init__(self):
+        self.now = self.peak = 0
+        self._refs: dict = {}  # storage pointer -> [bytes, tensors]
+
+    def add(self, t: torch.Tensor) -> torch.Tensor:
+        st = t.untyped_storage()
+        ptr = st.data_ptr()
+        if ptr in self._refs:
+            self._refs[ptr][1] += 1
+        else:
+            self._refs[ptr] = [st.nbytes(), 1]
+            self._count(st.nbytes())
+        weakref.finalize(t, self._free, ptr)
+        return t
+
+    def _count(self, n: int) -> None:
+        self.now += n
+        self.peak = max(self.peak, self.now)
+
+    def _free(self, ptr: int) -> None:
+        ent = self._refs[ptr]
+        ent[1] -= 1
+        if ent[1] == 0:
+            del self._refs[ptr]
+            self.now -= ent[0]
+
+    def posted(self, finish):
+        """``finish`` of a posted gather, its buffer counted until it
+        is called."""
+        n = finish.out.untyped_storage().nbytes()
+        self._count(n)
+
+        def ready() -> torch.Tensor:
+            x = self.add(finish())
+            self.now -= n
+            return x
+
+        return ready
+
+
+# the autograd nodes a saved view of a gathered leaf's cast may pass
+# through on its way back to the cast
+_VIEW_NODES = frozenset({
+    "TBackward0", "TransposeBackward0", "PermuteBackward0", "ViewBackward0",
+    "UnsafeViewBackward0", "ReshapeAliasBackward0", "AliasBackward0",
+    "ExpandBackward0", "SliceBackward0", "SelectBackward0",
+    "UnsqueezeBackward0", "SqueezeBackward0", "SqueezeBackward1",
+    "AsStridedBackward0"})
+
+
+class _Schedule:
+    """One loss call's gathers over the plan's blocks (see the module
+    docstring): the model's forward pre-hooks and hooks and the saved
+    tensors' pack and unpack hooks call it."""
+
+    def __init__(self, plan: _Plan, params: dict):
+        self.plan, self.params = plan, params
+        self.record = plan.order is None  # the first call learns the order
+        self.ready: dict = {}  # block -> {key: posted gather}
+        # storage pointer -> (key, gathered tensor) of each block leaf
+        # gathered now, and its autograd node's id -> key
+        self.by_ptr: dict = {}
+        self.by_node: dict = {}
+        self.placeholders: dict = {}  # (owner, attr) -> the meta tensor
+
+    def view(self) -> dict:
+        """The params for the model: gathered up front on the first call
+        and outside the scheduled blocks, ``meta`` placeholders of the
+        global shape for the scheduled blocks' leaves."""
+        plan, out = self.plan, {}
+        later = set() if self.record else {
+            k for b in plan.order for _, _, k in plan.blocks[b][1]}
+        for k, p in self.params.items():
+            if k in later:
+                out[k] = torch.empty(plan.global_shape(k, p), dtype=p.dtype,
+                                     device="meta")
+            else:
+                x = plan.gather(k, p)
+                out[k] = p if x is p else plan.live.add(x)
+        return out
+
+    def enter(self, name: str) -> None:
+        """Block ``name``'s forward starts: gather its leaves (posted
+        ones finished), swap them in, post the next block's."""
+        plan = self.plan
+        if self.record:
+            if name not in plan.seen:
+                plan.seen.append(name)
+            return
+        ready = self.ready.pop(name, {})
+        for owner, attr, k in plan.blocks[name][1]:
+            # popped: a posted buffer goes as soon as its leaf is made
+            x = plan.live.add(plan.gather(k, self.params[k],
+                                          ready.pop(k, None)))
+            self.by_ptr[x.untyped_storage().data_ptr()] = (k, x)
+            self.by_node[id(x.grad_fn)] = (k, x.grad_fn, x)
+            self.placeholders[(id(owner), attr)] = owner._parameters[attr]
+            owner._parameters[attr] = x
+        i = plan.order.index(name)
+        if i + 1 < len(plan.order):
+            self.post(plan.order[i + 1])
+
+    def leave(self, name: str) -> None:
+        """Block ``name``'s forward ends: its gathered leaves go (what
+        the backward needs was packed as recipes)."""
+        if self.record:
+            return
+        keys = set()
+        for owner, attr, k in self.plan.blocks[name][1]:
+            owner._parameters[attr] = self.placeholders.pop((id(owner), attr))
+            keys.add(k)
+        self.by_ptr = {p: v for p, v in self.by_ptr.items()
+                       if v[0] not in keys}
+        self.by_node = {i: v for i, v in self.by_node.items()
+                        if v[0] not in keys}
+
+    def post(self, name: str) -> None:
+        """Post block ``name``'s first all-gathers (leaves with one)."""
+        plan = self.plan
+        if name in self.ready:
+            return
+        self.ready[name] = {k: plan.start(k, self.params[k])
+                            for _, _, k in plan.blocks[name][1]
+                            if len(plan.gathers[k]) == 1}
+
+    def pack(self, t: torch.Tensor):
+        """A saved tensor that is a gathered block leaf, a view of one or
+        a cast of one becomes a recipe to gather it again; anything else
+        is kept as it is."""
+        if t.device.type == "meta" or not (self.by_ptr or self.by_node):
+            return t
+        hit = self._origin(t)
+        if hit is None:
+            return t
+        k, dtype = hit
+        return (_Regather, self, k, dtype, t.size(), t.stride(),
+                t.storage_offset())
+
+    def _origin(self, t: torch.Tensor):
+        """``(key, None)`` when ``t`` shares storage with a gathered
+        leaf, ``(key, dtype)`` when it is a view of the whole leaf's
+        cast (storage of the leaf's size in ``t``'s dtype), else None."""
+        hit = self.by_ptr.get(t.untyped_storage().data_ptr())
+        if hit is not None:
+            return hit[0], None
+        node = t.grad_fn
+        while node is not None:
+            name = type(node).__name__
+            if name == "ToCopyBackward0":
+                parent = node.next_functions[0][0]
+                hit = self.by_node.get(id(parent))
+                if hit is None or hit[1] is not parent:
+                    return None
+                x = hit[2]
+                if (t.untyped_storage().nbytes()
+                        != x.numel() * t.element_size()
+                        or not (x.is_contiguous() or x.is_contiguous(
+                            memory_format=torch.channels_last))):
+                    return None
+                return hit[0], t.dtype
+            if name not in _VIEW_NODES:
+                return None
+            node = node.next_functions[0][0]
+        return None
+
+    def regather(self, k: str, dtype) -> torch.Tensor:
+        """Leaf ``k`` gathered again outside the graph (the backward only
+        reads it), cast to ``dtype`` when the saved tensor was a cast."""
+        live = self.plan.live
+        with torch.no_grad():
+            x = live.add(self.plan.gather(k, self.params[k].detach()))
+            return x if dtype is None else live.add(x.to(dtype))
+
+
+class _Regather:
+    """The tag of a packed recipe."""
+
+
+def _unpack(packed):
+    if not (isinstance(packed, tuple) and packed
+            and packed[0] is _Regather):
+        return packed
+    _, sched, k, dtype, size, stride, offset = packed
+    return sched.regather(k, dtype).as_strided(size, stride, offset)
+
+
+class _Scheduled:
+    """The context of one loss call on :class:`_Schedule`: the view to
+    pass the model, the blocks' hooks and the saved-tensor hooks."""
+
+    def __init__(self, plan: _Plan, params: dict):
+        self.sched = _Schedule(plan, params)
+        self.handles = []
+        self.saved = None
+
+    def __enter__(self) -> dict:
+        sched, plan = self.sched, self.sched.plan
+        view = sched.view()
+        for name, (blk, _) in plan.blocks.items():
+            if sched.record or name in plan.order:
+                self.handles.append(blk.register_forward_pre_hook(
+                    lambda m, a, n=name: sched.enter(n)))
+                self.handles.append(blk.register_forward_hook(
+                    lambda m, a, o, n=name: sched.leave(n)))
+        if not sched.record and plan.order:
+            self.saved = torch.autograd.graph.saved_tensors_hooks(
+                sched.pack, _unpack)
+            self.saved.__enter__()
+        return view
+
+    def __exit__(self, *exc) -> None:
+        if self.saved is not None:
+            self.saved.__exit__(*exc)
+        for h in self.handles:
+            h.remove()
+        plan = self.sched.plan
+        if self.sched.record:
+            plan.order = [n for n in plan.seen if n in plan.blocks]
+        # a posted gather no block took (the order changed) is finished
+        for ready in self.sched.ready.values():
+            for finish in ready.values():
+                finish()
+
+
 def _gathered_loss(loss_fn: Callable, plan: _Plan) -> Callable:
-    """``loss_fn`` on the blocks: the params are gathered first."""
+    """``loss_fn`` on the blocks: the params gathered on the schedule
+    (all of them up front without a model)."""
     with_rng = dp._accepts_rng(loss_fn)
 
     def fn(params, model_state, batch, train: bool, rng=None):
         kw = {"rng": rng} if with_rng else {}
-        return loss_fn(plan.view(params), model_state, batch, train, **kw)
+        with _Scheduled(plan, params) as view:
+            return loss_fn(view, model_state, batch, train, **kw)
 
     fn.global_model_state = getattr(loss_fn, "global_model_state", False)
     return fn
@@ -311,13 +640,15 @@ def _batch_axes(axes) -> tuple:
 
 
 def _step_plan(mesh: Mesh, specs: dp.TrainState, batch_axes, tp_axis,
-               block_axes, partial_axes):
+               block_axes, partial_axes, model=None):
     """(batch-group mesh, partial-loss mesh or None, :class:`_Plan`) of
-    a sharded step."""
+    a sharded step, its schedule bound to ``model``'s blocks."""
     axes, partial = _batch_axes(batch_axes), _batch_axes(partial_axes)
+    plan = _Plan(mesh, specs.params, axes, tp_axis, _batch_axes(block_axes),
+                 partial)
+    plan.bind(model)
     return (_sub(mesh, axes), _sub(mesh, partial) if partial else None,
-            _Plan(mesh, specs.params, axes, tp_axis,
-                  _batch_axes(block_axes), partial))
+            plan)
 
 
 def _loss_mean(loss, bmesh: Mesh, pmesh: Optional[Mesh]):
@@ -335,7 +666,8 @@ def make_train_step_sharded(loss_fn: Callable, optimizer: Optimizer,
                             block_axes: Sequence[str] = (),
                             partial_axes: Sequence[str] = (),
                             accum_steps: int = 1, seed: int = 0,
-                            guard: bool = False):
+                            guard: bool = False,
+                            model: Optional[nn.Module] = None):
     """``step_fn(state, batch) -> (state, metrics)`` on a state of blocks
     placed by ``specs`` (a ``TrainState`` of :class:`~..sharding.P`):
     the DP step with each sharded leaf gathered for the forward and its
@@ -354,10 +686,15 @@ def make_train_step_sharded(loss_fn: Callable, optimizer: Optimizer,
     divided by the batch group alone (see the module docstring); the
     dropout seeds do not fold in those axes.  ``guard=True`` adds
     ``metrics["guard"]``, :func:`.dp.guard_sentinel`'s ``[poisoned_loss,
-    grad_norm]`` with each leaf's squares summed over its blocks."""
+    grad_norm]`` with each leaf's squares summed over its blocks.
+    ``model``, the module ``loss_fn`` applies, puts the gathers on its
+    blocks' schedule; without it every leaf is gathered up front.  The
+    step's ``gather_plan`` holds the block order the schedule learned
+    (``order``) and the live gathered bytes (``live.now``,
+    ``live.peak``)."""
     dp._check_step_options(accum_steps, 1)
     bmesh, pmesh, plan = _step_plan(mesh, specs, batch_axes, tp_axis,
-                                    block_axes, partial_axes)
+                                    block_axes, partial_axes, model)
     grads_of = dp._grads_of(_gathered_loss(loss_fn, plan), accum_steps)
 
     def body(state: dp.TrainState, batch, seeds, scalars):
@@ -380,9 +717,11 @@ def make_train_step_sharded(loss_fn: Callable, optimizer: Optimizer,
                              model_state=mstate,
                              step=state.step + 1), metrics
 
-    return dp.device_loop(body, optimizer, seed=seed,
+    loop = dp.device_loop(body, optimizer, seed=seed,
                           accum_steps=accum_steps, mesh=bmesh,
                           steps_per_call=1)
+    loop.gather_plan = plan
+    return loop
 
 
 def make_eval_step_sharded(loss_fn: Callable, mesh: Mesh,
@@ -391,18 +730,21 @@ def make_eval_step_sharded(loss_fn: Callable, mesh: Mesh,
                            tp_axis: Optional[str] = MODEL_AXIS,
                            block_axes: Sequence[str] = (),
                            partial_axes: Sequence[str] = (),
-                           topk: tuple = (1, 5, 10)):
-    """The eval step on a state of blocks: the params gathered, one
-    forward in eval mode, the loss (summed over ``partial_axes`` first)
-    and top-k accuracies averaged over the batch group (see
+                           topk: tuple = (1, 5, 10),
+                           model: Optional[nn.Module] = None):
+    """The eval step on a state of blocks: the params gathered (on
+    ``model``'s block schedule, as the train step's), one forward in
+    eval mode, the loss (summed over ``partial_axes`` first) and top-k
+    accuracies averaged over the batch group (see
     :func:`.dp.make_eval_step`)."""
     bmesh, pmesh, plan = _step_plan(mesh, specs, batch_axes, tp_axis,
-                                    block_axes, partial_axes)
+                                    block_axes, partial_axes, model)
 
     @torch.no_grad()
     def step(state: dp.TrainState, batch):
-        loss, (_, logits) = loss_fn(plan.view(state.params),
-                                    state.model_state, batch, False)
+        with _Scheduled(plan, state.params) as view:
+            loss, (_, logits) = loss_fn(view, state.model_state, batch,
+                                        False)
         metrics = {f"top{k}": topkaccuracy(logits, batch["label"], k=k)
                    for k in topk}
         return (_loss_mean(loss, bmesh, pmesh),

@@ -42,7 +42,7 @@ from .tree import leaves_with_path, tree_map
 __all__ = ["P", "Stacked", "ensure_synced", "entry_axes", "gather_dim", "gather_global", "global_shape",
            "local_block", "map_with_specs", "partition_by_rules",
            "reduce_scatter_dim", "replicate", "shard_batch", "spec_axes",
-           "stack_on_axis"]
+           "stack_on_axis", "start_gather_dim"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,18 +151,36 @@ def gather_dim(x: torch.Tensor, dim: int, group, n: int,
     """The ``n`` ranks' blocks of ``x`` along ``dim`` concatenated in
     rank order (an all-gather over ``group``); ``parts > 1`` puts each
     rank's slice of every stacked part back in its part."""
+    return start_gather_dim(x, dim, group, n, parts, async_op=False)()
+
+
+def start_gather_dim(x: torch.Tensor, dim: int, group, n: int,
+                     parts: int = 1, async_op: bool = True):
+    """:func:`gather_dim` started: the all-gather is posted (without
+    waiting, with ``async_op``) and the returned ``finish()`` waits for
+    it and returns what :func:`gather_dim` returns, bit for bit
+    (``finish.out`` is the buffer it fills).  The buffer is allocated on
+    the current stream."""
     from .parallel.collectives import _all_gather
 
     x = x.contiguous()
     shp = list(x.shape)
     out = torch.empty([n] + shp, dtype=x.dtype, device=x.device)
-    _all_gather(out.view([n * shp[0]] + shp[1:]), x, group=group)
-    full = shp[:dim] + [n * shp[dim]] + shp[dim + 1:]
-    if parts == 1:
-        return out.movedim(0, dim).reshape(full)
-    m = shp[dim] // parts
-    out = out.view([n] + shp[:dim] + [parts, m] + shp[dim + 1:])
-    return out.movedim(0, dim + 1).reshape(full)
+    work = _all_gather(out.view([n * shp[0]] + shp[1:]), x, group=group,
+                       async_op=async_op)
+
+    def finish() -> torch.Tensor:
+        if work is not None:
+            work.wait()
+        full = shp[:dim] + [n * shp[dim]] + shp[dim + 1:]
+        if parts == 1:
+            return out.movedim(0, dim).reshape(full)
+        m = shp[dim] // parts
+        v = out.view([n] + shp[:dim] + [parts, m] + shp[dim + 1:])
+        return v.movedim(0, dim + 1).reshape(full)
+
+    finish.out = out  # the buffer the gather fills
+    return finish
 
 
 def reduce_scatter_dim(x: torch.Tensor, dim: int, group,

@@ -27,7 +27,17 @@ the command runs under ``torchrun``::
     torchrun --nproc-per-node 4 -m fluxdistributed_tpu_torch.train ...
 
 (one rank per GPU; ``--batch-size`` is the global batch, and a ResNet's
-BatchNorm statistics are those of the global batch).  ``--steps-per-call
+BatchNorm statistics are those of the global batch).  ``bin/driver.py``'s
+cluster flags start the processes by hand, one per host or device
+(:mod:`..parallel.multihost`)::
+
+    python -m fluxdistributed_tpu_torch.train ... \
+        --coordinator host0:29500 --num-processes 2 --process-id $I
+
+(``--platform cpu|gpu`` is ``--device cpu|cuda``; ``--platform tpu``
+and ``--local-devices`` other than 1 are refused.)  Only process 0
+logs, serves ``--metrics-port``, writes the observation files and the
+checkpoints; every process ends at one barrier.  ``--steps-per-call
 K`` runs K optimizer steps a call (the JAX device loop): the loader
 stacks K batches an item, and on the GPU the K steps are one CUDA graph
 replay (``--cycles`` must be a multiple of K; ``--spmd jit`` only).
@@ -308,6 +318,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu (the kernels' plain "
                         "versions)")
+    # a multi-process run (parallel/multihost.py), bin/driver.py's flags
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="process 0's address: form a process group of "
+                        "--num-processes processes over TCP (NCCL on the "
+                        "card, gloo with --device cpu)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--platform", default=None, choices=["cpu", "gpu", "tpu"],
+                   help="bin/driver.py's platform: cpu is --device cpu, gpu "
+                        "is --device cuda; tpu is refused")
+    p.add_argument("--local-devices", type=int, default=None,
+                   help="devices a process drives: 1 (one process drives "
+                        "one device in the port)")
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--wandb", action="store_true",
                    help="log to Weights & Biases")
@@ -481,10 +504,35 @@ def _install_fault_plan(spec):
     return faults.install_plan(plan)
 
 
+def platform_device(args) -> None:
+    """Fold ``bin/driver.py``'s ``--platform`` into ``--device``, and
+    refuse what the port cannot run: a TPU, and more than one device a
+    process."""
+    if args.platform == "tpu":
+        raise SystemExit("--platform tpu: the port runs on a CUDA card "
+                         "(--platform gpu) or the CPU (--platform cpu)")
+    local = getattr(args, "local_devices", None)
+    if local is not None and local != 1:
+        raise SystemExit(
+            f"--local-devices {local}: in the port one process "
+            "drives one device; start one process per device "
+            "(--num-processes) instead")
+    if args.platform is not None:
+        dev = "cpu" if args.platform == "cpu" else "cuda"
+        if args.device is not None and args.device.split(":")[0] != dev:
+            raise SystemExit(f"--platform {args.platform} conflicts with "
+                             f"--device {args.device}")
+        args.device = args.device or dev
+
+
 def _run(args):
     from ..device import resolve_device
+    from ..parallel import multihost
 
+    platform_device(args)
     device = resolve_device(args.device)
+    cluster = args.coordinator is not None or args.num_processes is not None \
+        or args.process_id is not None
     dataset, val_dataset = _dataset(args)
     if args.cycles is None and not hasattr(dataset, "__len__"):
         raise SystemExit("--cycles is required for unbounded token streams "
@@ -493,19 +541,36 @@ def _run(args):
     _check_mode_flags(args)
     # a process group for ZeRO-1, the shard_map step, the sharded modes,
     # or torchrun's ranks; one this call forms, it also ends
-    mesh, formed = None, False
-    if (args.zero1 or args.spmd in ("shard_map", "fsdp", "tp", "fsdp_tp",
-                                    "sp", "ep", "pp", "pp_1f1b")
-            or args.layout is not None or "WORLD_SIZE" in os.environ):
-        import torch.distributed as dist
+    import torch.distributed as dist
 
+    mesh, formed = None, False
+    if cluster:
+        formed = not dist.is_initialized()
+        try:
+            mesh = multihost.initialize(args.coordinator, args.num_processes,
+                                        args.process_id, device=device)
+        except ValueError as e:
+            raise SystemExit(f"--coordinator/--num-processes/--process-id: "
+                             f"{e}")
+        device = mesh.device
+    elif (args.zero1 or args.spmd in ("shard_map", "fsdp", "tp", "fsdp_tp",
+                                      "sp", "ep", "pp", "pp_1f1b")
+            or args.layout is not None or "WORLD_SIZE" in os.environ
+            or dist.is_initialized()):
         from ..mesh import init_distributed
 
         formed = not dist.is_initialized()
         mesh = init_distributed(device)
         device = mesh.device
     try:
-        return _train(args, dataset, val_dataset, device, mesh)
+        task = _train(args, dataset, val_dataset, device, mesh)
+        if mesh is not None and args.replay_step is None:
+            # every process ends its run together
+            multihost.sync_global_devices("train_done")
+            if mesh.rank == 0:
+                print(f"done: {task.state.step} steps, {task.num_missed} "
+                      "missed", flush=True)
+        return task
     finally:
         if formed:
             from ..mesh import shutdown_distributed
@@ -636,6 +701,13 @@ def _train(args, dataset, val_dataset, device, mesh):
         f"{mesh.shape}{', zero1' if args.zero1 else ''}"
         f"{f', spmd {args.spmd}' if args.spmd not in ('jit', 'dp') else ''}"
         f"{f', layout {layout.describe()}' if layout is not None else ''}")
+    if lead and (args.coordinator is not None
+                 or "WORLD_SIZE" in os.environ):
+        # bin/driver.py's banner: a process drives one device here
+        world = torch.distributed.get_world_size()
+        print(f"devices: {world} (1/host x {world} hosts), platform "
+              f"{'gpu' if device.type == 'cuda' else 'cpu'}, mesh "
+              f"{mesh.shape}", flush=True)
     if lead:
         print(f"device: {device} ({name}){ranks}, model {args.model} "
               f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
@@ -662,7 +734,7 @@ def _train(args, dataset, val_dataset, device, mesh):
                 f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in metrics.items())
             print(f"final eval: {parts}", flush=True)
-    if lead:
+    if lead and mesh is None:
         print(f"done: {task.state.step} steps, {task.num_missed} missed",
               flush=True)
     return task
@@ -856,14 +928,16 @@ def _observed_train(args, task, mesh, lead, is_lm, train) -> None:
     from .guard import GuardConfig
 
     reg = get_registry()
+    # the files are the coordinator's: every process would write one path
     observation = Observation(
-        tracer=SpanTracer() if args.trace_events else None,
+        tracer=SpanTracer() if args.trace_events and lead else None,
         watchdog=(StepWatchdog(factor=args.watchdog_factor,
                                escalate_after=args.watchdog_escalate)
                   if args.watchdog_factor else None),
-        trace_path=args.trace_events,
+        trace_path=args.trace_events if lead else None,
         device_sync=bool(args.trace_events),
-        jsonl_path=args.metrics_jsonl, flight_path=args.flight)
+        jsonl_path=args.metrics_jsonl if lead else None,
+        flight_path=args.flight if lead else None)
     server = None
     if args.metrics_port is not None and lead:
         def health():
@@ -937,7 +1011,8 @@ def main(argv=None) -> int:
     from ..faults import HALTED_RC, PREEMPTED_RC, Preempted
     from .guard import GuardHalt
 
-    lead = int(os.environ.get("RANK", "0")) == 0
+    pid = build_parser().parse_args(argv).process_id
+    lead = int(os.environ.get("RANK", "0")) == 0 and not pid
     try:
         run(argv)
     except GuardHalt as e:

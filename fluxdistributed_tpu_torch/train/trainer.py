@@ -72,6 +72,7 @@ from ..optim import Optimizer
 from ..parallel.dp import (TrainState, make_eval_step, make_train_step,
                            make_train_step_shardmap, module_loss_fn)
 from ..parallel.fsdp import make_eval_step_sharded, make_train_step_sharded
+from ..parallel import multihost
 from ..tree import synchronize, to_host
 from .checkpoint import (clear_resume_manifest, latest_step, load_checkpoint,
                          load_checkpoint_elastic, read_resume_manifest,
@@ -388,7 +389,7 @@ def prepare_training(
             tp=layout.tp > 1, what=f"layout {layout.name!r}")
         step_fn = make_train_step_sharded(
             loss_fn, optimizer, mesh, specs, batch_axes=layout.batch_axes,
-            accum_steps=accum_steps, seed=seed, guard=guard)
+            accum_steps=accum_steps, seed=seed, guard=guard, model=model)
     elif spmd in ("tp", "fsdp_tp"):
         from ..models import TransformerLM, ViT
         from ..parallel import fsdp as fsdp_lib
@@ -428,7 +429,7 @@ def prepare_training(
                                       mesh, tp_specs, tp=True, what=spmd)
         step_fn = make_train_step_sharded(
             loss_fn, optimizer, mesh, specs, batch_axes=(DATA_AXIS,),
-            seed=seed)
+            seed=seed, model=model)
     elif spmd == "sp":
         from ..parallel import tp as tp_lib
         from ..sharding import P
@@ -437,7 +438,10 @@ def prepare_training(
         bmesh = mesh.sub(DATA_AXIS)
         partial_axes = (SEQ_AXIS,)
         if loss_fn is None:
-            loss_fn = module_loss_fn(model, loss, bmesh)
+            # an image model (the sequence-sharded ViT): every seq rank
+            # holds the whole loss of its rows, so each takes 1/S of it
+            loss_fn = _seq_part(module_loss_fn(model, loss, bmesh),
+                                mesh.axis_size(SEQ_AXIS))
         state, specs = _sharded_state(  # every leaf replicated
             model, params, mstate, optimizer, mesh,
             lambda st: tp_lib.state_specs(st, {k: P() for k in st.params}),
@@ -475,7 +479,7 @@ def prepare_training(
             lambda st: fsdp_lib.fsdp_specs(st, mesh), tp=False, what=spmd)
         step_fn = make_train_step_sharded(
             loss_fn, optimizer, mesh, specs, batch_axes=(DATA_AXIS,),
-            accum_steps=accum_steps, seed=seed)
+            accum_steps=accum_steps, seed=seed, model=model)
     else:
         if loss_fn is None:
             loss_fn = module_loss_fn(model, loss, mesh)
@@ -490,7 +494,7 @@ def prepare_training(
                                          batch_axes=bmesh.axis_names,
                                          block_axes=block_axes,
                                          partial_axes=partial_axes,
-                                         topk=topk)
+                                         topk=topk, model=model)
     else:
         eval_fn = make_eval_step(loss_fn, mesh, topk=topk)
     val_batch = None
@@ -568,6 +572,26 @@ def _check_sp(model, mesh) -> None:
     if attn.mesh.shape != mesh.shape:
         raise ValueError(f"the model's attn_fn runs on the mesh "
                          f"{attn.mesh.shape}, the step on {mesh.shape}")
+    from ..models import TransformerLM
+
+    if not isinstance(model, TransformerLM) and attn.batch_axis is not None:
+        raise ValueError(
+            "the trainer feeds each rank its rows of the batch: build the "
+            "sequence-sharded model's attn_fn without batch_axis (with one "
+            "its forward takes the global batch)")
+
+
+def _seq_part(loss_fn: Callable, n: int) -> Callable:
+    """``loss_fn``'s loss divided by the ``n`` seq ranks: a loss every
+    rank computes whole becomes the parts ``spmd="sp"`` sums."""
+    from ..optim import div_const
+
+    def fn(params, model_state, batch, train: bool, rng=None):
+        loss, aux = loss_fn(params, model_state, batch, train, rng=rng)
+        return div_const(loss, n), aux
+
+    fn.global_model_state = getattr(loss_fn, "global_model_state", False)
+    return fn
 
 
 def _check_ep(model, mesh, accum_steps: int) -> None:
@@ -1185,10 +1209,8 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
         if task.mesh is not None and task.mesh.size > 1:
             # every rank stops at the same boundary, or one rank enters a
             # collective (the checkpoint's gather, the next step) alone
-            flag = torch.tensor([float(hit)], device=task.mesh.device)
-            torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX,
-                                         group=task.mesh.group)
-            hit = bool(flag.item())
+            hit = multihost.agree_to_stop(hit, group=task.mesh.group,
+                                          device=task.mesh.device)
         return hit
 
     def checkpoint_and_exit():

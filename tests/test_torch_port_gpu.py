@@ -47,6 +47,7 @@ the memory gauges read the card.
 """
 
 import importlib
+import math
 
 import pytest
 import torch
@@ -1647,3 +1648,122 @@ def test_1f1b_and_zb_on_the_local_exchange_bitwise_on_card(cuda, interleave):
         _probe_grads(merge(state.params), _tiny_init()), _dp_grads(toks[0])[0])
     fault = _dropped_microbatch_reading(toks[0], 4)
     assert err <= PROBE_RTOL < fault, (err, fault)
+
+
+def test_fsdp_schedule_posts_the_next_block_early_bitwise(cuda):
+    """The FSDP gather schedule on one NCCL rank, with the next block's
+    all-gathers posted early on NCCL's stream (the card's default), against
+    the gather-everything step (no model): lm_tiny (bf16, flash, every
+    leaf of 64 elements or more sharded) 3 adam steps bit for bit; from
+    the second step on the live
+    gathered bytes stay at or under twice the largest block's plus the
+    leaves outside the blocks, and under the gather-all step's."""
+    import numpy as np
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.mesh import data_mesh, shutdown_distributed
+    from fluxdistributed_tpu_torch.models import lm_loss_fn
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.parallel import TrainState, fsdp
+
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (3, 4, 128)).astype(np.int64)).cuda()
+    out = {}
+    mesh = data_mesh(device="cuda")
+    try:
+        for sched in (False, True):
+            m = lm_tiny(attn_fn=attention_core("flash"), seed=0)
+            opt = optim.adam(1e-3)
+            st = TrainState.create(dict(m.named_parameters()), opt)
+            specs = fsdp.fsdp_specs(st, mesh, min_size=64)
+            st = fsdp.shard_state(st, specs, mesh)
+            step = fsdp.make_train_step_sharded(
+                lm_loss_fn(m), opt, mesh, specs, tp_axis=None,
+                model=m if sched else None)
+            plan = step.gather_plan
+            losses, peaks = [], []
+            for i in range(3):
+                plan.live.peak = plan.live.now
+                st, met = step(st, {"tokens": toks[i]})
+                losses.append(met["loss"].item())
+                peaks.append(plan.live.peak)
+            out[sched] = (losses, st.params, peaks, plan)
+    finally:
+        shutdown_distributed()
+    assert out[True][0] == out[False][0]
+    for k, v in out[False][1].items():
+        assert torch.equal(out[True][1][k], v), k
+    plan, params = out[True][3], out[True][1]
+    assert plan.order == [f"blocks.{i}" for i in range(4)]
+
+    def size(k):
+        p = params[k]
+        return math.prod(plan.global_shape(k, p)) * p.element_size()
+
+    inside = {k for b in plan.order for _, _, k in plan.blocks[b][1]}
+    block = max(sum(size(k) for _, _, k in plan.blocks[b][1])
+                for b in plan.order)
+    rest = sum(size(k) for k in params if plan.gathers.get(k)
+               and k not in inside)
+    for p in out[True][2][1:]:
+        assert p <= 2 * block + rest, (p, block, rest)
+        assert p < out[False][2][1], (p, out[False][2])
+
+
+def test_vit_ring_flash_hops_equal_flash_dp_on_card(cuda):
+    """ViT-B/16 (batch 4, 196 tokens, bf16) sequence-sharded on one NCCL
+    rank ``{data: 1, seq: 1}`` with the flash ring: its forward equals
+    the flash DP ViT's bit for bit and launches B1 once a block; 2 steps
+    of ``spmd="sp"`` equal the DP step's (losses and params)."""
+    from functools import partial
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.mesh import make_mesh, shutdown_distributed
+    from fluxdistributed_tpu_torch.models import vit_b16
+    from fluxdistributed_tpu_torch.parallel import make_ring_attention
+    from fluxdistributed_tpu_torch.train import prepare_training
+
+    fa = importlib.import_module(
+        "fluxdistributed_tpu_torch.ops.flash_attention")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(4, 224, 224, 3, device="cuda", generator=g)
+    y = torch.nn.functional.one_hot(
+        torch.randint(0, 10, (4,), device="cuda", generator=g), 10).float()
+
+    class Bank:
+        nclasses = 10
+
+        def batch(self, rng, n):
+            raise AssertionError("the test feeds its own batches")
+
+    out = {}
+    try:
+        for name in ("dp", "ring"):
+            mesh = (make_mesh({"data": 1, "seq": 1}, device="cuda")
+                    if name == "ring" else None)
+            core = (make_ring_attention(mesh, impl="flash") if mesh
+                    else partial(fa.flash_attention, causal=False))
+            model = vit_b16(num_classes=10, seed=0, attn_fn=core)
+            before = fa.flash_attention_fwd.launches
+            with torch.no_grad():
+                logits = model(x)
+            launches = fa.flash_attention_fwd.launches - before
+            task = prepare_training(
+                model, Bank(), optim.adamw(), batch_size=4, cycles=2,
+                topk=(1,), mesh=mesh,
+                **({"spmd": "sp"} if mesh else {"device": "cuda"}))
+            state, losses = task.state, []
+            for _ in range(2):
+                state, m = task.step_fn(state, {"image": x, "label": y})
+                losses.append(m["loss"].item())
+            out[name] = (logits, launches, losses,
+                         {k: v.float().cpu() for k, v in state.params.items()})
+            if mesh is not None:
+                shutdown_distributed()
+    finally:
+        shutdown_distributed()
+    assert torch.equal(out["ring"][0], out["dp"][0])
+    assert out["ring"][1] == out["dp"][1] == 12
+    assert out["ring"][2] == out["dp"][2]
+    for k, v in out["dp"][3].items():
+        assert torch.equal(out["ring"][3][k], v), k

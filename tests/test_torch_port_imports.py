@@ -59,7 +59,9 @@ def test_port_has_modules_to_scan():
                 "parallel/rules.py", "parallel/layout.py", "sharding.py",
                 "parallel/context.py", "parallel/ep.py",
                 "parallel/collectives.py", "parallel/pp.py",
-                "parallel/pp_1f1b.py", "parallel/pp_plan.py"):
+                "parallel/pp_1f1b.py", "parallel/pp_plan.py",
+                "parallel/multihost.py", "supervise.py", "generate.py",
+                "models/gpt2.py"):
         assert f"fluxdistributed_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").is_file()
 
@@ -107,3 +109,26 @@ def test_pipeline_entry_points_default_to_cuda():
     for spmd in ("pp", "pp_1f1b"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.run(["--model", "lm_tiny", "--cycles", "1", "--spmd", spmd])
+
+
+def test_generate_supervise_and_multihost_default_to_cuda():
+    """The sampling CLI, the supervisor's smokes and a multi-process
+    group run on ``cuda`` unless asked for the CPU: without a card they
+    raise before anything runs."""
+    from fluxdistributed_tpu_torch import generate, supervise
+    from fluxdistributed_tpu_torch.parallel import multihost
+
+    assert generate.build_parser().parse_args([]).device is None
+    assert supervise.build_parser().parse_args(["--smoke"]).device is None
+    assert inspect.signature(multihost.initialize).parameters[
+        "device"].default is None
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate.main(["--model", "lm_tiny", "--vocab", "16",
+                       "--prompt-tokens", "1", "--length", "3"])
+    for flag in ("--smoke", "--crash-smoke"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            supervise.main([flag, "--quiet"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.initialize("localhost:1", 2, 0)
