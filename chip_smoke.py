@@ -272,12 +272,33 @@ Phases, each of which raises on failure (exit code != 0, no result):
     through ``python -m fluxdistributed_tpu_torch.generate
     --gpt2-weights``: 64 greedy tokens equal to the plain decode's, B4
     12 a single-token step, decode ms a token;
-47. a ``phase_seconds`` line (each phase's wall seconds), a
+47. router: two in-process lm_small replicas (bf16, dense, 8 slots of
+    1024 rows, seed 0 each) behind the port's router: 16 greedy
+    requests (prompts of 64-754 tokens, 32 new) straight to r0 as the
+    reference, then through the router with r0 killed (its sockets and
+    loop) after 8 decode steps: every response equal to the reference
+    token for token with its X-Request-Id, a failover, r0's breaker
+    open, then closed once r0's restart hook brings a new engine up;
+    the fleet's throughput on the 16 against one replica's; a rolling
+    restart under 8 requests in flight with none failing; TTFT direct
+    and through the router; B4's launches over the 5 engines equal to
+    depth x their decode steps;
+48. router CLI: two ``python -m fluxdistributed_tpu_torch.serve --model
+    lm_small --max-slots 4 --max-len 256`` processes (r0 with a
+    ``serve.tick`` exit at tick 20) behind ``SupervisedReplica`` restart
+    hooks: 8 requests with no failure across the crash, ``python -m
+    fluxdistributed_tpu_torch.serve.router --rolling-restart URL`` with
+    4 in flight (none fails), the 8 on one replica process against the
+    two in turns, and the router's /metrics rollup naming each
+    replica's decode tokens and one decode graph a replica, the
+    successors included; the wall s of each start and restart;
+49. a ``phase_seconds`` line (each phase's wall seconds), a
     ``{"kernels": [...]}`` line (B1-B3 with their ViT-L/16 and ViT-H/14
     rows, launches a step beside the LM's, the sharded paths', the sp,
     ep, pipeline and slice-16 paths' launches a step, and the context
-    ring's hops; B4 with generate's launches a step), then the result
-    line ``{"ok": true, "device": {...}}`` last.
+    ring's hops; B4 with generate's launches a step and the router
+    phase's launches), then the result line ``{"ok": true, "device":
+    {...}}`` last.
 """
 
 from __future__ import annotations
@@ -698,9 +719,11 @@ def paged_kernel_phase(torch, bw, peaks, flush):
     return rows["bf16"]
 
 
-def post(url, body, timeout=600):
-    req = urllib.request.Request(url, json.dumps(body).encode(),
-                                 {"Content-Type": "application/json"})
+def post(url, body, timeout=600, rid=None):
+    headers = {"Content-Type": "application/json"}
+    if rid:
+        headers["X-Request-Id"] = rid
+    req = urllib.request.Request(url, json.dumps(body).encode(), headers)
     with urllib.request.urlopen(req, timeout=timeout) as r:
         if r.status != 200:
             raise RuntimeError(f"{url}: HTTP {r.status}")
@@ -939,8 +962,7 @@ def profile_decode(torch, engine, prompts, steps=10):
         engine.step_decode()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             engine.step_decode()
         torch.cuda.synchronize()
@@ -1448,8 +1470,7 @@ def profile_train_step(torch, step, state, batch, steps=3):
         state, _ = step(state, batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
@@ -1828,8 +1849,7 @@ def profile_zero1_step(torch, state, step, batch, steps=3):
         state, _ = step(state, batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
@@ -2066,8 +2086,7 @@ def profile_vision_step(torch, step, state, batch, steps=1, share=None):
         state, _ = step(state, batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
@@ -2295,8 +2314,7 @@ def profile_steps(torch, step, state, batch, calls, steps, wall_ms):
     gaps included)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
@@ -2388,8 +2406,7 @@ def decode_graph_run(torch, card, model, layout, prompts, steps=48):
         wall_ms = statistics.median(walls[1:]) * 1e3
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
                 engine.step_decode()
             torch.cuda.synchronize()
@@ -2606,13 +2623,14 @@ def vit_audit(torch, fa, step, state, batch):
 def device_ms(torch, fn, calls=10):
     """Device ms a call of ``fn``: the profiler's sum of the CUDA
     kernels' time over ``calls`` calls (after one warm-up), so host time
-    between launches is not counted."""
+    between launches is not counted.  Every profile here traces the
+    CUDA activity alone: the kernels and their times are those of a
+    trace with the CPU ops, which costs up to 3x the host time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -3935,7 +3953,7 @@ def _run_steps(torch, state, step, batches, merge, *, timed=True) -> dict:
     params after (``merge(params)`` on the model's names, detached
     copies).  When ``timed``, also the launches (B4, B5, B1-B3, B6) over
     the steps, the peak allocated bytes, device ms a step (profiler
-    kernel time over 2 more steps, host work left out), wall ms a step
+    kernel time over 1 more step, host work left out), wall ms a step
     over all of them and over the steps after the first (``warm``), and
     the device's idle share of the warm wall time, 1 - device ms / warm
     wall ms."""
@@ -3954,7 +3972,7 @@ def _run_steps(torch, state, step, batches, merge, *, timed=True) -> dict:
         plan = getattr(step, "gather_plan", None)
         # the FSDP schedule's live gathered bytes at most (storages)
         out["gather_peak_bytes"] = None if plan is None else plan.live.peak
-        ms = device_ms(torch, lambda: step(state, batches[0]), calls=2)
+        ms = device_ms(torch, lambda: step(state, batches[0]), calls=1)
         warm = (marks[-1] - marks[1]) / (len(batches) - 1) * 1e3
         out.update(launches=launches, step_ms=ms,
                    wall_ms_per_step_first3=(marks[-1] - marks[0])
@@ -5310,6 +5328,430 @@ def generate_phase(torch, card):
 
 
 
+ROUTER_NEW = 32  # new tokens a routed request
+ROUTER_LENS = [64 + 46 * i for i in range(16)]  # prompts of 64-754 tokens
+ROUTER_KILL_AFTER = 8  # r0's decode steps into the routed burst
+CLI_REPLICA = ["--model", "lm_small", "--max-slots", "4", "--max-len",
+               "256", "--port", "0"]
+
+
+class _LMReplica:
+    """One in-process lm_small replica on the card: its own engine
+    (dense, 8 slots of 1024 rows), scheduler and LM server on a port.
+    ``kill`` is a process death seen from outside: the listening socket
+    and every open connection close at once and the engine loop stops,
+    so in-flight requests' connections drop before their tokens."""
+
+    def __init__(self, model, port=0):
+        import socket
+
+        from fluxdistributed_tpu_torch.serve import (LMEngine, LMServer,
+                                                     Scheduler)
+        from fluxdistributed_tpu_torch.serve.server import HTTPServer
+
+        class Server(HTTPServer):
+            def __init__(self, *a):
+                self.conns, self.conns_lock = set(), threading.Lock()
+                super().__init__(*a)
+
+            def process_request(self, request, client_address):
+                with self.conns_lock:
+                    self.conns.add(request)
+                super().process_request(request, client_address)
+
+            def shutdown_request(self, request):
+                with self.conns_lock:
+                    self.conns.discard(request)
+                super().shutdown_request(request)
+
+            def sever(self):
+                with self.conns_lock:
+                    conns = list(self.conns)
+                for c in conns:
+                    try:
+                        c.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
+
+        self.model = model
+        self.engine = LMEngine(model, max_slots=8, max_len=1024)
+        self.sched = Scheduler(self.engine, max_queue=64)
+        self.srv = LMServer(self.sched, vocab=32000)
+        self.srv.start_loop()
+        self.httpd = Server(("127.0.0.1", port), self.srv.make_handler())
+        self.port = self.httpd.server_address[1]
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.killed = False
+        threading.Thread(target=self.httpd.serve_forever,
+                         kwargs={"poll_interval": 0.02}, daemon=True).start()
+
+    def kill(self):
+        self.killed = True
+        self.httpd.shutdown()
+        self.httpd.sever()
+        self.httpd.server_close()
+        self.srv.stop_loop()
+
+    def close(self, drain_timeout=60.0):
+        """The graceful stop a restart hook makes (drain, then close)."""
+        if not self.killed:
+            if not self.srv.drain(drain_timeout):
+                raise RuntimeError("router: a replica did not drain")
+            self.httpd.shutdown()
+            self.httpd.server_close()
+        self.srv.close()
+
+
+def _generate(base, prompt, rid=None):
+    """One greedy non-streaming request; returns the response body."""
+    return post(base + "/v1/generate", {
+        "prompt_tokens": prompt, "max_tokens": ROUTER_NEW,
+        "temperature": 0.0}, rid=rid)
+
+
+def _burst(base, prompts, ids=None):
+    """Every prompt at once; returns (bodies, errors, wall s)."""
+    out, errors = [None] * len(prompts), []
+
+    def call(i):
+        try:
+            out[i] = _generate(base, prompts[i], ids and ids[i])
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        errors.append("a request did not return in 600 s")
+    return out, errors, time.perf_counter() - t0
+
+
+def _stream_ttft_ms(base, prompt) -> float:
+    """Client-side time to the first streamed token of one request."""
+    req = urllib.request.Request(
+        base + "/v1/generate", json.dumps({
+            "prompt_tokens": prompt, "max_tokens": 2, "temperature": 0.0,
+            "stream": True}).encode(), {"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        first = r.readline()
+        ms = (time.perf_counter() - t0) * 1e3
+        r.read()
+    if b"token" not in first:
+        raise RuntimeError(f"{base}: no first token ({first!r})")
+    return ms
+
+
+def router_phase(torch, card):
+    """Two in-process lm_small replicas (seed 0 each, dense, 8 slots of
+    1024 rows) behind the port's router with manual probes: 16 greedy
+    requests straight to r0 as the reference; the same 16 through the
+    router with r0 killed after 8 decode steps of the burst (every
+    response equal to the reference token for token, each keeping its
+    X-Request-Id, a failover, r0's breaker open); r0 back through its
+    restart hook (breaker closed); the fleet's throughput on the 16;
+    a rolling restart under 8 requests in flight (none fails); TTFT
+    direct and through the router.  B4's launches over every engine
+    since the burst equal depth x their decode steps.  Returns them."""
+    from fluxdistributed_tpu_torch.models import lm_small
+    from fluxdistributed_tpu_torch.ops.flash_decode import flash_decode
+    from fluxdistributed_tpu_torch.serve.router import Replica, Router
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, 32000, (n,), generator=g).tolist()
+               for n in ROUTER_LENS]
+    models = [lm_small(vocab=32000, seed=0) for _ in range(2)]
+    reps = [_LMReplica(m) for m in models]
+    engines = [r.engine for r in reps]
+
+    def restart_hook(i):
+        def restart(replica):
+            old = reps[i]
+            old.close()
+            reps[i] = _LMReplica(old.model, port=old.port)
+            engines.append(reps[i].engine)
+            # the successor captures its decode graph before it serves
+            _generate(reps[i].url, prompts[0][:8])
+            return reps[i].url
+        return restart
+
+    # round-robin dispatch (every scrape counts as stale): the burst
+    # must reach r0, the replica this phase kills
+    router = Router([Replica(f"r{i}", r.url, restart=restart_hook(i))
+                     for i, r in enumerate(reps)],
+                    probe_interval=3600.0, probe_timeout=30.0,
+                    failure_threshold=2, breaker_cooldown=3600.0,
+                    metrics_stale_after=0.0, dispatch_tries=4,
+                    dispatch_backoff=0.05, upstream_timeout=600.0)
+    httpd = router.serve("127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever,
+                     kwargs={"poll_interval": 0.02}, daemon=True).start()
+    base = f"http://127.0.0.1:{router.bound_port}"
+    try:
+        for r in reps:  # warm-up: each engine captures its decode graph
+            _generate(r.url, prompts[0][:8])
+        ref, errors, ref_wall = _burst(reps[0].url, prompts)
+        if errors:
+            raise RuntimeError(f"router: reference requests failed: {errors}")
+        want = [b["generated"] for b in ref]
+
+        router.probe_now()
+        flash_decode.launches = 0  # count from the routed burst on
+        steps0 = {id(e): e.decode_steps for e in engines}
+        ids = [f"router-{i}" for i in range(len(prompts))]
+        killed = threading.Event()
+
+        def killer():
+            e = reps[0].engine
+            base_steps = e.decode_steps
+            while e.decode_steps - base_steps < ROUTER_KILL_AFTER:
+                time.sleep(0.0005)
+            reps[0].kill()
+            killed.set()
+
+        kt = threading.Thread(target=killer, daemon=True)
+        kt.start()
+        got, errors, burst_wall = _burst(base, prompts, ids)
+        kt.join(timeout=60)
+        failovers = router.registry.value("fdtpu_router_failovers_total")
+        router.probe_now()
+        router.probe_now()
+        r0 = router.replicas[0]
+        breaker_after_kill = r0.breaker
+        mismatched = [i for i, b in enumerate(got)
+                      if b is None or b["generated"] != want[i]]
+        lost_ids = [i for i, b in enumerate(got)
+                    if b is None or b["request_id"] != ids[i]]
+        restart_hook(0)(r0)  # r0 back on its port: a new engine
+        router.probe_now()
+        breaker_recovered = r0.breaker
+        opens = router.registry.value("fdtpu_router_breaker_opens_total",
+                                      "r0")
+
+        fleet, fleet_errors, fleet_wall = _burst(base, prompts)
+        fleet_bad = [i for i, b in enumerate(fleet)
+                     if b is None or b["generated"] != want[i]]
+
+        inflight = {}
+        lt = threading.Thread(target=lambda: inflight.update(zip(
+            ("bodies", "errors", "wall"), _burst(base, prompts[:8]))),
+            daemon=True)
+        lt.start()
+        time.sleep(0.05)  # the 8 are in flight
+        restarted = router.rolling_restart(drain_timeout=120.0,
+                                           ready_timeout=120.0)
+        lt.join(timeout=600)
+        rr_bad = [i for i, b in enumerate(inflight.get("bodies") or [None])
+                  if b is None or b["generated"] != want[i]]
+
+        ttft = {"direct": [], "router": []}
+        for _ in range(8):
+            ttft["direct"].append(_stream_ttft_ms(reps[1].url, prompts[0]))
+            ttft["router"].append(_stream_ttft_ms(base, prompts[0]))
+        launches = flash_decode.launches
+        steps = sum(e.decode_steps - steps0.get(id(e), 0) for e in engines)
+        depth = models[0].depth
+        direct_p50 = statistics.median(ttft["direct"])
+        router_p50 = statistics.median(ttft["router"])
+        row = {"phase": "router", "card": card, "model": "lm_small",
+               "dtype": "bfloat16", "vocab": 32000, "replicas": 2,
+               "max_slots": 8, "max_len": 1024, "prompt_tokens": ROUTER_LENS,
+               "new_tokens": ROUTER_NEW, "requests": len(prompts),
+               "routed_errors": errors, "tokens_mismatched": mismatched,
+               "request_ids_lost": lost_ids, "killed": killed.is_set(),
+               "failovers": failovers,
+               "breaker_after_kill": breaker_after_kill,
+               "breaker_after_restart_hook": breaker_recovered,
+               "breaker_opens_r0": opens,
+               "fleet_errors": fleet_errors,
+               "fleet_tokens_mismatched": fleet_bad,
+               "rolling_restart": restarted,
+               "rolling_restart_errors": inflight.get("errors"),
+               "rolling_restart_tokens_mismatched": rr_bad,
+               "reference_wall_s": ref_wall, "routed_burst_wall_s": burst_wall,
+               "one_replica_generated_tokens_per_s":
+                   ROUTER_NEW * len(prompts) / ref_wall,
+               "fleet_generated_tokens_per_s":
+                   ROUTER_NEW * len(prompts) / fleet_wall,
+               "ttft_ms_p50_direct": direct_p50,
+               "ttft_ms_p50_router": router_p50,
+               "router_hop_ms": router_p50 - direct_p50,
+               "engines": len(engines), "decode_steps": steps,
+               "b4_launches": launches, "depth": depth,
+               "wall_s": time.perf_counter() - t_phase}
+        emit(row)
+        if (errors or mismatched or lost_ids or not killed.is_set()
+                or failovers < 1 or breaker_after_kill != "open"
+                or breaker_recovered != "closed" or opens < 1
+                or fleet_errors or fleet_bad
+                or len(restarted) != 2 or inflight.get("errors")
+                or rr_bad or len(inflight.get("bodies") or []) != 8
+                or steps < 1 or launches != depth * steps):
+            raise RuntimeError(f"router: {row}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        router.close()
+        for r in reps:
+            if not r.killed:
+                r.kill()
+            r.srv.close()
+    del models, reps, engines
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _rollup_values(text, name) -> dict:
+    """``{replica: value}`` of one series in a router's /metrics rollup
+    (the replica label the router adds, first in the label set)."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(name + "{replica=") or line.startswith(
+                name + "_total{replica="):
+            rep = line.split('replica="', 1)[1].split('"', 1)[0]
+            out[rep] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def router_cli_phase(torch, card):
+    """The user's path: two ``python -m fluxdistributed_tpu_torch.serve
+    --model lm_small --max-slots 4 --max-len 256`` replica processes on
+    the card (r0 with ``--fault-plan`` exiting at scheduler tick 20),
+    fronted by the port's router through ``SupervisedReplica`` restart
+    hooks (``--spawn`` gives every child one command): 8 requests with
+    no failure across r0's crash; ``python -m
+    fluxdistributed_tpu_torch.serve.router --rolling-restart URL`` with
+    4 requests in flight (none fails); the 8 on one replica process
+    against the two, in turns; the router's /metrics rollup carries each
+    replica's decode tokens and reads one decode graph a replica, the
+    successors included.  Wall s of each start and restart."""
+    import os
+
+    from fluxdistributed_tpu_torch.serve.router import (Replica, Router,
+                                                        SupervisedReplica,
+                                                        wait_http_ready)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {"PYTHONPATH": os.pathsep.join(
+        x for x in (root, os.environ.get("PYTHONPATH")) if x)}
+    cmd = [sys.executable, "-m", "fluxdistributed_tpu_torch.serve",
+           *CLI_REPLICA]
+    kill = json.dumps({"fail": [{"site": "serve.tick", "at": 20,
+                                 "action": "exit"}]})
+    sups = [SupervisedReplica(cmd + ["--fault-plan", kill], name="r0",
+                              env=env, verbose=False),
+            SupervisedReplica(cmd, name="r1", env=env, verbose=False)]
+    urls, starts = [None, None], [None, None]
+
+    def spawn(i):
+        t0 = time.perf_counter()
+        urls[i] = sups[i].spawn()
+        wait_http_ready(urls[i] + "/healthz", timeout=300)
+        starts[i] = time.perf_counter() - t0
+
+    router = httpd = None
+    try:
+        threads = [threading.Thread(target=spawn, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=400)
+        if None in urls or None in starts:
+            raise RuntimeError(f"router_cli: replicas did not start "
+                               f"({urls})")
+        router = Router([Replica(f"r{i}", u, restart=s.restart)
+                         for i, (u, s) in enumerate(zip(urls, sups))],
+                        probe_interval=3600.0, probe_timeout=30.0,
+                        failure_threshold=2, breaker_cooldown=3600.0,
+                        dispatch_tries=4, dispatch_backoff=0.05,
+                        upstream_timeout=600.0)
+        httpd = router.serve("127.0.0.1", 0)
+        threading.Thread(target=httpd.serve_forever,
+                         kwargs={"poll_interval": 0.02}, daemon=True).start()
+        base = f"http://127.0.0.1:{router.bound_port}"
+        g = torch.Generator().manual_seed(2)
+        prompts = [torch.randint(0, 32000, (n,), generator=g).tolist()
+                   for n in (32, 48, 64, 96, 128, 160, 192, 224)]
+        _, errors, crash_wall = _burst(base, prompts)
+        t_dead = time.perf_counter()
+        while sups[0].alive() and time.perf_counter() - t_dead < 60:
+            time.sleep(0.05)
+        r0_died = not sups[0].alive()
+        failovers = router.registry.value("fdtpu_router_failovers_total")
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            before = r.read().decode()
+        r1_compiles = _rollup_values(before, "fdtpu_serve_decode_compiles")
+
+        sups[0].argv = cmd  # the successor carries no kill plan
+        inflight = {}
+        lt = threading.Thread(target=lambda: inflight.update(zip(
+            ("bodies", "errors", "wall"), _burst(base, prompts[:4]))),
+            daemon=True)
+        lt.start()
+        time.sleep(0.05)
+        client = subprocess.run(
+            [sys.executable, "-m", "fluxdistributed_tpu_torch.serve.router",
+             "--rolling-restart", base, "--drain-timeout", "120"],
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, **env))
+        lt.join(timeout=600)
+        restarted = (json.loads(client.stdout)["restarted"]
+                     if client.returncode == 0 else None)
+        for _ in range(2):  # each successor serves (round-robin ties)
+            _generate(base, prompts[0])
+        # the 8 on one replica process against the two, in turns
+        rates = {"one_replica": [], "fleet": []}
+        rate_errors = []
+        for name in ("one_replica", "fleet", "fleet", "one_replica"):
+            url = router.replicas[1].url if name == "one_replica" else base
+            bodies, errs, wall = _burst(url, prompts)
+            rate_errors += errs
+            rates[name].append(ROUTER_NEW * len(prompts) / wall)
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            after = r.read().decode()
+        tokens = _rollup_values(after, "fdtpu_serve_decode_tokens")
+        compiles = _rollup_values(after, "fdtpu_serve_decode_compiles")
+        row = {"phase": "router_cli", "card": card, "model": "lm_small",
+               "replica_cmd": " ".join(["python", *cmd[1:]]),
+               "requests": len(prompts), "errors": errors,
+               "crash_burst_wall_s": crash_wall, "r0_died": r0_died,
+               "failovers": failovers,
+               "replica_start_s": dict(zip(("r0", "r1"), starts)),
+               "rolling_restart_rc": client.returncode,
+               "rolling_restart": restarted,
+               "rolling_restart_stderr": client.stderr[-500:],
+               "rolling_restart_errors": inflight.get("errors"),
+               "generated_tokens_per_s": rates,
+               "rate_errors": rate_errors,
+               "decode_compiles_before_restart": r1_compiles,
+               "decode_tokens_after": tokens,
+               "decode_compiles_after": compiles}
+        emit(row)
+        if (errors or not r0_died or failovers < 1
+                or r1_compiles.get("r1") != 1.0
+                or client.returncode != 0 or len(restarted or []) != 2
+                or inflight.get("errors")
+                or len(inflight.get("bodies") or []) != 4 or rate_errors
+                or not all(tokens.get(n, 0) > 0 for n in ("r0", "r1"))
+                or compiles != {"r0": 1.0, "r1": 1.0}):
+            raise RuntimeError(f"router_cli: {row}")
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if router is not None:
+            router.close()
+        for s in sups:
+            s.stop()
+
+
 def main() -> int:
     import torch
 
@@ -5453,6 +5895,8 @@ def main() -> int:
     slice16["fsdp_schedule_lm_small"] = sharded["lm_small_fsdp"]
     timed("supervise", supervise_phase, torch, cardname)
     generate_b4 = timed("generate", generate_phase, torch, cardname)
+    router_b4 = timed("router", router_phase, torch, cardname)
+    timed("router_cli", router_cli_phase, torch, cardname)
     emit({"phase": "phase_seconds", "seconds": seconds,
           "total": sum(seconds.values())})
 
@@ -5493,7 +5937,8 @@ def main() -> int:
     emit({"kernels": [
         dict(kernel_entry("flash_decode", KERNEL_SOURCE, KERNEL_REPLACES,
                           DENSE_VIA, dense_launches, dense_row),
-             generate_gpt2_small_launches_per_step=generate_b4),
+             generate_gpt2_small_launches_per_step=generate_b4,
+             router_lm_small_launches=router_b4),
         kernel_entry("flash_decode_paged", KERNEL_SOURCE, KERNEL_REPLACES,
                      PAGED_VIA, paged_launches, paged_row),
         *(dict(kernel_entry(name, ATTN_SOURCE, replaces, via, n, row),

@@ -52,6 +52,7 @@ __all__ = [
     "fire",
     "fire_value",
     "install_plan",
+    "install_plan_arg",
     "param",
     "record_preemption",
     "with_retries",
@@ -410,6 +411,21 @@ def install_plan(plan: FaultPlan) -> FaultPlan:
     global _PLAN
     _PLAN = plan
     return plan
+
+
+def install_plan_arg(spec: str) -> FaultPlan:
+    """Install a CLI's ``--fault-plan``: a JSON object, or ``@path`` to
+    a file holding one.  A malformed plan exits with its error."""
+    import json
+
+    if spec.startswith("@"):
+        with open(spec[1:]) as f:
+            spec = f.read()
+    try:
+        plan = FaultPlan.from_spec(json.loads(spec))
+    except (ValueError, TypeError) as e:
+        raise SystemExit(f"--fault-plan: {e}")
+    return install_plan(plan)
 
 
 def clear_plan() -> None:

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 from .metrics import Registry, get_registry
 
@@ -69,16 +69,17 @@ def _local_devices() -> List[int]:
     return [torch.cuda.current_device()]
 
 
-def hbm_device_stats() -> Optional[List[dict]]:
+def hbm_device_stats(devices: Optional[Sequence[int]] = None
+                     ) -> Optional[List[dict]]:
     """``[{"device", "kind", "bytes_in_use", "peak_bytes_in_use",
-    "bytes_limit"}, ...]`` for the local cards, or ``None`` without
-    one.  ``bytes_in_use`` and its peak are the caching allocator's
-    allocated bytes (JAX's allocator ``bytes_in_use``), ``bytes_limit``
-    the card's total memory."""
+    "bytes_limit"}, ...]`` for ``devices`` (default: the local cards),
+    or ``None`` without one.  ``bytes_in_use`` and its peak are the
+    caching allocator's allocated bytes (JAX's allocator
+    ``bytes_in_use``), ``bytes_limit`` the card's total memory."""
     import torch
 
     out = []
-    for i in _local_devices():
+    for i in _local_devices() if devices is None else devices:
         st = torch.cuda.memory_stats(i)
         _, total = torch.cuda.mem_get_info(i)
         in_use = int(st.get("allocated_bytes.all.current", 0))
@@ -137,21 +138,24 @@ class HbmGauges:
     registry is safe); availability is probed once, at construction.
     Without a card only ``fdtpu_hbm_available`` (0) and the NaN headroom
     gauge expose, so a CPU scrape says "unavailable" instead of
-    inventing zero-byte devices.  :meth:`close` detaches the callbacks
-    from a shared registry."""
+    inventing zero-byte devices.  ``devices=()`` reads no card at all
+    (a serving engine on the CPU, or a fake one, asks no device).
+    :meth:`close` detaches the callbacks from a shared registry."""
 
     #: one device sweep serves every gauge cell a scrape reads within
     #: this window
     SWEEP_TTL_SECONDS = 0.1
 
     def __init__(self, registry: Optional[Registry] = None,
-                 name_prefix: str = "fdtpu"):
+                 name_prefix: str = "fdtpu",
+                 devices: Optional[Sequence[int]] = None):
         self.registry = registry or get_registry()
+        self._devices = devices
         p = name_prefix
         self._sweep_at = 0.0
         self._sweep: Optional[List[dict]] = None
         try:
-            self.available = hbm_device_stats() is not None
+            self.available = hbm_device_stats(devices) is not None
         except Exception:  # noqa: BLE001 — a broken backend reads as absent
             self.available = False
         g = self.registry.gauge
@@ -182,7 +186,8 @@ class HbmGauges:
             ):
                 gauge = g(name, txt, labelnames=("device",))
                 self.gauge_names.append(name)
-                for i in _local_devices():
+                for i in (_local_devices() if devices is None
+                          else devices):
                     gauge.labels(device=str(i)).set_function(
                         lambda i=i, key=key: self._read(i, key))
 
@@ -192,7 +197,7 @@ class HbmGauges:
         now = time.monotonic()
         if now - self._sweep_at > self.SWEEP_TTL_SECONDS:
             try:
-                self._sweep = hbm_device_stats()
+                self._sweep = hbm_device_stats(self._devices)
             except Exception:  # noqa: BLE001 — a broken read scrapes NaN
                 self._sweep = None
             self._sweep_at = now

@@ -46,6 +46,7 @@ import torch
 
 from .attention import (NEG_INF, online_softmax_update,
                         validate_window)
+from .counts import count
 
 __all__ = [
     "TILE_K",
@@ -368,7 +369,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, block_q=128, block_k=128,
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     _launch(_FWD, q, k, v, o=out, lse=lse, causal=causal, window=window,
             sinks=sinks)
-    flash_attention_fwd.launches += 1
+    count(flash_attention_fwd)
     return out, lse
 
 
@@ -388,7 +389,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal=False, block_q=128,
     _launch(_DQ, q, k, v, do=do, dq=dq, lse=lse.contiguous(),
             delta=delta.contiguous(), causal=causal, window=window,
             sinks=sinks)
-    flash_attention_dq.launches += 1
+    count(flash_attention_dq)
     return dq
 
 
@@ -409,7 +410,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal=False,
     _launch(_DKV, q, k, v, do=do, dk=dk, dv=dv, lse=lse.contiguous(),
             delta=delta.contiguous(), causal=causal, window=window,
             sinks=sinks)
-    flash_attention_dkv.launches += 1
+    count(flash_attention_dkv)
     return dk, dv
 
 

@@ -39,6 +39,7 @@ from typing import Optional
 import torch
 
 from .attention import NEG_INF, online_softmax_update, validate_window
+from .counts import count
 
 __all__ = ["decode_splits", "decode_tile_rows", "flash_decode",
            "flash_decode_paged", "flash_decode_paged_reference",
@@ -497,7 +498,7 @@ def _launch(q, k, v, idx, slot_pos, window, sinks, k_scale, v_scale,
             int(window or 0), int(sinks), 1.0 / math.sqrt(d), splits,
             _ptr(work), ctypes.c_void_p(stream))
     _raise_on(err, "flash_decode")
-    flash_decode.launches += 1  # one call, two CUDA launches
+    count(flash_decode)  # one call, two CUDA launches
     return out
 
 
@@ -526,7 +527,7 @@ def _launch_paged(q, k_pool, v_pool, page_table, idx, slot_pos, window,
             1.0 / math.sqrt(d), runs, per, _ptr(work),
             ctypes.c_void_p(stream))
     _raise_on(err, "flash_decode_paged")
-    flash_decode_paged.launches += 1  # one call, two CUDA launches
+    count(flash_decode_paged)  # one call, two CUDA launches
     return out
 
 

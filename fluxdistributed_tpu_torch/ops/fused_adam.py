@@ -25,6 +25,8 @@ import ctypes
 
 import torch
 
+from .counts import count
+
 __all__ = ["fused_adam", "fused_adam_plain"]
 
 
@@ -103,7 +105,7 @@ def _launch(p, g, m, v, scalars, b1, b2, eps):
         msg = lib.fused_adam_error_string(err).decode()
         raise RuntimeError(f"fused_adam kernel launch failed: {msg} "
                            f"(cudaError {err})")
-    fused_adam.launches += 1
+    count(fused_adam)
     return tuple(outs)
 
 

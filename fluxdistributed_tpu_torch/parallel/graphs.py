@@ -30,10 +30,10 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops import counts
 from ..tree import leaves, tree_map
 
-__all__ = ["DeviceLoop", "Graph", "StepTable", "launch_counters",
-           "state_donated"]
+__all__ = ["DeviceLoop", "Graph", "StepTable", "state_donated"]
 
 
 def state_donated(state) -> bool:
@@ -92,19 +92,6 @@ class StepTable:
             self._copied.record()
 
 
-def launch_counters() -> tuple:
-    """The kernel wrappers, each counting its launches in ``.launches``:
-    B4, B5, B1, B2, B3 and B6."""
-    from ..ops.flash_attention import (flash_attention_dkv,
-                                       flash_attention_dq,
-                                       flash_attention_fwd)
-    from ..ops.flash_decode import flash_decode, flash_decode_paged
-    from ..ops.fused_adam import fused_adam
-
-    return (flash_decode, flash_decode_paged, flash_attention_fwd,
-            flash_attention_dq, flash_attention_dkv, fused_adam)
-
-
 def _op_of(err: BaseException) -> str:
     """The innermost frame of ``err`` outside PyTorch and this module:
     the line of the op a capture refused."""
@@ -129,13 +116,13 @@ class Graph:
     threads keep staging batches meanwhile.  A capture that fails
     raises ``RuntimeError`` naming the op; nothing falls back to eager.
     The allocator's cached blocks are released before the capture,
-    whose private pool could not reuse them.  What the capture launched through a kernel wrapper is taken off its
-    count and added to it at each replay, so the counts stay those of
-    the kernels that ran."""
+    whose private pool could not reuse them.  What the capture launched
+    onto its stream through a kernel wrapper is not counted
+    (:func:`..ops.counts.capturing`) and is added to its count at each
+    replay, so the counts stay those of the kernels that ran, whatever
+    other threads launch meanwhile."""
 
     def __init__(self, fn: Callable[[], Any], what: str):
-        counters = launch_counters()
-        before = [c.launches for c in counters]
         self.graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
@@ -146,7 +133,7 @@ class Graph:
         # cached and free)
         torch.cuda.empty_cache()
         err = out = None
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), counts.capturing(stream) as captured:
             self.graph.capture_begin(capture_error_mode="thread_local")
             try:
                 out = fn()
@@ -157,14 +144,11 @@ class Graph:
             except RuntimeError as e:
                 err = err or e
         torch.cuda.current_stream().wait_stream(stream)
-        deltas = [c.launches - b for c, b in zip(counters, before)]
-        for c, b in zip(counters, before):
-            c.launches = b
         if err is not None:
             raise RuntimeError(f"CUDA graph capture of {what} failed at "
                                f"{_op_of(err)}: {err}") from err
         self.out = out
-        self._counts = [(c, d) for c, d in zip(counters, deltas) if d]
+        self._counts = [(c, d) for c, d in captured.items() if d]
 
     @property
     def launches_per_replay(self) -> Dict[str, int]:
@@ -174,7 +158,7 @@ class Graph:
     def replay(self):
         self.graph.replay()
         for c, d in self._counts:
-            c.launches += d
+            counts.count(c, d)
         return self.out
 
 

@@ -14,13 +14,21 @@ image classifier (the webcam demo: ``GET /`` and ``POST /predict``,
     python -m fluxdistributed_tpu_torch.serve --model resnet50 \\
         --checkpoint ck/ --synset LOC_synset_mapping.txt --port 8000
 
+    # a router fleet's replica with no model: deterministic fake tokens
+    python -m fluxdistributed_tpu_torch.serve --fake-engine --vocab 256 \\
+        --port 0 --fault-plan '{"fail": [{"site": "serve.tick",
+        "at": 40, "action": "exit"}]}'
+
 The mode follows ``--model``: an ``lm_*`` name serves tokens (the
 default, ``lm_small``), an image model serves images (the JAX
 ``bin/serve.py`` picks with ``--lm``).  An LM's weights are random,
 made from ``--seed``, or a trained checkpoint's params (``--checkpoint``,
 ``--step``); an image model's come from ``--checkpoint``,
 ``--torch-weights`` (torchvision layout) or seed 0.  Runs on the GPU
-unless ``--device cpu`` is given.  The flags are the JAX package's
+unless ``--device cpu`` is given.  ``--fake-engine`` serves
+:class:`~.testing.FakeLMEngine` instead: it builds no model and asks no
+device (its HBM gauges read no card), on any machine.  SIGTERM drains
+(``--drain-timeout``) and exits 0.  The flags are the JAX package's
 ``bin/serve.py`` flags.
 """
 
@@ -104,15 +112,50 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seed of the random-init weights")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
+    p.add_argument("--trace-requests", default=None, metavar="PATH",
+                   help="record request-scoped lifecycle events "
+                        "(enqueue/queue-wait/prefill chunks/first "
+                        "token/decode ticks/finish) in a bounded ring "
+                        "and write a Perfetto trace with one track per "
+                        "request here at shutdown; the live ring is "
+                        "also served at GET /trace (LM mode)")
+    p.add_argument("--drain-timeout", type=float, default=30.0,
+                   help="graceful-drain bound (LM mode): on SIGTERM the "
+                        "server stops admissions (503), finishes "
+                        "in-flight decodes for up to this many seconds "
+                        "(healthz reports draining), then exits 0 — "
+                        "rolling restarts lose no tokens")
+    p.add_argument("--fault-plan", default=None, metavar="JSON",
+                   help="install a deterministic fault-injection plan "
+                        "(fluxdistributed_tpu_torch.faults) before "
+                        "serving — JSON object or @path/to/plan.json, "
+                        "e.g. '{\"fail\": [{\"site\": \"serve.tick\", "
+                        "\"at\": 40, \"action\": \"exit\"}]}' is a "
+                        "replica crash at scheduler tick 40 (the "
+                        "router failover test harness)")
+    p.add_argument("--fake-engine", action="store_true",
+                   help="serve a deterministic pure-python engine "
+                        "(serve.testing.FakeLMEngine) instead of a real "
+                        "model — no model, no device, instant startup; "
+                        "the router fleet test/dev scaffold (LM mode)")
+    p.add_argument("--fake-step-delay", type=float, default=0.002,
+                   help="seconds each fake-engine decode tick sleeps "
+                        "(gives drains and kills measurable width)")
     return p
 
 
 def build_server(args):
     """The serving stack for ``args``: ``(LMServer, Scheduler)``."""
+    if args.fake_engine:
+        # no model, no device: the router fleet scaffold — the HTTP /
+        # scheduler surface is real, only the tokens are fake
+        from .testing import FakeLMEngine
+
+        return _wire(args, FakeLMEngine(
+            max_slots=args.max_slots, max_len=args.max_len,
+            step_delay=args.fake_step_delay, vocab=args.vocab))
     from .. import models
     from .engine import LMEngine
-    from .scheduler import Scheduler
-    from .server import LMServer
 
     try:
         buckets = tuple(int(b) for b in args.buckets.split(","))
@@ -138,7 +181,20 @@ def build_server(args):
                       kv_block_size=args.kv_block_size,
                       kv_blocks=args.kv_blocks,
                       prefix_cache=args.prefix_cache)
-    scheduler = Scheduler(engine, max_queue=args.max_queue)
+    return _wire(args, engine)
+
+
+def _wire(args, engine):
+    """Scheduler + LMServer over any engine (real or fake): one place,
+    so the fake-engine fleet cannot diverge from the real serving
+    path."""
+    from ..obs.reqtrace import RequestTracer
+    from .scheduler import Scheduler
+    from .server import LMServer
+
+    scheduler = Scheduler(
+        engine, max_queue=args.max_queue,
+        reqtrace=RequestTracer() if args.trace_requests else None)
     return LMServer(scheduler, args.vocab), scheduler
 
 
@@ -164,22 +220,35 @@ def main(argv=None) -> int:
 
     args = build_parser().parse_args(argv)
     if args.model not in LM_MODELS:
+        if args.fake_engine:
+            raise SystemExit("--fake-engine serves the LM API; drop "
+                             f"--model {args.model}")
         return _serve_images(args)
     if args.torch_weights:
         raise SystemExit("--torch-weights is for image models; an LM "
                          "takes --checkpoint")
+    if args.fault_plan:
+        from .. import faults
+
+        faults.install_plan_arg(args.fault_plan)
     t0 = time.perf_counter()
-    server, _ = build_server(args)
-    what = (f"checkpoint {args.checkpoint}" if args.checkpoint
-            else "random-init")
-    print(f"{what} {args.model} ready in "
-          f"{time.perf_counter() - t0:.1f}s on {server.scheduler.engine.device}",
+    server, scheduler = build_server(args)
+    what = ("a fake engine (no model, no device)" if args.fake_engine
+            else f"checkpoint {args.checkpoint} {args.model} on "
+            f"{scheduler.engine.device}" if args.checkpoint
+            else f"random-init {args.model} on {scheduler.engine.device}")
+    print(f"{what} ready in {time.perf_counter() - t0:.1f}s",
           file=sys.stderr)
     httpd = server.serve(args.host, args.port)
-    server.install_drain_handler(httpd=httpd)
+    # SIGTERM → stop admissions, finish in-flight decodes (bounded),
+    # shut the HTTP server down, exit 0 — the graceful-drain path
+    server.install_drain_handler(httpd=httpd, timeout=args.drain_timeout)
+    # the machine-readable bound-port announcement (--port 0 gives an
+    # ephemeral one): routers and tests read THIS line
     print(f"FDTPU_SERVE_PORT={httpd.server_address[1]}", flush=True)
     print(f"serving LM on http://{args.host}:{httpd.server_address[1]}/"
-          f"v1/generate (ctrl-c to stop; SIGTERM drains)", flush=True)
+          f"v1/generate (ctrl-c to stop; SIGTERM drains "
+          f"<= {args.drain_timeout:.0f}s)", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
@@ -187,6 +256,10 @@ def main(argv=None) -> int:
     finally:
         server.stop_loop()
         httpd.server_close()
+        if scheduler.reqtrace is not None:
+            n = scheduler.reqtrace.export_chrome_trace(args.trace_requests)
+            print(f"request trace ({n} events) written to "
+                  f"{args.trace_requests}", file=sys.stderr)
     return 0
 
 

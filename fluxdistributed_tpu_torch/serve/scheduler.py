@@ -33,9 +33,7 @@ thread; ``step``/``run_until_idle`` must run on ONE driver thread (the
 server's engine loop, or the test body).
 
 Port of ``fluxdistributed_tpu/serve/scheduler.py``.  Each request's
-sampling key is a seeded ``torch.Generator``.  The fault-injection hook
-(``faults.fire("serve.tick")``) and the HBM / run-info gauges belong to
-the operability slice and are not here yet.
+sampling key is a seeded ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -50,6 +48,7 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from .. import faults
 from ..obs.metrics import Registry
 from ..obs.reqtrace import RequestTracer
 from .engine import LMEngine
@@ -127,7 +126,8 @@ class Scheduler:
     def __init__(self, engine: LMEngine, max_queue: int = 64,
                  registry: Optional[Registry] = None,
                  prefill_chunks_per_tick: int = 1,
-                 reqtrace: Optional[RequestTracer] = None):
+                 reqtrace: Optional[RequestTracer] = None,
+                 flight=None):
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if prefill_chunks_per_tick < 1:
@@ -140,6 +140,7 @@ class Scheduler:
         #: raise it to favor prompt ingestion over decode latency
         self.prefill_chunks_per_tick = prefill_chunks_per_tick
         self._rr = -1  # round-robin cursor over prefilling slots
+        self._ticks = 0  # step() calls — the serve.tick fault index
         #: graceful-drain latch (see :meth:`begin_drain`): True refuses
         #: NEW submissions while everything already accepted (queued or
         #: in a slot) runs to completion
@@ -151,6 +152,11 @@ class Scheduler:
         #: request-scoped lifecycle tracer (obs.reqtrace), or None —
         #: events cost nothing when absent, a bounded ring when present
         self.reqtrace = reqtrace
+        #: black-box flight recorder (obs.flight.FlightRecorder), or
+        #: None — one record per tick, so a replica killed mid-serve
+        #: leaves a dump saying which tick it died on and what the
+        #: queue/slots looked like
+        self.flight = flight
         self.registry = registry if registry is not None else Registry()
         r, p = self.registry, METRIC_PREFIX
         c, g = r.counter, r.gauge
@@ -247,6 +253,23 @@ class Scheduler:
         ):
             g(p + key, txt).set_function(
                 lambda key=key: float(self._kv_bytes(key)))
+        # the HBM gauges of the engine's card (fdtpu_hbm_bytes_* /
+        # headroom at scrape time): the router's /metrics rollup
+        # re-exposes them replica-labelled.  An engine on no card (the
+        # CPU, a FakeLMEngine) exposes the availability flag and NaN
+        # headroom and asks no device.
+        from ..obs.memstats import HbmGauges
+
+        device = getattr(engine, "device", None)
+        on_card = device is not None and torch.device(device).type == "cuda"
+        self.hbm = HbmGauges(self.registry,
+                             devices=None if on_card else ())
+        # the fdtpu_run_info stitch gauge (fingerprint/torch/schema
+        # labels) on THIS registry, so a replica scrape names the run
+        # its flight dump and ledger rows belong to
+        from ..obs import runs as runs_lib
+
+        runs_lib.set_run_info(self.registry, "serve")
         self._callback_gauges = [
             p + k for k in (
                 "queue_depth", "active_slots", "max_slots",
@@ -259,7 +282,7 @@ class Scheduler:
                 "tbt_sec_p50", "tbt_sec_p95",
                 "ttft_hist_sec_p50", "ttft_hist_sec_p95",
             )
-        ]
+        ] + list(self.hbm.gauge_names)
 
     def _pool_stat(self, key: str) -> float:
         ps = getattr(self.engine, "pool_stats", None)
@@ -311,6 +334,10 @@ class Scheduler:
         successor scheduler's get-or-create continues them)."""
         for name in self._callback_gauges:
             self.registry.unregister(name)
+        if self.flight is not None:
+            # a retired scheduler is a SOFT exit — footer it (a killed
+            # replica never reaches here, which is the signature)
+            self.flight.dump("closed", ticks=self._ticks)
 
     # ---- producer side (any thread) ---------------------------------------
 
@@ -449,6 +476,12 @@ class Scheduler:
         slots freed THIS tick), then advance at most
         ``prefill_chunks_per_tick`` prefill chunks (chunked engines).
         Returns the number of tokens emitted."""
+        # deterministic serve-side injection point: a plan can crash
+        # (action "exit"), stall, or raise at tick k — the replica-kill
+        # and wedged-loop scenarios the router's failover tests need.
+        # One global None check when no plan is installed.
+        faults.fire("serve.tick", index=self._ticks)
+        self._ticks += 1
         emitted = 0
         self._service_cancels()
         live = [s for s, r in enumerate(self.slots)
@@ -546,6 +579,17 @@ class Scheduler:
                     emitted += 1
             self._g_chunks_last.set(chunks_run)
         self._sync_prefix_counters()
+        if self.flight is not None:
+            # per-tick black-box record: the serve analog of the
+            # trainer's per-step record (a killed replica's dump says
+            # which tick died and what the queue looked like)
+            self.flight.record(
+                tick=self._ticks - 1,
+                emitted=emitted,
+                active_slots=self.active_slots,
+                queue_depth=self.queue_depth,
+                chunks=chunks_run,
+            )
         return emitted
 
     def run_until_idle(self, max_steps: int = 1_000_000) -> None:

@@ -38,6 +38,7 @@ timeline.
 
 from __future__ import annotations
 
+import http.server
 import json
 import threading
 import time
@@ -244,8 +245,6 @@ class LMServer:
     # ---- HTTP -------------------------------------------------------------
 
     def make_handler(self):
-        import http.server
-
         outer = self
 
         class Handler(http.server.BaseHTTPRequestHandler):
@@ -447,13 +446,19 @@ class LMServer:
         """Build the HTTP server (started loop included); the caller
         runs ``serve_forever``, so tests can drive the server in a
         thread."""
-        import http.server
-
         self.start_loop()
-        httpd = http.server.ThreadingHTTPServer((host, port),
-                                                self.make_handler())
+        httpd = HTTPServer((host, port), self.make_handler())
         self.bound_port = httpd.server_address[1]
         return httpd
+
+
+class HTTPServer(http.server.ThreadingHTTPServer):
+    """``ThreadingHTTPServer`` with a listen backlog a burst fits in:
+    the stdlib's 5 resets connections when dozens of clients (or a
+    router's fan-out) connect at once.  The kernel caps it at
+    ``net.core.somaxconn``."""
+
+    request_queue_size = 128
 
 
 def _device_memory(device) -> dict:

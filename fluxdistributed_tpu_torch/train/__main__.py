@@ -490,18 +490,9 @@ def _install_fault_plan(spec):
     """``--fault-plan``'s plan, installed, or ``None``."""
     if not spec:
         return None
-    import json
-
     from .. import faults
 
-    if spec.startswith("@"):
-        with open(spec[1:]) as f:
-            spec = f.read()
-    try:
-        plan = faults.FaultPlan.from_spec(json.loads(spec))
-    except (ValueError, TypeError) as e:
-        raise SystemExit(f"--fault-plan: {e}")
-    return faults.install_plan(plan)
+    return faults.install_plan_arg(spec)
 
 
 def platform_device(args) -> None:

@@ -61,7 +61,8 @@ def test_port_has_modules_to_scan():
                 "parallel/collectives.py", "parallel/pp.py",
                 "parallel/pp_1f1b.py", "parallel/pp_plan.py",
                 "parallel/multihost.py", "supervise.py", "generate.py",
-                "models/gpt2.py"):
+                "models/gpt2.py", "serve/router.py", "serve/testing.py",
+                "obs/trends.py"):
         assert f"fluxdistributed_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").is_file()
 

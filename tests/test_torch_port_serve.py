@@ -231,3 +231,52 @@ def test_entry_points_refuse_a_missing_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_server(args)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_serve_cli_refuses_a_missing_gpu_unless_fake(monkeypatch):
+    """``python -m fluxdistributed_tpu_torch.serve`` without
+    ``--fake-engine`` and without ``--device`` refuses a missing GPU;
+    with ``--fake-engine`` it builds no model and asks no card for
+    memory or work, even where one is visible (the run-info
+    fingerprint still names the host's card, as on any replica)."""
+    from fluxdistributed_tpu_torch import models
+    from fluxdistributed_tpu_torch.serve import __main__ as cli
+    from fluxdistributed_tpu_torch.serve.testing import FakeLMEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--model", "lm_tiny", "--vocab", "32", "--port", "0"])
+
+    asked = []
+
+    def refuse(name):
+        def call(*a, **k):
+            asked.append(name)
+            raise AssertionError(f"the fake engine called {name}")
+        return call
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda *a: "a visible card")
+    for name in ("_lazy_init", "current_device", "memory_stats",
+                 "mem_get_info", "synchronize", "set_device"):
+        monkeypatch.setattr(torch.cuda, name, refuse(name))
+    for name in ("lm_tiny", "lm_small"):
+        monkeypatch.setattr(models, name, refuse(name))
+    args = cli.build_parser().parse_args(
+        ["--fake-engine", "--vocab", "256", "--max-slots", "2",
+         "--trace-requests", "trace.json"])
+    server, sched = cli.build_server(args)
+    try:
+        assert isinstance(sched.engine, FakeLMEngine)
+        assert sched.reqtrace is not None
+        assert not sched.hbm.available
+        text = sched.registry.prometheus_text()
+        assert "fdtpu_hbm_available 0" in text.splitlines()
+        sched.submit(Request(prompt=[1, 2], max_new_tokens=3))
+        sched.run_until_idle()
+    finally:
+        server.close()
+    assert asked == []
+
