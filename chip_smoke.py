@@ -2306,47 +2306,58 @@ def graph_equality_run(torch, name, card, make_state, make_step, batches,
     del graphed, g, c, state, mid
 
 
-def profile_steps(torch, step, state, batch, calls, steps, wall_ms):
+def profile_steps(torch, step, state, batch, calls, steps, wall_ms,
+                  top=False):
     """Device busy ms, idle share and kernels per optimizer step under
     the profiler, over ``calls`` calls of ``steps`` steps together; the
     idle share is against ``wall_ms``, the step's ms timed unprofiled by
     the caller (CUDA events between calls: the stream's time, launch
-    gaps included)."""
+    gaps included).  ``top`` adds the 12 largest device ops' ms a
+    step."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
-    busy, count = 0.0, 0
+    busy, count, dev = 0.0, 0, {}
     for r in prof.key_averages():
         if r.device_type == torch.autograd.DeviceType.CUDA:
-            busy += getattr(r, "self_device_time_total",
-                            getattr(r, "self_cuda_time_total", 0.0))
+            us = getattr(r, "self_device_time_total",
+                         getattr(r, "self_cuda_time_total", 0.0))
+            busy += us
             count += r.count
+            dev[r.key] = dev.get(r.key, 0.0) + us
     if not count:
         return state, {"wall_ms_per_step": wall_ms,
                        "device_busy_ms_per_step": None,
                        "device_idle_share": None, "kernels_per_step": None}
     busy_ms = busy / steps / 1e3
-    return state, {"wall_ms_per_step": wall_ms,
-                   "device_busy_ms_per_step": busy_ms,
-                   "device_idle_share": 1 - busy_ms / wall_ms,
-                   "kernels_per_step": count / steps}
+    out = {"wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms,
+           "kernels_per_step": count / steps}
+    if top:
+        out["top_device_ms_per_step"] = [
+            [k[:80], v / steps / 1e3]
+            for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:12]]
+    return state, out
 
 
 def time_device_loop(torch, name, card, k, make_state, make_step, batch,
-                     rate):
+                     rate, top=False):
     """One path at ``k`` steps a call: ms per optimizer step over 5
-    steps (K = 1) or one replay (K > 1) with CUDA events, the rate and
-    MFU (``rate(step_ms) -> dict``), peak allocated bytes and a profile
-    of one step (K = 1) or one replay."""
+    steps (K = 1, after 3 warm-up steps) or one replay (K > 1, the first
+    after the eager call and the capture: launching the graph the first
+    time uploads it, microseconds of a replay of seconds) with CUDA
+    events, the rate and MFU (``rate(step_ms) -> dict``), peak allocated
+    bytes and a profile of one step (K = 1) or one replay (``top``: with
+    its largest device ops)."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     step, state = make_step(k), make_state()
     b = batch if k == 1 else _stack(torch, [batch] * k)
-    for _ in range(3 if k == 1 else 2):  # K > 1: eager + capture, replay
+    for _ in range(3 if k == 1 else 1):  # K > 1: eager + capture
         state, m = step(state, b)
     calls = 5 if k == 1 else 1
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
@@ -2357,7 +2368,7 @@ def time_device_loop(torch, name, card, k, make_state, make_step, batch,
     torch.cuda.synchronize()
     ms = [ev[i].elapsed_time(ev[i + 1]) / k for i in range(calls)]
     step_ms = sum(ms) / len(ms)
-    state, prof = profile_steps(torch, step, state, b, 1, k, step_ms)
+    state, prof = profile_steps(torch, step, state, b, 1, k, step_ms, top)
     row = {"phase": "device_loop_step", "path": name, "card": card, "k": k,
            "graphed": k > 1, "step_ms": step_ms, "step_ms_each_call": ms,
            **rate(step_ms), **prof,
@@ -2860,7 +2871,7 @@ def convnext_train_step_phase(torch, peaks, card):
 
             rows = [time_device_loop(torch, "convnext_xlarge_one_device",
                                      card, k, make_state, make_step,
-                                     batches[0], rate)
+                                     batches[0], rate, top=k == 1)
                     for k in (1, DL_KT)]
             break
         except (torch.cuda.OutOfMemoryError, RuntimeError) as e:
@@ -2872,9 +2883,11 @@ def convnext_train_step_phase(torch, peaks, card):
             if batch <= 16:
                 raise
             batch //= 2
-    step, state = make_step(1), make_state()
-    state, _ = step(state, batches[0])
-    prof = profile_vision_step(torch, step, state, batches[0], share={})
+    # the K = 1 row's profile of one step is the step's breakdown
+    prof = {k: rows[0][k] for k in ("wall_ms_per_step",
+                                    "device_busy_ms_per_step",
+                                    "device_idle_share", "kernels_per_step",
+                                    "top_device_ms_per_step")}
     counts = all_counts()
     emit({"phase": "convnext_train_step", "card": card,
           "model": "convnext_xlarge", "image": VISION_SIZE,
@@ -2893,7 +2906,7 @@ def convnext_train_step_phase(torch, peaks, card):
           "profile_k1": prof, "b1_b6_launches": counts})
     if counts != [0] * 6:
         raise RuntimeError(f"convnext_train_step: B1-B6 launched {counts}")
-    del model, params, state, step, batches
+    del model, params, batches
     torch.cuda.empty_cache()
 
 
@@ -4229,14 +4242,16 @@ SHARD_CLI = ["--model", "lm_small", "--dataset", "synthetic-text", "--vocab",
 
 
 def sharded_cli_phase(torch):
-    """``python -m fluxdistributed_tpu_torch.train ... --spmd fsdp`` and
-    ``--layout dp`` in-process, 6 cycles each; ``--spmd tp --tp 2`` and
-    ``--spmd fsdp_tp`` on one card refused with the driver's messages.
-    Returns B1-B3's launches a step of the fsdp run."""
+    """``python -m fluxdistributed_tpu_torch.train ... --spmd fsdp``
+    in-process, 6 cycles; ``--spmd tp --tp 2`` and ``--spmd fsdp_tp`` on
+    one card refused with the driver's messages.  (The layout CLI runs
+    in the pricing_cli phase: ``--layout auto`` at one rank trains the
+    ``dp`` layout, its only candidate.)  Returns B1-B3's launches a step
+    of the fsdp run."""
     from fluxdistributed_tpu_torch.train.__main__ import run
 
     per = None
-    for extra in (["--spmd", "fsdp"], ["--layout", "dp"]):
+    for extra in (["--spmd", "fsdp"],):
         reset_all_counts()
         t0 = time.perf_counter()
         task = run(SHARD_CLI + extra)
@@ -4689,11 +4704,12 @@ def _microbatch_faults(torch, make_model, tokens, counts) -> dict:
 
 
 def _pp_local_run(torch, batches, schedule, interleave, opt=None,
-                  timed=True):
+                  timed=True, boundaries=None):
     """lm_small (flash, bf16; ``opt``, adam 3e-4 by default) over
     ``batches`` through ``make_train_step_1f1b`` with all ``PP_S`` pipe
-    devices in this process (``parallel.LocalPipe``):
-    :func:`_run_steps`'s columns, params on the model's names."""
+    devices in this process (``parallel.LocalPipe``), stage boundaries
+    a planner's when given: :func:`_run_steps`'s columns, params on the
+    model's names."""
     from fluxdistributed_tpu_torch import optim
     from fluxdistributed_tpu_torch.models import lm_pp_1f1b, lm_small
     from fluxdistributed_tpu_torch.models.transformer_lm import (
@@ -4704,28 +4720,29 @@ def _pp_local_run(torch, batches, schedule, interleave, opt=None,
 
     model = lm_small(vocab=32000, attn_fn=attention_core("flash"), seed=0)
     pipe, opt = LocalPipe(PP_S), opt or optim.adam(SHARD_LR)
-    w = lm_pp_1f1b(model, pipe, interleave=interleave)
+    w = lm_pp_1f1b(model, pipe, interleave=interleave, boundaries=boundaries)
     state = TrainState.create(w.split_params(dict(model.named_parameters())),
                               opt)
     step = make_train_step_1f1b(*w.fns, opt, pipe, num_microbatches=PP_M,
                                 interleave=w.interleave, schedule=schedule)
     try:
         return {**_run_steps(torch, state, step, batches, pp_merge_params(
-            model, PP_S, interleave=interleave), timed=timed),
-                "local_shapes": None}
+            model, PP_S, interleave=interleave, boundaries=boundaries),
+            timed=timed), "local_shapes": None}
     finally:
         del model, state, step, w
         torch.cuda.empty_cache()
 
 
-def pp_train_phase(torch, card, dp_flash=None):
+def pp_train_phase(torch, card, dp_flash=None, keep=None):
     """lm_small (vocab 32000, B = 8, T = 1024, bf16, flash, adam 3e-4,
     dropout 0) 3 steps from one seed and the same batches: the trainer's
     ``spmd="pp"`` (GPipe, M = 2) on one NCCL rank ``{data: 1, pipe: 1}``
     against the one-device DP step (``dp_flash``, the sharded phase's
     run; run here when not given), then 1F1B, zb and the interleaved
     placement (V = 6) at S = 2, M = 4 over the local exchange against
-    the GPipe run, zb against 1F1B bit for bit.  Each path also takes
+    the GPipe run, zb against 1F1B bit for bit (with ``keep``, the 1F1B
+    row stays there for the pricing phase).  Each path also takes
     one probe step (descent at ``PROBE_LR``) on the first batch, whose
     gradient is held against DP's probe step's within ``PP_GRAD_RTOL``
     (zb's bit for bit against 1F1B's).  GPipe and 1F1B are not bit-equal
@@ -4826,6 +4843,8 @@ def pp_train_phase(torch, card, dp_flash=None):
         out[name] = per
         if name == "1f1b_s2_m4":
             f1b, f1b_grads = run, grads
+            if keep is not None:
+                keep["pp_1f1b_s2_m4"] = row
         else:
             del run, grads
     for name, row in checked:
@@ -4841,19 +4860,21 @@ def pp_train_phase(torch, card, dp_flash=None):
 
 def pp_cli_phase(torch):
     """``python -m fluxdistributed_tpu_torch.train ... --spmd pp --pipe
-    1`` in-process, 2 cycles, B1-B3 launching 24 a step (12 blocks x 2
-    microbatches); ``--spmd pp_1f1b --pipe 1`` refused (1F1B needs two
-    pipe devices)."""
+    1 --pp-plan auto`` in-process (the planner's fresh costs priced on
+    fake tensors; one stage holds every block), 2 cycles, B1-B3
+    launching 24 a step (12 blocks x 2 microbatches); ``--spmd pp_1f1b
+    --pipe 1`` refused (1F1B needs two pipe devices)."""
     from fluxdistributed_tpu_torch.train.__main__ import run
 
     argv = list(SHARD_CLI)
     argv[argv.index("--cycles") + 1] = "2"
     reset_all_counts()
     t0 = time.perf_counter()
-    task = run(argv + ["--spmd", "pp", "--pipe", "1"])
+    extra = ["--spmd", "pp", "--pipe", "1", "--pp-plan", "auto"]
+    task = run(argv + extra)
     torch.cuda.synchronize()
     launches = all_counts()
-    row = {"phase": "pp_cli", "argv_extra": ["--spmd", "pp", "--pipe", "1"],
+    row = {"phase": "pp_cli", "argv_extra": extra,
            "steps": task.state.step, "losses": task.losses,
            "mesh": task.mesh.shape, "wall_s": time.perf_counter() - t0,
            "launches_b4_b5_b1_b2_b3_b6": launches}
@@ -5752,6 +5773,282 @@ def router_cli_phase(torch, card):
             s.stop()
 
 
+# ------------------------------------------------ pricing a step
+
+# The priced peak of a step against the allocator's peak of the same real
+# step: the fake run counts each storage's bytes as the caching allocator
+# holds them, rounded less (512-byte blocks) and without the library
+# workspaces a first step leaves behind, so the two should agree within
+# these bounds
+PRICE_RATIO = (0.8, 1.25)
+
+
+def _storage_bytes(torch, tree) -> int:
+    """The bytes of every distinct storage in a tree of tensors."""
+    from fluxdistributed_tpu_torch.obs.pricing import _tensors
+
+    return sum({id(st): st.nbytes() for st in (
+        t.untyped_storage() for t in _tensors(tree))}.values())
+
+
+def pricing_phase(torch, card, keep=None):
+    """Pricing a step before it runs (``obs/pricing.py``): the private
+    APIs it rests on import here; the lm_small DP step (B = 8, T = 1024,
+    bf16, flash, adam) priced on fake tensors against
+    ``max_memory_allocated`` of the same real step, within PRICE_RATIO,
+    pricing launching no kernel and the real step after it launching
+    B1-B3 12 times each; the ledger of the lm_small FSDP step recorded
+    on one NCCL rank equal to the fake-priced one at one rank; the
+    planned 1F1B on the local exchange (S = 2, M = 4, boundaries from
+    ``plan_from_model``): its probe gradient within PP_GRAD_RTOL of
+    DP's, B1-B3 launching what the timetable gives, its modeled bubble
+    beside the measured idle share (one card: no real bubble).  A plan
+    with uniform boundaries is pp_train's 1F1B program on the same
+    batches, whose row (``keep["pp_1f1b_s2_m4"]``) is read instead of
+    running it again.  Returns B1-B3's launches a step of the planned
+    1F1B."""
+    import numpy as np
+
+    # the private APIs pricing rests on (they moved between releases)
+    from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: F401
+    from torch.testing._internal.distributed.fake_pg import (  # noqa: F401
+        FakeStore)
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.mesh import (data_mesh, init_distributed,
+                                                shutdown_distributed)
+    from fluxdistributed_tpu_torch.models import lm_loss_fn, lm_small
+    from fluxdistributed_tpu_torch.obs import comms
+    from fluxdistributed_tpu_torch.obs.pricing import price_step, pricing
+    from fluxdistributed_tpu_torch.ops import attention_core
+    from fluxdistributed_tpu_torch.parallel.pp_1f1b import build_schedule
+    from fluxdistributed_tpu_torch.parallel.pp_plan import plan_from_model
+    from fluxdistributed_tpu_torch.train import prepare_training
+
+    emit({"phase": "pricing_imports", "torch": torch.__version__,
+          "FakeTensorMode": True, "FakeStore": True})
+    model = lm_small(vocab=32000, attn_fn=attention_core("flash"), seed=0)
+    data = _TokenBank(32000, T_TRAIN)
+    tok = [{"tokens": torch.from_numpy(np.random.default_rng(s).integers(
+        0, 32000, (B, T_TRAIN)).astype(np.int64)).cuda()}
+        for s in range(SHARD_STEPS)]
+
+    def prep(m, **kw):
+        return prepare_training(m, data, kw.pop("opt", optim.adam(SHARD_LR)),
+                                batch_size=B, cycles=1, loss_fn=lm_loss_fn(m),
+                                topk=(), **kw)
+
+    def priced_step(world, **kw):
+        """(priced, seconds) of the step ``prep`` builds, on fake tensors
+        over a fake world of ``world`` ranks (``None``: none)."""
+        t0 = time.perf_counter()
+        with pricing(world, device="cuda") as pr:
+            mesh = data_mesh(world, device="cuda") if world else None
+            fm = pr.module(model)
+            task = prep(fm, mesh=mesh, **kw)
+            batch = pr.batch({"tokens": ((B, T_TRAIN), torch.int64)},
+                             shards=world or 1)
+            out = price_step(task.step_fn, (task.state, batch), mesh=mesh)
+        return out, time.perf_counter() - t0
+
+    # the DP step: priced, then real
+    reset_all_counts()
+    priced, price_s = priced_step(None)
+    pricing_launches = all_counts()
+    task = prep(model)
+    task.step_fn(task.state, tok[0])  # warm: library workspaces
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    args_bytes = _storage_bytes(torch, (task.state, tok[0]))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    out = task.step_fn(task.state, tok[0])
+    torch.cuda.synchronize()
+    real_launches = all_counts()
+    allocated = torch.cuda.max_memory_allocated() - base + args_bytes
+    del out, task
+    torch.cuda.empty_cache()
+    ratio = priced["memory"]["peak_bytes"] / allocated
+    row = {"phase": "pricing", "card": card, "step": "lm_small dp",
+           "batch": B, "seqlen": T_TRAIN, "dtype": "bfloat16",
+           "attn": "flash", "opt": "adam", "priced": priced["memory"],
+           "priced_ledger": priced["comms"], "pricing_s": price_s,
+           "allocated_peak_bytes": allocated,
+           "allocated_args_bytes": args_bytes,
+           "priced_over_allocated": ratio, "ratio_limits": PRICE_RATIO,
+           "pricing_launches_b4_b5_b1_b2_b3_b6": pricing_launches,
+           "real_step_launches_b4_b5_b1_b2_b3_b6": real_launches}
+    emit(row)
+    if not PRICE_RATIO[0] <= ratio <= PRICE_RATIO[1]:
+        raise RuntimeError(f"pricing: priced peak over allocated {ratio} "
+                           f"outside {PRICE_RATIO}: {row}")
+    if pricing_launches != [0] * 6 or real_launches != [0, 0, 12, 12, 12, 0]:
+        raise RuntimeError(f"pricing: launches {row}")
+
+    # the FSDP step's ledger: priced on a fake world of one, recorded on
+    # one NCCL rank (a steady step: the first call learns the order)
+    fake_fsdp, fsdp_s = priced_step(1, spmd="fsdp")
+    mesh = init_distributed("cuda")
+    try:
+        task = prep(model, mesh=mesh, spmd="fsdp")
+        task.step_fn(task.state, tok[0])
+        with comms.recording(mesh) as rec:
+            out = task.step_fn(task.state, tok[0])
+            torch.cuda.synchronize()
+        real_ledger = rec.entries()
+        del out, task
+    finally:
+        shutdown_distributed()
+        torch.cuda.empty_cache()
+    row = {"phase": "pricing_ledger", "card": card,
+           "step": "lm_small fsdp, one rank", "pricing_s": fsdp_s,
+           "priced": fake_fsdp["comms"], "recorded_nccl": real_ledger,
+           "equal": fake_fsdp["comms"] == real_ledger,
+           "priced_peak_bytes": fake_fsdp["memory"]["peak_bytes"]}
+    emit(row)
+    if not row["equal"] or not real_ledger:
+        raise RuntimeError(f"pricing_ledger: {row}")
+
+    # the planned 1F1B on the local exchange
+    t0 = time.perf_counter()
+    plan = plan_from_model(model, PP_S, PP_M, batch_size=B, seqlen=T_TRAIN)
+    plan_s = time.perf_counter() - t0
+    sched = build_schedule(PP_S, PP_M)
+    counts = plan.counts
+    fwd = sum(int(sched.is_fwd[:, i].sum()) * counts[i] for i in range(PP_S))
+    bwd = sum(int(sched.is_bwd[:, i].sum()) * counts[i] for i in range(PP_S))
+    # each B tick recomputes its stage forward (B1) before B2 and B3
+    expected = [fwd + bwd, bwd, bwd]
+    shared = (keep or {}).get("pp_1f1b_s2_m4") if plan.is_uniform else None
+    if shared is not None:
+        run = {k: shared[k] for k in ("losses", "step_ms_device",
+                                      "wall_ms_per_step_warm",
+                                      "device_idle_share_warm")}
+        per = shared["b1_b2_b3_launches_per_step"]
+        grad_err = shared["probe_grad_worst_leaf_rel_err_vs_dp"]
+        del model
+    else:
+        p0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+        probe = optim.descent(PROBE_LR)
+        task = prep(model, opt=probe)
+        state, _ = task.step_fn(task.state, tok[0])
+        dp_grads = _probe_grads({k: state.params[k] for k in p0}, p0)
+        del task, state, model
+        torch.cuda.empty_cache()
+        ran = _pp_local_run(torch, tok, "1f1b", False,
+                            boundaries=plan.boundaries)
+        run = {"losses": ran["losses"], "step_ms_device": ran["step_ms"],
+               "wall_ms_per_step_warm": ran["wall_ms_per_step_warm"],
+               "device_idle_share_warm": ran["device_idle_share_warm"]}
+        per = [n // SHARD_STEPS for n in ran["launches"][2:5]]
+        grad_err = _worst_leaf_rel_err(torch, _probe_grads(_pp_local_run(
+            torch, tok[:1], "1f1b", False, probe, False,
+            boundaries=plan.boundaries)["params"], p0), dp_grads)
+        del ran, dp_grads, p0
+    torch.cuda.empty_cache()
+    row = {"phase": "pricing_planned_1f1b", "card": card,
+           "model": "lm_small", "pipe_devices": PP_S, "microbatches": PP_M,
+           "exchange": "local", "plan": plan.describe(),
+           "boundaries": list(plan.boundaries), "plan_s": plan_s,
+           "uniform": plan.is_uniform,
+           "run": ("pp_train's 1f1b_s2_m4 (the same program and batches)"
+                   if shared is not None else "run here"),
+           "modeled_bubble": plan.modeled_bubble,
+           "uniform_modeled_bubble": plan.uniform_bubble,
+           **run,
+           "note": "one card and one process: the stages take turns, so "
+                   "the idle share is host time between kernels, not a "
+                   "pipeline bubble",
+           "probe_grad_worst_leaf_rel_err_vs_dp": grad_err,
+           "grad_rtol": PP_GRAD_RTOL,
+           "launches_per_step_b1_b2_b3": per,
+           "timetable_launches_per_step_b1_b2_b3": expected}
+    emit(row)
+    if (grad_err > PP_GRAD_RTOL or per != expected
+            or not all(math.isfinite(x) for x in run["losses"])):
+        raise RuntimeError(f"pricing_planned_1f1b: {row}")
+    return per
+
+
+def pricing_cli_phase(torch, card):
+    """The pricing CLIs in-process: ``python -m
+    fluxdistributed_tpu_torch.fit --collect P --host-devices 8`` (every
+    registered variant priced on 8 fake cuda ranks) and ``--profile P
+    --host-devices 8`` under the card's default budget (its total
+    memory: every priced variant fits); then the training CLI's
+    ``--layout auto --layout-report R`` on lm_small for 6 steps: the
+    pick priced in a child process, whose only candidate at one rank is
+    ``dp``, so the run is the layout CLI run of the sharded_cli phase,
+    held to its checks (a state of blocks, B1-B3 12 a step).  The pp_cli
+    phase runs ``--pp-plan auto``.  Returns B1-B3's launches a step of
+    the layout-auto run."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from fluxdistributed_tpu_torch import fit
+    from fluxdistributed_tpu_torch.train.__main__ import run
+
+    tmp = tempfile.mkdtemp(prefix="fdtpu_pricing_")
+    prof = os.path.join(tmp, "fit.profile.json")
+    report = os.path.join(tmp, "pick.json")
+    try:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = fit.main(["--collect", prof, "--host-devices", "8"])
+        collect_s = time.perf_counter() - t0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc2 = fit.main(["--profile", prof, "--host-devices", "8",
+                            "--json"])
+        ranked = json.loads(out.getvalue())
+        _, total = torch.cuda.mem_get_info()
+        priced = [r for r in ranked["rows"] if r["peak_bytes"] is not None]
+        row = {"phase": "pricing_cli_fit", "card": card,
+               "collect_rc": rc, "profile_rc": rc2, "collect_s": collect_s,
+               "budget_bytes": ranked["budget_bytes"],
+               "card_total_bytes": total, "variants": len(ranked["rows"]),
+               "priced": len(priced),
+               "unpriced": [r["variant"] for r in ranked["rows"]
+                            if r["peak_bytes"] is None],
+               "largest_peak": max(priced, key=lambda r: r["peak_bytes"])}
+        emit(row)
+        if (rc or rc2 or ranked["budget_bytes"] != float(total)
+                or len(priced) < 20 or not all(r["fits"] for r in priced)):
+            raise RuntimeError(f"pricing_cli fit: {row}")
+        reset_all_counts()
+        t0 = time.perf_counter()
+        task = run(SHARD_CLI + ["--layout", "auto", "--layout-report",
+                                report])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_counts()
+        doc = json.load(open(report))
+        row = {"phase": "pricing_cli_layout_auto", "card": card,
+               "chosen": doc["chosen"], "budget_bytes": doc["budget_bytes"],
+               "reason": doc["reason"], "rows": [
+                   {k: r.get(k) for k in ("layout", "peak_bytes", "fits",
+                                          "comms_bytes", "headroom_bytes",
+                                          "invalid")} for r in doc["rows"]],
+               "steps": task.state.step, "losses": task.losses,
+               "mesh": task.mesh.shape, "wall_s": wall,
+               "launches_b4_b5_b1_b2_b3_b6": launches}
+        emit(row)
+        if (doc["chosen"] != "dp" or doc["budget_bytes"] != float(total)
+                or task.specs is None or len(task.losses) != 6
+                or not all(math.isfinite(x) for x in task.losses)
+                or launches != [0, 0, 72, 72, 72, 0]):
+            raise RuntimeError(f"pricing_cli --layout auto: {row}")
+        del task
+        torch.cuda.empty_cache()
+        return [n // 6 for n in launches[2:5]]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -5884,7 +6181,7 @@ def main() -> int:
     sp_ep.update(timed("ep_train", ep_train_phase, torch, cardname))
     timed("sp_ep_cli", sp_ep_cli_phase, torch)
     pp = timed("pp_train", pp_train_phase, torch, cardname,
-               kept.pop("dp_flash"))
+               kept.pop("dp_flash"), kept)
     pp["cli_gpipe_s1_m2"] = timed("pp_cli", pp_cli_phase, torch)
     slice16 = {"multihost_cli_lm_small": timed(
         "multihost_cli", multihost_cli_phase, torch, cardname)}
@@ -5897,6 +6194,10 @@ def main() -> int:
     generate_b4 = timed("generate", generate_phase, torch, cardname)
     router_b4 = timed("router", router_phase, torch, cardname)
     timed("router_cli", router_cli_phase, torch, cardname)
+    slice18 = {"planned_1f1b_s2_m4": timed("pricing", pricing_phase, torch,
+                                           cardname, kept)}
+    slice18["cli_layout_auto_lm_small"] = timed(
+        "pricing_cli", pricing_cli_phase, torch, cardname)
     emit({"phase": "phase_seconds", "seconds": seconds,
           "total": sum(seconds.values())})
 
@@ -5955,6 +6256,8 @@ def main() -> int:
                    path: per[i] for path, per in pp.items()},
                slice16_launches_per_step={
                    path: per[i] for path, per in slice16.items()},
+               slice18_launches_per_step={
+                   path: per[i] for path, per in slice18.items()},
                context_ring=ctx_entry(ctx_row))
           for i, ((name, replaces, via), n, row, vrow, vn, hrow, hn)
           in enumerate(zip(

@@ -14,8 +14,11 @@ ZeRO-1 training across process ranks (:mod:`.mesh`, :mod:`.sharding`,
 :mod:`.parallel.zero1`, :mod:`.parallel.zero1_fused` and the fused Adam
 kernel, :mod:`.ops.fused_adam`), image training (ResNet, ViT, ConvNeXt
 and the ImageNet data path), checkpoints with preemption and resume
-(:mod:`.faults`, :mod:`.train.checkpoint`), and image inference
-(:mod:`.serve.vision`, ``python -m fluxdistributed_tpu_torch.infer``).
+(:mod:`.faults`, :mod:`.train.checkpoint`), image inference
+(:mod:`.serve.vision`, ``python -m fluxdistributed_tpu_torch.infer``),
+the parallel modes and operability, and the pricing of a step on fake
+tensors (:mod:`.obs.pricing`, :mod:`.obs.comms`, :mod:`.obs.profile`,
+``python -m fluxdistributed_tpu_torch.fit``).
 
 The port imports ``torch`` and never ``jax``, ``flax`` or the JAX
 package.  Entry points run on ``cuda`` unless the caller passes

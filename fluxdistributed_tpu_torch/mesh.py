@@ -28,7 +28,11 @@ rank, the number of ranks and the rank's device.
   what each returned.  The N-replica tests are built on it.
 
 NCCL refuses two ranks on one GPU, so on a one-GPU machine the world is
-one rank; the N-rank schedule runs on gloo CPU ranks there.
+one rank; the N-rank schedule runs on gloo CPU ranks there.  A fake
+group (the ``fake`` backend, which answers every collective at once)
+serves either device type: a step priced on fake tensors runs over one
+(:mod:`.obs.pricing`), and :meth:`Mesh.axes_of` names the axes of the
+group each of its collectives ran on (:mod:`.obs.comms`).
 """
 
 from __future__ import annotations
@@ -127,6 +131,27 @@ class Mesh:
             return self.group
         return self.groups[tuple(sorted(names, key=self.axis_names.index))]
 
+    def axes_of(self, group) -> Optional[Tuple[str, ...]]:
+        """The axis names of ``group`` (a group of this mesh: its own,
+        or one of its axes' tuples), or ``None`` for a group that is
+        none of them.  Where one group serves several tuples (size-1
+        axes, or a tuple that spans every rank) the fewest axes of size
+        above 1 name it, earlier axes first (``("data",)`` for plain
+        DP), as the JAX ledger names a replica group by the first axis
+        combination that matches it."""
+        cands = [self.axis_names] if group is self.group else []
+        cands += [k for k, g in self.groups.items() if g is group]
+        if not cands:
+            return None
+
+        def live(k):
+            return tuple(a for a in k if self.shape[a] > 1)
+
+        best = min(cands, key=lambda k: (not live(k), len(live(k)),
+                                         [self.axis_names.index(a)
+                                          for a in k]))
+        return live(best) or best
+
     def sub(self, axes) -> "Mesh":
         """The mesh over ``axes`` (one name or a tuple, in this mesh's
         order) that holds this rank: its group is theirs, its rank this
@@ -190,7 +215,8 @@ def data_mesh(n: Optional[int] = None, device: DeviceLike = None) -> Mesh:
     backend = dist.get_backend()
     dev = resolve_device(
         "cpu" if device is None and backend == "gloo" else device)
-    if backend != _backend(dev):
+    # the fake group (a priced step, obs/pricing.py) serves either
+    if backend != _backend(dev) and backend != "fake":
         raise ValueError(f"the process group runs {backend}, which does not "
                          f"serve {dev.type} tensors (nccl: cuda, gloo: cpu)")
     if dev.type == "cuda" and dev.index is None:

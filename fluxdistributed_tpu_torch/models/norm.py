@@ -37,8 +37,9 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-import torch.distributed as dist
 from torch import nn
+
+from ..obs import comms
 
 
 __all__ = ["BatchNorm", "BatchStats"]
@@ -79,7 +80,7 @@ def _global_moments(x: torch.Tensor, mesh):
         var = var.double()
     mean = mean.double()
     moments = torch.stack([mean, var + mean * mean])
-    dist.all_reduce(moments, group=mesh.group)
+    comms.all_reduce(moments, group=mesh.group)
     moments /= mesh.size
     mean, mean2 = moments[0], moments[1]
     return mean.float(), torch.clamp(mean2 - mean * mean, min=0.0).float()
@@ -117,7 +118,7 @@ class _SyncNorm(torch.autograd.Function):
             sum_dy, sum_dy_xmu, dw, db = torch.batch_norm_backward_reduce(
                 dy, x, mean, invstd, weight, True, True, True)
             total = torch.cat([sum_dy, sum_dy_xmu])
-            dist.all_reduce(total, group=group)
+            comms.all_reduce(total, group=group)
             counts = torch.full((size,), x.numel() // x.shape[1],
                                 dtype=torch.int32, device=x.device)
             c = sum_dy.shape[0]
@@ -130,7 +131,7 @@ class _SyncNorm(torch.autograd.Function):
         local = torch.stack([dyf.sum(dim=(0, 2, 3)),
                              (dyf * xhat).sum(dim=(0, 2, 3))])
         total = local.clone()
-        dist.all_reduce(total, group=group)
+        comms.all_reduce(total, group=group)
         total /= x.numel() // x.shape[1] * size
         dx = (weight * invstd)[c] * (dyf - total[0][c] - xhat * total[1][c])
         return dx.to(x.dtype), local[1], local[0], None, None, None, None

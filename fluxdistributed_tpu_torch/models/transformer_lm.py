@@ -729,6 +729,17 @@ class TransformerLM(nn.Module):
                  moe_aux_weight: float = 0.01, device: DeviceLike = None,
                  seed: int = 0):
         super().__init__()
+        #: the architecture (every argument but ``device`` and ``seed``):
+        #: ``TransformerLM(**config)`` rebuilds it (obs.profile prices
+        #: its blocks by depth)
+        self.config = dict(
+            vocab=vocab, depth=depth, dim=dim, num_heads=num_heads,
+            mlp_dim=mlp_dim, dtype=dtype, use_rope=use_rope,
+            tie_embeddings=tie_embeddings, num_kv_heads=num_kv_heads,
+            window=window, sinks=sinks, norm=norm, norm_eps=norm_eps,
+            mlp=mlp, max_len=max_len, attn_fn=attn_fn, dropout=dropout,
+            remat=remat, moe_every=moe_every, num_experts=num_experts,
+            moe_fn=moe_fn, moe_aux_weight=moe_aux_weight)
         dev = resolve_device(device)
         if not use_rope and max_len is None:
             raise ValueError("use_rope=False needs max_len (the learned "

@@ -6,17 +6,22 @@
   trace-event JSON;
 * :mod:`.watchdog` — rolling-median stall detection, the OOM-skip
   counter and the low-headroom alert;
-* :mod:`.memstats` — live per-device memory gauges (``fdtpu_hbm_*``)
-  off the CUDA caching allocator, ``None``-safe on the CPU;
+* :mod:`.memstats` — the priced memory of a step (its static half) and
+  live per-device memory gauges (``fdtpu_hbm_*``) off the CUDA caching
+  allocator, ``None``-safe on the CPU;
+* :mod:`.pricing` — a step run once on fake tensors over a fake world
+  (what the static half, the ledger and the profile read);
+* :mod:`.comms` — the collective ledger: the collectives a step issues,
+  per mesh axis;
+* :mod:`.profile` — the cost-profile artifact (``fdtpu-profile/v2``);
 * :mod:`.server` — stdlib-HTTP ``/metrics`` and ``/healthz``;
 * :mod:`.flight` — the black-box flight recorder;
 * :mod:`.runs` — the cross-run ledger and the ``fdtpu_run_info`` gauge;
 * :mod:`.reqtrace` — the serving tier's request tracer.
 
 :class:`Observation` bundles the per-run pieces ``train`` threads
-through its loop.  The JAX package's ``obs.profile``, ``obs.jaxmon``
-and ``obs.comms`` (the cost profile, the compile counters, the
-collective ledger) are not ported yet.
+through its loop.  The JAX package's ``obs.jaxmon`` (the compile
+counters) is not ported yet.
 """
 
 from __future__ import annotations
@@ -61,11 +66,15 @@ class Observation:
         to the step that spent it: right for reading a breakdown, wrong
         as a default (it serialises the host and the card).
     steady_after: the JAX package's steady-state recompile flag, which
-        needs ``obs.jaxmon``; not ported (must be ``None``)
+        reads the compile counters of ``obs.jaxmon``; not ported (must
+        be ``None``)
     jsonl_path: append a registry snapshot line here at the print
         cadence and at exit
-    profile_path: the JAX package's cost-profile artifact, which needs
-        ``obs.profile``; not ported (must be ``None``)
+    profile_path: write the cost-profile artifact here when ``train``
+        ends (:func:`.profile.collect_profile`: the static costs of the
+        model and of the step at the run's shapes, priced on fake
+        tensors, the step's priced memory and ledger, the measured
+        phase histograms; the coordinator only)
     flight: a live :class:`FlightRecorder`, or ``flight_path`` for
         ``train`` to build one
     """
@@ -85,13 +94,10 @@ class Observation:
         if self.steady_after is not None:
             raise NotImplementedError(
                 "Observation(steady_after=...) flags steady-state "
-                "recompiles through obs.jaxmon, which the port does not "
-                "have yet (ROADMAP slice 7); pass steady_after=None")
-        if self.profile_path is not None:
-            raise NotImplementedError(
-                "Observation(profile_path=...) writes the cost-profile "
-                "artifact of obs.profile, which the port does not have yet "
-                "(ROADMAP slice 7); pass profile_path=None")
+                "recompiles through the compile counters of obs.jaxmon, "
+                "which the port does not have yet (they come with its "
+                "compilation cache, ROADMAP Queue A item 6); pass "
+                "steady_after=None")
 
     @classmethod
     def default(cls) -> "Observation":

@@ -26,6 +26,9 @@ does: pairs whose rounding the tensor cores' sums could decide otherwise
 are flagged and summed again in the plain order.  f32 runs SIMT FMAs
 (``csrc/flash_attention.cu`` says why).  :func:`rounding_audit` counts,
 on the card, how often that flag fires and whether it missed a pair.
+On fake tensors (a priced step, :mod:`..fake`), on any device, each
+wrapper takes its shape-only branch: it checks what the kernel checks
+and returns the kernel's outputs, fake, without a launch or a count.
 
 :func:`flash_attention` and :func:`flash_attention_lse` are
 ``torch.autograd.Function`` s over these three (the JAX ``custom_vjp``
@@ -44,6 +47,7 @@ from typing import Optional
 
 import torch
 
+from ..fake import is_fake
 from .attention import (NEG_INF, online_softmax_update,
                         validate_window)
 from .counts import count
@@ -288,7 +292,7 @@ def _kernel_view(x: torch.Tensor) -> torch.Tensor:
     contiguous, 16-byte aligned rows), else a contiguous copy."""
     step = 16 // x.element_size()
     if (x.stride(3) == 1 and all(s % step == 0 for s in x.stride()[:3])
-            and x.data_ptr() % 16 == 0):
+            and (is_fake(x) or x.data_ptr() % 16 == 0)):
         return x
     return x.clone(memory_format=torch.contiguous_format)
 
@@ -311,6 +315,17 @@ def _check_kernel_inputs(*xs):
         raise ValueError("batch x heads must be <= 65535 (the grid's y axis)")
     if q.shape[1] == 0 or xs[1].shape[1] == 0:
         raise ValueError("flash attention needs Tq >= 1 and Tk >= 1")
+
+
+def _check_stats(q, lse, delta):
+    """B2/B3 read the forward's row LSE and ``delta``, f32 [B, H, Tq]
+    each: refused otherwise, before anything is launched (a kernel would
+    read past them)."""
+    b, tq, h, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (b, h, tq) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {(b, h, tq)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
 
 
 def _launch(which, q, k, v, *, o=None, do=None, dq=None, dk=None, dv=None,
@@ -345,7 +360,9 @@ def _launch(which, q, k, v, *, o=None, do=None, dq=None, dk=None, dv=None,
 
 
 def _dispatch(q, name):
-    if q.device.type == "cuda":
+    """True for the kernel's path (a CUDA tensor, or a fake one on any
+    device), False for the plain version's (a CPU tensor)."""
+    if q.device.type == "cuda" or is_fake(q):
         return True
     if q.device.type != "cpu":
         raise ValueError(f"{name} runs on cuda or cpu, got {q.device}")
@@ -367,9 +384,10 @@ def flash_attention_fwd(q, k, v, *, causal=False, block_q=128, block_k=128,
     b, tq, h, _ = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    _launch(_FWD, q, k, v, o=out, lse=lse, causal=causal, window=window,
-            sinks=sinks)
-    count(flash_attention_fwd)
+    if not is_fake(q):  # else the shape-only branch
+        _launch(_FWD, q, k, v, o=out, lse=lse, causal=causal,
+                window=window, sinks=sinks)
+        count(flash_attention_fwd)
     return out, lse
 
 
@@ -384,12 +402,14 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal=False, block_q=128,
             q, k, v, do, lse, delta, causal=causal, block_q=block_q,
             block_k=block_k, window=window, sinks=sinks)
     _check_kernel_inputs(q, k, v, do)
+    _check_stats(q, lse, delta)
     q, k, v, do = (_kernel_view(x) for x in (q, k, v, do))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(_DQ, q, k, v, do=do, dq=dq, lse=lse.contiguous(),
-            delta=delta.contiguous(), causal=causal, window=window,
-            sinks=sinks)
-    count(flash_attention_dq)
+    if not is_fake(q):  # else the shape-only branch
+        _launch(_DQ, q, k, v, do=do, dq=dq, lse=lse.contiguous(),
+                delta=delta.contiguous(), causal=causal, window=window,
+                sinks=sinks)
+        count(flash_attention_dq)
     return dq
 
 
@@ -404,13 +424,15 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal=False,
             q, k, v, do, lse, delta, causal=causal, block_q=block_q,
             block_k=block_k, window=window, sinks=sinks)
     _check_kernel_inputs(q, k, v, do)
+    _check_stats(q, lse, delta)
     q, k, v, do = (_kernel_view(x) for x in (q, k, v, do))
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch(_DKV, q, k, v, do=do, dk=dk, dv=dv, lse=lse.contiguous(),
-            delta=delta.contiguous(), causal=causal, window=window,
-            sinks=sinks)
-    count(flash_attention_dkv)
+    if not is_fake(q):  # else the shape-only branch
+        _launch(_DKV, q, k, v, do=do, dk=dk, dv=dv, lse=lse.contiguous(),
+                delta=delta.contiguous(), causal=causal, window=window,
+                sinks=sinks)
+        count(flash_attention_dkv)
     return dk, dv
 
 

@@ -27,7 +27,11 @@ All keep the probabilities in f32 through P·V, as the XLA walk does.
 (The Pallas body instead rounds p to v's dtype, so on a bf16 cache the
 two JAX impls differ by bf16 rounding of p; the port follows the XLA
 walk on both devices.)  ``flash_decode.launches`` and
-``flash_decode_paged.launches`` count kernel launches.
+``flash_decode_paged.launches`` count kernel launches.  On fake tensors
+(a priced step, :mod:`..fake`), on any device, each takes its
+shape-only branch: the kernel's checks, its output and its split
+partials, fake, with no launch and no count (the split count of a fake
+tensor off the card assumes an H100's :data:`FAKE_SMS`).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from ..fake import is_fake
 from .attention import NEG_INF, online_softmax_update, validate_window
 from .counts import count
 
@@ -52,6 +57,8 @@ _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
              torch.float8_e4m3fn: 3}
 _QUANT = (torch.int8, torch.float8_e4m3fn)
+#: the SM count a fake tensor off the card is split for (an H100 SXM)
+FAKE_SMS = 132
 
 
 def _validate(window, sinks, slot_pos, k_scale, v_scale):
@@ -442,7 +449,7 @@ def _check_kernel_inputs(q, k, v, idx, slot_pos, k_scale, v_scale,
             raise ValueError(f"all inputs must be on {q.device}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("flash_decode kernel needs contiguous inputs")
-        if t.data_ptr() % 16:
+        if not is_fake(t) and t.data_ptr() % 16:
             raise ValueError("flash_decode kernel needs 16-byte aligned inputs")
 
 
@@ -460,6 +467,8 @@ def _sm_count(device) -> int:
     """The SM count of ``device``, asked of the CUDA runtime once: the
     decode step calls the wrappers once a layer, and host time sets its
     pace."""
+    if device.type != "cuda":  # a fake tensor off the card
+        return FAKE_SMS
     i = device.index if device.index is not None else torch.cuda.current_device()
     if i not in _SMS:
         _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
@@ -488,6 +497,8 @@ def _launch(q, k, v, idx, slot_pos, window, sinks, k_scale, v_scale,
         raise ValueError(f"splits must be >= 1, got {splits}")
     out = torch.empty_like(q)
     work = _workspace(q, splits)
+    if is_fake(q):  # the shape-only branch: no launch, no count
+        return out
     lib = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -516,6 +527,8 @@ def _launch_paged(q, k_pool, v_pool, page_table, idx, slot_pos, window,
     runs, per = split_pages(pages, splits)
     out = torch.empty_like(q)
     work = _workspace(q, runs)
+    if is_fake(q):  # the shape-only branch: no launch, no count
+        return out
     lib = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -565,7 +578,7 @@ def flash_decode(
     _check_shapes(q, k, v, idx, slot_pos, k_scale)
     if block_k < 1:
         raise ValueError(f"block_k must be >= 1, got {block_k}")
-    if q.device.type == "cuda":
+    if q.device.type == "cuda" or is_fake(q):
         return _launch(q, k, v, idx, slot_pos, window, sinks, k_scale, v_scale)
     if q.device.type != "cpu":
         raise ValueError(f"flash_decode runs on cuda or cpu, got {q.device}")
@@ -609,7 +622,7 @@ def flash_decode_paged(
     """
     _validate(window, sinks, slot_pos, k_scale, v_scale)
     _check_paged_shapes(q, k_pool, v_pool, page_table, idx, slot_pos, k_scale)
-    if q.device.type == "cuda":
+    if q.device.type == "cuda" or is_fake(q):
         return _launch_paged(q, k_pool, v_pool, page_table, idx, slot_pos,
                              window, sinks, k_scale, v_scale)
     if q.device.type != "cpu":

@@ -16,7 +16,9 @@ Both compute, in the op order of :func:`..optim.adam`, ``m' = b1 m +
 f32 [3] tensor on the buffers' device), and return three new buffers:
 nothing is written in place.  The kernel rounds each operation as the
 plain version's op does, so the two agree bit for bit.
-``fused_adam.launches`` counts kernel launches.
+``fused_adam.launches`` counts kernel launches.  On fake tensors (a
+priced step, :mod:`..fake`) it takes the shape-only branch: the three
+new buffers, fake, on any device, with no launch and no count.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import ctypes
 
 import torch
 
+from ..fake import is_fake
 from .counts import count
 
 __all__ = ["fused_adam", "fused_adam_plain"]
@@ -85,8 +88,9 @@ def _launch(p, g, m, v, scalars, b1, b2, eps):
     for t in (p, g, m, v, scalars):
         if not t.is_contiguous():
             raise ValueError("fused_adam kernel needs contiguous buffers")
+    fake = is_fake(p)
     for t in (p, g, m, v):
-        if t.data_ptr() % 16:
+        if not fake and t.data_ptr() % 16:
             raise ValueError("fused_adam kernel needs 16-byte aligned "
                              "buffers (a chunk of a packed buffer is)")
     n = p.shape[0]
@@ -94,6 +98,8 @@ def _launch(p, g, m, v, scalars, b1, b2, eps):
         raise ValueError(f"fused_adam kernel needs a length divisible by 4, "
                          f"got {n}")
     outs = [torch.empty_like(p) for _ in range(3)]
+    if fake:  # the shape-only branch: no launch, no count
+        return tuple(outs)
     lib = _kernel()
     stream = torch.cuda.current_stream(p.device).cuda_stream
     with torch.cuda.device(p.device):
@@ -118,7 +124,7 @@ def fused_adam(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     launches the Hopper kernel (16-byte aligned buffers, length divisible
     by 4); on CPU tensors it runs :func:`fused_adam_plain`."""
     _check(p, g, m, v, scalars)
-    if p.device.type == "cuda":
+    if p.device.type == "cuda" or is_fake(p):
         return _launch(p, g, m, v, scalars, b1, b2, eps)
     if p.device.type != "cpu":
         raise ValueError(f"fused_adam runs on cuda or cpu, got {p.device}")

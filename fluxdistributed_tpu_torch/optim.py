@@ -47,6 +47,8 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
+from .fake import is_fake
+
 Params = Dict[str, Optional[torch.Tensor]]
 Schedule = Callable[[Any], Any]
 LR = Union[float, Schedule]
@@ -93,8 +95,9 @@ def div_const(x, n):
 
 def _on(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     """``x`` on ``device``; to a card through pinned memory, without a
-    sync (a pageable host-to-device copy synchronises the stream)."""
-    if device.type == "cuda":
+    sync (a pageable host-to-device copy synchronises the stream).  A
+    fake tensor (a priced step) has no memory to pin."""
+    if device.type == "cuda" and not is_fake(x):
         return x.pin_memory().to(device, non_blocking=True)
     return x.to(device)
 

@@ -44,26 +44,19 @@ import torch
 import torch.distributed as dist
 
 from ..mesh import Mesh
+from ..obs import comms
 from ..optim import div_const
 from ..tree import tree_map
 
 __all__ = ["RingShift", "all_gather", "all_to_all", "pmean", "pmean_grad",
            "psum", "psum_grad", "reduce_scatter", "ring_shift_start", "tree_map"]
 
-# torch >= 2.13 names these ``*_single`` and warns on the older names,
-# which are the only ones older releases have
-_reduce_scatter = (getattr(dist, "reduce_scatter_single", None)
-                   or dist.reduce_scatter_tensor)
-_all_gather = (getattr(dist, "all_gather_single", None)
-               or dist.all_gather_into_tensor)
-
-
 def psum(tree: Any, mesh: Mesh) -> Any:
     """Element-wise sum over the ranks (an all-reduce per leaf)."""
 
     def one(x):
         out = x.detach().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+        comms.all_reduce(out, group=mesh.group)
         return out
 
     return tree_map(one, tree)
@@ -88,8 +81,7 @@ def reduce_scatter(tree: Any, mesh: Mesh) -> Any:
                 f"over {mesh.size} ranks, got {tuple(x.shape)}")
         out = torch.empty(x.shape[0] // mesh.size, dtype=x.dtype,
                           device=x.device)
-        _reduce_scatter(out, x.contiguous(), op=dist.ReduceOp.SUM,
-                        group=mesh.group)
+        comms.reduce_scatter_into(out, x.contiguous(), group=mesh.group)
         return out
 
     return tree_map(one, tree)
@@ -105,7 +97,7 @@ def all_gather(tree: Any, mesh: Mesh) -> Any:
                              f"{tuple(x.shape)}")
         out = torch.empty(x.shape[0] * mesh.size, dtype=x.dtype,
                           device=x.device)
-        _all_gather(out, x.contiguous(), group=mesh.group)
+        comms.all_gather_into(out, x.contiguous(), group=mesh.group)
         return out
 
     return tree_map(one, tree)
@@ -130,7 +122,7 @@ def _shift(tensors, group, dst: int, src: int):
     ops = ([dist.P2POp(dist.isend, t.detach().contiguous(), dst, group)
             for t in tensors]
            + [dist.P2POp(dist.irecv, b, src, group) for b in bufs])
-    return dist.batch_isend_irecv(ops), bufs
+    return comms.batch_isend_irecv(ops, group), bufs
 
 
 class RingShift:
@@ -196,7 +188,7 @@ def _exchange(x: torch.Tensor, split: int, concat: int, group,
               n: int) -> torch.Tensor:
     blocks = torch.stack(x.chunk(n, dim=split)).contiguous()
     out = torch.empty_like(blocks)
-    dist.all_to_all_single(out, blocks, group=group)
+    comms.all_to_all_into(out, blocks, group=group)
     return torch.cat(out.unbind(0), dim=concat)
 
 
@@ -235,14 +227,14 @@ class _PmeanGrad(torch.autograd.Function):
     def forward(ctx, x, group, n):
         ctx.args = (group, n)
         out = x.detach().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        comms.all_reduce(out, group=group)
         return div_const(out, n)
 
     @staticmethod
     def backward(ctx, g):
         group, n = ctx.args
         out = g.contiguous().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        comms.all_reduce(out, group=group)
         return div_const(out, n), None, None
 
 
@@ -251,13 +243,13 @@ class _PsumGrad(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         out = x.detach().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        comms.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         out = g.contiguous().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.group)
+        comms.all_reduce(out, group=ctx.group)
         return out, None
 
 

@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from ..mesh import EXPERT_AXIS, Mesh
+from ..obs import comms
 from .collectives import all_to_all, pmean_grad
 
 __all__ = [
@@ -190,7 +191,7 @@ def moe_apply(expert_fn: Callable, mesh: Mesh, axis: str = EXPERT_AXIS,
         if mesh.axis_size(batch) == 1:
             return t
         n = torch.tensor([t], dtype=torch.int64, device=x.device)
-        dist.all_reduce(n, op=dist.ReduceOp.MAX, group=mesh.group_of(batch))
+        comms.all_reduce(n, op=dist.ReduceOp.MAX, group=mesh.group_of(batch))
         return int(n.item())
 
     def fn(stacked_params, router_w, x):

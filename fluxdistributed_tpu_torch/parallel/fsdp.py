@@ -81,6 +81,7 @@ import torch
 from torch import nn
 
 from .. import optim as optim_lib
+from ..fake import storage_key
 from ..mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from ..ops.metrics import topkaccuracy
 from ..optim import Optimizer, div_const
@@ -403,7 +404,7 @@ class _LiveBytes:
 
     def add(self, t: torch.Tensor) -> torch.Tensor:
         st = t.untyped_storage()
-        ptr = st.data_ptr()
+        ptr = storage_key(t)
         if ptr in self._refs:
             self._refs[ptr][1] += 1
         else:
@@ -491,7 +492,7 @@ class _Schedule:
             # popped: a posted buffer goes as soon as its leaf is made
             x = plan.live.add(plan.gather(k, self.params[k],
                                           ready.pop(k, None)))
-            self.by_ptr[x.untyped_storage().data_ptr()] = (k, x)
+            self.by_ptr[storage_key(x)] = (k, x)
             self.by_node[id(x.grad_fn)] = (k, x.grad_fn, x)
             self.placeholders[(id(owner), attr)] = owner._parameters[attr]
             owner._parameters[attr] = x
@@ -539,7 +540,7 @@ class _Schedule:
         """``(key, None)`` when ``t`` shares storage with a gathered
         leaf, ``(key, dtype)`` when it is a view of the whole leaf's
         cast (storage of the leaf's size in ``t``'s dtype), else None."""
-        hit = self.by_ptr.get(t.untyped_storage().data_ptr())
+        hit = self.by_ptr.get(storage_key(t))
         if hit is not None:
             return hit[0], None
         node = t.grad_fn

@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..fake import is_fake, real
 from ..ops import counts
 from ..tree import leaves, tree_map
 
@@ -65,9 +66,18 @@ class StepTable:
         self.seeds = self.buffer[:, :sb].view(torch.int64)
         self.scalars = self.buffer[:, sb:sb + 4 * n_scalars].view(
             torch.float32)
-        self._staging = (torch.zeros((k, row), dtype=torch.uint8).pin_memory()
-                         if device.type == "cuda" else self.buffer)
-        self._host = self._staging.numpy()
+        # a fake table (a priced step, ..fake) keeps its host values in
+        # a real buffer of its own and copies nothing
+        self._fake = is_fake(self.buffer)
+        if self._fake:
+            with real():
+                self._staging = torch.zeros((k, row), dtype=torch.uint8)
+                self._host = self._staging.numpy()
+        else:
+            self._staging = (
+                torch.zeros((k, row), dtype=torch.uint8).pin_memory()
+                if device.type == "cuda" else self.buffer)
+            self._host = self._staging.numpy()
         self._copied = None
 
     def fill(self, rows: Sequence[Tuple[Sequence[int], Sequence]]) -> None:
@@ -86,7 +96,7 @@ class StepTable:
                     + np.asarray([float(x) for x in scalars],
                                  np.float32).tobytes())
             self._host[j, :len(data)] = np.frombuffer(data, np.uint8)
-        if self._staging is not self.buffer:
+        if self._staging is not self.buffer and not self._fake:
             self.buffer.copy_(self._staging, non_blocking=True)
             self._copied = torch.cuda.Event()
             self._copied.record()

@@ -1,7 +1,7 @@
-"""dp x fsdp x tp layouts: "shard this model over these ranks" as one
-name.
+"""dp x fsdp x tp layouts and the layout picker: "fit this model on
+these ranks" as one name, or as ``auto``.
 
-Port of ``fluxdistributed_tpu/parallel/layout.py`` without its picker.
+Port of ``fluxdistributed_tpu/parallel/layout.py``.
 A :class:`Layout` is three axis sizes on the
 :func:`..mesh.make_mesh_3d` mesh ``(data, fsdp, model)``:
 
@@ -20,16 +20,24 @@ anything is placed.  The step is the sharded DP step
 fsdp)`` and the model axis through the tensor-parallel modules
 (:mod:`.tp`).
 
-The picker (``price_layouts``, ``pick``, ``layout="auto"``) prices a
-compiled program through the memory statistics' static half and the
-collective ledger, which come with slice 7 of the port; it raises
-``NotImplementedError`` until then.
+The picker (:func:`price_layouts`, :func:`pick`, the CLI's ``--layout
+auto``) prices each candidate's real train step once on fake tensors
+over a fake world of the candidate's ranks (:mod:`..obs.pricing`; no
+device memory): its priced peak (rank 0's), its collective ledger
+(:mod:`..obs.comms`) per mesh axis, or ``invalid`` with the reason.  It
+ranks the candidates by headroom under a budget through
+:func:`..obs.memstats.rank_memory`, the fit checker's ranking, and among
+those that fit takes the fewest bytes moved a step, then the most
+headroom; with no budget the ledger alone ranks.  A process that holds a
+real process group prices in a child process of its own
+(:func:`price_layouts_in_child`): a process has one default group.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import json
+from typing import Callable, Optional, Sequence, Tuple
 
 from ..mesh import DATA_AXIS, FSDP_AXIS, MODEL_AXIS, Mesh
 
@@ -37,17 +45,14 @@ __all__ = [
     "LAYOUT_PRESETS",
     "Layout",
     "LayoutError",
+    "PickReport",
     "layout_candidates",
     "pick",
     "price_layouts",
+    "price_layouts_in_child",
     "resolve_layout",
     "state_specs_for",
 ]
-
-_PICKER = ("the layout picker (price_layouts, pick, layout='auto') prices "
-           "a compiled step through memstats' static half and the "
-           "collective ledger (obs/comms.py), which the port has not yet "
-           "(slice 7 of the port, ROADMAP); name a preset or pass a Layout")
 
 
 class LayoutError(ValueError):
@@ -136,7 +141,8 @@ def _world() -> int:
 def resolve_layout(spec, ndev: Optional[int] = None) -> Layout:
     """A Layout from a Layout (checked against the rank count) or a
     preset name.  ``ndev`` defaults to the ranks of the default group
-    (1 without one).  ``"auto"`` raises ``NotImplementedError``."""
+    (1 without one).  ``"auto"`` is no preset: :func:`pick` chooses
+    from a model and a batch (the CLI's ``--layout auto``)."""
     n = ndev if ndev is not None else _world()
     if isinstance(spec, Layout):
         if spec.devices() != n:
@@ -146,7 +152,10 @@ def resolve_layout(spec, ndev: Optional[int] = None) -> Layout:
         return spec
     if isinstance(spec, str):
         if spec == "auto":
-            raise NotImplementedError(_PICKER)
+            raise LayoutError(
+                "layout 'auto' is the picker, not a preset: "
+                "parallel.layout.pick(model, batch, optimizer) chooses a "
+                "Layout (the training CLI's --layout auto)")
         fn = LAYOUT_PRESETS.get(spec)
         if fn is None:
             raise LayoutError(
@@ -198,11 +207,337 @@ def state_specs_for(model, state, layout: Layout, mesh: Mesh,
     return spec_state
 
 
-def price_layouts(*args, **kwargs):
-    """Not ported yet (slice 7): raises ``NotImplementedError``."""
-    raise NotImplementedError(_PICKER)
+# -- the picker -----------------------------------------------------------------
 
 
-def pick(*args, **kwargs):
-    """Not ported yet (slice 7): raises ``NotImplementedError``."""
-    raise NotImplementedError(_PICKER)
+@dataclasses.dataclass
+class PickReport:
+    """What the picker decided and why: the artifact the CLI prints and
+    writes (``--layout-report``)."""
+
+    chosen: Optional[Layout]
+    rows: list
+    budget_bytes: Optional[float]
+    reason: str
+
+    def to_json(self) -> dict:
+        return {
+            "schema": "fdtpu-layout-pick/v1",
+            "chosen": self.chosen.name if self.chosen else None,
+            "chosen_sizes": self.chosen.sizes if self.chosen else None,
+            "budget_bytes": self.budget_bytes,
+            "reason": self.reason,
+            "rows": self.rows,
+        }
+
+    def save(self, path: str) -> None:
+        import os
+
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(self.to_json(), f, indent=1, sort_keys=True)
+            f.write("\n")
+        os.replace(tmp, path)
+
+    def describe(self) -> str:
+        lines = []
+        if self.budget_bytes is not None:
+            lines.append(
+                f"layout pick: per-device HBM budget "
+                f"{self.budget_bytes:.3e} bytes")
+        else:
+            lines.append(
+                "layout pick: NO HBM budget (no card reports its memory and "
+                "none was passed) — ranked by collective bytes only")
+        for r in self.rows:
+            peak = (f"peak {r['peak_bytes']:>13,}"
+                    if r.get("peak_bytes") is not None
+                    else "peak   unavailable")
+            fits = {True: "FITS", False: "DOES NOT FIT",
+                    None: "fit unknown"}[r.get("fits")]
+            if r.get("comms_bytes") is not None:
+                comms = f"collective bytes/step {r['comms_bytes']:,}"
+            elif "invalid" in r:
+                comms = f"invalid: {r['invalid']}"
+            else:
+                # priced, but the ledger is missing: a fitting candidate
+                # must never read as "invalid"
+                comms = ("collective ledger unavailable"
+                         + (f" ({r['comms_unavailable']})"
+                            if r.get("comms_unavailable") else ""))
+            mark = " <== chosen" if (
+                self.chosen and r["layout"] == self.chosen.name) else ""
+            lines.append(
+                f"  {r['layout']:<12} {peak}  {fits:<13} {comms}{mark}")
+        lines.append(f"layout pick: {self.reason}")
+        return "\n".join(lines)
+
+
+def _loss_fn_for(model, loss_fn=None):
+    """The step's loss of (a priced copy of) ``model``: ``loss_fn(model)``
+    when the caller gave a factory, else the LM's token loss or the
+    image adapter over the batch's ranks."""
+    from ..models import TransformerLM, lm_loss_fn
+
+    if loss_fn is not None:
+        return loss_fn(model)
+    if isinstance(model, TransformerLM):
+        return lm_loss_fn(model)
+    return None  # prepare-style default: the image adapter
+
+
+def _shape_dtype(v) -> tuple:
+    import numpy as np
+
+    if isinstance(v, tuple):
+        return tuple(int(d) for d in v[0]), v[1]
+    return tuple(int(d) for d in np.shape(v)), getattr(v, "dtype", None)
+
+
+def _price_one(pr, model, batch_struct: dict, optimizer, lay: Layout,
+               loss_fn, min_size) -> dict:
+    """One candidate's row: its real step built on a fake copy of the
+    model and priced once (see :func:`price_layouts`)."""
+    from ..obs.comms import total_bytes
+    from ..obs.pricing import price_step
+    from ..ops import logitcrossentropy
+    from ..train.trainer import _sharded_state
+    from .dp import module_loss_fn
+    from .fsdp import make_train_step_sharded
+
+    mesh = lay.build_mesh(device=pr.device)
+    fmodel = pr.module(model)
+    lf = _loss_fn_for(fmodel, loss_fn)
+    if lf is None:
+        lf = module_loss_fn(fmodel, logitcrossentropy,
+                            mesh.sub(lay.batch_axes))
+    params = dict(fmodel.named_parameters())
+    mstate = {k: b.detach().clone() for k, b in fmodel.named_buffers()}
+    state, specs = _sharded_state(
+        fmodel, params, mstate, optimizer, mesh,
+        lambda st: state_specs_for(fmodel, st, lay, mesh,
+                                   min_size=min_size),
+        tp=lay.tp > 1, what=f"layout {lay.name!r}")
+    step = make_train_step_sharded(lf, optimizer, mesh, specs,
+                                   batch_axes=lay.batch_axes, model=fmodel)
+    batch = pr.batch({k: _shape_dtype(v) for k, v in batch_struct.items()},
+                     shards=lay.batch_shards)
+    priced = price_step(step, (state, batch), mesh=mesh)
+    entries = priced["comms"]
+    per_axis: dict = {}
+    for e in entries:
+        key = "+".join(e["axes"]) if e["axes"] else "?"
+        per_axis[key] = per_axis.get(key, 0) + int(e["bytes"])
+    return {"peak_bytes": int(priced["memory"]["peak_bytes"]),
+            "memory": priced["memory"], "comms": entries,
+            "comms_bytes": int(total_bytes(entries)),
+            "comms_bytes_per_axis": per_axis}
+
+
+def price_layouts(
+    model,
+    batch_struct: dict,
+    optimizer=None,
+    *,
+    layouts: Optional[Sequence[Layout]] = None,
+    loss_fn: Optional[Callable] = None,
+    ndev: Optional[int] = None,
+    min_size: Optional[int] = None,
+    device=None,
+) -> list:
+    """Price each candidate layout's real train step and return one row
+    per candidate: ``peak_bytes`` (the priced peak of rank 0, with the
+    whole ``memory`` dict), the collective ledger (``comms``, its total
+    ``comms_bytes`` and ``comms_bytes_per_axis``), or ``invalid`` with
+    the reason (a batch that does not split, no TP rule table, heads
+    that do not split, ...).
+
+    Each step is built as ``prepare_training(layout=...)`` builds it, on
+    a fake copy of ``model`` (:meth:`..obs.pricing.Pricing.module`; the
+    model is neither read nor changed) over a fake world of ``ndev``
+    ranks (default: the ranks of the default group), and run once on
+    fake tensors on ``device`` (default ``cuda``): no device memory.
+    ``batch_struct`` is the GLOBAL batch, a dict of arrays, tensors or
+    ``(shape, dtype)`` pairs.  ``loss_fn`` is a factory ``loss_fn(model)
+    -> loss function`` for the priced copy (default: the LM's token loss,
+    or the image adapter).  ``optimizer`` defaults to ``optim.adam(1e-3)``.
+    Under a real process group use :func:`price_layouts_in_child`."""
+    from ..obs.pricing import pricing
+
+    if optimizer is None:
+        from .. import optim
+
+        optimizer = optim.adam(1e-3)
+    n = ndev if ndev is not None else _world()
+    cands = list(layouts) if layouts is not None else layout_candidates(n)
+    bsz = _shape_dtype(next(iter(batch_struct.values())))[0][0]
+    rows = []
+    with pricing(n, device=device) as pr:
+        for lay in cands:
+            row: dict = {"layout": lay.name, "sizes": lay.sizes,
+                         "peak_bytes": None, "comms_bytes": None}
+            if bsz % lay.batch_shards:
+                row["invalid"] = (f"batch {bsz} not divisible by dp x fsdp "
+                                  f"= {lay.batch_shards}")
+                rows.append(row)
+                continue
+            try:
+                row.update(_price_one(pr, model, batch_struct, optimizer,
+                                      lay, loss_fn, min_size))
+            except ValueError as e:  # LayoutError and the specs' refusals
+                row["invalid"] = str(e)[:300]
+            rows.append(row)
+    return rows
+
+
+def _child_rows(_index: int, build: Callable, out: str, kw: dict) -> None:
+    import torch
+
+    model, batch_struct, optimizer, loss_fn = build()
+    torch.save(price_layouts(model, batch_struct, optimizer,
+                             loss_fn=loss_fn, **kw), out)
+
+
+def price_layouts_in_child(build: Callable, *, ndev: int,
+                           layouts: Optional[Sequence[Layout]] = None,
+                           min_size: Optional[int] = None,
+                           device=None) -> list:
+    """:func:`price_layouts` in a spawned child process, for a process
+    that holds a real process group (the child forms its own fake world
+    of ``ndev`` ranks).  ``build`` is a picklable callable that returns
+    ``(model, batch_struct, optimizer, loss_fn)`` in the child (a model
+    on the ``meta`` device is enough; a model's closures and an
+    optimizer do not pickle, a builder does).  The rows are rank 0's of
+    the candidates; the caller broadcasts them to its other ranks."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="fdtpu_pick_")
+    out = os.path.join(tmp, "rows.pt")
+    try:
+        mp.start_processes(
+            _child_rows, args=(build, out, dict(
+                ndev=ndev, layouts=layouts, min_size=min_size,
+                device=device)),
+            nprocs=1, join=True, start_method="spawn")
+        return torch.load(out, weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _budget(hbm_bytes: Optional[float]) -> Optional[float]:
+    """The per-device budget: the caller's, else the smallest local
+    card's total memory, else None (the CPU)."""
+    from ..obs import memstats
+
+    if hbm_bytes is not None:
+        return hbm_bytes
+    limits = [d["bytes_limit"] for d in (memstats.hbm_device_stats() or [])
+              if d["bytes_limit"] > 0]
+    return float(min(limits)) if limits else None
+
+
+def pick(
+    model,
+    batch_struct: dict,
+    optimizer=None,
+    *,
+    hbm_bytes: Optional[float] = None,
+    layouts: Optional[Sequence[Layout]] = None,
+    loss_fn: Optional[Callable] = None,
+    ndev: Optional[int] = None,
+    min_size: Optional[int] = None,
+    rows: Optional[list] = None,
+    device=None,
+) -> PickReport:
+    """Choose the fastest layout that fits this topology.
+
+    Fit rides :func:`..obs.memstats.rank_memory`, the fit checker's
+    ranking: ``hbm_bytes`` defaults to the card's total memory and must
+    be passed without a card (the CPU) for fit verdicts.  Among fitting
+    layouts the fewest collective bytes a step wins, then the most
+    headroom.  With no budget the verdicts stay unknown and the ledger
+    alone ranks.  Raises :class:`LayoutError` when a budget is known and
+    no candidate fits (the report rides the exception's ``report``).
+    ``rows`` (a prior :func:`price_layouts` result, copied) re-picks
+    under another budget without pricing again."""
+    import copy
+
+    from ..obs import memstats
+
+    if rows is None:
+        rows = price_layouts(
+            model, batch_struct, optimizer, layouts=layouts,
+            loss_fn=loss_fn, ndev=ndev, min_size=min_size, device=device)
+    else:
+        rows = copy.deepcopy(list(rows))
+    budget = _budget(hbm_bytes)
+    ranked = memstats.rank_memory(
+        {r["layout"]: {"memory": r.get("memory")} for r in rows
+         if "invalid" not in r},
+        budget)
+    verdicts = {r["variant"]: r for r in ranked}
+    for r in rows:
+        v = verdicts.get(r["layout"])
+        r["fits"] = v["fits"] if v else None
+        r["headroom_bytes"] = v["headroom_bytes"] if v else None
+
+    def _tiebreak(r):
+        comms = r.get("comms_bytes")
+        head = r.get("headroom_bytes")
+        return (comms if comms is not None else float("inf"),
+                -(head if head is not None else float("-inf")))
+
+    valid = [r for r in rows if "invalid" not in r]
+    fitting = [r for r in valid if r["fits"]]
+    # "does not fit" is a verdict only where a peak was priced
+    any_peak = any(r.get("peak_bytes") is not None for r in valid)
+    if fitting:
+        best = min(fitting, key=_tiebreak)
+        comms_txt = (f"{best['comms_bytes']:,} bytes/step"
+                     if best.get("comms_bytes") is not None
+                     else "ledger unavailable")
+        reason = (f"chose {best['layout']} — fits with headroom "
+                  f"{best['headroom_bytes']:,} bytes and the smallest "
+                  f"collective traffic ({comms_txt}) among "
+                  f"{len(fitting)} fitting layout(s)")
+    elif budget is not None and valid and any_peak:
+        report = PickReport(None, rows, budget,
+                            "no candidate layout fits the budget")
+        err = LayoutError(
+            f"no layout fits: every candidate's peak exceeds the "
+            f"per-device budget {budget:.3e} bytes "
+            f"({[(r['layout'], r.get('peak_bytes')) for r in valid]})")
+        err.report = report
+        raise err
+    elif valid:
+        best = min(valid, key=_tiebreak)
+        why = ("memory model unavailable"
+               if budget is not None and not any_peak
+               else "no HBM budget — pass hbm_bytes for fit verdicts")
+        reason = (f"chose {best['layout']} by collective traffic alone "
+                  f"({why})")
+    else:
+        report = PickReport(None, rows, budget,
+                            "no valid candidate layout")
+        err = LayoutError(
+            "no valid candidate layout on this topology: "
+            + "; ".join(f"{r['layout']}: {r.get('invalid')}"
+                        for r in rows))
+        err.report = report
+        raise err
+    # the winner from the row's own axis sizes, never by name alone: a
+    # custom candidate may share a preset's name with other sizes
+    sizes = best.get("sizes") or {}
+    if sizes:
+        chosen = Layout(best["layout"], dp=int(sizes.get(DATA_AXIS, 1)),
+                        fsdp=int(sizes.get(FSDP_AXIS, 1)),
+                        tp=int(sizes.get(MODEL_AXIS, 1)))
+    else:
+        chosen = next(lay for lay in (layouts or layout_candidates(ndev))
+                      if lay.name == best["layout"])
+    return PickReport(chosen, rows, budget, reason)

@@ -43,6 +43,7 @@ import torch.distributed as dist
 
 from ..device import DeviceLike, resolve_device
 from ..mesh import DATA_AXIS, Mesh, init_distributed
+from ..obs import comms
 from ..sharding import P, local_block
 from ..tree import tree_map
 
@@ -215,7 +216,7 @@ def host_local_values(x) -> np.ndarray:
     t = t.reshape((1,) + tuple(t.shape)) if t.dim() == 0 else t
     out = torch.empty((process_count() * t.shape[0],) + tuple(t.shape[1:]),
                       dtype=t.dtype, device=t.device)
-    dist.all_gather_into_tensor(out, t.contiguous())
+    comms.all_gather_into(out, t.contiguous())
     return out.cpu().numpy()
 
 
@@ -224,7 +225,7 @@ def broadcast_from_coordinator(tree: Any) -> Any:
     if process_count() == 1:
         return tree
     box = [tree if is_coordinator() else None]
-    dist.broadcast_object_list(box, src=0, device=_device())
+    comms.broadcast_object_list(box, src=0, device=_device())
     return box[0]
 
 
@@ -251,5 +252,5 @@ def agree_to_stop(local_stop: bool, group=None,
         return bool(local_stop)
     flag = torch.tensor([float(bool(local_stop))],
                         device=device if device is not None else _device())
-    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    comms.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
     return bool(flag.item())

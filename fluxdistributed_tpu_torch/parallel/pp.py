@@ -53,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 from ..mesh import PIPE_AXIS, Mesh
+from ..obs import comms
 from ..optim import Optimizer
 from ..tree import tree_map
 from .collectives import ring_shift_start
@@ -192,7 +193,7 @@ class _Replicated(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         out = g.contiguous().clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ctx.group)
+        comms.all_reduce(out, group=ctx.group)
         return out, None
 
 
@@ -205,7 +206,7 @@ class _HandOut(torch.autograd.Function):
     def forward(ctx, y, group, src, last):
         ctx.last = last
         out = y.detach().contiguous().clone()
-        dist.broadcast(out, src=src, group=group)
+        comms.broadcast(out, src, group=group)
         return out
 
     @staticmethod

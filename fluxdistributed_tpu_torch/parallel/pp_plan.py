@@ -9,7 +9,7 @@ places non-uniform stage boundaries that minimise the modeled max-stage
 cost under an optional per-device memory budget, and returns a
 :class:`PipelinePlan` with the modeled bubble of the planned and of the
 uniform split.  ``prepare_training(spmd="pp"|"pp_1f1b", pp_plan=...)``
-and the training CLI's ``--pp-plan PATH`` run the boundaries as padded
+and the training CLI's ``--pp-plan`` run the boundaries as padded
 ``chunk_stages`` splits.
 
 Partitioning is an exact DP over contiguous partitions minimising
@@ -20,11 +20,14 @@ profile carries the profile's topology fingerprint, which
 :meth:`PipelinePlan.verify` holds against this process's
 (:func:`..obs.runs.topology_fingerprint`).
 
-The planners that read costs from a profile artifact or from the model
-(``plan_from_profile``, ``plan_from_model``, and the ``"auto"`` and
-profile sources of :func:`resolve_plan`) need the JAX package's
-``obs/profile.py`` (its ``Profile`` and ``lm_layer_costs``), which is
-not ported yet: they raise ``NotImplementedError``.
+The costs come from a cost-profile artifact (:func:`plan_from_profile`,
+``--pp-plan PROFILE``) or are priced fresh from the model
+(:func:`plan_from_model`, ``--pp-plan auto``: the depth difference of
+:func:`..obs.profile.lm_layer_costs` on fake tensors, and the exact
+parameter bytes of each block).  The port's costs are PyTorch's FLOP
+count (matmuls and attention), XLA's count also holds elementwise work:
+the same model can place other boundaries here than in the JAX
+package, while the same costs place the same ones.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ import json
 import math
 import os
 from typing import Optional, Sequence, Tuple
+
+from ..obs.profile import ProfileMismatch, describe_topology, modeled_bubble
 
 __all__ = [
     "PipelinePlan",
@@ -50,38 +55,8 @@ __all__ = [
 
 SCHEMA = "fdtpu-pp-plan/v1"
 
-_NO_PROFILE = ("needs obs/profile.py (Profile and lm_layer_costs), which "
-               "the port has not ported yet (ROADMAP slice 7); pass a "
-               "saved plan JSON or plan_stages(...) costs instead")
-
-
 class PlanError(ValueError):
     """No feasible stage placement for the given costs/budget."""
-
-
-class ProfileMismatch(ValueError):
-    """A plan's topology fingerprint does not match the consuming
-    process: its costs describe different hardware.  (The JAX package
-    defines it in ``obs/profile.py``, which the port has not ported.)"""
-
-
-def modeled_bubble(stage_costs: Sequence[float], num_microbatches: int,
-                   schedule: str = "1f1b") -> float:
-    """The pipeline bubble fraction the schedule model predicts for
-    these per-stage costs: ``1 - M * mean(stage) / ((M + drain) *
-    max(stage))`` with ``drain = S - 1``, or ``(S - 1) / 3`` under the
-    zero-bubble ``"zb"`` accounting (the JAX ``obs.profile``
-    function)."""
-    S = len(stage_costs)
-    if S < 1:
-        return 0.0
-    mx = max(stage_costs)
-    if mx <= 0:
-        return 0.0
-    mean = sum(stage_costs) / S
-    M = num_microbatches
-    drain = (S - 1) / 3.0 if schedule == "zb" else float(S - 1)
-    return 1.0 - (M * mean) / ((M + drain) * mx)
 
 
 def uniform_boundaries(depth: int, S: int) -> Tuple[int, ...]:
@@ -111,24 +86,6 @@ def stage_costs_for(block_costs: Sequence[float],
             c += float(outer[1])
         out.append(c)
     return tuple(out)
-
-
-def _describe_topology(mesh=None) -> dict:
-    """What :func:`..obs.runs.topology_fingerprint` digests, readable."""
-    import torch
-
-    cuda = torch.cuda.is_available()
-    ranks = (torch.distributed.get_world_size()
-             if torch.distributed.is_available()
-             and torch.distributed.is_initialized() else 1)
-    out = {"torch": torch.__version__,
-           "platform": "cuda" if cuda else "cpu",
-           "device_kind": torch.cuda.get_device_name() if cuda else "cpu",
-           "device_count": torch.cuda.device_count() if cuda else 1,
-           "process_count": ranks}
-    if mesh is not None:
-        out["mesh"] = {k: int(v) for k, v in dict(mesh.shape).items()}
-    return out
 
 
 @dataclasses.dataclass
@@ -214,7 +171,7 @@ class PipelinePlan:
                 f"pipeline plan fingerprint {self.fingerprint} does not "
                 f"match this process ({current}): the profile it was "
                 f"derived from describes different hardware (current "
-                f"topology {_describe_topology(mesh)}) — re-plan from a "
+                f"topology {describe_topology(mesh)}) — re-plan from a "
                 "profile collected here")
         return self
 
@@ -396,16 +353,94 @@ def plan_stages(
     )
 
 
-def plan_from_profile(profile, S: int, num_microbatches: int, **kw):
-    """Plan from a cost-profile artifact: not ported (see the module
-    docstring)."""
-    raise NotImplementedError(f"plan_from_profile {_NO_PROFILE}")
+def plan_from_profile(profile, S: int, num_microbatches: int,
+                      schedule: str = "1f1b",
+                      memory_budget: Optional[float] = None,
+                      activation_bytes: float = 0.0) -> PipelinePlan:
+    """Plan from a cost-profile artifact (:class:`..obs.profile.Profile`):
+    its per-block static costs (the explicit ``static.model.blocks``
+    list when a producer recorded per-block skew, else the depth-
+    difference ``block`` cost ``depth`` times), the outer cost split
+    between the end stages.  Verify an artifact from disk first
+    (:meth:`~..obs.profile.Profile.verify`); the plan carries its
+    fingerprint.  The artifact has no model width, so the activation
+    ring's term comes from the caller (``activation_bytes``: one
+    microbatch's activation, ``mb x seqlen x dim x 4``;
+    :func:`resolve_plan` derives it from the model); left at 0 a
+    ``memory_budget`` bounds stage param bytes only."""
+    model_costs = (profile.static or {}).get("model")
+    if not model_costs:
+        raise PlanError(
+            "profile artifact has no static model costs "
+            "(static.model is null) — re-collect with a token batch "
+            "so lm_layer_costs can price the model")
+    depth = int(model_costs["depth"])
+    blocks = model_costs.get("blocks")
+    if blocks:
+        block_costs = [float(b["flops"]) for b in blocks]
+        block_bytes = [float(b["bytes"]) for b in blocks]
+    else:
+        block_costs = [float(model_costs["block"]["flops"])] * depth
+        block_bytes = [float(model_costs["block"]["bytes"])] * depth
+    outer_f = float(model_costs["outer"]["flops"])
+    outer_b = float(model_costs["outer"]["bytes"])
+    return plan_stages(
+        block_costs, S, num_microbatches,
+        outer=(outer_f / 2, outer_f / 2),
+        schedule=schedule,
+        block_bytes=block_bytes,
+        outer_bytes=(outer_b / 2, outer_b / 2),
+        activation_bytes=activation_bytes,
+        memory_budget=memory_budget,
+        fingerprint=profile.fingerprint,
+        meta={"source": "profile", "batch": model_costs.get("batch"),
+              "seqlen": model_costs.get("seqlen"),
+              "topology_mesh": (profile.topology or {}).get("mesh")},
+    )
 
 
-def plan_from_model(model, S: int, num_microbatches: int, **kw):
-    """Plan from the model's static costs (``--pp-plan auto``): not
-    ported (see the module docstring)."""
-    raise NotImplementedError(f"plan_from_model {_NO_PROFILE}")
+def plan_from_model(model, S: int, num_microbatches: int,
+                    batch_size: int, seqlen: int,
+                    schedule: str = "1f1b",
+                    memory_budget: Optional[float] = None,
+                    device=None) -> PipelinePlan:
+    """Plan from fresh static costs (``--pp-plan auto``): the model's
+    per-block and outer costs priced on fake tensors on ``device``
+    (default ``cuda``; :func:`..obs.profile.lm_layer_costs`, no device
+    memory), the memory estimate sized exactly: each block's parameter
+    bytes off the model, one microbatch's activation from its width."""
+    from ..obs.profile import lm_layer_costs
+
+    costs = lm_layer_costs(model, batch_size, seqlen, device=device)
+    if costs is None:
+        raise PlanError(
+            f"{type(model).__name__} could not be priced for layer costs "
+            "(lm_layer_costs returned None) — pass an explicit profile "
+            "artifact instead")
+    depth = int(costs["depth"])
+    block_bytes = [0.0] * depth
+    outer_bytes = 0.0
+    for name, p in model.named_parameters():
+        nbytes = float(p.numel() * p.element_size())
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            block_bytes[int(parts[1])] += nbytes
+        else:
+            outer_bytes += nbytes
+    mb = max(batch_size // num_microbatches, 1)
+    act_bytes = float(mb * seqlen * int(model.dim) * 4)  # f32 ring slots
+    return plan_stages(
+        [float(costs["block"]["flops"])] * depth, S, num_microbatches,
+        outer=(float(costs["outer"]["flops"]) / 2,
+               float(costs["outer"]["flops"]) / 2),
+        schedule=schedule,
+        block_bytes=block_bytes,
+        outer_bytes=(outer_bytes / 2, outer_bytes / 2),
+        activation_bytes=act_bytes,
+        memory_budget=memory_budget,
+        meta={"source": "model", "model": type(model).__name__,
+              "batch": int(batch_size), "seqlen": int(seqlen)},
+    )
 
 
 def resolve_plan(source: str, S: int, num_microbatches: int,
@@ -413,24 +448,48 @@ def resolve_plan(source: str, S: int, num_microbatches: int,
                  batch_size: Optional[int] = None,
                  seqlen: Optional[int] = None,
                  memory_budget: Optional[float] = None,
-                 verify: bool = True) -> PipelinePlan:
-    """Resolve a ``--pp-plan``-style source: a saved plan JSON.  The
-    JAX function's other sources, ``"auto"`` and a cost-profile
-    artifact, raise ``NotImplementedError``.  ``verify=True`` re-checks
-    a profile-derived fingerprint against this process
-    (:meth:`PipelinePlan.verify_source_topology`).  A plan for another
-    pipe axis size or another depth is refused."""
+                 verify: bool = True, device=None) -> PipelinePlan:
+    """Resolve a ``--pp-plan`` source, the one implementation behind the
+    training CLI's flag: ``"auto"`` (fresh costs of ``model`` at
+    ``batch_size``/``seqlen``, the whole batch of a data row, which the
+    planner divides by M for the activation ring; priced on ``device``),
+    a saved plan JSON, or a cost-profile artifact (told apart by its
+    ``schema``).  ``verify=True`` re-checks a profile-derived
+    fingerprint against this process
+    (:meth:`PipelinePlan.verify_source_topology`, raising
+    :class:`ProfileMismatch`); ``verify=False`` is for offline analysis
+    of a foreign artifact.  A plan for another pipe axis size or another
+    depth is refused here, before anything is built."""
     if source == "auto":
-        raise NotImplementedError(f"--pp-plan auto {_NO_PROFILE}")
-    with open(source) as f:
-        doc = json.load(f)
-    if doc.get("schema") != SCHEMA:
-        raise NotImplementedError(
-            f"{source} is not a saved plan ({SCHEMA}); planning from a "
-            f"cost-profile artifact {_NO_PROFILE}")
-    plan = PipelinePlan.load(source)
-    if verify:
-        plan.verify_source_topology()
+        if model is None or batch_size is None or seqlen is None:
+            raise PlanError(
+                "resolve_plan('auto') needs model, batch_size and seqlen "
+                "to price fresh static costs")
+        plan = plan_from_model(
+            model, S, num_microbatches, batch_size=batch_size,
+            seqlen=seqlen, schedule=schedule, memory_budget=memory_budget,
+            device=device)
+    else:
+        with open(source) as f:
+            doc = json.load(f)
+        if doc.get("schema") == SCHEMA:
+            plan = PipelinePlan.load(source)
+        else:
+            from ..obs.profile import Profile
+
+            # the artifact lacks the model width: derive the ring's
+            # activation term here when the caller gave the model
+            dim = int(getattr(model, "dim", 0) or 0) if model else 0
+            act_bytes = (
+                float(max(batch_size // num_microbatches, 1)
+                      * seqlen * dim * 4)
+                if dim and batch_size and seqlen else 0.0)
+            plan = plan_from_profile(
+                Profile.load(source), S, num_microbatches,
+                schedule=schedule, memory_budget=memory_budget,
+                activation_bytes=act_bytes)
+        if verify:
+            plan.verify_source_topology()
     if plan.S != S:
         raise PlanError(
             f"plan places {plan.S} stages but this run's pipe axis has "

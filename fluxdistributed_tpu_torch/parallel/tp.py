@@ -41,10 +41,10 @@ import re
 from typing import Any, Callable, Optional
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from ..obs import comms
 from ..optim import Optimizer
 from ..sharding import P, entry_axes, gather_dim, local_block
 from ..tree import tree_map
@@ -168,7 +168,7 @@ class ToModelParallel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        comms.all_reduce(g, group=ctx.group)
         return g, None
 
 
@@ -179,7 +179,7 @@ class FromModelParallel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        comms.all_reduce(out, group=group)
         return out
 
     @staticmethod

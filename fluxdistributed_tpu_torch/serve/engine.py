@@ -54,6 +54,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..fake import is_fake
 from ..models.transformer_lm import (KV_QUANTS, DecodeCache, PagedCache,
                                      TransformerLM, make_decode_cache,
                                      make_paged_cache)
@@ -84,6 +85,20 @@ class _PrefillState:
         self.small = small    # dense: the carried batch-1 cache
         self.padded = 0       # padded tokens computed so far
         self.rid = rid        # request trace id (host metadata only)
+
+
+@torch.no_grad()
+def _cast_floating(model: torch.nn.Module, dtype: torch.dtype) -> None:
+    """``model.to(dtype)`` for its floating parameters and buffers, in
+    place (each parameter keeps its identity), also on a fake model (a
+    priced engine, :mod:`..obs.pricing`), which ``Module.to`` refuses."""
+    for mod in model.modules():
+        for p in mod._parameters.values():
+            if p is not None and p.is_floating_point() and p.dtype != dtype:
+                p.data = p.data.to(dtype)
+        for name, b in mod._buffers.items():
+            if b is not None and b.is_floating_point() and b.dtype != dtype:
+                mod._buffers[name] = b.to(dtype)
 
 
 class LMEngine:
@@ -170,7 +185,7 @@ class LMEngine:
         #: chunked prefill (paged always; dense with prefill_chunk=)
         #: advances through prefill_begin/prefill_step
         self.prefill_incremental = self.prefill_chunk is not None
-        model.to(model.dtype)
+        _cast_floating(model, model.dtype)
         model.eval()
         self.model = model
         self.device = model.device
@@ -284,7 +299,7 @@ class LMEngine:
         staged in pinned memory so the copy is asynchronous: a copy from
         pageable memory would wait for the whole queued step."""
         row = torch.tensor(self.layout.slot_pages[slot], dtype=torch.int32)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not is_fake(row):
             row = row.pin_memory()
         self.cache.page_table[slot].copy_(row, non_blocking=True)
 

@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from .mesh import DATA_AXIS, Mesh
+from .obs import comms
 from .tree import leaves_with_path, tree_map
 
 __all__ = ["P", "Stacked", "ensure_synced", "entry_axes", "gather_dim", "gather_global", "global_shape",
@@ -161,13 +162,11 @@ def start_gather_dim(x: torch.Tensor, dim: int, group, n: int,
     it and returns what :func:`gather_dim` returns, bit for bit
     (``finish.out`` is the buffer it fills).  The buffer is allocated on
     the current stream."""
-    from .parallel.collectives import _all_gather
-
     x = x.contiguous()
     shp = list(x.shape)
     out = torch.empty([n] + shp, dtype=x.dtype, device=x.device)
-    work = _all_gather(out.view([n * shp[0]] + shp[1:]), x, group=group,
-                       async_op=async_op)
+    work = comms.all_gather_into(out.view([n * shp[0]] + shp[1:]), x,
+                                 group=group, async_op=async_op)
 
     def finish() -> torch.Tensor:
         if work is not None:
@@ -188,7 +187,6 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group,
     """The sum over the ``n`` ranks of ``x``, of which this rank keeps
     its block along ``dim`` (a reduce-scatter over ``group``): the
     transpose of :func:`gather_dim`."""
-    from .parallel.collectives import _reduce_scatter
 
     shp = list(x.shape)
     m = shp[dim] // n
@@ -196,8 +194,8 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group,
         dim, 0).contiguous()
     local = shp[:dim] + [m] + shp[dim + 1:]
     out = torch.empty(local, dtype=x.dtype, device=x.device)
-    _reduce_scatter(out, blocks.view([n * local[0]] + local[1:]),
-                    op=dist.ReduceOp.SUM, group=group)
+    comms.reduce_scatter_into(out, blocks.view([n * local[0]] + local[1:]),
+                              group=group)
     return out
 
 
@@ -250,7 +248,7 @@ def replicate(tree: Any, mesh: Mesh) -> Any:
 
     def one(x):
         out = x.detach().clone()
-        dist.broadcast(out, src=src, group=mesh.group)
+        comms.broadcast(out, src, group=mesh.group)
         return out
 
     return tree_map(one, tree)
@@ -304,10 +302,10 @@ def ensure_synced(tree: Any, mesh: Mesh, rtol: float = 0.0,
         if leaf is None:
             continue
         ref = leaf.detach().clone()
-        dist.broadcast(ref, src=_first(mesh), group=mesh.group)
+        comms.broadcast(ref, _first(mesh), group=mesh.group)
         same = torch.allclose(leaf, ref, rtol=rtol, atol=atol, equal_nan=True)
         bad = torch.tensor([0.0 if same else 1.0], device=leaf.device)
-        dist.all_reduce(bad, op=dist.ReduceOp.SUM, group=mesh.group)
+        comms.all_reduce(bad, group=mesh.group)
         if bad.item():
             err = (leaf.float() - ref.float()).abs().max().item()
             raise AssertionError(

@@ -58,8 +58,17 @@ jit``.  Each runs as one rank on one card too, and across cards under
         --batch-size 8 --attn flash --opt adam --lr 3e-4 --cycles 40 \
         --spmd fsdp_tp --tp 2
 
-``--layout auto`` (the picker), ``--hbm-bytes`` and ``--layout-report``
-come with slice 7 and raise ``NotImplementedError``.
+``--layout auto`` runs the layout picker (``parallel.layout.pick``):
+every candidate layout's real step is priced once on fake tensors over a
+fake world of the run's ranks (before the group forms in one process;
+in a child process of the coordinator under a group of several), and
+the fastest one that fits
+``--hbm-bytes`` (default: the card's total memory) trains;
+``--layout-report PATH`` writes the ranking::
+
+    python -m fluxdistributed_tpu_torch.train --model lm_small \
+        --dataset synthetic-text --seqlen 1024 --batch-size 8 --attn flash \
+        --opt adam --lr 3e-4 --cycles 3 --layout auto --layout-report r.json
 
 Long sequences and MoE models: ``--spmd sp --seq-parallel K`` cuts each
 sequence over a ``seq`` axis of K ranks (``{data: N/K, seq: K}``; the LM
@@ -81,9 +90,10 @@ hand-written 1F1B schedule, ``--pp-schedule zb`` its zero-bubble
 variant, ``--pp-interleave`` the Megatron interleaved placement) stage
 an LM's blocks over a ``pipe`` axis of ``--pipe`` ranks (``{data:
 N/pipe, pipe: pipe}``, all ranks by default) with ``--microbatches``
-microbatches a step (default 2 x pipe); ``--pp-plan PATH`` loads a saved
-stage plan (``parallel.pp_plan``; ``--pp-plan auto`` comes with slice 7
-and raises ``NotImplementedError``).  ``--spmd pp --pipe 1`` runs the
+microbatches a step (default 2 x pipe); ``--pp-plan`` places the stage
+boundaries (``parallel.pp_plan``): ``auto`` from the model's block costs
+priced on fake tensors, or a saved plan or a cost-profile artifact
+(``--profile-out``) by path.  ``--spmd pp --pipe 1`` runs the
 GPipe schedule on one card; 1F1B needs two pipe ranks::
 
     torchrun --nproc-per-node 4 -m fluxdistributed_tpu_torch.train \
@@ -135,9 +145,13 @@ trace of the phase spans (and syncs the card each item),
 flight recorder, ``--runs-ledger`` appends a run record on every exit,
 ``--watchdog-factor`` / ``--watchdog-escalate`` set the stall
 watchdog, ``--wandb`` logs to Weights & Biases and ``--verbose`` logs
-more.  The JAX CLI's ``--profile-out``, ``--steady-after``,
-``--compile-cache``, ``--aot``, ``--prewarm`` and ``--strict-checks``
-belong to later slices and are not accepted.
+more, and ``--profile-out PATH`` writes the run's cost profile
+(``obs.profile``: the static costs of the model and of the step at the
+run's shapes, priced on fake tensors, the step's priced memory and
+collective ledger, the measured phase histograms) when training ends.
+The JAX CLI's ``--steady-after``, ``--compile-cache``, ``--aot``,
+``--prewarm`` and ``--strict-checks`` belong to a later slice and are
+not accepted.
 """
 
 from __future__ import annotations
@@ -268,8 +282,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "a saved plan JSON (parallel.pp_plan; non-uniform "
                         "stage boundaries, which also lift the depth %% "
                         "pipe divisibility requirement; a plan from "
-                        "another topology is refused); 'auto' and cost-"
-                        "profile artifacts come with slice 7")
+                        "another topology is refused), or a cost-profile "
+                        "artifact (--profile-out output) planned here; "
+                        "'auto' prices the model's blocks on fake tensors "
+                        "for fresh costs")
     p.add_argument("--seq-parallel", type=int, default=None,
                    help="seq-axis size for --spmd sp (the mesh becomes "
                         "{data: N/sp, seq: sp}; the LM attends across the "
@@ -294,13 +310,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "(parallel/layout.py): a preset name (dp, fsdp, tp, "
                         "dp_fsdp, fsdp_tp, dp_fsdp_tp) shards the model "
                         "from its committed rule table + the fsdp overlay; "
-                        "'auto' (the picker) comes with slice 7.  Keep "
-                        "--spmd jit (default)")
+                        "'auto' runs the layout picker (prices every "
+                        "candidate's real step on fake tensors, ranks by "
+                        "headroom with the fit checker's ranking, breaks "
+                        "ties by the collective ledger) and trains with the "
+                        "fastest layout that fits.  Keep --spmd jit "
+                        "(default)")
     p.add_argument("--hbm-bytes", type=float, default=None,
-                   help="per-device HBM budget for --layout auto (slice 7)")
+                   help="per-device memory budget in bytes for --layout "
+                        "auto (default: the card's total memory; REQUIRED "
+                        "for fit verdicts without a card)")
     p.add_argument("--layout-report", default=None, metavar="PATH",
-                   help="the layout picker's report for --layout auto "
-                        "(slice 7)")
+                   help="write the layout picker's report (the chosen "
+                        "layout and every candidate's headroom and "
+                        "ledger) as JSON here (--layout auto)")
     p.add_argument("--tp", type=int, default=None,
                    help="model-axis size for --spmd tp / fsdp_tp (the mesh "
                         "becomes {data: N/tp, model: tp}; required for "
@@ -347,6 +370,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "Chrome/Perfetto trace-event JSON here at exit; "
                         "implies a device sync each item so device time is "
                         "honestly attributed")
+    p.add_argument("--profile-out", default=None, metavar="PATH",
+                   help="write a versioned cost-profile artifact "
+                        "(obs.profile schema: static per-layer and step "
+                        "FLOPs and bytes priced on fake tensors, the run's "
+                        "measured phase histograms, topology fingerprint) "
+                        "here when training ends — what the pipeline "
+                        "planner (--pp-plan PATH) consumes")
     p.add_argument("--metrics-jsonl", default=None, metavar="PATH",
                    help="append registry snapshots (JSON lines) here at the "
                         "print cadence — offline run diffing without a "
@@ -534,6 +564,19 @@ def _run(args):
     # or torchrun's ranks; one this call forms, it also ends
     import torch.distributed as dist
 
+    # --layout auto in one process prices here, before the run forms its
+    # group: a process has one default group (under one, the
+    # coordinator prices in a child process)
+    layout_rows = None
+    if (args.layout == "auto" and not cluster and not dist.is_initialized()
+            and "WORLD_SIZE" not in os.environ):
+        from ..parallel import layout as layout_lib
+
+        model, shapes, opt, loss = pricing_inputs(
+            args, _batch_shapes(args, dataset))
+        layout_rows = layout_lib.price_layouts(
+            model, shapes, opt, loss_fn=loss, ndev=1, device=device)
+
     mesh, formed = None, False
     if cluster:
         formed = not dist.is_initialized()
@@ -554,7 +597,7 @@ def _run(args):
         mesh = init_distributed(device)
         device = mesh.device
     try:
-        task = _train(args, dataset, val_dataset, device, mesh)
+        task = _train(args, dataset, val_dataset, device, mesh, layout_rows)
         if mesh is not None and args.replay_step is None:
             # every process ends its run together
             multihost.sync_global_devices("train_done")
@@ -623,10 +666,9 @@ def _dataset(args):
     return ds, val
 
 
-def _train(args, dataset, val_dataset, device, mesh):
+def _train(args, dataset, val_dataset, device, mesh, layout_rows=None):
     import torch
 
-    from .. import optim
     from ..models import lm_loss_fn
     from .trainer import evaluate, prepare_training, train
 
@@ -648,11 +690,8 @@ def _train(args, dataset, val_dataset, device, mesh):
     except ValueError as e:  # e.g. --kv-heads not dividing num_heads
         raise SystemExit(f"--model {args.model}: {e}")
 
-    lr = args.lr
-    if args.total_steps:
-        lr = optim.warmup_cosine(args.lr, args.warmup_steps, args.total_steps)
-    opt = getattr(optim, args.opt)(lr)
-    mesh, layout = _sharded_mesh(args, mesh, ndev)
+    opt = _optimizer(args)
+    mesh, layout = _sharded_mesh(args, mesh, ndev, dataset, layout_rows)
     lead = mesh is None or mesh.rank == 0
     pp_kw = _pipeline_kwargs(args, model, mesh, ndev, lead)
     if pp_kw:
@@ -823,10 +862,11 @@ def _context_mesh(args, mesh, ndev: int, is_lm: bool):
     return mesh, {}
 
 
-def _sharded_mesh(args, mesh, ndev):
-    """The mesh and the layout of ``--spmd tp|fsdp_tp`` / ``--layout``,
-    with ``bin/driver.py``'s checks and messages; otherwise ``mesh`` as
-    it is and no layout."""
+def _sharded_mesh(args, mesh, ndev, dataset=None, layout_rows=None):
+    """The mesh and the layout of ``--spmd tp|fsdp_tp`` / ``--layout``
+    (``auto``: the picker over ``dataset``'s batch, or over the rows
+    priced before the group formed), with ``bin/driver.py``'s checks and
+    messages; otherwise ``mesh`` as it is and no layout."""
     if args.tp is not None and args.spmd not in ("tp", "fsdp_tp"):
         raise SystemExit("--tp only applies with --spmd tp or fsdp_tp")
     if args.zero1 and args.spmd not in ("jit", "dp", "shard_map"):
@@ -857,6 +897,9 @@ def _sharded_mesh(args, mesh, ndev):
                              "devices")
         return make_mesh({"data": ndev // k, "model": k},
                          device=mesh.device), None
+    if args.layout == "auto":
+        chosen = _pick_layout(args, mesh, ndev, dataset, layout_rows)
+        return chosen.build_mesh(device=mesh.device), chosen
     if args.layout is not None:
         from ..parallel import layout as layout_lib
 
@@ -868,10 +911,88 @@ def _sharded_mesh(args, mesh, ndev):
     return mesh, None
 
 
+def _optimizer(args):
+    """``--opt`` at ``--lr`` (warmup-cosine with ``--total-steps``)."""
+    from .. import optim
+
+    lr = args.lr
+    if args.total_steps:
+        lr = optim.warmup_cosine(args.lr, args.warmup_steps, args.total_steps)
+    return getattr(optim, args.opt)(lr)
+
+
+def pricing_inputs(args, batch_struct: dict):
+    """What the layout picker prices in its child process: the
+    ``--model`` on the ``meta`` device, the global batch's shapes, the
+    ``--opt`` optimizer and the LM's loss factory (``None``: the image
+    adapter).  Module-level, so a spawned child can run it."""
+    from ..models import lm_loss_fn
+
+    model = build_model(args, "meta", **_model_kwargs(args))
+    return (model, batch_struct, _optimizer(args),
+            lm_loss_fn if args.model in LM_MODELS else None)
+
+
+def _batch_shapes(args, dataset) -> dict:
+    """The global batch's ``(shape, dtype)`` by name: one draw."""
+    import numpy as np
+
+    from ..data.loader import batch_to_dict
+
+    draw = batch_to_dict(
+        dataset.batch(np.random.default_rng(0), args.batch_size),
+        getattr(dataset, "nclasses", None))
+    return {k: (tuple(np.shape(v)), str(np.asarray(v).dtype))
+            for k, v in draw.items()}
+
+
+def _pick_layout(args, mesh, ndev: int, dataset, rows=None):
+    """``--layout auto`` (``bin/driver.py``'s) over ``rows`` priced
+    before the group formed, or else the coordinator prices every
+    candidate in a child process (this process holds the run's process
+    group; the child forms a fake world of ``ndev`` ranks and prices rank
+    0's step), the rows go to every rank, and each picks the same layout
+    from them.  The report is printed and, with ``--layout-report``,
+    written by the coordinator."""
+    import functools
+    import importlib
+
+    from ..parallel import layout as layout_lib
+    from ..parallel import multihost
+
+    lead = mesh.rank == 0
+    if rows is None and lead:
+        # by its module's import name: run as ``python -m``, this module
+        # is ``__main__``, which a spawned child cannot name
+        this = importlib.import_module(
+            __spec__.name if __name__ == "__main__" else __name__)
+        rows = layout_lib.price_layouts_in_child(
+            functools.partial(this.pricing_inputs, args,
+                              _batch_shapes(args, dataset)),
+            ndev=ndev, device=mesh.device.type)
+    rows = multihost.broadcast_from_coordinator(rows)
+    try:
+        report = layout_lib.pick(None, None, hbm_bytes=args.hbm_bytes,
+                                 rows=rows, ndev=ndev)
+    except layout_lib.LayoutError as e:
+        rep = getattr(e, "report", None)
+        if rep is not None and lead:
+            print(rep.describe(), flush=True)
+            if args.layout_report:
+                rep.save(args.layout_report)
+        raise SystemExit(f"--layout auto: {e}")
+    if lead:
+        print(report.describe(), flush=True)
+        if args.layout_report:
+            report.save(args.layout_report)
+    return report.chosen
+
+
 def _pipeline_kwargs(args, model, mesh, ndev: int, lead: bool) -> dict:
     """``--spmd pp|pp_1f1b``'s mesh (``{data: N/pipe, pipe: pipe}``) and
-    ``prepare_training`` arguments, the ``--pp-plan`` resolved (a saved
-    plan; refused with ``bin/driver.py``'s message form); ``{}`` for the
+    ``prepare_training`` arguments, the ``--pp-plan`` resolved (``auto``,
+    a saved plan or a cost-profile artifact, priced for this data row's
+    batch; refused with ``bin/driver.py``'s message form); ``{}`` for the
     other modes.  ``--pipe 1`` is accepted (the JAX CLI asks for two
     devices): the GPipe schedule runs on one card."""
     if args.spmd not in ("pp", "pp_1f1b"):
@@ -883,11 +1004,14 @@ def _pipeline_kwargs(args, model, mesh, ndev: int, lead: bool) -> dict:
     if args.pp_plan:
         from ..parallel.pp_plan import PlanError, resolve_plan
 
+        n_data = pmesh.shape["data"]
         try:
             plan = resolve_plan(
                 args.pp_plan, S, args.microbatches or 2 * S,
                 schedule=(args.pp_schedule if args.spmd == "pp_1f1b"
-                          else "1f1b"), model=model)
+                          else "1f1b"), model=model,
+                batch_size=max(args.batch_size // max(n_data, 1), 1),
+                seqlen=args.seqlen, device=mesh.device)
         except (PlanError, ValueError, OSError) as e:
             raise SystemExit(f"--pp-plan {args.pp_plan}: {e}")
         kw["pp_plan"] = plan
@@ -928,6 +1052,7 @@ def _observed_train(args, task, mesh, lead, is_lm, train) -> None:
         trace_path=args.trace_events if lead else None,
         device_sync=bool(args.trace_events),
         jsonl_path=args.metrics_jsonl if lead else None,
+        profile_path=args.profile_out if lead else None,
         flight_path=args.flight if lead else None)
     server = None
     if args.metrics_port is not None and lead:

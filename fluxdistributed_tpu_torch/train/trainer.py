@@ -228,7 +228,9 @@ def prepare_training(
     ``layout.build_mesh``), the batch split over ``data`` and ``fsdp``;
     it keeps ``spmd="jit"`` and refuses ``zero1`` and ``steps_per_call >
     1``, and a layout with ``tp > 1`` refuses ``dropout > 0``.
-    ``layout="auto"`` (the picker) is not ported.
+    ``layout="auto"`` is refused: the picker
+    (``parallel.layout.pick``) chooses a Layout from a model and a batch
+    (the CLI's ``--layout auto``).
 
     ``"sp"`` (context parallelism) needs a mesh with ``data`` and ``seq``
     axes and a model whose ``attn_fn`` is that mesh's
@@ -1133,6 +1135,7 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
     j = start_item
     t_mark, j_mark = t_start, j
     done_steps = 0
+    last_batch = None  # the last item's batch: the profile's shapes
     losses = []  # fresh device tensors, read back once at the end
     preempt = faults.SignalFlag().install() if handle_signals else None
     # eval and checkpoints are known-long work: the watchdog pauses
@@ -1247,6 +1250,7 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
                 batch = next(it, _end)
             if batch is _end:
                 break
+            last_batch = batch
             if print_every and j % print_every == 0:
                 now = time.perf_counter()
                 if j > j_mark:
@@ -1424,6 +1428,18 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
                                .float().cpu().tolist())
     if task.num_missed:
         logger.info(f"missed {task.num_missed} batches due to OOM")
+    if obs.profile_path and last_batch is not None and (
+            task.mesh is None or task.mesh.rank == 0):
+        # the cost profile of the finished run: its model's and step's
+        # static costs at this run's shapes, priced on fake tensors, and
+        # the measured phase histograms
+        from ..obs import profile as profile_lib
+
+        prof = profile_lib.collect_profile(
+            task, registry=reg, batch=last_batch,
+            meta={"steps": done_steps, "steps_per_call": spc})
+        prof.save(obs.profile_path)
+        logger.info(f"cost profile written to {obs.profile_path}")
     if checkpoint_dir:
         wait_for_pending()
         # a completed run must not leave a mid-run cursor behind

@@ -44,6 +44,9 @@ The guard and the observation layer: a guarded graphed step keeps the
 state it is given (the shadow copy) and a poisoned item's run equals the
 clean skip bit for bit; ``Observation.default()`` issues no device sync;
 the memory gauges read the card.
+Pricing: on fake ``cuda`` tensors each kernel wrapper's shape-only
+branch returns its kernel's outputs' shapes and dtypes without a launch
+or a count, and the same calls on real tensors launch each kernel once.
 """
 
 import importlib
@@ -1767,3 +1770,81 @@ def test_vit_ring_flash_hops_equal_flash_dp_on_card(cuda):
     assert out["ring"][2] == out["dp"][2]
     for k, v in out["dp"][3].items():
         assert torch.equal(out["ring"][3][k], v), k
+
+
+def _kernel_calls(dev):
+    """One call of each kernel wrapper at small shapes on ``dev``: B1, B2,
+    B3, B4, B5 and B6, with the outputs each returns."""
+    fa = importlib.import_module(
+        "fluxdistributed_tpu_torch.ops.flash_attention")
+    from fluxdistributed_tpu_torch.ops.fused_adam import fused_adam
+
+    bf = torch.bfloat16
+    q = torch.zeros(2, 128, 4, 64, dtype=bf, device=dev)
+    k = torch.zeros(2, 128, 2, 64, dtype=bf, device=dev)
+    v = torch.zeros_like(k)
+    lse = torch.zeros(2, 4, 128, dtype=torch.float32, device=dev)
+    out = {"B1": fa.flash_attention_fwd(q, k, v, causal=True),
+           "B2": fa.flash_attention_dq(q, k, v, torch.zeros_like(q), lse,
+                                       torch.zeros_like(lse), causal=True),
+           "B3": fa.flash_attention_dkv(q, k, v, torch.zeros_like(q), lse,
+                                        torch.zeros_like(lse), causal=True)}
+    qd = torch.zeros(2, 1, 4, 64, dtype=bf, device=dev)
+    cache = torch.zeros(2, 256, 2, 64, dtype=bf, device=dev)
+    idx = torch.full((2,), 100, dtype=torch.int32, device=dev)
+    out["B4"] = flash_decode(qd, cache, cache, idx)
+    pool = torch.zeros(8, 32, 2, 64, dtype=bf, device=dev)
+    table = torch.arange(8, dtype=torch.int32, device=dev).reshape(2, 4)
+    out["B5"] = flash_decode_paged(qd, pool, pool, table, idx)
+    p = torch.zeros(1024, dtype=torch.float32, device=dev)
+    scalars = torch.tensor([1e-3, 0.1, 0.001], device=dev)
+    out["B6"] = fused_adam(p, p, p, p, scalars)
+    return out
+
+
+def _launch_counts():
+    fa = importlib.import_module(
+        "fluxdistributed_tpu_torch.ops.flash_attention")
+    from fluxdistributed_tpu_torch.ops.fused_adam import fused_adam
+
+    return [fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches, flash_decode.launches,
+            flash_decode_paged.launches, fused_adam.launches]
+
+
+def test_shape_only_branches_give_the_kernels_outputs(cuda):
+    """On fake ``cuda`` tensors (a priced step) every wrapper returns its
+    kernel's outputs (B1's O and f32 LSE, B2's dQ, B3's dK and dV, B4/B5's
+    output, B6's three buffers), fake, in the kernel's shapes and dtypes,
+    with no launch and no count."""
+    from fluxdistributed_tpu_torch.fake import is_fake
+    from fluxdistributed_tpu_torch.obs.pricing import pricing
+
+    before = _launch_counts()
+    with pricing(None, device="cuda") as pr:
+        got = _kernel_calls(pr.device)
+    assert _launch_counts() == before
+    o, lse = got["B1"]
+    assert o.shape == (2, 128, 4, 64) and o.dtype == torch.bfloat16
+    assert lse.shape == (2, 4, 128) and lse.dtype == torch.float32
+    assert got["B2"].shape == (2, 128, 4, 64)
+    assert [t.shape for t in got["B3"]] == [(2, 128, 2, 64)] * 2
+    assert got["B4"].shape == got["B5"].shape == (2, 1, 4, 64)
+    assert got["B4"].dtype == got["B5"].dtype == torch.bfloat16
+    assert [t.shape for t in got["B6"]] == [(1024,)] * 3
+    flat = [o, lse, got["B2"], *got["B3"], got["B4"], got["B5"], *got["B6"]]
+    assert all(is_fake(t) and t.device.type == "cuda" for t in flat)
+
+
+def test_real_tensors_still_launch_after_pricing(cuda):
+    """The same calls on real ``cuda`` tensors launch each kernel once:
+    every count rises by 1, and the outputs are real and finite."""
+    from fluxdistributed_tpu_torch.fake import is_fake
+
+    before = _launch_counts()
+    got = _kernel_calls(cuda)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launch_counts(), before)] == [1] * 6
+    o, lse = got["B1"]
+    assert not is_fake(o) and torch.isfinite(o.float()).all()
+    assert torch.isfinite(got["B4"].float()).all()

@@ -62,7 +62,9 @@ def test_port_has_modules_to_scan():
                 "parallel/pp_1f1b.py", "parallel/pp_plan.py",
                 "parallel/multihost.py", "supervise.py", "generate.py",
                 "models/gpt2.py", "serve/router.py", "serve/testing.py",
-                "obs/trends.py"):
+                "obs/trends.py", "obs/comms.py", "obs/pricing.py",
+                "obs/profile.py", "analysis/variants.py", "fit.py",
+                "fake.py"):
         assert f"fluxdistributed_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").is_file()
 
@@ -110,6 +112,28 @@ def test_pipeline_entry_points_default_to_cuda():
     for spmd in ("pp", "pp_1f1b"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.run(["--model", "lm_tiny", "--cycles", "1", "--spmd", spmd])
+
+
+def test_pricing_entry_points_default_to_cuda():
+    """The fit checker, the pricing context, the layout picker and the
+    planner's fresh costs put their fake tensors on ``cuda`` unless asked
+    for the CPU: without a card they raise before anything is priced."""
+    from fluxdistributed_tpu_torch import fit
+    from fluxdistributed_tpu_torch.models import lm_tiny
+    from fluxdistributed_tpu_torch.obs import pricing, profile
+    from fluxdistributed_tpu_torch.parallel import layout, pp_plan
+
+    assert fit.build_parser().parse_args([]).device is None
+    for fn in (pricing.pricing, profile.lm_layer_costs, layout.price_layouts,
+               layout.pick, pp_plan.plan_from_model, pp_plan.resolve_plan):
+        assert inspect.signature(fn).parameters["device"].default is None
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit.main(["--collect", "unused.json", "--variants", "dp"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pp_plan.plan_from_model(lm_tiny(vocab=16, device="cpu"), 2, 2,
+                                batch_size=2, seqlen=8)
 
 
 def test_generate_supervise_and_multihost_default_to_cuda():

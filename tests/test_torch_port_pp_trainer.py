@@ -308,7 +308,7 @@ def test_trainer_plan_mismatch_and_mask_rejected(tmp_path):
                          spmd="pp_1f1b", num_microbatches=4)
 
 
-def test_cli_pipeline_refusals_mirror_the_jax_cli():
+def test_cli_pipeline_refusals_mirror_the_jax_cli(tmp_path):
     for extra, msg in (
             (["--pipe", "2"], "--pipe only applies with --spmd pp or pp_1f1b"),
             (["--microbatches", "2"],
@@ -330,8 +330,15 @@ def test_cli_pipeline_refusals_mirror_the_jax_cli():
              "supports TransformerLM only")):
         with pytest.raises(SystemExit, match=msg):
             cli.run(ranks.CLI_ARGS + extra)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        cli.run(ranks.CLI_ARGS + ["--spmd", "pp", "--pp-plan", "auto"])
+    # a cost profile from another topology is refused at resolution
+    from fluxdistributed_tpu_torch.obs.profile import Profile
+
+    foreign = str(tmp_path / "foreign.profile.json")
+    Profile(fingerprint="0" * 16, static={"model": {
+        "depth": 4, "block": {"flops": 1.0, "bytes": 1.0},
+        "outer": {"flops": 1.0, "bytes": 1.0}}}).save(foreign)
+    with pytest.raises(SystemExit, match="does not match this process"):
+        cli.run(ranks.CLI_ARGS + ["--spmd", "pp", "--pp-plan", foreign])
 
 
 def test_cli_pp_one_rank_against_the_one_device_step(tmp_path):
@@ -353,4 +360,9 @@ def test_cli_pp_one_rank_against_the_one_device_step(tmp_path):
                                         "--microbatches", "2", "--pp-plan",
                                         path])
     assert planned.losses == pp.losses
+    # --pp-plan auto prices the blocks; one stage holds them all
+    auto = cli.run(ranks.CLI_ARGS + ["--spmd", "pp", "--pipe", "1",
+                                     "--microbatches", "2", "--pp-plan",
+                                     "auto"])
+    assert auto.losses == pp.losses
     assert lm_tiny(vocab=32, device="cpu").depth == 4

@@ -272,12 +272,12 @@ def test_picker_is_not_ported():
     from fluxdistributed_tpu_torch.models import SimpleCNN
     from fluxdistributed_tpu_torch.train import prepare_training
 
-    for fn in (layout.pick, layout.price_layouts):
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            fn(None, {}, optim.adam(1e-3))
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    # the picker is ported: "auto" is no preset, pick() chooses
+    with pytest.raises(layout.LayoutError, match="no valid candidate"):
+        layout.pick(None, {}, optim.adam(1e-3), rows=[])
+    with pytest.raises(layout.LayoutError, match="is the picker"):
         layout.resolve_layout("auto", 4)
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(layout.LayoutError, match="is the picker"):
         prepare_training(SimpleCNN(num_classes=4, device="cpu"),
                          SyntheticDataset(nsamples=16, nclasses=4,
                                           shape=(8, 8, 3)),

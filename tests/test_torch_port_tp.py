@@ -336,8 +336,9 @@ def test_cli_refusals_mirror_the_driver():
                                    "does not exist on 1 device")]:
         with pytest.raises(SystemExit, match=match):
             cli.run(base + extra)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        cli.run(base + ["--layout", "auto"])
+    # the picker prices and nothing fits 1 byte
+    with pytest.raises(SystemExit, match="no layout fits"):
+        cli.run(base + ["--layout", "auto", "--hbm-bytes", "1"])
     import torch.distributed as dist
 
     assert not dist.is_initialized()

@@ -334,10 +334,12 @@ def test_cli_main_and_refusals(capsys):
                          (["--kv-heads", "3"], "num_kv_heads")]:
         with pytest.raises(SystemExit, match=match):
             cli.run(base + extra)
-    for flag in (["--profile-out", "d"], ["--aot", "d"],
-                 ["--steady-after", "3"]):
+    for flag in (["--aot", "d"], ["--steady-after", "3"]):
         with pytest.raises(SystemExit):  # argparse: not accepted
             cli.build_parser().parse_args(base + flag)
+    # the cost profile is ported (tests/test_torch_port_profile.py)
+    assert cli.build_parser().parse_args(
+        base + ["--profile-out", "d"]).profile_out == "d"
     with pytest.raises(SystemExit, match="--resume needs --checkpoint-dir"):
         cli.run(base + ["--resume"])
     with pytest.raises(SystemExit, match="--fault-plan"):
