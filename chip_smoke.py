@@ -7,8 +7,11 @@ Needs one CUDA GPU (Hopper, for the ``sm_90a`` kernels) and ``nvcc``.
 Phases, each of which raises on failure (exit code != 0, no result):
 
 1. the card: ``nvidia-smi`` name and power limit, and PyTorch's name;
-2. build: every kernel source of the package, compiled by ``nvcc``, and
-   ``ptxas`` lines with the registers and spills of bf16 B2 (the
+2. build: every kernel source of the package, compiled by ``nvcc`` into
+   a fresh persistent build cache under ``_build/``, removed when the
+   run ends (``compilation.enable_persistent_cache``: the cold process,
+   one miss a source, each source's ``nvcc`` seconds), and ``ptxas``
+   lines with the registers and spills of bf16 B2 (the
    tensor-core dQ kernel) at head dims 32, 64, 80 and 128, of every
    B1-B3 instantiation at head dim 80 and of every instantiation of
    B4's split kernel;
@@ -257,6 +260,10 @@ Phases, each of which raises on failure (exit code != 0, no result):
     --num-processes 1 --process-id 0`` (one NCCL rank formed over TCP)
     on lm_small, 3 cycles, losses bit-equal to ``--spmd dp``, B1-B3 12
     a step, the coordinator's ``devices: 1 (1/host x 1 hosts)`` banner;
+    the dp run saves an AOT manifest (``--aot``), and the same run in a
+    process of its own loads it (no miss, no compile) and again on the
+    warm build cache (``--compile-cache``: no miss, one hit), each with
+    the dp run's losses bit for bit and its seconds to the first step;
 43. vit ring: ViT-L/16 (batch 128, 196 tokens, bf16) sequence-sharded
     with the flash ring on ``{data: 1, seq: 1}``: its forward and 3
     ``spmd="sp"`` adamw steps bit-equal to the flash DP ViT, B1-B3 24 a
@@ -267,7 +274,8 @@ Phases, each of which raises on failure (exit code != 0, no result):
     warm wall ms and idle share over steps 2-3;
 45. supervise: the supervisor over the lm_small CLI with a SIGTERM
     planted at step 2: rc 75, a resume without the plan, rc 0 at step
-    4, the episode ledger;
+    4, the episode ledger; each child on the warm build cache (no miss,
+    one hit);
 46. generate: GPT-2 small (f32) from a seeded HF-named state_dict
     through ``python -m fluxdistributed_tpu_torch.generate
     --gpt2-weights``: 64 greedy tokens equal to the plain decode's, B4
@@ -291,8 +299,23 @@ Phases, each of which raises on failure (exit code != 0, no result):
     4 in flight (none fails), the 8 on one replica process against the
     two in turns, and the router's /metrics rollup naming each
     replica's decode tokens and one decode graph a replica, the
-    successors included; the wall s of each start and restart;
-49. a ``phase_seconds`` line (each phase's wall seconds), a
+    successors included; the wall s of each start and restart; the
+    replicas start ``--prewarm`` on the warm build cache (r1: no miss,
+    one hit, in the rollup);
+49. prewarm: ``LMEngine(prewarm=True)`` (dense, over HTTP) and the serve
+    CLI's ``--prewarm`` (paged, prefix cache) with the serve phases'
+    requests: ``decode_compiles`` 1 before the first request and after
+    the 8, the un-prewarmed engines' greedy tokens token for token,
+    B4/B5 launches depth x decode steps, the first request's TTFT
+    beside the cold engine's; an engine whose warmup replaces its cache
+    gives other tokens; ``attention_impl="xla"``: each request's first
+    8 greedy tokens equal B4's, at most a quarter of all differ, 0 B4
+    launches;
+50. steady/strict: ``--steady-after 2`` on lm_small at K = 1 and K = 8
+    reads 0 steady-state recompiles, the K = 8 run with its last item
+    cut short exactly 1 (warned); ``--strict-checks`` passes, a planted
+    NaN parameter is named by aten op and a planted ``.item()`` refused;
+51. a ``phase_seconds`` line (each phase's wall seconds), a
     ``{"kernels": [...]}`` line (B1-B3 with their ViT-L/16 and ViT-H/14
     rows, launches a step beside the LM's, the sharded paths', the sp,
     ep, pipeline and slice-16 paths' launches a step, and the context
@@ -305,6 +328,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -361,6 +385,17 @@ ADAM_SOURCE = "fluxdistributed_tpu_torch/ops/csrc/fused_adam.cu"
 ADAM_REPLACES = "fluxdistributed_tpu/parallel/zero1_fused.py:127"
 ADAM_VIA = "fluxdistributed_tpu/parallel/zero1_fused.py:170"
 N_PACKED = 109_632_512
+
+
+#: the persistent build cache the cold build fills (made and removed by
+#: main)
+CACHE_ROOT = None
+
+
+def cache_argv() -> list:
+    """``--compile-cache`` at the cold build's cache: a CLI process
+    started with it loads every kernel library and builds none."""
+    return ["--compile-cache", CACHE_ROOT]
 
 
 def emit(obj) -> None:
@@ -732,7 +767,8 @@ def post(url, body, timeout=600, rid=None):
 
 def serve_phase(torch):
     """lm_small behind the HTTP server; returns the kernel launches of
-    the 8-request run."""
+    the 8-request run and the run (its prompts, greedy tokens and the
+    first request's TTFT: the cold engine's, for the prewarm phase)."""
     from fluxdistributed_tpu_torch.models import lm_small
     from fluxdistributed_tpu_torch.ops.flash_decode import flash_decode
     from fluxdistributed_tpu_torch.serve import LMEngine, Scheduler, serve_lm
@@ -747,8 +783,10 @@ def serve_phase(torch):
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
     setup_s = time.perf_counter() - t0
     try:
-        post(base + "/v1/generate", {"prompt_tokens": [1, 2, 3],
-                                     "max_tokens": 4})  # warm-up
+        t1 = time.perf_counter()
+        first = post(base + "/v1/generate", {"prompt_tokens": [1, 2, 3],
+                                             "max_tokens": 4})  # warm-up
+        first["wall_ms"] = (time.perf_counter() - t1) * 1e3
         g = torch.Generator().manual_seed(1)
         lens = [64, 160, 256, 352, 448, 544, 640, 768]
         prompts = [torch.randint(0, 32000, (n,), generator=g).tolist()
@@ -807,6 +845,7 @@ def serve_phase(torch):
             "generated_tokens_per_s": 64 * len(prompts) / wall,
             "peak_allocated_bytes": health["memory"]["peak_allocated_bytes"],
             "kv_cache_bytes": engine.kv_cache_bytes()["reserved"],
+            "first_request_ttft_ms": first["ttft_ms"],
         })
     finally:
         httpd.shutdown()
@@ -814,13 +853,14 @@ def serve_phase(torch):
         server.close()
         th.join(timeout=30)
     profile_decode(torch, engine, prompts)
-    return launches
+    return launches, {"first": first, "prompts": prompts,
+                      "tokens": [r["generated"] for r in results]}
 
 
 def paged_serve_phase(torch):
     """lm_small behind the paged server stack (``--paged
     --prefix-cache``); returns the paged kernel's launches of the
-    8-request run."""
+    8-request run and the run (as :func:`serve_phase`)."""
     from fluxdistributed_tpu_torch.ops.flash_decode import (
         flash_decode, flash_decode_paged)
     from fluxdistributed_tpu_torch.serve.__main__ import (build_parser,
@@ -844,7 +884,10 @@ def paged_serve_phase(torch):
                for n in suffixes]
     try:
         warm = system + torch.randint(0, 32000, (8,), generator=g).tolist()
-        post(base + "/v1/generate", {"prompt_tokens": warm, "max_tokens": 8})
+        t1 = time.perf_counter()
+        first = post(base + "/v1/generate", {"prompt_tokens": warm,
+                                             "max_tokens": 8})
+        first["wall_ms"] = (time.perf_counter() - t1) * 1e3
         m0 = sched.metrics()
         hits0 = engine.pool_stats()["prefix_cache_hits"]
         steps0 = engine.decode_steps
@@ -937,6 +980,7 @@ def paged_serve_phase(torch):
             // ps["kv_blocks_total"],
             "kv_blocks_active_peak": peak["active"],
             "pool_after_drain": ps,
+            "first_request_ttft_ms": first["ttft_ms"],
         })
     finally:
         httpd.shutdown()
@@ -944,7 +988,193 @@ def paged_serve_phase(torch):
         server.close()
         th.join(timeout=30)
     profile_decode(torch, engine, prompts)
-    return launches
+    return launches, {"first": first, "warm": warm, "prompts": prompts,
+                      "tokens": [r["generated"] for r in results]}
+
+
+# ------------------------------------------------ cold start: prewarm
+
+def _sched_tokens(engine, prompts, new):
+    """Greedy tokens of ``prompts`` (``new`` each) through a scheduler
+    driven on this thread."""
+    from fluxdistributed_tpu_torch.serve import Request, Scheduler
+
+    sched = Scheduler(engine, max_queue=64)
+    reqs = [Request(prompt=p, max_new_tokens=new, temperature=0.0)
+            for p in prompts]
+    for r in reqs:
+        sched.submit(r)
+    sched.run_until_idle()
+    return [r.generated for r in reqs]
+
+
+def _prewarmed_http(torch, engine, server, warm, first_new, prompts, new):
+    """The serve phases' run on a prewarmed engine over HTTP: the first
+    request (``warm``, ``first_new`` tokens) and the 8 concurrent ones;
+    returns the first request, the tokens, the decode steps and B4/B5
+    launches."""
+    from fluxdistributed_tpu_torch.ops.flash_decode import (
+        flash_decode, flash_decode_paged)
+
+    httpd = server.serve("127.0.0.1", 0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        t1 = time.perf_counter()
+        first = post(base + "/v1/generate", {"prompt_tokens": warm,
+                                             "max_tokens": first_new})
+        first["wall_ms"] = (time.perf_counter() - t1) * 1e3
+        steps0 = engine.decode_steps
+        flash_decode.launches = flash_decode_paged.launches = 0
+        results, errors = [None] * len(prompts), []
+
+        def call(i):
+            try:
+                results[i] = post(base + "/v1/generate", {
+                    "prompt_tokens": prompts[i], "max_tokens": new,
+                    "temperature": 0.0})
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or None in results:
+            raise RuntimeError(f"prewarm: requests failed: {errors}")
+        return {"first": first, "tokens": [r["generated"] for r in results],
+                "steps": engine.decode_steps - steps0,
+                "b4_b5": [flash_decode.launches, flash_decode_paged.launches]}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+        th.join(timeout=30)
+
+
+def prewarm_phase(torch, card, dense_run, paged_run):
+    """Cold start on the serving path: ``LMEngine(prewarm=True)`` builds
+    and captures before the first request, then restores its slots in
+    place.  Dense (B4) over HTTP and paged with the prefix cache (B5)
+    through the serve CLI's ``--prewarm``: ``decode_compiles == 1``
+    before request 1 and after the 8, the greedy tokens of the serve
+    phases' un-prewarmed engines token for token, B4/B5 launches equal
+    to depth x decode steps, and the first request's TTFT beside the
+    cold engine's.  The check has power: an engine whose warmup REPLACES
+    its cache (the JAX engine's way; the captured graph keeps the old
+    one) gives other tokens.  Then ``attention_impl="xla"``: the plain
+    decode attention's greedy tokens against B4's (C6's rounding: the
+    count that differ), with 0 B4 launches."""
+    from fluxdistributed_tpu_torch.models import lm_small
+    from fluxdistributed_tpu_torch.models.transformer_lm import (
+        make_decode_cache)
+    from fluxdistributed_tpu_torch.ops.flash_decode import flash_decode
+    from fluxdistributed_tpu_torch.serve import LMEngine, Scheduler
+    from fluxdistributed_tpu_torch.serve.__main__ import (build_parser,
+                                                          build_server)
+    from fluxdistributed_tpu_torch.serve.server import LMServer
+
+    model = lm_small(vocab=32000, seed=0)
+    depth = model.depth
+    rows = {}
+    # dense, the serve phase's engine and requests
+    t0 = time.perf_counter()
+    engine = LMEngine(model, max_slots=8, max_len=1024, prewarm=True)
+    build_s = time.perf_counter() - t0
+    before = engine.compile_stats()["decode_compiles"]
+    sched = Scheduler(engine, max_queue=64)
+    run = _prewarmed_http(torch, engine, LMServer(sched, 32000), [1, 2, 3],
+                          4, dense_run["prompts"], 64)
+    rows["dense"] = {
+        "engine_build_s": build_s, "decode_compiles_before": before,
+        "decode_compiles_after": engine.compile_stats()["decode_compiles"],
+        "first_ttft_ms": run["first"]["ttft_ms"],
+        "cold_first_ttft_ms": dense_run["first"]["ttft_ms"],
+        "first_wall_ms": run["first"]["wall_ms"],
+        "cold_first_wall_ms": dense_run["first"]["wall_ms"],
+        "tokens_equal": run["tokens"] == dense_run["tokens"],
+        "first_tokens_equal": (run["first"]["generated"]
+                               == dense_run["first"]["generated"]),
+        "decode_steps": run["steps"], "b4_b5_launches": run["b4_b5"]}
+    del engine, sched
+    # paged + prefix cache through the CLI's --prewarm
+    t0 = time.perf_counter()
+    args = build_parser().parse_args(
+        ["--model", "lm_small", "--vocab", "32000", "--max-slots", "8",
+         "--max-len", "1024", "--paged", "--prefix-cache", "--seed", "0",
+         "--prewarm"])
+    server, sched = build_server(args)
+    engine = sched.engine
+    build_s = time.perf_counter() - t0
+    before = engine.compile_stats()["decode_compiles"]
+    run = _prewarmed_http(torch, engine, server, paged_run["warm"], 8,
+                          paged_run["prompts"], 64)
+    rows["paged"] = {
+        "engine_build_s": build_s, "decode_compiles_before": before,
+        "decode_compiles_after": engine.compile_stats()["decode_compiles"],
+        "first_ttft_ms": run["first"]["ttft_ms"],
+        "cold_first_ttft_ms": paged_run["first"]["ttft_ms"],
+        "first_wall_ms": run["first"]["wall_ms"],
+        "cold_first_wall_ms": paged_run["first"]["wall_ms"],
+        "tokens_equal": run["tokens"] == paged_run["tokens"],
+        "first_tokens_equal": (run["first"]["generated"]
+                               == paged_run["first"]["generated"]),
+        "decode_steps": run["steps"], "b4_b5_launches": run["b4_b5"]}
+    del engine, sched, server
+
+    class ReplacedCache(LMEngine):
+        """The planted fault: warmup's restore swaps in a NEW cache (the
+        old one kept alive, so the captured graph writes memory that is
+        still owned) instead of zeroing the captured one in place."""
+
+        def _pristine(self):
+            super()._pristine()
+            self._captured_cache = self.cache
+            self.cache = make_decode_cache(self.model, self.max_slots,
+                                           self.max_len, self.kv_quant)
+
+    planted = _sched_tokens(
+        ReplacedCache(model, max_slots=8, max_len=1024, prewarm=True),
+        dense_run["prompts"][:2], 16)
+    rows["replaced_cache_caught"] = [
+        a != b[:16] for a, b in zip(planted, dense_run["tokens"][:2])]
+    # the plain decode attention, asked for by name
+    flash_decode.launches = 0
+    t0 = time.perf_counter()
+    xla = _sched_tokens(LMEngine(model, max_slots=8, max_len=1024,
+                                 attention_impl="xla"),
+                        dense_run["prompts"], 64)
+    wall = time.perf_counter() - t0
+    pairs = [(a, b) for ra, rb in zip(xla, dense_run["tokens"])
+             for a, b in zip(ra, rb)]
+    lead = [next((i for i, (a, b) in enumerate(zip(ra, rb)) if a != b),
+                 len(ra)) for ra, rb in zip(xla, dense_run["tokens"])]
+    rows["xla"] = {"wall_s": wall, "b4_launches": flash_decode.launches,
+                   "tokens_differing": sum(a != b for a, b in pairs),
+                   "tokens": len(pairs), "identical_leading_tokens": lead}
+    row = {"phase": "prewarm", "card": card, "model": "lm_small",
+           "dtype": "bfloat16", **rows}
+    emit(row)
+    for name in ("dense", "paged"):
+        r = rows[name]
+        want = [depth * r["decode_steps"], 0] if name == "dense" else [
+            0, depth * r["decode_steps"]]
+        if (r["decode_compiles_before"] != 1
+                or r["decode_compiles_after"] != 1 or not r["tokens_equal"]
+                or not r["first_tokens_equal"] or r["decode_steps"] < 63
+                or r["b4_b5_launches"] != want):
+            raise RuntimeError(f"prewarm {name}: {row}")
+    # the first token comes from prefill, which the decode attention
+    # never sees: each request's first 8 tokens must agree, and at most
+    # a quarter of all (C6's rounding lets a request diverge later)
+    x = rows["xla"]
+    if (not any(rows["replaced_cache_caught"]) or x["b4_launches"]
+            or min(x["identical_leading_tokens"]) < 8
+            or x["tokens_differing"] > x["tokens"] // 4):
+        raise RuntimeError(f"prewarm: {row}")
 
 
 def profile_decode(torch, engine, prompts, steps=10):
@@ -4943,10 +5173,16 @@ def multihost_cli_phase(torch, card):
     from fluxdistributed_tpu_torch.parallel import multihost
     from fluxdistributed_tpu_torch.train.__main__ import run
 
+    import os
+
     port = _free_port()
     rows = {}
+    work = os.path.abspath(os.path.join(CKPT_DIR, "aot"))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    aot = ["--aot", os.path.join(work, "aot")]
     for name, extra in (
-            ("dp", ["--spmd", "dp"]),
+            ("dp", ["--spmd", "dp", *aot]),
             ("cluster", ["--coordinator", f"localhost:{port}",
                          "--num-processes", "1", "--process-id", "0",
                          "--platform", "gpu", "--local-devices", "1"])):
@@ -4976,13 +5212,32 @@ def multihost_cli_phase(torch, card):
         finally:
             shutdown_distributed()
             torch.cuda.empty_cache()
-    cl = rows["cluster"]
+    # the same dp run in processes of their own: with the dp run's AOT
+    # manifest (it loads, builds nothing) and on the warm build cache
+    try:
+        for name, extra in (("aot_process", aot + cache_argv()),
+                            ("warm_process", cache_argv())):
+            rows[name] = _train_subprocess(MH_ARGV + ["--spmd", "dp", *extra],
+                                           work, name)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    cl, ap, wp = rows["cluster"], rows["aot_process"], rows["warm_process"]
     per = [n // 3 for n in cl["launches"][2:5]]
     row = {"phase": "multihost_cli", "card": card, "model": "lm_small",
            "batch": 8, "seqlen": T_TRAIN, "dtype": "bfloat16", **rows,
            "losses_equal": cl["losses"] == rows["dp"]["losses"],
+           "aot_losses_equal": ap["losses"] == rows["dp"]["losses"],
+           "warm_losses_equal": wp["losses"] == rows["dp"]["losses"],
            "b1_b2_b3_launches_per_step": per}
     emit(row)
+    ac, wc = ap["counters"], wp["counters"]
+    if (not row["aot_losses_equal"] or not row["warm_losses_equal"]
+            or ac["fdtpu_aot_loads_total"] != 1
+            or ac["fdtpu_jax_cache_misses_total"]
+            or ac["fdtpu_jax_compiles_total"]
+            or wc["fdtpu_jax_cache_misses_total"]
+            or wc["fdtpu_jax_cache_hits_total"] != 1):
+        raise RuntimeError(f"multihost_cli cold start: {row}")
     if (not row["losses_equal"] or per != [12, 12, 12]
             or cl["launches"][0] or cl["launches"][1] or cl["launches"][5]
             or not any("devices: 1 (1/host x 1 hosts), platform gpu" in ln
@@ -5171,6 +5426,170 @@ def fsdp_schedule_phase(torch, card):
     return out
 
 
+# ------------------------------------------------ cold start: the trainer
+
+LM_BASE = ["--model", "lm_small", "--dataset", "synthetic-text", "--vocab",
+           "256", "--seqlen", str(T_TRAIN), "--batch-size", "8", "--attn",
+           "flash", "--opt", "adam", "--lr", "3e-4", "--eval-every", "0",
+           "--print-every", "0"]
+
+
+def _train_subprocess(argv, work, name):
+    """``python -m fluxdistributed_tpu_torch.train argv`` in a process of
+    its own, with its flight recorder and registry snapshots on disk:
+    its losses, its last snapshot's cold-start counters and the wall
+    seconds from the start of the process to its first step (the first
+    snapshot after item 0)."""
+    import os
+
+    flight = os.path.join(work, f"{name}.flight.jsonl")
+    jsonl = os.path.join(work, f"{name}.metrics.jsonl")
+    cmd = [sys.executable, "-m", "fluxdistributed_tpu_torch.train", *argv,
+           "--flight", flight, "--metrics-jsonl", jsonl]
+    t0 = time.time()
+    p = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    if p.returncode:
+        raise RuntimeError(f"{name}: rc {p.returncode}\n{p.stdout[-3000:]}"
+                           f"\n{p.stderr[-3000:]}")
+    with open(flight) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()]
+    with open(jsonl) as f:
+        snaps = [json.loads(ln) for ln in f if ln.strip()]
+    after = next(s for s in snaps if s.get("step") == 1)
+    final = snaps[-1]["metrics"]
+    keys = ("fdtpu_jax_cache_misses_total", "fdtpu_jax_cache_hits_total",
+            "fdtpu_jax_compiles_total", "fdtpu_jax_compile_seconds_total",
+            "fdtpu_jax_cache_saved_seconds_total", "fdtpu_aot_loads_total",
+            "fdtpu_aot_compiles_total")
+    return {"losses": [r["loss"] for r in recs if r.get("kind") == "record"],
+            "wall_s": wall, "first_step_s": after["ts"] - t0,
+            "counters": {k: final.get(k) for k in keys}}
+
+
+def steady_strict_phase(torch, card):
+    """The trainer's cold-start checks on lm_small (B = 8, T = 1024,
+    bf16, flash, adam): ``--steady-after 2`` at K = 1 and on the K = 8
+    device loop reads 0 steady-state recompiles, and the K = 8 task run
+    again with its last item cut short (a new batch layout: a new graph
+    capture after warmup) reads exactly 1 and warns.  ``--strict-checks``
+    passes on the sound step; a planted NaN in one parameter is named by
+    aten op, and a planted ``.item()`` inside the step is refused by the
+    second call's sync guard."""
+    import dataclasses
+
+    from fluxdistributed_tpu_torch import optim
+    from fluxdistributed_tpu_torch.models import lm_loss_fn
+    from fluxdistributed_tpu_torch.obs import Observation, jaxmon
+    from fluxdistributed_tpu_torch.train import prepare_training, train
+    from fluxdistributed_tpu_torch.train.__main__ import run
+    from fluxdistributed_tpu_torch.train.trainer import _StrictFirstCalls
+
+    warned = []
+    jaxmon.install(warn=warned.append)
+    rows = {}
+
+    def counted(fn):
+        s0, c0, w0 = (jaxmon.steady_recompiles(), jaxmon.compile_count(),
+                      len(warned))
+        reset_all_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {"wall_s": time.perf_counter() - t0,
+                     "steady_recompiles": jaxmon.steady_recompiles() - s0,
+                     "compiles": jaxmon.compile_count() - c0,
+                     "warnings": warned[w0:], "b1_launches": attn_counts()[0]}
+
+    try:
+        task = None
+        for name, extra in (
+                ("k1", ["--cycles", "4", "--steady-after", "2"]),
+                ("k8", ["--cycles", "32", "--steps-per-call", "8",
+                        "--steady-after", "2"])):
+            del task
+            task, rows[name] = counted(lambda: run(LM_BASE + extra))
+            rows[name]["losses"] = list(task.losses)
+
+        class CutLast:
+            """The loader, its last item cut to half the batch."""
+
+            def __init__(self, inner):
+                self.inner, self.start = inner, 0
+
+            def __len__(self):
+                return len(self.inner)
+
+            def __iter__(self):
+                items = list(self.inner)
+                items[-1] = {k: v[:, :v.shape[1] // 2]
+                             for k, v in items[-1].items()}
+                return iter(items)
+
+        task.loader = CutLast(task.loader)
+        _, rows["k8_cut_last"] = counted(lambda: train(
+            task, print_every=0, eval_every=0,
+            observation=Observation(steady_after=2)))
+        del task
+        _, rows["strict"] = counted(lambda: run(
+            LM_BASE + ["--cycles", "3", "--strict-checks"]))
+    finally:
+        jaxmon.install(warn=lambda msg: print(msg, file=sys.stderr))
+    # the two checks' power, on an unarmed lm_small step
+    from fluxdistributed_tpu_torch.data import SyntheticTextDataset
+    from fluxdistributed_tpu_torch.models import lm_small
+
+    model = lm_small(vocab=256, seed=0)
+    t = prepare_training(model, SyntheticTextDataset(vocab=256,
+                                                     seqlen=T_TRAIN),
+                         optim.adam(3e-4), loss_fn=lm_loss_fn(model),
+                         batch_size=8, cycles=1)
+    it = iter(t.loader)
+    batch = next(it)
+    it.close()
+    params = dict(t.state.params)
+    name = next(iter(params))
+    params[name] = params[name].clone()
+    params[name].view(-1)[0] = float("nan")
+    try:
+        _StrictFirstCalls(t.step_fn, "train step")(
+            dataclasses.replace(t.state, params=params), batch)
+        rows["planted_nan"] = None
+    except FloatingPointError as e:
+        rows["planted_nan"] = str(e)
+
+    def with_item(state, b):
+        new, m = t.step_fn(state, b)
+        m["loss"].item()  # the planted host sync
+        return new, m
+
+    armed = _StrictFirstCalls(with_item, "train step")
+    armed(t.state, batch)  # call 1: the NaN check only
+    try:
+        armed(t.state, batch)
+        rows["planted_item"] = None
+    except RuntimeError as e:
+        rows["planted_item"] = str(e)[:400]
+    del t, model
+    torch.cuda.empty_cache()
+    row = {"phase": "steady_strict", "card": card, "model": "lm_small",
+           **rows}
+    emit(row)
+    k1, k8, cut = rows["k1"], rows["k8"], rows["k8_cut_last"]
+    if (k1["steady_recompiles"] or k8["steady_recompiles"]
+            or k1["warnings"] or k8["warnings"] or k8["compiles"] != 1
+            or cut["steady_recompiles"] != 1 or len(cut["warnings"]) != 1
+            or "CUDA graph capture of the train step" not in
+            cut["warnings"][0]
+            or not all(math.isfinite(x) for x in k1["losses"] + k8["losses"])
+            or len(k8["losses"]) != 32
+            or rows["planted_nan"] is None
+            or "aten." not in rows["planted_nan"]
+            or rows["planted_item"] is None
+            or "host sync" not in rows["planted_item"]):
+        raise RuntimeError(f"steady_strict: {row}")
+
+
 SUP_ARGV = ["--model", "lm_small", "--dataset", "synthetic-text", "--vocab",
             "256", "--seqlen", str(T_TRAIN), "--batch-size", "8", "--attn",
             "flash", "--opt", "adam", "--lr", "3e-4", "--cycles", "4",
@@ -5192,8 +5611,10 @@ def supervise_phase(torch, card):
     work = os.path.join(CKPT_DIR, "supervise")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    snaps = os.path.abspath(os.path.join(work, "metrics.jsonl"))
     cmd = [sys.executable, "-m", "fluxdistributed_tpu_torch.train",
            *SUP_ARGV, "--checkpoint-dir", os.path.join(work, "ck"),
+           *cache_argv(), "--metrics-jsonl", snaps,
            "--fault-plan", json.dumps({"sigterm_at_step": 2})]
     ledger = os.path.join(work, "ledger.json")
     sup = Supervisor(cmd, ledger=ledger, stall_timeout=300.0,
@@ -5204,6 +5625,10 @@ def supervise_phase(torch, card):
         wall = time.perf_counter() - t0
         with open(ledger) as f:
             led = json.load(f)
+        with open(snaps) as f:
+            # each child's last snapshot, written as it ends
+            finals = [json.loads(ln)["metrics"] for ln in f
+                      if json.loads(ln).get("final")]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     eps = led["episodes"]
@@ -5215,9 +5640,18 @@ def supervise_phase(torch, card):
            "resume_argv_tail": eps[-1]["argv"][-3:],
            "final_tail": eps[-1]["log_tail"][-2:],
            "step_ms_device": None, "note": "the trainer runs in child "
-           "processes: device ms, idle share and peak bytes not measured"}
+           "processes: device ms, idle share and peak bytes not measured",
+           "children_build_cache": [
+               {k.replace("fdtpu_jax_", ""): m.get(k) for k in (
+                   "fdtpu_jax_cache_misses_total",
+                   "fdtpu_jax_cache_hits_total",
+                   "fdtpu_jax_compile_seconds_total")} for m in finals]}
     emit(row)
     tail = "\n".join(eps[-1]["log_tail"])
+    if (len(finals) != 2 or any(
+            c["cache_misses_total"] or c["cache_hits_total"] != 1
+            for c in row["children_build_cache"])):
+        raise RuntimeError(f"supervise: build cache {row}")
     if (rc != 0 or [e["class"] for e in eps] != ["preempted", "done"]
             or eps[0]["rc"] != 75 or "--resume" not in eps[-1]["argv"]
             or "--fault-plan" in eps[-1]["argv"]
@@ -5662,7 +6096,7 @@ def router_cli_phase(torch, card):
     env = {"PYTHONPATH": os.pathsep.join(
         x for x in (root, os.environ.get("PYTHONPATH")) if x)}
     cmd = [sys.executable, "-m", "fluxdistributed_tpu_torch.serve",
-           *CLI_REPLICA]
+           *CLI_REPLICA, *cache_argv(), "--prewarm"]
     kill = json.dumps({"fail": [{"site": "serve.tick", "at": 20,
                                  "action": "exit"}]})
     sups = [SupervisedReplica(cmd + ["--fault-plan", kill], name="r0",
@@ -5709,6 +6143,9 @@ def router_cli_phase(torch, card):
         with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
             before = r.read().decode()
         r1_compiles = _rollup_values(before, "fdtpu_serve_decode_compiles")
+        build_cache = {k: _rollup_values(before, "fdtpu_jax_" + k)
+                       for k in ("cache_misses", "cache_hits",
+                                 "compile_seconds")}
 
         sups[0].argv = cmd  # the successor carries no kill plan
         inflight = {}
@@ -5752,6 +6189,7 @@ def router_cli_phase(torch, card):
                "generated_tokens_per_s": rates,
                "rate_errors": rate_errors,
                "decode_compiles_before_restart": r1_compiles,
+               "r1_build_cache": build_cache,
                "decode_tokens_after": tokens,
                "decode_compiles_after": compiles}
         emit(row)
@@ -5761,7 +6199,9 @@ def router_cli_phase(torch, card):
                 or inflight.get("errors")
                 or len(inflight.get("bodies") or []) != 4 or rate_errors
                 or not all(tokens.get(n, 0) > 0 for n in ("r0", "r1"))
-                or compiles != {"r0": 1.0, "r1": 1.0}):
+                or compiles != {"r0": 1.0, "r1": 1.0}
+                or build_cache["cache_misses"].get("r1") != 0.0
+                or build_cache["cache_hits"].get("r1") != 1.0):
             raise RuntimeError(f"router_cli: {row}")
     finally:
         if httpd is not None:
@@ -6064,7 +6504,20 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the cold process: a fresh persistent build cache under _build/, which
+    # the CLI processes of the phases read warm (--compile-cache); removed
+    # when the run ends
+    global CACHE_ROOT
+    CACHE_ROOT = str(_build.BUILD_DIR / f"cache-{os.getpid()}-"
+                     f"{int(time.time())}")
+    try:
+        return run_phases(torch, _build)
+    finally:
+        shutil.rmtree(CACHE_ROOT, ignore_errors=True)
 
+
+def run_phases(torch, _build) -> int:
+    """Every phase, then the ``kernels`` line and the last line."""
     smi = shutil.which("nvidia-smi")
     if smi is None:
         raise RuntimeError("nvidia-smi not found")
@@ -6078,10 +6531,19 @@ def main() -> int:
           "cuda": torch.version.cuda, "device": name,
           "hbm_bytes_per_s": bw})
 
+    from fluxdistributed_tpu_torch import compilation
+
+    ns_dir = compilation.enable_persistent_cache(CACHE_ROOT)
     t0 = time.perf_counter()
     logs = _build.build_all()
+    cold = compilation.compile_metrics()
+    nvcc_s = {n: json.loads(_build.library_path(n).with_suffix(
+        ".json").read_text())["seconds"] for n in sorted(logs)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": sorted(logs)})
+          "sources": sorted(logs), "cache_dir": ns_dir, **cold,
+          "nvcc_seconds": nvcc_s})
+    if cold["cache_misses"] != len(_build.SOURCES) or cold["cache_hits"]:
+        raise RuntimeError(f"build: a fresh cache dir was not cold: {cold}")
     for src, log in logs.items():  # a library built earlier: its saved log
         saved = _build.library_path(src).with_suffix(".log")
         if not log and saved.exists():
@@ -6127,8 +6589,11 @@ def main() -> int:
     attn_rows = timed("attention_kernel", attention_kernel_phase, torch, bw,
                       peaks, flush)
     del flush
-    dense_launches = timed("serve", serve_phase, torch)
-    paged_launches = timed("paged_serve", paged_serve_phase, torch)
+    dense_launches, dense_run = timed("serve", serve_phase, torch)
+    paged_launches, paged_run = timed("paged_serve", paged_serve_phase,
+                                      torch)
+    timed("prewarm", prewarm_phase, torch, cardname, dense_run, paged_run)
+    del dense_run, paged_run
     timed("parity", parity_phase, torch)
     attn_launches = timed("train", train_phase, torch)
     timed("train_step", train_step_phase, torch, peaks)
@@ -6190,6 +6655,7 @@ def main() -> int:
     timed("fsdp_schedule", fsdp_schedule_phase, torch, cardname)
     # the scheduled fsdp step's launches are sharded_train's fsdp row's
     slice16["fsdp_schedule_lm_small"] = sharded["lm_small_fsdp"]
+    timed("steady_strict", steady_strict_phase, torch, cardname)
     timed("supervise", supervise_phase, torch, cardname)
     generate_b4 = timed("generate", generate_phase, torch, cardname)
     router_b4 = timed("router", router_phase, torch, cardname)

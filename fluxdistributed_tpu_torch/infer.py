@@ -14,7 +14,8 @@ step, or ``--step``), or ``--torch-weights`` names a torchvision-layout
 ``state_dict`` file.  Images go through training's eval pipeline
 (resize the smallest side, center-crop, normalise), one forward pass in
 eval mode, and the ``showpreds`` table of the top ``--topk`` is
-printed.  Runs on the GPU unless ``--device cpu`` is given.
+printed.  Runs on the GPU unless ``--device cpu`` (or ``--platform
+cpu``; ``gpu`` is ``cuda``, ``tpu`` is refused) is given.
 """
 
 from __future__ import annotations
@@ -51,11 +52,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resize", type=int, default=256)
     p.add_argument("--device", default=None,
                    help="cuda (the default) or cpu")
+    p.add_argument("--platform", default=None,
+                   help="bin/infer.py's platform: cpu is --device cpu, gpu "
+                        "is --device cuda; tpu is refused")
     return p
 
 
 def main(argv=None) -> int:
+    from .train.__main__ import platform_device
+
     args = build_parser().parse_args(argv)
+    platform_device(args)
 
     import numpy as np
     import torch

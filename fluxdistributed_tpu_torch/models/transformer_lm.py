@@ -74,7 +74,9 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..mesh import EXPERT_AXIS, PIPE_AXIS
 from ..ops.attention import dot_product_attention, validate_window
-from ..ops.flash_decode import flash_decode, flash_decode_paged
+from ..ops.flash_decode import (flash_decode, flash_decode_paged,
+                                flash_decode_paged_reference,
+                                flash_decode_reference)
 from .common import _dropout, dense, maybe_remat, site_keys
 
 __all__ = [
@@ -223,6 +225,9 @@ class DecodeCache:
     index: torch.Tensor
     slot_pos: Optional[torch.Tensor]
     kv_quant: str = "none"
+    # a single-token step attends through the decode kernel's plain
+    # version (the serving engine's attention_impl="xla")
+    plain_decode: bool = False
 
     def buffers(self):
         """Every K/V and scale buffer (what ``kv_cache_bytes`` counts)."""
@@ -261,6 +266,7 @@ class PagedCache:
     slot_pos: Optional[torch.Tensor]
     block_size: int
     kv_quant: str = "none"
+    plain_decode: bool = False  # as DecodeCache.plain_decode
 
     @property
     def kv_blocks(self) -> int:
@@ -547,10 +553,14 @@ class CausalSelfAttention(nn.Module):
             write()
             kw = dict(slot_pos=cache.slot_pos, window=self.window,
                       sinks=self.sinks, k_scale=ks, v_scale=vs)
+            plain = cache.plain_decode
             if isinstance(cache, PagedCache):
-                return flash_decode_paged(q.contiguous(), ck, cv,
-                                          cache.page_table, st.idx32, **kw)
-            return flash_decode(q.contiguous(), ck, cv, st.idx32, **kw)
+                fn = (flash_decode_paged_reference if plain
+                      else flash_decode_paged)
+                return fn(q.contiguous(), ck, cv, cache.page_table,
+                          st.idx32, **kw)
+            fn = flash_decode_reference if plain else flash_decode
+            return fn(q.contiguous(), ck, cv, st.idx32, **kw)
         if self.window is None:
             write()
             attn_k, attn_v = rows(ck, ks), rows(cv, vs)

@@ -19,9 +19,12 @@
 * :mod:`.runs` — the cross-run ledger and the ``fdtpu_run_info`` gauge;
 * :mod:`.reqtrace` — the serving tier's request tracer.
 
+* :mod:`.jaxmon` — the compile counters (kernel builds, the build
+  cache's hits and misses, CUDA graph captures) and the steady-state
+  recompile flag, under the JAX package's series names.
+
 :class:`Observation` bundles the per-run pieces ``train`` threads
-through its loop.  The JAX package's ``obs.jaxmon`` (the compile
-counters) is not ported yet.
+through its loop.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from . import memstats, runs
+from . import jaxmon, memstats, runs
 from .flight import FlightRecorder, read_flight
 from .memstats import HbmGauges
 from .metrics import (Counter, Gauge, Histogram, JsonlSink, Registry,
@@ -43,7 +46,7 @@ __all__ = ["Counter", "FlightRecorder", "Gauge", "HbmGauges", "Histogram",
            "JsonlSink", "MetricsServer", "Observation", "Registry",
            "RequestTracer", "SpanTracer", "StepWatchdog",
            "bucket_percentile", "current_span", "get_registry",
-           "innermost_active", "memstats", "read_flight", "runs",
+           "innermost_active", "jaxmon", "memstats", "read_flight", "runs",
            "start_metrics_server"]
 
 
@@ -65,9 +68,10 @@ class Observation:
         ends the host's run-ahead, so the device's time is attributed
         to the step that spent it: right for reading a breakdown, wrong
         as a default (it serialises the host and the card).
-    steady_after: the JAX package's steady-state recompile flag, which
-        reads the compile counters of ``obs.jaxmon``; not ported (must
-        be ``None``)
+    steady_after: call :func:`.jaxmon.mark_steady` once this many loader
+        items have run (``None``: never): every later kernel build or
+        CUDA graph capture counts in ``fdtpu_jax_steady_recompiles_total``
+        and warns
     jsonl_path: append a registry snapshot line here at the print
         cadence and at exit
     profile_path: write the cost-profile artifact here when ``train``
@@ -89,15 +93,6 @@ class Observation:
     profile_path: Optional[str] = None
     flight: Optional[FlightRecorder] = None
     flight_path: Optional[str] = None
-
-    def __post_init__(self):
-        if self.steady_after is not None:
-            raise NotImplementedError(
-                "Observation(steady_after=...) flags steady-state "
-                "recompiles through the compile counters of obs.jaxmon, "
-                "which the port does not have yet (they come with its "
-                "compilation cache, ROADMAP Queue A item 6); pass "
-                "steady_after=None")
 
     @classmethod
     def default(cls) -> "Observation":

@@ -24,6 +24,7 @@ for every kernel of the K steps.
 from __future__ import annotations
 
 import os
+import time
 import traceback
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..fake import is_fake, real
+from ..obs import jaxmon
 from ..ops import counts
 from ..tree import leaves, tree_map
 
@@ -130,7 +132,8 @@ class Graph:
     onto its stream through a kernel wrapper is not counted
     (:func:`..ops.counts.capturing`) and is added to its count at each
     replay, so the counts stay those of the kernels that ran, whatever
-    other threads launch meanwhile."""
+    other threads launch meanwhile.  Each capture is a compile of
+    :mod:`..obs.jaxmon` (its wall seconds, named by ``what``)."""
 
     def __init__(self, fn: Callable[[], Any], what: str):
         self.graph = torch.cuda.CUDAGraph()
@@ -143,6 +146,7 @@ class Graph:
         # cached and free)
         torch.cuda.empty_cache()
         err = out = None
+        t0 = time.perf_counter()
         with torch.cuda.stream(stream), counts.capturing(stream) as captured:
             self.graph.capture_begin(capture_error_mode="thread_local")
             try:
@@ -159,6 +163,7 @@ class Graph:
                                f"{_op_of(err)}: {err}") from err
         self.out = out
         self._counts = [(c, d) for c, d in captured.items() if d]
+        jaxmon.record("capture", time.perf_counter() - t0, what=what)
 
     @property
     def launches_per_replay(self) -> Dict[str, int]:

@@ -25,7 +25,13 @@ default, ``lm_small``), an image model serves images (the JAX
 made from ``--seed``, or a trained checkpoint's params (``--checkpoint``,
 ``--step``); an image model's come from ``--checkpoint``,
 ``--torch-weights`` (torchvision layout) or seed 0.  Runs on the GPU
-unless ``--device cpu`` is given.  ``--fake-engine`` serves
+unless ``--device cpu`` (or ``--platform cpu``; ``--platform gpu`` is
+``--device cuda``, ``tpu`` is refused) is given.  ``--prewarm`` builds
+the decode kernel and captures the decode graph before the port is
+bound, ``--compile-cache DIR`` keeps the kernel libraries in a build
+cache, ``--aot-dir DIR`` keeps the engine's AOT manifest, and
+``--attention-impl xla`` runs the plain decode attention instead of
+the flash-decode kernels (``pallas``, the default).  ``--fake-engine`` serves
 :class:`~.testing.FakeLMEngine` instead: it builds no model and asks no
 device (its HBM gauges read no card), on any machine.  SIGTERM drains
 (``--drain-timeout``) and exits 0.  The flags are the JAX package's
@@ -112,6 +118,33 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seed of the random-init weights")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
+    p.add_argument("--platform", default=None,
+                   help="bin/serve.py's platform: cpu is --device cpu, gpu "
+                        "is --device cuda; tpu is refused")
+    p.add_argument("--attention-impl", default="pallas",
+                   choices=["xla", "pallas"],
+                   help="decode attention core: 'pallas' runs the "
+                        "flash-decode kernels (cursor block-skip, native "
+                        "windowed-ring and paged walks); 'xla' is their "
+                        "plain PyTorch version")
+    # cold start (fluxdistributed_tpu_torch.compilation)
+    p.add_argument("--prewarm", action="store_true",
+                   help="build the decode kernel, run every prefill bucket "
+                        "and the splice, and capture the all-slot decode "
+                        "step BEFORE binding the port — the first request "
+                        "pays decode latency, not the engine's cold start "
+                        "(LM mode)")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="keep the kernel libraries in a build cache here "
+                        "(namespaced by the toolchain and the card): a "
+                        "restarted server loads them instead of running "
+                        "nvcc")
+    p.add_argument("--aot-dir", default=None, metavar="DIR",
+                   help="the engine's AOT manifest: load its kernel "
+                        "libraries from DIR when topology + model match "
+                        "(nothing is built), else warm the engine up now "
+                        "and save the manifest for the next process (LM "
+                        "mode)")
     p.add_argument("--trace-requests", default=None, metavar="PATH",
                    help="record request-scoped lifecycle events "
                         "(enqueue/queue-wait/prefill chunks/first "
@@ -154,9 +187,17 @@ def build_server(args):
         return _wire(args, FakeLMEngine(
             max_slots=args.max_slots, max_len=args.max_len,
             step_delay=args.fake_step_delay, vocab=args.vocab))
-    from .. import models
+    from .. import compilation, models
+    from ..obs import Registry, jaxmon
     from .engine import LMEngine
 
+    # the server's registry carries the process's compile counters (the
+    # first registry bound wins): a replica's /metrics shows its build
+    # cache hits and misses and its captures
+    registry = Registry()
+    jaxmon.install(registry)
+    if args.compile_cache:
+        compilation.enable_persistent_cache(args.compile_cache)
     try:
         buckets = tuple(int(b) for b in args.buckets.split(","))
     except ValueError:
@@ -174,17 +215,25 @@ def build_server(args):
                                    step=args.step)
         model.load_state_dict({**restored["params"],
                                **restored.get("model_state", {})})
+    t0 = time.perf_counter()
     engine = LMEngine(model, max_slots=args.max_slots, max_len=args.max_len,
                       buckets=buckets, prefill_chunk=args.prefill_chunk,
                       kv_dtype=args.kv_dtype,
                       layout="paged" if args.paged else "dense",
                       kv_block_size=args.kv_block_size,
                       kv_blocks=args.kv_blocks,
-                      prefix_cache=args.prefix_cache)
-    return _wire(args, engine)
+                      prefix_cache=args.prefix_cache,
+                      attention_impl=args.attention_impl,
+                      prewarm=args.prewarm, aot_dir=args.aot_dir)
+    if args.aot_dir or args.prewarm:
+        print(f"engine ready in {time.perf_counter() - t0:.1f}s "
+              f"(compile_stats={engine.compile_stats()}, "
+              f"compile_metrics={compilation.compile_metrics()})",
+              file=sys.stderr)
+    return _wire(args, engine, registry)
 
 
-def _wire(args, engine):
+def _wire(args, engine, registry=None):
     """Scheduler + LMServer over any engine (real or fake): one place,
     so the fake-engine fleet cannot diverge from the real serving
     path."""
@@ -193,7 +242,7 @@ def _wire(args, engine):
     from .server import LMServer
 
     scheduler = Scheduler(
-        engine, max_queue=args.max_queue,
+        engine, max_queue=args.max_queue, registry=registry,
         reqtrace=RequestTracer() if args.trace_requests else None)
     return LMServer(scheduler, args.vocab), scheduler
 
@@ -218,7 +267,10 @@ def _serve_images(args) -> int:
 def main(argv=None) -> int:
     from ..train.__main__ import LM_MODELS
 
+    from ..train.__main__ import platform_device
+
     args = build_parser().parse_args(argv)
+    platform_device(args)
     if args.model not in LM_MODELS:
         if args.fake_engine:
             raise SystemExit("--fake-engine serves the LM API; drop "

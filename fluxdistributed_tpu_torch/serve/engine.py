@@ -41,6 +41,18 @@ engine's keys for the scheduler's gauges (``decode_compiles`` counts
 the capture; the others read 0) and reports the decode kernels' launch
 counts.
 
+Cold start (:mod:`..compilation`): ``prewarm=True`` runs a zero prefill
+per bucket (a chunk on the paged layout), the splice and one decode
+step, which builds the decode kernel and captures the decode graph,
+before the first request, then restores pristine slot state IN PLACE
+(the captured graph holds the cache's addresses: a new cache would
+leave it writing into freed memory).  ``aot_dir`` keeps an AOT
+manifest of the engine's programs (the decode kernel's library): a
+process that finds a matching one builds nothing.  ``attention_impl``
+picks the decode attention: ``"pallas"`` (the default) the flash-decode
+kernels B4/B5, ``"xla"`` their plain PyTorch version, only when asked
+for by name.
+
 Greedy decoding is token-for-token identical to sequential
 :func:`..models.generate` (the golden parity test).  Temperature
 sampling draws from each request's own seeded CPU ``torch.Generator``,
@@ -123,6 +135,16 @@ class LMEngine:
       blocks are shared by later prompts with the same prefix.
     * ``cuda_graph`` — on the GPU, replay the decode step as one CUDA
       graph (the default); ``False`` runs it eagerly (the comparison).
+    * ``prewarm`` — pre-pay the decode kernel's build and the decode
+      graph's capture before the first request (:meth:`warmup`).
+    * ``aot_dir`` — the engine's AOT manifest directory
+      (:func:`..compilation.load_or_compile`); a fresh manifest is made
+      by running :meth:`warmup` once.
+    * ``attention_impl`` — ``"pallas"`` (default): the decode step
+      attends through the flash-decode kernels; ``"xla"``: through their
+      plain PyTorch version, eagerly (its block walk reads a flag back to
+      the host, which a graph capture refuses).  The names are the JAX
+      engine's; its default is ``"xla"``.
     """
 
     def __init__(self, model: TransformerLM, *, max_slots: int = 8,
@@ -133,7 +155,9 @@ class LMEngine:
                  layout: str = "dense",
                  kv_block_size: int = DEFAULT_KV_BLOCK_SIZE,
                  kv_blocks: Optional[int] = None,
-                 prefix_cache: bool = False, cuda_graph: bool = True):
+                 prefix_cache: bool = False, cuda_graph: bool = True,
+                 prewarm: bool = False, aot_dir: Optional[str] = None,
+                 attention_impl: str = "pallas"):
         if getattr(model, "moe_every", 0):
             raise ValueError(
                 "the serving engine supports dense models only (MoE decode "
@@ -164,6 +188,10 @@ class LMEngine:
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        if attention_impl not in ("xla", "pallas"):
+            raise ValueError(
+                f"unknown attention_impl {attention_impl!r} (xla|pallas)")
+        self.attention_impl = attention_impl
         kv_quant = kv_dtype or "none"
         if kv_quant not in KV_QUANTS:
             raise ValueError(
@@ -223,9 +251,20 @@ class LMEngine:
         self._keys: List[Optional[torch.Generator]] = [None] * max_slots
         #: all-slot decode steps run so far
         self.decode_steps = 0
-        self.cuda_graph = cuda_graph and self.device.type == "cuda"
+        self.cache.plain_decode = attention_impl == "xla"
+        # the plain decode attention skips empty blocks by reading a
+        # flag back to the host, which a capture refuses: it runs eagerly
+        self.cuda_graph = (cuda_graph and self.device.type == "cuda"
+                           and attention_impl == "pallas")
         #: the captured decode step (a :class:`..parallel.graphs.Graph`)
         self.decode_graph: Optional[Graph] = None
+        #: kernel libraries an AOT manifest supplied (0: none loaded)
+        self.aot_programs = 0
+        self._warmed = False
+        if aot_dir:
+            self._load_aot(aot_dir)
+        if prewarm and not self._warmed:
+            self.warmup()
 
     # ---- device work ------------------------------------------------------
 
@@ -329,6 +368,91 @@ class LMEngine:
             if temp > 0:
                 nxt[s] = self._draw(logits[s], temp, key)
         return nxt
+
+    # ---- cold start: AOT manifest + prewarm ---------------------------------
+
+    def _load_aot(self, aot_dir: str) -> None:
+        """Load the engine's AOT manifest from ``aot_dir``, or run
+        :meth:`warmup` once and save it.  Everything that changes the
+        programs without changing an argument shape is in the tag: the
+        model's repr, the slot count and length, the buckets, the layout
+        and its chunk, the KV dtype and the attention core."""
+        from .. import compilation
+
+        tag = compilation.config_tag(
+            repr(self.model), self.max_slots, self.max_len, self.buckets,
+            self.layout_name, self.prefill_chunk, self.kv_quant,
+            self.attention_impl, self.cuda_graph)
+        prog = compilation.load_or_compile(
+            self.warmup, directory=aot_dir, name=f"serve_{self.layout_name}",
+            fingerprint=compilation.topology_fingerprint(tag=tag))
+        if prog.loaded:
+            self.aot_programs = len(prog.libraries)
+
+    @torch.no_grad()
+    def _pristine(self) -> None:
+        """Every slot back to a fresh engine's state, IN PLACE: the
+        captured decode graph holds these tensors' addresses."""
+        c = self.cache
+        # every K/V and scale tensor whole (a paged pool's scratch block
+        # too, which buffers() leaves out)
+        for t in [*c.k, *c.v, *(c.k_scale or ()), *(c.v_scale or ())]:
+            t.zero_()
+        if self.layout_name == "paged":
+            c.page_table.fill_(-1)
+            c.slot_live.zero_()
+        c.index.zero_()
+        if c.slot_pos is not None:
+            c.slot_pos.fill_(-1)
+        self._tok.zero_()
+        self._temp = [0.0] * self.max_slots
+        self._keys = [None] * self.max_slots
+        self._decoding.clear()
+        self._host_pos = [0] * self.max_slots
+        self.decode_steps = 0
+
+    @torch.no_grad()
+    def warmup(self) -> dict:
+        """Pre-pay every build and capture before the first request:
+        a zero prefill per bucket (a chunk against the all-unbound page
+        tables on the paged layout: every write drops, every read is
+        masked), the splice, and one decode step, which launches the
+        decode kernel and, on a card, captures the decode graph.  Then
+        every slot is restored in place (:meth:`_pristine`), so the
+        warmed engine is a fresh one whose ``decode_compiles`` is already
+        1.  Returns ``{"seconds": ..., "compiles": ...}``."""
+        import time
+
+        from ..obs import jaxmon
+
+        jaxmon.install()
+        c0 = jaxmon.compile_count()
+        t0 = time.perf_counter()
+        if self.layout_name == "paged":
+            self._chunk(np.zeros((1, self.prefill_chunk), np.int64), 0, 0,
+                        1, False)
+            self._bind(0)
+            self._release(0)
+        else:
+            small = make_decode_cache(self.model, 1, self.max_len,
+                                      self.kv_quant)
+            shapes = set(self.buckets)
+            if self.prefill_chunk:
+                shapes.add(self.prefill_chunk)
+            for b in sorted(shapes):
+                small.index.zero_()
+                self._prefill(np.zeros((1, b), np.int64), 1, small)
+            self._insert(small, 0, 1)
+        self._decode()
+        if self.cuda_graph and self.decode_graph is None:
+            # the eager step above was the capture's warm-up
+            self.decode_graph = Graph(self._decode, "the decode step")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._pristine()
+        self._warmed = True
+        return {"seconds": time.perf_counter() - t0,
+                "compiles": int(jaxmon.compile_count() - c0)}
 
     # ---- host-side API (called by the scheduler loop thread) --------------
 
@@ -560,12 +684,13 @@ class LMEngine:
     def compile_stats(self) -> dict:
         """The JAX engine's compile-count keys (``decode_compiles``: the
         decode step's graph captures; the others 0: prefill and inserts
-        run eagerly) plus ``decode_kernel_launches`` and
+        run eagerly; ``aot_programs``: the kernel libraries an AOT
+        manifest supplied) plus ``decode_kernel_launches`` and
         ``paged_kernel_launches``, the two flash-decode kernels' launch
         counts."""
         stats = {"decode_compiles": int(self.decode_graph is not None),
                  "insert_compiles": 0,
-                 "prefill_compiles": 0, "aot_programs": 0,
+                 "prefill_compiles": 0, "aot_programs": self.aot_programs,
                  "decode_kernel_launches": flash_decode.launches,
                  "paged_kernel_launches": flash_decode_paged.launches}
         if self.layout_name == "paged":

@@ -473,10 +473,19 @@ class Supervisor:
                 supervisor_ledger=self.ledger_path,
                 runs_path=self.runs_ledger)
             text += f"\nsupervision result: {result}"
-            # the static-health stamp reads the JAX package's lint pass,
-            # which the port does not have yet
-            text += ("\nlint stamp: unavailable (the port has no static "
-                     "analysis package)")
+            # static-health stamp (own guard: the lint pass parsing the
+            # tree must not take the postmortem down with it) — a crash
+            # report that says "new: 3, concurrency: 2" points straight
+            # at an unlocked write before anyone replays the run
+            try:
+                from . import analysis
+
+                text += ("\nlint stamp: "
+                         + json.dumps(analysis.lint_verdict(),
+                                      sort_keys=True))
+            except Exception as e:  # noqa: BLE001 — forensics only
+                text += (f"\nlint stamp: unavailable "
+                         f"({type(e).__name__}: {e})"[:200])
             print(text, file=sys.stderr)
             if not self.ledger_path:
                 return None

@@ -149,9 +149,16 @@ more, and ``--profile-out PATH`` writes the run's cost profile
 (``obs.profile``: the static costs of the model and of the step at the
 run's shapes, priced on fake tensors, the step's priced memory and
 collective ledger, the measured phase histograms) when training ends.
-The JAX CLI's ``--steady-after``, ``--compile-cache``, ``--aot``,
-``--prewarm`` and ``--strict-checks`` belong to a later slice and are
-not accepted.
+The cold-start flags are ``bin/driver.py``'s too: ``--compile-cache
+DIR`` keeps the kernel libraries in a build cache namespaced by the
+toolchain and the card (a second run builds nothing), ``--aot DIR``
+keeps an AOT manifest of the train step (the step's kernel libraries,
+checked by fingerprint, signature and content hash), ``--prewarm`` runs
+one step on zero-filled copies before the loop, ``--steady-after N``
+counts and warns on every build or CUDA graph capture after N items
+(``fdtpu_jax_steady_recompiles_total``), and ``--strict-checks`` arms
+the first two calls of the step (a NaN named by its aten op; a host
+sync or an implicit host-to-device copy refused).
 """
 
 from __future__ import annotations
@@ -388,10 +395,39 @@ def build_parser() -> argparse.ArgumentParser:
                         "checkpointed every few records — a SIGKILL "
                         "loses at most one flush interval, and the dump "
                         "footer (or its absence) says how the run ended")
+    p.add_argument("--steady-after", type=int, default=None, metavar="N",
+                   help="declare warmup over after N cycles: any later "
+                        "kernel build or CUDA graph capture is counted + "
+                        "warned as a steady-state recompile "
+                        "(fdtpu_jax_steady_recompiles_total)")
     p.add_argument("--runs-ledger", default=None, metavar="PATH",
                    help="append one cross-run ledger record (obs.runs "
                         "schema: status, topology fingerprint, steps, "
-                        "flight-dump path) here on every exit path")
+                        "compile seconds, flight-dump path) here on every "
+                        "exit path")
+    # cold start (fluxdistributed_tpu_torch.compilation)
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="keep the kernel libraries in a build cache here "
+                        "(a subdir namespaced by the toolchain and the "
+                        "card): the next run with the same nvcc and card "
+                        "loads them instead of running nvcc")
+    p.add_argument("--aot", default=None, metavar="DIR",
+                   help="AOT manifests of the train step: load its kernel "
+                        "libraries from DIR when topology + argument "
+                        "signature + sources match (nothing is built), "
+                        "else run the step once at prepare time and save "
+                        "the manifest for the next process")
+    p.add_argument("--prewarm", action="store_true",
+                   help="run one train step (and eval, when a val set "
+                        "exists) on zero-filled copies before the training "
+                        "loop starts, so step-0 timing excludes kernel "
+                        "builds and graph captures")
+    p.add_argument("--strict-checks", action="store_true",
+                   help="debug-grade first steps: call 1 checks every op's "
+                        "floating outputs (a NaN names its aten op), call 2 "
+                        "runs under the CUDA sync debug mode 'error' and "
+                        "refuses an implicit host->device copy; failures "
+                        "name the offending phase")
     p.add_argument("--watchdog-factor", type=float, default=5.0,
                    help="stall watchdog threshold as a multiple of the "
                         "rolling-median step time (warns + flips /healthz "
@@ -712,7 +748,9 @@ def _train(args, dataset, val_dataset, device, mesh, layout_rows=None):
             batch_size=args.batch_size, epochs=args.epochs,
             cycles=args.cycles, spmd=args.spmd, zero1=args.zero1, mesh=mesh,
             device=device, steps_per_call=args.steps_per_call,
-            val_dataset=val_dataset, guard=sentinel, layout=layout, **pp_kw)
+            val_dataset=val_dataset, guard=sentinel, layout=layout,
+            cache_dir=args.compile_cache, aot=args.aot, warmup=args.prewarm,
+            strict_checks=args.strict_checks, **pp_kw)
     except ValueError as e:  # e.g. a batch that does not split over ranks
         raise SystemExit(f"--spmd {args.spmd}: {e}")
     if args.resume:
@@ -1002,9 +1040,10 @@ def _pipeline_kwargs(args, model, mesh, ndev: int, lead: bool) -> dict:
           "pipeline_interleave": args.pp_interleave,
           "pipeline_schedule": args.pp_schedule}
     if args.pp_plan:
+        from ..mesh import DATA_AXIS
         from ..parallel.pp_plan import PlanError, resolve_plan
 
-        n_data = pmesh.shape["data"]
+        n_data = pmesh.shape[DATA_AXIS]
         try:
             plan = resolve_plan(
                 args.pp_plan, S, args.microbatches or 2 * S,
@@ -1051,6 +1090,7 @@ def _observed_train(args, task, mesh, lead, is_lm, train) -> None:
                   if args.watchdog_factor else None),
         trace_path=args.trace_events if lead else None,
         device_sync=bool(args.trace_events),
+        steady_after=args.steady_after,
         jsonl_path=args.metrics_jsonl if lead else None,
         profile_path=args.profile_out if lead else None,
         flight_path=args.flight if lead else None)
@@ -1061,6 +1101,9 @@ def _observed_train(args, task, mesh, lead, is_lm, train) -> None:
                 "ok": reg.value("fdtpu_watchdog_stalled") < 1,
                 "steps": reg.value("fdtpu_train_steps_total"),
                 "oom_skipped": reg.value("fdtpu_train_oom_skipped_total"),
+                "compiles": reg.value("fdtpu_jax_compiles_total"),
+                "steady_recompiles": reg.value(
+                    "fdtpu_jax_steady_recompiles_total"),
                 "escalations": reg.value("fdtpu_watchdog_escalations_total"),
                 "quarantined": reg.value("fdtpu_guard_quarantine_size"),
             }
@@ -1088,6 +1131,8 @@ def _observed_train(args, task, mesh, lead, is_lm, train) -> None:
                 phase="train", retryable=retryable, error=error,
                 metrics={"steps": steps, "steps_per_sec": steps / wall,
                          "wall_seconds": wall,
+                         "compile_seconds": reg.value(
+                             "fdtpu_jax_compile_seconds_total"),
                          "oom_skipped": reg.value(
                              "fdtpu_train_oom_skipped_total")},
                 flight=args.flight, status=status))

@@ -60,20 +60,22 @@ from typing import Any, Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from .. import faults
 from ..data.loader import PrefetchLoader, apply_transform, batch_to_dict
 from ..device import DeviceLike, resolve_device
 from ..mesh import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
                     Mesh)
-from ..obs import FlightRecorder, JsonlSink, Observation, memstats, runs
+from ..obs import (FlightRecorder, JsonlSink, Observation, jaxmon, memstats,
+                   runs)
 from ..ops.losses import logitcrossentropy
 from ..optim import Optimizer
 from ..parallel.dp import (TrainState, make_eval_step, make_train_step,
                            make_train_step_shardmap, module_loss_fn)
 from ..parallel.fsdp import make_eval_step_sharded, make_train_step_sharded
 from ..parallel import multihost
-from ..tree import synchronize, to_host
+from ..tree import leaves, synchronize, to_host
 from .checkpoint import (clear_resume_manifest, latest_step, load_checkpoint,
                          load_checkpoint_elastic, read_resume_manifest,
                          save_checkpoint, wait_for_pending,
@@ -187,6 +189,10 @@ def prepare_training(
     pipeline_interleave: bool = False,
     pipeline_schedule: str = "1f1b",
     pp_plan=None,
+    cache_dir: Optional[str] = None,
+    aot: Optional[str] = None,
+    warmup: bool = False,
+    strict_checks: bool = False,
 ) -> TrainTask:
     """The train state from the model's current parameters and buffers,
     the train and eval steps, the prefetching loader and the val slice.
@@ -294,9 +300,42 @@ def prepare_training(
     ``dp.make_train_step``; ``"shard_map"``, ``"fsdp"``, ``"tp"`` and
     ``"fsdp_tp"`` have no sentinel and are refused, as the JAX trainer
     refuses them
-    (``train(guard=...)`` still runs there on the loss alone).  The JAX version's other options
-    (donation as an option, AOT) are not accepted.
+    (``train(guard=...)`` still runs there on the loss alone).  The JAX
+    version's donation option is not accepted.
+
+    Cold-start controls (:mod:`..compilation`):
+
+    * ``cache_dir`` points the kernel build cache there (namespaced per
+      toolchain and card) before anything builds, so the next process
+      with the same toolchain and card loads every kernel library
+      instead of running ``nvcc``.
+    * ``aot`` names a directory of AOT manifests: the step's kernel
+      libraries are loaded from there when a manifest matching this
+      topology, configuration and argument signature exists (nothing
+      is built), else the step runs once NOW on zero-filled copies of
+      the state (at prepare time, not at step 0: every kernel built,
+      a device loop's graph captured) and the manifest is saved for
+      the next process.  The tag covers the JAX trainer's parts.
+    * ``warmup=True`` runs one train call (and eval, when there is a
+      val slice) on zero-filled copies before returning (the task's
+      real state is untouched), so the first ``train`` step, and
+      anything timing it, starts warm.
+
+    ``strict_checks=True`` arms the step and eval functions for their
+    first TWO calls: call 1 runs under a dispatch mode that checks the
+    floating outputs of every op and raises ``FloatingPointError``
+    naming the first aten op that produced a NaN or Inf (what
+    ``jax_debug_nans`` does); call 2 runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` on a card (a host sync
+    such as ``.item()`` raises) and a dispatch check that raises
+    ``RuntimeError`` naming the op when a CUDA op takes a non-scalar
+    CPU tensor (the transfer guard).  Later calls pass straight through.
+    Debug-grade: the armed calls also wait for the card.
     """
+    if cache_dir:
+        from .. import compilation
+
+        compilation.enable_persistent_cache(cache_dir)
     if spmd == "dp":
         spmd = "jit"
     if layout is not None:
@@ -512,7 +551,7 @@ def prepare_training(
 
             val_batch = shard_batch(val_batch, bmesh, axis=bmesh.axis_names)
         val_batch = _to_device(val_batch, dev)
-    return TrainTask(
+    task = TrainTask(
         state=state, step_fn=step_fn, eval_fn=eval_fn,
         loader=PrefetchLoader(dataset, batch_size, cycles=cycles,
                               epochs=epochs, buffersize=buffersize, seed=seed,
@@ -522,6 +561,204 @@ def prepare_training(
         val_batch=val_batch, transform=transform,
         steps_per_call=steps_per_call, zero1=zero1, specs=specs,
         batch_quantum=batch_quantum, merge_params=merge)
+    if aot or warmup:
+        from .. import compilation
+
+        dummy = _dummy_batch(task.loader)
+        if aot:
+            # the tag covers what changes the program without changing
+            # argument shapes: the mode and schedule knobs, the model's
+            # hyperparameters (its repr) and the optimizer and loss with
+            # their closed-over hyperparameters; the non-default parts
+            # are appended only when set, as the JAX trainer does
+            tag = compilation.config_tag(
+                spmd, zero1, accum_steps, steps_per_call, seed,
+                num_microbatches, pipeline_interleave, repr(model),
+                optimizer.name, optimizer.rule, optimizer.scalars, loss_fn,
+                loss,
+                *(("guard",) if guard else ()),
+                *((f"layout:{layout.name}:{sorted(layout.sizes.items())}",)
+                  if layout is not None else ()),
+                *((pipeline_schedule,) if pipeline_schedule != "1f1b"
+                  else ()),
+                *((repr(pp_plan.boundaries),)
+                  if pp_plan is not None and not isinstance(pp_plan, str)
+                  and not pp_plan.is_uniform else ()))
+            task.step_fn = compilation.load_or_compile(
+                task.step_fn, (compilation.zeros_like_state(task.state),
+                               dummy),
+                directory=aot, name="train_step",
+                fingerprint=compilation.topology_fingerprint(
+                    mesh=mesh, tag=tag))
+        if warmup:
+            stats = compilation.warmup_train(task, dummy)
+            current_logger().info(
+                f"warmup: {int(stats['compiles'])} compiles "
+                f"({stats['compile_seconds']:.1f}s of "
+                f"{stats['seconds']:.1f}s) pre-paid before step 0")
+    if strict_checks:
+        task.step_fn = _StrictFirstCalls(task.step_fn, "train step")
+        task.eval_fn = _StrictFirstCalls(task.eval_fn, "eval step")
+    return task
+
+
+def _dummy_batch(loader: PrefetchLoader) -> dict:
+    """One item with training's exact layout (transform applied, this
+    rank's rows, stacked when the device loop is on, on the device) for
+    the AOT run and warmup, drawn from the dataset with seed + 2 so its
+    shapes and dtypes are the real ones; it is not one of the run's
+    batches, and a fault plan's ``loader`` site does not see it."""
+    rng = np.random.default_rng(loader.seed + 2)
+    host = batch_to_dict(
+        apply_transform(loader.transform,
+                        loader.dataset.batch(rng, loader.batch_size)),
+        getattr(loader.dataset, "nclasses", None))
+    if loader.mesh is not None:
+        from ..sharding import shard_batch
+
+        host = shard_batch(host, loader.mesh, axis=loader.mesh.axis_names)
+    if loader.chunk > 1:
+        host = {k: np.stack([v] * loader.chunk) for k, v in host.items()}
+    return loader._put(host)
+
+
+def _floating_outputs(out) -> list:
+    return [t for t in leaves(out) if isinstance(t, torch.Tensor)
+            and t.is_floating_point()]
+
+
+#: ops that move values without computing (a NaN they carry was made
+#: elsewhere), ops whose outputs alias an input, and allocations whose
+#: memory is not yet written (a kernel wrapper's outputs, which it fills
+#: outside the dispatcher: the first op reading them is checked)
+_PASS_THROUGH = {"detach", "clone", "_to_copy", "copy_", "lift_fresh",
+                 "lift_fresh_copy", "empty", "empty_like", "empty_strided",
+                 "empty_permuted", "new_empty", "new_empty_strided",
+                 "zeros_like"}
+
+
+def _passes_values(func) -> bool:
+    if func.overloadpacket.__name__ in _PASS_THROUGH:
+        return True
+    return any(r.alias_info is not None for r in func._schema.returns)
+
+
+def _nonfinite(t: torch.Tensor) -> bool:
+    return bool(t.numel()) and not bool(torch.isfinite(t).all())
+
+
+class _NanCheck(TorchDispatchMode):
+    """Raise at the first computing aten op whose floating output holds
+    a NaN or an Inf, naming it and saying whether it made the value or
+    read one (a planted NaN in a parameter is named at the first op
+    that computes with it); the port's ``jax_debug_nans``.  Ops that
+    only move values, and ops recorded into a CUDA graph capture
+    (nothing runs there), are not checked."""
+
+    def __init__(self, phase: str):
+        super().__init__()
+        self.phase = phase
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if _passes_values(func):
+            return out
+        for t in _floating_outputs(out):
+            if t.is_cuda and torch.cuda.is_current_stream_capturing():
+                break
+            if _nonfinite(t):
+                read = any(_nonfinite(x) for x in _floating_outputs(
+                    [list(args), kwargs or {}]))
+                how = ("reads a NaN/Inf input (a parameter, the optimizer "
+                       "state or the batch already held one)" if read
+                       else "produced a NaN/Inf from finite inputs")
+                raise FloatingPointError(
+                    f"strict_checks: {func} {how} in the first "
+                    f"{self.phase} (output {tuple(t.shape)} {t.dtype}); "
+                    "check the input batch, init scales and the learning "
+                    "rate")
+        return out
+
+
+class _TransferGuard(TorchDispatchMode):
+    """Raise when an op on a CUDA tensor also takes a non-scalar CPU
+    tensor that is not pinned: an implicit host-to-device copy that
+    recurs every step (the port's ``jax.transfer_guard("disallow")``)."""
+
+    def __init__(self, phase: str):
+        super().__init__()
+        self.phase = phase
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        ts = [t for t in leaves([list(args), kwargs or {}])
+              if isinstance(t, torch.Tensor)]
+        if any(t.is_cuda for t in ts):
+            # a pinned staging buffer is an explicit asynchronous copy
+            # (the step table's), the port's device_put
+            cpu = [t for t in ts if t.device.type == "cpu" and t.dim() > 0
+                   and not t.is_pinned()]
+            if cpu:
+                raise RuntimeError(
+                    f"strict_checks: implicit host->device transfer in "
+                    f"{func} during the steady-state {self.phase}: a CPU "
+                    f"tensor {tuple(cpu[0].shape)} meets CUDA tensors — "
+                    "put inputs on the device up front (the loader's "
+                    "batches, the state); a transfer here recurs on EVERY "
+                    "step")
+        return func(*args, **(kwargs or {}))
+
+
+class _StrictFirstCalls:
+    """``strict_checks`` wrapper: call 1 runs under :class:`_NanCheck`,
+    call 2 under the sync debug mode ``"error"`` (on a card) and
+    :class:`_TransferGuard`; later calls pass straight through.  The
+    armed calls wait for the card, so an asynchronous fault surfaces
+    inside them.  Attribute reads the wrapper lacks go to ``fn`` (a
+    device loop's ``eager``, an FSDP step's ``gather_plan``), as
+    :class:`..compilation.AotProgram`'s do."""
+
+    def __init__(self, fn, phase: str):
+        self.fn = fn
+        self.phase = phase
+        self.calls = 0
+
+    def __getattr__(self, name: str):
+        if name == "fn":  # not set yet: no recursion
+            raise AttributeError(name)
+        return getattr(self.fn, name)
+
+    def __call__(self, *args, **kwargs):
+        n, fn, phase = self.calls, self.fn, self.phase
+        if n >= 2:
+            return fn(*args, **kwargs)
+        self.calls = n + 1
+        cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+        if n == 0:
+            with _NanCheck(phase):
+                out = fn(*args, **kwargs)
+            if cuda:
+                torch.cuda.synchronize()
+            return out
+        prev = torch.cuda.get_sync_debug_mode() if cuda else 0
+        try:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("error")
+            with _TransferGuard(phase):
+                out = fn(*args, **kwargs)
+        except RuntimeError as e:
+            if "synchroniz" in str(e):
+                raise RuntimeError(
+                    f"strict_checks: a host sync during the steady-state "
+                    f"{phase}: {str(e)[:300]} — read values back after "
+                    "the step, not inside it; a sync here stalls EVERY "
+                    "step") from e
+            raise
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(prev)
+        if cuda:
+            torch.cuda.synchronize()
+        return out
 
 
 def _dp_state_and_step(loss_fn, optimizer, params, mstate, mesh, *, spmd,
@@ -1096,6 +1333,7 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
     logger = logger or current_logger()
     obs = observation or Observation.default()
     reg = obs.registry
+    jaxmon.install(reg)  # compile counters (idempotent, process-global)
     hbm = memstats.HbmGauges(reg)
     phases = _PhaseClock(obs, hbm=hbm)
     steps_total = reg.counter(
@@ -1132,6 +1370,7 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
     it = iter(task.loader)
     _end = object()
     start_item = int(getattr(task.loader, "start", 0))
+    marked_steady = False
     j = start_item
     t_mark, j_mark = t_start, j
     done_steps = 0
@@ -1277,6 +1516,12 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
                       and j == profile_start + profile_steps):
                     _stop_profiler(profiler, task, profile_dir, logger)
                     profiler, profiled = None, True
+            if (obs.steady_after is not None and not marked_steady
+                    and j >= obs.steady_after):
+                # warmup declared over: any further build or capture is
+                # flagged as a steady-state recompile (metric + warning)
+                jaxmon.mark_steady()
+                marked_steady = True
             if sched is not None:
                 lr = sched(j * spc)  # optimizer steps, not loader items
                 if verbose and lr is not None:
@@ -1404,6 +1649,8 @@ def train(task: TrainTask, *, print_every: int = 10, eval_every: int = 50,
                                None if skipped else metrics)
             j += 1
     finally:
+        if marked_steady:
+            jaxmon.clear_steady()
         if profiler is not None:
             # a run that ended (or failed) inside the window exports it
             _stop_profiler(profiler, task, profile_dir, logger)
@@ -1524,6 +1771,12 @@ def _flight_record(flight, reg, hbm, phases, task, j, done_steps, skipped,
             hr = memstats.min_headroom_ratio()
             if hr is not None and hr == hr:  # NaN: unavailable, not 0
                 frec["headroom"] = round(hr, 4)
+        compiles = reg.value("fdtpu_jax_compiles_total")
+        if compiles:
+            frec["compiles"] = int(compiles)
+        sr = reg.value("fdtpu_jax_steady_recompiles_total")
+        if sr:
+            frec["steady_recompiles"] = int(sr)
         if task.num_missed:
             frec["oom_skipped"] = int(task.num_missed)
         stalled = reg.value("fdtpu_watchdog_stalled")

@@ -47,6 +47,11 @@ the memory gauges read the card.
 Pricing: on fake ``cuda`` tensors each kernel wrapper's shape-only
 branch returns its kernel's outputs' shapes and dtypes without a launch
 or a count, and the same calls on real tensors launch each kernel once.
+Cold start: a prewarmed engine's captured cache is restored in place
+and gives a fresh engine's tokens (dense and paged); an AOT manifest
+names the kernel library a callable launched and a load hands the
+copy to the kernel loader; the strict checks' second call refuses a
+host sync and an implicit host-to-device copy.
 """
 
 import importlib
@@ -1848,3 +1853,91 @@ def test_real_tensors_still_launch_after_pricing(cuda):
     o, lse = got["B1"]
     assert not is_fake(o) and torch.isfinite(o.float()).all()
     assert torch.isfinite(got["B4"].float()).all()
+
+
+# --------------------------------------------------------------- cold start
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_prewarm_restores_the_captured_cache_in_place(cuda, layout):
+    """``warmup()`` captures the decode graph over the engine's own cache
+    and then zeroes that cache IN PLACE (every buffer keeps its address,
+    which the graph holds): decode_compiles is 1 before the first
+    request, and a prewarmed engine's greedy tokens equal a fresh
+    engine's."""
+    import numpy as np
+
+    model = lm_tiny(vocab=128, seed=2)
+    g = torch.Generator().manual_seed(7)
+    prompts = [torch.randint(0, 128, (n,), generator=g).tolist()
+               for n in (5, 17, 40)]
+    out = {}
+    for warm in (False, True):
+        engine = LMEngine(model, max_slots=3, max_len=96, buckets=(64,),
+                          layout=layout)
+        if warm:
+            ptrs = [t.data_ptr() for t in engine.cache.buffers()]
+            stats = engine.warmup()
+            assert [t.data_ptr() for t in engine.cache.buffers()] == ptrs
+            assert all(not t.float().abs().sum() for t in
+                       engine.cache.buffers())
+            assert engine.compile_stats()["decode_compiles"] == 1
+            assert stats["compiles"] >= 1 and stats["seconds"] > 0
+        for s, p in enumerate(prompts):
+            engine.prefill(s, p, 0.0, None)
+        out[warm] = np.stack([engine.step_decode() for _ in range(12)])
+        assert engine.compile_stats()["decode_compiles"] == 1
+    np.testing.assert_array_equal(out[True], out[False])
+
+
+def test_aot_manifest_names_and_loads_the_kernel_library(cuda, tmp_path):
+    """A fresh ``load_or_compile`` runs the callable (which launches B4)
+    and saves a manifest naming its library in the build cache; the
+    next call loads it without running the callable, and the kernel
+    loader finds that library there (nothing would build)."""
+    from fluxdistributed_tpu_torch import compilation
+    from fluxdistributed_tpu_torch.ops import _build
+
+    (q, k, v, idx), _ = _dense_case("bf16")
+    q, k, v, idx = (t.to(cuda) for t in (q, k, v, idx))
+    calls = []
+
+    def decode(q, k, v, idx):
+        calls.append(1)
+        return flash_decode(q, k, v, idx)
+
+    kwargs = dict(directory=str(tmp_path), name="decode",
+                  fingerprint=compilation.topology_fingerprint(tag="t"))
+    first = compilation.load_or_compile(decode, (q, k, v, idx), **kwargs)
+    assert calls == [1] and not first.loaded
+    assert set(first.libraries) == {"flash_decode"}
+    again = compilation.load_or_compile(decode, (q, k, v, idx), **kwargs)
+    assert calls == [1] and again.loaded
+    lib = again.libraries["flash_decode"]
+    assert lib == _build.library_path("flash_decode") and lib.is_file()
+    assert _build._start("flash_decode")[0] is None
+    torch.testing.assert_close(again(q, k, v, idx).float(),
+                               first(q, k, v, idx).float())
+
+
+def test_strict_second_call_refuses_a_host_sync_and_a_cpu_operand(cuda):
+    """The strict checks' second call: a ``.item()`` (a host sync) and
+    an op taking a non-scalar CPU tensor beside CUDA ones (indexing with
+    CPU indices) each raise
+    RuntimeError naming what they did; the first call checks NaNs only,
+    and the third passes straight through."""
+    from fluxdistributed_tpu_torch.train.trainer import _StrictFirstCalls
+
+    x = torch.arange(6.0, device=cuda)
+    synced = _StrictFirstCalls(lambda t: (t * 2).sum().item(), "step")
+    assert synced(x) == 30.0
+    with pytest.raises(RuntimeError, match="host sync during the "
+                                           "steady-state step"):
+        synced(x)
+    assert synced(x) == 30.0
+    rows = torch.tensor([0, 2])  # CPU indices: an implicit copy a call
+    mixed = _StrictFirstCalls(lambda t: t[rows], "step")
+    mixed(x)
+    with pytest.raises(RuntimeError, match="implicit host->device transfer"):
+        mixed(x)
+    torch.testing.assert_close(mixed(x), x[rows.to(cuda)])
+    assert torch.cuda.get_sync_debug_mode() == 0

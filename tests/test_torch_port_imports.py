@@ -64,7 +64,10 @@ def test_port_has_modules_to_scan():
                 "models/gpt2.py", "serve/router.py", "serve/testing.py",
                 "obs/trends.py", "obs/comms.py", "obs/pricing.py",
                 "obs/profile.py", "analysis/variants.py", "fit.py",
-                "fake.py"):
+                "fake.py", "compilation.py", "obs/jaxmon.py", "lint.py",
+                "analysis/concurrency.py", "analysis/schedules.py",
+                "analysis/findings.py", "analysis/engine.py",
+                "analysis/rules_ast.py"):
         assert f"fluxdistributed_tpu_torch/{mod}" in names
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").is_file()
 
@@ -157,3 +160,25 @@ def test_generate_supervise_and_multihost_default_to_cuda():
             supervise.main([flag, "--quiet"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         multihost.initialize("localhost:1", 2, 0)
+
+
+def test_serve_and_infer_platform_default_to_cuda():
+    """The serve and infer CLIs' ``--platform`` (``bin/serve.py``'s and
+    ``bin/infer.py``'s) folds into ``--device``: unset, and ``gpu``, run
+    on ``cuda``; ``tpu`` is refused."""
+    from fluxdistributed_tpu_torch import infer
+    from fluxdistributed_tpu_torch.serve import __main__ as serve_cli
+
+    for cli in (serve_cli, infer):
+        args = cli.build_parser().parse_args([])
+        assert args.platform is None and args.device is None
+        with pytest.raises(SystemExit, match="--platform tpu"):
+            cli.main(["--platform", "tpu"])
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    for argv in ([], ["--platform", "gpu"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            infer.main(["--model", "resnet18", "--num-classes", "4", *argv])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve_cli.main(["--model", "lm_tiny", "--vocab", "16",
+                            "--prewarm", *argv])

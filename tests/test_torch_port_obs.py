@@ -248,8 +248,9 @@ def test_observation_default_and_unported_options():
     assert obs.device_sync is False and obs.flight is None
     full = Observation.full()
     assert full.device_sync is True and full.tracer is not None
-    with pytest.raises(NotImplementedError, match="jaxmon"):
-        Observation(steady_after=3)
+    # the steady-state flag reads obs.jaxmon's counters, now ported
+    assert Observation(steady_after=3).steady_after == 3
+    assert Observation.full(steady_after=2).steady_after == 2
     # the cost profile is ported: train() writes it when it ends
     assert Observation.full(profile_path="p.json").profile_path == "p.json"
 

@@ -87,6 +87,13 @@ def test_keep_fault_plan_flag(tmp_path):
     assert "--resume" not in led["episodes"][1]["argv"]
 
 
+def lint_stamp(postmortem: str) -> dict:
+    """The postmortem's ``lint stamp:`` line, a JSON verdict."""
+    line = next(ln for ln in postmortem.splitlines()
+                if ln.startswith("lint stamp: "))
+    return json.loads(line[len("lint stamp: "):])
+
+
 def test_crash_restarts_bounded_with_backoff(tmp_path):
     child = write_child(tmp_path, "import sys; sys.exit(3)\n")
     rc, led = run_supervisor([sys.executable, child], tmp_path,
@@ -98,7 +105,9 @@ def test_crash_restarts_bounded_with_backoff(tmp_path):
     assert all(e["action"] != "stop" for e in led["episodes"][:-1])
     # a bad end writes the postmortem, with the port's lint stamp
     pm = (tmp_path / "ledger.json.postmortem.txt").read_text()
-    assert "lint stamp: unavailable" in pm
+    stamp = lint_stamp(pm)
+    assert stamp["new"] == 0 and set(stamp["layers"]) == {
+        "ast", "concurrency"}
 
 
 def test_guard_halt_rc_stops_immediately(tmp_path):
@@ -243,4 +252,5 @@ def test_crash_smoke_on_the_cpu(tmp_path):
                          str(tmp_path / "art")])
     assert rc == 0
     pm = (tmp_path / "crash-ledger.json.postmortem.txt").read_text()
-    assert "hard death" in pm and "lint stamp: unavailable" in pm
+    assert "hard death" in pm
+    assert set(lint_stamp(pm)["layers"]) == {"ast", "concurrency"}

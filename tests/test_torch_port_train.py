@@ -334,9 +334,12 @@ def test_cli_main_and_refusals(capsys):
                          (["--kv-heads", "3"], "num_kv_heads")]:
         with pytest.raises(SystemExit, match=match):
             cli.run(base + extra)
-    for flag in (["--aot", "d"], ["--steady-after", "3"]):
-        with pytest.raises(SystemExit):  # argparse: not accepted
-            cli.build_parser().parse_args(base + flag)
+    # the cold-start flags are ported (tests/test_torch_port_compilation.py)
+    args = cli.build_parser().parse_args(
+        base + ["--aot", "d", "--steady-after", "3", "--compile-cache", "c",
+                "--prewarm", "--strict-checks"])
+    assert (args.aot, args.steady_after, args.compile_cache) == ("d", 3, "c")
+    assert args.prewarm and args.strict_checks
     # the cost profile is ported (tests/test_torch_port_profile.py)
     assert cli.build_parser().parse_args(
         base + ["--profile-out", "d"]).profile_out == "d"
