@@ -12,9 +12,12 @@ Phases, each of which raises on failure (exit code != 0, no result):
    run ends (``compilation.enable_persistent_cache``: the cold process,
    one miss a source, each source's ``nvcc`` seconds), and ``ptxas``
    lines with the registers and spills of bf16 B2 (the
-   tensor-core dQ kernel) at head dims 32, 64, 80 and 128, of every
-   B1-B3 instantiation at head dim 80 and of every instantiation of
-   B4's split kernel;
+   tensor-core dQ kernel) at head dims 32, 64, 80 and 128, of the
+   Hopper B2/B3 kernels (wgmma, TMA, warp-specialised) at 64 and 128, of
+   every B1-B3 instantiation at head dim 80 and of every instantiation
+   of B4's split kernel; then ``cuobjdump --dump-sass`` of the flash
+   attention library, which must show ``HGMMA`` and ``UTMALDG`` in every
+   Hopper B2/B3 kernel;
 3. kernel: the dense flash-decode kernel (B4, split-KV over runs of
    whole tiles cut from each slot's cursor, then a combine kernel, with
    its split and CTA counts) against its plain PyTorch version at
@@ -336,6 +339,7 @@ import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 # HBM rate (bytes/s) and dense peak (ops/s) by card; NVIDIA data sheets
 _CARDS = (  # (name fragment, HBM B/s, f32 FLOP/s, bf16 FLOP/s, 8-bit OP/s)
@@ -432,6 +436,51 @@ def demangle(name: str) -> str:
         return name
     return subprocess.run([tool, name], capture_output=True, text=True,
                           timeout=30).stdout.strip() or name
+
+
+#: what every Hopper B2/B3 kernel's SASS must hold: wgmma and TMA loads
+HOPPER_SASS = ("HGMMA", "UTMALDG")
+
+
+def sass_check(_build) -> dict:
+    """``cuobjdump --dump-sass`` of the flash attention library: for each
+    Hopper B2/B3 kernel (``*_wg_kernel``), which of :data:`HOPPER_SASS` its
+    SASS holds.  Raises if one lacks any, or if the eight instantiations
+    (dQ and dK/dV, head dims 64 and 128, with and without the audit) are
+    not all there."""
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    lib = _build.library_path("flash_attention")
+    text = subprocess.run([str(tool), "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    found, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            name = name if "_wg_kernel" in name else None
+            if name:
+                found[name] = set()
+        elif name:
+            found[name].update(op for op in HOPPER_SASS if op in line)
+    rows = {demangle(n): {op: op in ops for op in HOPPER_SASS}
+            for n, ops in found.items()}
+    bad = [n for n, r in rows.items() if not all(r.values())]
+    if len(rows) != 8 or bad:
+        raise RuntimeError(f"sass: {len(rows)} Hopper B2/B3 kernels, "
+                           f"lacking {HOPPER_SASS} in {bad}")
+    return rows
+
+
+def kernel_design(fa, kname, dt, d) -> str:
+    """The design a B1-B3 row ran: the wrapper's dispatch table, held to
+    the library's own (``flash_attention_design``)."""
+    design = fa.kernel_design(kname, dt, d)
+    which = {"fwd": 0, "dq": 1, "dkv": 2}[kname]
+    code = fa._kernel().flash_attention_design(which, fa._DTYPES[dt], d)
+    if code < 0 or fa.DESIGNS[code] != design:
+        raise RuntimeError(f"{kname} {dt} D={d}: the library runs design "
+                           f"{code}, the wrapper names {design!r}")
+    return design
 
 
 def card_rates(name: str):
@@ -1478,7 +1527,11 @@ def attention_variant(torch, fa, bw, peaks, flush, phase, name, spec, g,
         qkv = torch.randn(B, tq, 3, h, d, generator=g).to(dt).to(dev)
         q, k, v = qkv.unbind(2)
         do = torch.randn(B, tq, h, d, generator=g).to(dt).to(dev)
-        in_place = all(fa._kernel_view(x) is x for x in (q, k, v))
+        # the views the backward kernels read: the Hopper kernels take
+        # them through TMA as they are (or raise), the others copy what
+        # they cannot read
+        in_place = all(a is b for a, b in zip(
+            fa._kernel_views("dq", q, k, v, do), (q, k, v, do)))
     else:
         q, do = (torch.randn(B, tq, h, d, generator=g).to(dt).to(dev)
                  for _ in range(2))
@@ -1558,8 +1611,7 @@ def attention_variant(torch, fa, bw, peaks, flush, phase, name, spec, g,
         lib = (lib_fwd if kname == "fwd" else lib_bwd) or (None, None)
         lib = lib[1]
         rows[kname] = {
-            "design": ("tensor cores, mma.sync" if bits == "bf16"
-                       else "SIMT f32"),
+            "design": kernel_design(fa, kname, dt, d),
             "ms": kt["mean"], "ms_median": kt["median"],
             "ms_spread": [kt["min"], kt["max"]],
             "plain_ms": time_ms(torch, plain, flush, iters=3),
@@ -1773,7 +1825,8 @@ def rounding_audit_phase(torch, flush):
     attention shape over ``AUDIT_SEEDS`` seeds, and on the inputs of
     every layer's attention backward in one lm_small train step (vocab
     32000, B=8, T=1024, adam, random tokens), with B2's and B3's times
-    on the first and last layers' inputs.  Reported, not held: the
+    on the first and last layers' inputs beside their times on the last
+    seed's randn inputs.  Reported, not held: the
     card-only tests hold a fixed seed to 0 misses."""
     import importlib
 
@@ -1805,6 +1858,16 @@ def rounding_audit_phase(torch, flush):
                                        causal=True))
     torch.cuda.synchronize()
     seed_s = time.perf_counter() - t0
+    # B2's and B3's times on the last seed's randn inputs, beside the
+    # step's layers below (where more pairs are flagged)
+    rargs, rkw = (q, k, v, do, lse, delta.contiguous()), dict(causal=True)
+    times = {"randn_last_seed": {
+        "dq": time_stats(torch, lambda: fa.flash_attention_dq(*rargs, **rkw),
+                         flush),
+        "dkv": time_stats(torch,
+                          lambda: fa.flash_attention_dkv(*rargs, **rkw),
+                          flush)}}
+    del rargs
 
     # one train step whose attention backward is audited layer by layer
     toks = torch.from_numpy(np.random.default_rng(0).integers(
@@ -1833,7 +1896,6 @@ def rounding_audit_phase(torch, flush):
         fa._backward = backward
     torch.cuda.synchronize()
     # autograd runs the layers' backwards last layer first
-    times = {}
     for name, (args, kw) in (("last_layer", captured[0]),
                              ("first_layer", captured[-1])):
         times[name] = {
@@ -6560,6 +6622,19 @@ def run_phases(torch, _build) -> int:
                      for name, r in dq_tc.items()
                      for d in (32, 64, 80, 128) for a in (0, 1)
                      if f"ILi{d}ELb{a}E" in name}})
+    for frag, kname in (("flash_bwd_dq_wg", "flash_bwd_dq_wg_kernel<D, audit>"),
+                        ("flash_bwd_dkv_wg",
+                         "flash_bwd_dkv_wg_kernel<D, audit>")):
+        wg = ptxas_summary(logs.get("flash_attention", ""), frag)
+        emit({"phase": "ptxas", "kernel": kname,
+              "design": "wgmma, TMA, warp-specialised",
+              "by_dim": {f"D={d}{' audit' if a else ''}": r
+                         for name, r in wg.items()
+                         for d in (64, 128) for a in (0, 1)
+                         if f"ILi{d}ELb{a}E" in name}})
+    emit({"phase": "sass", "library": str(_build.library_path(
+        "flash_attention").name), "must_hold": list(HOPPER_SASS),
+        "kernels": sass_check(_build)})
     emit({"phase": "ptxas", "kernel": "B1-B3 at D = 80 (ViT-H/14)",
           "instantiations": {
               demangle(n): r for n, r in ptxas_summary(

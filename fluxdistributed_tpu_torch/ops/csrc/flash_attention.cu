@@ -7,9 +7,11 @@
 //   B1 _flash_kernel     (pl.pallas_call in _flash_fwd_impl)
 //        bf16: flash_fwd_tc_kernel        f32: flash_fwd_kernel
 //   B2 _flash_dq_kernel  (first pl.pallas_call in _flash_bwd_impl)
-//        bf16: flash_bwd_dq_tc_kernel     f32: flash_bwd_dq_kernel
+//        bf16: flash_bwd_dq_wg_kernel (D = 64, 128), flash_bwd_dq_tc_kernel
+//        (D = 32, 80)                    f32: flash_bwd_dq_kernel
 //   B3 _flash_dkv_kernel (second pl.pallas_call in _flash_bwd_impl)
-//        bf16: flash_bwd_dkv_tc_kernel    f32: flash_bwd_dkv_kernel
+//        bf16: flash_bwd_dkv_wg_kernel (D = 64, 128), flash_bwd_dkv_tc_kernel
+//        (D = 32, 80)                    f32: flash_bwd_dkv_kernel
 //
 // What they compute, with s = scale * q . k^T in f32 (the scale multiplies
 // the f32 scores, never the inputs) and the attend mask of _band_mask:
@@ -48,48 +50,75 @@
 //
 // Design by dtype.
 //
-// bf16, the training path's type, runs B1 and B3 on the tensor cores, the
-// FlashAttention-2 schedule on mma.sync (m16n8k16, bf16 x bf16 -> f32: the
-// products are exact, as the MXU's are; only the f32 summation order
-// differs from the plain versions).  One CTA of 4 warps owns a 64-row
-// tile and each warp 16 of its rows.  Tiles move global -> shared by
-// 16-byte cp.async copies into a two-stage ring, stored as bf16 with rows
-// padded to D + 8 elements so that ldmatrix (.trans where an operand is
-// needed k-major) reads them without bank conflicts.  Score tiles stay in
+// bf16, the training path's type, runs on the tensor cores.  The products
+// are exact (bf16 x bf16 -> f32, as the MXU's are); only the f32
+// summation order differs from the plain versions.
+//
+// B2 and B3 at D = 64 and 128 (kHopperBwd) are Hopper kernels: wgmma,
+// TMA, mbarriers and warp specialisation (section "Hopper backward
+// kernels" below).  A CTA is two consumer warpgroups of 64 rows each and
+// one producer warpgroup.  One warp of the producer loads: TMA boxes of
+// 64 x 64 bf16 (128-byte swizzle) from descriptors built on the host from
+// each tensor's own strides, into a ring of stages signalled by full /
+// empty mbarriers.  The consumers form S and dP with wgmma from shared
+// memory, the element-wise p / ds / flag code on the accumulators (a
+// warp's slice of a wgmma accumulator is the m16n8 C layout), and store
+// p and ds as bf16 tiles in shared memory.  The producer's three other
+// warps (the helpers) take each stage's K/V (B2) or Q/dO (B3) row norms a
+// stage ahead, and sum the flagged pairs again in the plain order,
+// storing the plain version's roundings over the tensor cores' (a B2
+// consumer warp leaves them at most kQueued pairs a tile and sums the rest
+// itself: on training data, which flag up to 6 % of pairs, the helpers
+// alone would hold B2 up).  One tile later the consumers form dQ += dS.K (B2) or dV += P^T.dO and dK +=
+// dS^T.Q (B3) with wgmma from those tiles, and release the stage.  The
+// sums stay in registers and are written once.  setmaxnreg gives the
+// producer warpgroup 96 registers and the consumers the rest; the
+// compiler holds every role to the launch's 168 a thread (384 threads,
+// one CTA an SM), so the consumers' register budget is that.
+//
+// B1 (all head dims) and B2/B3 at D = 32 and 80 keep the FlashAttention-2
+// schedule on mma.sync (m16n8k16): one CTA of 4 warps owns a 64-row tile
+// and each warp 16 of its rows.  Tiles move global -> shared by 16-byte
+// cp.async copies into a two-stage ring, stored as bf16 with rows padded
+// to D + 8 elements so that ldmatrix (.trans where an operand is needed
+// k-major) reads them without bank conflicts.  Score tiles stay in
 // registers: the m16n8 accumulator layout is the m16k16 A-operand layout,
 // so p (and ds) become bf16 A fragments in place and never touch shared
-// memory.
+// memory.  D = 32's 64-byte rows and D = 80's 160-byte rows need other
+// TMA swizzles (64-byte; a 64 + 16 column split) than the one the Hopper
+// kernels take, so those head dims stay here; B1's redesign is the next
+// kernel PR.
 //   B1: a (b, h, query tile) per CTA; Q fragments are loaded once; K/V
 //       tiles of 64 keys stream through the ring; S = Q.K^T (16 x 64 per
 //       warp), scale, mask and the online softmax run on registers (row
 //       max and sum by quad shuffles), then acc += P.V.  The grid is
 //       (B*H, query tiles), walked last tile first, so the heaviest causal
 //       tiles start first.
-//   B2: a (b, h, query tile) per CTA, walked last tile first as B1; each
-//       warp's 16 rows of Q and dO stay in registers as A fragments (D <=
-//       64; at D = 80 and 128 they are re-read from shared memory, and the
-//       keys of a tile taken 32 at a time); K/V tiles of 64 keys stream through
-//       the ring; S = Q.K^T and dP = dO.V^T stay in registers, dS becomes
-//       a bf16 A fragment in place, and dQ += dS.K reads K through
-//       ldmatrix.trans.  dQ accumulates in registers and is written once.
-//       ds rounds to bf16 exactly as the plain version's (see "B2 bf16").
-//   B3: a (b, KV head, key tile) per CTA; each warp's 16 key rows of K and
-//       V stay in registers (D <= 64; at D = 80 and 128 they are re-read
-//       from shared memory, and the 64 queries of a tile are taken in two
-//       halves of 32, so that the dK/dV accumulators fit the 255
-//       registers, with a few bytes spilled at 128).
+//   B2 (D = 32, 80): a (b, h, query tile) per CTA, walked last tile first
+//       as B1; each warp's 16 rows of Q and dO stay in registers as A
+//       fragments (D = 32; at D = 80 they are re-read from shared memory,
+//       and the keys of a tile taken 32 at a time); K/V tiles of 64 keys
+//       stream through the ring; S = Q.K^T and dP = dO.V^T stay in
+//       registers, dS becomes a bf16 A fragment in place, and dQ += dS.K
+//       reads K through ldmatrix.trans.  dQ accumulates in registers and is
+//       written once.  ds rounds to bf16 exactly as the plain version's
+//       (see "B2 bf16").
+//   B3 (D = 32, 80): a (b, KV head, key tile) per CTA; each warp's 16 key
+//       rows of K and V stay in registers (D = 32; at D = 80 they are
+//       re-read from shared memory, and the 64 queries of a tile are taken
+//       in two halves of 32, so that the dK/dV accumulators fit the 255
+//       registers).  The CTA loops over (group member, query tile) with
+//       each Q/dO tile and its LSE/delta rows in the ring; each warp forms
+//       S^T = K_w.Q^T and dP^T = V_w.dO^T, then P^T and dS^T, and
+//       accumulates dV_w += P^T.dO and dK_w += dS^T.Q (dO and Q through
+//       ldmatrix.trans).  The sums stay in registers, with no atomics, so
+//       they are deterministic.  p and ds round to bf16 exactly as the
+//       plain version's: the few pairs whose rounding its f32 sums could
+//       decide otherwise are summed again in its order (see "B3 bf16").
 //
 // Head dims: 32, 64, 80 (ViT-H/14) and 128.  Every loop over the features
 // runs D / 16 k-steps or D / 8 n-tiles (5 and 10 at D = 80), and a row is
 // D / 8 16-byte copies, so no count needs to be a power of two.
-//       The CTA loops over (group member, query tile) with each Q/dO tile
-//       and its LSE/delta rows in the ring; each warp forms S^T = K_w.Q^T
-//       and dP^T = V_w.dO^T, then P^T and dS^T, and accumulates dV_w +=
-//       P^T.dO and dK_w += dS^T.Q (dO and Q through ldmatrix.trans).  The
-//       sums stay in registers, with no atomics, so they are deterministic.
-//       p and ds round to bf16 exactly as the plain version's: the few
-//       pairs whose rounding its f32 sums could decide otherwise are
-//       summed again in its order (see "B3 bf16" below).
 //
 // f32 keeps simple SIMT kernels: every product an f32 FMA on the CUDA
 // cores, 256 threads on a 16 x 16 grid over a 64 x 64 score tile, tiles
@@ -108,8 +137,13 @@
 // [B, T, H, D] view of a fused QKV projection needs no copy.
 //
 // The launcher runs on the caller's stream, allocates nothing, and
-// returns cudaGetLastError() (0 on success).
+// returns cudaGetLastError() (0 on success).  The Hopper kernels' TMA
+// descriptors are encoded on the host for each launch with
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint: the
+// library does not link libcuda, and builds with the other kernels' nvcc
+// line.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1643,18 +1677,1284 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(Params p) {
   if constexpr (kAudit) audit.flush(p.audit);
 }
 
+// ======================================== Hopper backward kernels (bf16)
+//
+// B2 and B3 at D = 64 and 128 (the header's "Design by dtype").  What
+// they compute is the mma.sync kernels' to the bit of every rounding: the
+// same p_of / ds_of, the same DotSlack flag (p_ds_tile, ds_tile), and the
+// flagged pairs summed again in the plain order, here by the helpers;
+// only the f32 order of the products' sums differs.  The audit
+// instantiations (kAudit) sum every live pair again in the consumer
+// (resum_spread) and count as the mma.sync ones do.
+//
+// A tile of R rows and D columns lies in shared memory as D / 64 atoms of
+// [R][64] bf16, each row 128 bytes with its 16-byte chunk c stored at
+// c ^ (row % 8) (TMA's CU_TENSOR_MAP_SWIZZLE_128B on a 1024-byte-aligned
+// base; wgmma's layout type 1).  A 64 x 64 box is one TMA load.  The p / ds
+// tiles the consumers store have the same layout (one atom), as the A
+// operands of the products.
+//
+// Bound on this card: as the header says, operations; but what holds the
+// kernels back is the latency of each warpgroup's chain (products, the
+// element-wise p / ds / flag code, its stores) at 8 consumer warps an SM,
+// which the helpers shorten by taking the norms and the re-sums off it.
+
+constexpr int kAtom = 64;              // bf16 columns of a 128-byte atom
+constexpr int kBox = kTile * kAtom;    // elements of one 64 x 64 box
+constexpr int kBoxBytes = kBox * 2;
+
+// The Hopper kernels' shape: two consumer warpgroups (64 rows each) and
+// one producer warpgroup a CTA, one CTA an SM, ring stages and p / ds tile
+// slots, and the registers each role takes with setmaxnreg: the launch
+// gives every thread kLaunchRegs (65536 / threads, a multiple of 8); the
+// producer warpgroup (its loading warp and the helpers) keeps 96 and the
+// consumers take the rest, up to 240.  ptxas holds the consumers' code to
+// the launch's count all the same (168 here), so a consumer's sums, tiles
+// and element-wise code must fit 168 registers: hence B3's 32 queries a
+// product, and B3 at D = 128 spills.
+template <int D>
+struct WgCfg {
+  static constexpr int kNwg = 2;
+  // a tile's products are formed one tile after it (once the helpers are
+  // done with it) and its stage released then: the stages hold that tile,
+  // the current one and those loading; kSlots tiles of p / ds are kept
+  static constexpr int kStages = D <= 64 ? 4 : 2;
+  static constexpr int kSlots = 2;
+  static constexpr int kMinBlocks = 1;
+  static constexpr int kThreads = 128 * (kNwg + 1);
+  static constexpr int kFit = 65536 / (kThreads * kMinBlocks);
+  static constexpr int kLaunchRegs = (kFit > 255 ? 255 : kFit) & ~7;
+  static constexpr int kProducerRegs = 96;
+  static constexpr int kShare = (kLaunchRegs * kThreads - 128 * kProducerRegs) / (128 * kNwg) & ~7;
+  static constexpr int kConsumerRegs = kShare > 240 ? 240 : kShare;
+};
+
+// which head dims B2 and B3 run on the Hopper kernels (the others on the
+// mma.sync kernels above)
+template <int D>
+constexpr bool kHopperBwd = D == 64 || D == 128;
+
+// The TMA descriptors of q, k, v and dO, built on the host.
+struct TmaMaps {
+  CUtensorMap q, k, v, g;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// one arrival that also expects bytes more of TMA traffic
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete.  A wait that outlasts
+// ~10 s of device clock traps: a lost arrival ends the launch with an
+// error rather than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(a), "r"(parity)
+      : "memory");
+  if (done) return;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > 20000000000ll) __trap();
+  } while (!done);
+}
+
+// The 64 x 64 box at (column c, row t, head h, batch b) of a [B, T, H, D]
+// tensor into shared memory; rows past T arrive as zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c,
+                                         int t, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c), "r"(t), "r"(h), "r"(b)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// the 128 threads of a consumer warpgroup, on named barrier id
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving an accumulator while a wgmma owns it
+template <int J>
+__device__ __forceinline__ void pin(float (&d)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+// A wgmma shared-memory matrix descriptor of a 128-byte-swizzled tile:
+// start address, leading and stride byte offsets (multiples of 16).
+// K-major (the contraction contiguous): stride = 1024 bytes between 8-row
+// groups, leading unused.  MN-major (transposed): stride = 1024 bytes
+// between 8-row groups of the contraction, leading = the atom stride.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         static_cast<uint64_t>((lead >> 4) & 0x3FFFu) << 16 |
+         static_cast<uint64_t>((stride >> 4) & 0x3FFFu) << 32 | 1ull << 62;
+}
+
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b);
+
+// d[64 x 32] += A (shared, K-major) . B (shared, K-major)
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[4][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 64] += A (shared, K-major) . B (shared, K-major)
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[8][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ void wgmma_ss_t(float (&d)[N / 8][4], uint64_t a, uint64_t b);
+
+// d[64 x 64] += A (shared, K-major) . B (shared, MN-major: transposed)
+template <>
+__device__ __forceinline__ void wgmma_ss_t<64>(float (&d)[8][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[64 x 128] += A (shared, K-major) . B (shared, MN-major: transposed)
+template <>
+__device__ __forceinline__ void wgmma_ss_t<128>(float (&d)[16][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+
+template <int J>
+__device__ __forceinline__ void zero(float (&d)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+}
+
+// Element offset of 16-byte chunk ch of row r in a swizzled tile of R rows.
+template <int R>
+__device__ __forceinline__ int swz(int r, int ch) {
+  return (ch >> 3) * (R * kAtom) + r * kAtom + (((ch & 7) ^ (r & 7)) << 3);
+}
+
+// The 2-norm of row r of a swizzled tile of R rows.
+template <int D, int R>
+__device__ __forceinline__ float row_norm_swz(const bf16* tile, int r) {
+  float ss = 0.f;
+#pragma unroll
+  for (int ch = 0; ch < D / 8; ++ch) {
+    float f[8];
+    Vec16<bf16>::load(tile + swz<R>(r, ch), f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ss = fmaf(f[i], f[i], ss);
+  }
+  return sqrtf(ss);
+}
+
+// plain_dots through the swizzle: s = q . k and dp = dO . v of query row qr
+// (tiles of RQ rows) and key row kr (tiles of RK rows), f32 FMAs from the
+// first feature to the last.
+template <int D, int RQ, int RK>
+__device__ __forceinline__ void plain_dots_swz(const bf16* qt, const bf16* gt, int qr, const bf16* kt,
+                                               const bf16* vt, int kr, float& s, float& dp) {
+  s = 0.f;
+  dp = 0.f;
+#pragma unroll 2
+  for (int ch = 0; ch < D / 8; ++ch) {
+    float qf[8], kf[8], gf[8], vf[8];
+    Vec16<bf16>::load(qt + swz<RQ>(qr, ch), qf);
+    Vec16<bf16>::load(kt + swz<RK>(kr, ch), kf);
+    Vec16<bf16>::load(gt + swz<RQ>(qr, ch), gf);
+    Vec16<bf16>::load(vt + swz<RK>(kr, ch), vf);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s = fmaf(qf[i], kf[i], s);
+      dp = fmaf(gf[i], vf[i], dp);
+    }
+  }
+}
+
+// The position of the k-th (from 0) set bit of m.
+__device__ __forceinline__ int nth_bit(unsigned m, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(m & ((1u << w) - 1u));
+    if (k >= c) {
+      k -= c;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// Slots of a warp's re-sum buffer: pairs re-summed between two passes
+// that take results back into the accumulator registers.
+constexpr int kResumSlots = 128;
+
+// The re-sum of a warp's flagged pairs, spread over its 32 lanes.  Bit i
+// of lane L's redo names element (i / 4, i % 4) of its accumulator tiles.
+// Each lane writes its pairs, in order, into the warp's slots (lane << 5
+// | i) after the pairs of the lanes before it; lane l then sums slots l,
+// l + 32, ... again in the plain order from the swizzled Q / dO tile
+// (rows RQ) and K / V tile (rows RK), with the LSE and delta of the
+// pair's query row (lse, del: by row of the Q tile); and each lane takes
+// its pairs' results back: p into s and ds into dp in B3 (kB3), ds into
+// dp in B2.  In B3 a warp's 16 rows are keys (m0 in the K tile) and its
+// columns queries (from qb); in B2 the reverse.  slot and res are this
+// warp's kResumSlots entries; the audit counts each re-summed pair.
+template <int D, int RQ, int RK, bool kB3, bool kAudit, int J>
+__device__ __forceinline__ void resum_spread(unsigned redo, unsigned flag, float (&s)[J][4],
+                                             float (&dp)[J][4], const bf16* qt, const bf16* gt,
+                                             const bf16* kt, const bf16* vt, const float* lse,
+                                             const float* del, int m0, int qb, float scale,
+                                             int* slot, float2* res, int lane, Audit& audit) {
+  if (__ballot_sync(0xffffffffu, redo != 0u) == 0u) return;
+  const int n = __popc(redo);
+  int incl = n;  // pairs of lanes 0 .. lane
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    incl += lane >= o ? y : 0;
+  }
+  const int total = __shfl_sync(0xffffffffu, incl, 31);
+  const int excl = incl - n;
+  for (int base = 0; base < total; base += kResumSlots) {
+    int k = excl - base;
+    for (unsigned r = redo; r != 0u && k < kResumSlots; r &= r - 1u, ++k)
+      if (k >= 0) slot[k] = lane << 5 | (__ffs(r) - 1);
+    __syncwarp();
+    const int count = min(total - base, kResumSlots);
+    for (int g = lane; g < count; g += 32) {
+      const int o = slot[g] >> 5, i = slot[g] & 31;
+      // the owner's row (fr) and column (fc) of element i
+      const int row = (o >> 2) + 8 * ((i >> 1) & 1);
+      const int col = 8 * (i >> 2) + 2 * (o & 3) + (i & 1);
+      const int qr = kB3 ? qb + col : m0 + row;
+      const int kr = kB3 ? m0 + row : qb + col;
+      float ss, dd;
+      plain_dots_swz<D, RQ, RK>(qt, gt, qr, kt, vt, kr, ss, dd);
+      const float pv = p_of(ss, scale, lse[qr]);
+      res[g] = make_float2(pv, ds_of(pv, dd, del[qr]));
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const int g = excl + __popc(redo & ((1u << i) - 1u)) - base;
+        if ((redo >> i) & 1u && g >= 0 && g < kResumSlots) {
+          const float2 r = res[g];
+          if constexpr (kAudit)
+            audit.add((flag >> i) & 1u, bf16_differs(dp[j][e], r.y) ||
+                                            (kB3 && bf16_differs(s[j][e], r.x)));
+          if constexpr (kB3) s[j][e] = r.x;
+          dp[j][e] = r.y;
+        }
+      }
+    __syncwarp();
+  }
+}
+
+// The asynchronous re-sum.  A consumer warp writes the tensor cores'
+// bf16 roundings of a tile's p or ds into shared memory (store_tile, as
+// the A operand of the next product) with one 32-bit mask a lane of its
+// flagged pairs, and goes on; the three spare warps of the producer
+// warpgroup (the helpers) sum each flagged pair again in the plain order
+// and store the plain version's rounding over the tensor cores'.  The
+// consumer forms the products of a tile one tile later, after the helpers
+// are done with it: their roundings are the plain version's, their sums
+// deterministic.
+constexpr int kHelpers = 96;  // warps 1-3 of the producer warpgroup
+// flagged pairs a B2 consumer warp leaves to the helpers a tile; it sums
+// any beyond these itself (where the data flag many pairs, the helpers
+// alone would hold every consumer up).  B3 leaves them all: summing them
+// itself cost B3 more than the wait.
+constexpr int kQueued = 32;
+
+// Split a warp's flagged pairs (bits of flag, lanes in order): the first
+// `limit` stay in flag for the helpers, the rest are returned for the warp
+// to sum again itself.
+__device__ __forceinline__ unsigned split_flagged(unsigned& flag, int limit, int lane) {
+  const int n = __popc(flag);
+  if (__reduce_add_sync(0xffffffffu, static_cast<unsigned>(n)) <= static_cast<unsigned>(limit))
+    return 0u;
+  int incl = n;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    incl += lane >= o ? y : 0;
+  }
+  const int keep = max(0, min(n, limit - (incl - n)));
+  const unsigned kept =
+      keep == n ? flag : keep == 0 ? 0u : flag & ((1u << nth_bit(flag, keep)) - 1u);
+  const unsigned rest = flag & ~kept;
+  flag = kept;
+  return rest;
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A tile whose products are pending: its stage and that stage's use
+// parity, its p / ds tile slot, whether this warpgroup forms its products
+// (its tile met the band), and their 16-wide steps.  stage < 0: none.
+struct Pending {
+  int stage = -1;
+  unsigned phase = 0;
+  int slot = 0;
+  bool mine = false;
+  int steps = 0;
+};
+
+// A warp's 16 x 8J accumulator tile d, rounded to bf16, into rows m0 ..
+// m0 + 15 (and columns from qb) of a 128-byte-swizzled tile of 64 columns.
+template <int J>
+__device__ __forceinline__ void store_tile(bf16* tile, const float (&d)[J][4], int m0, int qb,
+                                           int lane) {
+  const int r0 = m0 + (lane >> 2), c = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      *reinterpret_cast<__nv_bfloat162*>(tile + r * kAtom + ((((qb >> 3) + j) ^ (r & 7)) << 3) + c) =
+          __floats2bfloat162_rn(d[j][2 * h], d[j][2 * h + 1]);
+    }
+}
+
+// A helper's share of a stage's flagged pairs: the NW x 32 masks (warp
+// w, lane l at w * 32 + l) hold the pairs in order; each helper thread
+// takes a run of them.  Each helper warp counts the pairs of all masks
+// (NW a lane) itself, so the helpers need no barrier among them.  fn(f,
+// i) gets mask f's bit i.
+template <int NW, typename Fn>
+__device__ __forceinline__ void helper_pairs(const unsigned* masks, int ht, Fn fn) {
+  const int hl = ht & 31;
+  int n = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) n += __popc(masks[hl * NW + i]);
+  int incl = n;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    incl += hl >= o ? y : 0;
+  }
+  const int total = __shfl_sync(0xffffffffu, incl, 31);
+  // thread ht takes pairs ht * per .. ht * per + per - 1: the lanes of a
+  // helper warp work on pairs of different masks (rows), whose swizzled
+  // rows spread over the banks, where pairs of one mask would not
+  const int per = (total + kHelpers - 1) / kHelpers;
+  for (int it = 0; it < per; ++it) {
+    const int g = ht * per + it;
+    int o = 0;  // the lane whose masks hold pair g: the first with incl > g
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1) {
+      const int v = __shfl_sync(0xffffffffu, incl, o + step - 1);
+      o += v <= g ? step : 0;
+    }
+    int r = g - (__shfl_sync(0xffffffffu, incl, o) - __shfl_sync(0xffffffffu, n, o));
+    int f = -1, bit = 0;
+    for (int i = 0; i < NW && g < total; ++i) {
+      const unsigned m = masks[o * NW + i];
+      const int c = __popc(m);
+      if (r < c) {
+        f = o * NW + i;
+        bit = nth_bit(m, r);
+        break;
+      }
+      r -= c;
+    }
+    // the pair's sums after the search, where the lanes have met again
+    // (inside it, a warp would run them once for each mask its lanes stop at)
+    if (f >= 0) fn(f, bit);
+  }
+}
+
+// Where a helper stores a pair's value: element (r, c) of a swizzled tile
+// of 64 columns.
+__device__ __forceinline__ int tile_at(int r, int c) {
+  return r * kAtom + ((((c >> 3) ^ (r & 7)) << 3) | (c & 7));
+}
+
+// acc += A (a warpgroup's 64 x 16 steps tile at a, K-major) . B (16 steps
+// rows of a stage's tile at b, transposed): issued and committed, not
+// waited for.  A ragged last tile takes fewer steps.
+template <int D>
+__device__ __forceinline__ void product_ss_t(float (&acc)[D / 8][4], uint32_t a, uint32_t b,
+                                             int steps) {
+  pin(acc);
+  wg_fence();
+#pragma unroll
+  for (int c = 0; c < kTile / 16; ++c)
+    if (c < steps)
+      wgmma_ss_t<D>(acc, wg_desc(a + c * 32, 16, 1024),
+                    wg_desc(b + 16 * c * (kAtom * 2), kBoxBytes, 1024));
+  wg_commit();
+}
+
+// B3's dV += P^T . dO (p in dO's dtype) and dK += dS^T . Q (ds in q's) of
+// a pending tile, once the helpers have stored their roundings,
+// contracted over its queries: issued, not waited for.
+template <int D, int R>
+__device__ __forceinline__ void dkv_products(float (&dv)[D / 8][4], float (&dk)[D / 8][4],
+                                             const Pending& t, uint64_t* fixed, const bf16* Pt,
+                                             const bf16* Dt, const bf16* Qs, const bf16* Gs,
+                                             int wg) {
+  constexpr int A = D / kAtom;
+  mbar_wait(fixed + t.stage, t.phase);
+  const uint32_t rows = (t.slot * R + kTile * wg) * kAtom * 2;
+  product_ss_t<D>(dv, smem_addr(Pt) + rows, smem_addr(Gs + t.stage * A * kBox), t.steps);
+  product_ss_t<D>(dk, smem_addr(Dt) + rows, smem_addr(Qs + t.stage * A * kBox), t.steps);
+}
+
+// ------------------------------------------------------ B3 bf16, Hopper
+//
+// One CTA per (b, KV head, 64 kNwg keys).  The producer warp loads the K
+// and V tiles once, then streams the (member, query tile) stages t =
+// member * nq + qi that meet the band: Q and dO by TMA, the LSE / delta
+// rows by its lanes' loads (rows past Tq take 1e30 and 0).  Each consumer
+// warpgroup owns 64 keys: S^T = K.Q^T and dP^T = V.dO^T (wgmma, both
+// operands from shared memory), the queries taken QN at a time; P^T and
+// dS^T in registers, stored as bf16 for the helpers to correct; one stage
+// later dV += P^T.dO and dK += dS^T.Q (wgmma, from shared memory, dO and Q
+// transposed), and the stage is released.
+
+template <int D>
+__host__ __device__ constexpr size_t dkv_wg_smem_bytes() {
+  using C = WgCfg<D>;
+  constexpr int A = D / kAtom, R = kTile * C::kNwg, S = C::kStages, NW = 4 * C::kNwg;
+  // K, V; Q and dO a stage; P^T and dS^T a slot; the barriers; the in-place re-sum
+  // buffers (the audit); the flag masks a stage; LSE, delta, Q and dO
+  // norms a stage; K and V norms
+  return 1024 + 2 * A * R * kAtom * 2 + 2 * S * A * kBoxBytes + 2 * C::kSlots * R * kAtom * 2 +
+         8 * (5 * S + 1) + 12 * NW * kResumSlots + 4 * S * NW * 32 + 4 * (4 * S * kTile + 2 * R);
+}
+
+template <int D, bool kAudit>
+__global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
+    flash_bwd_dkv_wg_kernel(const __grid_constant__ Params p, const __grid_constant__ TmaMaps m) {
+  using C = WgCfg<D>;
+  constexpr int NWG = C::kNwg, S = C::kStages, A = D / kAtom;
+  constexpr int R = kTile * NWG;  // key rows of the CTA
+  constexpr int NW = 4 * NWG;     // consumer warps
+  constexpr int QN = 32;  // queries a product takes (the dK/dV sums fill the registers)
+  constexpr int J = QN / 8;
+  constexpr int ND = D / 8;
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* sm = align1024(wg_smem);
+  bf16* Ks = reinterpret_cast<bf16*>(sm);  // [A][R][64]
+  bf16* Vs = Ks + A * R * kAtom;           // [A][R][64]
+  bf16* Qs = Vs + A * R * kAtom;           // [S][A][64][64]
+  bf16* Gs = Qs + S * A * kBox;            // dO [S][A][64][64]
+  bf16* Pt = Gs + S * A * kBox;              // [kSlots][R][64] P^T in dO's dtype
+  bf16* Dt = Pt + C::kSlots * R * kAtom;     // [kSlots][R][64] dS^T in q's dtype
+  uint64_t* full = reinterpret_cast<uint64_t*>(Dt + C::kSlots * R * kAtom);  // [S] Q, dO, rows
+  uint64_t* empty = full + S;   // [S] the stage is free
+  uint64_t* ready = empty + S;  // [S] its P^T, dS^T tiles and flags are stored
+  uint64_t* fixed = ready + S;  // [S] the helpers are done with them
+  uint64_t* normed = fixed + S;  // [S] the helpers took its Q and dO row norms
+  uint64_t* kv_full = normed + S;
+  float2* res = reinterpret_cast<float2*>(kv_full + 1);                    // [NW][kResumSlots]
+  int* slot = reinterpret_cast<int*>(res + NW * kResumSlots);              // [NW][kResumSlots]
+  unsigned* flags = reinterpret_cast<unsigned*>(slot + NW * kResumSlots);  // [S][NW][32]
+  float* Lse = reinterpret_cast<float*>(flags + S * NW * 32);              // [S][64]
+  float* Del = Lse + S * kTile;                                            // [S][64]
+  float* Qn = Del + S * kTile;  // [S][64] row norms of Q
+  float* Gn = Qn + S * kTile;   // [S][64] row norms of dO
+  float* Kn = Gn + S * kTile;   // [R]
+  float* Vn = Kn + R;           // [R]
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, lane = tid & 31;
+  const int bhk = blockIdx.x;
+  const int b = bhk / p.Hkv;
+  const int hk = bhk - b * p.Hkv;
+  const int k0 = blockIdx.y * R;
+  const int G = p.H / p.Hkv;
+  const Mask mk = make_mask(p);
+  const int nqt = (p.Tq + kTile - 1) / kTile;
+  const int nt = G * nqt;  // steps t = member * nqt + qi, the Pallas order
+  // does warpgroup w's key tile meet the query tile at q0?
+  auto live_for = [&](int q0, int w) {
+    return k0 + kTile * w < p.Tk && mk.tile_live(q0, k0 + kTile * w);
+  };
+  auto next_live = [&](int t) {
+    for (; t < nt; ++t) {
+      bool live = false;
+#pragma unroll
+      for (int w = 0; w < NWG; ++w) live = live || live_for((t % nqt) * kTile, w);
+      if (live) break;
+    }
+    return t;
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 2);  // the TMA bytes' arrival and the rows' arrival
+      mbar_init(empty + s, 128 * NWG);
+      mbar_init(ready + s, 128 * NWG);
+      mbar_init(fixed + s, kHelpers);
+      mbar_init(normed + s, kHelpers);
+    }
+    mbar_init(kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {  // ---------------------------- producer and helpers
+    reg_dealloc<C::kProducerRegs>();
+    if (tid - 128 * NWG < 32) {  // the producer warp
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * A * R * kAtom * 2);
+#pragma unroll
+        for (int a = 0; a < A; ++a)
+#pragma unroll
+          for (int w = 0; w < NWG; ++w) {
+            const int at = (a * R + w * kTile) * kAtom;
+            tma_load(Ks + at, &m.k, kv_full, a * kAtom, k0 + w * kTile, hk, b);
+            tma_load(Vs + at, &m.v, kv_full, a * kAtom, k0 + w * kTile, hk, b);
+          }
+      }
+      int stage = 0;
+      unsigned phase = 0;
+      for (int t = next_live(0); t < nt; t = next_live(t + 1)) {
+        const int member = t / nqt;
+        const int q0 = (t - member * nqt) * kTile;
+        const int h = hk * G + member;
+        const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Tq + q0;
+        float lr[kTile / 32], dr[kTile / 32];  // the rows, read before the wait
+#pragma unroll
+        for (int i = 0; i < kTile / 32; ++i) {
+          const int r = lane + 32 * i;
+          const bool ok = q0 + r < p.Tq;
+          lr[i] = ok ? p.lse[row0 + r] : kLsePad;
+          dr[i] = ok ? p.delta[row0 + r] : 0.f;
+        }
+        mbar_wait(empty + stage, phase ^ 1u);
+        if (lane == 0) {
+          mbar_expect_tx(full + stage, 2 * A * kBoxBytes);
+#pragma unroll
+          for (int a = 0; a < A; ++a) {
+            tma_load(Qs + (stage * A + a) * kBox, &m.q, full + stage, a * kAtom, q0, h, b);
+            tma_load(Gs + (stage * A + a) * kBox, &m.g, full + stage, a * kAtom, q0, h, b);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kTile / 32; ++i) {
+          Lse[stage * kTile + lane + 32 * i] = lr[i];
+          Del[stage * kTile + lane + 32 * i] = dr[i];
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full + stage);
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    } else {  // the helpers: row norms a stage ahead, then the flagged pairs
+      const int ht = tid - 128 * NWG - 32;
+      // the Q and dO row norms of a stage, for the consumers' slack
+      auto norms = [&](int st, unsigned ph) {
+        mbar_wait(full + st, ph);
+        for (int r = ht; r < 2 * kTile; r += kHelpers) {
+          const bf16* tile = (r < kTile ? Qs : Gs) + st * A * kBox;
+          (r < kTile ? Qn : Gn)[st * kTile + (r & (kTile - 1))] =
+              row_norm_swz<D, kTile>(tile, r & (kTile - 1));
+        }
+        mbar_arrive(normed + st);
+      };
+      mbar_wait(kv_full, 0);
+      int stage = 0, slot_t = 0;
+      unsigned phase = 0;
+      int t = next_live(0);
+      if (t < nt) norms(0, 0);
+      for (; t < nt;) {
+        const int tn = next_live(t + 1);
+        const int sn = stage + 1 == S ? 0 : stage + 1;
+        if (tn < nt) norms(sn, sn == 0 ? phase ^ 1u : phase);
+        mbar_wait(ready + stage, phase);
+        const bf16* Qst = Qs + stage * A * kBox;
+        const bf16* Gst = Gs + stage * A * kBox;
+        const float* Lst = Lse + stage * kTile;
+        const float* Dst = Del + stage * kTile;
+        bf16* pt = Pt + slot_t * R * kAtom;
+        bf16* dt = Dt + slot_t * R * kAtom;
+        // bit i of warp w, lane l: key row 16 w + l / 4 (+ 8), query column
+        // 8 (i / 4) + 2 (l % 4) (+ 1) of the CTA's P^T and dS^T tiles
+        helper_pairs<NW>(flags + stage * NW * 32, ht, [&](int f, int i) {
+          const int kr = 16 * (f >> 5) + ((f & 31) >> 2) + 8 * ((i >> 1) & 1);
+          const int qc = 8 * (i >> 2) + 2 * (f & 3) + (i & 1);
+          float ss, dd;
+          plain_dots_swz<D, kTile, R>(Qst, Gst, qc, Ks, Vs, kr, ss, dd);
+          const float pv = p_of(ss, p.scale, Lst[qc]);
+          pt[tile_at(kr, qc)] = __float2bfloat16_rn(pv);
+          dt[tile_at(kr, qc)] = __float2bfloat16_rn(ds_of(pv, dd, Dst[qc]));
+        });
+        fence_async_smem();
+        mbar_arrive(fixed + stage);
+        stage = sn;
+        phase = sn == 0 ? phase ^ 1u : phase;
+        slot_t = slot_t + 1 == C::kSlots ? 0 : slot_t + 1;
+        t = tn;
+      }
+    }
+  } else {  // ------------------------------------------------- consumers
+    reg_alloc<C::kConsumerRegs>();
+    const int wt = tid & 127;
+    const int m0 = kTile * wg + 16 * (wt >> 5);  // this warp's key rows
+    const int fr = lane >> 2, fc = 2 * (lane & 3);
+    const int bar_id = 1 + wg;
+    const int warp = tid >> 5;
+    float2* wres = res + warp * kResumSlots;
+    int* wslot = slot + warp * kResumSlots;
+    const uint32_t ks_a = smem_addr(Ks) + kTile * wg * kAtom * 2;  // this warpgroup's rows
+    const uint32_t vs_a = smem_addr(Vs) + kTile * wg * kAtom * 2;
+
+    // dK and dV of rows m0 + fr and m0 + fr + 8, features 8n + fc (+1)
+    float dk[ND][4], dv[ND][4];
+    zero(dk);
+    zero(dv);
+    Audit audit;
+
+    mbar_wait(kv_full, 0);
+    {  // this warpgroup's K and V row norms, for the slack
+      const int r = kTile * wg + (wt & (kTile - 1));
+      if (wt < kTile)
+        Kn[r] = row_norm_swz<D, R>(Ks, r);
+      else
+        Vn[r] = row_norm_swz<D, R>(Vs, r);
+    }
+    wg_sync(bar_id);
+    const float kn0 = Kn[m0 + fr], kn1 = Kn[m0 + fr + 8];
+    const float vn0 = Vn[m0 + fr], vn1 = Vn[m0 + fr + 8];
+
+    int stage = 0, slot_t = 0;
+    unsigned phase = 0;
+    Pending last;  // the tile before this one
+    for (int t = next_live(0); t < nt; t = next_live(t + 1)) {
+      mbar_wait(full + stage, phase);
+      const int q0 = (t % nqt) * kTile;
+      const int nq = min(kTile, p.Tq - q0);
+      const bool mine = live_for(q0, wg);
+      unsigned flags_t = 0u;
+      if (mine) {
+        const bf16* Qst = Qs + stage * A * kBox;
+        const bf16* Gst = Gs + stage * A * kBox;
+        const uint32_t qst = smem_addr(Qst), gst = smem_addr(Gst);
+        const float* Lst = Lse + stage * kTile;
+        const float* Dst = Del + stage * kTile;
+        const float* qn = Qn + stage * kTile;
+        const float* gn = Gn + stage * kTile;
+        const bool full_tile = mk.tile_full(q0, k0 + kTile * wg);
+#pragma unroll
+        for (int qb = 0; qb < kTile; qb += QN) {
+          if (qb >= nq) continue;  // a ragged last tile's empty half
+          // S^T = K_wg . Q^T and dP^T = V_wg . dO^T: 64 keys x QN queries
+          float s[J][4], dp[J][4];
+          zero(s);
+          zero(dp);
+          pin(s);
+          pin(dp);
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t ko = (kk >> 2) * (R * kAtom * 2) + (kk & 3) * 32;
+            const uint32_t qo = (kk >> 2) * kBoxBytes + qb * (kAtom * 2) + (kk & 3) * 32;
+            wgmma_ss<QN>(s, wg_desc(ks_a + ko, 16, 1024), wg_desc(qst + qo, 16, 1024));
+            wgmma_ss<QN>(dp, wg_desc(vs_a + ko, 16, 1024), wg_desc(gst + qo, 16, 1024));
+          }
+          wg_commit();
+          if (qb == 0) mbar_wait(normed + stage, phase);  // the stage's Q and dO norms
+          wg_wait_all();
+          pin(s);
+          pin(dp);
+
+          // P^T and dS^T in place of S^T and dP^T; flag holds the pairs
+          // whose rounding the plain version's sums might decide
+          // otherwise, left to the helpers (the audit: every live pair
+          // summed again here, and none left)
+          const RowStats rs{Lst + qb + fc, Dst + qb + fc, qn + qb + fc, gn + qb + fc,
+                            {kn0, kn1}, {vn0, vn1}};
+          const int qrow = q0 + qb + fc, krow = k0 + m0 + fr;
+          unsigned live;
+          unsigned flag =
+              full_tile ? p_ds_tile<true, D>(s, dp, rs, mk, qrow, krow, p.scale, live)
+                        : p_ds_tile<false, D>(s, dp, rs, mk, qrow, krow, p.scale, live);
+          if constexpr (kAudit) {
+            resum_spread<D, kTile, R, true, true>(live, flag, s, dp, Qst, Gst, Ks, Vs, Lst, Dst,
+                                                  m0, qb, p.scale, wslot, wres, lane, audit);
+            flag = 0u;
+          }
+          store_tile(Pt + slot_t * R * kAtom, s, m0, qb, lane);
+          store_tile(Dt + slot_t * R * kAtom, dp, m0, qb, lane);
+          flags_t |= flag << (qb / 2);  // a half's bits at 16 (qb / 32)
+        }
+        fence_async_smem();
+      }
+      flags[(stage * NW + warp) * 32 + lane] = flags_t;
+      mbar_arrive(ready + stage);
+
+      // the last tile's products, waited for; then its stage is released
+      if (last.stage >= 0) {
+        if (last.mine) dkv_products<D, R>(dv, dk, last, fixed, Pt, Dt, Qs, Gs, wg);
+        wg_wait_all();
+        mbar_arrive(empty + last.stage);
+      }
+      last = Pending{stage, phase, slot_t, mine, (nq + 15) / 16};
+      slot_t = slot_t + 1 == C::kSlots ? 0 : slot_t + 1;
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+    if (last.stage >= 0) {
+      if (last.mine) dkv_products<D, R>(dv, dk, last, fixed, Pt, Dt, Qs, Gs, wg);
+      wg_wait_all();
+      mbar_arrive(empty + last.stage);
+    }
+    pin(dv);
+    pin(dk);
+
+    const int nkv = min(R, p.Tk - k0);
+    bf16* kb = static_cast<bf16*>(p.dk.p) + static_cast<long long>(b) * p.dk.sb +
+               static_cast<long long>(hk) * p.dk.sh;
+    bf16* vb = static_cast<bf16*>(p.dv.p) + static_cast<long long>(b) * p.dv.sb +
+               static_cast<long long>(hk) * p.dv.sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kr = m0 + fr + 8 * r;
+      if (kr >= nkv) continue;
+      bf16* krow = kb + static_cast<long long>(k0 + kr) * p.dk.st;
+      bf16* vrow = vb + static_cast<long long>(k0 + kr) * p.dv.st;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        // dK is scaled once, here
+        *reinterpret_cast<__nv_bfloat162*>(krow + 8 * n + fc) = __floats2bfloat162_rn(
+            p.scale * dk[n][2 * r], p.scale * dk[n][2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * n + fc) =
+            __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
+      }
+    }
+    if constexpr (kAudit) audit.flush(p.audit);
+  }
+}
+
+// B2's dQ += dS . K (ds in k's dtype) of a pending tile, once the helpers
+// have stored their roundings, contracted over its keys: issued, not
+// waited for.
+template <int D, int R>
+__device__ __forceinline__ void dq_product(float (&dq)[D / 8][4], const Pending& t,
+                                           uint64_t* fixed, const bf16* Ds, const bf16* Ks,
+                                           int wg) {
+  mbar_wait(fixed + t.stage, t.phase);
+  product_ss_t<D>(dq, smem_addr(Ds + (t.slot * R + kTile * wg) * kAtom),
+                  smem_addr(Ks + t.stage * (D / kAtom) * kBox), t.steps);
+}
+
+// ------------------------------------------------------ B2 bf16, Hopper
+//
+// One CTA per (b, head, 64 kNwg queries), walked last tile first.  The
+// producer warp loads the Q and dO tiles once, then streams the K and V
+// tiles that meet the band.  Each consumer warpgroup owns 64 queries: S =
+// Q.K^T and dP = dO.V^T (wgmma, shared memory), dS in registers, stored
+// as bf16 for the helpers to correct; one tile later dQ += dS.K (wgmma, dS
+// and K, transposed, from shared memory), and the stage is released.
+
+template <int D>
+__host__ __device__ constexpr size_t dq_wg_smem_bytes() {
+  using C = WgCfg<D>;
+  constexpr int A = D / kAtom, R = kTile * C::kNwg, S = C::kStages, NW = 4 * C::kNwg;
+  // Q, dO; K, V a stage; the dS tiles a slot; the barriers; the in-place
+  // re-sum buffers (the audit); the flag masks a stage; K and V norms a
+  // stage; Q and dO norms, LSE and delta of the rows
+  return 1024 + 2 * A * R * kAtom * 2 + 2 * S * A * kBoxBytes + C::kSlots * R * kAtom * 2 +
+         8 * (5 * S + 1) + 12 * NW * kResumSlots + 4 * S * NW * 32 + 4 * (2 * S * kTile + 4 * R);
+}
+
+template <int D, bool kAudit>
+__global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
+    flash_bwd_dq_wg_kernel(const __grid_constant__ Params p, const __grid_constant__ TmaMaps m) {
+  using C = WgCfg<D>;
+  constexpr int NWG = C::kNwg, S = C::kStages, A = D / kAtom;
+  constexpr int R = kTile * NWG;  // query rows of the CTA
+  constexpr int NW = 4 * NWG;     // consumer warps
+  constexpr int J = kTile / 8;    // a key tile's n-tiles
+  constexpr int ND = D / 8;
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* sm = align1024(wg_smem);
+  bf16* Qs = reinterpret_cast<bf16*>(sm);  // [A][R][64]
+  bf16* Gs = Qs + A * R * kAtom;           // dO [A][R][64]
+  bf16* Ks = Gs + A * R * kAtom;           // [S][A][64][64]
+  bf16* Vs = Ks + S * A * kBox;            // [S][A][64][64]
+  bf16* Ds = Vs + S * A * kBox;            // [kSlots][R][64] dS in k's dtype
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ds + C::kSlots * R * kAtom);  // [S] K, V landed
+  uint64_t* empty = full + S;    // [S] the stage is free
+  uint64_t* ready = empty + S;   // [S] its dS tile and flags are stored
+  uint64_t* fixed = ready + S;   // [S] the helpers are done with them
+  uint64_t* normed = fixed + S;  // [S] the helpers took its K and V row norms
+  uint64_t* q_full = normed + S;
+  float2* res = reinterpret_cast<float2*>(q_full + 1);                 // [NW][kResumSlots]
+  int* slot = reinterpret_cast<int*>(res + NW * kResumSlots);          // [NW][kResumSlots]
+  unsigned* flags = reinterpret_cast<unsigned*>(slot + NW * kResumSlots);  // [S][NW][32]
+  float* Kn = reinterpret_cast<float*>(flags + S * NW * 32);           // [S][64]
+  float* Vn = Kn + S * kTile;                                          // [S][64]
+  float* Qn = Vn + S * kTile;        // [R]
+  float* Gn = Qn + R;                // [R]
+  float* Lq = Gn + R;                // [R] LSE of the rows
+  float* Dq = Lq + R;                // [R] delta of the rows
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * R;  // heaviest first
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const Mask mk = make_mask(p);
+  const int nk = (p.Tk + kTile - 1) / kTile;
+  // does warpgroup w's query tile meet the key tile at k0?
+  auto live_for = [&](int k0, int w) {
+    return q0 + kTile * w < p.Tq && mk.tile_live(q0 + kTile * w, k0);
+  };
+  auto next_live = [&](int kt) {
+    for (; kt < nk; ++kt) {
+      bool live = false;
+#pragma unroll
+      for (int w = 0; w < NWG; ++w) live = live || live_for(kt * kTile, w);
+      if (live) break;
+    }
+    return kt;
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128 * NWG);
+      mbar_init(ready + s, 128 * NWG);
+      mbar_init(fixed + s, kHelpers);
+      mbar_init(normed + s, kHelpers);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {  // ---------------------------- producer and helpers
+    reg_dealloc<C::kProducerRegs>();
+    if (tid - 128 * NWG < 32) {  // the producer: one lane issues the loads
+      if (lane != 0) return;
+      mbar_expect_tx(q_full, 2 * A * R * kAtom * 2);
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+#pragma unroll
+        for (int w = 0; w < NWG; ++w) {
+          const int at = (a * R + w * kTile) * kAtom;
+          tma_load(Qs + at, &m.q, q_full, a * kAtom, q0 + w * kTile, h, b);
+          tma_load(Gs + at, &m.g, q_full, a * kAtom, q0 + w * kTile, h, b);
+        }
+      int stage = 0;
+      unsigned phase = 0;
+      for (int kt = next_live(0); kt < nk; kt = next_live(kt + 1)) {
+        mbar_wait(empty + stage, phase ^ 1u);
+        mbar_expect_tx(full + stage, 2 * A * kBoxBytes);
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          tma_load(Ks + (stage * A + a) * kBox, &m.k, full + stage, a * kAtom, kt * kTile, hk, b);
+          tma_load(Vs + (stage * A + a) * kBox, &m.v, full + stage, a * kAtom, kt * kTile, hk, b);
+        }
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    } else {  // the helpers: row norms a stage ahead, then the flagged pairs
+      const int ht = tid - 128 * NWG - 32;
+      // the K and V row norms of a stage, for the consumers' slack
+      auto norms = [&](int st, unsigned ph) {
+        mbar_wait(full + st, ph);
+        for (int r = ht; r < 2 * kTile; r += kHelpers) {
+          const bf16* tile = (r < kTile ? Ks : Vs) + st * A * kBox;
+          (r < kTile ? Kn : Vn)[st * kTile + (r & (kTile - 1))] =
+              row_norm_swz<D, kTile>(tile, r & (kTile - 1));
+        }
+        mbar_arrive(normed + st);
+      };
+      mbar_wait(q_full, 0);
+      int stage = 0, slot_t = 0;
+      unsigned phase = 0;
+      int kt = next_live(0);
+      if (kt < nk) norms(0, 0);
+      for (; kt < nk;) {
+        const int kn = next_live(kt + 1);
+        const int sn = stage + 1 == S ? 0 : stage + 1;
+        if (kn < nk) norms(sn, sn == 0 ? phase ^ 1u : phase);
+        mbar_wait(ready + stage, phase);
+        const bf16* Kst = Ks + stage * A * kBox;
+        const bf16* Vst = Vs + stage * A * kBox;
+        bf16* ds = Ds + slot_t * R * kAtom;
+        // bit i of warp w, lane l: row 16 w + l / 4 (+ 8), column 8 (i / 4)
+        // + 2 (l % 4) (+ 1) of the CTA's dS tile
+        helper_pairs<NW>(flags + stage * NW * 32, ht, [&](int f, int i) {
+          const int q = 16 * (f >> 5) + ((f & 31) >> 2) + 8 * ((i >> 1) & 1);
+          const int k = 8 * (i >> 2) + 2 * (f & 3) + (i & 1);
+          float ss, dd;
+          plain_dots_swz<D, R, kTile>(Qs, Gs, q, Kst, Vst, k, ss, dd);
+          ds[tile_at(q, k)] = __float2bfloat16_rn(ds_of(p_of(ss, p.scale, Lq[q]), dd, Dq[q]));
+        });
+        fence_async_smem();
+        mbar_arrive(fixed + stage);
+        stage = sn;
+        phase = sn == 0 ? phase ^ 1u : phase;
+        slot_t = slot_t + 1 == C::kSlots ? 0 : slot_t + 1;
+        kt = kn;
+      }
+    }
+  } else {  // ------------------------------------------------- consumers
+    reg_alloc<C::kConsumerRegs>();
+    const int wt = tid & 127;
+    const int m0 = kTile * wg + 16 * (wt >> 5);  // this warp's query rows
+    const int fr = lane >> 2, fc = 2 * (lane & 3);
+    const int bar_id = 1 + wg;
+    const int warp = tid >> 5;
+    float2* wres = res + warp * kResumSlots;
+    int* wslot = slot + warp * kResumSlots;
+    const uint32_t qs_a = smem_addr(Qs) + kTile * wg * kAtom * 2;  // this warpgroup's rows
+    const uint32_t gs_a = smem_addr(Gs) + kTile * wg * kAtom * 2;
+
+    // rows m0 + fr (index 0) and m0 + fr + 8 (index 1): LSE and delta
+    // (rows past Tq take 1e30 and 0), kept for the re-sums too
+    float lse[2], del[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + fr + 8 * r;
+      const bool ok = q0 + row < p.Tq;
+      const long long i = static_cast<long long>(bh) * p.Tq + q0 + row;
+      lse[r] = ok ? p.lse[i] : kLsePad;
+      del[r] = ok ? p.delta[i] : 0.f;
+      if (fc == 0) {
+        Lq[row] = lse[r];
+        Dq[row] = del[r];
+      }
+    }
+    float dq[ND][4];
+    zero(dq);
+    Audit audit;
+
+    mbar_wait(q_full, 0);
+    {  // this warpgroup's Q and dO row norms, for the slack
+      const int r = kTile * wg + (wt & (kTile - 1));
+      if (wt < kTile)
+        Qn[r] = row_norm_swz<D, R>(Qs, r);
+      else
+        Gn[r] = row_norm_swz<D, R>(Gs, r);
+    }
+    wg_sync(bar_id);
+    const float qn[2] = {Qn[m0 + fr], Qn[m0 + fr + 8]};
+    const float gn[2] = {Gn[m0 + fr], Gn[m0 + fr + 8]};
+
+    int stage = 0, slot_t = 0;
+    unsigned phase = 0;
+    Pending last;  // the tile before this one
+    for (int kt = next_live(0); kt < nk; kt = next_live(kt + 1)) {
+      mbar_wait(full + stage, phase);
+      const int k0 = kt * kTile;
+      const bool mine = live_for(k0, wg);
+      unsigned flag = 0u;
+      if (mine) {
+        const bf16* Kst = Ks + stage * A * kBox;
+        const bf16* Vst = Vs + stage * A * kBox;
+        const uint32_t kst = smem_addr(Kst), vst = smem_addr(Vst);
+        const float* kn = Kn + stage * kTile;
+        const float* vn = Vn + stage * kTile;
+        const bool full_tile = mk.tile_full(q0 + kTile * wg, k0);
+
+        // S = Q_wg . K^T and dP = dO_wg . V^T: 64 queries x 64 keys
+        float s[J][4], dp[J][4];
+        zero(s);
+        zero(dp);
+        pin(s);
+        pin(dp);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t ao = (kk >> 2) * (R * kAtom * 2) + (kk & 3) * 32;
+          const uint32_t bo = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
+          wgmma_ss<kTile>(s, wg_desc(qs_a + ao, 16, 1024), wg_desc(kst + bo, 16, 1024));
+          wgmma_ss<kTile>(dp, wg_desc(gs_a + ao, 16, 1024), wg_desc(vst + bo, 16, 1024));
+        }
+        wg_commit();
+        mbar_wait(normed + stage, phase);  // the stage's K and V norms
+        wg_wait_all();
+        pin(s);
+        pin(dp);
+
+        // dS in place of dP; flag holds the pairs whose rounding the plain
+        // version's sums might decide otherwise, left to the helpers up to
+        // kQueued a warp and the rest summed again here (the audit: every
+        // live pair summed again here, and none left)
+        const int qrow = q0 + m0 + fr;
+        unsigned live;
+        flag = full_tile ? ds_tile<true, D>(s, dp, lse, del, qn, gn, kn + fc, vn + fc, mk, qrow,
+                                            k0 + fc, p.scale, live)
+                         : ds_tile<false, D>(s, dp, lse, del, qn, gn, kn + fc, vn + fc, mk, qrow,
+                                             k0 + fc, p.scale, live);
+        if constexpr (kAudit) {
+          resum_spread<D, R, kTile, false, true>(live, flag, s, dp, Qs, Gs, Kst, Vst, Lq, Dq, m0,
+                                                 0, p.scale, wslot, wres, lane, audit);
+          flag = 0u;
+        } else {
+          const unsigned rest = split_flagged(flag, kQueued, lane);
+          resum_spread<D, R, kTile, false, false>(rest, 0u, s, dp, Qs, Gs, Kst, Vst, Lq, Dq, m0,
+                                                  0, p.scale, wslot, wres, lane, audit);
+        }
+        store_tile(Ds + slot_t * R * kAtom, dp, m0, 0, lane);
+        fence_async_smem();
+      }
+      flags[(stage * NW + warp) * 32 + lane] = flag;
+      mbar_arrive(ready + stage);
+
+      // the last tile's dQ += dS . K (ds in k's dtype) with the helpers'
+      // roundings, contracted over its keys, waited for; then its stage is
+      // released
+      if (last.stage >= 0) {
+        if (last.mine) dq_product<D, R>(dq, last, fixed, Ds, Ks, wg);
+        wg_wait_all();
+        mbar_arrive(empty + last.stage);
+      }
+      last = Pending{stage, phase, slot_t, mine, (min(kTile, p.Tk - k0) + 15) / 16};
+      slot_t = slot_t + 1 == C::kSlots ? 0 : slot_t + 1;
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+    if (last.stage >= 0) {
+      if (last.mine) dq_product<D, R>(dq, last, fixed, Ds, Ks, wg);
+      wg_wait_all();
+      mbar_arrive(empty + last.stage);
+    }
+    pin(dq);
+
+    bf16* qb = static_cast<bf16*>(p.dq.p) + static_cast<long long>(b) * p.dq.sb +
+               static_cast<long long>(h) * p.dq.sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + fr + 8 * r;
+      if (q0 + row >= p.Tq) continue;
+      bf16* qrow = qb + static_cast<long long>(q0 + row) * p.dq.st;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)  // dQ is scaled once, here
+        *reinterpret_cast<__nv_bfloat162*>(qrow + 8 * n + fc) =
+            __floats2bfloat162_rn(p.scale * dq[n][2 * r], p.scale * dq[n][2 * r + 1]);
+    }
+    if constexpr (kAudit) audit.flush(p.audit);
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
-template <typename Kernel>
+template <typename Kernel, typename... Args>
 cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
-                          cudaStream_t stream, const Params& p) {
+                          cudaStream_t stream, const Args&... args) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<grid, threads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (the library does not link libcuda), or null.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = []() -> EncodeTiledFn {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 13000
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA descriptor of a [B, T, H, D] bf16 view read through its strides
+// (elements, D contiguous): dims (D, T, H, B), 64 x 64 boxes, the 128-byte
+// swizzle, rows past T read as zeros.  A dim of extent 1 takes a stride of
+// 128 bytes (its coordinate is always 0).  The wrapper's tma_geometry
+// (ops/flash_attention.py) is this map, and refuses what it cannot take
+// before a launch; here a misaligned view is cudaErrorMisalignedAddress.
+cudaError_t encode_view(CUtensorMap* map, const View& x, int B, int T, int H, int D) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const long long es = sizeof(bf16);
+  const long long st = T == 1 ? 128 : x.st * es;
+  const long long sh = H == 1 ? 128 : x.sh * es;
+  const long long sb = B == 1 ? 128 : x.sb * es;
+  if (reinterpret_cast<uintptr_t>(x.p) % 16 != 0 || st <= 0 || sh <= 0 || sb <= 0 ||
+      st % 16 != 0 || sh % 16 != 0 || sb % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st), static_cast<cuuint64_t>(sh),
+                                 static_cast<cuuint64_t>(sb)};
+  const cuuint32_t box[4] = {kAtom, kTile, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x.p, dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// B2 (which == kDq) or B3 on the Hopper kernels: q, k, v and dO's TMA
+// descriptors, then the launch.
+template <int D>
+cudaError_t run_bwd_wg(int which, const Params& p, cudaStream_t stream) {
+  TmaMaps m;
+  cudaError_t e;
+  if ((e = encode_view(&m.q, p.q, p.B, p.Tq, p.H, D)) != cudaSuccess ||
+      (e = encode_view(&m.k, p.k, p.B, p.Tk, p.Hkv, D)) != cudaSuccess ||
+      (e = encode_view(&m.v, p.v, p.B, p.Tk, p.Hkv, D)) != cudaSuccess ||
+      (e = encode_view(&m.g, p.dout, p.B, p.Tq, p.H, D)) != cudaSuccess)
+    return e;
+  const bool audit = p.audit != nullptr;
+  if (which == kDq) {
+    using C = WgCfg<D>;
+    constexpr int R = kTile * C::kNwg;
+    return launch_kernel(audit ? flash_bwd_dq_wg_kernel<D, true> : flash_bwd_dq_wg_kernel<D, false>,
+                         dim3(p.B * p.H, (p.Tq + R - 1) / R), C::kThreads, dq_wg_smem_bytes<D>(),
+                         stream, p, m);
+  }
+  using C = WgCfg<D>;
+  constexpr int R = kTile * C::kNwg;
+  return launch_kernel(audit ? flash_bwd_dkv_wg_kernel<D, true> : flash_bwd_dkv_wg_kernel<D, false>,
+                       dim3(p.B * p.Hkv, (p.Tk + R - 1) / R), C::kThreads, dkv_wg_smem_bytes<D>(),
+                       stream, p, m);
 }
 
 // B1-B3 take the tensor cores in bf16 and SIMT FMAs in f32.  The bf16
@@ -1683,14 +2983,20 @@ cudaError_t run(int which, const Params& p, cudaStream_t stream) {
       return audit ? cudaErrorInvalidValue
                    : launch_kernel(flash_fwd_tc_kernel<D>, dim3(bh, nq), kTcThreads,
                                    fwd_tc_smem_bytes<D>(), stream, p);
-    if (which == kDq)
-      return launch_kernel(audit ? flash_bwd_dq_tc_kernel<D, true>
-                                 : flash_bwd_dq_tc_kernel<D, false>,
-                           dim3(bh, nq), kTcThreads, dq_tc_smem_bytes<D>(), stream, p);
-    if (which == kDkv)
+    if (which != kDq && which != kDkv) return cudaErrorInvalidValue;
+    // B2 and B3: the Hopper kernels at D = 64 and 128, the mma.sync ones at
+    // D = 32 and 80 (kHopperBwd)
+    if constexpr (kHopperBwd<D>) {
+      return run_bwd_wg<D>(which, p, stream);
+    } else {
+      if (which == kDq)
+        return launch_kernel(audit ? flash_bwd_dq_tc_kernel<D, true>
+                                   : flash_bwd_dq_tc_kernel<D, false>,
+                             dim3(bh, nq), kTcThreads, dq_tc_smem_bytes<D>(), stream, p);
       return launch_kernel(audit ? flash_bwd_dkv_tc_kernel<D, true>
                                  : flash_bwd_dkv_tc_kernel<D, false>,
                            dim3(bhk, nk), kTcThreads, dkv_tc_smem_bytes<D>(), stream, p);
+    }
   }
   return cudaErrorInvalidValue;
 }
@@ -1704,6 +3010,15 @@ cudaError_t dispatch_dim(int which, int D, const Params& p, cudaStream_t stream)
     case 128: return run<T, 128>(which, p, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The design a kernel runs (Design in ops/flash_attention.py): 0 SIMT (f32),
+// 1 mma.sync (bf16 B1, and bf16 B2/B3 outside kHopperBwd), 2 wgmma + TMA,
+// warp-specialised (bf16 B2/B3 at D = 64 and 128).
+template <int D>
+int design_of(int which, int dtype) {
+  if (dtype == kF32) return 0;
+  return which != kFwd && kHopperBwd<D> ? 2 : 1;
 }
 
 View view(const void* ptr, const long long* strides, int i) {
@@ -1754,6 +3069,19 @@ extern "C" int flash_attention_launch(
   if (dtype == kF32) return dispatch_dim<float>(which, D, p, st);
   if (dtype == kBF16) return dispatch_dim<bf16>(which, D, p, st);
   return cudaErrorInvalidValue;
+}
+
+// Which design ``which`` runs for (dtype, D): 0 SIMT, 1 mma.sync, 2 wgmma
+// + TMA, warp-specialised; -1 where the kernels do not take it.
+extern "C" int flash_attention_design(int which, int dtype, int D) {
+  if (which < kFwd || which > kDkv || (dtype != kF32 && dtype != kBF16)) return -1;
+  switch (D) {
+    case 32: return design_of<32>(which, dtype);
+    case 64: return design_of<64>(which, dtype);
+    case 80: return design_of<80>(which, dtype);
+    case 128: return design_of<128>(which, dtype);
+    default: return -1;
+  }
 }
 
 // cudaGetErrorString for the wrapper's error message.

@@ -24,7 +24,12 @@ only by summation order.  In bf16 the three kernels run on the tensor
 cores, and B2 and B3 round ds (and B3 p) to bf16 as the plain version
 does: pairs whose rounding the tensor cores' sums could decide otherwise
 are flagged and summed again in the plain order.  f32 runs SIMT FMAs
-(``csrc/flash_attention.cu`` says why).  :func:`rounding_audit` counts,
+(``csrc/flash_attention.cu`` says why).  :func:`kernel_design` is the
+launcher's dispatch: bf16 B2 and B3 at head dims 64 and 128 run the
+Hopper kernels (wgmma, TMA, warp-specialised), which read q, k, v and dO
+in place through TMA descriptors (:func:`tma_geometry`) and refuse a
+view TMA cannot take rather than copy it; the rest run mma.sync (bf16)
+or SIMT (f32).  :func:`rounding_audit` counts,
 on the card, how often that flag fires and whether it missed a pair.
 On fake tensors (a priced step, :mod:`..fake`), on any device, each
 wrapper takes its shape-only branch: it checks what the kernel checks
@@ -53,8 +58,11 @@ from .attention import (NEG_INF, online_softmax_update,
 from .counts import count
 
 __all__ = [
+    "DESIGNS",
+    "HOPPER_BWD_DIMS",
     "TILE_K",
     "TILE_Q",
+    "TMA_BOX",
     "flash_attention",
     "flash_attention_dkv",
     "flash_attention_dkv_reference",
@@ -63,7 +71,9 @@ __all__ = [
     "flash_attention_fwd",
     "flash_attention_fwd_reference",
     "flash_attention_lse",
+    "kernel_design",
     "rounding_audit",
+    "tma_geometry",
 ]
 
 # dtype codes and kernel ids shared with csrc/flash_attention.cu
@@ -73,6 +83,67 @@ _HEAD_DIMS = (32, 64, 80, 128)
 #: the kernels' tiles: query rows and key rows (``kTile`` in the source);
 #: a tile outside the causal / window band is skipped whole
 TILE_Q = TILE_K = 64
+#: the kernels' designs, by the launcher's code (``design_of`` in the
+#: source): f32, bf16 on mma.sync, bf16 on the Hopper kernels
+DESIGNS = ("SIMT f32", "tensor cores, mma.sync",
+           "wgmma, TMA, warp-specialised")
+#: head dims at which bf16 B2 and B3 run the Hopper kernels
+#: (``kHopperBwd``); 32 and 80 stay on mma.sync, as does B1
+HOPPER_BWD_DIMS = (64, 128)
+#: a Hopper kernel's TMA box: 64 features (one 128-byte swizzle atom) x
+#: ``TILE_Q`` rows of one head of one batch row; D = 128 takes two
+TMA_BOX = (64, TILE_Q, 1, 1)
+_KERNELS = {"fwd": _FWD, "dq": _DQ, "dkv": _DKV}
+
+
+def kernel_design(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
+    """The design the launcher runs ``kernel`` (``"fwd"``, ``"dq"`` or
+    ``"dkv"``) on for ``dtype`` and ``head_dim``, one of
+    :data:`DESIGNS`: an explicit table, never a fall-back."""
+    if kernel not in _KERNELS:
+        raise ValueError(f"kernel must be one of {tuple(_KERNELS)}, got "
+                         f"{kernel!r}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash attention kernels take float32 or "
+                        f"bfloat16, got {dtype}")
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"flash attention kernels take head_dim in "
+                         f"{_HEAD_DIMS}, got {head_dim}")
+    if dtype == torch.float32:
+        return DESIGNS[0]
+    if kernel != "fwd" and head_dim in HOPPER_BWD_DIMS:
+        return DESIGNS[2]
+    return DESIGNS[1]
+
+
+def tma_geometry(shape, strides, element_size: int = 2,
+                 data_ptr: int = 0) -> dict:
+    """The TMA descriptor a Hopper kernel builds for a [B, T, H, D] view
+    with element ``strides`` (``encode_view`` in the source): dims
+    ``(D, T, H, B)``, the byte strides of T, H and B (128 for a dim of
+    extent 1, whose coordinate is always 0), the box :data:`TMA_BOX` and
+    ``D // 64`` boxes across a row.  Raises ValueError where TMA cannot
+    read the view in place (the kernels take it as it is, never a copy):
+    the feature dim not contiguous, or the base address or a byte stride
+    not a positive multiple of 16."""
+    b, t, h, d = (int(n) for n in shape)
+    sb, st, sh, sd = (int(s) for s in strides)
+    if d % TMA_BOX[0]:
+        raise ValueError(f"TMA rows are whole {TMA_BOX[0]}-feature boxes, "
+                         f"got head_dim {d}")
+    bad = [] if sd == 1 else [f"feature stride {sd} (must be 1)"]
+    byte = tuple(128 if n == 1 else s * element_size
+                 for n, s in ((t, st), (h, sh), (b, sb)))
+    bad += [f"{name} stride {v} bytes" for name, v
+            in zip(("seq", "head", "batch"), byte) if v <= 0 or v % 16]
+    if data_ptr % 16:
+        bad.append(f"base address {data_ptr:#x}")
+    if bad:
+        raise ValueError("the Hopper attention kernels read q, k, v and dO "
+                         "in place through TMA, which needs 16-byte aligned "
+                         f"rows: {', '.join(bad)}; pass a contiguous tensor")
+    return {"dims": (d, t, h, b), "byte_strides": byte, "box": TMA_BOX,
+            "boxes_per_row": d // TMA_BOX[0]}
 
 
 def _gqa_dims(q, k, v):
@@ -283,6 +354,8 @@ def _kernel():
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_design.argtypes = [ctypes.c_int] * 3
+        lib.flash_attention_design.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -295,6 +368,19 @@ def _kernel_view(x: torch.Tensor) -> torch.Tensor:
             and (is_fake(x) or x.data_ptr() % 16 == 0)):
         return x
     return x.clone(memory_format=torch.contiguous_format)
+
+
+def _kernel_views(kernel, *xs):
+    """The views ``kernel`` reads: on the Hopper kernels each as it is,
+    checked by :func:`tma_geometry` (which raises), else
+    :func:`_kernel_view`'s."""
+    q = xs[0]
+    if kernel_design(kernel, q.dtype, q.shape[-1]) != DESIGNS[2]:
+        return tuple(_kernel_view(x) for x in xs)
+    for x in xs:
+        tma_geometry(x.shape, x.stride(), x.element_size(),
+                     0 if is_fake(x) else x.data_ptr())
+    return xs
 
 
 def _check_kernel_inputs(*xs):
@@ -403,7 +489,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, *, causal=False, block_q=128,
             block_k=block_k, window=window, sinks=sinks)
     _check_kernel_inputs(q, k, v, do)
     _check_stats(q, lse, delta)
-    q, k, v, do = (_kernel_view(x) for x in (q, k, v, do))
+    q, k, v, do = _kernel_views("dq", q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if not is_fake(q):  # else the shape-only branch
         _launch(_DQ, q, k, v, do=do, dq=dq, lse=lse.contiguous(),
@@ -425,7 +511,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, *, causal=False,
             block_k=block_k, window=window, sinks=sinks)
     _check_kernel_inputs(q, k, v, do)
     _check_stats(q, lse, delta)
-    q, k, v, do = (_kernel_view(x) for x in (q, k, v, do))
+    q, k, v, do = _kernel_views("dkv", q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if not is_fake(q):  # else the shape-only branch
@@ -456,7 +542,7 @@ def rounding_audit(q, k, v, do, lse, delta, *, causal=False, window=None,
         raise ValueError("rounding_audit runs the bf16 kernels on a CUDA "
                          f"device, got {q.dtype} on {q.device}")
     _check_kernel_inputs(q, k, v, do)
-    q, k, v, do = (_kernel_view(x) for x in (q, k, v, do))
+    q, k, v, do = _kernel_views("dq", q, k, v, do)
     lse, delta = lse.contiguous(), delta.contiguous()
     cfg = dict(causal=causal, window=window, sinks=sinks)
     out = {}

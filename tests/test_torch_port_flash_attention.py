@@ -323,3 +323,71 @@ def test_kernels_take_head_dim_80():
     with pytest.raises(ValueError, match="head_dim"):
         fa_mod._check_kernel_inputs(*(torch.zeros(1, 8, 2, 48)
                                       for _ in range(3)))
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+def test_kernel_design_table(kernel, dtype, d):
+    """The launcher's dispatch from (kernel, dtype, head dim) to a design,
+    explicit: f32 on SIMT; bf16 B2/B3 at 64 and 128 on the Hopper kernels
+    (wgmma, TMA, warp-specialised); bf16 B1, and B2/B3 at 32 and 80, on
+    mma.sync."""
+    got = fa_mod.kernel_design(kernel, dtype, d)
+    if dtype == torch.float32:
+        assert got == "SIMT f32"
+    elif kernel != "fwd" and d in (64, 128):
+        assert got == "wgmma, TMA, warp-specialised"
+    else:
+        assert got == "tensor cores, mma.sync"
+    assert got in fa_mod.DESIGNS
+
+
+@pytest.mark.parametrize("args,exc", [
+    (("bwd", torch.bfloat16, 64), ValueError),
+    (("dq", torch.float16, 64), TypeError),
+    (("dq", torch.bfloat16, 48), ValueError),
+])
+def test_kernel_design_refuses_what_no_kernel_takes(args, exc):
+    with pytest.raises(exc):
+        fa_mod.kernel_design(*args)
+
+
+def test_tma_geometry_of_contiguous_and_fused_qkv_views():
+    """The Hopper kernels' TMA descriptor: dims (D, T, H, B), the byte
+    strides of T, H and B taken from the view itself (a fused [B, T, 3,
+    H, D] QKV projection's q/k/v are read in place), 64 x 64 boxes, one
+    box across a row at D = 64 and two at 128; a dim of extent 1 takes
+    128 bytes."""
+    x = torch.zeros(2, 77, 4, 128, dtype=torch.bfloat16)
+    geo = fa_mod.tma_geometry(x.shape, x.stride(), 2, 0)
+    assert geo == {"dims": (128, 77, 4, 2),
+                   "byte_strides": (4 * 128 * 2, 128 * 2, 77 * 4 * 128 * 2),
+                   "box": (64, 64, 1, 1), "boxes_per_row": 2}
+    qkv = torch.zeros(3, 197, 3, 16, 64, dtype=torch.bfloat16)
+    for i, view in enumerate(qkv.unbind(2)):
+        geo = fa_mod.tma_geometry(view.shape, view.stride(), 2,
+                                  i * 16 * 64 * 2)
+        assert geo["dims"] == (64, 197, 16, 3)
+        assert geo["byte_strides"] == (3 * 16 * 64 * 2, 64 * 2,
+                                       197 * 3 * 16 * 64 * 2)
+        assert geo["boxes_per_row"] == 1
+    one = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16)
+    assert fa_mod.tma_geometry(one.shape, (7, 5, 3, 1), 2, 0)[
+        "byte_strides"] == (128, 128, 128)
+
+
+@pytest.mark.parametrize("shape,strides,ptr,what", [
+    ((2, 8, 4, 64), (4 * 8 * 68, 4 * 68, 68, 1), 0, "head stride 136"),
+    ((2, 8, 4, 64), (8 * 4 * 64, 4 * 64, 64, 1), 8, "base address"),
+    ((2, 8, 4, 64), (8 * 4 * 64, 1, 8 * 64, 8), 0, "feature stride 8"),
+    ((2, 8, 4, 64), (8 * 4 * 64, 0, 64, 1), 0, "seq stride 0"),
+    ((2, 8, 4, 80), (8 * 4 * 80, 4 * 80, 80, 1), 0, "64-feature boxes"),
+])
+def test_tma_geometry_refuses_what_tma_cannot_read(shape, strides, ptr, what):
+    """A stride or base address not a multiple of 16 bytes, a feature dim
+    that is not contiguous or a head dim that is not whole boxes: refused
+    with ValueError (the wrapper never copies the view)."""
+    with pytest.raises(ValueError, match=what):
+        fa_mod.tma_geometry(shape, strides, 2, ptr)

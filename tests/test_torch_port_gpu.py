@@ -312,6 +312,9 @@ ATTN_VARIANTS = {
     "bf16_tq_lt_tk": (2, 24, 96, 4, 4, 64, torch.bfloat16, True, None, 0),
     "bf16_fully_masked_rows": (2, 8, 4, 2, 2, 32, torch.bfloat16, True, None,
                                0),
+    # the Hopper B2/B3 (head dims 64 and 128) on rows with nothing to attend
+    "bf16_fully_masked_rows_d64": (2, 8, 4, 2, 2, 64, torch.bfloat16, True,
+                                   None, 0),
     "bf16_ragged_t": (2, 77, 77, 4, 2, 64, torch.bfloat16, True, None, 0),
     "main_gqa_bf16": (8, 1024, 1024, 12, 4, 64, torch.bfloat16, True, None,
                       0),
@@ -394,6 +397,86 @@ def test_flash_attention_on_cuda_never_reaches_the_plain_path(cuda,
         fa.flash_attention_fwd(*(torch.zeros(1, 8, 2, 64, device=cuda,
                                              dtype=torch.float16)
                                  for _ in range(3)))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernel_design_table_is_the_librarys(cuda, dt):
+    """The wrapper's dispatch table (``kernel_design``) names the design
+    the library's launcher runs for every kernel and head dim: bf16 B2/B3
+    at 64 and 128 on the Hopper kernels, the rest on mma.sync or SIMT."""
+    lib = fa._kernel()
+    for which, kname in enumerate(("fwd", "dq", "dkv")):
+        for d in fa._HEAD_DIMS:
+            code = lib.flash_attention_design(which, fa._DTYPES[dt], d)
+            assert fa.DESIGNS[code] == fa.kernel_design(kname, dt, d)
+    assert lib.flash_attention_design(1, fa._DTYPES[dt], 48) == -1
+
+
+@pytest.mark.parametrize("d", list(fa.HOPPER_BWD_DIMS))
+def test_hopper_bwd_is_deterministic_and_refuses_misaligned_views(cuda, d):
+    """The Hopper B2/B3 sum without atomics, in a fixed order: two calls
+    give the same bits.  A view TMA cannot read (a row stride that is not
+    a multiple of 16 bytes) raises before anything is launched, and is
+    never copied."""
+    g = torch.Generator().manual_seed(d)
+    q, k, v, do = (torch.randn(2, 200, 4, d, generator=g).bfloat16()
+                   .to(cuda) for _ in range(4))
+    kw = dict(causal=True, window=None, sinks=0)
+    out, lse = fa.flash_attention_fwd_reference(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, lse, delta)
+    first = (fa.flash_attention_dq(*args, **kw),
+             *fa.flash_attention_dkv(*args, **kw))
+    again = (fa.flash_attention_dq(*args, **kw),
+             *fa.flash_attention_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    wide = torch.randn(2, 200, 4, d + 4, generator=g).bfloat16().to(cuda)
+    skew = wide[..., :d]  # rows (d + 4) * 2 bytes apart
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    for bad in ((skew, k, v, do), (q, k, v, skew)):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention_dq(*bad, lse, delta, **kw)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention_dkv(*bad, lse, delta, **kw)
+    assert (fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == before
+
+
+def test_dropped_tile_control_fails_the_element_wise_check(cuda):
+    """The element-wise check (1e-5 + two bf16 ulps of each entry) has
+    the power to see one missing tile of the Hopper kernels' sums: dQ
+    without its last key tile and dK/dV without the last query tile (the
+    plain versions over the rest) fail it against the kernels' outputs,
+    which pass it against the full plain versions."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(2, 256, 4, 64, generator=g).bfloat16()
+                   .to(cuda) for _ in range(4))
+    out, lse = fa.flash_attention_fwd_reference(q, k, v)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, do, lse, delta)
+    dq = fa.flash_attention_dq(*args)
+    dk, dv = fa.flash_attention_dkv(*args)
+
+    def excess(got, ref):
+        err, r = (got.float() - ref.float()).abs(), ref.float().abs()
+        return (err / (1e-5 + 1.6e-2 * r)).max().item()
+
+    refs = (fa.flash_attention_dq_reference(*args),
+            *fa.flash_attention_dkv_reference(*args))
+    assert max(excess(a, r) for a, r in zip((dq, dk, dv), refs)) <= 1
+    n = fa.TILE_K
+    dropped_dq = fa.flash_attention_dq_reference(q, k[:, :-n], v[:, :-n], do,
+                                                 lse, delta)
+    tail = slice(256 - fa.TILE_Q, None)
+    cdk, cdv = fa.flash_attention_dkv_reference(
+        q[:, tail], k, v, do[:, tail], lse[..., tail].contiguous(),
+        delta[..., tail].contiguous())
+    assert excess(dropped_dq, dq) > 1
+    assert excess(dk.float() - cdk.float(), dk) > 1
+    assert excess(dv.float() - cdv.float(), dv) > 1
 
 
 def test_train_step_on_card_matches_cpu(cuda):
@@ -984,6 +1067,8 @@ def test_flash_attention_at_vit_shapes(cuda, t, dt):
         cuda).unbind(2)
     do = torch.randn(4, t, 16, 64, generator=g).to(dt).to(cuda)
     assert all(fa._kernel_view(x) is x for x in (q, k, v))
+    assert all(a is b for a, b in zip(fa._kernel_views("dq", q, k, v, do),
+                                      (q, k, v, do)))
     out, lse = fa.flash_attention_fwd(q, k, v)
     ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v)
     delta = (do.float() * ref_out.float()).sum(-1).permute(0, 2, 1)
