@@ -14,10 +14,11 @@ Phases, each of which raises on failure (exit code != 0, no result):
    lines with the registers and spills of bf16 B2 (the
    tensor-core dQ kernel) at head dims 32, 64, 80 and 128, of the
    Hopper B2/B3 kernels (wgmma, TMA, warp-specialised) at 64 and 128, of
-   every B1-B3 instantiation at head dim 80 and of every instantiation
-   of B4's split kernel; then ``cuobjdump --dump-sass`` of the flash
-   attention library, which must show ``HGMMA`` and ``UTMALDG`` in every
-   Hopper B2/B3 kernel;
+   the Hopper B1 (``flash_fwd_wg_kernel``) at 64, 80 and 128 (no spill at
+   64 and 80), of every B1-B3 instantiation at head dim 80 and of every
+   instantiation of B4's split kernel; then ``cuobjdump --dump-sass`` of
+   the flash attention library, which must show ``HGMMA`` and
+   ``UTMALDG`` in every Hopper B1, B2 and B3 kernel;
 3. kernel: the dense flash-decode kernel (B4, split-KV over runs of
    whole tiles cut from each slot's cursor, then a combine kernel, with
    its split and CTA counts) against its plain PyTorch version at
@@ -59,7 +60,11 @@ Phases, each of which raises on failure (exit code != 0, no result):
    time (mean, median and spread), the plain version's, the library
    yardstick (``scaled_dot_product_attention`` forward for B1, its
    backward for B2 + B3: each fused backend pinned in turn, the fastest
-   named) and the card's bound;
+   named) and the card's bound; then the autograd layer's layouts: a
+   ``.sum()`` loss (an expanded cotangent) and a q view with a 136-byte
+   head stride, through ``flash_attention`` and ``flash_attention_lse``,
+   each backward held element by element to the plain versions on the
+   tensors it was given;
 9. train: ``python -m fluxdistributed_tpu_torch.train --model lm_small
    --dataset synthetic-text --vocab 256 --seqlen 1024 --batch-size 8
    --attn flash --opt adam --lr 3e-4 --cycles 40`` in-process: the loss
@@ -170,7 +175,8 @@ Phases, each of which raises on failure (exit code != 0, no result):
     (logits within 1e-4 of the largest, each gradient leaf within 1e-3
     of its largest entry; B1-B3 32 launches each), then bf16 compute, f32
     params, adamw, batch 32: B1-B3 32 launches each in one step, the
-    eager step ms, images/s, MFU, peak allocated bytes and idle share;
+    eager step ms, images/s, MFU, peak allocated bytes and idle share,
+    and a profile of one step with B1-B3's device ms and share;
 27. resume: ResNet-50 (224², batch 256, bf16, momentum) at
     ``steps_per_call`` 8 (graph replays) trained 4 items uninterrupted,
     and again with a fault-plan SIGTERM at item 2, checkpointed and
@@ -438,16 +444,19 @@ def demangle(name: str) -> str:
                           timeout=30).stdout.strip() or name
 
 
-#: what every Hopper B2/B3 kernel's SASS must hold: wgmma and TMA loads
+#: what every Hopper B1-B3 kernel's SASS must hold: wgmma and TMA loads
 HOPPER_SASS = ("HGMMA", "UTMALDG")
 
 
 def sass_check(_build) -> dict:
     """``cuobjdump --dump-sass`` of the flash attention library: for each
-    Hopper B2/B3 kernel (``*_wg_kernel``), which of :data:`HOPPER_SASS` its
-    SASS holds.  Raises if one lacks any, or if the eight instantiations
-    (dQ and dK/dV, head dims 64 and 128, with and without the audit) are
-    not all there."""
+    Hopper kernel (``*_wg_kernel``), which of :data:`HOPPER_SASS` its SASS
+    holds.  Raises if one lacks any, or if the instantiations are not all
+    there: B2 and B3 at head dims 64 and 128 with and without the audit
+    (eight), and B1 (``flash_fwd_wg_kernel``) at each of
+    ``HOPPER_FWD_DIMS``."""
+    from fluxdistributed_tpu_torch.ops.flash_attention import HOPPER_FWD_DIMS
+
     tool = Path(_build.nvcc()).parent / "cuobjdump"
     lib = _build.library_path("flash_attention")
     text = subprocess.run([str(tool), "--dump-sass", str(lib)],
@@ -465,9 +474,11 @@ def sass_check(_build) -> dict:
     rows = {demangle(n): {op: op in ops for op in HOPPER_SASS}
             for n, ops in found.items()}
     bad = [n for n, r in rows.items() if not all(r.values())]
-    if len(rows) != 8 or bad:
-        raise RuntimeError(f"sass: {len(rows)} Hopper B2/B3 kernels, "
-                           f"lacking {HOPPER_SASS} in {bad}")
+    fwd = [n for n in rows if "flash_fwd_wg_kernel" in n]
+    if len(rows) != 8 + len(HOPPER_FWD_DIMS) or len(fwd) != len(
+            HOPPER_FWD_DIMS) or bad:
+        raise RuntimeError(f"sass: {len(rows)} Hopper kernels ({len(fwd)} "
+                           f"B1), lacking {HOPPER_SASS} in {bad}")
     return rows
 
 
@@ -1506,7 +1517,77 @@ def attention_kernel_phase(torch, bw, peaks, flush):
                                  "attention_kernel", name, spec, g)
         if name == "main":
             main = rows
+    autograd_layouts_check(torch, fa)
     return main
+
+
+def autograd_layouts_check(torch, fa):
+    """The autograd functions hand B1-B3 what their designs read: at D =
+    64 (bf16, causal, B = 2, T = 256, 4 heads), a ``.sum()`` loss, whose
+    cotangent autograd expands (strides of 0), and a loss through a q
+    view of a [B, T, H, D + 4] tensor (a head stride of 136 bytes), each
+    through ``flash_attention`` and ``flash_attention_lse``.  Each
+    backward's B2/B3 outputs are held element by element
+    (:func:`grad_check`) to the plain versions on the tensors the
+    backward was given, and must be the gradients the caller gets.
+    Raises if a limit is broken or a kernel refuses its inputs."""
+    from fluxdistributed_tpu_torch.ops import (flash_attention,
+                                               flash_attention_lse)
+
+    b, t, h, d = 2, 256, 4, D
+    g = torch.Generator().manual_seed(21)
+    src = {"plain": torch.randn(b, t, h, d, generator=g),
+           "skewed": torch.randn(b, t, h, d + 4, generator=g)}
+    k, v = (torch.randn(b, t, h, d, generator=g) for _ in range(2))
+    row, bad = {}, []
+    for name, fn, q_of in (("sum", "flash_attention", "plain"),
+                           ("skewed_q", "flash_attention", "skewed"),
+                           ("sum_lse", "flash_attention_lse", "plain"),
+                           ("skewed_q_lse", "flash_attention_lse",
+                            "skewed")):
+        leaves = [x.bfloat16().cuda().requires_grad_()
+                  for x in (src[q_of], k, v)]
+        q = leaves[0][..., :d]
+        seen, inner = [], fa._backward
+
+        def recording(*args, _inner=inner, _seen=seen):
+            out = _inner(*args)
+            _seen.append((args, out))
+            return out
+
+        fa._backward = recording
+        try:
+            if fn == "flash_attention":
+                flash_attention(q, *leaves[1:], True).sum().backward()
+            else:
+                out, lse = flash_attention_lse(q, *leaves[1:], True)
+                (out.sum() + lse.sum()).backward()
+        finally:
+            fa._backward = inner
+        torch.cuda.synchronize()
+        (q_, k_, v_, o_, lse_, g_, g_lse, _), grads = seen[0]
+        delta = (g_.float() * o_.float()).sum(-1).permute(0, 2, 1)
+        if g_lse is not None:
+            delta = delta - g_lse.float()
+        bargs = (q_, k_, v_, g_, lse_, delta.contiguous())
+        refs = (fa.flash_attention_dq_reference(*bargs, causal=True),
+                *fa.flash_attention_dkv_reference(*bargs, causal=True))
+        excess = {n: grad_check(torch, got, ref, "bf16")["excess"]
+                  for n, got, ref in zip(("dq", "dk", "dv"), grads, refs)}
+        caller = (leaves[0].grad[..., :d], leaves[1].grad, leaves[2].grad)
+        same = all(torch.equal(a, b_) for a, b_ in zip(caller, grads))
+        row[name] = {"through": fn, "cotangent_strides": list(g_.stride()),
+                     "q_head_stride_bytes": q.stride(2) * q.element_size(),
+                     "backward_q_is_a_copy": q_.data_ptr() != q.data_ptr(),
+                     "excess": excess, "caller_grads_are_the_kernels": same}
+        if not same or any(not x <= 1.0 for x in excess.values()):
+            bad.append(name)
+    emit({"phase": "attention_kernel", "variant": "autograd_layouts",
+          "shape": [b, t, t, h, h, d], "dtype": "bf16", "causal": True,
+          "grad_tol": GRAD_TOL["bf16"], "cases": row})
+    if bad:
+        raise RuntimeError(f"attention_kernel autograd_layouts: {bad} out "
+                           f"of the element-wise limit or not the caller's")
 
 
 def attention_variant(torch, fa, bw, peaks, flush, phase, name, spec, g,
@@ -1529,9 +1610,9 @@ def attention_variant(torch, fa, bw, peaks, flush, phase, name, spec, g,
         do = torch.randn(B, tq, h, d, generator=g).to(dt).to(dev)
         # the views the backward kernels read: the Hopper kernels take
         # them through TMA as they are (or raise), the others copy what
-        # they cannot read
-        in_place = all(a is b for a, b in zip(
-            fa._kernel_views("dq", q, k, v, do), (q, k, v, do)))
+        # they cannot read; B1's are checked where it runs, below
+        in_place = {"b2_b3": all(a is b for a, b in zip(
+            fa._kernel_views("dq", q, k, v, do), (q, k, v, do)))}
     else:
         q, do = (torch.randn(B, tq, h, d, generator=g).to(dt).to(dev)
                  for _ in range(2))
@@ -1540,6 +1621,9 @@ def attention_variant(torch, fa, bw, peaks, flush, phase, name, spec, g,
         in_place = None
     kw = dict(causal=causal, window=window, sinks=sinks)
     rkw = dict(kw, block_q=ref_block, block_k=ref_block)
+    if strided:  # the views B1's wrapper hands its kernel
+        in_place["b1"] = all(a is b for a, b in zip(fa._b1_views(q, k, v),
+                                                    (q, k, v)))
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **rkw)
     delta = (do.float() * ref_out.float()).sum(-1).permute(0, 2, 1)
@@ -1646,8 +1730,8 @@ def attention_variant(torch, fa, bw, peaks, flush, phase, name, spec, g,
         bad += [f"dropped {k} passed" for k, r in
                 grad_stats["dropped_last_tile"].items()
                 if not r["excess"] > 1.0]
-    if strided and not in_place:
-        bad.append("strided q/k/v copied")
+    if strided and not all(in_place.values()):
+        bad.append(f"strided q/k/v copied: {in_place}")
     if bad or not finite or not same_dead:
         raise RuntimeError(f"{phase} {name}: {bad} out of "
                            f"tolerance, finite={finite}, dead rows "
@@ -3387,6 +3471,8 @@ def vith_train_step_phase(torch, peaks, card):
     state, m = step(state, batch)
     torch.cuda.synchronize()
     per_step = all_counts()
+    prof = profile_vision_step(torch, step, state, batch,
+                               share={"b1_b3": is_flash_kernel})
     del step, state, m
     torch.cuda.empty_cache()
     row = time_device_loop(torch, "vit_h14_one_device", card, 1, make_state,
@@ -3403,7 +3489,8 @@ def vith_train_step_phase(torch, peaks, card):
                                      "peak_allocated_bytes",
                                      "device_idle_share",
                                      "device_busy_ms_per_step",
-                                     "kernels_per_step")}})
+                                     "kernels_per_step")},
+          "profile_k1": prof})
     want = [0, 0] + [depth] * 3 + [0]
     if per_step != want:
         raise RuntimeError(f"vith_train_step: one step launched B4, B5, "
@@ -4676,6 +4763,8 @@ def context_kernel_phase(torch, bw, peaks, flush, card):
     t_bytes = bytes_fb / bw * 1e3
     row = {"phase": "context_kernel", "card": card,
            "shape": [B, T_TRAIN, H, D], "shards": CTX_S, "dtype": "bfloat16",
+           "designs": {kn: kernel_design(fa, kn, torch.bfloat16, D)
+                       for kn in ("fwd", "dq", "dkv")},
            "causal": True, "hops": len(hops),
            "hops_with_nonzero_lse_cotangent": nonzero,
            "launches_b1_b2_b3": launches,
@@ -6632,6 +6721,16 @@ def run_phases(torch, _build) -> int:
                          for name, r in wg.items()
                          for d in (64, 128) for a in (0, 1)
                          if f"ILi{d}ELb{a}E" in name}})
+    b1 = ptxas_summary(logs.get("flash_attention", ""), "flash_fwd_wg")
+    b1 = {f"D={d}": r for name, r in b1.items() for d in (64, 80, 128)
+          if f"ILi{d}E" in name}
+    emit({"phase": "ptxas", "kernel": "flash_fwd_wg_kernel<D>",
+          "design": "wgmma, TMA, warp-specialised", "by_dim": b1})
+    if len(b1) != 3 or any(b1[f"D={d}"].get("spill_stores", 1) or
+                           b1[f"D={d}"].get("spill_loads", 1)
+                           for d in (64, 80)):
+        raise RuntimeError(f"ptxas: the Hopper B1 spills at D = 64 or 80, "
+                           f"or is missing: {b1}")
     emit({"phase": "sass", "library": str(_build.library_path(
         "flash_attention").name), "must_hold": list(HOPPER_SASS),
         "kernels": sass_check(_build)})

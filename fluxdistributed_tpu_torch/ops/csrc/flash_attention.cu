@@ -5,7 +5,8 @@
 // pallas_attention.py:
 //
 //   B1 _flash_kernel     (pl.pallas_call in _flash_fwd_impl)
-//        bf16: flash_fwd_tc_kernel        f32: flash_fwd_kernel
+//        bf16: flash_fwd_wg_kernel (D = 64, 80, 128), flash_fwd_tc_kernel
+//        (D = 32)                          f32: flash_fwd_kernel
 //   B2 _flash_dq_kernel  (first pl.pallas_call in _flash_bwd_impl)
 //        bf16: flash_bwd_dq_wg_kernel (D = 64, 128), flash_bwd_dq_tc_kernel
 //        (D = 32, 80)                    f32: flash_bwd_dq_kernel
@@ -54,6 +55,26 @@
 // are exact (bf16 x bf16 -> f32, as the MXU's are); only the f32
 // summation order differs from the plain versions.
 //
+// B1 at D = 64, 80 and 128 (kHopperFwd) is a Hopper kernel (section "B1
+// bf16, Hopper" below): TMA loads into a ring of stages signalled by full
+// / empty mbarriers, a producer warp and two consumer warpgroups of 64
+// queries each.  At the measured shapes its bound is bytes, with
+// operations close behind: q, k, v and O moved once take 0.0151 ms at
+// the training shape, and ~4 flops a live (query, key) pair and feature
+// (S = Q.K^T and O += P.V), 12.9 GFLOP, 0.013 ms at 989 TFLOP/s.  Beside
+// the products each pair costs an ex2 on the MUFU pipe (16 a clock an SM)
+// and a few FMAs, which at D = 64 take as many cycles as the tensor cores.
+// Its design: both products on wgmma (S from shared memory, P.V with p in
+// registers, so p never touches shared memory), the scale folded into the
+// exp2's one FMA, the mask only on tiles that are not fully live, tiles
+// outside the band never loaded, and (D = 64, 80) a persistent grid whose
+// producer loads the next work tile while the consumers finish the last.
+// At D = 80 each row is two TMA boxes, 64 features with the 128-byte
+// swizzle and 16 with the 32-byte one (RowBoxes).  A warpgroup's chain a
+// tile (S, softmax, P.V) is serial: forming S a tile ahead, and the two
+// warpgroups taking turns through named barriers, were both slower on the
+// card (PERF.md §6).
+//
 // B2 and B3 at D = 64 and 128 (kHopperBwd) are Hopper kernels: wgmma,
 // TMA, mbarriers and warp specialisation (section "Hopper backward
 // kernels" below).  A CTA is two consumer warpgroups of 64 rows each and
@@ -76,7 +97,7 @@
 // compiler holds every role to the launch's 168 a thread (384 threads,
 // one CTA an SM), so the consumers' register budget is that.
 //
-// B1 (all head dims) and B2/B3 at D = 32 and 80 keep the FlashAttention-2
+// B1 at D = 32 and B2/B3 at D = 32 and 80 keep the FlashAttention-2
 // schedule on mma.sync (m16n8k16): one CTA of 4 warps owns a 64-row tile
 // and each warp 16 of its rows.  Tiles move global -> shared by 16-byte
 // cp.async copies into a two-stage ring, stored as bf16 with rows padded
@@ -84,10 +105,9 @@
 // k-major) reads them without bank conflicts.  Score tiles stay in
 // registers: the m16n8 accumulator layout is the m16k16 A-operand layout,
 // so p (and ds) become bf16 A fragments in place and never touch shared
-// memory.  D = 32's 64-byte rows and D = 80's 160-byte rows need other
-// TMA swizzles (64-byte; a 64 + 16 column split) than the one the Hopper
-// kernels take, so those head dims stay here; B1's redesign is the next
-// kernel PR.
+// memory.  D = 32's 64-byte rows need the 64-byte TMA swizzle, which no
+// Hopper kernel takes; B2/B3 at D = 80 can take B1's 64 + 16 column split
+// (RowBoxes).
 //   B1: a (b, h, query tile) per CTA; Q fragments are loaded once; K/V
 //       tiles of 64 keys stream through the ring; S = Q.K^T (16 x 64 per
 //       warp), scale, mask and the online softmax run on registers (row
@@ -148,6 +168,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -1817,6 +1838,11 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// wait until at most N committed wgmma groups are still in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // keeps the compiler from moving an accumulator while a wgmma owns it
 template <int J>
@@ -1832,10 +1858,13 @@ __device__ __forceinline__ void pin(float (&d)[J][4]) {
 // K-major (the contraction contiguous): stride = 1024 bytes between 8-row
 // groups, leading unused.  MN-major (transposed): stride = 1024 bytes
 // between 8-row groups of the contraction, leading = the atom stride.
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+// layout: 1 the 128-byte swizzle, 3 the 32-byte one (8-row groups of
+// 256 bytes: stride 256).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lead, uint32_t stride,
+                                            uint64_t layout = 1) {
   return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
          static_cast<uint64_t>((lead >> 4) & 0x3FFFu) << 16 |
-         static_cast<uint64_t>((stride >> 4) & 0x3FFFu) << 32 | 1ull << 62;
+         static_cast<uint64_t>((stride >> 4) & 0x3FFFu) << 32 | layout << 62;
 }
 
 template <int N>
@@ -1927,6 +1956,62 @@ __device__ __forceinline__ void wgmma_ss_t<128>(float (&d)[16][4], uint64_t a, u
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "l"(a), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ void wgmma_rs_t(float (*d)[4], const uint32_t (&a)[4], uint64_t b);
+
+// d[64 x 16] += A (registers: a warp's m16k16 fragment of its 16 rows) . B
+// (shared, MN-major: transposed)
+template <>
+__device__ __forceinline__ void wgmma_rs_t<16>(float (*d)[4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 64] += A (registers: a warp's m16k16 fragment of its 16 rows) . B
+// (shared, MN-major: transposed)
+template <>
+__device__ __forceinline__ void wgmma_rs_t<64>(float (*d)[4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 128] += A (registers: a warp's m16k16 fragment of its 16 rows) . B
+// (shared, MN-major: transposed)
+template <>
+__device__ __forceinline__ void wgmma_rs_t<128>(float (*d)[4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 
@@ -2864,6 +2949,356 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
   }
 }
 
+// ------------------------------------------------------ B1 bf16, Hopper
+//
+// A work tile is (b, head, 128 queries); the grid walks the heaviest
+// causal tiles first.  The producer warpgroup's first thread loads a work
+// tile's Q rows once by TMA, then streams the K and V tiles that meet the
+// band into a ring of kFwdStages stages (full / empty mbarriers); its other
+// threads leave.  Each consumer warpgroup owns 64 queries: S = Q.K^T by
+// wgmma from shared memory (64 keys), then the scale, the mask (only on
+// tiles that are not fully live) and the online softmax on the accumulator
+// registers, p rounded to bf16 into register A fragments (the
+// accumulator's m16n8 C layout is the m16k16 A layout), and O += P.V by
+// wgmma with A from registers and V read MN-major; the stage is released
+// once P.V is formed.  A warpgroup whose rows do not meet a tile skips its
+// products and still releases the stage.  The sums stay in registers, in a
+// fixed order, with no atomics: two calls give the same bits.  With a
+// persistent grid (kFwdPersist) a CTA stays on its SM and walks
+// several work tiles; the producer loads the next tile's Q as soon as
+// every S of the last one is formed (q_empty), so its loads overlap the
+// last tile's softmax, P.V and stores.
+
+// A row's TMA boxes (row_boxes in ops/flash_attention.py): kWide boxes of
+// 64 features with the 128-byte swizzle, then, where D is not a whole
+// number of 128-byte atoms (D = 80: 160-byte rows), one box of kTail = 16
+// features with the 32-byte swizzle.  A tile of `rows` rows lies in shared
+// memory as its kWide atoms of [rows][64], then its tail [rows][16].  B1
+// reads every head dim through it; B2/B3 at D = 80 can take it as it is.
+template <int D>
+struct RowBoxes {
+  static constexpr int kWide = D / kAtom;
+  static constexpr int kTail = D % kAtom;
+  static_assert(kWide >= 1 && (kTail == 0 || kTail == 16), "no TMA split takes this head dim");
+  static constexpr uint64_t kSw32 = 3;  // wgmma's layout type of the 32-byte swizzle
+
+  // The boxes of rows t .. t + 63 (head h, batch b) into rows row0 ..
+  // row0 + 63 of a tile of `rows` rows at `tile`, completing on bar.
+  __device__ static void load(unsigned char* tile, int rows, int row0, const CUtensorMap* wide,
+                              const CUtensorMap* tail, uint64_t* bar, int t, int h, int b) {
+#pragma unroll
+    for (int a = 0; a < kWide; ++a)
+      tma_load(tile + (a * rows + row0) * (kAtom * 2), wide, bar, a * kAtom, t, h, b);
+    if constexpr (kTail > 0)
+      tma_load(tile + kWide * rows * (kAtom * 2) + row0 * (kTail * 2), tail, bar, kWide * kAtom, t, h,
+               b);
+  }
+
+  // k-step kk (features 16 kk .. 16 kk + 15) of rows row0 .. row0 + 63
+  // of a K-major tile of `rows` rows: an atom's, or the tail's
+  __device__ static uint64_t k_major(uint32_t tile, int rows, int row0, int kk) {
+    if (kk < 4 * kWide)
+      return wg_desc(tile + ((kk >> 2) * rows + row0) * (kAtom * 2) + (kk & 3) * 32, 16, 1024);
+    return wg_desc(tile + kWide * rows * (kAtom * 2) + row0 * (kTail * 2), 16, 8 * kTail * 2, kSw32);
+  }
+
+  // rows 16 c .. 16 c + 15 of a tile of `rows` rows read MN-major
+  // (transposed): the atoms' 64 kWide columns, then the tail's 16
+  __device__ static uint64_t mn_wide(uint32_t tile, int rows, int c) {
+    return wg_desc(tile + 16 * c * (kAtom * 2), rows * (kAtom * 2), 1024);
+  }
+  __device__ static uint64_t mn_tail(uint32_t tile, int rows, int c) {
+    return wg_desc(tile + kWide * rows * (kAtom * 2) + 16 * c * (kTail * 2), rows * kTail * 2,
+                   8 * kTail * 2, kSw32);
+  }
+};
+
+// The TMA descriptors of a [B, T, H, D] view's row boxes (RowBoxes).
+struct RowMaps {
+  CUtensorMap wide, tail;
+};
+
+struct FwdMaps {
+  RowMaps q, k, v;
+};
+
+// which head dims bf16 B1 runs on the Hopper kernel (the others on
+// flash_fwd_tc_kernel)
+template <int D>
+constexpr bool kHopperFwd = D == 64 || D == 80 || D == 128;
+
+// ring stages of K and V tiles
+constexpr int kFwdStages = 4;
+
+// which head dims run B1 on a persistent grid (one CTA an SM): faster at
+// 64 and 80, slower at 128 on an H100 (PERF.md §6)
+template <int D>
+constexpr bool kFwdPersist = D != 128;
+
+template <int D>
+__host__ __device__ constexpr size_t fwd_wg_smem_bytes() {
+  // Q; K and V a stage; the barriers
+  return 1024 + 2 * kTile * D * 2 + kFwdStages * 2 * kTile * D * 2 + 8 * (2 * kFwdStages + 2);
+}
+
+// 2^x (ex2.approx, flushing denormals): one MUFU op
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// B1's online softmax on a warp's 16 x 64 slice of a wgmma score tile s of
+// raw q . k (rows fr and fr + 8 of this thread, keys 8j + fc (+1); q and
+// k the positions of its first row and key): the mask (kFull: the tile is
+// fully live, no mask), the new row max m of scale s, p = exp(scale s - m)
+// in place of s as one FMA and an ex2, the row sums l (of p unrounded),
+// and corr, the factor the sums so far take.  A row with nothing live
+// keeps m = kNegInf and p = 0.
+template <bool kFull>
+__device__ __forceinline__ void softmax_wg(float (&s)[8][4], float (&m_run)[2], float (&l_run)[2],
+                                           float (&corr)[2], const Mask& mk, int q, int k,
+                                           float scale) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  unsigned live = ~0u;  // one bit per element
+  if (!kFull) {
+    live = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        live |= mk.allowed(q + 8 * (e >> 1), k + 8 * j + (e & 1)) ? 1u << (4 * j + e) : 0u;
+  }
+  const float sl = scale * kLog2e;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e)
+        mx = fmaxf(mx, kFull || (live >> (4 * j + e)) & 1u ? s[j][e] : kNegInf);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run[r], mx == kNegInf ? kNegInf : scale * mx);
+    const float mb = m_new * kLog2e;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        s[j][e] = kFull || (live >> (4 * j + e)) & 1u ? ex2(fmaf(s[j][e], sl, -mb)) : 0.f;
+        sum += s[j][e];  // l takes p unrounded
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    corr[r] = ex2((m_run[r] - m_new) * kLog2e);
+    l_run[r] = l_run[r] * corr[r] + sum;
+    m_run[r] = m_new;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
+    flash_fwd_wg_kernel(const __grid_constant__ Params p, const __grid_constant__ FwdMaps m) {
+  using C = WgCfg<D>;
+  using RB = RowBoxes<D>;
+  constexpr int NWG = C::kNwg, S = kFwdStages;
+  constexpr int R = kTile * NWG;             // query rows of a work tile
+  constexpr int kTileBytes = kTile * D * 2;  // a K or V tile
+  constexpr int J = kTile / 8;               // a score tile's n-tiles
+  constexpr int ND = D / 8;
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* sm = align1024(wg_smem);
+  unsigned char* Qs = sm;              // [R rows]
+  unsigned char* KV = Qs + R * D * 2;  // [S][K, V]
+  uint64_t* full = reinterpret_cast<uint64_t*>(KV + S * 2 * kTileBytes);  // [S] K, V landed
+  uint64_t* empty = full + S;      // [S] the stage is free
+  uint64_t* q_full = empty + S;    // the work tile's Q rows landed
+  uint64_t* q_empty = q_full + 1;  // every S product of the work tile is formed
+
+  const int tid = threadIdx.x;
+  // warp-uniform as far as the compiler can tell (a broadcast): ptxas
+  // serialises every wgmma of a kernel where one sits in a path it cannot
+  // prove uniform (C7520), and a test of wg guards each product here
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0), lane = tid & 31;
+  // work tiles t = blockIdx.x, + gridDim.x, ... (one a CTA unless the grid
+  // is persistent): query block nq - 1 - t / (B H), the heaviest causal
+  // blocks first, of (b, h) = t % (B H)
+  const int nbh = p.B * p.H, nq = (p.Tq + R - 1) / R, ntiles = nbh * nq;
+  int bh = 0, q0 = 0, b = 0, h = 0, hk = 0;
+  auto take = [&](int t) {
+    bh = t % nbh;
+    q0 = (nq - 1 - t / nbh) * R;
+    b = bh / p.H;
+    h = bh - b * p.H;
+    hk = h / (p.H / p.Hkv);  // the GQA map
+  };
+  const Mask mk = make_mask(p);
+  const int nk = (p.Tk + kTile - 1) / kTile;
+  // does warpgroup w's query tile meet the key tile at k0?
+  auto live_for = [&](int k0, int w) {
+    return q0 + kTile * w < p.Tq && mk.tile_live(q0 + kTile * w, k0);
+  };
+  auto next_live = [&](int kt) {
+    for (; kt < nk; ++kt) {
+      bool live = false;
+#pragma unroll
+      for (int w = 0; w < NWG; ++w) live = live || live_for(kt * kTile, w);
+      if (live) break;
+    }
+    return kt;
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128 * NWG);
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 128 * NWG);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {  // ------------------------------------------ producer
+    reg_dealloc<C::kProducerRegs>();
+    if (tid != 128 * NWG) return;  // one thread issues the loads
+    int stage = 0;
+    unsigned phase = 0, qph = 0;
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x, qph ^= 1u) {
+      take(t);
+      mbar_wait(q_empty, qph ^ 1u);  // the last work tile's S products are formed
+      mbar_expect_tx(q_full, R * D * 2);
+#pragma unroll
+      for (int w = 0; w < NWG; ++w)
+        RB::load(Qs, R, kTile * w, &m.q.wide, &m.q.tail, q_full, q0 + kTile * w, h, b);
+      for (int kt = next_live(0); kt < nk; kt = next_live(kt + 1)) {
+        mbar_wait(empty + stage, phase ^ 1u);
+        mbar_expect_tx(full + stage, 2 * kTileBytes);
+        unsigned char* kst = KV + stage * 2 * kTileBytes;
+        RB::load(kst, kTile, 0, &m.k.wide, &m.k.tail, full + stage, kt * kTile, hk, b);
+        RB::load(kst + kTileBytes, kTile, 0, &m.v.wide, &m.v.tail, full + stage, kt * kTile, hk,
+                 b);
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+  // ------------------------------------------------------------ consumers
+  reg_alloc<C::kConsumerRegs>();
+  const int m0 = 16 * ((tid & 127) >> 5);  // this warp's rows in its warpgroup's 64
+  const int fr = lane >> 2, fc = 2 * (lane & 3);
+  const uint32_t qs = smem_addr(Qs), kv = smem_addr(KV);
+  int qw = 0;  // this warpgroup's first query in the work tile
+
+  // O of rows qw + m0 + fr (index 0) and + 8 (index 1), features 8n + fc
+  // (+1); their running max (of scale s) and sum; p in bf16 as the A
+  // fragments of keys 16c .. 16c + 15
+  float o[ND][4];
+  float m_run[2], l_run[2];
+  uint32_t pa[kTile / 16][4];
+
+  // S = Q_wg . K^T of the stage at kst: issued, not committed
+  auto product_s = [&](float (&s)[J][4], uint32_t kst) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kTile>(s, RB::k_major(qs, R, kTile * wg, kk), RB::k_major(kst, kTile, 0, kk));
+  };
+  // O += P . V of the V tile at vst: issued, not committed
+  auto product_pv = [&](uint32_t vst) {
+#pragma unroll
+    for (int c = 0; c < kTile / 16; ++c) {
+      wgmma_rs_t<kAtom * RB::kWide>(o, pa[c], RB::mn_wide(vst, kTile, c));
+      if constexpr (RB::kTail > 0)
+        wgmma_rs_t<RB::kTail>(o + 8 * RB::kWide, pa[c], RB::mn_tail(vst, kTile, c));
+    }
+  };
+  // the softmax of this warpgroup's score tile of the keys at k0; then,
+  // once O is free, O takes corr and p becomes the A fragments
+  auto softmax = [&](float (&s)[J][4], int k0, float (&corr)[2]) {
+    const int qrow = qw + m0 + fr, kcol = k0 + fc;
+    if (mk.tile_full(qw, k0))
+      softmax_wg<true>(s, m_run, l_run, corr, mk, qrow, kcol, p.scale);
+    else
+      softmax_wg<false>(s, m_run, l_run, corr, mk, qrow, kcol, p.scale);
+  };
+  auto rescale_to_a = [&](float (&s)[J][4], const float (&corr)[2]) {
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+#pragma unroll
+    for (int c = 0; c < kTile / 16; ++c) c_to_a(pa[c], s[2 * c], s[2 * c + 1]);
+  };
+  int stage = 0;
+  unsigned phase = 0, qph = 0;
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x, qph ^= 1u) {
+    take(t);
+    qw = q0 + kTile * wg;
+    zero(o);
+    m_run[0] = m_run[1] = kNegInf;
+    l_run[0] = l_run[1] = 0.f;
+    mbar_wait(q_full, qph);
+    for (int kt = next_live(0); kt < nk;) {
+      const int kn = next_live(kt + 1);
+      mbar_wait(full + stage, phase);
+      const int k0 = kt * kTile;
+      const bool mine = live_for(k0, wg);
+      const uint32_t kst = kv + stage * 2 * kTileBytes;
+      float s[J][4], corr[2];
+      zero(s);
+      pin(s);
+      wg_fence();
+      if (mine) product_s(s, kst);
+      wg_commit();
+      wg_wait<0>();
+      pin(s);
+      if (mine) {
+        softmax(s, k0, corr);
+        rescale_to_a(s, corr);
+      }
+      pin(o);
+      wg_fence();
+      if (mine) product_pv(kst + kTileBytes);
+      wg_commit();
+      wg_wait<0>();
+      pin(o);
+      mbar_arrive(empty + stage);
+      if (++stage == S) {
+        stage = 0;
+        phase ^= 1u;
+      }
+      kt = kn;
+    }
+    mbar_arrive(q_empty);  // this warpgroup's S products are formed
+
+    // O = acc / max(l, 1e-30) in bf16 through O's strides, LSE = m +
+    // log(max(l, 1e-30)); rows past Tq are not written
+    bf16* ob = static_cast<bf16*>(p.o.p) + static_cast<long long>(b) * p.o.sb +
+               static_cast<long long>(h) * p.o.sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = qw + m0 + fr + 8 * r;
+      if (qp >= p.Tq) continue;
+      const float l = fmaxf(l_run[r], 1e-30f), inv = __frcp_rn(l);
+      bf16* orow = ob + static_cast<long long>(qp) * p.o.st;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + fc) =
+            __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+      if (fc == 0) p.lse[static_cast<long long>(bh) * p.Tq + qp] = m_run[r] + logf(l);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 template <typename Kernel, typename... Args>
@@ -2909,7 +3344,8 @@ EncodeTiledFn encode_tiled() {
 // 128 bytes (its coordinate is always 0).  The wrapper's tma_geometry
 // (ops/flash_attention.py) is this map, and refuses what it cannot take
 // before a launch; here a misaligned view is cudaErrorMisalignedAddress.
-cudaError_t encode_view(CUtensorMap* map, const View& x, int B, int T, int H, int D) {
+cudaError_t encode_view(CUtensorMap* map, const View& x, int B, int T, int H, int D,
+                        int cols = kAtom, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
   const long long es = sizeof(bf16);
@@ -2923,12 +3359,45 @@ cudaError_t encode_view(CUtensorMap* map, const View& x, int B, int T, int H, in
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st), static_cast<cuuint64_t>(sh),
                                  static_cast<cuuint64_t>(sb)};
-  const cuuint32_t box[4] = {kAtom, kTile, 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), kTile, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x.p, dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The descriptors of a view's row boxes (RowBoxes): 64-feature boxes with
+// the 128-byte swizzle and, at D = 80, the 16-feature box at column 64
+// with the 32-byte swizzle.
+template <int D>
+cudaError_t encode_rows(RowMaps* m, const View& x, int B, int T, int H) {
+  const cudaError_t e = encode_view(&m->wide, x, B, T, H, D);
+  if (e != cudaSuccess || RowBoxes<D>::kTail == 0) return e;
+  return encode_view(&m->tail, x, B, T, H, D, RowBoxes<D>::kTail, CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+// B1 on the Hopper kernel: q, k and v's descriptors, then the launch: a
+// CTA a work tile, or (kFwdPersist) one an SM.
+template <int D>
+cudaError_t run_fwd_wg(const Params& p, cudaStream_t stream) {
+  FwdMaps m;
+  cudaError_t e;
+  if ((e = encode_rows<D>(&m.q, p.q, p.B, p.Tq, p.H)) != cudaSuccess ||
+      (e = encode_rows<D>(&m.k, p.k, p.B, p.Tk, p.Hkv)) != cudaSuccess ||
+      (e = encode_rows<D>(&m.v, p.v, p.B, p.Tk, p.Hkv)) != cudaSuccess)
+    return e;
+  constexpr int R = kTile * WgCfg<D>::kNwg;
+  long long grid = static_cast<long long>(p.B) * p.H * ((p.Tq + R - 1) / R);
+  if (kFwdPersist<D>) {
+    int dev = 0, sms = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return e;
+    grid = std::min(grid, static_cast<long long>(sms));
+  }
+  return launch_kernel(flash_fwd_wg_kernel<D>, dim3(static_cast<unsigned>(grid)),
+                       WgCfg<D>::kThreads, fwd_wg_smem_bytes<D>(), stream, p, m);
 }
 
 // B2 (which == kDq) or B3 on the Hopper kernels: q, k, v and dO's TMA
@@ -2979,10 +3448,16 @@ cudaError_t run(int which, const Params& p, cudaStream_t stream) {
     // the tile index is the grid's y axis here
     if (nq > 65535 || nk > 65535) return cudaErrorInvalidValue;
     const bool audit = p.audit != nullptr;
-    if (which == kFwd)
-      return audit ? cudaErrorInvalidValue
-                   : launch_kernel(flash_fwd_tc_kernel<D>, dim3(bh, nq), kTcThreads,
-                                   fwd_tc_smem_bytes<D>(), stream, p);
+    if (which == kFwd) {
+      // B1: the Hopper kernel at D = 64, 80 and 128, mma.sync at 32
+      // (kHopperFwd)
+      if (audit) return cudaErrorInvalidValue;
+      if constexpr (kHopperFwd<D>)
+        return run_fwd_wg<D>(p, stream);
+      else
+        return launch_kernel(flash_fwd_tc_kernel<D>, dim3(bh, nq), kTcThreads,
+                             fwd_tc_smem_bytes<D>(), stream, p);
+    }
     if (which != kDq && which != kDkv) return cudaErrorInvalidValue;
     // B2 and B3: the Hopper kernels at D = 64 and 128, the mma.sync ones at
     // D = 32 and 80 (kHopperBwd)
@@ -3013,12 +3488,13 @@ cudaError_t dispatch_dim(int which, int D, const Params& p, cudaStream_t stream)
 }
 
 // The design a kernel runs (Design in ops/flash_attention.py): 0 SIMT (f32),
-// 1 mma.sync (bf16 B1, and bf16 B2/B3 outside kHopperBwd), 2 wgmma + TMA,
-// warp-specialised (bf16 B2/B3 at D = 64 and 128).
+// 1 mma.sync (bf16 B1 outside kHopperFwd, bf16 B2/B3 outside kHopperBwd), 2
+// wgmma + TMA, warp-specialised (bf16 B1 at D = 64, 80 and 128, B2/B3 at 64
+// and 128).
 template <int D>
 int design_of(int which, int dtype) {
   if (dtype == kF32) return 0;
-  return which != kFwd && kHopperBwd<D> ? 2 : 1;
+  return (which == kFwd ? kHopperFwd<D> : kHopperBwd<D>) ? 2 : 1;
 }
 
 View view(const void* ptr, const long long* strides, int i) {

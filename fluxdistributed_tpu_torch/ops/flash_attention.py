@@ -25,11 +25,14 @@ cores, and B2 and B3 round ds (and B3 p) to bf16 as the plain version
 does: pairs whose rounding the tensor cores' sums could decide otherwise
 are flagged and summed again in the plain order.  f32 runs SIMT FMAs
 (``csrc/flash_attention.cu`` says why).  :func:`kernel_design` is the
-launcher's dispatch: bf16 B2 and B3 at head dims 64 and 128 run the
-Hopper kernels (wgmma, TMA, warp-specialised), which read q, k, v and dO
-in place through TMA descriptors (:func:`tma_geometry`) and refuse a
-view TMA cannot take rather than copy it; the rest run mma.sync (bf16)
-or SIMT (f32).  :func:`rounding_audit` counts,
+launcher's dispatch: bf16 B1 at head dims 64, 80 and 128 and bf16 B2 and
+B3 at 64 and 128 run the Hopper kernels (wgmma, TMA, warp-specialised),
+which read q, k, v and dO in place through TMA descriptors
+(:func:`tma_geometry`; D = 80 rows as two boxes, :func:`row_boxes`); the
+rest run mma.sync (bf16) or SIMT (f32).  The B2/B3 wrappers refuse a view
+TMA cannot take rather than copy it; B1's wrapper and the autograd
+functions hand the kernels :func:`_readable` tensors (a contiguous copy
+only of what a design cannot read).  :func:`rounding_audit` counts,
 on the card, how often that flag fires and whether it missed a pair.
 On fake tensors (a priced step, :mod:`..fake`), on any device, each
 wrapper takes its shape-only branch: it checks what the kernel checks
@@ -60,6 +63,7 @@ from .counts import count
 __all__ = [
     "DESIGNS",
     "HOPPER_BWD_DIMS",
+    "HOPPER_FWD_DIMS",
     "TILE_K",
     "TILE_Q",
     "TMA_BOX",
@@ -73,6 +77,7 @@ __all__ = [
     "flash_attention_lse",
     "kernel_design",
     "rounding_audit",
+    "row_boxes",
     "tma_geometry",
 ]
 
@@ -87,11 +92,15 @@ TILE_Q = TILE_K = 64
 #: source): f32, bf16 on mma.sync, bf16 on the Hopper kernels
 DESIGNS = ("SIMT f32", "tensor cores, mma.sync",
            "wgmma, TMA, warp-specialised")
+#: head dims at which bf16 B1 runs the Hopper kernel (``kHopperFwd``);
+#: 32 stays on mma.sync
+HOPPER_FWD_DIMS = (64, 80, 128)
 #: head dims at which bf16 B2 and B3 run the Hopper kernels
-#: (``kHopperBwd``); 32 and 80 stay on mma.sync, as does B1
+#: (``kHopperBwd``); 32 and 80 stay on mma.sync
 HOPPER_BWD_DIMS = (64, 128)
 #: a Hopper kernel's TMA box: 64 features (one 128-byte swizzle atom) x
-#: ``TILE_Q`` rows of one head of one batch row; D = 128 takes two
+#: ``TILE_Q`` rows of one head of one batch row; D = 128 takes two, and
+#: D = 80 one and a 16-feature box (:func:`row_boxes`)
 TMA_BOX = (64, TILE_Q, 1, 1)
 _KERNELS = {"fwd": _FWD, "dq": _DQ, "dkv": _DKV}
 
@@ -111,39 +120,70 @@ def kernel_design(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
                          f"{_HEAD_DIMS}, got {head_dim}")
     if dtype == torch.float32:
         return DESIGNS[0]
-    if kernel != "fwd" and head_dim in HOPPER_BWD_DIMS:
-        return DESIGNS[2]
-    return DESIGNS[1]
+    hopper = HOPPER_FWD_DIMS if kernel == "fwd" else HOPPER_BWD_DIMS
+    return DESIGNS[2] if head_dim in hopper else DESIGNS[1]
+
+
+def row_boxes(head_dim: int):
+    """The TMA boxes across a row of ``head_dim`` features (``RowBoxes``
+    in the source), each ``(features, swizzle bytes)``: whole boxes of 64
+    features with the 128-byte swizzle, then at most one of 16 features
+    with the 32-byte swizzle (D = 80's 160-byte row); None where no split
+    takes ``head_dim``."""
+    wide, tail = divmod(int(head_dim), TMA_BOX[0])
+    if wide == 0 or tail not in (0, 16):
+        return None
+    return ((TMA_BOX[0], 128),) * wide + (((tail, 32),) if tail else ())
+
+
+def _tma_refusals(shape, strides, element_size, data_ptr) -> list:
+    """Why TMA cannot read a [B, T, H, D] view in place (empty: it can):
+    the feature dim not contiguous, or the base address or a byte stride
+    of T, H or B not a positive multiple of 16 (a dim of extent 1 is
+    exempt: its coordinate is always 0)."""
+    bad = [] if int(strides[3]) == 1 else [
+        f"feature stride {int(strides[3])} (must be 1)"]
+    bad += [f"{name} stride {v} bytes" for name, v in zip(
+        ("seq", "head", "batch"), _tma_strides(shape, strides, element_size))
+        if v <= 0 or v % 16]
+    if data_ptr % 16:
+        bad.append(f"base address {data_ptr:#x}")
+    return bad
+
+
+def _tma_strides(shape, strides, element_size):
+    """The byte strides of T, H and B that a descriptor takes: 128 for a
+    dim of extent 1."""
+    b, t, h, _ = (int(n) for n in shape)
+    sb, st, sh, _ = (int(s) for s in strides)
+    return tuple(128 if n == 1 else s * element_size
+                 for n, s in ((t, st), (h, sh), (b, sb)))
 
 
 def tma_geometry(shape, strides, element_size: int = 2,
                  data_ptr: int = 0) -> dict:
-    """The TMA descriptor a Hopper kernel builds for a [B, T, H, D] view
+    """The TMA descriptors a Hopper kernel builds for a [B, T, H, D] view
     with element ``strides`` (``encode_view`` in the source): dims
     ``(D, T, H, B)``, the byte strides of T, H and B (128 for a dim of
-    extent 1, whose coordinate is always 0), the box :data:`TMA_BOX` and
-    ``D // 64`` boxes across a row.  Raises ValueError where TMA cannot
-    read the view in place (the kernels take it as it is, never a copy):
-    the feature dim not contiguous, or the base address or a byte stride
-    not a positive multiple of 16."""
+    extent 1, whose coordinate is always 0), the box :data:`TMA_BOX`, and
+    the boxes across a row (:func:`row_boxes`).  Raises ValueError where
+    no split takes the head dim, or where TMA cannot read the view in
+    place (the wrappers take it as it is, never a copy): the feature dim
+    not contiguous, or the base address or a byte stride not a positive
+    multiple of 16."""
     b, t, h, d = (int(n) for n in shape)
-    sb, st, sh, sd = (int(s) for s in strides)
-    if d % TMA_BOX[0]:
-        raise ValueError(f"TMA rows are whole {TMA_BOX[0]}-feature boxes, "
-                         f"got head_dim {d}")
-    bad = [] if sd == 1 else [f"feature stride {sd} (must be 1)"]
-    byte = tuple(128 if n == 1 else s * element_size
-                 for n, s in ((t, st), (h, sh), (b, sb)))
-    bad += [f"{name} stride {v} bytes" for name, v
-            in zip(("seq", "head", "batch"), byte) if v <= 0 or v % 16]
-    if data_ptr % 16:
-        bad.append(f"base address {data_ptr:#x}")
+    boxes = row_boxes(d)
+    if boxes is None:
+        raise ValueError(f"TMA rows are whole {TMA_BOX[0]}-feature boxes "
+                         f"and at most one 16-feature box, got head_dim {d}")
+    bad = _tma_refusals(shape, strides, element_size, data_ptr)
     if bad:
         raise ValueError("the Hopper attention kernels read q, k, v and dO "
                          "in place through TMA, which needs 16-byte aligned "
                          f"rows: {', '.join(bad)}; pass a contiguous tensor")
-    return {"dims": (d, t, h, b), "byte_strides": byte, "box": TMA_BOX,
-            "boxes_per_row": d // TMA_BOX[0]}
+    return {"dims": (d, t, h, b), "byte_strides": _tma_strides(
+        shape, strides, element_size), "box": TMA_BOX,
+        "boxes_per_row": len(boxes), "boxes": boxes}
 
 
 def _gqa_dims(q, k, v):
@@ -360,26 +400,56 @@ def _kernel():
     return _lib
 
 
-def _kernel_view(x: torch.Tensor) -> torch.Tensor:
-    """``x`` if the kernel can read it through its strides (feature dim
-    contiguous, 16-byte aligned rows), else a contiguous copy."""
+def _address(x: torch.Tensor) -> int:
+    return 0 if is_fake(x) else x.data_ptr()
+
+
+def _reads_in_place(x: torch.Tensor, hopper: bool) -> bool:
+    """Can a kernel of the Hopper design (``hopper``) or of the others
+    read ``x`` through its strides?  Hopper: :func:`tma_geometry`'s test;
+    the others: feature dim contiguous, 16-byte aligned rows."""
+    if hopper:
+        return not _tma_refusals(x.shape, x.stride(), x.element_size(),
+                                 _address(x))
     step = 16 // x.element_size()
-    if (x.stride(3) == 1 and all(s % step == 0 for s in x.stride()[:3])
-            and (is_fake(x) or x.data_ptr() % 16 == 0)):
+    return (x.stride(3) == 1 and all(s % step == 0 for s in x.stride()[:3])
+            and _address(x) % 16 == 0)
+
+
+def _kernel_view(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if a kernel outside the Hopper design can read it through its
+    strides, else a contiguous copy."""
+    if _reads_in_place(x, False):
         return x
     return x.clone(memory_format=torch.contiguous_format)
+
+
+def _hopper(kernel, x) -> bool:
+    return kernel_design(kernel, x.dtype, x.shape[-1]) == DESIGNS[2]
+
+
+def _readable(kernel, *xs):
+    """The tensors ``kernel``'s design reads: each ``x`` itself where that
+    design reads it in place (:func:`tma_geometry`'s test for the Hopper
+    kernels, :func:`_kernel_view`'s for the others), else a contiguous
+    copy, so a contiguous tensor is never copied.  B1's wrapper and the
+    autograd backward pass their tensors through it (an expanded
+    cotangent, a q view with a 136-byte head stride); the B2/B3 wrappers
+    themselves refuse what TMA cannot read (:func:`_kernel_views`)."""
+    hopper = _hopper(kernel, xs[0])
+    return tuple(x if _reads_in_place(x, hopper)
+                 else x.clone(memory_format=torch.contiguous_format)
+                 for x in xs)
 
 
 def _kernel_views(kernel, *xs):
     """The views ``kernel`` reads: on the Hopper kernels each as it is,
     checked by :func:`tma_geometry` (which raises), else
     :func:`_kernel_view`'s."""
-    q = xs[0]
-    if kernel_design(kernel, q.dtype, q.shape[-1]) != DESIGNS[2]:
+    if not _hopper(kernel, xs[0]):
         return tuple(_kernel_view(x) for x in xs)
     for x in xs:
-        tma_geometry(x.shape, x.stride(), x.element_size(),
-                     0 if is_fake(x) else x.data_ptr())
+        tma_geometry(x.shape, x.stride(), x.element_size(), _address(x))
     return xs
 
 
@@ -458,15 +528,31 @@ def _dispatch(q, name):
 def flash_attention_fwd(q, k, v, *, causal=False, block_q=128, block_k=128,
                         window=None, sinks=0):
     """B1: ``(out [B, Tq, H, D], lse [B, H, Tq] f32)``.  The kernel on a
-    CUDA tensor, :func:`flash_attention_fwd_reference` on a CPU one."""
+    CUDA tensor (reading :func:`_b1_views`), the plain version on a CPU
+    one."""
     validate_window(causal, window, sinks)
+    return _fwd(*_b1_views(q, k, v), causal=causal, block_q=block_q,
+                block_k=block_k, window=window, sinks=sinks)
+
+
+def _b1_views(q, k, v):
+    """The q, k and v B1's kernel reads (:func:`_readable`), after the
+    kernel's input checks; the caller's tensors on the CPU, where the
+    plain version reads any layout."""
     _gqa_dims(q, k, v)
+    if not _dispatch(q, "flash_attention_fwd"):
+        return q, k, v
+    _check_kernel_inputs(q, k, v)
+    return _readable("fwd", q, k, v)
+
+
+def _fwd(q, k, v, *, causal, block_q, block_k, window, sinks):
+    """B1 on what :func:`_b1_views` returned: the launch, or the plain
+    version on a CPU tensor."""
     if not _dispatch(q, "flash_attention_fwd"):
         return flash_attention_fwd_reference(
             q, k, v, causal=causal, block_q=block_q, block_k=block_k,
             window=window, sinks=sinks)
-    _check_kernel_inputs(q, k, v)
-    q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
     b, tq, h, _ = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -566,23 +652,29 @@ flash_attention_dkv.launches = 0
 
 def _backward(q, k, v, o, lse, g, g_lse, cfg):
     """``_flash_bwd_impl``: delta in f32 outside the kernels (the LSE
-    cotangent folded in as ``delta - g_lse``), then B2 and B3."""
+    cotangent folded in as ``delta - g_lse``), then B2 and B3 on the
+    tensors their design reads (:func:`_readable`: autograd's cotangent
+    may be expanded, with strides of 0)."""
     delta = (g.float() * o.float()).sum(-1).permute(0, 2, 1)  # [B, H, Tq]
     if g_lse is not None:
         # d lse_r / d s_rc = p_rc, so ds = p (dP - delta + g_lse)
         delta = delta - g_lse.float()
     delta = delta.contiguous()
+    if _dispatch(q, "flash_attention"):
+        q, k, v, g = _readable("dq", q, k, v, g)
     dq = flash_attention_dq(q, k, v, g, lse, delta, **cfg)
     dk, dv = flash_attention_dkv(q, k, v, g, lse, delta, **cfg)
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """``flash_attention``'s custom VJP (``_fwd``/``_bwd``)."""
+    """``flash_attention``'s custom VJP (``_fwd``/``_bwd``).  The
+    backward takes the q, k and v that B1 read (:func:`_b1_views`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, cfg):
-        out, lse = flash_attention_fwd(q, k, v, **cfg)
+        q, k, v = _b1_views(q, k, v)
+        out, lse = _fwd(q, k, v, **cfg)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.cfg = cfg
         return out
@@ -599,7 +691,8 @@ class _FlashAttentionLse(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, cfg):
-        out, lse = flash_attention_fwd(q, k, v, **cfg)
+        q, k, v = _b1_views(q, k, v)
+        out, lse = _fwd(q, k, v, **cfg)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.cfg = cfg
         return out, lse

@@ -522,7 +522,7 @@ def test_a_wrong_shape_only_branch_fails_the_priced_step(monkeypatch):
         "fluxdistributed_tpu_torch.ops.flash_attention")
     from fluxdistributed_tpu_torch.ops import attention_core
 
-    real_fwd = fa.flash_attention_fwd
+    real_fwd = fa._fwd  # B1's launch or shape-only branch
     for which in (0, 1):
         def short(*args, which=which, **kw):
             outs = list(real_fwd(*args, **kw))
@@ -530,9 +530,8 @@ def test_a_wrong_shape_only_branch_fails_the_priced_step(monkeypatch):
                            else outs[which][..., :-1])
             return tuple(outs)
 
-        short.launches = 0
-        monkeypatch.setattr(fa, "flash_attention_fwd", short)
+        monkeypatch.setattr(fa, "_fwd", short)
         with pytest.raises((RuntimeError, ValueError)):
             _lm_step_peak(attention_core("flash", 128))
-    monkeypatch.setattr(fa, "flash_attention_fwd", real_fwd)
+    monkeypatch.setattr(fa, "_fwd", real_fwd)
     assert _lm_step_peak(attention_core("flash", 128))["memory"]

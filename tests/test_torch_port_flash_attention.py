@@ -331,13 +331,13 @@ def test_kernels_take_head_dim_80():
 @pytest.mark.parametrize("d", [32, 64, 80, 128])
 def test_kernel_design_table(kernel, dtype, d):
     """The launcher's dispatch from (kernel, dtype, head dim) to a design,
-    explicit: f32 on SIMT; bf16 B2/B3 at 64 and 128 on the Hopper kernels
-    (wgmma, TMA, warp-specialised); bf16 B1, and B2/B3 at 32 and 80, on
-    mma.sync."""
+    explicit: f32 on SIMT; bf16 B1 at 64, 80 and 128 and bf16 B2/B3 at 64
+    and 128 on the Hopper kernels (wgmma, TMA, warp-specialised); bf16 B1
+    at 32, and B2/B3 at 32 and 80, on mma.sync."""
     got = fa_mod.kernel_design(kernel, dtype, d)
     if dtype == torch.float32:
         assert got == "SIMT f32"
-    elif kernel != "fwd" and d in (64, 128):
+    elif d in ((64, 80, 128) if kernel == "fwd" else (64, 128)):
         assert got == "wgmma, TMA, warp-specialised"
     else:
         assert got == "tensor cores, mma.sync"
@@ -358,13 +358,14 @@ def test_tma_geometry_of_contiguous_and_fused_qkv_views():
     """The Hopper kernels' TMA descriptor: dims (D, T, H, B), the byte
     strides of T, H and B taken from the view itself (a fused [B, T, 3,
     H, D] QKV projection's q/k/v are read in place), 64 x 64 boxes, one
-    box across a row at D = 64 and two at 128; a dim of extent 1 takes
-    128 bytes."""
+    box across a row at D = 64 and two at 128, each with the 128-byte
+    swizzle; a dim of extent 1 takes 128 bytes."""
     x = torch.zeros(2, 77, 4, 128, dtype=torch.bfloat16)
     geo = fa_mod.tma_geometry(x.shape, x.stride(), 2, 0)
     assert geo == {"dims": (128, 77, 4, 2),
                    "byte_strides": (4 * 128 * 2, 128 * 2, 77 * 4 * 128 * 2),
-                   "box": (64, 64, 1, 1), "boxes_per_row": 2}
+                   "box": (64, 64, 1, 1), "boxes_per_row": 2,
+                   "boxes": ((64, 128), (64, 128))}
     qkv = torch.zeros(3, 197, 3, 16, 64, dtype=torch.bfloat16)
     for i, view in enumerate(qkv.unbind(2)):
         geo = fa_mod.tma_geometry(view.shape, view.stride(), 2,
@@ -383,7 +384,7 @@ def test_tma_geometry_of_contiguous_and_fused_qkv_views():
     ((2, 8, 4, 64), (8 * 4 * 64, 4 * 64, 64, 1), 8, "base address"),
     ((2, 8, 4, 64), (8 * 4 * 64, 1, 8 * 64, 8), 0, "feature stride 8"),
     ((2, 8, 4, 64), (8 * 4 * 64, 0, 64, 1), 0, "seq stride 0"),
-    ((2, 8, 4, 80), (8 * 4 * 80, 4 * 80, 80, 1), 0, "64-feature boxes"),
+    ((2, 8, 4, 32), (8 * 4 * 32, 4 * 32, 32, 1), 0, "64-feature boxes"),
 ])
 def test_tma_geometry_refuses_what_tma_cannot_read(shape, strides, ptr, what):
     """A stride or base address not a multiple of 16 bytes, a feature dim
@@ -391,3 +392,143 @@ def test_tma_geometry_refuses_what_tma_cannot_read(shape, strides, ptr, what):
     with ValueError (the wrapper never copies the view)."""
     with pytest.raises(ValueError, match=what):
         fa_mod.tma_geometry(shape, strides, 2, ptr)
+
+
+def test_tma_geometry_splits_a_head_dim_80_row():
+    """D = 80 (ViT-H/14): a 160-byte row is no whole number of 128-byte
+    swizzle atoms, so it takes two boxes, 64 features with the 128-byte
+    swizzle and 16 with the 32-byte one (``RowBoxes`` in the source); a
+    fused QKV view of it is read in place.  No split takes 32, 48 or 96."""
+    qkv = torch.zeros(2, 257, 3, 16, 80, dtype=torch.bfloat16)
+    q = qkv.unbind(2)[0]
+    geo = fa_mod.tma_geometry(q.shape, q.stride(), 2, 0)
+    assert geo == {"dims": (80, 257, 16, 2),
+                   "byte_strides": (3 * 16 * 80 * 2, 80 * 2,
+                                    257 * 3 * 16 * 80 * 2),
+                   "box": (64, 64, 1, 1), "boxes_per_row": 2,
+                   "boxes": ((64, 128), (16, 32))}
+    assert [fa_mod.row_boxes(d) for d in (32, 48, 64, 80, 96, 128, 144)] == [
+        None, None, ((64, 128),), ((64, 128), (16, 32)), None,
+        ((64, 128), (64, 128)), ((64, 128), (64, 128), (16, 32))]
+
+
+# -------------------------------------------------- C17: the autograd layer
+#
+# On the kernel path (a CUDA tensor, or a fake one on any device) the
+# Hopper kernels read q, k, v and dO in place through TMA, and the B2/B3
+# wrappers refuse a view TMA cannot take.  The autograd functions pass what
+# they hand the kernels through ``_readable`` (a contiguous copy of what a
+# design cannot read): autograd's cotangent of a ``.sum()`` is expanded
+# (strides of 0), and a q view of a [..., D + 4] tensor has a head stride
+# of 2 D + 8 bytes (136 at D = 64).  Fake bf16 tensors take every
+# wrapper's shape-only branch, checks and all, without a card.
+
+
+def _fake_qkv(d, skew=False, t=64):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    mode = FakeTensorMode()
+    with mode:
+        if skew:
+            q = torch.empty(2, t, 4, d + 4, dtype=torch.bfloat16)[..., :d]
+        else:
+            q = torch.empty(2, t, 4, d, dtype=torch.bfloat16)
+        k, v = (torch.empty(2, t, 4, d, dtype=torch.bfloat16)
+                for _ in range(2))
+    return mode, [x.requires_grad_() for x in (q, k, v)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_sum_loss_backward_on_the_kernel_path_does_not_raise(d):
+    """``flash_attention(q, k, v, True).sum().backward()`` on fake bf16
+    tensors: the expanded cotangent reaches B2/B3 as a copy they read."""
+    mode, (q, k, v) = _fake_qkv(d)
+    with mode:
+        flash_attention(q, k, v, True).sum().backward()
+        assert q.grad.shape == q.shape and v.grad.shape == v.shape
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_lse"])
+def test_skewed_q_view_on_the_kernel_path_does_not_raise(fn, d):
+    """A q view with a head stride of 2 D + 8 bytes (136 at D = 64)
+    through both autograd functions: B1 reads a copy and the backward
+    takes the copy B1 read."""
+    mode, (q, k, v) = _fake_qkv(d, skew=True)
+    assert q.stride(2) * 2 == 2 * d + 8
+    with mode:
+        if fn == "flash_attention":
+            flash_attention(q, k, v, True).sum().backward()
+        else:
+            out, lse = flash_attention_lse(q, k, v, True)
+            (out.float().sum() + lse.sum()).backward()
+        assert q.grad.shape == q.shape
+
+
+@pytest.mark.parametrize("kernel,d", [("fwd", 64), ("fwd", 80), ("dq", 80),
+                                      ("fwd", 32), ("dkv", 128)])
+def test_readable_copies_only_what_a_design_cannot_read(kernel, d):
+    """``_readable`` hands a contiguous tensor (and a fused QKV view)
+    back as it is, never a copy; an expanded or skewed view becomes a
+    contiguous copy for the Hopper designs (TMA) and for the others alike,
+    while ``_kernel_views`` still refuses it for a Hopper design."""
+    x = torch.randn(2, 40, 4, d).bfloat16()
+    fused = torch.randn(2, 40, 3, 4, d).bfloat16().unbind(2)[1]
+    expanded = torch.ones(()).bfloat16().expand(2, 40, 4, d)
+    skewed = torch.randn(2, 40, 4, d + 4).bfloat16()[..., :d]
+    got = fa_mod._readable(kernel, x, fused, expanded, skewed)
+    assert got[0] is x and got[1] is fused
+    for view, copy in zip((expanded, skewed), got[2:]):
+        assert copy is not view and copy.is_contiguous()
+        assert torch.equal(copy, view)
+    hopper = fa_mod.kernel_design(kernel, torch.bfloat16, d) == \
+        "wgmma, TMA, warp-specialised"
+    if hopper:
+        with pytest.raises(ValueError, match="16-byte"):
+            fa_mod._kernel_views(kernel, x, expanded)
+
+
+@pytest.mark.parametrize("shape", [(128, 196, 16, 64), (32, 257, 16, 80)],
+                         ids=["vit_l16", "vit_h14"])
+def test_b1_reads_a_fused_qkv_view_in_place(shape):
+    """At ViT-L/16's and ViT-H/14's shapes the q, k and v views of one
+    [B, T, 3, H, D] projection are what B1 reads (no copy), on fake
+    tensors on the kernel path."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    b, t, h, d = shape
+    with FakeTensorMode():
+        qkv = torch.empty(b, t, 3, h, d, dtype=torch.bfloat16)
+        views = qkv.unbind(2)
+        read = fa_mod._b1_views(*views)
+        out, lse = fa_mod.flash_attention_fwd(*views)
+        assert out.shape == (b, t, h, d) and lse.shape == (b, h, t)
+    assert all(r is v for r, v in zip(read, views))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_sum_and_skewed_q_gradients_match_jax(d):
+    """On CPU tensors (the plain versions): the ``.sum()`` loss and a
+    loss through a skewed q view give the JAX ``custom_vjp``'s gradients
+    (f32: O within 1e-5, gradients within 1e-4)."""
+    b, t, h = 1, 40, 2
+    q, k, v, _ = _inputs(b, t, t, h, h, d, seed=11)
+    ones = np.ones((b, t, h, d), np.float32)
+    ref = _jax_run(q, k, v, ones, True, 16, None, 0)
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*ts, True, 16, 16)
+    out.sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), ref[0], atol=1e-5,
+                               rtol=0)
+    for a, r in zip(ts, ref[1:]):
+        np.testing.assert_allclose(a.grad.numpy(), r, atol=1e-4, rtol=0)
+    wide = torch.zeros(b, t, h, d + 4)
+    wide[..., :d] = torch.from_numpy(q)
+    wide.requires_grad_()
+    kv = [torch.from_numpy(x).requires_grad_() for x in (k, v)]
+    flash_attention(wide[..., :d], *kv, True, 16, 16).sum().backward()
+    np.testing.assert_allclose(wide.grad[..., :d].numpy(), ref[1],
+                               atol=1e-4, rtol=0)
+    assert not wide.grad[..., d:].any()
+    for a, r in zip(kv, ref[2:]):
+        np.testing.assert_allclose(a.grad.numpy(), r, atol=1e-4, rtol=0)

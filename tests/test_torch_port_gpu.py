@@ -322,6 +322,26 @@ ATTN_VARIANTS = {
                          4),
     "main_d128_bf16": (8, 1024, 1024, 6, 6, 128, torch.bfloat16, True, None,
                        0),
+    # the Hopper B1 (head dims 64, 80 and 128): D = 80 reads each row as a
+    # 64-feature and a 16-feature TMA box
+    "bf16_noncausal_ragged_d64": (2, 100, 70, 4, 2, 64, torch.bfloat16,
+                                  False, None, 0),
+    "bf16_gqa_window_sinks_d80": (2, 300, 300, 4, 2, 80, torch.bfloat16,
+                                  True, 70, 3),
+    "bf16_noncausal_ragged_d80": (2, 100, 70, 4, 4, 80, torch.bfloat16,
+                                  False, None, 0),
+    "bf16_ragged_t_d80": (2, 77, 77, 4, 2, 80, torch.bfloat16, True, None,
+                          0),
+    "bf16_tq_lt_tk_d80": (2, 24, 96, 4, 4, 80, torch.bfloat16, True, None,
+                          0),
+    "bf16_fully_masked_rows_d80": (2, 8, 4, 2, 2, 80, torch.bfloat16, True,
+                                   None, 0),
+    "bf16_tq_lt_tk_d128": (2, 24, 96, 4, 2, 128, torch.bfloat16, True, None,
+                           0),
+    "bf16_fully_masked_rows_d128": (2, 8, 4, 2, 2, 128, torch.bfloat16,
+                                    True, None, 0),
+    "main_d80_gqa_window_bf16": (8, 1024, 1024, 16, 4, 80, torch.bfloat16,
+                                 True, 256, 4),
 }
 
 
@@ -403,8 +423,9 @@ def test_flash_attention_on_cuda_never_reaches_the_plain_path(cuda,
                          ids=["f32", "bf16"])
 def test_kernel_design_table_is_the_librarys(cuda, dt):
     """The wrapper's dispatch table (``kernel_design``) names the design
-    the library's launcher runs for every kernel and head dim: bf16 B2/B3
-    at 64 and 128 on the Hopper kernels, the rest on mma.sync or SIMT."""
+    the library's launcher runs for every kernel and head dim: bf16 B1 at
+    64, 80 and 128 and bf16 B2/B3 at 64 and 128 on the Hopper kernels,
+    the rest on mma.sync or SIMT."""
     lib = fa._kernel()
     for which, kname in enumerate(("fwd", "dq", "dkv")):
         for d in fa._HEAD_DIMS:
@@ -443,6 +464,72 @@ def test_hopper_bwd_is_deterministic_and_refuses_misaligned_views(cuda, d):
             fa.flash_attention_dkv(*bad, lse, delta, **kw)
     assert (fa.flash_attention_dq.launches,
             fa.flash_attention_dkv.launches) == before
+
+
+@pytest.mark.parametrize("d", list(fa.HOPPER_FWD_DIMS))
+def test_hopper_fwd_is_deterministic(cuda, d):
+    """The Hopper B1 sums in a fixed order with no atomics: two calls give
+    the same bits (O and LSE), causal with GQA and a ragged T."""
+    g = torch.Generator().manual_seed(d)
+    q = torch.randn(2, 333, 4, d, generator=g).bfloat16().to(cuda)
+    k, v = (torch.randn(2, 333, 2, d, generator=g).bfloat16().to(cuda)
+            for _ in range(2))
+    assert fa.kernel_design("fwd", torch.bfloat16, d) == fa.DESIGNS[2]
+    first = fa.flash_attention_fwd(q, k, v, causal=True)
+    again = fa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_lse"])
+@pytest.mark.parametrize("case", ["sum", "skewed_q"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_autograd_takes_expanded_cotangents_and_skewed_views(cuda, fn, case,
+                                                             d):
+    """A ``.sum()`` loss (autograd's cotangent is expanded: strides of 0)
+    and a q view of a [B, T, H, D + 4] tensor (a head stride of 2 D + 8
+    bytes, 136 at D = 64) through both autograd functions: the backward
+    hands B2/B3 copies they read, and the gradients equal the plain
+    versions' on the tensors the backward was given, element by element
+    (1e-5 + two bf16 ulps of each entry)."""
+    g = torch.Generator().manual_seed(d)
+    width = d + 4 if case == "skewed_q" else d
+    leaves = [torch.randn(2, 130, 4, w, generator=g).bfloat16().to(cuda)
+              .requires_grad_() for w in (width, d, d)]
+    q = leaves[0][..., :d]
+    seen, inner = [], fa._backward
+
+    def recording(*args):
+        out = inner(*args)
+        seen.append((args, out))
+        return out
+
+    fa._backward = recording
+    try:
+        if fn == "flash_attention":
+            fa.flash_attention(q, *leaves[1:], True).sum().backward()
+        else:
+            out, lse = fa.flash_attention_lse(q, *leaves[1:], True)
+            (out.sum() + lse.sum()).backward()
+    finally:
+        fa._backward = inner
+    torch.cuda.synchronize()
+    (q_, k_, v_, o_, lse_, g_, g_lse, _), grads = seen[0]
+    assert 0 in g_.stride()
+    assert (q_.data_ptr() != q.data_ptr()) == (case == "skewed_q")
+    delta = (g_.float() * o_.float()).sum(-1).permute(0, 2, 1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    bargs = (q_, k_, v_, g_, lse_, delta.contiguous())
+    refs = (fa.flash_attention_dq_reference(*bargs, causal=True),
+            *fa.flash_attention_dkv_reference(*bargs, causal=True))
+    for got, ref in zip(grads, refs):
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-5,
+                                   rtol=1.6e-2)
+    caller = (leaves[0].grad[..., :d], leaves[1].grad, leaves[2].grad)
+    for a, b in zip(caller, grads):
+        assert torch.equal(a, b)
 
 
 def test_dropped_tile_control_fails_the_element_wise_check(cuda):
@@ -1069,7 +1156,8 @@ def test_flash_attention_at_vit_shapes(cuda, t, dt):
     assert all(fa._kernel_view(x) is x for x in (q, k, v))
     assert all(a is b for a, b in zip(fa._kernel_views("dq", q, k, v, do),
                                       (q, k, v, do)))
-    out, lse = fa.flash_attention_fwd(q, k, v)
+    assert all(a is b for a, b in zip(fa._b1_views(q, k, v), (q, k, v)))
+    out, lse = fa.flash_attention_fwd(q, k, v)  # B1 reads them in place
     ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v)
     delta = (do.float() * ref_out.float()).sum(-1).permute(0, 2, 1)
     args = (q, k, v, do, ref_lse, delta.contiguous())
@@ -1102,7 +1190,8 @@ def test_flash_attention_at_vit_h14_shapes(cuda, t, dt):
     do = torch.randn(4, t, 16, 80, generator=g).to(dt).to(cuda)
     assert all(fa._kernel_view(x) is x for x in (q, k, v))
     blk = dict(block_q=512, block_k=512)
-    out, lse = fa.flash_attention_fwd(q, k, v)
+    assert all(a is b for a, b in zip(fa._b1_views(q, k, v), (q, k, v)))
+    out, lse = fa.flash_attention_fwd(q, k, v)  # B1 reads them in place
     ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, **blk)
     delta = (do.float() * ref_out.float()).sum(-1).permute(0, 2, 1)
     args = (q, k, v, do, ref_lse, delta.contiguous())
