@@ -11,14 +11,15 @@ Phases, each of which raises on failure (exit code != 0, no result):
    a fresh persistent build cache under ``_build/``, removed when the
    run ends (``compilation.enable_persistent_cache``: the cold process,
    one miss a source, each source's ``nvcc`` seconds), and ``ptxas``
-   lines with the registers and spills of bf16 B2 (the
-   tensor-core dQ kernel) at head dims 32, 64, 80 and 128, of the
-   Hopper B2/B3 kernels (wgmma, TMA, warp-specialised) at 64 and 128, of
-   the Hopper B1 (``flash_fwd_wg_kernel``) at 64, 80 and 128 (no spill at
-   64 and 80), of every B1-B3 instantiation at head dim 80 and of every
-   instantiation of B4's split kernel; then ``cuobjdump --dump-sass`` of
-   the flash attention library, which must show ``HGMMA`` and
-   ``UTMALDG`` in every Hopper B1, B2 and B3 kernel;
+   lines with the registers and spills of bf16 B2's mma.sync dQ kernel
+   at head dim 32, of the Hopper B2/B3 kernels (wgmma, TMA,
+   warp-specialised) at 64, 80 and 128 (no spill in B2 or B3 at 80 outside
+   the audit), of the Hopper B1 (``flash_fwd_wg_kernel``) at 64, 80 and
+   128 (no spill at 64 and 80), of every B1-B3 instantiation at head dim
+   80 and of every instantiation of B4's split kernel, and the kernels
+   ptxas reports with serialised ``wgmma`` (C7520); then ``cuobjdump
+   --dump-sass`` of the flash attention library, which must show
+   ``HGMMA`` and ``UTMALDG`` in all 15 Hopper B1, B2 and B3 kernels;
 3. kernel: the dense flash-decode kernel (B4, split-KV over runs of
    whole tiles cut from each slot's cursor, then a combine kernel, with
    its split and CTA counts) against its plain PyTorch version at
@@ -60,11 +61,11 @@ Phases, each of which raises on failure (exit code != 0, no result):
    time (mean, median and spread), the plain version's, the library
    yardstick (``scaled_dot_product_attention`` forward for B1, its
    backward for B2 + B3: each fused backend pinned in turn, the fastest
-   named) and the card's bound; then the autograd layer's layouts: a
-   ``.sum()`` loss (an expanded cotangent) and a q view with a 136-byte
-   head stride, through ``flash_attention`` and ``flash_attention_lse``,
-   each backward held element by element to the plain versions on the
-   tensors it was given;
+   named) and the card's bound; then the autograd layer's layouts at
+   head dims 64 and 80: a ``.sum()`` loss (an expanded cotangent) and a
+   q view of a [B, T, H, D + 4] tensor, through ``flash_attention`` and
+   ``flash_attention_lse``, each backward held element by element to the
+   plain versions on the tensors it was given;
 9. train: ``python -m fluxdistributed_tpu_torch.train --model lm_small
    --dataset synthetic-text --vocab 256 --seqlen 1024 --batch-size 8
    --attn flash --opt adam --lr 3e-4 --cycles 40`` in-process: the loss
@@ -168,15 +169,17 @@ Phases, each of which raises on failure (exit code != 0, no result):
     non-causal, strided q/k/v read in place) in bf16 and f32, and a
     causal windowed GQA row with sinks at D = 80 in bf16 and f32, each
     as in phase 8 (the plain versions at one whole-sequence block for the
-    ViT-H rows); then the bf16 rounding audit at the 257-token shape
-    over 4 seeds (0 unflagged mismatches);
+    ViT-H rows; every bf16 row on the Hopper kernels); then the bf16
+    rounding audit at the 257-token shape over 4 seeds (0 unflagged
+    mismatches);
 26. ViT-H train step: ViT-H/14 (224², 632 M params) with the flash
     core, first f32 at batch 2 against the dense core on the same weights
     (logits within 1e-4 of the largest, each gradient leaf within 1e-3
     of its largest entry; B1-B3 32 launches each), then bf16 compute, f32
     params, adamw, batch 32: B1-B3 32 launches each in one step, the
     eager step ms, images/s, MFU, peak allocated bytes and idle share,
-    and a profile of one step with B1-B3's device ms and share;
+    and a profile of one step with B1-B3's device ms and share, and B1's,
+    B2's and B3's each;
 27. resume: ResNet-50 (224², batch 256, bf16, momentum) at
     ``steps_per_call`` 8 (graph replays) trained 4 items uninterrupted,
     and again with a fault-plan SIGTERM at item 2, checkpointed and
@@ -434,6 +437,20 @@ def ptxas_summary(log: str, fragment: str) -> dict:
     return out
 
 
+def serialised_wgmma(log: str) -> dict:
+    """``{kernel: ptxas's advisory}`` for each kernel of an ``nvcc -Xptxas
+    -v`` log whose ``wgmma`` instructions ptxas serialised (C7520 and its
+    kin: each ``wgmma`` then waits for the one before it)."""
+    out = {}
+    for line in log.splitlines():
+        if "wgmma" in line and "serializ" in line:
+            quoted = line.split("'")
+            name = demangle(quoted[-2]) if len(quoted) >= 3 else "?"
+            out[name] = line.split(":", 1)[-1].split(
+                " in the function", 1)[0].strip()
+    return out
+
+
 def demangle(name: str) -> str:
     """``name`` demangled by ``c++filt`` where the toolkit's host has it,
     else as it is."""
@@ -452,10 +469,11 @@ def sass_check(_build) -> dict:
     """``cuobjdump --dump-sass`` of the flash attention library: for each
     Hopper kernel (``*_wg_kernel``), which of :data:`HOPPER_SASS` its SASS
     holds.  Raises if one lacks any, or if the instantiations are not all
-    there: B2 and B3 at head dims 64 and 128 with and without the audit
-    (eight), and B1 (``flash_fwd_wg_kernel``) at each of
-    ``HOPPER_FWD_DIMS``."""
-    from fluxdistributed_tpu_torch.ops.flash_attention import HOPPER_FWD_DIMS
+    there: B2 and B3 at each of ``HOPPER_BWD_DIMS`` with and without the
+    audit, and B1 (``flash_fwd_wg_kernel``) at each of
+    ``HOPPER_FWD_DIMS`` (15)."""
+    from fluxdistributed_tpu_torch.ops.flash_attention import (
+        HOPPER_BWD_DIMS, HOPPER_FWD_DIMS)
 
     tool = Path(_build.nvcc()).parent / "cuobjdump"
     lib = _build.library_path("flash_attention")
@@ -475,8 +493,8 @@ def sass_check(_build) -> dict:
             for n, ops in found.items()}
     bad = [n for n, r in rows.items() if not all(r.values())]
     fwd = [n for n in rows if "flash_fwd_wg_kernel" in n]
-    if len(rows) != 8 + len(HOPPER_FWD_DIMS) or len(fwd) != len(
-            HOPPER_FWD_DIMS) or bad:
+    if len(rows) != 4 * len(HOPPER_BWD_DIMS) + len(HOPPER_FWD_DIMS) or len(
+            fwd) != len(HOPPER_FWD_DIMS) or bad:
         raise RuntimeError(f"sass: {len(rows)} Hopper kernels ({len(fwd)} "
                            f"B1), lacking {HOPPER_SASS} in {bad}")
     return rows
@@ -1522,69 +1540,74 @@ def attention_kernel_phase(torch, bw, peaks, flush):
 
 
 def autograd_layouts_check(torch, fa):
-    """The autograd functions hand B1-B3 what their designs read: at D =
-    64 (bf16, causal, B = 2, T = 256, 4 heads), a ``.sum()`` loss, whose
-    cotangent autograd expands (strides of 0), and a loss through a q
-    view of a [B, T, H, D + 4] tensor (a head stride of 136 bytes), each
-    through ``flash_attention`` and ``flash_attention_lse``.  Each
-    backward's B2/B3 outputs are held element by element
-    (:func:`grad_check`) to the plain versions on the tensors the
-    backward was given, and must be the gradients the caller gets.
-    Raises if a limit is broken or a kernel refuses its inputs."""
+    """The autograd functions hand B1-B3 what their designs read: at head
+    dims 64 and 80 (bf16, causal, B = 2, T = 256, 4 heads), a ``.sum()``
+    loss, whose cotangent autograd expands (strides of 0), and a loss
+    through a q view of a [B, T, H, D + 4] tensor (a head stride of 136
+    or 168 bytes), each through ``flash_attention`` and
+    ``flash_attention_lse``.  Each backward's B2/B3 outputs are held
+    element by element (:func:`grad_check`) to the plain versions on the
+    tensors the backward was given, and must be the gradients the caller
+    gets.  Raises if a limit is broken or a kernel refuses its inputs."""
     from fluxdistributed_tpu_torch.ops import (flash_attention,
                                                flash_attention_lse)
 
-    b, t, h, d = 2, 256, 4, D
-    g = torch.Generator().manual_seed(21)
-    src = {"plain": torch.randn(b, t, h, d, generator=g),
-           "skewed": torch.randn(b, t, h, d + 4, generator=g)}
-    k, v = (torch.randn(b, t, h, d, generator=g) for _ in range(2))
-    row, bad = {}, []
-    for name, fn, q_of in (("sum", "flash_attention", "plain"),
-                           ("skewed_q", "flash_attention", "skewed"),
-                           ("sum_lse", "flash_attention_lse", "plain"),
-                           ("skewed_q_lse", "flash_attention_lse",
-                            "skewed")):
-        leaves = [x.bfloat16().cuda().requires_grad_()
-                  for x in (src[q_of], k, v)]
-        q = leaves[0][..., :d]
-        seen, inner = [], fa._backward
+    b, t, h = 2, 256, 4
+    bad = []
+    for d in (D, VITH_D):
+        g = torch.Generator().manual_seed(21)
+        src = {"plain": torch.randn(b, t, h, d, generator=g),
+               "skewed": torch.randn(b, t, h, d + 4, generator=g)}
+        k, v = (torch.randn(b, t, h, d, generator=g) for _ in range(2))
+        row = {}
+        for name, fn, q_of in (("sum", "flash_attention", "plain"),
+                               ("skewed_q", "flash_attention", "skewed"),
+                               ("sum_lse", "flash_attention_lse", "plain"),
+                               ("skewed_q_lse", "flash_attention_lse",
+                                "skewed")):
+            leaves = [x.bfloat16().cuda().requires_grad_()
+                      for x in (src[q_of], k, v)]
+            q = leaves[0][..., :d]
+            seen, inner = [], fa._backward
 
-        def recording(*args, _inner=inner, _seen=seen):
-            out = _inner(*args)
-            _seen.append((args, out))
-            return out
+            def recording(*args, _inner=inner, _seen=seen):
+                out = _inner(*args)
+                _seen.append((args, out))
+                return out
 
-        fa._backward = recording
-        try:
-            if fn == "flash_attention":
-                flash_attention(q, *leaves[1:], True).sum().backward()
-            else:
-                out, lse = flash_attention_lse(q, *leaves[1:], True)
-                (out.sum() + lse.sum()).backward()
-        finally:
-            fa._backward = inner
-        torch.cuda.synchronize()
-        (q_, k_, v_, o_, lse_, g_, g_lse, _), grads = seen[0]
-        delta = (g_.float() * o_.float()).sum(-1).permute(0, 2, 1)
-        if g_lse is not None:
-            delta = delta - g_lse.float()
-        bargs = (q_, k_, v_, g_, lse_, delta.contiguous())
-        refs = (fa.flash_attention_dq_reference(*bargs, causal=True),
-                *fa.flash_attention_dkv_reference(*bargs, causal=True))
-        excess = {n: grad_check(torch, got, ref, "bf16")["excess"]
-                  for n, got, ref in zip(("dq", "dk", "dv"), grads, refs)}
-        caller = (leaves[0].grad[..., :d], leaves[1].grad, leaves[2].grad)
-        same = all(torch.equal(a, b_) for a, b_ in zip(caller, grads))
-        row[name] = {"through": fn, "cotangent_strides": list(g_.stride()),
-                     "q_head_stride_bytes": q.stride(2) * q.element_size(),
-                     "backward_q_is_a_copy": q_.data_ptr() != q.data_ptr(),
-                     "excess": excess, "caller_grads_are_the_kernels": same}
-        if not same or any(not x <= 1.0 for x in excess.values()):
-            bad.append(name)
-    emit({"phase": "attention_kernel", "variant": "autograd_layouts",
-          "shape": [b, t, t, h, h, d], "dtype": "bf16", "causal": True,
-          "grad_tol": GRAD_TOL["bf16"], "cases": row})
+            fa._backward = recording
+            try:
+                if fn == "flash_attention":
+                    flash_attention(q, *leaves[1:], True).sum().backward()
+                else:
+                    out, lse = flash_attention_lse(q, *leaves[1:], True)
+                    (out.sum() + lse.sum()).backward()
+            finally:
+                fa._backward = inner
+            torch.cuda.synchronize()
+            (q_, k_, v_, o_, lse_, g_, g_lse, _), grads = seen[0]
+            delta = (g_.float() * o_.float()).sum(-1).permute(0, 2, 1)
+            if g_lse is not None:
+                delta = delta - g_lse.float()
+            bargs = (q_, k_, v_, g_, lse_, delta.contiguous())
+            refs = (fa.flash_attention_dq_reference(*bargs, causal=True),
+                    *fa.flash_attention_dkv_reference(*bargs, causal=True))
+            excess = {n: grad_check(torch, got, ref, "bf16")["excess"]
+                      for n, got, ref in zip(("dq", "dk", "dv"), grads, refs)}
+            caller = (leaves[0].grad[..., :d], leaves[1].grad, leaves[2].grad)
+            same = all(torch.equal(a, b_) for a, b_ in zip(caller, grads))
+            row[name] = {"through": fn, "cotangent_strides": list(g_.stride()),
+                         "q_head_stride_bytes": q.stride(2) * q.element_size(),
+                         "backward_q_is_a_copy": q_.data_ptr() != q.data_ptr(),
+                         "excess": excess,
+                         "caller_grads_are_the_kernels": same}
+            if not same or any(not x <= 1.0 for x in excess.values()):
+                bad.append(f"{name} D={d}")
+        emit({"phase": "attention_kernel", "variant": "autograd_layouts",
+              "shape": [b, t, t, h, h, d], "dtype": "bf16", "causal": True,
+              "design": {kn: kernel_design(fa, kn, torch.bfloat16, d)
+                         for kn in ("fwd", "dq", "dkv")},
+              "grad_tol": GRAD_TOL["bf16"], "cases": row})
     if bad:
         raise RuntimeError(f"attention_kernel autograd_layouts: {bad} out "
                            f"of the element-wise limit or not the caller's")
@@ -3351,10 +3374,17 @@ def vith_kernel_phase(torch, bw, peaks, flush):
                                     ref_block=512)
             for name, spec in strided.items()}
     for bits in ("bf16", "f32"):
-        attention_variant(torch, fa, bw, peaks, flush, "vith_kernel",
-                          f"d80_causal_window_gqa_{bits}",
-                          (T_TRAIN, T_TRAIN, H, 4, Dh, bits, True, 256, 4,
-                           False), g, batch=B)
+        rows[f"d80_causal_window_gqa_{bits}"] = attention_variant(
+            torch, fa, bw, peaks, flush, "vith_kernel",
+            f"d80_causal_window_gqa_{bits}",
+            (T_TRAIN, T_TRAIN, H, 4, Dh, bits, True, 256, 4, False), g,
+            batch=B)
+    off = {f"{name} {kname}": r["design"] for name, row in rows.items()
+           if "f32" not in name for kname, r in row.items()
+           if r["design"] != fa.DESIGNS[2]}
+    if off:
+        raise RuntimeError(f"vith_kernel: bf16 rows off the Hopper "
+                           f"kernels: {off}")
     audits = []
     for seed in range(VITH_AUDIT_SEEDS):
         ga = torch.Generator().manual_seed(200 + seed)
@@ -3471,8 +3501,10 @@ def vith_train_step_phase(torch, peaks, card):
     state, m = step(state, batch)
     torch.cuda.synchronize()
     per_step = all_counts()
-    prof = profile_vision_step(torch, step, state, batch,
-                               share={"b1_b3": is_flash_kernel})
+    prof = profile_vision_step(torch, step, state, batch, share={
+        "b1_b3": is_flash_kernel, "b1": lambda n: "flash_fwd" in n,
+        "b2": lambda n: "flash_bwd_dq" in n,
+        "b3": lambda n: "flash_bwd_dkv" in n})
     del step, state, m
     torch.cuda.empty_cache()
     row = time_device_loop(torch, "vit_h14_one_device", card, 1, make_state,
@@ -6667,22 +6699,14 @@ def main() -> int:
         shutil.rmtree(CACHE_ROOT, ignore_errors=True)
 
 
-def run_phases(torch, _build) -> int:
-    """Every phase, then the ``kernels`` line and the last line."""
-    smi = shutil.which("nvidia-smi")
-    if smi is None:
-        raise RuntimeError("nvidia-smi not found")
-    card = subprocess.run(
-        [smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(card.splitlines()[0], flush=True)
-    name = torch.cuda.get_device_name(0)
-    bw, peaks = card_rates(name)
-    emit({"phase": "card", "torch": torch.__version__,
-          "cuda": torch.version.cuda, "device": name,
-          "hbm_bytes_per_s": bw})
-
+def build_phase(_build) -> None:
+    """Phase 2: every kernel source built cold into ``CACHE_ROOT``, each
+    build's ``ptxas`` lines, the registers and spills of the kernels this
+    script holds to (raises if B1 spills at 64 or 80, or B2 or B3 at 80
+    outside the audit), the kernels whose ``wgmma`` ptxas serialised, and
+    the Hopper kernels' SASS (:func:`sass_check`)."""
     from fluxdistributed_tpu_torch import compilation
+    from fluxdistributed_tpu_torch.ops.flash_attention import HOPPER_BWD_DIMS
 
     ns_dir = compilation.enable_persistent_cache(CACHE_ROOT)
     t0 = time.perf_counter()
@@ -6707,20 +6731,25 @@ def run_phases(torch, _build) -> int:
 
     dq_tc = ptxas_summary(logs.get("flash_attention", ""), "flash_bwd_dq_tc")
     emit({"phase": "ptxas", "kernel": "flash_bwd_dq_tc_kernel<D, audit>",
-          "by_dim": {f"D={d}{' audit' if a else ''}": r
-                     for name, r in dq_tc.items()
-                     for d in (32, 64, 80, 128) for a in (0, 1)
-                     if f"ILi{d}ELb{a}E" in name}})
+          "by_dim": {f"D=32{' audit' if a else ''}": r
+                     for name, r in dq_tc.items() for a in (0, 1)
+                     if f"ILi32ELb{a}E" in name}})
     for frag, kname in (("flash_bwd_dq_wg", "flash_bwd_dq_wg_kernel<D, audit>"),
                         ("flash_bwd_dkv_wg",
                          "flash_bwd_dkv_wg_kernel<D, audit>")):
         wg = ptxas_summary(logs.get("flash_attention", ""), frag)
+        by_dim = {f"D={d}{' audit' if a else ''}": r
+                  for name, r in wg.items()
+                  for d in HOPPER_BWD_DIMS for a in (0, 1)
+                  if f"ILi{d}ELb{a}E" in name}
         emit({"phase": "ptxas", "kernel": kname,
-              "design": "wgmma, TMA, warp-specialised",
-              "by_dim": {f"D={d}{' audit' if a else ''}": r
-                         for name, r in wg.items()
-                         for d in (64, 128) for a in (0, 1)
-                         if f"ILi{d}ELb{a}E" in name}})
+              "design": "wgmma, TMA, warp-specialised", "by_dim": by_dim})
+        d80 = by_dim.get("D=80", {})
+        if d80.get("spill_stores", 1) or d80.get("spill_loads", 1):
+            raise RuntimeError(f"ptxas: {kname} spills at D = 80, or is "
+                               f"missing: {d80}")
+    emit({"phase": "ptxas", "kernel": "wgmma serialised (C7520)",
+          "kernels": serialised_wgmma(logs.get("flash_attention", ""))})
     b1 = ptxas_summary(logs.get("flash_attention", ""), "flash_fwd_wg")
     b1 = {f"D={d}": r for name, r in b1.items() for d in (64, 80, 128)
           if f"ILi{d}E" in name}
@@ -6744,6 +6773,24 @@ def run_phases(torch, _build) -> int:
           "kernel": "flash_decode_split_kernel<TQ, TKV, windowed, quant> "
                     "(any D)",
           "instantiations": {demangle(n): r for n, r in split.items()}})
+
+
+def run_phases(torch, _build) -> int:
+    """Every phase, then the ``kernels`` line and the last line."""
+    smi = shutil.which("nvidia-smi")
+    if smi is None:
+        raise RuntimeError("nvidia-smi not found")
+    card = subprocess.run(
+        [smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(card.splitlines()[0], flush=True)
+    name = torch.cuda.get_device_name(0)
+    bw, peaks = card_rates(name)
+    emit({"phase": "card", "torch": torch.__version__,
+          "cuda": torch.version.cuda, "device": name,
+          "hbm_bytes_per_s": bw})
+
+    build_phase(_build)
 
     seconds = {}
 

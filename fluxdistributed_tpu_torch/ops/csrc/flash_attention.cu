@@ -8,11 +8,11 @@
 //        bf16: flash_fwd_wg_kernel (D = 64, 80, 128), flash_fwd_tc_kernel
 //        (D = 32)                          f32: flash_fwd_kernel
 //   B2 _flash_dq_kernel  (first pl.pallas_call in _flash_bwd_impl)
-//        bf16: flash_bwd_dq_wg_kernel (D = 64, 128), flash_bwd_dq_tc_kernel
-//        (D = 32, 80)                    f32: flash_bwd_dq_kernel
+//        bf16: flash_bwd_dq_wg_kernel (D = 64, 80, 128),
+//        flash_bwd_dq_tc_kernel (D = 32)  f32: flash_bwd_dq_kernel
 //   B3 _flash_dkv_kernel (second pl.pallas_call in _flash_bwd_impl)
-//        bf16: flash_bwd_dkv_wg_kernel (D = 64, 128), flash_bwd_dkv_tc_kernel
-//        (D = 32, 80)                    f32: flash_bwd_dkv_kernel
+//        bf16: flash_bwd_dkv_wg_kernel (D = 64, 80, 128),
+//        flash_bwd_dkv_tc_kernel (D = 32) f32: flash_bwd_dkv_kernel
 //
 // What they compute, with s = scale * q . k^T in f32 (the scale multiplies
 // the f32 scores, never the inputs) and the attend mask of _band_mask:
@@ -75,13 +75,14 @@
 // warpgroups taking turns through named barriers, were both slower on the
 // card (PERF.md §6).
 //
-// B2 and B3 at D = 64 and 128 (kHopperBwd) are Hopper kernels: wgmma,
+// B2 and B3 at D = 64, 80 and 128 (kHopperBwd) are Hopper kernels: wgmma,
 // TMA, mbarriers and warp specialisation (section "Hopper backward
 // kernels" below).  A CTA is two consumer warpgroups of 64 rows each and
 // one producer warpgroup.  One warp of the producer loads: TMA boxes of
-// 64 x 64 bf16 (128-byte swizzle) from descriptors built on the host from
-// each tensor's own strides, into a ring of stages signalled by full /
-// empty mbarriers.  The consumers form S and dP with wgmma from shared
+// 64 rows (RowBoxes: 64 features with the 128-byte swizzle, and at D = 80
+// a 16-feature box with the 32-byte one) from descriptors built on the
+// host from each tensor's own strides, into a ring of stages signalled by
+// full / empty mbarriers.  The consumers form S and dP with wgmma from shared
 // memory, the element-wise p / ds / flag code on the accumulators (a
 // warp's slice of a wgmma accumulator is the m16n8 C layout), and store
 // p and ds as bf16 tiles in shared memory.  The producer's three other
@@ -89,48 +90,52 @@
 // stage ahead, and sum the flagged pairs again in the plain order,
 // storing the plain version's roundings over the tensor cores' (a B2
 // consumer warp leaves them at most kQueued pairs a tile and sums the rest
-// itself: on training data, which flag up to 6 % of pairs, the helpers
-// alone would hold B2 up).  One tile later the consumers form dQ += dS.K (B2) or dV += P^T.dO and dK +=
-// dS^T.Q (B3) with wgmma from those tiles, and release the stage.  The
-// sums stay in registers and are written once.  setmaxnreg gives the
-// producer warpgroup 96 registers and the consumers the rest; the
-// compiler holds every role to the launch's 168 a thread (384 threads,
-// one CTA an SM), so the consumers' register budget is that.
+// itself, as a B3 one does at D = 80 with kDkvQueued: training data flag
+// up to 6 % of pairs on lm_small and 8-23 % in most layers of ViT-H/14,
+// and the helpers alone would hold the consumers up).  One tile later the consumers form dQ += dS.K
+// (B2) or dV += P^T.dO and dK += dS^T.Q (B3) with wgmma from those tiles,
+// and release the stage.  The sums stay in registers and are written
+// once.  setmaxnreg gives the producer warpgroup 96 registers and the
+// consumers the rest; the compiler holds every role to the launch's 168 a
+// thread (384 threads, one CTA an SM), so the consumers' register budget
+// is that.  At D = 80 (ViT-H/14) a 160-byte row is B1's two boxes: S and
+// dP contract over 4 k-steps of the atom and 1 of the tail, and each
+// product whose N is D (dQ, dV, dK) is an n = 64 wgmma over the atom and
+// an n = 16 one over the tail, so the rows are read in place and no
+// product is padded to 128 features.  At ViT-H/14's shapes (batch 32, 16
+// heads, 256 or 257 tokens, non-causal) B2 and B3 are bound by bytes:
+// moving q, k, v, dO and their outputs once takes 0.0316 and 0.0379 ms on
+// an H100, the products 0.016 and 0.022 ms at 989 TFLOP/s.  A short
+// sequence gives each CTA only 4 or 5 tiles to stream, so the ring's
+// first loads and the last tile's products are a large part of its time.
 //
-// B1 at D = 32 and B2/B3 at D = 32 and 80 keep the FlashAttention-2
-// schedule on mma.sync (m16n8k16): one CTA of 4 warps owns a 64-row tile
-// and each warp 16 of its rows.  Tiles move global -> shared by 16-byte
-// cp.async copies into a two-stage ring, stored as bf16 with rows padded
-// to D + 8 elements so that ldmatrix (.trans where an operand is needed
-// k-major) reads them without bank conflicts.  Score tiles stay in
-// registers: the m16n8 accumulator layout is the m16k16 A-operand layout,
-// so p (and ds) become bf16 A fragments in place and never touch shared
-// memory.  D = 32's 64-byte rows need the 64-byte TMA swizzle, which no
-// Hopper kernel takes; B2/B3 at D = 80 can take B1's 64 + 16 column split
-// (RowBoxes).
+// B1 and B2/B3 at D = 32 keep the FlashAttention-2 schedule on mma.sync
+// (m16n8k16): one CTA of 4 warps owns a 64-row tile and each warp 16 of
+// its rows.  Tiles move global -> shared by 16-byte cp.async copies into a
+// two-stage ring, stored as bf16 with rows padded to D + 8 elements so
+// that ldmatrix (.trans where an operand is needed k-major) reads them
+// without bank conflicts.  Score tiles stay in registers: the m16n8
+// accumulator layout is the m16k16 A-operand layout, so p (and ds) become
+// bf16 A fragments in place and never touch shared memory.  D = 32's
+// 64-byte rows need the 64-byte TMA swizzle, which no Hopper kernel takes.
 //   B1: a (b, h, query tile) per CTA; Q fragments are loaded once; K/V
 //       tiles of 64 keys stream through the ring; S = Q.K^T (16 x 64 per
 //       warp), scale, mask and the online softmax run on registers (row
 //       max and sum by quad shuffles), then acc += P.V.  The grid is
 //       (B*H, query tiles), walked last tile first, so the heaviest causal
 //       tiles start first.
-//   B2 (D = 32, 80): a (b, h, query tile) per CTA, walked last tile first
-//       as B1; each warp's 16 rows of Q and dO stay in registers as A
-//       fragments (D = 32; at D = 80 they are re-read from shared memory,
-//       and the keys of a tile taken 32 at a time); K/V tiles of 64 keys
-//       stream through the ring; S = Q.K^T and dP = dO.V^T stay in
-//       registers, dS becomes a bf16 A fragment in place, and dQ += dS.K
-//       reads K through ldmatrix.trans.  dQ accumulates in registers and is
-//       written once.  ds rounds to bf16 exactly as the plain version's
-//       (see "B2 bf16").
-//   B3 (D = 32, 80): a (b, KV head, key tile) per CTA; each warp's 16 key
-//       rows of K and V stay in registers (D = 32; at D = 80 they are
-//       re-read from shared memory, and the 64 queries of a tile are taken
-//       in two halves of 32, so that the dK/dV accumulators fit the 255
-//       registers).  The CTA loops over (group member, query tile) with
-//       each Q/dO tile and its LSE/delta rows in the ring; each warp forms
-//       S^T = K_w.Q^T and dP^T = V_w.dO^T, then P^T and dS^T, and
-//       accumulates dV_w += P^T.dO and dK_w += dS^T.Q (dO and Q through
+//   B2: a (b, h, query tile) per CTA, walked last tile first as B1; each
+//       warp's 16 rows of Q and dO stay in registers as A fragments; K/V
+//       tiles of 64 keys stream through the ring; S = Q.K^T and dP =
+//       dO.V^T stay in registers, dS becomes a bf16 A fragment in place,
+//       and dQ += dS.K reads K through ldmatrix.trans.  dQ accumulates in
+//       registers and is written once.  ds rounds to bf16 exactly as the
+//       plain version's (see "B2 bf16").
+//   B3: a (b, KV head, key tile) per CTA; each warp's 16 key rows of K and
+//       V stay in registers.  The CTA loops over (group member, query
+//       tile) with each Q/dO tile and its LSE/delta rows in the ring; each
+//       warp forms S^T = K_w.Q^T and dP^T = V_w.dO^T, then P^T and dS^T,
+//       and accumulates dV_w += P^T.dO and dK_w += dS^T.Q (dO and Q through
 //       ldmatrix.trans).  The sums stay in registers, with no atomics, so
 //       they are deterministic.  p and ds round to bf16 exactly as the
 //       plain version's: the few pairs whose rounding its f32 sums could
@@ -1190,12 +1195,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(Params p) 
   constexpr int LD = tc_ld<D>();
   constexpr int KD = D / 16;
   constexpr int ND = D / 8;
-  // D <= 64: each warp keeps its K and V rows as A fragments in registers
-  // and takes a query tile's 64 columns at once.  D = 80 and 128: the
-  // dK/dV accumulators alone take 80 or 128 registers, so K/V are re-read
-  // from shared memory and the queries taken 32 at a time.
-  constexpr bool kKeepKV = D <= 64;
-  constexpr int QN = D <= 64 ? 64 : 32;
+  // each warp keeps its K and V rows as A fragments in registers and
+  // takes a query tile's 64 columns at once (the other head dims run the
+  // Hopper kernel, kHopperBwd)
+  static_assert(D == 32, "mma.sync B3 runs D = 32 only");
+  constexpr int QN = 64;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* Ks = reinterpret_cast<bf16*>(tc_smem);  // [64][LD]
   bf16* Vs = Ks + kTile * LD;                   // [64][LD]
@@ -1262,13 +1266,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(Params p) 
     else
       Vn[r] = row_norm<D>(Vs + r * LD);
   }
-  uint32_t ka[kKeepKV ? KD : 1][4], va[kKeepKV ? KD : 1][4];
-  if constexpr (kKeepKV) {
+  uint32_t ka[KD][4], va[KD][4];
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      ldsm_x4(ka[kk], ka_s + at<LD>(0, 16 * kk));
-      ldsm_x4(va[kk], va_s + at<LD>(0, 16 * kk));
-    }
+  for (int kk = 0; kk < KD; ++kk) {
+    ldsm_x4(ka[kk], ka_s + at<LD>(0, 16 * kk));
+    ldsm_x4(va[kk], va_s + at<LD>(0, 16 * kk));
   }
 
   // dK and dV of rows m0 + fr and m0 + fr + 8, features 8n + fc (+1)
@@ -1312,26 +1314,15 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dkv_tc_kernel(Params p) 
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
-        uint32_t a_k[4], a_v[4];
-        if constexpr (kKeepKV) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            a_k[i] = ka[kk][i];
-            a_v[i] = va[kk][i];
-          }
-        } else {
-          ldsm_x4(a_k, ka_s + at<LD>(0, 16 * kk));
-          ldsm_x4(a_v, va_s + at<LD>(0, 16 * kk));
-        }
 #pragma unroll
         for (int j = 0; j < QN / 16; ++j) {
           uint32_t qf[4], gf[4];
           ldsm_x4(qf, qst + ln.bn + at<LD>(qb + 16 * j, 16 * kk));
           ldsm_x4(gf, gst + ln.bn + at<LD>(qb + 16 * j, 16 * kk));
-          mma_bf16(s[2 * j], a_k, qf[0], qf[1]);
-          mma_bf16(s[2 * j + 1], a_k, qf[2], qf[3]);
-          mma_bf16(dp[2 * j], a_v, gf[0], gf[1]);
-          mma_bf16(dp[2 * j + 1], a_v, gf[2], gf[3]);
+          mma_bf16(s[2 * j], ka[kk], qf[0], qf[1]);
+          mma_bf16(s[2 * j + 1], ka[kk], qf[2], qf[3]);
+          mma_bf16(dp[2 * j], va[kk], gf[0], gf[1]);
+          mma_bf16(dp[2 * j + 1], va[kk], gf[2], gf[3]);
         }
       }
 
@@ -1489,12 +1480,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(Params p) {
   constexpr int LD = tc_ld<D>();
   constexpr int KD = D / 16;
   constexpr int ND = D / 8;
-  // D <= 64: each warp keeps its Q and dO rows as A fragments in
-  // registers and takes a key tile's 64 columns at once.  D = 80 and 128:
-  // the dQ accumulators take 40 or 64 registers, so Q and dO are re-read
-  // from shared memory and the keys taken 32 at a time.
-  constexpr bool kKeepQ = D <= 64;
-  constexpr int KN = D <= 64 ? 64 : 32;
+  // each warp keeps its Q and dO rows as A fragments in registers and
+  // takes a key tile's 64 columns at once (the other head dims run the
+  // Hopper kernel, kHopperBwd)
+  static_assert(D == 32, "mma.sync B2 runs D = 32 only");
+  constexpr int KN = 64;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* Qs = reinterpret_cast<bf16*>(tc_smem);  // [64][LD]
   bf16* Gs = Qs + kTile * LD;                   // dO [64][LD]
@@ -1554,13 +1544,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(Params p) {
     lse[r] = row < nq ? p.lse[i] : kLsePad;
     del[r] = row < nq ? p.delta[i] : 0.f;
   }
-  uint32_t qa[kKeepQ ? KD : 1][4], ga[kKeepQ ? KD : 1][4];
-  if constexpr (kKeepQ) {
+  uint32_t qa[KD][4], ga[KD][4];
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      ldsm_x4(qa[kk], qs_a + at<LD>(0, 16 * kk));
-      ldsm_x4(ga[kk], gs_a + at<LD>(0, 16 * kk));
-    }
+  for (int kk = 0; kk < KD; ++kk) {
+    ldsm_x4(qa[kk], qs_a + at<LD>(0, 16 * kk));
+    ldsm_x4(ga[kk], gs_a + at<LD>(0, 16 * kk));
   }
   __syncthreads();  // the Q and dO norms are visible
   const float qn[2] = {Qn[m0 + fr], Qn[m0 + fr + 8]};
@@ -1605,26 +1593,15 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(Params p) {
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
-        uint32_t a_q[4], a_g[4];
-        if constexpr (kKeepQ) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            a_q[i] = qa[kk][i];
-            a_g[i] = ga[kk][i];
-          }
-        } else {
-          ldsm_x4(a_q, qs_a + at<LD>(0, 16 * kk));
-          ldsm_x4(a_g, gs_a + at<LD>(0, 16 * kk));
-        }
 #pragma unroll
         for (int j = 0; j < KN / 16; ++j) {
           uint32_t kf[4], vf[4];
           ldsm_x4(kf, kst + ln.bn + at<LD>(kb + 16 * j, 16 * kk));
           ldsm_x4(vf, vst + ln.bn + at<LD>(kb + 16 * j, 16 * kk));
-          mma_bf16(s[2 * j], a_q, kf[0], kf[1]);
-          mma_bf16(s[2 * j + 1], a_q, kf[2], kf[3]);
-          mma_bf16(dp[2 * j], a_g, vf[0], vf[1]);
-          mma_bf16(dp[2 * j + 1], a_g, vf[2], vf[3]);
+          mma_bf16(s[2 * j], qa[kk], kf[0], kf[1]);
+          mma_bf16(s[2 * j + 1], qa[kk], kf[2], kf[3]);
+          mma_bf16(dp[2 * j], ga[kk], vf[0], vf[1]);
+          mma_bf16(dp[2 * j + 1], ga[kk], vf[2], vf[3]);
         }
       }
 
@@ -1700,7 +1677,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(Params p) {
 
 // ======================================== Hopper backward kernels (bf16)
 //
-// B2 and B3 at D = 64 and 128 (the header's "Design by dtype").  What
+// B2 and B3 at D = 64, 80 and 128 (the header's "Design by dtype").  What
 // they compute is the mma.sync kernels' to the bit of every rounding: the
 // same p_of / ds_of, the same DotSlack flag (p_ds_tile, ds_tile), and the
 // flagged pairs summed again in the plain order, here by the helpers;
@@ -1708,21 +1685,21 @@ __global__ void __launch_bounds__(kTcThreads) flash_bwd_dq_tc_kernel(Params p) {
 // instantiations (kAudit) sum every live pair again in the consumer
 // (resum_spread) and count as the mma.sync ones do.
 //
-// A tile of R rows and D columns lies in shared memory as D / 64 atoms of
-// [R][64] bf16, each row 128 bytes with its 16-byte chunk c stored at
-// c ^ (row % 8) (TMA's CU_TENSOR_MAP_SWIZZLE_128B on a 1024-byte-aligned
-// base; wgmma's layout type 1).  A 64 x 64 box is one TMA load.  The p / ds
-// tiles the consumers store have the same layout (one atom), as the A
-// operands of the products.
+// A tile of R rows lies in shared memory as RowBoxes lays it out: D / 64
+// atoms of [R][64] bf16, each row 128 bytes with its 16-byte chunk c
+// stored at c ^ (row % 8) (TMA's CU_TENSOR_MAP_SWIZZLE_128B on a
+// 1024-byte-aligned base; wgmma's layout type 1), then, at D = 80, its
+// tail of [R][16], each row 32 bytes with chunk c at c ^ (row / 4 % 2)
+// (CU_TENSOR_MAP_SWIZZLE_32B; layout type 3).  A box of 64 rows is one TMA
+// load.  The p / ds tiles the consumers store are one atom of 64 keys or
+// queries whatever D is, as the A operands of the products.
 //
 // Bound on this card: as the header says, operations; but what holds the
 // kernels back is the latency of each warpgroup's chain (products, the
 // element-wise p / ds / flag code, its stores) at 8 consumer warps an SM,
 // which the helpers shorten by taking the norms and the re-sums off it.
 
-constexpr int kAtom = 64;              // bf16 columns of a 128-byte atom
-constexpr int kBox = kTile * kAtom;    // elements of one 64 x 64 box
-constexpr int kBoxBytes = kBox * 2;
+constexpr int kAtom = 64;  // bf16 columns of a 128-byte atom
 
 // The Hopper kernels' shape: two consumer warpgroups (64 rows each) and
 // one producer warpgroup a CTA, one CTA an SM, ring stages and p / ds tile
@@ -1738,8 +1715,10 @@ struct WgCfg {
   static constexpr int kNwg = 2;
   // a tile's products are formed one tile after it (once the helpers are
   // done with it) and its stage released then: the stages hold that tile,
-  // the current one and those loading; kSlots tiles of p / ds are kept
-  static constexpr int kStages = D <= 64 ? 4 : 2;
+  // the current one and those loading; kSlots tiles of p / ds are kept.
+  // At D = 80 (ViT-H/14) 4 and 3 stages ran within 2 % of each other and
+  // 2 was 7-11 % slower on an H100 (PERF.md); D = 128 fits 2.
+  static constexpr int kStages = D == 128 ? 2 : 4;
   static constexpr int kSlots = 2;
   static constexpr int kMinBlocks = 1;
   static constexpr int kThreads = 128 * (kNwg + 1);
@@ -1750,15 +1729,22 @@ struct WgCfg {
   static constexpr int kConsumerRegs = kShare > 240 ? 240 : kShare;
 };
 
-// which head dims B2 and B3 run on the Hopper kernels (the others on the
+// which head dims B2 and B3 run on the Hopper kernels (D = 32 on the
 // mma.sync kernels above)
 template <int D>
-constexpr bool kHopperBwd = D == 64 || D == 128;
+constexpr bool kHopperBwd = D == 64 || D == 80 || D == 128;
 
-// The TMA descriptors of q, k, v and dO, built on the host.
-struct TmaMaps {
-  CUtensorMap q, k, v, g;
-};
+// B3's queries a product, and the flagged pairs a consumer warp leaves to
+// the helpers a product (-1: all; it sums any beyond these itself), by head
+// dim.  On ViT-H/14's training data (D = 80) 8-23 % of the pairs of most
+// layers are flagged, and three helper warps an SM cannot keep up: there
+// 16 queries a product, whose registers leave room for the consumer's own
+// re-sum without a spill, and 8 pairs to the helpers ran fastest on an H100
+// (PERF.md).  At 64 and 128 every flagged pair goes to the helpers.
+template <int D>
+constexpr int kDkvQueries = D == 80 ? 16 : 32;
+template <int D>
+constexpr int kDkvQueued = D == 80 ? 8 : -1;
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
@@ -1867,8 +1853,85 @@ __device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lead, uint32
          static_cast<uint64_t>((stride >> 4) & 0x3FFFu) << 32 | layout << 62;
 }
 
+// A row's TMA boxes (row_boxes in ops/flash_attention.py): kWide boxes of
+// 64 features with the 128-byte swizzle, then, where D is not a whole
+// number of 128-byte atoms (D = 80: 160-byte rows), one box of kTail = 16
+// features with the 32-byte swizzle.  A tile of `rows` rows lies in shared
+// memory as its kWide atoms of [rows][64], then its tail [rows][16].  B1,
+// B2 and B3 read every head dim through it.
+template <int D>
+struct RowBoxes {
+  static constexpr int kWide = D / kAtom;
+  static constexpr int kTail = D % kAtom;
+  static_assert(kWide >= 1 && (kTail == 0 || kTail == 16), "no TMA split takes this head dim");
+  static constexpr uint64_t kSw32 = 3;  // wgmma's layout type of the 32-byte swizzle
+
+  // The boxes of rows t .. t + 63 (head h, batch b) into rows row0 ..
+  // row0 + 63 of a tile of `rows` rows at `at`, completing on bar.
+  __device__ static void load(void* at, int rows, int row0, const CUtensorMap* wide,
+                              const CUtensorMap* tail, uint64_t* bar, int t, int h, int b) {
+    unsigned char* tile = static_cast<unsigned char*>(at);
+#pragma unroll
+    for (int a = 0; a < kWide; ++a)
+      tma_load(tile + (a * rows + row0) * (kAtom * 2), wide, bar, a * kAtom, t, h, b);
+    if constexpr (kTail > 0)
+      tma_load(tile + kWide * rows * (kAtom * 2) + row0 * (kTail * 2), tail, bar, kWide * kAtom, t, h,
+               b);
+  }
+
+  // The element offset of 16-byte chunk ch (features 8 ch .. 8 ch + 7) of
+  // row r in a tile of R rows: an atom's chunk at ch ^ (r % 8), the tail's
+  // (ch = 8 kWide, 8 kWide + 1) at ch ^ (r / 4 % 2), the two swizzles
+  template <int R>
+  __device__ static int chunk(int r, int ch) {
+    if (ch < 8 * kWide) return (ch >> 3) * (R * kAtom) + r * kAtom + (((ch & 7) ^ (r & 7)) << 3);
+    return kWide * R * kAtom + r * kTail + (((ch & 1) ^ ((r >> 2) & 1)) << 3);
+  }
+
+  // k-step kk (features 16 kk .. 16 kk + 15) of rows row0 .. row0 + 63
+  // of a K-major tile of `rows` rows: an atom's, or the tail's
+  __device__ static uint64_t k_major(uint32_t tile, int rows, int row0, int kk) {
+    if (kk < 4 * kWide)
+      return wg_desc(tile + ((kk >> 2) * rows + row0) * (kAtom * 2) + (kk & 3) * 32, 16, 1024);
+    return wg_desc(tile + kWide * rows * (kAtom * 2) + row0 * (kTail * 2), 16, 8 * kTail * 2, kSw32);
+  }
+
+  // rows 16 c .. 16 c + 15 of a tile of `rows` rows read MN-major
+  // (transposed): the atoms' 64 kWide columns, then the tail's 16
+  __device__ static uint64_t mn_wide(uint32_t tile, int rows, int c) {
+    return wg_desc(tile + 16 * c * (kAtom * 2), rows * (kAtom * 2), 1024);
+  }
+  __device__ static uint64_t mn_tail(uint32_t tile, int rows, int c) {
+    return wg_desc(tile + kWide * rows * (kAtom * 2) + 16 * c * (kTail * 2), rows * kTail * 2,
+                   8 * kTail * 2, kSw32);
+  }
+};
+
+// The TMA descriptors of a [B, T, H, D] view's row boxes (RowBoxes).
+struct RowMaps {
+  CUtensorMap wide, tail;
+};
+
+// The TMA descriptors of q, k, v and dO (B2, B3), built on the host.
+struct TmaMaps {
+  RowMaps q, k, v, g;
+};
+
 template <int N>
 __device__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b);
+
+// d[64 x 16] += A (shared, K-major) . B (shared, K-major)
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[2][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(a), "l"(b), "r"(1));
+}
 
 // d[64 x 32] += A (shared, K-major) . B (shared, K-major)
 template <>
@@ -1906,11 +1969,24 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[8][4], uint64_t a, uint6
 }
 
 template <int N>
-__device__ void wgmma_ss_t(float (&d)[N / 8][4], uint64_t a, uint64_t b);
+__device__ void wgmma_ss_t(float (*d)[4], uint64_t a, uint64_t b);
+
+// d[64 x 16] += A (shared, K-major) . B (shared, MN-major: transposed)
+template <>
+__device__ __forceinline__ void wgmma_ss_t<16>(float (*d)[4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(a), "l"(b), "r"(1));
+}
 
 // d[64 x 64] += A (shared, K-major) . B (shared, MN-major: transposed)
 template <>
-__device__ __forceinline__ void wgmma_ss_t<64>(float (&d)[8][4], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma_ss_t<64>(float (*d)[4], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -1930,7 +2006,7 @@ __device__ __forceinline__ void wgmma_ss_t<64>(float (&d)[8][4], uint64_t a, uin
 
 // d[64 x 128] += A (shared, K-major) . B (shared, MN-major: transposed)
 template <>
-__device__ __forceinline__ void wgmma_ss_t<128>(float (&d)[16][4], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma_ss_t<128>(float (*d)[4], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -2023,29 +2099,23 @@ __device__ __forceinline__ void zero(float (&d)[J][4]) {
     for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
 }
 
-// Element offset of 16-byte chunk ch of row r in a swizzled tile of R rows.
-template <int R>
-__device__ __forceinline__ int swz(int r, int ch) {
-  return (ch >> 3) * (R * kAtom) + r * kAtom + (((ch & 7) ^ (r & 7)) << 3);
-}
-
-// The 2-norm of row r of a swizzled tile of R rows.
+// The 2-norm of row r of a swizzled tile of R rows (RowBoxes).
 template <int D, int R>
 __device__ __forceinline__ float row_norm_swz(const bf16* tile, int r) {
   float ss = 0.f;
 #pragma unroll
   for (int ch = 0; ch < D / 8; ++ch) {
     float f[8];
-    Vec16<bf16>::load(tile + swz<R>(r, ch), f);
+    Vec16<bf16>::load(tile + RowBoxes<D>::template chunk<R>(r, ch), f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) ss = fmaf(f[i], f[i], ss);
   }
   return sqrtf(ss);
 }
 
-// plain_dots through the swizzle: s = q . k and dp = dO . v of query row qr
-// (tiles of RQ rows) and key row kr (tiles of RK rows), f32 FMAs from the
-// first feature to the last.
+// plain_dots through the swizzles: s = q . k and dp = dO . v of query row
+// qr (tiles of RQ rows) and key row kr (tiles of RK rows), f32 FMAs from
+// the first feature to the last (at D = 80 across the atom into the tail).
 template <int D, int RQ, int RK>
 __device__ __forceinline__ void plain_dots_swz(const bf16* qt, const bf16* gt, int qr, const bf16* kt,
                                                const bf16* vt, int kr, float& s, float& dp) {
@@ -2053,11 +2123,12 @@ __device__ __forceinline__ void plain_dots_swz(const bf16* qt, const bf16* gt, i
   dp = 0.f;
 #pragma unroll 2
   for (int ch = 0; ch < D / 8; ++ch) {
+    using RB = RowBoxes<D>;
     float qf[8], kf[8], gf[8], vf[8];
-    Vec16<bf16>::load(qt + swz<RQ>(qr, ch), qf);
-    Vec16<bf16>::load(kt + swz<RK>(kr, ch), kf);
-    Vec16<bf16>::load(gt + swz<RQ>(qr, ch), gf);
-    Vec16<bf16>::load(vt + swz<RK>(kr, ch), vf);
+    Vec16<bf16>::load(qt + RB::template chunk<RQ>(qr, ch), qf);
+    Vec16<bf16>::load(kt + RB::template chunk<RK>(kr, ch), kf);
+    Vec16<bf16>::load(gt + RB::template chunk<RQ>(qr, ch), gf);
+    Vec16<bf16>::load(vt + RB::template chunk<RK>(kr, ch), vf);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       s = fmaf(qf[i], kf[i], s);
@@ -2162,8 +2233,8 @@ __device__ __forceinline__ void resum_spread(unsigned redo, unsigned flag, float
 constexpr int kHelpers = 96;  // warps 1-3 of the producer warpgroup
 // flagged pairs a B2 consumer warp leaves to the helpers a tile; it sums
 // any beyond these itself (where the data flag many pairs, the helpers
-// alone would hold every consumer up).  B3 leaves them all: summing them
-// itself cost B3 more than the wait.
+// alone would hold every consumer up).  B3 leaves them all at D = 64 and
+// 128 (kDkvQueued): summing them itself cost B3 more than the wait there.
 constexpr int kQueued = 32;
 
 // Split a warp's flagged pairs (bits of flag, lanes in order): the first
@@ -2273,18 +2344,23 @@ __device__ __forceinline__ int tile_at(int r, int c) {
 }
 
 // acc += A (a warpgroup's 64 x 16 steps tile at a, K-major) . B (16 steps
-// rows of a stage's tile at b, transposed): issued and committed, not
-// waited for.  A ragged last tile takes fewer steps.
+// rows of a stage's 64-row tile at b, transposed): one product over the
+// 128-byte atoms and, at D = 80, an n = 16 one over the tail; issued and
+// committed, not waited for.  A ragged last tile takes fewer steps.
 template <int D>
 __device__ __forceinline__ void product_ss_t(float (&acc)[D / 8][4], uint32_t a, uint32_t b,
                                              int steps) {
+  using RB = RowBoxes<D>;
   pin(acc);
   wg_fence();
 #pragma unroll
   for (int c = 0; c < kTile / 16; ++c)
-    if (c < steps)
-      wgmma_ss_t<D>(acc, wg_desc(a + c * 32, 16, 1024),
-                    wg_desc(b + 16 * c * (kAtom * 2), kBoxBytes, 1024));
+    if (c < steps) {
+      const uint64_t da = wg_desc(a + c * 32, 16, 1024);
+      wgmma_ss_t<kAtom * RB::kWide>(acc, da, RB::mn_wide(b, kTile, c));
+      if constexpr (RB::kTail > 0)
+        wgmma_ss_t<RB::kTail>(acc + 8 * RB::kWide, da, RB::mn_tail(b, kTile, c));
+    }
   wg_commit();
 }
 
@@ -2296,11 +2372,10 @@ __device__ __forceinline__ void dkv_products(float (&dv)[D / 8][4], float (&dk)[
                                              const Pending& t, uint64_t* fixed, const bf16* Pt,
                                              const bf16* Dt, const bf16* Qs, const bf16* Gs,
                                              int wg) {
-  constexpr int A = D / kAtom;
   mbar_wait(fixed + t.stage, t.phase);
   const uint32_t rows = (t.slot * R + kTile * wg) * kAtom * 2;
-  product_ss_t<D>(dv, smem_addr(Pt) + rows, smem_addr(Gs + t.stage * A * kBox), t.steps);
-  product_ss_t<D>(dk, smem_addr(Dt) + rows, smem_addr(Qs + t.stage * A * kBox), t.steps);
+  product_ss_t<D>(dv, smem_addr(Pt) + rows, smem_addr(Gs + t.stage * kTile * D), t.steps);
+  product_ss_t<D>(dk, smem_addr(Dt) + rows, smem_addr(Qs + t.stage * kTile * D), t.steps);
 }
 
 // ------------------------------------------------------ B3 bf16, Hopper
@@ -2318,11 +2393,11 @@ __device__ __forceinline__ void dkv_products(float (&dv)[D / 8][4], float (&dk)[
 template <int D>
 __host__ __device__ constexpr size_t dkv_wg_smem_bytes() {
   using C = WgCfg<D>;
-  constexpr int A = D / kAtom, R = kTile * C::kNwg, S = C::kStages, NW = 4 * C::kNwg;
+  constexpr int R = kTile * C::kNwg, S = C::kStages, NW = 4 * C::kNwg;
   // K, V; Q and dO a stage; P^T and dS^T a slot; the barriers; the in-place re-sum
   // buffers (the audit); the flag masks a stage; LSE, delta, Q and dO
   // norms a stage; K and V norms
-  return 1024 + 2 * A * R * kAtom * 2 + 2 * S * A * kBoxBytes + 2 * C::kSlots * R * kAtom * 2 +
+  return 1024 + 2 * R * D * 2 + 2 * S * kTile * D * 2 + 2 * C::kSlots * R * kAtom * 2 +
          8 * (5 * S + 1) + 12 * NW * kResumSlots + 4 * S * NW * 32 + 4 * (4 * S * kTile + 2 * R);
 }
 
@@ -2330,19 +2405,20 @@ template <int D, bool kAudit>
 __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
     flash_bwd_dkv_wg_kernel(const __grid_constant__ Params p, const __grid_constant__ TmaMaps m) {
   using C = WgCfg<D>;
-  constexpr int NWG = C::kNwg, S = C::kStages, A = D / kAtom;
+  using RB = RowBoxes<D>;
+  constexpr int NWG = C::kNwg, S = C::kStages;
   constexpr int R = kTile * NWG;  // key rows of the CTA
   constexpr int NW = 4 * NWG;     // consumer warps
-  constexpr int QN = 32;  // queries a product takes (the dK/dV sums fill the registers)
+  constexpr int QN = kDkvQueries<D>;  // queries a product takes
   constexpr int J = QN / 8;
   constexpr int ND = D / 8;
   extern __shared__ unsigned char wg_smem[];
   unsigned char* sm = align1024(wg_smem);
-  bf16* Ks = reinterpret_cast<bf16*>(sm);  // [A][R][64]
-  bf16* Vs = Ks + A * R * kAtom;           // [A][R][64]
-  bf16* Qs = Vs + A * R * kAtom;           // [S][A][64][64]
-  bf16* Gs = Qs + S * A * kBox;            // dO [S][A][64][64]
-  bf16* Pt = Gs + S * A * kBox;              // [kSlots][R][64] P^T in dO's dtype
+  bf16* Ks = reinterpret_cast<bf16*>(sm);  // [R rows] (RowBoxes)
+  bf16* Vs = Ks + R * D;                   // [R rows]
+  bf16* Qs = Vs + R * D;                   // [S][64 rows]
+  bf16* Gs = Qs + S * kTile * D;           // dO [S][64 rows]
+  bf16* Pt = Gs + S * kTile * D;             // [kSlots][R][64] P^T in dO's dtype
   bf16* Dt = Pt + C::kSlots * R * kAtom;     // [kSlots][R][64] dS^T in q's dtype
   uint64_t* full = reinterpret_cast<uint64_t*>(Dt + C::kSlots * R * kAtom);  // [S] Q, dO, rows
   uint64_t* empty = full + S;   // [S] the stage is free
@@ -2361,7 +2437,9 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
   float* Vn = Kn + R;           // [R]
 
   const int tid = threadIdx.x;
-  const int wg = tid >> 7, lane = tid & 31;
+  // a broadcast, so that ptxas sees it warp-uniform: a product in a path it
+  // cannot prove uniform serialises every wgmma of the kernel (C7520)
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0), lane = tid & 31;
   const int bhk = blockIdx.x;
   const int b = bhk / p.Hkv;
   const int hk = bhk - b * p.Hkv;
@@ -2402,15 +2480,12 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
     reg_dealloc<C::kProducerRegs>();
     if (tid - 128 * NWG < 32) {  // the producer warp
       if (lane == 0) {
-        mbar_expect_tx(kv_full, 2 * A * R * kAtom * 2);
+        mbar_expect_tx(kv_full, 2 * R * D * 2);
 #pragma unroll
-        for (int a = 0; a < A; ++a)
-#pragma unroll
-          for (int w = 0; w < NWG; ++w) {
-            const int at = (a * R + w * kTile) * kAtom;
-            tma_load(Ks + at, &m.k, kv_full, a * kAtom, k0 + w * kTile, hk, b);
-            tma_load(Vs + at, &m.v, kv_full, a * kAtom, k0 + w * kTile, hk, b);
-          }
+        for (int w = 0; w < NWG; ++w) {
+          RB::load(Ks, R, w * kTile, &m.k.wide, &m.k.tail, kv_full, k0 + w * kTile, hk, b);
+          RB::load(Vs, R, w * kTile, &m.v.wide, &m.v.tail, kv_full, k0 + w * kTile, hk, b);
+        }
       }
       int stage = 0;
       unsigned phase = 0;
@@ -2429,12 +2504,9 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
         }
         mbar_wait(empty + stage, phase ^ 1u);
         if (lane == 0) {
-          mbar_expect_tx(full + stage, 2 * A * kBoxBytes);
-#pragma unroll
-          for (int a = 0; a < A; ++a) {
-            tma_load(Qs + (stage * A + a) * kBox, &m.q, full + stage, a * kAtom, q0, h, b);
-            tma_load(Gs + (stage * A + a) * kBox, &m.g, full + stage, a * kAtom, q0, h, b);
-          }
+          mbar_expect_tx(full + stage, 2 * kTile * D * 2);
+          RB::load(Qs + stage * kTile * D, kTile, 0, &m.q.wide, &m.q.tail, full + stage, q0, h, b);
+          RB::load(Gs + stage * kTile * D, kTile, 0, &m.g.wide, &m.g.tail, full + stage, q0, h, b);
         }
 #pragma unroll
         for (int i = 0; i < kTile / 32; ++i) {
@@ -2454,7 +2526,7 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
       auto norms = [&](int st, unsigned ph) {
         mbar_wait(full + st, ph);
         for (int r = ht; r < 2 * kTile; r += kHelpers) {
-          const bf16* tile = (r < kTile ? Qs : Gs) + st * A * kBox;
+          const bf16* tile = (r < kTile ? Qs : Gs) + st * kTile * D;
           (r < kTile ? Qn : Gn)[st * kTile + (r & (kTile - 1))] =
               row_norm_swz<D, kTile>(tile, r & (kTile - 1));
         }
@@ -2470,8 +2542,8 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
         const int sn = stage + 1 == S ? 0 : stage + 1;
         if (tn < nt) norms(sn, sn == 0 ? phase ^ 1u : phase);
         mbar_wait(ready + stage, phase);
-        const bf16* Qst = Qs + stage * A * kBox;
-        const bf16* Gst = Gs + stage * A * kBox;
+        const bf16* Qst = Qs + stage * kTile * D;
+        const bf16* Gst = Gs + stage * kTile * D;
         const float* Lst = Lse + stage * kTile;
         const float* Dst = Del + stage * kTile;
         bf16* pt = Pt + slot_t * R * kAtom;
@@ -2504,8 +2576,7 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
     const int warp = tid >> 5;
     float2* wres = res + warp * kResumSlots;
     int* wslot = slot + warp * kResumSlots;
-    const uint32_t ks_a = smem_addr(Ks) + kTile * wg * kAtom * 2;  // this warpgroup's rows
-    const uint32_t vs_a = smem_addr(Vs) + kTile * wg * kAtom * 2;
+    const uint32_t ks_a = smem_addr(Ks), vs_a = smem_addr(Vs);
 
     // dK and dV of rows m0 + fr and m0 + fr + 8, features 8n + fc (+1)
     float dk[ND][4], dv[ND][4];
@@ -2535,8 +2606,8 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
       const bool mine = live_for(q0, wg);
       unsigned flags_t = 0u;
       if (mine) {
-        const bf16* Qst = Qs + stage * A * kBox;
-        const bf16* Gst = Gs + stage * A * kBox;
+        const bf16* Qst = Qs + stage * kTile * D;
+        const bf16* Gst = Gs + stage * kTile * D;
         const uint32_t qst = smem_addr(Qst), gst = smem_addr(Gst);
         const float* Lst = Lse + stage * kTile;
         const float* Dst = Del + stage * kTile;
@@ -2554,11 +2625,9 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
           pin(dp);
           wg_fence();
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk) {
-            const uint32_t ko = (kk >> 2) * (R * kAtom * 2) + (kk & 3) * 32;
-            const uint32_t qo = (kk >> 2) * kBoxBytes + qb * (kAtom * 2) + (kk & 3) * 32;
-            wgmma_ss<QN>(s, wg_desc(ks_a + ko, 16, 1024), wg_desc(qst + qo, 16, 1024));
-            wgmma_ss<QN>(dp, wg_desc(vs_a + ko, 16, 1024), wg_desc(gst + qo, 16, 1024));
+          for (int kk = 0; kk < D / 16; ++kk) {  // this warpgroup's key rows
+            wgmma_ss<QN>(s, RB::k_major(ks_a, R, kTile * wg, kk), RB::k_major(qst, kTile, qb, kk));
+            wgmma_ss<QN>(dp, RB::k_major(vs_a, R, kTile * wg, kk), RB::k_major(gst, kTile, qb, kk));
           }
           wg_commit();
           if (qb == 0) mbar_wait(normed + stage, phase);  // the stage's Q and dO norms
@@ -2568,8 +2637,9 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
 
           // P^T and dS^T in place of S^T and dP^T; flag holds the pairs
           // whose rounding the plain version's sums might decide
-          // otherwise, left to the helpers (the audit: every live pair
-          // summed again here, and none left)
+          // otherwise, left to the helpers up to kDkvQueued a warp (at
+          // D = 80; the rest summed again here) or all of them (the audit:
+          // every live pair summed again here, and none left)
           const RowStats rs{Lst + qb + fc, Dst + qb + fc, qn + qb + fc, gn + qb + fc,
                             {kn0, kn1}, {vn0, vn1}};
           const int qrow = q0 + qb + fc, krow = k0 + m0 + fr;
@@ -2581,10 +2651,14 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
             resum_spread<D, kTile, R, true, true>(live, flag, s, dp, Qst, Gst, Ks, Vs, Lst, Dst,
                                                   m0, qb, p.scale, wslot, wres, lane, audit);
             flag = 0u;
+          } else if constexpr (kDkvQueued<D> >= 0) {
+            const unsigned rest = split_flagged(flag, kDkvQueued<D>, lane);
+            resum_spread<D, kTile, R, true, false>(rest, 0u, s, dp, Qst, Gst, Ks, Vs, Lst, Dst,
+                                                   m0, qb, p.scale, wslot, wres, lane, audit);
           }
           store_tile(Pt + slot_t * R * kAtom, s, m0, qb, lane);
           store_tile(Dt + slot_t * R * kAtom, dp, m0, qb, lane);
-          flags_t |= flag << (qb / 2);  // a half's bits at 16 (qb / 32)
+          flags_t |= flag << (qb / 2);  // a product's bits from qb / 2
         }
         fence_async_smem();
       }
@@ -2645,7 +2719,7 @@ __device__ __forceinline__ void dq_product(float (&dq)[D / 8][4], const Pending&
                                            int wg) {
   mbar_wait(fixed + t.stage, t.phase);
   product_ss_t<D>(dq, smem_addr(Ds + (t.slot * R + kTile * wg) * kAtom),
-                  smem_addr(Ks + t.stage * (D / kAtom) * kBox), t.steps);
+                  smem_addr(Ks + t.stage * kTile * D), t.steps);
 }
 
 // ------------------------------------------------------ B2 bf16, Hopper
@@ -2660,11 +2734,11 @@ __device__ __forceinline__ void dq_product(float (&dq)[D / 8][4], const Pending&
 template <int D>
 __host__ __device__ constexpr size_t dq_wg_smem_bytes() {
   using C = WgCfg<D>;
-  constexpr int A = D / kAtom, R = kTile * C::kNwg, S = C::kStages, NW = 4 * C::kNwg;
+  constexpr int R = kTile * C::kNwg, S = C::kStages, NW = 4 * C::kNwg;
   // Q, dO; K, V a stage; the dS tiles a slot; the barriers; the in-place
   // re-sum buffers (the audit); the flag masks a stage; K and V norms a
   // stage; Q and dO norms, LSE and delta of the rows
-  return 1024 + 2 * A * R * kAtom * 2 + 2 * S * A * kBoxBytes + C::kSlots * R * kAtom * 2 +
+  return 1024 + 2 * R * D * 2 + 2 * S * kTile * D * 2 + C::kSlots * R * kAtom * 2 +
          8 * (5 * S + 1) + 12 * NW * kResumSlots + 4 * S * NW * 32 + 4 * (2 * S * kTile + 4 * R);
 }
 
@@ -2672,18 +2746,19 @@ template <int D, bool kAudit>
 __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
     flash_bwd_dq_wg_kernel(const __grid_constant__ Params p, const __grid_constant__ TmaMaps m) {
   using C = WgCfg<D>;
-  constexpr int NWG = C::kNwg, S = C::kStages, A = D / kAtom;
+  using RB = RowBoxes<D>;
+  constexpr int NWG = C::kNwg, S = C::kStages;
   constexpr int R = kTile * NWG;  // query rows of the CTA
   constexpr int NW = 4 * NWG;     // consumer warps
   constexpr int J = kTile / 8;    // a key tile's n-tiles
   constexpr int ND = D / 8;
   extern __shared__ unsigned char wg_smem[];
   unsigned char* sm = align1024(wg_smem);
-  bf16* Qs = reinterpret_cast<bf16*>(sm);  // [A][R][64]
-  bf16* Gs = Qs + A * R * kAtom;           // dO [A][R][64]
-  bf16* Ks = Gs + A * R * kAtom;           // [S][A][64][64]
-  bf16* Vs = Ks + S * A * kBox;            // [S][A][64][64]
-  bf16* Ds = Vs + S * A * kBox;            // [kSlots][R][64] dS in k's dtype
+  bf16* Qs = reinterpret_cast<bf16*>(sm);  // [R rows] (RowBoxes)
+  bf16* Gs = Qs + R * D;                   // dO [R rows]
+  bf16* Ks = Gs + R * D;                   // [S][64 rows]
+  bf16* Vs = Ks + S * kTile * D;           // [S][64 rows]
+  bf16* Ds = Vs + S * kTile * D;           // [kSlots][R][64] dS in k's dtype
   uint64_t* full = reinterpret_cast<uint64_t*>(Ds + C::kSlots * R * kAtom);  // [S] K, V landed
   uint64_t* empty = full + S;    // [S] the stage is free
   uint64_t* ready = empty + S;   // [S] its dS tile and flags are stored
@@ -2701,7 +2776,8 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
   float* Dq = Lq + R;                // [R] delta of the rows
 
   const int tid = threadIdx.x;
-  const int wg = tid >> 7, lane = tid & 31;
+  // a broadcast, as B3's (C7520)
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0), lane = tid & 31;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * R;  // heaviest first
   const int b = bh / p.H;
@@ -2741,25 +2817,21 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
     reg_dealloc<C::kProducerRegs>();
     if (tid - 128 * NWG < 32) {  // the producer: one lane issues the loads
       if (lane != 0) return;
-      mbar_expect_tx(q_full, 2 * A * R * kAtom * 2);
+      mbar_expect_tx(q_full, 2 * R * D * 2);
 #pragma unroll
-      for (int a = 0; a < A; ++a)
-#pragma unroll
-        for (int w = 0; w < NWG; ++w) {
-          const int at = (a * R + w * kTile) * kAtom;
-          tma_load(Qs + at, &m.q, q_full, a * kAtom, q0 + w * kTile, h, b);
-          tma_load(Gs + at, &m.g, q_full, a * kAtom, q0 + w * kTile, h, b);
-        }
+      for (int w = 0; w < NWG; ++w) {
+        RB::load(Qs, R, w * kTile, &m.q.wide, &m.q.tail, q_full, q0 + w * kTile, h, b);
+        RB::load(Gs, R, w * kTile, &m.g.wide, &m.g.tail, q_full, q0 + w * kTile, h, b);
+      }
       int stage = 0;
       unsigned phase = 0;
       for (int kt = next_live(0); kt < nk; kt = next_live(kt + 1)) {
         mbar_wait(empty + stage, phase ^ 1u);
-        mbar_expect_tx(full + stage, 2 * A * kBoxBytes);
-#pragma unroll
-        for (int a = 0; a < A; ++a) {
-          tma_load(Ks + (stage * A + a) * kBox, &m.k, full + stage, a * kAtom, kt * kTile, hk, b);
-          tma_load(Vs + (stage * A + a) * kBox, &m.v, full + stage, a * kAtom, kt * kTile, hk, b);
-        }
+        mbar_expect_tx(full + stage, 2 * kTile * D * 2);
+        RB::load(Ks + stage * kTile * D, kTile, 0, &m.k.wide, &m.k.tail, full + stage, kt * kTile,
+                 hk, b);
+        RB::load(Vs + stage * kTile * D, kTile, 0, &m.v.wide, &m.v.tail, full + stage, kt * kTile,
+                 hk, b);
         if (++stage == S) {
           stage = 0;
           phase ^= 1u;
@@ -2771,7 +2843,7 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
       auto norms = [&](int st, unsigned ph) {
         mbar_wait(full + st, ph);
         for (int r = ht; r < 2 * kTile; r += kHelpers) {
-          const bf16* tile = (r < kTile ? Ks : Vs) + st * A * kBox;
+          const bf16* tile = (r < kTile ? Ks : Vs) + st * kTile * D;
           (r < kTile ? Kn : Vn)[st * kTile + (r & (kTile - 1))] =
               row_norm_swz<D, kTile>(tile, r & (kTile - 1));
         }
@@ -2787,8 +2859,8 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
         const int sn = stage + 1 == S ? 0 : stage + 1;
         if (kn < nk) norms(sn, sn == 0 ? phase ^ 1u : phase);
         mbar_wait(ready + stage, phase);
-        const bf16* Kst = Ks + stage * A * kBox;
-        const bf16* Vst = Vs + stage * A * kBox;
+        const bf16* Kst = Ks + stage * kTile * D;
+        const bf16* Vst = Vs + stage * kTile * D;
         bf16* ds = Ds + slot_t * R * kAtom;
         // bit i of warp w, lane l: row 16 w + l / 4 (+ 8), column 8 (i / 4)
         // + 2 (l % 4) (+ 1) of the CTA's dS tile
@@ -2816,8 +2888,7 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
     const int warp = tid >> 5;
     float2* wres = res + warp * kResumSlots;
     int* wslot = slot + warp * kResumSlots;
-    const uint32_t qs_a = smem_addr(Qs) + kTile * wg * kAtom * 2;  // this warpgroup's rows
-    const uint32_t gs_a = smem_addr(Gs) + kTile * wg * kAtom * 2;
+    const uint32_t qs_a = smem_addr(Qs), gs_a = smem_addr(Gs);
 
     // rows m0 + fr (index 0) and m0 + fr + 8 (index 1): LSE and delta
     // (rows past Tq take 1e30 and 0), kept for the re-sums too
@@ -2859,8 +2930,8 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
       const bool mine = live_for(k0, wg);
       unsigned flag = 0u;
       if (mine) {
-        const bf16* Kst = Ks + stage * A * kBox;
-        const bf16* Vst = Vs + stage * A * kBox;
+        const bf16* Kst = Ks + stage * kTile * D;
+        const bf16* Vst = Vs + stage * kTile * D;
         const uint32_t kst = smem_addr(Kst), vst = smem_addr(Vst);
         const float* kn = Kn + stage * kTile;
         const float* vn = Vn + stage * kTile;
@@ -2874,11 +2945,9 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
         pin(dp);
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t ao = (kk >> 2) * (R * kAtom * 2) + (kk & 3) * 32;
-          const uint32_t bo = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
-          wgmma_ss<kTile>(s, wg_desc(qs_a + ao, 16, 1024), wg_desc(kst + bo, 16, 1024));
-          wgmma_ss<kTile>(dp, wg_desc(gs_a + ao, 16, 1024), wg_desc(vst + bo, 16, 1024));
+        for (int kk = 0; kk < D / 16; ++kk) {  // this warpgroup's query rows
+          wgmma_ss<kTile>(s, RB::k_major(qs_a, R, kTile * wg, kk), RB::k_major(kst, kTile, 0, kk));
+          wgmma_ss<kTile>(dp, RB::k_major(gs_a, R, kTile * wg, kk), RB::k_major(vst, kTile, 0, kk));
         }
         wg_commit();
         mbar_wait(normed + stage, phase);  // the stage's K and V norms
@@ -2968,55 +3037,6 @@ __global__ void __launch_bounds__(WgCfg<D>::kThreads, WgCfg<D>::kMinBlocks)
 // several work tiles; the producer loads the next tile's Q as soon as
 // every S of the last one is formed (q_empty), so its loads overlap the
 // last tile's softmax, P.V and stores.
-
-// A row's TMA boxes (row_boxes in ops/flash_attention.py): kWide boxes of
-// 64 features with the 128-byte swizzle, then, where D is not a whole
-// number of 128-byte atoms (D = 80: 160-byte rows), one box of kTail = 16
-// features with the 32-byte swizzle.  A tile of `rows` rows lies in shared
-// memory as its kWide atoms of [rows][64], then its tail [rows][16].  B1
-// reads every head dim through it; B2/B3 at D = 80 can take it as it is.
-template <int D>
-struct RowBoxes {
-  static constexpr int kWide = D / kAtom;
-  static constexpr int kTail = D % kAtom;
-  static_assert(kWide >= 1 && (kTail == 0 || kTail == 16), "no TMA split takes this head dim");
-  static constexpr uint64_t kSw32 = 3;  // wgmma's layout type of the 32-byte swizzle
-
-  // The boxes of rows t .. t + 63 (head h, batch b) into rows row0 ..
-  // row0 + 63 of a tile of `rows` rows at `tile`, completing on bar.
-  __device__ static void load(unsigned char* tile, int rows, int row0, const CUtensorMap* wide,
-                              const CUtensorMap* tail, uint64_t* bar, int t, int h, int b) {
-#pragma unroll
-    for (int a = 0; a < kWide; ++a)
-      tma_load(tile + (a * rows + row0) * (kAtom * 2), wide, bar, a * kAtom, t, h, b);
-    if constexpr (kTail > 0)
-      tma_load(tile + kWide * rows * (kAtom * 2) + row0 * (kTail * 2), tail, bar, kWide * kAtom, t, h,
-               b);
-  }
-
-  // k-step kk (features 16 kk .. 16 kk + 15) of rows row0 .. row0 + 63
-  // of a K-major tile of `rows` rows: an atom's, or the tail's
-  __device__ static uint64_t k_major(uint32_t tile, int rows, int row0, int kk) {
-    if (kk < 4 * kWide)
-      return wg_desc(tile + ((kk >> 2) * rows + row0) * (kAtom * 2) + (kk & 3) * 32, 16, 1024);
-    return wg_desc(tile + kWide * rows * (kAtom * 2) + row0 * (kTail * 2), 16, 8 * kTail * 2, kSw32);
-  }
-
-  // rows 16 c .. 16 c + 15 of a tile of `rows` rows read MN-major
-  // (transposed): the atoms' 64 kWide columns, then the tail's 16
-  __device__ static uint64_t mn_wide(uint32_t tile, int rows, int c) {
-    return wg_desc(tile + 16 * c * (kAtom * 2), rows * (kAtom * 2), 1024);
-  }
-  __device__ static uint64_t mn_tail(uint32_t tile, int rows, int c) {
-    return wg_desc(tile + kWide * rows * (kAtom * 2) + 16 * c * (kTail * 2), rows * kTail * 2,
-                   8 * kTail * 2, kSw32);
-  }
-};
-
-// The TMA descriptors of a [B, T, H, D] view's row boxes (RowBoxes).
-struct RowMaps {
-  CUtensorMap wide, tail;
-};
 
 struct FwdMaps {
   RowMaps q, k, v;
@@ -3406,10 +3426,10 @@ template <int D>
 cudaError_t run_bwd_wg(int which, const Params& p, cudaStream_t stream) {
   TmaMaps m;
   cudaError_t e;
-  if ((e = encode_view(&m.q, p.q, p.B, p.Tq, p.H, D)) != cudaSuccess ||
-      (e = encode_view(&m.k, p.k, p.B, p.Tk, p.Hkv, D)) != cudaSuccess ||
-      (e = encode_view(&m.v, p.v, p.B, p.Tk, p.Hkv, D)) != cudaSuccess ||
-      (e = encode_view(&m.g, p.dout, p.B, p.Tq, p.H, D)) != cudaSuccess)
+  if ((e = encode_rows<D>(&m.q, p.q, p.B, p.Tq, p.H)) != cudaSuccess ||
+      (e = encode_rows<D>(&m.k, p.k, p.B, p.Tk, p.Hkv)) != cudaSuccess ||
+      (e = encode_rows<D>(&m.v, p.v, p.B, p.Tk, p.Hkv)) != cudaSuccess ||
+      (e = encode_rows<D>(&m.g, p.dout, p.B, p.Tq, p.H)) != cudaSuccess)
     return e;
   const bool audit = p.audit != nullptr;
   if (which == kDq) {
@@ -3459,8 +3479,8 @@ cudaError_t run(int which, const Params& p, cudaStream_t stream) {
                              fwd_tc_smem_bytes<D>(), stream, p);
     }
     if (which != kDq && which != kDkv) return cudaErrorInvalidValue;
-    // B2 and B3: the Hopper kernels at D = 64 and 128, the mma.sync ones at
-    // D = 32 and 80 (kHopperBwd)
+    // B2 and B3: the Hopper kernels at D = 64, 80 and 128, the mma.sync
+    // ones at D = 32 (kHopperBwd)
     if constexpr (kHopperBwd<D>) {
       return run_bwd_wg<D>(which, p, stream);
     } else {
@@ -3489,8 +3509,8 @@ cudaError_t dispatch_dim(int which, int D, const Params& p, cudaStream_t stream)
 
 // The design a kernel runs (Design in ops/flash_attention.py): 0 SIMT (f32),
 // 1 mma.sync (bf16 B1 outside kHopperFwd, bf16 B2/B3 outside kHopperBwd), 2
-// wgmma + TMA, warp-specialised (bf16 B1 at D = 64, 80 and 128, B2/B3 at 64
-// and 128).
+// wgmma + TMA, warp-specialised (bf16 B1, B2 and B3 at D = 64, 80 and
+// 128).
 template <int D>
 int design_of(int which, int dtype) {
   if (dtype == kF32) return 0;

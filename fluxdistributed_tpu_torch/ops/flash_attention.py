@@ -25,11 +25,10 @@ cores, and B2 and B3 round ds (and B3 p) to bf16 as the plain version
 does: pairs whose rounding the tensor cores' sums could decide otherwise
 are flagged and summed again in the plain order.  f32 runs SIMT FMAs
 (``csrc/flash_attention.cu`` says why).  :func:`kernel_design` is the
-launcher's dispatch: bf16 B1 at head dims 64, 80 and 128 and bf16 B2 and
-B3 at 64 and 128 run the Hopper kernels (wgmma, TMA, warp-specialised),
-which read q, k, v and dO in place through TMA descriptors
-(:func:`tma_geometry`; D = 80 rows as two boxes, :func:`row_boxes`); the
-rest run mma.sync (bf16) or SIMT (f32).  The B2/B3 wrappers refuse a view
+launcher's dispatch: bf16 B1, B2 and B3 at head dims 64, 80 and 128 run
+the Hopper kernels (wgmma, TMA, warp-specialised), which read q, k, v and
+dO in place through TMA descriptors (:func:`tma_geometry`; D = 80 rows as
+two boxes, :func:`row_boxes`); bf16 at D = 32 runs mma.sync, f32 SIMT.  The B2/B3 wrappers refuse a view
 TMA cannot take rather than copy it; B1's wrapper and the autograd
 functions hand the kernels :func:`_readable` tensors (a contiguous copy
 only of what a design cannot read).  :func:`rounding_audit` counts,
@@ -96,8 +95,8 @@ DESIGNS = ("SIMT f32", "tensor cores, mma.sync",
 #: 32 stays on mma.sync
 HOPPER_FWD_DIMS = (64, 80, 128)
 #: head dims at which bf16 B2 and B3 run the Hopper kernels
-#: (``kHopperBwd``); 32 and 80 stay on mma.sync
-HOPPER_BWD_DIMS = (64, 128)
+#: (``kHopperBwd``); 32 stays on mma.sync
+HOPPER_BWD_DIMS = (64, 80, 128)
 #: a Hopper kernel's TMA box: 64 features (one 128-byte swizzle atom) x
 #: ``TILE_Q`` rows of one head of one batch row; D = 128 takes two, and
 #: D = 80 one and a 16-feature box (:func:`row_boxes`)

@@ -331,13 +331,13 @@ def test_kernels_take_head_dim_80():
 @pytest.mark.parametrize("d", [32, 64, 80, 128])
 def test_kernel_design_table(kernel, dtype, d):
     """The launcher's dispatch from (kernel, dtype, head dim) to a design,
-    explicit: f32 on SIMT; bf16 B1 at 64, 80 and 128 and bf16 B2/B3 at 64
-    and 128 on the Hopper kernels (wgmma, TMA, warp-specialised); bf16 B1
-    at 32, and B2/B3 at 32 and 80, on mma.sync."""
+    explicit: f32 on SIMT; bf16 B1, B2 and B3 at 64, 80 and 128 on the
+    Hopper kernels (wgmma, TMA, warp-specialised); bf16 at 32 on
+    mma.sync."""
     got = fa_mod.kernel_design(kernel, dtype, d)
     if dtype == torch.float32:
         assert got == "SIMT f32"
-    elif d in ((64, 80, 128) if kernel == "fwd" else (64, 128)):
+    elif d in (64, 80, 128):
         assert got == "wgmma, TMA, warp-specialised"
     else:
         assert got == "tensor cores, mma.sync"
@@ -438,7 +438,7 @@ def _fake_qkv(d, skew=False, t=64):
     return mode, [x.requires_grad_() for x in (q, k, v)]
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_sum_loss_backward_on_the_kernel_path_does_not_raise(d):
     """``flash_attention(q, k, v, True).sum().backward()`` on fake bf16
     tensors: the expanded cotangent reaches B2/B3 as a copy they read."""
@@ -448,7 +448,7 @@ def test_sum_loss_backward_on_the_kernel_path_does_not_raise(d):
         assert q.grad.shape == q.shape and v.grad.shape == v.shape
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_lse"])
 def test_skewed_q_view_on_the_kernel_path_does_not_raise(fn, d):
     """A q view with a head stride of 2 D + 8 bytes (136 at D = 64)
@@ -506,7 +506,41 @@ def test_b1_reads_a_fused_qkv_view_in_place(shape):
     assert all(r is v for r, v in zip(read, views))
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_b2_b3_read_a_fused_qkv_view_in_place(kernel, monkeypatch):
+    """At ViT-H/14's shape the q, k and v views of one [32, 257, 3, 16,
+    80] projection and a contiguous dO go to B2 and B3 as they are: the
+    Hopper design at D = 80 reads them through TMA (160-byte rows as two
+    boxes), and the wrappers' shape-only branch on fake tensors copies
+    nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    assert fa_mod.kernel_design(kernel, torch.bfloat16, 80) == \
+        "wgmma, TMA, warp-specialised"
+    with FakeTensorMode():
+        qkv = torch.empty(32, 257, 3, 16, 80, dtype=torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        do = torch.empty(32, 257, 16, 80, dtype=torch.bfloat16)
+        lse, delta = (torch.empty(32, 16, 257) for _ in range(2))
+        seen = []
+        views = fa_mod._kernel_views
+        monkeypatch.setattr(fa_mod, "_kernel_views", lambda name, *xs: (
+            seen.append((name, views(name, *xs))) or seen[-1][1]))
+        monkeypatch.setattr(torch.Tensor, "clone", lambda *a, **kw: (
+            pytest.fail("a B2/B3 input was copied")))
+        call = (fa_mod.flash_attention_dq if kernel == "dq"
+                else fa_mod.flash_attention_dkv)
+        before = call.launches
+        out = call(q, k, v, do, lse, delta)
+    assert seen and seen[0][0] == kernel
+    assert all(a is b for a, b in zip(seen[0][1], (q, k, v, do)))
+    shapes = [(32, 257, 16, 80)] * (1 if kernel == "dq" else 2)
+    assert [tuple(x.shape) for x in ((out,) if kernel == "dq" else out)] \
+        == shapes
+    assert call.launches == before
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_sum_and_skewed_q_gradients_match_jax(d):
     """On CPU tensors (the plain versions): the ``.sum()`` loss and a
     loss through a skewed q view give the JAX ``custom_vjp``'s gradients

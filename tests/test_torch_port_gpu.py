@@ -322,8 +322,8 @@ ATTN_VARIANTS = {
                          4),
     "main_d128_bf16": (8, 1024, 1024, 6, 6, 128, torch.bfloat16, True, None,
                        0),
-    # the Hopper B1 (head dims 64, 80 and 128): D = 80 reads each row as a
-    # 64-feature and a 16-feature TMA box
+    # the Hopper B1-B3 (head dims 64, 80 and 128): D = 80 reads each row as
+    # a 64-feature and a 16-feature TMA box
     "bf16_noncausal_ragged_d64": (2, 100, 70, 4, 2, 64, torch.bfloat16,
                                   False, None, 0),
     "bf16_gqa_window_sinks_d80": (2, 300, 300, 4, 2, 80, torch.bfloat16,
@@ -342,6 +342,10 @@ ATTN_VARIANTS = {
                                     True, None, 0),
     "main_d80_gqa_window_bf16": (8, 1024, 1024, 16, 4, 80, torch.bfloat16,
                                  True, 256, 4),
+    # the Hopper B2/B3 at D = 80 on ViT-H/14's 257 tokens (a last tile of
+    # one row), causal with a window, sinks and GQA 16 / 4
+    "bf16_t257_gqa_window_sinks_d80": (4, 257, 257, 16, 4, 80,
+                                       torch.bfloat16, True, 100, 4),
 }
 
 
@@ -423,9 +427,9 @@ def test_flash_attention_on_cuda_never_reaches_the_plain_path(cuda,
                          ids=["f32", "bf16"])
 def test_kernel_design_table_is_the_librarys(cuda, dt):
     """The wrapper's dispatch table (``kernel_design``) names the design
-    the library's launcher runs for every kernel and head dim: bf16 B1 at
-    64, 80 and 128 and bf16 B2/B3 at 64 and 128 on the Hopper kernels,
-    the rest on mma.sync or SIMT."""
+    the library's launcher runs for every kernel and head dim: bf16 B1,
+    B2 and B3 at 64, 80 and 128 on the Hopper kernels, bf16 at 32 on
+    mma.sync, f32 on SIMT."""
     lib = fa._kernel()
     for which, kname in enumerate(("fwd", "dq", "dkv")):
         for d in fa._HEAD_DIMS:
@@ -484,7 +488,7 @@ def test_hopper_fwd_is_deterministic(cuda, d):
 
 @pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_lse"])
 @pytest.mark.parametrize("case", ["sum", "skewed_q"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_autograd_takes_expanded_cotangents_and_skewed_views(cuda, fn, case,
                                                              d):
     """A ``.sum()`` loss (autograd's cotangent is expanded: strides of 0)
