@@ -16,30 +16,38 @@ Phases, each of which raises on failure (exit code != 0, no result):
    warp-specialised) at 64, 80 and 128 (no spill in B2 or B3 at 80 outside
    the audit), of the Hopper B1 (``flash_fwd_wg_kernel``) at 64, 80 and
    128 (no spill at 64 and 80), of every B1-B3 instantiation at head dim
-   80 and of every instantiation of B4's split kernel, and the kernels
-   ptxas reports with serialised ``wgmma`` (C7520); then ``cuobjdump
-   --dump-sass`` of the flash attention library, which must show
-   ``HGMMA`` and ``UTMALDG`` in all 15 Hopper B1, B2 and B3 kernels;
-3. kernel: the dense flash-decode kernel (B4, split-KV over runs of
-   whole tiles cut from each slot's cursor, then a combine kernel, with
-   its split and CTA counts) against its plain PyTorch version at
-   lm_small decode shapes (8 slots, 1024 rows, 12 heads, head dim 64,
-   cursors 64-832), with its time (mean, median and spread), the plain
-   version's, a library yardstick (``scaled_dot_product_attention``
-   over the dequantised cache, mean, median and spread) and the card's
-   bound (live K/V bytes over the HBM rate), per variant; then the bf16
-   main shape at forced split counts 1, 2, 3 and 7 against the plain
+   80, the kernels ptxas reports with serialised ``wgmma`` (C7520), and
+   every instantiation of B4 (``flash_decode_kernel``) and B5
+   (``flash_decode_paged_kernel``), no spill in their bf16 and f32
+   forms; then ``cuobjdump --dump-sass`` of the flash attention library,
+   which must show ``HGMMA`` and ``UTMALDG`` in all 15 Hopper B1, B2 and
+   B3 kernels, and of the flash decode library, which must show the
+   tensor copy ``UTMALDG`` in all 72 B4 and B5 kernels and no combine
+   kernel;
+3. kernel: the dense flash-decode kernel (B4: one launch a call,
+   split-KV over runs of whole tiles cut from each slot's cursor, the
+   runs of a (slot, KV head) one thread block cluster that merges their
+   partials through distributed shared memory (st.async into each CTA's
+   slice of the outputs), each run's K/V tiles in flight at once by
+   tensor copies on mbarriers; with its split, stage, cluster and CTA
+   counts) against its plain PyTorch version at lm_small decode shapes
+   (8 slots, 1024 rows, 12 heads, head dim 64, cursors 64-832), with
+   its time (mean, median and spread), the plain version's, a library
+   yardstick (``scaled_dot_product_attention`` over the dequantised
+   cache, mean, median and spread) and the card's bound (live K/V bytes
+   over the HBM rate), per variant; then the bf16 main shape at forced
+   split counts 1, 2, 3, 7 and 16 (the cluster cap) against the plain
    split-and-merge version and the plain version;
-4. paged kernel: the paged flash-decode kernel (B5, split-KV over whole
-   pages, with its split and CTA counts) the same way, over a 512-block
-   pool of 16-row blocks walked through a scattered page table with an
-   unbound page inside one live range, and against B4 on the same
-   logical rows laid out densely;
+4. paged kernel: the paged flash-decode kernel (B5, the same design over
+   runs of whole pages, with its split, stage, cluster and CTA counts)
+   the same way, over a 512-block pool of 16-row blocks walked through a
+   scattered page table with an unbound page inside one live range, and
+   against B4 on the same logical rows laid out densely;
 5. serve: random-init lm_small (bf16, vocab 32000) behind the port's
    HTTP server, 8 concurrent ``/v1/generate`` requests (prompts of
    64–768 tokens, 64 new tokens, greedy), with B4's launch count checked
    against depth × decode steps; then a profile of the decode step
-   (device time by kernel, B4's split and combine kernels named);
+   (device time by kernel; B4 one kernel a layer, no combine);
 6. paged serve: the same model behind ``python -m
    fluxdistributed_tpu_torch.serve --paged --prefix-cache``'s stack: one
    warm request with a 256-token system prompt, then 8 concurrent
@@ -341,6 +349,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -500,6 +509,40 @@ def sass_check(_build) -> dict:
     return rows
 
 
+#: what every B4/B5 kernel's SASS must hold: the tensor copy
+#: (``cp.async.bulk.tensor``); the library's kernels: 6 dtype pairs x
+#: windowed x the state's kHeads (1, 4, shared) x dense and paged
+DECODE_SASS = ("UTMALDG",)
+DECODE_KERNELS = 72
+
+
+def decode_sass_check(_build) -> dict:
+    """``cuobjdump --dump-sass`` of the flash decode library: every
+    kernel's name and whether its SASS holds :data:`DECODE_SASS`.
+    Raises unless all :data:`DECODE_KERNELS` B4/B5 kernels are there, each
+    with the tensor copy, and no other kernel (no combine)."""
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    lib = _build.library_path("flash_decode")
+    text = subprocess.run([str(tool), "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    found, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            found[name] = set()
+        elif name:
+            found[name].update(op for op in DECODE_SASS if op in line)
+    rows = {demangle(n): {op: op in ops for op in DECODE_SASS}
+            for n, ops in found.items()}
+    bad = [n for n, r in rows.items() if not all(r.values())
+           or "combine" in n or "flash_decode" not in n]
+    if len(rows) != DECODE_KERNELS or bad:
+        raise RuntimeError(f"sass: {len(rows)} flash decode kernels, "
+                           f"{bad} lacking {DECODE_SASS} or not B4/B5")
+    return rows
+
+
 def kernel_design(fa, kname, dt, d) -> str:
     """The design a B1-B3 row ran: the wrapper's dispatch table, held to
     the library's own (``flash_attention_design``)."""
@@ -622,6 +665,16 @@ def check(row) -> None:
                                f"{row[key]} > {row['tol']}")
 
 
+def decode_design(splits, stages, runs) -> str:
+    """The design string of a B4/B5 row."""
+    return (f"one launch: split-KV, {splits} runs of {runs}, a (1, "
+            f"{splits}, 1) thread block cluster a (slot, KV head) merging "
+            f"the partials through distributed shared memory (st.async "
+            f"into each CTA's slice of the outputs); K/V tiles by "
+            f"cp.async.bulk.tensor on mbarriers, {stages} stage(s) in flight "
+            f"a CTA; each warp's state in registers")
+
+
 def kernel_row_bytes(hkv, kv, quant):
     """HBM bytes of one live K+V row of a KV head group (and scales)."""
     return hkv * D * kv.element_size() * 2 + (hkv * 4 * 2 if quant else 0)
@@ -635,8 +688,7 @@ def kernel_phase(torch, bw, peaks, flush):
 
     from fluxdistributed_tpu_torch.models.transformer_lm import quantize_kv
     from fluxdistributed_tpu_torch.ops.flash_decode import (
-        decode_splits, flash_decode, flash_decode_reference,
-        flash_decode_split)
+        flash_decode, flash_decode_reference, flash_decode_split)
 
     # the module (the ops package exports a function of the same name)
     fd = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_decode")
@@ -688,15 +740,17 @@ def kernel_phase(torch, bw, peaks, flush):
                          + (4 * B * r if variant == "window" else 0)),
             bits=bits, tol=1e-4 if dt == torch.float32 else 2e-2,
             plain_iters=10)
-        splits = decode_splits(B, hkv, r, sms, D)
+        splits = fd.kernel_plan(q, k)
+        flash_decode(q, k, v, idx, **kw)
+        stages = fd.last_stages()
         rows[variant] = {
             "phase": "kernel", "variant": variant,
             "shape": [B, r, H, hkv, D], "q_dtype": str(dt).split(".")[-1],
             "kv_dtype": str(k.dtype).split(".")[-1],
-            "design": f"split-KV, {splits} splits of each slot's live "
-                      "tiles (cut from its cursor on the device), then a "
-                      "combine kernel",
-            "splits": splits, "ctas": B * hkv * splits, "sms": sms, **m}
+            "design": decode_design(splits, stages, "each slot's live tiles "
+                                    "(cut from its cursor on the device)"),
+            "splits": splits, "cluster": [1, splits, 1], "stages": stages,
+            "ctas": B * hkv * splits, "sms": sms, **m}
         emit(rows[variant])
         check(rows[variant])
         if variant == "bf16":
@@ -705,7 +759,7 @@ def kernel_phase(torch, bw, peaks, flush):
     # split-and-merge version at the same count and the plain version
     ref = flash_decode_reference(*main_args)
     forced = {}
-    for n in (1, 2, 3, 7):
+    for n in (1, 2, 3, 7, fd.MAX_SPLITS):
         out = fd._launch(*main_args, None, None, 0, None, None, splits=n)
         split_ref = flash_decode_split(*main_args, splits=n)
         torch.cuda.synchronize()
@@ -725,11 +779,13 @@ def paged_kernel_phase(torch, bw, peaks, flush):
     """Every variant of the paged decode kernel against its plain version
     (and, unwindowed, against the dense kernel on the same stored rows
     laid out densely); returns the bf16 (main-path) row."""
+    import importlib
+
     from fluxdistributed_tpu_torch.models.transformer_lm import quantize_kv
     from fluxdistributed_tpu_torch.ops.flash_decode import (
-        flash_decode, flash_decode_paged, flash_decode_paged_reference,
-        paged_splits, split_pages)
+        flash_decode, flash_decode_paged, flash_decode_paged_reference)
 
+    fd = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_decode")
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # the dense kernel phase's cursors (the same seed, the same draw)
@@ -815,14 +871,16 @@ def paged_kernel_phase(torch, bw, peaks, flush):
             dense = flash_decode(q, take(k), take(v), idx, **dkw)
             keep = torch.arange(B, device=dev) != hole
             vs_dense = (dense.float() - out.float())[keep].abs().max().item()
-        runs, per = split_pages(pages, paged_splits(B, hkv, pages, sms))
+        runs, per = fd.paged_kernel_plan(q, k, pt)
+        flash_decode_paged(q, k, v, pt, idx, **kw)
+        stages = fd.last_stages()
         rows[variant] = {
             "phase": "paged_kernel", "variant": variant,
             "shape": [B, pages, BS, NB, H, hkv, D],
-            "design": f"split-KV, {runs} splits of {per} pages, then a "
-                      "combine kernel",
-            "splits": runs, "pages_per_split": per, "ctas": B * hkv * runs,
-            "sms": sms,
+            "design": decode_design(runs, stages, f"{per} pages"),
+            "splits": runs, "pages_per_split": per,
+            "cluster": [1, runs, 1], "stages": stages,
+            "ctas": B * hkv * runs, "sms": sms,
             "q_dtype": str(dt).split(".")[-1],
             "kv_dtype": str(k.dtype).split(".")[-1], **m,
             "vs_dense_max_abs_err": vs_dense,
@@ -1282,6 +1340,14 @@ def profile_decode(torch, engine, prompts, steps=10):
             dev[row.key] = dev.get(row.key, 0.0) + us
     busy_ms = sum(dev.values()) / steps / 1e3
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    # B4/B5: one kernel a layer a step, no combine
+    calls = {r.key: r.count for r in prof.key_averages()
+             if r.device_type == torch.autograd.DeviceType.CUDA
+             and "flash_decode" in r.key}
+    if dev and (len(calls) != 1 or any("combine" in k for k in calls)
+                or sum(calls.values()) != engine.model.depth * steps):
+        raise RuntimeError(f"profile: decode kernels {calls} over {steps} "
+                           f"steps, depth {engine.model.depth}")
     emit({"phase": "profile", "layout": engine.layout_name,
           "what": "all-slot decode step, 8 live slots",
           "steps": steps, "wall_ms_per_step": wall_ms,
@@ -1294,7 +1360,9 @@ def profile_decode(torch, engine, prompts, steps=10):
                                      for k, v in top],
           "decode_kernels_ms_per_step": {
               k[:80]: v / steps / 1e3 for k, v in dev.items()
-              if "flash_decode" in k}})
+              if "flash_decode" in k},
+          "decode_kernel_launches_per_step": {
+              k[:80]: n / steps for k, n in calls.items()}})
     for s in range(len(prompts)):
         engine.reset_slot(s)
 
@@ -6767,12 +6835,25 @@ def build_phase(_build) -> None:
           "instantiations": {
               demangle(n): r for n, r in ptxas_summary(
                   logs.get("flash_attention", ""), "Li80E").items()}})
-    split = ptxas_summary(logs.get("flash_decode", ""),
-                          "flash_decode_split_kernel")
+    decode = ptxas_summary(logs.get("flash_decode", ""), "flash_decode")
     emit({"phase": "ptxas",
-          "kernel": "flash_decode_split_kernel<TQ, TKV, windowed, quant> "
-                    "(any D)",
-          "instantiations": {demangle(n): r for n, r in split.items()}})
+          "kernel": "flash_decode_kernel / flash_decode_paged_kernel<TQ, "
+                    "TKV, windowed, quant, heads> (any D)",
+          "design": "one launch, cluster merge, cp.async.bulk.tensor on "
+                    "mbarriers",
+          "instantiations": {demangle(n): r for n, r in decode.items()}})
+    # the bf16 and f32 forms: template argument quant false (mangled
+    # ``Lb<windowed>ELb0ELi<heads>EE``)
+    plain = {demangle(n): r for n, r in decode.items()
+             if re.search(r"Lb[01]ELb0ELi[014]EE", n)}
+    if len(decode) != DECODE_KERNELS or len(plain) != DECODE_KERNELS // 3 \
+            or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+                   for r in plain.values()):
+        raise RuntimeError(f"ptxas: {len(decode)} B4/B5 kernels, or a bf16 "
+                           f"/ f32 form spills: {plain}")
+    emit({"phase": "sass", "library": str(_build.library_path(
+        "flash_decode").name), "must_hold": list(DECODE_SASS),
+        "kernels": decode_sass_check(_build)})
 
 
 def run_phases(torch, _build) -> int:

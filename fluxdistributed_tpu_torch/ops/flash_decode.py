@@ -18,10 +18,17 @@ partials are merged in run order.  The dense kernel cuts each slot's
 live rows (up to its cursor, read on the device) into
 :func:`decode_splits` runs of whole tiles of :func:`decode_tile_rows`
 rows; the paged kernel cuts the page table into :func:`paged_splits`
-runs of whole pages.  :func:`flash_decode_split` and
-:func:`flash_decode_paged_split` are the plain versions of those
-schedules (the tests hold them to the oracles,
-:func:`flash_decode_reference` and :func:`flash_decode_paged_reference`).
+runs of whole pages.  A call is one CUDA launch: the runs of one (slot,
+KV head) are the CTAs of one thread block cluster, which merge their
+partials through distributed shared memory, so a count is at most
+:data:`MAX_SPLITS` (the largest cluster the card launches) and a forced
+count above it is refused before any launch.  (How many K/V tiles a CTA
+keeps in flight is the launcher's choice, from the kernel's own
+shared-memory layout.)  :func:`flash_decode_split` and
+:func:`flash_decode_paged_split`
+are the plain versions of those schedules (the tests hold them to the
+oracles, :func:`flash_decode_reference` and
+:func:`flash_decode_paged_reference`).
 
 All keep the probabilities in f32 through P·V, as the XLA walk does.
 (The Pallas body instead rounds p to v's dtype, so on a bf16 cache the
@@ -29,9 +36,9 @@ two JAX impls differ by bf16 rounding of p; the port follows the XLA
 walk on both devices.)  ``flash_decode.launches`` and
 ``flash_decode_paged.launches`` count kernel launches.  On fake tensors
 (a priced step, :mod:`..fake`), on any device, each takes its
-shape-only branch: the kernel's checks, its output and its split
-partials, fake, with no launch and no count (the split count of a fake
-tensor off the card assumes an H100's :data:`FAKE_SMS`).
+shape-only branch: the kernel's checks and its output, fake, with no
+launch and no count (the split count of a fake tensor off the card
+assumes an H100's :data:`FAKE_SMS`).
 """
 
 from __future__ import annotations
@@ -46,10 +53,11 @@ from ..fake import is_fake
 from .attention import NEG_INF, online_softmax_update, validate_window
 from .counts import count
 
-__all__ = ["decode_splits", "decode_tile_rows", "flash_decode",
-           "flash_decode_paged", "flash_decode_paged_reference",
-           "flash_decode_paged_split", "flash_decode_reference",
-           "flash_decode_split", "paged_splits", "split_pages",
+__all__ = ["MAX_SPLITS", "decode_splits", "decode_tile_rows",
+           "flash_decode", "flash_decode_paged",
+           "flash_decode_paged_reference", "flash_decode_paged_split",
+           "flash_decode_reference", "flash_decode_split", "kernel_plan",
+           "paged_kernel_plan", "paged_splits", "split_pages",
            "split_tiles"]
 
 # dtype codes shared with csrc/flash_decode.cu
@@ -265,6 +273,10 @@ def _page_walkers(q, k_pool, v_pool, page_table, idx, slot_pos, window,
 
 #: CTAs per SM that the kernels' split counts aim at
 _CTAS_PER_SM = 4
+#: the most runs a (slot, KV head) is cut into: the CTAs of one thread
+#: block cluster, 16 on an H100 with the non-portable cluster size allowed
+#: (``csrc/flash_decode.cu:kMaxSplits``)
+MAX_SPLITS = 16
 
 
 def decode_tile_rows(d: int) -> int:
@@ -275,15 +287,16 @@ def decode_tile_rows(d: int) -> int:
 
 
 def decode_splits(batch: int, hkv: int, rows: int, sms: int,
-                  head_dim: int) -> int:
+                  head_dim: int, cap: int = MAX_SPLITS) -> int:
     """The dense kernel's split count: enough runs that ``batch * hkv *
     splits`` CTAs give each of ``sms`` SMs about four, but no more runs
     than the ``rows`` of the cache hold tiles of
-    ``decode_tile_rows(head_dim)`` rows.  Depends on the cache and the
-    card, never on the cursors, so the grid is fixed on the host."""
+    ``decode_tile_rows(head_dim)`` rows, nor than ``cap`` (the largest
+    cluster, :data:`MAX_SPLITS`).  Depends on the cache and the card,
+    never on the cursors, so the grid is fixed on the host."""
     want = -(-_CTAS_PER_SM * sms // max(batch * hkv, 1))
     tiles = -(-rows // decode_tile_rows(head_dim))
-    return max(1, min(tiles, want))
+    return max(1, min(tiles, want, cap))
 
 
 def split_tiles(tiles: int, splits: int):
@@ -298,14 +311,15 @@ def split_tiles(tiles: int, splits: int):
             for s in range(splits)]
 
 
-def paged_splits(batch: int, hkv: int, pages: int, sms: int) -> int:
+def paged_splits(batch: int, hkv: int, pages: int, sms: int,
+                 cap: int = MAX_SPLITS) -> int:
     """The paged kernel's split count: enough runs of whole pages that
-    ``batch * hkv * splits`` CTAs give each of ``sms`` SMs about four
-    (at least two waves), but no more runs than pages.  Depends on the
-    page count and the card, never on the cursors, because the grid is
-    fixed on the host."""
+    ``batch * hkv * splits`` CTAs give each of ``sms`` SMs about four,
+    but no more runs than pages, nor than ``cap`` (the largest cluster,
+    :data:`MAX_SPLITS`).  Depends on the page count and the card, never
+    on the cursors, because the grid is fixed on the host."""
     want = -(-_CTAS_PER_SM * sms // max(batch * hkv, 1))
-    return max(1, min(pages, want))
+    return max(1, min(pages, want, cap))
 
 
 def split_pages(pages: int, splits: int):
@@ -320,7 +334,7 @@ def split_pages(pages: int, splits: int):
 
 def _merge_splits(parts):
     """Merge the split partials ``[(m, l, acc), ...]`` in split order, as
-    the paged kernel's combine does: ``M = max m_s``, ``w_s = exp(m_s -
+    the kernels' cluster merge does: ``M = max m_s``, ``w_s = exp(m_s -
     M)``, ``l = sum l_s w_s``, ``acc = sum acc_s w_s``; returns ``(l,
     acc)``.  A slot with nothing attendable keeps ``l = 0``, ``acc =
     0``."""
@@ -343,7 +357,7 @@ def flash_decode_split(q, k, v, idx, *, splits, slot_pos=None, window=None,
     in tiles of :func:`decode_tile_rows` rows, cut into ``splits`` runs
     of whole tiles (:func:`split_tiles`), the ``_xla_block_walk`` state
     of each run taken on its own, and the runs merged in split order, as
-    the kernel's combine merges them.  Same contract as
+    the kernel's cluster merges them.  Same contract as
     :func:`flash_decode`."""
     r, hkv, d = k.shape[1:]
     tile = decode_tile_rows(d)
@@ -371,7 +385,7 @@ def flash_decode_paged_split(q, k_pool, v_pool, page_table, idx, *, splits,
     """The plain version of the paged kernel's split-KV schedule: the
     page table cut into runs of whole pages (:func:`split_pages`), the
     ``_xla_block_walk`` state of each run taken on its own, and the
-    partials merged in run order, as the kernel's combine merges them.
+    partials merged in run order, as the kernel's cluster merges them.
     Same contract as :func:`flash_decode_paged`."""
     pages = page_table.shape[1]
     _, per = split_pages(pages, splits)
@@ -393,26 +407,33 @@ _lib = None
 
 
 def _kernel():
-    """The loaded kernel library, its two entry points typed."""
+    """The loaded kernel library, its entry points typed."""
     global _lib
     if _lib is None:
         from . import _build
 
-        lib = _build.load("flash_decode")
-        lib.flash_decode_launch.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-               ctypes.c_void_p])
-        lib.flash_decode_paged_launch.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-               ctypes.c_void_p])
-        lib.flash_decode_launch.restype = ctypes.c_int
-        lib.flash_decode_paged_launch.restype = ctypes.c_int
-        lib.flash_decode_error_string.argtypes = [ctypes.c_int]
-        lib.flash_decode_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = type_library(_build.load("flash_decode"))
     return _lib
+
+
+def type_library(lib):
+    """``lib`` (a ``csrc/flash_decode.cu`` build) with its entry points
+    typed."""
+    lib.flash_decode_launch.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.flash_decode_paged_launch.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib.flash_decode_launch.restype = ctypes.c_int
+    lib.flash_decode_paged_launch.restype = ctypes.c_int
+    lib.flash_decode_cuda_launches.argtypes = []
+    lib.flash_decode_cuda_launches.restype = ctypes.c_ulonglong
+    lib.flash_decode_last_stages.argtypes = []
+    lib.flash_decode_last_stages.restype = ctypes.c_int
+    lib.flash_decode_error_string.argtypes = [ctypes.c_int]
+    lib.flash_decode_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _check_kernel_inputs(q, k, v, idx, slot_pos, k_scale, v_scale,
@@ -475,30 +496,59 @@ def _sm_count(device) -> int:
     return _SMS[i]
 
 
-def _workspace(q, splits):
-    """The split partials (m, l, acc[D]) of every (slot, query head),
-    from the caching allocator on the current stream."""
-    b, _, h, d = q.shape
-    return torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
-                       device=q.device)
+def _check_splits(splits: int) -> None:
+    """A forced split count the kernels take: 1 to :data:`MAX_SPLITS`
+    (refused before anything is built or launched)."""
+    if splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    if splits > MAX_SPLITS:
+        raise ValueError(
+            f"splits={splits} exceeds the cluster cap: a (slot, KV head)'s "
+            f"runs are one thread block cluster of at most {MAX_SPLITS} CTAs")
+
+
+def kernel_plan(q, k, splits=None) -> int:
+    """The runs a slot the dense kernel launches with on the card for q
+    [B, 1, H, D] and a cache k [B, R, Hkv, D]: :func:`decode_splits` of
+    the card's SM count, or the forced ``splits``.  (The K/V tiles a CTA
+    keeps in flight are the launcher's, ``csrc/flash_decode.cu:
+    plan_stages``; :func:`last_stages` reads them back.)"""
+    if splits is not None:
+        return splits
+    b, _, _, d = q.shape
+    r, hkv = k.shape[1], k.shape[2]
+    return decode_splits(b, hkv, r, _sm_count(q.device), d)
+
+
+def last_stages() -> int:
+    """The K/V tiles a CTA kept in flight in the kernels' last launch."""
+    return _kernel().flash_decode_last_stages()
+
+
+def paged_kernel_plan(q, k_pool, page_table, splits=None):
+    """``(runs, pages_per_run)`` the paged kernel launches with on the
+    card: :func:`paged_splits` of the card's SM count (or the forced
+    ``splits``) cut by :func:`split_pages`."""
+    pages = page_table.shape[1]
+    if splits is None:
+        splits = paged_splits(q.shape[0], k_pool.shape[2], pages,
+                              _sm_count(q.device))
+    return split_pages(pages, splits)
 
 
 def _launch(q, k, v, idx, slot_pos, window, sinks, k_scale, v_scale,
             splits=None):
     """The dense kernel on ``splits`` runs of tiles a slot (default:
-    :func:`decode_splits` of the card's SM count; the card-only tests
-    force other counts)."""
+    :func:`kernel_plan`'s; the card-only tests force other counts)."""
+    if splits is not None:
+        _check_splits(splits)
     _check_kernel_inputs(q, k, v, idx, slot_pos, k_scale, v_scale)
     b, _, h, d = q.shape
     r, hkv = k.shape[1], k.shape[2]
-    if splits is None:
-        splits = decode_splits(b, hkv, r, _sm_count(q.device), d)
-    elif splits < 1:
-        raise ValueError(f"splits must be >= 1, got {splits}")
     out = torch.empty_like(q)
-    work = _workspace(q, splits)
     if is_fake(q):  # the shape-only branch: no launch, no count
         return out
+    splits = kernel_plan(q, k, splits)
     lib = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -507,28 +557,27 @@ def _launch(q, k, v, idx, slot_pos, window, sinks, k_scale, v_scale,
             _ptr(q), _ptr(k), _ptr(v), _ptr(idx), _ptr(slot_pos),
             _ptr(k_scale), _ptr(v_scale), _ptr(out), b, r, h, hkv, d,
             int(window or 0), int(sinks), 1.0 / math.sqrt(d), splits,
-            _ptr(work), ctypes.c_void_p(stream))
+            ctypes.c_void_p(stream))
     _raise_on(err, "flash_decode")
-    count(flash_decode)  # one call, two CUDA launches
+    count(flash_decode)  # one call, one CUDA launch
     return out
 
 
 def _launch_paged(q, k_pool, v_pool, page_table, idx, slot_pos, window,
                   sinks, k_scale, v_scale, splits=None):
-    """The paged kernel on ``splits`` runs of pages (default: from the
-    card's SM count; the card-only tests force other counts)."""
+    """The paged kernel on ``splits`` runs of pages (default:
+    :func:`paged_kernel_plan`'s; the card-only tests force other
+    counts)."""
+    if splits is not None:
+        _check_splits(splits)
     _check_kernel_inputs(q, k_pool, v_pool, idx, slot_pos, k_scale, v_scale,
                          extra=(page_table,))
     b, _, h, d = q.shape
     nb, bs, hkv = k_pool.shape[:3]
-    pages = page_table.shape[1]
-    if splits is None:
-        splits = paged_splits(b, hkv, pages, _sm_count(q.device))
-    runs, per = split_pages(pages, splits)
     out = torch.empty_like(q)
-    work = _workspace(q, runs)
     if is_fake(q):  # the shape-only branch: no launch, no count
         return out
+    runs, per = paged_kernel_plan(q, k_pool, page_table, splits)
     lib = _kernel()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -536,11 +585,11 @@ def _launch_paged(q, k_pool, v_pool, page_table, idx, slot_pos, window,
             _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype], int(window is not None),
             _ptr(q), _ptr(k_pool), _ptr(v_pool), _ptr(page_table), _ptr(idx),
             _ptr(slot_pos), _ptr(k_scale), _ptr(v_scale), _ptr(out),
-            b, pages, bs, nb, h, hkv, d, int(window or 0), int(sinks),
-            1.0 / math.sqrt(d), runs, per, _ptr(work),
-            ctypes.c_void_p(stream))
+            b, page_table.shape[1], bs, nb, h, hkv, d, int(window or 0),
+            int(sinks),
+            1.0 / math.sqrt(d), runs, per, ctypes.c_void_p(stream))
     _raise_on(err, "flash_decode_paged")
-    count(flash_decode_paged)  # one call, two CUDA launches
+    count(flash_decode_paged)  # one call, one CUDA launch
     return out
 
 
@@ -568,10 +617,11 @@ def flash_decode(
     ``k_scale``/``v_scale`` [B, R, Hkv] f32.  → [B, 1, H, D] in q's
     dtype; slots with nothing attendable return exactly 0.
 
-    On a CUDA tensor this launches the Hopper kernel, split-KV over runs
-    of whole tiles (:func:`decode_splits` of the card's SM count; its
-    tile size is its own, :func:`decode_tile_rows`, and ``block_k`` sets
-    the plain version's block rows); on a CPU tensor it runs
+    On a CUDA tensor this launches the Hopper kernel once, split-KV over
+    runs of whole tiles merged across a thread block cluster
+    (:func:`decode_splits` of the card's SM count; its tile size is its
+    own, :func:`decode_tile_rows`, and ``block_k`` sets the plain
+    version's block rows); on a CPU tensor it runs
     :func:`flash_decode_reference`.
     """
     _validate(window, sinks, slot_pos, k_scale, v_scale)
@@ -616,9 +666,10 @@ def flash_decode_paged(
     pass ``k_scale``/``v_scale`` [NB, bs, Hkv] f32.  → [B, 1, H, D] in
     q's dtype; slots with nothing attendable return exactly 0.
 
-    On a CUDA tensor this launches the Hopper kernel, split-KV over runs
-    of whole pages (:func:`paged_splits` of the card's SM count); on a
-    CPU tensor it runs :func:`flash_decode_paged_reference`.
+    On a CUDA tensor this launches the Hopper kernel once, split-KV over
+    runs of whole pages merged across a thread block cluster
+    (:func:`paged_splits` of the card's SM count); on a CPU tensor it
+    runs :func:`flash_decode_paged_reference`.
     """
     _validate(window, sinks, slot_pos, k_scale, v_scale)
     _check_paged_shapes(q, k_pool, v_pool, page_table, idx, slot_pos, k_scale)

@@ -177,3 +177,57 @@ def test_cuda_wrapper_checks_before_launch():
     with pytest.raises(ValueError, match="contiguous"):
         kt = torch.zeros(1, 2, 8, 16).transpose(1, 2)
         fd_mod._launch(q, kt, kt, idx, None, None, 0, None, None)
+
+
+def test_priced_call_allocates_only_its_output_and_caps_splits():
+    """On fake tensors (a priced step) each wrapper takes its shape-only
+    branch: one allocation, its output (the kernels merge their split
+    partials in a cluster and need no workspace), no launch and no
+    count.  A forced split count above the cluster cap (16 CTAs) is
+    refused before anything is built or launched, on fake and on real
+    tensors alike."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Allocations(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func._schema.name.split("::")[-1]
+            if name.startswith(("empty", "zeros", "full", "new_")):
+                self.shapes.append(tuple(out.shape))
+            return out
+
+    q = torch.zeros(2, 1, 4, 64, dtype=torch.bfloat16)
+    k = torch.zeros(2, 300, 4, 64, dtype=torch.bfloat16)
+    idx = torch.zeros(2, dtype=torch.int32)
+    pool = torch.zeros(16, 16, 4, 64, dtype=torch.bfloat16)
+    table = torch.zeros(2, 4, dtype=torch.int32)
+    v = k.clone()
+    before = (flash_decode.launches, fd_mod.flash_decode_paged.launches)
+    with FakeTensorMode() as mode:
+        fq, fk, fv, fi, fp, ft = (mode.from_tensor(t) for t in (
+            q, k, v, idx, pool, table))
+        for call in (lambda: flash_decode(fq, fk, fv, fi),
+                     lambda: fd_mod.flash_decode_paged(fq, fp, fp, ft, fi)):
+            with Allocations() as seen:
+                out = call()
+            assert seen.shapes == [tuple(q.shape)]
+            assert out.shape == q.shape and out.dtype == q.dtype
+        with pytest.raises(ValueError, match="cluster cap"):
+            fd_mod._launch(fq, fk, fv, fi, None, None, 0, None, None,
+                           splits=17)
+        with pytest.raises(ValueError, match="cluster cap"):
+            fd_mod._launch_paged(fq, fp, fp, ft, fi, None, None, 0, None,
+                                 None, splits=17)
+    assert (flash_decode.launches,
+            fd_mod.flash_decode_paged.launches) == before
+    # real tensors: refused before the kernel library is built or loaded
+    with pytest.raises(ValueError, match="cluster cap"):
+        fd_mod._launch(q, k, k, idx, None, None, 0, None, None, splits=17)
+    with pytest.raises(ValueError, match="cluster cap"):
+        fd_mod._launch_paged(q, pool, pool, table, idx, None, None, 0, None,
+                             None, splits=fd_mod.MAX_SPLITS + 1)

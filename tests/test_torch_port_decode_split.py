@@ -5,9 +5,9 @@ of a windowed ring) into tiles of ``decode_tile_rows(D)`` rows, the
 tiles into ``splits`` runs (``split_tiles``), takes each run's
 online-softmax state on its own and merges the states in run order.  Its
 plain version, ``flash_decode_split``, is held here to the oracle
-(``flash_decode_reference``) at 1, 2, 3 and 7 splits and to the JAX
-``flash_decode`` under the Pallas interpreter and the XLA walk at 7
-splits: a plain cursor, cursor 0 and R - 1, cursors whose live rows end
+(``flash_decode_reference``) at 1, 2, 3, 7 and 16 splits (16: the
+kernel's cluster cap, ``MAX_SPLITS``) and to the JAX ``flash_decode``
+under the Pallas interpreter and the XLA walk at 7 and 16 splits: a plain cursor, cursor 0 and R - 1, cursors whose live rows end
 one short of, on and one past a tile boundary, a windowed ring with
 sinks, GQA, and int8 and fp8 caches.  Tolerance atol 1e-5, as in
 ``test_torch_port_decode.py``: f32 inputs or exactly representable
@@ -22,13 +22,13 @@ import torch
 
 from fluxdistributed_tpu.ops.pallas_decode import flash_decode as jax_decode
 from fluxdistributed_tpu_torch.ops.flash_decode import (
-    decode_splits, decode_tile_rows, flash_decode_reference,
+    MAX_SPLITS, decode_splits, decode_tile_rows, flash_decode_reference,
     flash_decode_split, split_tiles)
 
 ATOL = 1e-5
 B, H, D, R = 4, 4, 16, 520
 T = decode_tile_rows(D)  # 64: R holds 8 whole tiles and 8 rows
-SPLITS = [1, 2, 3, 7]
+SPLITS = [1, 2, 3, 7, MAX_SPLITS]
 CURSORS = {
     "dense": [37, 200, 449, R - 1],
     # live rows T - 1, T and T + 1, and cursor 0 (one live row)
@@ -114,13 +114,15 @@ def test_split_and_merge_matches_reference(name, splits):
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("splits", [7, MAX_SPLITS])
 @pytest.mark.parametrize("impl", ["interpret", "xla"])
 @pytest.mark.parametrize("name", NAMES)
-def test_split_and_merge_matches_jax(name, impl):
-    """At 7 splits (the longest slot's 9 tiles in runs of 2)."""
+def test_split_and_merge_matches_jax(name, impl, splits):
+    """At 7 splits (the longest slot's 9 tiles in runs of 2) and at the
+    cluster cap (16: runs of one tile, the last 7 empty)."""
     q, k, v, idx, kw, jk, tk = _case(name)
     args, tkw = _torch_args(q, k, v, idx, kw, tk)
-    got = flash_decode_split(*args, splits=7, **tkw).numpy()
+    got = flash_decode_split(*args, splits=splits, **tkw).numpy()
     jkw = {n: (jnp.asarray(x) if isinstance(x, np.ndarray) else x)
            for n, x in kw.items()}
     kj, vj = jnp.asarray(k), jnp.asarray(v)
@@ -157,8 +159,9 @@ def test_empty_runs_and_dead_slots():
 def test_split_counts():
     """Each slot's runs cover its live tiles once, in order, with no more
     runs than asked; the kernel's count fills the card but never exceeds
-    the cache's tiles: lm_small's 8 slots x 12 heads x 1024 rows (16
-    tiles of 64 rows) on 132 SMs take 6 runs (576 CTAs)."""
+    the cache's tiles nor the cluster cap (16): lm_small's 8 slots x 12
+    heads x 1024 rows (16 tiles of 64 rows) on 132 SMs take 6 runs (576
+    CTAs); one slot of a 4096-row cache would ask for 44 and takes 16."""
     for tiles in range(0, 40):
         for splits in range(1, 12):
             runs = split_tiles(tiles, splits)
@@ -173,3 +176,10 @@ def test_split_counts():
     assert decode_splits(1, 1, 100, 132, 64) == 2  # never more runs than tiles
     assert decode_splits(64, 32, 1024, 132, 64) == 1
     assert decode_splits(8, 12, 1024, 132, 128) == 6
+    # at and above the cluster cap
+    assert MAX_SPLITS == 16
+    assert decode_splits(1, 12, 1024, 132, 64) == 16  # the tiles, at the cap
+    assert decode_splits(8, 4, 1024, 132, 64) == 16  # chip_smoke's GQA
+    assert decode_splits(1, 12, 4096, 132, 64) == 16  # asks for 44
+    assert decode_splits(1, 1, 4096, 132, 64) == 16  # asks for 64 tiles
+    assert decode_splits(1, 1, 4096, 132, 64, cap=8) == 8

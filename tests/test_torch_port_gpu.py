@@ -18,9 +18,12 @@ whose f32 sums differ from the plain versions' in order only; B2 rounds
 ds, and B3 p and ds, to bf16 exactly as the plain version does, and the
 rounding audit (every live pair summed again in the plain order) must
 find no pair that the flag let through rounding otherwise.  The paged
-and dense kernels are split-KV; at 1, 2, 3 and 7 splits each holds the
-same limits against its plain version and against its plain
-split-and-merge version.  ``optim.adam`` on the card equals ``fused_adam``'s plain
+and dense kernels are split-KV, one launch a call (a cluster of a
+(slot, KV head)'s split CTAs merges their partials; no workspace); at 1,
+2, 3, 7 and 16 (the cluster cap) splits each holds the same limits
+against its plain version and against its plain split-and-merge
+version, and GQA with 8 query heads a KV head runs the shared-memory
+state.  ``optim.adam`` on the card equals ``fused_adam``'s plain
 version bit for bit.
 Fused Adam: bitwise (each op rounded as the plain version's op).  The
 fused ZeRO-1 step on the card against the CPU: loss 1e-5 relative;
@@ -97,6 +100,8 @@ def _dense_case(variant):
     b, h, hkv, d, r = 4, 8, 8, 64, 300
     if variant == "gqa":
         hkv = 2
+    if variant == "gqa8":  # G = 8: each warp's state in shared memory
+        h, hkv = 16, 2
     dt = torch.float32 if variant == "f32" else torch.bfloat16
     q = torch.randn(b, 1, h, d, generator=g).to(dt)
     k = torch.randn(b, r, hkv, d, generator=g)
@@ -121,8 +126,8 @@ def _on(cuda, kw):
     return {n: x.to(cuda) if torch.is_tensor(x) else x for n, x in kw.items()}
 
 
-@pytest.mark.parametrize("variant", ["f32", "bf16", "gqa", "ring", "int8",
-                                     "fp8"])
+@pytest.mark.parametrize("variant", ["f32", "bf16", "gqa", "gqa8", "ring",
+                                     "int8", "fp8"])
 def test_kernel_matches_plain_version(cuda, variant):
     (q, k, v, idx), kw = _dense_case(variant)
     ref = flash_decode_reference(q, k, v, idx, **kw)
@@ -145,14 +150,15 @@ def _dense_kernel(cuda, q, k, v, idx, *, splits, slot_pos=None, window=None,
     return fd._launch(*dev[:5], window, sinks, *dev[5:], splits=splits)
 
 
-@pytest.mark.parametrize("splits", [1, 2, 3, 7])
-@pytest.mark.parametrize("variant", ["f32", "bf16", "gqa", "ring", "int8",
-                                     "fp8"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 16])
+@pytest.mark.parametrize("variant", ["f32", "bf16", "gqa", "gqa8", "ring",
+                                     "int8", "fp8"])
 def test_kernel_split_counts(cuda, variant, splits):
-    """The split-KV dense kernel at 1, 2, 3 and 7 forced splits against
-    the plain version and against the plain split-and-merge version on
-    the CPU at the same count.  At 7 the last slot's 5 live tiles take 5
-    runs of one and leave 2 empty, the second slot's 1 tile leaves 6."""
+    """The split-KV dense kernel at 1, 2, 3, 7 and 16 (the cluster cap)
+    forced splits against the plain version and against the plain
+    split-and-merge version on the CPU at the same count.  At 7 the last
+    slot's 5 live tiles take 5 runs of one and leave 2 empty, the second
+    slot's 1 tile leaves 6."""
     args, kw = _dense_case(variant)
     ref = flash_decode_reference(*args, **kw)
     split_ref = flash_decode_split(*args, splits=splits, **kw)
@@ -174,7 +180,7 @@ def test_kernel_dead_slot_is_zero(cuda):
     idx = torch.tensor([-1, 63, 64, 299], dtype=torch.int32)
     (rq, rk, rv, ridx), rkw = _dense_case("ring")
     rkw["slot_pos"][2] = -1
-    for splits in (1, 2, 3, 7):
+    for splits in (1, 2, 3, 7, 16):
         out = _dense_kernel(cuda, q, k, v, idx, splits=splits)
         ring = _dense_kernel(cuda, rq, rk, rv, ridx, splits=splits, **rkw)
         torch.cuda.synchronize()
@@ -182,23 +188,110 @@ def test_kernel_dead_slot_is_zero(cuda):
         assert torch.equal(ring[2].cpu(), torch.zeros_like(ring[2].cpu()))
 
 
-def test_kernel_counts_one_launch_per_call(cuda):
-    """One call is two CUDA launches (split, then combine) and counts
-    one."""
-    (q, k, v, idx), _ = _dense_case("bf16")
-    q, k, v, idx = (x.to(cuda) for x in (q, k, v, idx))
-    before = flash_decode.launches
-    for _ in range(3):
-        flash_decode(q, k, v, idx)
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_kernel_counts_one_launch_per_call(cuda, layout):
+    """One call is one CUDA launch (no combine kernel) and counts one:
+    the profiler sees one decode kernel a call on the device, and the
+    library's own launch count rises by one a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fd = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_decode")
+    if layout == "dense":
+        (q, k, v, idx), _ = _dense_case("bf16")
+        args = [x.to(cuda) for x in (q, k, v, idx)]
+        kern = flash_decode
+    else:
+        (q, k, v, pt, idx), _ = _paged_case("bf16")
+        args = [x.to(cuda) for x in (q, k, v, pt, idx)]
+        kern = flash_decode_paged
+    kern(*args)  # built and loaded outside the profile
     torch.cuda.synchronize()
-    assert flash_decode.launches == before + 3
+    before, lib0 = kern.launches, fd._kernel().flash_decode_cuda_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            kern(*args)
+        torch.cuda.synchronize()
+    assert kern.launches == before + 3
+    assert fd._kernel().flash_decode_cuda_launches() == lib0 + 3
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "flash_decode" in e.name]
+    assert len(names) == 3, names
+    assert not any("combine" in n for n in names), names
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_kernel_at_the_cluster_cap(cuda, layout):
+    """A long cache (one slot of 4096 rows, 4 KV heads) asks for more
+    splits than a cluster holds: the launch's count is the cap (16, a
+    cluster the card launches at the kernel's shared memory), the output
+    matches the plain version, and 17 is refused before any launch."""
+    fd = importlib.import_module("fluxdistributed_tpu_torch.ops.flash_decode")
+    g = torch.Generator().manual_seed(7)
+    b, h, hkv, d, r = 1, 8, 4, 64, 4096
+    q = torch.randn(b, 1, h, d, generator=g).bfloat16()
+    idx = torch.tensor([4000], dtype=torch.int32)
+    if layout == "dense":
+        k = torch.randn(b, r, hkv, d, generator=g).bfloat16()
+        v = torch.randn(b, r, hkv, d, generator=g).bfloat16()
+        args = (q, k, v, idx)
+        splits = fd.kernel_plan(q.to(cuda), k.to(cuda))
+        ref = flash_decode_reference(*args)
+        run = flash_decode
+        launch = fd._launch
+    else:
+        bs = 16
+        pages = r // bs
+        k = torch.randn(pages + 8, bs, hkv, d, generator=g).bfloat16()
+        v = torch.randn(pages + 8, bs, hkv, d, generator=g).bfloat16()
+        pt = torch.randperm(pages + 8, generator=g)[:pages].view(1, pages)
+        args = (q, k, v, pt.to(torch.int32), idx)
+        splits, _ = fd.paged_kernel_plan(q.to(cuda), k.to(cuda),
+                                         args[3].to(cuda))
+        ref = flash_decode_paged_reference(*args)
+        run = flash_decode_paged
+        launch = fd._launch_paged
+    assert splits == fd.MAX_SPLITS == 16
+    dev = [x.to(cuda) for x in args]
+    out = run(*dev)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.cpu().float(), ref.float(), atol=2e-2,
+                               rtol=0)
+    before = run.launches
+    with pytest.raises(ValueError, match="cluster cap"):
+        launch(*dev, None, None, 0, None, None, splits=17)
+    assert run.launches == before
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_kernel_call_leaves_no_workspace(cuda, layout):
+    """A call allocates its output and nothing else: the allocator's
+    bytes rise by the output alone, and its peak by no more."""
+    if layout == "dense":
+        (q, k, v, idx), _ = _dense_case("bf16")
+        args = [x.to(cuda) for x in (q, k, v, idx)]
+        kern = flash_decode
+    else:
+        (q, k, v, pt, idx), _ = _paged_case("bf16")
+        args = [x.to(cuda) for x in (q, k, v, pt, idx)]
+        kern = flash_decode_paged
+    kern(*args)  # built and loaded first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    out = kern(*args)
+    torch.cuda.synchronize()
+    size = -(-out.numel() * out.element_size() // 512) * 512  # the block
+    assert torch.cuda.memory_allocated(cuda) - before == size
+    assert torch.cuda.max_memory_allocated(cuda) - before == size
 
 
 def test_kernel_error_raises_and_does_not_fall_back(cuda):
     """A launch the card refuses (64 query heads on one KV head at head
-    dim 256 in f32 need ~390 KB of shared memory, above the 227 KB a
-    block may have) raises the CUDA error; nothing falls back to a plain
-    version, and nothing is counted."""
+    dim 256 in f32 keep their warps' state, the merge's receive buffer
+    and q in ~610 KB of shared memory, above the 227 KB a block may have) raises
+    the CUDA error; nothing falls back to a plain version, and nothing
+    is counted."""
     q = torch.randn(1, 1, 64, 256, device=cuda)
     k = torch.randn(1, 16, 1, 256, device=cuda)
     idx = torch.tensor([15], dtype=torch.int32, device=cuda)
@@ -241,8 +334,8 @@ def test_engine_on_card_matches_cpu_generate(cuda, config):
         assert r.tokens == generate(cpu, [p], len(p) + 12, **gkw)[0].tolist()
 
 
-@pytest.mark.parametrize("variant", ["f32", "bf16", "gqa", "ring", "int8",
-                                     "fp8"])
+@pytest.mark.parametrize("variant", ["f32", "bf16", "gqa", "gqa8", "ring",
+                                     "int8", "fp8"])
 def test_paged_kernel_matches_plain_version(cuda, variant):
     """Pages scattered over the pool by a seeded permutation, -1 past each
     cursor and one -1 page inside a live range, block size 16 (and 4 for
@@ -771,6 +864,8 @@ def _paged_case(variant, pages=12, seed=1):
     b, h, hkv, d, bs, nb = 4, 8, 8, 64, 16, 128
     if variant == "gqa":
         hkv = 2
+    if variant == "gqa8":  # G = 8: each warp's state in shared memory
+        h, hkv = 16, 2
     dt = torch.float32 if variant == "f32" else torch.bfloat16
     idx = torch.tensor([0, 63, 64, 191], dtype=torch.int32)
     kw = {}
@@ -809,11 +904,13 @@ def _paged_kernel(cuda, q, k, v, pt, idx, *, splits, slot_pos=None,
                             splits=splits)
 
 
-@pytest.mark.parametrize("splits", [1, 2, 3, 7])
-@pytest.mark.parametrize("variant", ["f32", "bf16", "gqa", "ring", "int8",
-                                     "fp8"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 16])
+@pytest.mark.parametrize("variant", ["f32", "bf16", "gqa", "gqa8", "ring",
+                                     "int8", "fp8"])
 def test_paged_kernel_split_counts(cuda, variant, splits):
-    """The split-KV paged kernel at 1, 2, 3 and 7 asked splits against
+    """The split-KV paged kernel at 1, 2, 3, 7 and 16 (the cluster cap:
+    12 runs of one page, the ring's 26 pages in 13 runs of 2) asked
+    splits against
     the plain version, and against the plain split-and-merge version on
     the CPU at the same count.  At 7 (6 runs of 2 of the 12 pages; the
     ring's 26 pages in 7 runs of 4) a run boundary falls right after

@@ -5,7 +5,8 @@ The paged kernel cuts each slot's pages into contiguous runs
 merges the states in run order.  Its plain version,
 ``flash_decode_paged_split``, is held here to the oracle
 (``flash_decode_paged_reference``) and to the JAX ``flash_decode_paged``
-under the Pallas interpreter and the XLA walk, at 1, 2, 3 and 7 splits,
+under the Pallas interpreter and the XLA walk, at 1, 2, 3, 7 and 16
+splits (16: the kernel's cluster cap, ``MAX_SPLITS``),
 with run boundaries next to unbound pages, a cursor in the first page, a
 windowed ring with sinks, and int8 and fp8 pools.  Tolerance atol 1e-5,
 as in ``test_torch_port_paged.py``: f32 inputs or exactly representable
@@ -21,12 +22,12 @@ import torch
 from fluxdistributed_tpu.ops.pallas_decode import (
     flash_decode_paged as jax_decode_paged)
 from fluxdistributed_tpu_torch.ops.flash_decode import (
-    flash_decode_paged_reference, flash_decode_paged_split, paged_splits,
-    split_pages)
+    MAX_SPLITS, flash_decode_paged_reference, flash_decode_paged_split,
+    paged_splits, split_pages)
 
 ATOL = 1e-5
 B, H, D, BS, NB, PAGES = 4, 4, 16, 4, 64, 14
-SPLITS = [1, 2, 3, 7]
+SPLITS = [1, 2, 3, 7, MAX_SPLITS]
 
 
 def _ring_state(rows, sinks, cursors):
@@ -109,13 +110,15 @@ def test_split_and_merge_matches_reference(name, splits):
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("splits", [7, MAX_SPLITS])
 @pytest.mark.parametrize("impl", ["interpret", "xla"])
 @pytest.mark.parametrize("name", NAMES)
-def test_split_and_merge_matches_jax(name, impl):
-    """At 7 splits (runs of 2 pages)."""
+def test_split_and_merge_matches_jax(name, impl, splits):
+    """At 7 splits (runs of 2 pages) and at the cluster cap (16 asked:
+    14 runs of one page)."""
     q, kp, vp, pt, idx, kw, jk, tk = _case(name)
     args, tkw = _torch_args(q, kp, vp, pt, idx, kw, tk)
-    got = flash_decode_paged_split(*args, splits=7, **tkw).numpy()
+    got = flash_decode_paged_split(*args, splits=splits, **tkw).numpy()
     jkw = {n: (jnp.asarray(np.nan_to_num(x)) if isinstance(x, np.ndarray)
                else x) for n, x in kw.items()}
     kj, vj = jnp.asarray(np.nan_to_num(kp)), jnp.asarray(np.nan_to_num(vp))
@@ -141,9 +144,10 @@ def test_split_and_merge_of_a_dead_slot_is_zero():
 
 def test_split_counts():
     """Runs cover every page once, none is empty, and there are no more
-    runs than asked; the kernel's count fills the card: lm_small's 8
-    slots x 12 heads x 64 pages on 132 SMs take 6 runs of 11 pages
-    (576 CTAs)."""
+    runs than asked; the kernel's count fills the card but never exceeds
+    the cluster cap (16): lm_small's 8 slots x 12 heads x 64 pages on
+    132 SMs take 6 runs of 11 pages (576 CTAs); one slot of 64 pages
+    asks for 64 and takes 16 runs of 4."""
     for pages in range(1, 40):
         for splits in range(1, 12):
             runs, per = split_pages(pages, splits)
@@ -152,3 +156,10 @@ def test_split_counts():
     assert split_pages(64, 6) == (6, 11)
     assert paged_splits(1, 1, 3, 132) == 3  # never more runs than pages
     assert paged_splits(64, 32, 64, 132) == 1
+    # at and above the cluster cap
+    assert MAX_SPLITS == 16
+    assert paged_splits(8, 4, 64, 132) == 16  # chip_smoke's GQA
+    assert paged_splits(1, 1, 64, 132) == 16
+    assert split_pages(64, 16) == (16, 4)
+    assert paged_splits(1, 12, 256, 132) == 16  # asks for 44
+    assert paged_splits(1, 1, 64, 132, cap=8) == 8
